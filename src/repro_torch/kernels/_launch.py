@@ -1,0 +1,32 @@
+"""Checks shared by the kernel wrappers: what a kernel takes, and the error a
+refused launch reports."""
+from __future__ import annotations
+
+import torch
+
+
+def check(t: torch.Tensor, ndim: int, what: str) -> None:
+    """Raise unless ``t`` is a contiguous fp32 CUDA tensor of rank ``ndim``
+    with no empty dimension: the only layout the kernels read."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{what} must be float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.numel() == 0:
+        raise ValueError(f"{what} is empty (shape {tuple(t.shape)})")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} is on {t.device}; the Hopper kernel needs a "
+                         "CUDA tensor (CPU tensors take the plain version "
+                         "through repro_torch.kernels.ops)")
+
+
+def raise_on(err: int, error_string, kernel: str) -> None:
+    """Raise if the C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} "
+                           f"({msg})")

@@ -1,0 +1,98 @@
+"""Public wrappers around the Hopper kernels (the port of
+``repro/kernels/ops.py``'s flat-reduction and OTA entry points).
+
+Dispatch (``impl``):
+
+* ``"auto"`` (default) -- a CUDA tensor launches the hand-written kernel (or
+  raises: there is no fallback); a CPU tensor runs the plain version of
+  ``repro_torch.kernels.ref``.  The device of the input decides, nothing else.
+* ``"kernel"`` -- launch the kernel; raises for a tensor that is not on CUDA.
+* ``"plain"`` -- run the plain version on whatever device the input is on
+  (``chip_smoke.py`` compares the two on the card with it).
+
+``LAUNCH_COUNTS`` counts kernel launches per wrapper; plain calls do not
+count.  ``k_block`` (the streaming kernels K3/K4) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.grad_norm import batched_moments_cuda
+from repro_torch.kernels.ota_aggregate import ota_superpose_cuda
+
+IMPLS = ("auto", "kernel", "plain")
+
+LAUNCH_COUNTS: Dict[str, int] = {"batched_moments": 0, "ota_superpose": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+def _use_kernel(t: torch.Tensor, impl: str) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    if impl == "plain":
+        return False
+    if impl == "kernel" or t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+def _no_streaming(k_block: Optional[int]) -> None:
+    if k_block is not None:
+        raise NotImplementedError(
+            "k_block streaming kernels (K3/K4) are not ported yet: ROADMAP "
+            "queue 1 item 10 / queue 2 K3-K4")
+
+
+def batched_moments(g: torch.Tensor, *, impl: str = "auto",
+                    k_block: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-device (sum of squares, sum) of stacked flat gradients g [K, N].
+    Returns ([K], [K]) fp32."""
+    _no_streaming(k_block)
+    if _use_kernel(g, impl):
+        out = batched_moments_cuda(g)
+        LAUNCH_COUNTS["batched_moments"] += 1
+        return out
+    return ref.batched_moments_ref(g)
+
+
+def batched_grad_norms(g: torch.Tensor, *, impl: str = "auto"
+                       ) -> torch.Tensor:
+    """[K] global L2 norms of stacked flat gradients."""
+    sumsq, _ = batched_moments(g, impl=impl)
+    return torch.sqrt(sumsq)
+
+
+def ota_superpose(g: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor,
+                  a, *, pre: str = "identity", impl: str = "auto",
+                  k_block: Optional[int] = None) -> torch.Tensor:
+    """Fused superposition y = a (sum_k scale_k pre(g_k) + z) (paper eq. 10).
+
+    g: [K, N]; scale: [K] composite per-device scale; noise: [N]; a: scalar
+    receiver gain (a python float, or a 0-d tensor read on the host);
+    pre: 'identity' | 'sign'.  Returns y [N] fp32."""
+    _no_streaming(k_block)
+    if _use_kernel(g, impl):
+        y = ota_superpose_cuda(g, scale, noise, float(a), pre=pre)
+        LAUNCH_COUNTS["ota_superpose"] += 1
+        return y
+    return ref.ota_superpose_ref(g, scale, noise, a, pre=pre)
+
+
+def ota_aggregate(g: torch.Tensor, hb: torch.Tensor, norms: torch.Tensor,
+                  noise: torch.Tensor, a, *, impl: str = "auto"
+                  ) -> torch.Tensor:
+    """Fused normalize-amplify-superpose (eq. 10 with eq. 12): the
+    ``normalized``-scheme specialization of ``ota_superpose`` for callers
+    that already hold per-device norms."""
+    scale = hb.float() / (norms.float() + 1e-12)
+    return ota_superpose(g, scale, noise, a, impl=impl)

@@ -1,0 +1,138 @@
+"""The port's ``core.ota.aggregate`` on its ``vmap`` and ``kernels`` backends
+against the JAX package's ``aggregate`` (vmap) and ``aggregate_kernels``
+(Pallas interpret mode), for every registered scheme, with and without a
+CSI estimate ``h_hat``.
+
+The channel noise is the JAX package's own draw
+(``repro.core.schemes.add_channel_noise`` on the shared key), raveled and
+handed to the port as numpy: the two packages never share a PRNG stream.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from repro.core import ota as jota
+from repro.core import schemes as jschemes
+from repro.fed.kernel_path import aggregate_kernels as jaggregate_kernels
+from repro_torch.core import ota, schemes
+from repro_torch.kernels import ops
+
+K = 6
+SHAPES = {"p0": (9, 5), "p1": (33,), "p2": (4, 3, 2)}
+GRAD_BOUND = 7.5
+NOISE_VAR = 2.5e-3
+NKEY = jax.random.fold_in(jax.random.PRNGKey(11), 9)
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    g = {n: rng.standard_normal((K,) + s).astype(np.float32)
+         for n, s in SHAPES.items()}
+    h = (np.abs(rng.standard_normal(K)) + 0.1).astype(np.float32)
+    b = (np.abs(rng.standard_normal(K)) + 0.5).astype(np.float32)
+    h_hat = (h * (1.0 + 0.1 * rng.standard_normal(K))).astype(np.float32)
+    return g, h, b, h_hat
+
+
+def _jax_noise():
+    zeros = {n: jnp.zeros(s, jnp.float32) for n, s in SHAPES.items()}
+    z, _ = ravel_pytree(jschemes.add_channel_noise(zeros, NKEY, NOISE_VAR))
+    return np.array(z)
+
+
+def _cfgs(scheme, noisy, backend):
+    kw = dict(scheme=scheme, a=1.3, noise_var=NOISE_VAR if noisy else 0.0,
+              grad_bound=GRAD_BOUND, noiseless=not noisy)
+    return jota.OTAConfig(backend=backend, **kw), ota.OTAConfig(
+        backend=backend, **kw)
+
+
+def _to_torch(tree):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
+
+
+def _assert_trees_close(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        # the reference's own cross-backend tolerance (tests/test_backends.py):
+        # fp32 K-way reductions and norms associated in different orders
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["vmap", "kernels"])
+@pytest.mark.parametrize("with_h_hat", [False, True])
+@pytest.mark.parametrize("scheme", jschemes.names())
+def test_aggregate_matches_reference(scheme, with_h_hat, backend):
+    assert schemes.names() == jschemes.names()
+    g, h, b, h_hat = _inputs()
+    jcfg, tcfg = _cfgs(scheme, True, backend)
+    jh_hat = jnp.asarray(h_hat) if with_h_hat else None
+    jg = {k: jnp.asarray(v) for k, v in g.items()}
+    if backend == "vmap":
+        want = jota.aggregate(jcfg, jg, jnp.asarray(h), jnp.asarray(b), NKEY,
+                              h_hat=jh_hat)
+    else:
+        want = jaggregate_kernels(jcfg, jg, jnp.asarray(h), jnp.asarray(b),
+                                  NKEY, h_hat=jh_hat, interpret=True)
+    got = ota.aggregate(tcfg, _to_torch(g), torch.from_numpy(h),
+                        torch.from_numpy(b),
+                        h_hat=torch.from_numpy(h_hat) if with_h_hat else None,
+                        noise=torch.from_numpy(_jax_noise()))
+    _assert_trees_close(got, want)
+
+
+@pytest.mark.parametrize("scheme", schemes.names())
+def test_backends_agree_on_one_generator_draw(scheme):
+    """The port's own contract: both backends draw the same noise from one
+    seed, and agree to fp32 reduction order."""
+    g, h, b, _ = _inputs(seed=1)
+    _, vcfg = _cfgs(scheme, True, "vmap")
+    _, kcfg = _cfgs(scheme, True, "kernels")
+    out = [ota.aggregate(c, _to_torch(g), torch.from_numpy(h),
+                         torch.from_numpy(b),
+                         generator=torch.Generator().manual_seed(5))
+           for c in (vcfg, kcfg)]
+    for k in SHAPES:
+        torch.testing.assert_close(out[1][k], out[0][k], rtol=2e-4, atol=2e-5)
+
+
+def test_noiseless_ignores_injected_noise():
+    g, h, b, _ = _inputs()
+    _, cfg = _cfgs("normalized", False, "kernels")
+    args = (cfg, _to_torch(g), torch.from_numpy(h), torch.from_numpy(b))
+    quiet = ota.aggregate(*args)
+    injected = ota.aggregate(*args, noise=torch.ones(sum(
+        int(np.prod(s)) for s in SHAPES.values())))
+    for k in SHAPES:
+        assert torch.equal(quiet[k], injected[k])
+
+
+def test_kernels_backend_on_cpu_counts_no_launch():
+    g, h, b, _ = _inputs()
+    _, cfg = _cfgs("benchmark2", True, "kernels")
+    ops.reset_launch_counts()
+    ota.aggregate(cfg, _to_torch(g), torch.from_numpy(h), torch.from_numpy(b),
+                  generator=torch.Generator().manual_seed(0))
+    assert ops.LAUNCH_COUNTS == {"batched_moments": 0, "ota_superpose": 0}
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("backend", "mesh", "item 15"),
+    ("k_block", 2, "item 10"),
+    ("device_mesh", 2, "item 15"),
+])
+def test_unported_config_raises(field, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ota.OTAConfig(**{field: value})
+
+
+def test_apply_update_is_eq11():
+    w = {"a": torch.ones(3), "b": torch.zeros(2)}
+    y = {"a": torch.full((3,), 2.0), "b": torch.ones(2)}
+    out = ota.apply_update(w, y, 0.25)
+    assert torch.equal(out["a"], torch.full((3,), 0.5))
+    assert torch.equal(out["b"], torch.full((2,), -0.25))

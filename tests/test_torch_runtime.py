@@ -1,0 +1,237 @@
+"""The slice as a whole: the port's FL rounds (``repro_torch.fed.runtime``)
+against the JAX package's python-driver rounds, round by round.
+
+The JAX package builds the task (data, split, params0), the per-round index
+batches, the setup state (h, b, a, eta0 from Algorithm 1) and the per-round
+channel noise; ``repro_torch.interop`` carries them across, so both packages
+run the same rounds.  Params and every ``DIAG_KEYS`` entry are compared
+after each round.
+
+``onebit`` is held only at the aggregate level (tests/test_torch_ota.py):
+the sign of an aggregate coordinate near 0 can flip between implementations,
+and one flip is enough for two trajectories to part.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from repro.core import schemes as jschemes
+from repro.core.channel import ChannelConfig as JChannelConfig
+from repro.data.datasets import synthetic_mnist as jsynthetic_mnist
+from repro.fed import runtime as jruntime
+from repro.fl import DataSpec as JDataSpec
+from repro.fl import ModelSpec as JModelSpec
+from repro.fl.tasks import build_task as jbuild_task
+from repro_torch import interop
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.data.datasets import FederatedSplit
+from repro_torch.fed import runtime
+from repro_torch.fl import (DataSpec, EvalSpec, Experiment, ExperimentSpec,
+                            ModelSpec, tasks)
+
+K = 5
+ROUNDS = 5
+
+CASES = {
+    # MLP Case I at hidden width 16 (N = 13,002), the paper's schedule
+    "mlp_normalized": dict(dataset="synthetic_mnist", scheme="normalized"),
+    "mlp_benchmark2": dict(dataset="synthetic_mnist", scheme="benchmark2"),
+    # ridge Case II (N = 30)
+    "ridge_normalized": dict(dataset="ridge", scheme="normalized"),
+}
+
+
+def _fl_kwargs(case, constants):
+    kw = dict(num_devices=K, scheme=case["scheme"], seed=3)
+    if case["dataset"] == "ridge":
+        kw.update(case="II", eta=0.01, grad_bound=25.0, s_target=0.995,
+                  smoothness_L=constants["smoothness_L"],
+                  strong_convexity_M=constants["strong_convexity_M"])
+    else:
+        kw.update(case="I", p=0.75, smoothness_L=5.0, expected_loss_drop=2.0)
+    return kw
+
+
+def _data_kwargs(case):
+    if case["dataset"] == "ridge":
+        return dict(dataset="ridge", split="iid", batch_size=20,
+                    num_train=200, dim=30, seed=10)
+    return dict(dataset="synthetic_mnist", split="dirichlet", alpha=1.0,
+                batch_size=20, num_train=300, num_test=100, seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_run(name):
+    """The JAX package's rounds on its kernels backend (the main path; the
+    reference holds its vmap and kernels backends equal under one noise
+    key), one python-driver round per run() call.  Returns what the port
+    needs plus the per-round params and history; cached per case, since
+    both of the port's backends are held to it."""
+    case = CASES[name]
+    data = JDataSpec(**_data_kwargs(case))
+    model = JModelSpec(hidden=16)
+    task = jbuild_task(data, model, K)
+    cfg = jruntime.FLConfig(
+        backend="kernels", channel=JChannelConfig(num_devices=K,
+                                                channel_mean=1e-3),
+        **_fl_kwargs(case, task.constants))
+    state = jruntime.setup(cfg, task.params0, task.model_dim)
+    setup = dict(params=jax.tree_util.tree_map(np.asarray, state.params),
+                 h=state.h, h_hat=state.h_hat, b=state.b, a=state.a,
+                 eta0=state.eta0, model_dim=state.model_dim)
+    key = jax.random.PRNGKey(cfg.seed + 1)
+    zeros = jax.tree_util.tree_map(lambda l: jnp.zeros(l.shape, jnp.float32),
+                                   task.params0)
+    noise, batches, params, hist = {}, {}, [], []
+    for t in range(1, ROUNDS + 1):
+        z, _ = ravel_pytree(jschemes.add_channel_noise(
+            zeros, jax.random.fold_in(key, t), cfg.channel.noise_var))
+        noise[t] = np.array(z)
+        batches[t] = np.array(task.batch_provider(t)[0])
+        state, h = jruntime.run(cfg, state, task.grad_fn, task.batch_provider,
+                                1, driver="python")
+        params.append(jax.tree_util.tree_map(np.array, state.params))
+        hist.append({k: h[k][0] for k in jruntime.DIAG_KEYS})
+    return task, cfg, setup, noise, batches, params, hist
+
+
+def _port_task(case, jtask):
+    """The port's task on the JAX package's data."""
+    d = _data_kwargs(case)
+    split = FederatedSplit(tuple(jtask.constants["split"].indices))
+    params0 = interop.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jtask.params0))
+    if case["dataset"] == "ridge":
+        return tasks.ridge_task(jtask.constants["x"], jtask.constants["y"],
+                                split, params0, lam=0.1,
+                                batch_size=d["batch_size"], provider_seed=0,
+                                device="cpu")
+    n = d["num_train"]
+    x, y = jsynthetic_mnist(jax.random.PRNGKey(d["seed"]),
+                            n + d["num_test"])
+    x, y = np.asarray(x), np.asarray(y)
+    return tasks.mlp_task(x[:n], y[:n], x[n:], y[n:], split, params0,
+                          batch_size=d["batch_size"], provider_seed=0,
+                          device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["vmap", "kernels"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_rounds_match_reference(name, backend):
+    case = CASES[name]
+    jtask, jcfg, setup, noise, batches, want_params, want_hist = \
+        _reference_run(name)
+    task = _port_task(case, jtask)
+    assert task.model_dim == jtask.model_dim
+    cfg = runtime.FLConfig(
+        backend=backend, channel=ChannelConfig(num_devices=K,
+                                               channel_mean=1e-3),
+        **_fl_kwargs(case, jtask.constants))
+    state = interop.state_from_jax(
+        setup["params"], setup["h"], setup["h_hat"], setup["b"], setup["a"],
+        setup["eta0"], 0, model_dim=setup["model_dim"])
+    provider = lambda t: (torch.from_numpy(batches[t]),)
+    noise_provider = lambda t: torch.from_numpy(noise[t])
+    for t in range(1, ROUNDS + 1):
+        state, hist = runtime.run(cfg, state, task.grad_fn, provider, 1,
+                                  noise_provider=noise_provider)
+        for k, want in want_params[t - 1].items():
+            # fp32 gradients and K-way sums associated differently by XLA
+            # and PyTorch, compounded over t rounds of eq. 11
+            np.testing.assert_allclose(state.params[k].numpy(), want,
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{name} round {t} {k}")
+        for k in runtime.DIAG_KEYS:
+            # per-round scalars from the same fp32 sums; eta and
+            # num_participants are exact, csi_gain_err a hard 0
+            assert hist[k][0] == pytest.approx(want_hist[t - 1][k],
+                                               rel=1e-4, abs=1e-9), (name, t, k)
+
+
+def _tiny_spec(**fl):
+    return ExperimentSpec(
+        fl=runtime.FLConfig(num_devices=4, backend="kernels",
+                            channel=ChannelConfig(num_devices=4,
+                                                  channel_mean=1e-3),
+                            smoothness_L=5.0, expected_loss_drop=2.0, **fl),
+        data=DataSpec(num_train=200, num_test=50, batch_size=10),
+        model=ModelSpec(hidden=8), eval=EvalSpec(every=3))
+
+
+def test_experiment_on_cpu_runs_and_resumes():
+    """The facade end to end on the CPU; run(3); run(3) continues run(6)
+    exactly (round-seeded channel noise, persisted optimizer state)."""
+    a = Experiment(_tiny_spec(), device="cpu")
+    a.run(3)
+    a.run(3)
+    b = Experiment(_tiny_spec(), device="cpu")
+    b.run(6)
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k])
+    assert a.history == b.history
+    assert a.history["eval_round"] == [1, 3, 6]
+    assert np.all(np.isfinite(a.history["train_loss"]))
+    assert a.round == 6
+
+
+def test_vmap_and_kernels_backends_agree_on_cpu():
+    runs = []
+    for backend in ("vmap", "kernels"):
+        spec = _tiny_spec()
+        spec = dataclasses.replace(
+            spec, fl=dataclasses.replace(spec.fl, backend=backend))
+        e = Experiment(spec, device="cpu")
+        e.run(4)
+        runs.append(e)
+    for k in runs[0].params:
+        torch.testing.assert_close(runs[1].params[k], runs[0].params[k],
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_task_is_deterministic_across_builds():
+    spec = _tiny_spec()
+    t1 = tasks.build_task(spec.data, spec.model, 4, "cpu")
+    t2 = tasks.build_task(spec.data, spec.model, 4, "cpu")
+    for k in t1.params0:
+        assert torch.equal(t1.params0[k], t2.params0[k])
+    assert torch.equal(t1.batch_provider(7)[0], t2.batch_provider(7)[0])
+    assert not torch.equal(t1.batch_provider(7)[0], t1.batch_provider(8)[0])
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("backend", "mesh", "item 15"),
+    ("local_steps", 2, "item 7"),
+    ("participation", 0.5, "item 10"),
+    ("k_block", 2, "item 10"),
+    ("device_mesh", 2, "item 15"),
+])
+def test_unported_fl_fields_raise(field, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        runtime.FLConfig(num_devices=4, **{field: value})
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("model", "rician", "item 11"),
+    ("csi_error", 0.1, "item 11"),
+    ("geometry", object(), "item 11"),
+    ("block_fading", True, "item 5"),
+])
+def test_unported_channel_fields_raise(field, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ChannelConfig(num_devices=4, **{field: value})
+
+
+def test_unported_driver_and_client_raise():
+    from repro_torch.fl.clients import ClientConfig
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ExperimentSpec(driver="scan")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ClientConfig(algo="scaffold")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ExperimentSpec(active_gather=True)
