@@ -96,23 +96,11 @@ class ChannelConfig:
         return self.channel_mean / math.sqrt(math.pi / 2.0)
 
 
-def draw_fading_state(generator: torch.Generator,
-                      num_devices: int) -> torch.Tensor:
-    """[K, 2] standard-Gaussian I/Q pair underlying one envelope draw (fp32,
-    on the CPU generator)."""
-    return torch.randn((num_devices, 2), generator=generator,
-                       dtype=torch.float32)
-
-
-def envelope(state: torch.Tensor, scale) -> torch.Tensor:
-    """Amplitude envelope ``scale * |state|`` of a [K, 2] I/Q state."""
-    return scale * torch.sqrt(torch.sum(state * state, dim=-1))
-
-
-def draw_channel(generator: torch.Generator, cfg: ChannelConfig,
-                 scale: Optional[float] = None) -> torch.Tensor:
+def draw_channel(generator: torch.Generator,
+                 cfg: ChannelConfig) -> torch.Tensor:
     """Draw ``h_k`` for k = 1..K, i.i.d. Rayleigh with the configured mean:
     ``|CN(0, 2 sigma_r^2)| = sigma_r * sqrt(x1^2 + x2^2)``, x_i ~ N(0, 1).
     Returns [K] fp32 on the CPU."""
-    sigma_r = cfg.rayleigh_scale() if scale is None else scale
-    return envelope(draw_fading_state(generator, cfg.num_devices), sigma_r)
+    iq = torch.randn((cfg.num_devices, 2), generator=generator,
+                     dtype=torch.float32)
+    return cfg.rayleigh_scale() * torch.sqrt(torch.sum(iq * iq, dim=-1))

@@ -18,13 +18,17 @@ def _stack(k, n, seed, zeros_every=None):
     g = rng.standard_normal((k, n)).astype(np.float32)
     if zeros_every:
         g[:, ::zeros_every] = 0.0          # exact zeros: sign(0) must be 0
+    # large values at each row's head and tail: a dropped or doubled edge
+    # element (unaligned head, ragged tail) shows at once
+    g[:, :5] = 100.0
+    g[:, -5:] = -50.0
     return g
 
 
-def _sum_tol(terms_abs_sum, n):
-    """fp32 summation bound: two summations of n terms in different orders
-    differ by at most 2 n eps sum|terms|."""
-    return 2.0 * n * EPS32 * terms_abs_sum
+# chip_smoke.py's rule: |kernel - plain| <= 1e-5 sum|terms| per device.  Both
+# are blocked fp32 sums whose gap stays far below that (84 eps) at these
+# shapes, while one dropped chunk, head or tail element breaks it.
+MOMENTS_RTOL = 1e-5
 
 
 @pytest.mark.cuda
@@ -43,10 +47,10 @@ class TestOnCard:
         sq, s = ops.batched_moments(g, impl="kernel")
         sq_p, s_p = ops.batched_moments(g, impl="plain")
         gg = g.double()
-        torch.testing.assert_close(sq, sq_p, rtol=0,
-                                   atol=_sum_tol(float((gg * gg).sum(1).max()), n))
-        torch.testing.assert_close(s, s_p, rtol=0,
-                                   atol=_sum_tol(float(gg.abs().sum(1).max()), n))
+        assert bool(((sq - sq_p).abs().double()
+                     <= MOMENTS_RTOL * (gg * gg).sum(1)).all())
+        assert bool(((s - s_p).abs().double()
+                     <= MOMENTS_RTOL * gg.abs().sum(1)).all())
         scale = torch.linspace(0.5, 1.5, k, device="cuda")
         noise = 0.01 * torch.ones(n, device="cuda")
         for pre in ("identity", "sign"):
