@@ -12,9 +12,14 @@ followed by ``w <- w - eta * y`` (eq. 11).  The schemes are defined once in
              fused superposition launch per round.
 
 Both draw the channel noise the same way (``schemes.add_channel_noise``), or
-take it injected as a flat [N] vector in sorted-key leaf order.  The
-``mesh`` backend, ``k_block`` streaming and ``device_mesh`` are not ported
-yet and raise ``NotImplementedError``.
+take it injected as a flat [N] vector in sorted-key leaf order.
+
+``OTAConfig.k_block`` streams the device axis K-block by K-block: the
+kernels backend launches the streamed kernels (``aggregate_kernels``), the
+vmap backend folds the blocks through the carry API below
+(``streaming_carry`` / ``streaming_block`` / ``streaming_finish``), which
+the FL runtime's streaming round also drives.  The ``mesh`` backend and
+``device_mesh`` are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ class OTAConfig:
     grad_bound: Optional[float] = None   # G, required by benchmark1/clipped
     noiseless: bool = False              # omit the noise term (ideal channel)
     backend: str = "vmap"
-    k_block: Optional[int] = None        # streaming superposition (not ported)
+    k_block: Optional[int] = None        # streaming superposition
     device_mesh: Optional[int] = None    # sharded streaming (not ported)
 
     def __post_init__(self):
@@ -49,12 +54,16 @@ class OTAConfig:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
         if self.noise_var < 0.0:
             raise ValueError(f"noise_var must be >= 0, got {self.noise_var}")
+        if self.k_block is not None:
+            if self.k_block < 1:
+                raise ValueError(f"k_block must be >= 1, got {self.k_block}")
+            if self.backend == "mesh":
+                raise ValueError("the mesh backend's device axis IS the mesh "
+                                 "-- k_block streaming applies to the stacked "
+                                 "(vmap/kernels) backends")
         if self.backend == "mesh":
             raise NotImplementedError(
                 "the mesh backend is not ported yet: ROADMAP queue 1 item 15")
-        if self.k_block is not None:
-            raise NotImplementedError(
-                "k_block streaming is not ported yet: ROADMAP queue 1 item 10")
         if self.device_mesh is not None:
             raise NotImplementedError(
                 "device_mesh is not ported yet: ROADMAP queue 1 item 15")
@@ -148,6 +157,235 @@ def server_post(scheme: str, y: Tree, side: dict, h: torch.Tensor,
     return sch.server_post(y, schemes.fold_side_stacked(side, h, b))
 
 
+# ---------------------------------------------------------------------------
+# fixed-order sums
+
+
+def _pairwise_fold(x: torch.Tensor) -> torch.Tensor:
+    """Fixed-association pairwise (binary-tree) sum of a 1-D fp32 tensor,
+    built from elementwise adds only."""
+    tail = torch.zeros((), dtype=torch.float32, device=x.device)
+    while x.shape[0] > 1:
+        n = x.shape[0]
+        if n % 2:
+            tail = tail + x[n - 1]
+            x = x[:n - 1]
+        x = x[0::2] + x[1::2]
+    return x[0] + tail
+
+
+def pinned_sum(v: torch.Tensor) -> torch.Tensor:
+    """Full-array fp32 sum in one fixed association, whatever surrounds the
+    call: the array is cut into at least two chunks, each is summed by
+    ``_pairwise_fold``, and the chunk sums are added left to right (the
+    reference's ``core/ota.py::pinned_sum``, whose value this reproduces;
+    it may differ from ``torch.sum`` by ulps)."""
+    v = v.float().reshape(-1)
+    n = v.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=v.device)
+    if n == 1:
+        return v[0]
+    chunk = max(1, 1 << max((n - 1).bit_length() - 2, 0))
+    rows = -(-n // chunk)
+    # zero padding is exact: x + 0.0 == x for every fp32 x
+    v = torch.nn.functional.pad(v, (0, rows * chunk - n))
+    total = torch.zeros((), dtype=torch.float32, device=v.device)
+    for row in v.reshape(rows, chunk):
+        total = total + _pairwise_fold(row)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# streaming superposition (K-blocked accumulation; OTAConfig.k_block)
+#
+# The carry API is the single definition of "accumulate one K-block of
+# transmit signals into a running fp32 aggregate": ``aggregate`` drives it
+# over a stacked tree cut into blocks, and the FL runtime's streaming round
+# drives it with per-block gradient computation, so a [K, N] stack never
+# exists.  On the kernels backend each block is one launch of the dense
+# superposition kernel (zero noise, a = 1); the noise and the gain are
+# applied once, at the finish.
+
+
+def _device_template(stacked: Tree) -> Tree:
+    """Single-device fp32 zeros with the stacked tree's per-device shapes."""
+    return {k: torch.zeros(stacked[k].shape[1:], dtype=torch.float32,
+                           device=stacked[k].device) for k in sorted(stacked)}
+
+
+def _side_parts(sch: schemes.Scheme, count: int):
+    """Split a scheme's side info into (tensor-valued names, number-valued
+    dict), using dummy stats: the tensor parts are hb-weighted running sums
+    in the carry, the numbers (dimension constants) pass through."""
+    if sch.collect_side is None:
+        return (), {}
+    z = torch.zeros((1,), dtype=torch.float32)
+    dummy = schemes.DeviceStats(count=count, sq_norm=z,
+                                total=z if sch.needs_moments else None)
+    side = sch.collect_side(dummy)
+    arrays = tuple(k for k, v in side.items() if isinstance(v, torch.Tensor))
+    numbers = {k: v for k, v in side.items()
+               if not isinstance(v, torch.Tensor)}
+    return arrays, numbers
+
+
+def streaming_carry(cfg: OTAConfig, template: Tree) -> dict:
+    """Zero carry of a K-blocked aggregation.  ``template`` is a
+    single-device tree of fp32 zeros on the run's device.  The carry holds
+    the running fp32 superposition (a tree on the vmap backend, the flat
+    [N] vector on the kernels backend), the hb-weighted side-info sums, the
+    running server-side hb mass and the kernels path's shift correction."""
+    sch = schemes.get(cfg.scheme)
+    n = sum(v.numel() for v in template.values())
+    device = next(iter(template.values())).device
+    if cfg.backend == "kernels" and not sch.baseline:
+        acc = torch.zeros((n,), dtype=torch.float32, device=device)
+    else:
+        acc = {k: torch.zeros_like(v) for k, v in template.items()}
+    side_names, _ = _side_parts(sch, n)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"acc": acc, "hb_srv": zero, "shift": zero,
+            "side": {name: zero for name in side_names}}
+
+
+def streaming_block(cfg: OTAConfig, carry: dict, block_tree: Tree,
+                    hb_air: torch.Tensor, hb_srv: torch.Tensor, *,
+                    stats: Optional[schemes.DeviceStats] = None,
+                    baseline_weights: Optional[torch.Tensor] = None) -> dict:
+    """Accumulate one K-block of device gradients into the carry.
+
+    ``hb_air`` is the block's true-channel weight h_k b_k (the air),
+    ``hb_srv`` the server-known weight h_hat_k b_k (side-info folding).
+    ``stats`` lets a caller that already has the block's per-device
+    statistics share them.  ``baseline_weights`` (baseline schemes only)
+    turns the running plain sum into a weighted one -- the runtime's masked
+    participant mean -- and the caller then finishes with
+    ``num_devices=1``."""
+    sch = schemes.get(cfg.scheme)
+    grad_bound = cfg.grad_bound
+    if stats is None:
+        stats = schemes.compute_stats(block_tree, sch, batched=True)
+    hb_air = hb_air.float()
+    hb_srv = hb_srv.float()
+
+    if sch.baseline:
+        if baseline_weights is None:
+            acc = schemes.tree_map(
+                lambda A, l: A + torch.sum(l.float(), dim=0), carry["acc"],
+                block_tree)
+        else:
+            w = baseline_weights.float()
+            acc = schemes.tree_map(
+                lambda A, l: A + torch.tensordot(w, l.float(),
+                                                 dims=([0], [0])),
+                carry["acc"], block_tree)
+        return {**carry, "acc": acc,
+                "hb_srv": carry["hb_srv"] + torch.sum(hb_srv)}
+
+    shift = carry["shift"]
+    if cfg.backend == "kernels":
+        from repro_torch.kernels import ops
+        leaves = schemes.leaves(block_tree)
+        kb = leaves[0].shape[0]
+        flat2d = [l.float().reshape(kb, -1) for l in leaves]
+        if sch.per_tensor:
+            pre_fn = schemes.PRE_TRANSFORMS[sch.pre]
+            scales = sch.tensor_scale(stats, grad_bound)
+            flat = torch.cat([pre_fn(l2) * s[:, None]
+                              for l2, s in zip(flat2d, scales)], dim=1)
+            scale = hb_air
+            kernel_pre = "identity"
+        else:
+            flat = torch.cat(flat2d, dim=1)
+            scale = sch.device_scale(stats, grad_bound) * hb_air
+            if sch.device_shift is not None:
+                shift = shift + torch.sum(
+                    scale * sch.device_shift(stats, grad_bound))
+            kernel_pre = sch.pre
+        zeros = torch.zeros((flat.shape[1],), dtype=torch.float32,
+                            device=flat.device)
+        partial = ops.ota_superpose(flat, scale.float().contiguous(), zeros,
+                                    1.0, pre=kernel_pre)
+        acc = carry["acc"] + partial
+    else:
+        x = schemes.transform(sch, block_tree, stats, grad_bound,
+                              batched=True)
+        acc = schemes.tree_map(
+            lambda A, l: A + torch.tensordot(hb_air, l.float(),
+                                             dims=([0], [0])),
+            carry["acc"], x)
+
+    side = carry["side"]
+    if side:
+        collected = sch.collect_side(stats)
+        side = {name: side[name] + torch.sum(hb_srv * collected[name])
+                for name in side}
+    return {"acc": acc, "hb_srv": carry["hb_srv"] + torch.sum(hb_srv),
+            "shift": shift, "side": side}
+
+
+def streaming_finish(cfg: OTAConfig, carry: dict, template: Tree, a,
+                     noise: Optional[torch.Tensor], *,
+                     num_devices: Optional[float] = None) -> Tree:
+    """Close a K-blocked aggregation: add the flat channel noise ``noise``
+    [N] once (None: noiseless), apply the receiver gain ``a`` (a float or a
+    0-d tensor) and the scheme's server post-transform with the accumulated
+    side-info fold.  For baseline schemes ``num_devices`` divides the
+    running sum into the mean."""
+    sch = schemes.get(cfg.scheme)
+    if sch.baseline:
+        inv = 1.0 / num_devices
+        return schemes.tree_map(lambda l: l * inv, carry["acc"])
+
+    shapes = {k: v.shape for k, v in template.items()}
+    if cfg.backend == "kernels":
+        acc = carry["acc"]
+        if noise is not None:
+            acc = acc + noise
+        y = unravel(a * acc + a * carry["shift"], shapes)
+    else:
+        summed = carry["acc"]
+        if noise is not None:
+            summed = schemes.tree_map(lambda l, zl: l + zl, summed,
+                                      unravel(noise, shapes))
+        y = schemes.tree_map(lambda l: a * l, summed)
+
+    if sch.server_post is None:
+        return y
+    n = sum(v.numel() for v in template.values())
+    _, numbers = _side_parts(sch, n)
+    folded = dict(numbers)
+    denom = carry["hb_srv"] + schemes.EPS
+    for name, total in carry["side"].items():
+        folded[name] = total / denom
+    return sch.server_post(y, folded)
+
+
+def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
+                         h: torch.Tensor, b: torch.Tensor,
+                         noise: Optional[torch.Tensor],
+                         h_hat: torch.Tensor) -> Tree:
+    """The K-blocked aggregation behind ``aggregate`` (vmap backend): the
+    stacked tree is cut into [k_block, ...] blocks, folded in order through
+    the carry API."""
+    first = stacked_grads[sorted(stacked_grads)[0]]
+    k = first.shape[0]
+    kb = min(cfg.k_block, k)
+    if k % kb != 0:
+        raise ValueError(f"k_block {kb} must divide the device count {k}")
+    template = _device_template(stacked_grads)
+    hb_air = (h * b).float()
+    hb_srv = (h_hat * b).float()
+    carry = streaming_carry(cfg, template)
+    for lo in range(0, k, kb):
+        blk = {name: l[lo:lo + kb] for name, l in stacked_grads.items()}
+        carry = streaming_block(cfg, carry, blk, hb_air[lo:lo + kb],
+                                hb_srv[lo:lo + kb])
+    return streaming_finish(cfg, carry, template, cfg.a, noise,
+                            num_devices=float(k))
+
+
 def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
               b: torch.Tensor, generator: Optional[torch.Generator] = None,
               h_hat: Optional[torch.Tensor] = None, *,
@@ -156,18 +394,26 @@ def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
     on the backend of ``cfg.backend``.  ``h`` is the true channel (the air),
     ``h_hat`` the server's estimate (None: perfect CSI).  The noise is drawn
     from the CPU ``generator`` or injected as ``noise`` [N].  Returns the
-    update direction y with ``w <- w - eta * y``."""
+    update direction y with ``w <- w - eta * y``.
+
+    ``cfg.k_block`` streams the device axis: the kernels backend launches
+    the streamed kernels, the vmap backend folds the carry API over the
+    blocks."""
     if h_hat is None:
         h_hat = h
     sch = schemes.get(cfg.scheme)
-    if sch.baseline:
+    streamed = cfg.k_block is not None and cfg.backend == "vmap"
+    if sch.baseline and not streamed:
         return schemes.tree_map(lambda l: torch.mean(l, dim=0), stacked_grads)
     first = stacked_grads[sorted(stacked_grads)[0]]
-    z = resolve_noise(cfg, device_template(stacked_grads), first.device,
-                      generator, noise)
+    z = None if sch.baseline else resolve_noise(
+        cfg, device_template(stacked_grads), first.device, generator, noise)
     if cfg.backend == "kernels":
         from repro_torch.fed.kernel_path import aggregate_kernels
-        return aggregate_kernels(cfg, stacked_grads, h, b, z, h_hat=h_hat)
+        return aggregate_kernels(cfg, stacked_grads, h, b, z, h_hat=h_hat,
+                                 k_block=cfg.k_block)
+    if streamed:
+        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat)
     x, side = device_transform(cfg.scheme, stacked_grads, cfg.grad_bound)
     y = superpose(x, h, b, cfg.a, z)
     return server_post(cfg.scheme, y, side, h_hat, b)
@@ -177,3 +423,29 @@ def apply_update(params: Tree, y: Tree, eta) -> Tree:
     """w <- w - eta y  (eq. 11)."""
     return schemes.tree_map(lambda w, u: w - eta * u.to(w.dtype), params, y)
 
+
+
+# ---------------------------------------------------------------------------
+# partial participation
+
+
+def participation_fold(h: torch.Tensor, b: torch.Tensor, a,
+                       mask: torch.Tensor) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Fold a round's 0/1 participation mask into the channel parameters.
+
+    A device that sits the round out transmits nothing, which on every
+    backend is exactly ``b_k = 0``.  The server schedules the round, so it
+    rescales its receiver gain to hold the effective gain
+    ``a * sum_k h_k b_k`` at the full-cohort design value (pass the CSI
+    estimate for ``h``: this is a server computation).  If nobody
+    participates the gain is zeroed.  Returns ``(b_eff, a_eff)``, the
+    latter a 0-d fp32 tensor."""
+    mask = mask.float()
+    b_eff = b * mask
+    hb_full = torch.sum(h * b)
+    hb_eff = torch.sum(h * b_eff)
+    a_eff = torch.where(hb_eff > schemes.EPS * torch.clamp(hb_full, min=1.0),
+                        a * hb_full / torch.clamp(hb_eff, min=schemes.EPS),
+                        torch.zeros_like(hb_eff))
+    return b_eff, a_eff.float()

@@ -216,10 +216,16 @@ def fold_side_stacked(side: Dict[str, Any], h: torch.Tensor,
 
 
 def transmit_energy(scheme: Scheme, stats: DeviceStats, b: torch.Tensor,
-                    grad_bound: Optional[float] = None) -> torch.Tensor:
+                    grad_bound: Optional[float] = None,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-device transmit energies ``b_k^2 ||x_k||^2`` (the paper's eq. 8
-    budget) via the scheme's analytic ``transmit_sq_norm``."""
-    return torch.square(b.float()) * scheme.transmit_sq_norm(stats, grad_bound)
+    budget) via the scheme's analytic ``transmit_sq_norm``.  ``mask`` is an
+    optional 0/1 per-device participation vector: a masked device transmits
+    nothing that round, so its energy is exactly zero."""
+    e = torch.square(b.float()) * scheme.transmit_sq_norm(stats, grad_bound)
+    if mask is not None:
+        e = e * mask.float()
+    return e
 
 
 def add_channel_noise(tree: Tree, generator: torch.Generator,

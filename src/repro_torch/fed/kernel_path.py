@@ -14,6 +14,10 @@ The round's hot loop on the card is two memory-bound sweeps over the stacked
    kernel.  ``normalized_per_tensor`` runs one moments launch per leaf (a
    loop over tensors, never over devices).
 
+With ``k_block`` both launches are the streamed kernels: the moments tile
+the devices into K-blocks, and the superposition folds the K-way sum
+K-block by K-block in order (``ops.*(k_block=)``).
+
 On CUDA tensors the ops launch the Hopper kernels; on CPU tensors they run
 the plain versions (the tests).  ``mean`` is the ideal non-OTA baseline and
 is a plain average.
@@ -39,10 +43,8 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
     noise z [N] in sorted-key leaf order (None: noiseless).  ``h`` is the
     true channel folded into the superposition scale; ``h_hat`` the server's
     estimate, used only by the side-info fold.  Returns the update
-    direction y with the single-device tree structure."""
-    if k_block is not None:
-        raise NotImplementedError(
-            "k_block streaming is not ported yet: ROADMAP queue 1 item 10")
+    direction y with the single-device tree structure.  ``k_block`` routes
+    both launches through the streamed kernels; it must divide K."""
     if h_hat is None:
         h_hat = h
     sch = schemes.validate_config(cfg.scheme, cfg.grad_bound)
@@ -62,8 +64,9 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
         # schemes.transform), so it runs here and the kernel sees identity
         pre_fn = schemes.PRE_TRANSFORMS[sch.pre]
         kernel_pre = "identity"
-        tensor_sq = tuple(ops.batched_moments(l2.contiguous())[0]
-                          for l2 in flat2d)
+        tensor_sq = tuple(
+            ops.batched_moments(l2.contiguous(), k_block=k_block)[0]
+            for l2 in flat2d)
         stats = schemes.DeviceStats(
             count=sum(l2.shape[1] for l2 in flat2d),
             sq_norm=sum(tensor_sq), tensor_sq_norms=tensor_sq)
@@ -73,7 +76,7 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
         scale = hb
     else:
         flat = torch.cat(flat2d, dim=1)
-        sumsq, total = ops.batched_moments(flat)
+        sumsq, total = ops.batched_moments(flat, k_block=k_block)
         stats = schemes.DeviceStats(
             count=flat.shape[1], sq_norm=sumsq,
             total=total if sch.needs_moments else None)
@@ -86,7 +89,8 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
     if noise is None:
         noise = torch.zeros((n,), dtype=torch.float32, device=flat.device)
     y_flat = ops.ota_superpose(flat, scale.float().contiguous(),
-                               noise.contiguous(), cfg.a, pre=kernel_pre)
+                               noise.contiguous(), cfg.a, pre=kernel_pre,
+                               k_block=k_block)
     if shift is not None:
         # sum_k scale_k (g_k + shift_k) = kernel result + a sum_k scale_k shift_k
         y_flat = y_flat + cfg.a * torch.sum(scale * shift)

@@ -1,8 +1,34 @@
-"""Checks shared by the kernel wrappers: what a kernel takes, and the error a
-refused launch reports."""
+"""What the kernel wrappers share: binding a kernel's library, the checks on
+what a kernel takes, and the error a refused launch reports."""
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, Sequence, Tuple
+
 import torch
+
+from repro_torch.kernels import build
+
+_BOUND: Dict[str, ctypes.CDLL] = {}
+
+
+def bind(name: str, entry_points: Dict[str, Tuple[Sequence, object]]
+         ) -> ctypes.CDLL:
+    """The library of kernel ``name`` (built at first use), with
+    ``argtypes``/``restype`` set for each of its ``entry_points``
+    (``{function: (argtypes, restype)}``) and for its
+    ``<name>_error_string``."""
+    lib = _BOUND.get(name)
+    if lib is None:
+        lib = build.load(name)
+        for fn, (args, res) in entry_points.items():
+            getattr(lib, fn).argtypes = list(args)
+            getattr(lib, fn).restype = res
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _BOUND[name] = lib
+    return lib
 
 
 def check(t: torch.Tensor, ndim: int, what: str) -> None:

@@ -10,8 +10,9 @@ Dispatch (``impl``):
 * ``"plain"`` -- run the plain version on whatever device the input is on
   (``chip_smoke.py`` compares the two on the card with it).
 
-``LAUNCH_COUNTS`` counts kernel launches per wrapper; plain calls do not
-count.  ``k_block`` (the streaming kernels K3/K4) is not ported yet.
+``k_block`` selects the streamed kernels (the K-way work tiled into K-blocks
+of that many devices, which must divide K).  ``LAUNCH_COUNTS`` counts kernel
+launches per kernel; plain calls do not count.
 """
 from __future__ import annotations
 
@@ -20,12 +21,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.grad_norm import batched_moments_cuda
-from repro_torch.kernels.ota_aggregate import ota_superpose_cuda
+from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
+                                           streaming_moments_cuda)
+from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
+                                               ota_superpose_streaming_cuda)
 
 IMPLS = ("auto", "kernel", "plain")
 
-LAUNCH_COUNTS: Dict[str, int] = {"batched_moments": 0, "ota_superpose": 0}
+LAUNCH_COUNTS: Dict[str, int] = {
+    "batched_moments": 0, "ota_superpose": 0, "streaming_moments": 0,
+    "ota_superpose_streaming": 0, "sumsq": 0}
 
 
 def reset_launch_counts() -> None:
@@ -45,19 +50,39 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
     raise ValueError(f"no kernel or plain route for device {t.device}")
 
 
-def _no_streaming(k_block: Optional[int]) -> None:
-    if k_block is not None:
-        raise NotImplementedError(
-            "k_block streaming kernels (K3/K4) are not ported yet: ROADMAP "
-            "queue 1 item 10 / queue 2 K3-K4")
+def _k_block(k: int, k_block: int) -> int:
+    """The effective K-block size (as the reference: at most K); raises
+    ``ValueError`` unless it divides K."""
+    if k_block < 1:
+        raise ValueError(f"k_block must be >= 1, got {k_block}")
+    kb = min(k_block, k)
+    if k % kb != 0:
+        raise ValueError(f"k_block {kb} must divide K {k}")
+    return kb
+
+
+def grad_norm(x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Global L2 norm (0-d fp32) of a gradient vector of any shape."""
+    if _use_kernel(x, impl):
+        sq = sumsq_cuda(x.reshape(-1).contiguous())
+        LAUNCH_COUNTS["sumsq"] += 1
+        return torch.sqrt(sq)
+    return ref.grad_norm_ref(x)
 
 
 def batched_moments(g: torch.Tensor, *, impl: str = "auto",
                     k_block: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-device (sum of squares, sum) of stacked flat gradients g [K, N].
-    Returns ([K], [K]) fp32."""
-    _no_streaming(k_block)
+    Returns ([K], [K]) fp32.  ``k_block`` streams the devices K-block by
+    K-block (the streamed kernel)."""
+    if k_block is not None:
+        kb = _k_block(g.shape[0], k_block)
+        if _use_kernel(g, impl):
+            out = streaming_moments_cuda(g, kb)
+            LAUNCH_COUNTS["streaming_moments"] += 1
+            return out
+        return ref.streaming_moments_ref(g, kb)
     if _use_kernel(g, impl):
         out = batched_moments_cuda(g)
         LAUNCH_COUNTS["batched_moments"] += 1
@@ -79,8 +104,17 @@ def ota_superpose(g: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor,
 
     g: [K, N]; scale: [K] composite per-device scale; noise: [N]; a: scalar
     receiver gain (a python float, or a 0-d tensor read on the host);
-    pre: 'identity' | 'sign'.  Returns y [N] fp32."""
-    _no_streaming(k_block)
+    pre: 'identity' | 'sign'.  ``k_block`` folds the K-way sum K-block by
+    K-block in order (the streamed kernel).  Returns y [N] fp32."""
+    if k_block is not None:
+        kb = _k_block(g.shape[0], k_block)
+        if _use_kernel(g, impl):
+            y = ota_superpose_streaming_cuda(g, scale, noise, float(a), kb,
+                                             pre=pre)
+            LAUNCH_COUNTS["ota_superpose_streaming"] += 1
+            return y
+        return ref.ota_superpose_streaming_ref(g, scale, noise, a, pre=pre,
+                                               k_block=kb)
     if _use_kernel(g, impl):
         y = ota_superpose_cuda(g, scale, noise, float(a), pre=pre)
         LAUNCH_COUNTS["ota_superpose"] += 1

@@ -5,12 +5,20 @@ config (the JAX package's threefry keys have no counterpart here, so the two
 packages never share a stream: parity tests hand JAX-made inputs across).
 Drawing on the CPU and moving the result to the device makes a CPU run and a
 GPU run from one seed see the same data, channel and noise.
+
+Participation masks (``MASK_SALT``): round t's [K] 0/1 mask is drawn once,
+on the CPU, from ``generator(seed + 1, MASK_SALT, t)``, and the streaming
+round slices it per K-block.  The reference draws lazily per device
+(``fold_in`` of the device index) so that a TPU never holds a [K] draw; here
+[K] floats are 400 KB at K = 100,000, and slicing one draw is invariant to
+the blocking by construction.
 """
 from __future__ import annotations
 
 import torch
 
 _MASK = 0x7FFFFFFFFFFFFFFF
+MASK_SALT = 0x5EED          # the participation-mask stream (the reference's)
 
 
 def derive_seed(seed: int, *salts: int) -> int:

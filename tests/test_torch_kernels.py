@@ -16,8 +16,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _launch, ops
-from repro_torch.kernels.grad_norm import batched_moments_cuda
-from repro_torch.kernels.ota_aggregate import ota_superpose_cuda
+from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
+                                           streaming_moments_cuda)
+from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
+                                               ota_superpose_streaming_cuda)
 
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -127,7 +129,14 @@ class TestDispatch:
         ops.reset_launch_counts()
         ops.batched_moments(torch.ones(2, 9))
         ops.ota_superpose(torch.ones(2, 9), torch.ones(2), torch.zeros(9), 1.0)
-        assert ops.LAUNCH_COUNTS == {"batched_moments": 0, "ota_superpose": 0}
+        ops.batched_moments(torch.ones(2, 9), k_block=1)
+        ops.ota_superpose(torch.ones(2, 9), torch.ones(2), torch.zeros(9), 1.0,
+                          k_block=2)
+        ops.grad_norm(torch.ones(9))
+        assert set(ops.LAUNCH_COUNTS) == {
+            "batched_moments", "ota_superpose", "streaming_moments",
+            "ota_superpose_streaming", "sumsq"}
+        assert set(ops.LAUNCH_COUNTS.values()) == {0}
 
     @pytest.mark.parametrize("call", [
         lambda: ops.batched_moments(torch.ones(2, 9), impl="kernel"),
@@ -136,6 +145,16 @@ class TestDispatch:
         lambda: batched_moments_cuda(torch.ones(2, 9)),
         lambda: ota_superpose_cuda(torch.ones(2, 9), torch.ones(2),
                                    torch.zeros(9), 1.0),
+        lambda: ops.batched_moments(torch.ones(2, 9), k_block=1,
+                                    impl="kernel"),
+        lambda: ops.ota_superpose(torch.ones(2, 9), torch.ones(2),
+                                  torch.zeros(9), 1.0, k_block=1,
+                                  impl="kernel"),
+        lambda: ops.grad_norm(torch.ones(9), impl="kernel"),
+        lambda: streaming_moments_cuda(torch.ones(2, 9), 1),
+        lambda: ota_superpose_streaming_cuda(torch.ones(2, 9), torch.ones(2),
+                                             torch.zeros(9), 1.0, 1),
+        lambda: sumsq_cuda(torch.ones(9)),
     ])
     def test_kernel_request_on_cpu_raises(self, call):
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
@@ -148,13 +167,22 @@ class TestDispatch:
             ops.batched_moments(torch.ones(2, 9, device="cuda"))
 
     def test_unknown_impl_and_streaming_raise(self):
+        """An unknown impl raises; the streamed kernels run, and raise
+        ValueError for a k_block that does not divide K (as the reference's
+        ops do)."""
         with pytest.raises(ValueError, match="unknown impl"):
             ops.batched_moments(torch.ones(2, 9), impl="fast")
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            ops.batched_moments(torch.ones(2, 9), k_block=1)
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            ops.ota_superpose(torch.ones(2, 9), torch.ones(2),
-                              torch.zeros(9), 1.0, k_block=1)
+        with pytest.raises(ValueError, match="divide"):
+            ops.batched_moments(torch.ones(6, 9), k_block=4)
+        with pytest.raises(ValueError, match="divide"):
+            ops.ota_superpose(torch.ones(6, 9), torch.ones(6),
+                              torch.zeros(9), 1.0, k_block=4)
+        with pytest.raises(ValueError, match="divide"):
+            jops.ota_superpose(jnp.ones((6, 9)), jnp.ones(6), jnp.zeros(9),
+                               1.0, k_block=4)
+        sq, s = ops.batched_moments(torch.ones(6, 9), k_block=3)
+        assert torch.equal(sq, torch.full((6,), 9.0))
+        assert torch.equal(s, torch.full((6,), 9.0))
 
     @pytest.mark.parametrize("bad,match", [
         (torch.ones(2, 9, dtype=torch.float64), "float32"),

@@ -60,6 +60,36 @@ class TestOnCard:
             bound = 0.9 * (scale.abs() @ x.abs() + noise.abs())
             assert bool(((y - yp).abs() <= 2 * (k + 2) * EPS32 * bound).all())
 
+    @pytest.mark.parametrize("k,n,kb", [
+        (1, 7, 1), (20, 55_050, 4), (1000, 55_050, 100), (7, 1_000_003, 1),
+        (100_000, 2_048, 1_000)])
+    def test_streamed_kernels_match_plain(self, k, n, kb):
+        g = torch.from_numpy(_stack(k, n, seed=n + kb, zeros_every=5)).cuda()
+        sq, s = ops.batched_moments(g, k_block=kb, impl="kernel")
+        sq_p, s_p = ops.batched_moments(g, k_block=kb, impl="plain")
+        gg = g.double()
+        assert bool(((sq - sq_p).abs().double()
+                     <= MOMENTS_RTOL * (gg * gg).sum(1)).all())
+        assert bool(((s - s_p).abs().double()
+                     <= MOMENTS_RTOL * gg.abs().sum(1)).all())
+        scale = torch.linspace(0.5, 1.5, k, device="cuda")
+        noise = 0.01 * torch.ones(n, device="cuda")
+        for pre in ("identity", "sign"):
+            y = ops.ota_superpose(g, scale, noise, 0.9, pre=pre, k_block=kb,
+                                  impl="kernel")
+            yp = ops.ota_superpose(g, scale, noise, 0.9, pre=pre, k_block=kb,
+                                   impl="plain")
+            x = torch.sign(g) if pre == "sign" else g
+            bound = 0.9 * (scale.abs() @ x.abs() + noise.abs())
+            assert bool(((y - yp).abs() <= 2 * (k + 2) * EPS32 * bound).all())
+        # the norm kernel on the whole stack flattened, and on a view that
+        # starts off the 16-byte grid (a scalar head of 3 elements)
+        for x in (g.reshape(-1), g.reshape(-1)[1:]):
+            got = ops.grad_norm(x, impl="kernel").double() ** 2
+            want = ops.grad_norm(x, impl="plain").double() ** 2
+            assert abs(got - want) <= MOMENTS_RTOL * float((x.double() ** 2)
+                                                           .sum())
+
     def test_tiny_round_on_card_matches_cpu(self):
         from repro_torch.core.channel import ChannelConfig
         from repro_torch.fl import (DataSpec, Experiment, ExperimentSpec,
@@ -74,7 +104,9 @@ class TestOnCard:
         ops.reset_launch_counts()
         gpu = Experiment(spec, device="cuda")
         gpu.run(3)
-        assert ops.LAUNCH_COUNTS == {"batched_moments": 3, "ota_superpose": 3}
+        assert ops.LAUNCH_COUNTS == {
+            "batched_moments": 3, "ota_superpose": 3, "streaming_moments": 0,
+            "ota_superpose_streaming": 0, "sumsq": 3}
         cpu = Experiment(spec, device="cpu")
         cpu.run(3)
         for k, v in cpu.params.items():

@@ -207,13 +207,33 @@ def test_task_is_deterministic_across_builds():
 @pytest.mark.parametrize("field,value,item", [
     ("backend", "mesh", "item 15"),
     ("local_steps", 2, "item 7"),
-    ("participation", 0.5, "item 10"),
-    ("k_block", 2, "item 10"),
     ("device_mesh", 2, "item 15"),
 ])
 def test_unported_fl_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         runtime.FLConfig(num_devices=4, **{field: value})
+
+
+@pytest.mark.parametrize("fields,error", [
+    (dict(participation=0.5), None),
+    (dict(k_block=2), None),
+    (dict(k_block=3), "divide"),
+    (dict(participation=0.5, participation_mode="fixed", active_gather=True,
+          k_block=2), None),
+    (dict(participation=0.75, participation_mode="fixed", active_gather=True,
+          k_block=2), "active set"),
+    (dict(backend="mesh", k_block=2), "mesh"),
+])
+def test_streaming_and_participation_fields_build(fields, error):
+    """participation < 1 and k_block are ported: the configs build, and a
+    k_block that does not divide the streamed axis raises ValueError, as
+    the reference's FLConfig does (checked on both)."""
+    for cls in (runtime.FLConfig, jruntime.FLConfig):
+        if error is None:
+            cls(num_devices=4, **fields)
+        else:
+            with pytest.raises(ValueError, match=error):
+                cls(num_devices=4, **fields)
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -233,5 +253,3 @@ def test_unported_driver_and_client_raise():
         ExperimentSpec(driver="scan")
     with pytest.raises(NotImplementedError, match="item 12"):
         ClientConfig(algo="scaffold")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ExperimentSpec(active_gather=True)
