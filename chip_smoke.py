@@ -43,6 +43,13 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               peak device memory under 512 MiB, params against the CPU.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+
+    python3 chip_smoke.py --rates [--src OTHER_TREE/src]
+
+times only the warm Case-I round (20 rounds, no eval) and the K-scale round
+(one round), RATE_SAMPLES samples each, for the package under ``--src``
+(default: this tree's), and prints one ``{"phase": "rates", ...}`` line:
+run it on two trees in one machine session to compare them.
 """
 from __future__ import annotations
 
@@ -66,12 +73,15 @@ STREAM_SHAPES = ((K_MAIN, N_MAIN, 4), (1000, N_MAIN, 100), (7, 1_000_003, 1),
                  (100_000, 2_048, 1_000))
 K_SCALE, N_SCALE, KB_SCALE = 100_000, 2_048, 1_000
 STREAM_ROUNDS = 3
+RATE_SAMPLES = 7
 STREAM_MEM_LIMIT_MB = 512.0      # a [K, B, 2048] batch stack alone is 6.55 GB
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 EPS32 = 2.0 ** -23
 SAMPLES, LAUNCHES = 50, 20
-MOMENTS_RTOL = 1e-5              # |kernel - plain| / sum|terms|
+# |kernel - plain| <= 1e-5 sum|terms| per device (moments) or per column
+# (superposition; there capped by the rigorous 2 (K+2) eps32 at small K)
+TERMS_RTOL = 1e-5
 PARAMS_ATOL = 1e-5               # final params, GPU run vs CPU run
 # streamed vs dense: the blocked K-way sums re-associate (the reference's
 # STREAM_TOL, tests/test_streaming.py)
@@ -118,10 +128,17 @@ def call_ms(fn) -> float:
     return _median_ms(run)
 
 
+_SIDE_STREAM = []
+
+
 def device_ms(fn) -> float:
     """Device time per call of ``fn``: LAUNCHES calls captured in one CUDA
-    graph and replayed, so no host cost is in the interval."""
-    side = torch.cuda.Stream()
+    graph and replayed, so no host cost is in the interval.  The warm-up
+    before capture runs on one side stream, made once: every stream that
+    runs a product keeps a cuBLAS workspace of its own."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -196,14 +213,14 @@ def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
     abs_sq = (g.double() ** 2).sum(1)
     abs_s = g.double().abs().sum(1)
     err = max(float((sq - sq_p).abs().max()), float((s - s_p).abs().max()))
-    ok = bool(((sq - sq_p).abs().double() <= MOMENTS_RTOL * abs_sq).all()
-              and ((s - s_p).abs().double() <= MOMENTS_RTOL * abs_s).all())
+    ok = bool(((sq - sq_p).abs().double() <= TERMS_RTOL * abs_sq).all()
+              and ((s - s_p).abs().double() <= TERMS_RTOL * abs_s).all())
     b_ms, b_by = bound(k * n * 4 + 2 * k * 4, 3.0 * k * n)
     return {"kernel": ("batched_moments" if k_block is None
                        else "streaming_moments"),
             "k": k, "n": n, "k_block": k_block,
             "max_abs_err": err,
-            "tolerance": f"|d| <= {MOMENTS_RTOL:g} * sum|terms| per device",
+            "tolerance": f"|d| <= {TERMS_RTOL:g} * sum|terms| per device",
             "within_tolerance": ok,
             **timings(lambda: ops.batched_moments(g, impl="kernel",
                                                   k_block=k_block),
@@ -225,11 +242,23 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
     yp = ops.ota_superpose(g, scale, noise, a, impl="plain", **kw)
     torch.cuda.synchronize()
     x = torch.sign(g) if pre == "sign" else g
-    # rigorous fp32 bound: two K-term sums plus the noise add and the gain
+    # per column, relative to the sum of absolute terms: 1e-5, as the
+    # moments; at small K the rigorous fp32 bound of two K-term sums plus
+    # the noise add and the gain, 2 (K+2) eps32, is the tighter one
     ref_abs = a * (scale.double().abs() @ x.double().abs()
                    + noise.double().abs())
-    tol = 2 * (k + 2) * EPS32 * ref_abs
+    rtol = min(2 * (k + 2) * EPS32, TERMS_RTOL)
+    tol = rtol * ref_abs
     d = (y - yp).abs().double()
+    check = {}
+    if k_block is not None:
+        # the tolerance must reject a result that lacks one K-block: that
+        # result is off by block b's term a p_b (about sqrt(k_block) per
+        # column on these stacks, against about 1e-5 K)
+        lo = min(1, k // k_block - 1) * k_block
+        part = a * (scale[lo:lo + k_block].double()
+                    @ x[lo:lo + k_block].double())
+        check["rejects_dropped_block"] = not bool((part.abs() <= tol).all())
     b_ms, b_by = bound(k * n * 4 + 2 * n * 4 + k * 4, 2.0 * k * n)
     # one PyTorch call computes the identity sum: the yardstick
     library = (lambda: scale @ g) if pre == "identity" else None
@@ -237,8 +266,11 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
                        else "ota_superpose_streaming"),
             "pre": pre, "k": k, "n": n, "k_block": k_block,
             "max_abs_err": float(d.max()),
-            "tolerance": "|d_j| <= 2 (K+2) eps32 a (sum_k |s_k x_kj| + |z_j|)",
+            "max_rel_err": float((d / ref_abs.clamp_min(1e-30)).max()),
+            "tolerance": (f"|d_j| <= {rtol:.3g} a (sum_k |s_k x_kj| + |z_j|)"
+                          " = min(2 (K+2) eps32, 1e-5) * sum|terms|"),
             "within_tolerance": bool((d <= tol).all()),
+            **check,
             **timings(lambda: ops.ota_superpose(g, scale, noise, a,
                                                 impl="kernel", **kw),
                       lambda: ops.ota_superpose(g, scale, noise, a,
@@ -257,8 +289,8 @@ def check_sumsq(ops, x: torch.Tensor) -> dict:
     d = abs(float(got.double() ** 2 - want.double() ** 2))
     b_ms, b_by = bound(n * 4 + 4, 2.0 * n)
     return {"kernel": "sumsq", "n": n, "max_abs_err": d,
-            "tolerance": f"|d(sum x^2)| <= {MOMENTS_RTOL:g} * sum x^2",
-            "within_tolerance": d <= MOMENTS_RTOL * float((x.double() ** 2)
+            "tolerance": f"|d(sum x^2)| <= {TERMS_RTOL:g} * sum x^2",
+            "within_tolerance": d <= TERMS_RTOL * float((x.double() ** 2)
                                                           .sum()),
             **timings(lambda: ops.grad_norm(x, impl="kernel"),
                       lambda: ops.grad_norm(x, impl="plain"),
@@ -274,6 +306,9 @@ def _emit_checked(rows, where: str) -> None:
         if not row["within_tolerance"]:
             fail(f"{row['kernel']} disagrees with its plain version at "
                  f"{where}: max |d| = {row['max_abs_err']}")
+        if row.get("rejects_dropped_block") is False:
+            fail(f"{row['kernel']}'s tolerance at {where} would pass a "
+                 "result that lacks a K-block")
 
 
 def phase_kernels(ops) -> dict:
@@ -749,16 +784,68 @@ def phase_stream(ops) -> dict:
     return out
 
 
+def phase_rates(src: str) -> None:
+    """Warm rounds/s of the Case-I round and of the K-scale round (the
+    latter only where the package has the streaming round), RATE_SAMPLES
+    samples each."""
+    from repro_torch.fed import runtime
+    from repro_torch.fl import Experiment
+    exp = Experiment(case_i_spec(), device="cuda")
+    exp.run(ROUNDS, evaluate=False)      # builds the kernels, warms up
+    case_i = []
+    for _ in range(RATE_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(ROUNDS, evaluate=False)
+        torch.cuda.synchronize()
+        case_i.append(ROUNDS / (time.perf_counter() - t0))
+    del exp
+    try:
+        cfg, state, grad_fn, provider = kscale_case("cuda")
+    except (TypeError, NotImplementedError):
+        kscale = None                    # a tree without the streaming round
+    else:
+        state, _ = runtime.run(cfg, state, grad_fn, None, 1,
+                               block_batch_provider=provider)
+        kscale = []
+        for _ in range(RATE_SAMPLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = runtime.run(cfg, state, grad_fn, None, 1,
+                                   block_batch_provider=provider)
+            torch.cuda.synchronize()
+            kscale.append(1.0 / (time.perf_counter() - t0))
+    emit({"phase": "rates", "src": src,
+          "case_i_warm_rounds_per_s": case_i,
+          "case_i_median": statistics.median(case_i),
+          "kscale_rounds_per_s": kscale,
+          "kscale_median": None if kscale is None
+          else statistics.median(kscale)})
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--rates", action="store_true",
+                    help="time only the warm Case-I and K-scale rounds")
+    ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
+                                         .parent / "src"),
+                    help="directory that holds repro_torch (default: this "
+                         "tree's src/)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
     # the port is imported before anything is printed: a copy of this script
     # without the repo beside it fails here, with no output
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, args.src)
     from repro_torch.kernels import build, ops
     info = phase_device()
+    if args.rates:
+        phase_rates(args.src)
+        return
     phase_build(build)
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own

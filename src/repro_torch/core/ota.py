@@ -31,6 +31,7 @@ import torch
 from repro_torch._config import config
 from repro_torch.core import schemes
 from repro_torch.core.schemes import Tree
+from repro_torch.kernels.ref import k_block_size
 
 BACKENDS = ("vmap", "kernels", "mesh")
 
@@ -371,9 +372,7 @@ def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
     the carry API."""
     first = stacked_grads[sorted(stacked_grads)[0]]
     k = first.shape[0]
-    kb = min(cfg.k_block, k)
-    if k % kb != 0:
-        raise ValueError(f"k_block {kb} must divide the device count {k}")
+    kb = k_block_size(k, cfg.k_block)
     template = _device_template(stacked_grads)
     hb_air = (h * b).float()
     hb_srv = (h_hat * b).float()

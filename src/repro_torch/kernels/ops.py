@@ -50,17 +50,6 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
     raise ValueError(f"no kernel or plain route for device {t.device}")
 
 
-def _k_block(k: int, k_block: int) -> int:
-    """The effective K-block size (as the reference: at most K); raises
-    ``ValueError`` unless it divides K."""
-    if k_block < 1:
-        raise ValueError(f"k_block must be >= 1, got {k_block}")
-    kb = min(k_block, k)
-    if k % kb != 0:
-        raise ValueError(f"k_block {kb} must divide K {k}")
-    return kb
-
-
 def grad_norm(x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """Global L2 norm (0-d fp32) of a gradient vector of any shape."""
     if _use_kernel(x, impl):
@@ -77,7 +66,7 @@ def batched_moments(g: torch.Tensor, *, impl: str = "auto",
     Returns ([K], [K]) fp32.  ``k_block`` streams the devices K-block by
     K-block (the streamed kernel)."""
     if k_block is not None:
-        kb = _k_block(g.shape[0], k_block)
+        kb = ref.k_block_size(g.shape[0], k_block)
         if _use_kernel(g, impl):
             out = streaming_moments_cuda(g, kb)
             LAUNCH_COUNTS["streaming_moments"] += 1
@@ -107,7 +96,7 @@ def ota_superpose(g: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor,
     pre: 'identity' | 'sign'.  ``k_block`` folds the K-way sum K-block by
     K-block in order (the streamed kernel).  Returns y [N] fp32."""
     if k_block is not None:
-        kb = _k_block(g.shape[0], k_block)
+        kb = ref.k_block_size(g.shape[0], k_block)
         if _use_kernel(g, impl):
             y = ota_superpose_streaming_cuda(g, scale, noise, float(a), kb,
                                              pre=pre)

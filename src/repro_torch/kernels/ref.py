@@ -23,8 +23,11 @@ def blocked_sumsq_ref(x: torch.Tensor, block_rows: int) -> torch.Tensor:
     return torch.sum(xb * xb, dim=1)
 
 
-def _k_blocks(k: int, k_block: int) -> int:
-    """The effective K-block size; raises unless it divides K."""
+def k_block_size(k: int, k_block: int) -> int:
+    """The effective K-block size (as the reference: at most K); raises
+    ``ValueError`` unless it is positive and divides K."""
+    if k_block < 1:
+        raise ValueError(f"k_block must be >= 1, got {k_block}")
     kb = min(k_block, k)
     if k % kb != 0:
         raise ValueError(f"k_block {kb} must divide K {k}")
@@ -53,7 +56,7 @@ def streaming_moments_ref(g: torch.Tensor, k_block: int):
     computed K-block by K-block (only one [k_block, N] block is read at a
     time).  Returns ([K], [K]) fp32."""
     k = g.shape[0]
-    kb = _k_blocks(k, k_block)
+    kb = k_block_size(k, k_block)
     sq, s = [], []
     for lo in range(0, k, kb):
         bf = g[lo:lo + kb].float()
@@ -71,7 +74,7 @@ def ota_superpose_streaming_ref(g: torch.Tensor, scale: torch.Tensor,
     acc = ((p_0 + p_1) + p_2) + ..., p_b the block's partial sum (the
     association order of the reference's streaming kernel)."""
     k, n = g.shape
-    kb = _k_blocks(k, k_block)
+    kb = k_block_size(k, k_block)
     sf = scale.float()
     acc = torch.zeros((n,), dtype=torch.float32, device=g.device)
     for lo in range(0, k, kb):
