@@ -40,7 +40,26 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               3 streaming rounds of a {"w": [2048]} linear model over a
               shared pool, batches made per K-block through
               ``block_batch_provider``; rounds/s, K2 launches (100 a round),
-              peak device memory under 512 MiB, params against the CPU.
+              peak device memory under 512 MiB, params against the CPU;
+9. flash   -- flash attention (K6) against its plain version, fp32 and
+              bf16, at the serving layer's shape ([4, 32, 8192, 80] over 8
+              kv heads, window 4,096, as the prefill gives it, and at
+              B = 1), a ragged [2, 8, 1000, 128] causal and not, and a
+              window (16) smaller than the kernel's 64-key tile;
+              each row also shows that its tolerance rejects the plain
+              result with the last kv tile dropped and with the window off
+              by one; device times beside the operations bound and
+              ``scaled_dot_product_attention`` (a yardstick only);
+10. serve  -- h2o-danube-1.8b at full width and depth (24 layers, d_model
+              2,560, 32 heads over 8 kv heads, d_ff 6,912, vocab 32,000),
+              random bf16 weights from a seed, through the serving steps:
+              4 prompts of 8,192 tokens (twice the window) prefilled with
+              the decode cache, then 32 greedy decode steps; K6 launches
+              (24 a prefill), prefill and decode tokens/s, peak memory,
+              where the device time goes; then in fp32 at B = 1 the kernel
+              route against the plain route (final hidden states, greedy
+              token) and prefill -> decode at position 8,192 against the
+              forward over 8,193 tokens.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
@@ -77,6 +96,7 @@ RATE_SAMPLES = 7
 STREAM_MEM_LIMIT_MB = 512.0      # a [K, B, 2048] batch stack alone is 6.55 GB
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 EPS32 = 2.0 ** -23
 SAMPLES, LAUNCHES = 50, 20
 # |kernel - plain| <= 1e-5 sum|terms| per device (moments) or per column
@@ -159,9 +179,9 @@ def timings(kernel, plain, library=None) -> dict:
             "kernel_call_ms": call_ms(kernel), "plain_call_ms": call_ms(plain)}
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -784,6 +804,312 @@ def phase_stream(ops) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the model zoo's serving path: flash attention (K6) and h2o-danube-1.8b
+
+SERVE_ARCH = "h2o-danube-1.8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 8192, 32
+# (B, H, Hkv, S, d, causal, window) of the K6 rows: the serving layer as
+# the serve phase's prefill gives it (B = 4) and at B = 1, a ragged S causal
+# and not, a window smaller than the 64-key tile
+FLASH_SHAPES = ((4, 32, 8, 8192, 80, True, 4096),
+                (1, 32, 8, 8192, 80, True, 4096),
+                (2, 8, 8, 1000, 128, True, None),
+                (2, 8, 8, 1000, 128, False, None),
+                (1, 4, 2, 333, 80, True, 16))
+FLASH_TILE = 64                  # keys per kv tile in csrc/flash_attention.cu
+HIDDEN_REL = 1e-4                # fp32 kernel vs plain route, final hidden
+HANDOFF_REL = 2e-3               # tests/test_models.py:96's bound
+HEAVY_MS = 1.0                   # calls longer than this are timed eagerly
+
+
+def flash_tol(want: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K6 against its plain version computed in fp32 from the same inputs:
+    fp32 |d| <= 1e-5 + 1e-5 |o| (tests/test_kernels.py:84); bf16
+    |d| <= 2^-8 |o| + 1e-5, one bf16 rounding of the output."""
+    if dtype == torch.bfloat16:
+        return 2.0 ** -8 * want.abs() + 1e-5
+    return 1e-5 + 1e-5 * want.abs()
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs inside the causal/window band of one head."""
+    i = torch.arange(sq, dtype=torch.int64)
+    hi = torch.minimum(i + 1, torch.tensor(skv)) if causal \
+        else torch.full_like(i, skv)
+    lo = (i - window + 1).clamp(min=0) if window else torch.zeros_like(i)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def flash_bound(b, h, hkv, sq, skv, d, causal, window, dtype):
+    """Operations: 4 d flops a pair in the band, at the dtype's peak;
+    bytes: q, k, v read once and o written once, at 3.35 TB/s."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * d * (2 * b * h * sq + 2 * b * hkv * skv)
+    flops = 4.0 * d * b * h * band_pairs(sq, skv, causal, window)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound(nbytes, flops, peak)
+
+
+def flash_ms(fn) -> float:
+    """Device time per call: CUDA-graph replays (``device_ms``) for short
+    calls; for calls over HEAVY_MS, the median of 5 samples of 2 eager calls
+    timed with CUDA events (the host's enqueue is far shorter)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) < HEAVY_MS:
+        return device_ms(fn)
+    samples = []
+    for _ in range(5):
+        start.record()
+        fn()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / 2)
+    return statistics.median(samples)
+
+
+def check_flash(ops, shape, dtype, gen) -> dict:
+    import torch.nn.functional as F
+    b, h, hkv, s, d, causal, window = shape
+    q, k, v = (torch.randn((b, n, s, d), generator=gen, device="cuda")
+               .to(dtype) for n in (h, hkv, hkv))
+    kw = dict(causal=causal, window=window)
+    got = ops.flash_attention(q, k, v, impl="kernel", **kw)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ops.flash_attention(qf, kf, vf, impl="plain", **kw)
+    torch.cuda.synchronize()
+    tol = flash_tol(want, dtype)
+    d_abs = (got.float() - want).abs()
+    # the rule must reject the plain result without the last kv tile, and
+    # with the window one narrower (no window: S - 1, which drops one pair)
+    cut = (s - 1) // FLASH_TILE * FLASH_TILE
+    dropped = ops.flash_attention(qf, kf[:, :, :cut], vf[:, :, :cut],
+                                  impl="plain", **kw)
+    off = ops.flash_attention(qf, kf, vf, causal=causal,
+                              window=(window or s) - 1, impl="plain")
+    rejects_dropped = not bool(((dropped - want).abs() <= tol).all())
+    rejects_window = not bool(((off - want).abs() <= tol).all())
+    del dropped, off, qf, kf, vf
+    # the yardstick: one PyTorch call, on kv expanded to H heads
+    ke = torch.repeat_interleave(k, h // hkv, dim=1)
+    ve = torch.repeat_interleave(v, h // hkv, dim=1)
+    if window:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) if causal \
+            else torch.ones((s, s), dtype=torch.bool, device="cuda")
+        mask = mask & (i[:, None] - i[None, :] < window)
+
+        def library():
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+        call = "scaled_dot_product_attention(attn_mask=band)"
+    else:
+        def library():
+            return F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
+        call = f"scaled_dot_product_attention(is_causal={causal})"
+    b_ms, b_by = flash_bound(b, h, hkv, s, s, d, causal, window, dtype)
+    row = {"kernel": "flash_attention", "dtype": str(dtype)[6:],
+           "b": b, "h": h, "hkv": hkv, "s": s, "d": d, "causal": causal,
+           "window": window, "max_abs_err": float(d_abs.max()),
+           "max_err_over_tol": float((d_abs / tol).max()),
+           "tolerance": ("|d| <= 2^-8 |o_plain| + 1e-5 (plain in fp32 from "
+                         "the same bf16 inputs)" if dtype == torch.bfloat16
+                         else "|d| <= 1e-5 + 1e-5 |o_plain|"),
+           "within_tolerance": bool((d_abs <= tol).all()),
+           "rejects_dropped_kv_tile": rejects_dropped,
+           "rejects_window_off_by_one": rejects_window,
+           "kernel_ms": flash_ms(lambda: ops.flash_attention(
+               q, k, v, impl="kernel", **kw)),
+           "plain_ms": flash_ms(lambda: ops.flash_attention(
+               q, k, v, impl="plain", **kw)),
+           "library_ms": flash_ms(library), "library_call": call,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "band_pairs": b * h * band_pairs(s, s, causal, window)}
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def phase_flash(ops) -> dict:
+    """K6 against its plain version at FLASH_SHAPES, fp32 and bf16; returns
+    the row of the shape and type the serve phase's prefill gives it."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    path_row = None
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_flash(ops, shape, dtype, gen)
+            row["phase"] = "flash"
+            emit(row)
+            where = f"{shape} {row['dtype']}"
+            if not row["within_tolerance"]:
+                fail(f"flash_attention disagrees with its plain version at "
+                     f"{where}: max |d| = {row['max_abs_err']}")
+            if not (row["rejects_dropped_kv_tile"]
+                    and row["rejects_window_off_by_one"]):
+                fail(f"flash_attention's tolerance at {where} would pass a "
+                     "result without the last kv tile or with the window "
+                     "off by one")
+            if shape == FLASH_SHAPES[0] and dtype == torch.bfloat16:
+                path_row = row
+    torch.cuda.empty_cache()
+    return path_row
+
+
+def _profile_top(fn, n: int = 10) -> dict:
+    """Device time of ``fn`` by kernel (torch.profiler), with the wall time
+    around it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "top_kernels": [{"name": nm[:80], "device_us": us, "calls": c,
+                             "share": us / busy}
+                            for us, nm, c in rows[:n]]}
+
+
+def phase_serve(ops) -> int:
+    """h2o-danube-1.8b through the serving steps (bf16), then the fp32
+    checks at B = 1; returns K6's launches in the counted serving run."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config(SERVE_ARCH)
+    b, s, n_dec = SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(params)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    prefill = serve.build_prefill_cache_step(cfg, "cuda", cache_len=s + n_dec)
+    decode = serve.build_decode_step(cfg, "cuda")
+    # warm-up on a short prompt: cuBLAS handles and workspaces, first launches
+    ids, cache = prefill(params, {"tokens": tokens[:, :256]})
+    decode(params, cache, ids[:, None], 256)
+    del ids, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [ids]
+    for pos in range(s, s + n_dec):
+        ids, cache = decode(params, cache, ids[:, None], pos)
+        out.append(ids)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = ops.LAUNCH_COUNTS["flash_attention"]
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    generated = torch.stack(out, dim=1).cpu()
+    logits, _ = T.decode_step(params, cfg, cache, ids[:, None], s + n_dec)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(c[name]).all()) for c in cache for name in c)
+    row = {"phase": "serve", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "window": cfg.sliding_window, "params": n_params,
+           "param_count_formula": cfg.param_count(),
+           "batch": b, "prompt": s, "decode_steps": n_dec,
+           "init_s": init_s, "prefill_s": t1 - t0,
+           "prefill_tokens_per_s": b * s / (t1 - t0),
+           "decode_s": t2 - t1, "decode_tokens_per_s": b * n_dec / (t2 - t1),
+           "decode_ms_per_step": (t2 - t1) / n_dec * 1e3,
+           "peak_mem_mb": peak_mb, "flash_attention_launches": launches,
+           "generated_ids": generated.tolist(), "finite": finite}
+    # where the time goes: one more prefill and 8 decode steps, profiled
+    row["prefill_profile"] = _profile_top(
+        lambda: prefill(params, {"tokens": tokens}))
+    state = {"ids": ids, "cache": cache}
+
+    def steps():
+        for pos in range(s + n_dec, s + n_dec + 8):
+            state["ids"], state["cache"] = decode(
+                params, state["cache"], state["ids"][:, None], pos)
+    row["decode_profile_8_steps"] = _profile_top(steps)
+    emit(row)
+    if launches != cfg.num_layers:
+        fail(f"flash_attention launched {launches} times in one prefill, "
+             f"expected {cfg.num_layers}")
+    if not finite or generated.min() < 0 or generated.max() >= cfg.vocab_size:
+        fail("the serving run gave non-finite values or ids out of range")
+    del params, cache, state, logits, tokens, ids, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 at B = 1: kernel route vs plain route, and the cache handoff
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p32 = T.init_params(cfg32, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen,
+                         device="cuda")
+    w_un = L.unembed_matrix(p32["emb"], cfg32)
+    batch = {"tokens": toks[:, :s]}
+    t0 = time.perf_counter()
+    h_kernel = T.forward_hidden(p32, cfg32, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    h_plain = T.forward_hidden(p32, cfg32, batch, impl="plain")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hid_rel = float((h_kernel - h_plain).abs().max()
+                    / h_plain.abs().max())
+    tok_kernel = int(torch.argmax(h_kernel[0, -1] @ w_un))
+    tok_plain = int(torch.argmax(h_plain[0, -1] @ w_un))
+    del h_kernel, h_plain
+    full = T.forward_hidden(p32, cfg32, {"tokens": toks})    # 8,193 tokens
+    logits_full = (full[:, -1] @ w_un).float()
+    del full
+    _, cache = T.prefill_with_cache(p32, cfg32, batch, s + n_dec)
+    logits_dec, _ = T.decode_step(p32, cfg32, cache, toks[:, s:], s)
+    scale = float(logits_full.abs().max())
+    handoff = float((logits_dec - logits_full).abs().max())
+    check = {"phase": "serve_fp32", "batch": 1, "prompt": s,
+             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "kernel_route_s": t1 - t0, "plain_route_s": t2 - t1,
+             "hidden_max_rel_diff": hid_rel,
+             "hidden_tolerance": f"max|d| <= {HIDDEN_REL:g} max|h_plain|",
+             "greedy_kernel": tok_kernel, "greedy_plain": tok_plain,
+             "handoff_max_abs_diff": handoff, "logits_max_abs": scale,
+             "handoff_tolerance": f"max|d| <= {HANDOFF_REL:g} max|logits| "
+                                  "(tests/test_models.py:96)"}
+    emit(check)
+    if not hid_rel <= HIDDEN_REL:
+        fail(f"fp32 kernel route vs plain route: hidden differ by {hid_rel}")
+    if tok_kernel != tok_plain:
+        fail(f"greedy token: kernel route {tok_kernel}, plain {tok_plain}")
+    if not (scale > 0 and handoff <= HANDOFF_REL * scale):
+        fail(f"prefill -> decode at {s}: logits differ by {handoff} > "
+             f"{HANDOFF_REL} * {scale}")
+    del p32, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
@@ -865,6 +1191,10 @@ def main() -> None:
     emit_memory("stream_facade")
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
+    checks["flash_attention"] = phase_flash(ops)
+    emit_memory("flash")
+    serve_launches = {"flash_attention": phase_serve(ops)}
+    emit_memory("serve")
     csrc = "src/repro_torch/kernels/csrc/"
     # kernel -> (source, TPU kernel it replaces, launches on its path)
     sources = {
@@ -882,6 +1212,9 @@ def main() -> None:
                                     stream_launches),
         "sumsq": (csrc + "sumsq.cu", "src/repro/kernels/grad_norm.py:50",
                   main_launches),
+        "flash_attention": (csrc + "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:86",
+                            serve_launches),
     }
     kernels = []
     for name, (src, replaces, launches) in sources.items():

@@ -1,0 +1,11 @@
+"""llama3-405b — dense decoder, GQA, 128k vocab [arXiv:2407.21783].
+126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-405b", family="dense",
+    num_layers=126, d_model=16384, num_heads=128, num_kv_heads=8,
+    d_ff=53248, vocab_size=128256,
+    head_dim=128, rope_theta=500000.0,
+    citation="arXiv:2407.21783",
+)

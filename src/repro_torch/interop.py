@@ -2,9 +2,10 @@
 so both packages compute the same thing in the parity tests.
 
 Takes numpy arrays (``np.asarray`` of JAX arrays), never JAX objects: this
-module, like the rest of the port, imports no ``jax``.  Parameter trees are
-flat dicts; the port orders their leaves by sorted key, as ``jax.tree_util``
-orders a dict.
+module, like the rest of the port, imports no ``jax``.  The FL models'
+parameter trees are flat dicts; the port orders their leaves by sorted key,
+as ``jax.tree_util`` orders a dict.  The model zoo's trees are nested dicts
+and tuples (``model_params_from_jax``).
 """
 from __future__ import annotations
 
@@ -35,3 +36,22 @@ def state_from_jax(params: Mapping[str, Any], h, h_hat, b, a, eta0,
                    eta0=float(eta0), round=int(round), model_dim=model_dim,
                    h_hat=h if h_hat is None else np.asarray(h_hat,
                                                             np.float64))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16, as JAX gives it
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a)).to(device)
+
+
+def model_params_from_jax(tree, device="cpu"):
+    """A model zoo parameter tree (nested dicts and tuples of numpy arrays:
+    ``jax.tree_util.tree_map(np.asarray, params)``) -> the same tree of
+    tensors on ``device``, dtype kept (bfloat16 included)."""
+    if isinstance(tree, Mapping):
+        return {k: model_params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(model_params_from_jax(v, device) for v in tree)
+    return _tensor(tree, device)

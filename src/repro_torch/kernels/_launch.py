@@ -31,13 +31,16 @@ def bind(name: str, entry_points: Dict[str, Tuple[Sequence, object]]
     return lib
 
 
-def check(t: torch.Tensor, ndim: int, what: str) -> None:
-    """Raise unless ``t`` is a contiguous fp32 CUDA tensor of rank ``ndim``
-    with no empty dimension: the only layout the kernels read."""
+def check(t: torch.Tensor, ndim: int, what: str,
+          dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of rank ``ndim``, of
+    one of ``dtypes`` (fp32 alone by default), with no empty dimension: the
+    only layout the kernels read."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{what} must be {names}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what} must be {ndim}-D, got shape {tuple(t.shape)}")
     if t.numel() == 0:

@@ -1,5 +1,6 @@
 """Public wrappers around the Hopper kernels (the port of
-``repro/kernels/ops.py``'s flat-reduction and OTA entry points).
+``repro/kernels/ops.py``'s flat-reduction, OTA and flash-attention entry
+points).
 
 Dispatch (``impl``):
 
@@ -21,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (check_heads, check_window,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
@@ -30,7 +33,7 @@ IMPLS = ("auto", "kernel", "plain")
 
 LAUNCH_COUNTS: Dict[str, int] = {
     "batched_moments": 0, "ota_superpose": 0, "streaming_moments": 0,
-    "ota_superpose_streaming": 0, "sumsq": 0}
+    "ota_superpose_streaming": 0, "sumsq": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -119,3 +122,20 @@ def ota_aggregate(g: torch.Tensor, hb: torch.Tensor, norms: torch.Tensor,
     that already hold per-device norms."""
     scale = hb.float() / (norms.float() + 1e-12)
     return ota_superpose(g, scale, noise, a, impl=impl)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Flash attention over q [B, H, S, d] and k, v [B, Hkv, S, d]: the
+    reference's signature (there kv is head-expanded, Hkv = H), which the
+    port widens to grouped-query kv (Hkv dividing H), read without an
+    expanded copy.  fp32 scores and softmax; returns [B, H, S, d] in
+    q.dtype.  The output does not depend on any tiling."""
+    check_heads(q, k, v)
+    check_window(window)
+    if _use_kernel(q, impl):
+        o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        LAUNCH_COUNTS["flash_attention"] += 1
+        return o
+    return ref.attention_ref(q, k, v, causal=causal, window=window)

@@ -6,7 +6,14 @@ the card.  Nothing on the GPU path calls them.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+# elements of one query chunk's fp32 score block in ``attention_ref``
+# (2^27: 512 MiB): a plain run at the full prompt length fits on the card
+ATTN_CHUNK_ELEMS = 2 ** 27
 
 
 def grad_norm_ref(x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +90,38 @@ def ota_superpose_streaming_ref(g: torch.Tensor, scale: torch.Tensor,
             bf = torch.sign(bf)
         acc = acc + torch.einsum("k,kn->n", sf[lo:lo + kb], bf)
     return a * (acc + noise.float())
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Plain softmax attention with fp32 math (the reference's
+    ``attention_ref``).  q: [B, H, Sq, d]; k, v: [B, Hkv, Skv, d] with Hkv
+    dividing H (query head h reads kv head h // (H // Hkv), as the
+    reference's head-expanded kv gives it).  Returns [B, H, Sq, d] in
+    q.dtype.  Scores are masked to -1e30 where causal and k_pos > q_pos, or
+    where q_pos - k_pos >= window.  Computed query chunk by query chunk, so
+    the [B, H, Sq, Skv] scores are never formed at once; each row's softmax
+    is its own, so the chunking changes no value."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kf, vf = k.float(), v.float()
+    chunk = max(1, min(sq, ATTN_CHUNK_ELEMS // (b * h * skv)))
+    k_pos = torch.arange(skv, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for lo in range(0, sq, chunk):
+        hi = min(sq, lo + chunk)
+        qc = q[:, :, lo:hi].float().reshape(b, hkv, g, hi - lo, d)
+        s = torch.einsum("bjgqd,bjkd->bjgqk", qc, kf) / math.sqrt(d)
+        q_pos = torch.arange(lo, hi, device=q.device)[:, None]
+        ok = torch.ones((hi - lo, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = ok & (k_pos[None, :] <= q_pos)
+        if window is not None:
+            ok = ok & (q_pos - k_pos[None, :] < window)
+        s = s.masked_fill(~ok, -1e30)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bjgqk,bjkd->bjgqd", p, vf)
+        out[:, :, lo:hi] = o.reshape(b, h, hi - lo, d).to(q.dtype)
+    return out

@@ -1,1 +1,1 @@
-"""The paper's experiment models."""
+"""The paper's experiment models, and the model zoo's dense decoders."""

@@ -44,6 +44,8 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch, repro_torch.interop\n"
         "import repro_torch.fl.experiment, repro_torch.fed.runtime\n"
         "import repro_torch.fed.kernel_path, repro_torch.kernels.ops\n"
+        "import repro_torch.launch.serve, repro_torch.models.transformer\n"
+        "import repro_torch.configs.registry\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

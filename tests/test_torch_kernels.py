@@ -133,9 +133,11 @@ class TestDispatch:
         ops.ota_superpose(torch.ones(2, 9), torch.ones(2), torch.zeros(9), 1.0,
                           k_block=2)
         ops.grad_norm(torch.ones(9))
+        ops.flash_attention(torch.ones(1, 2, 8, 8), torch.ones(1, 1, 8, 8),
+                            torch.ones(1, 1, 8, 8))
         assert set(ops.LAUNCH_COUNTS) == {
             "batched_moments", "ota_superpose", "streaming_moments",
-            "ota_superpose_streaming", "sumsq"}
+            "ota_superpose_streaming", "sumsq", "flash_attention"}
         assert set(ops.LAUNCH_COUNTS.values()) == {0}
 
     @pytest.mark.parametrize("call", [

@@ -120,10 +120,69 @@ class TestOnCard:
         gpu.run(3)
         assert ops.LAUNCH_COUNTS == {
             "batched_moments": 3, "ota_superpose": 3, "streaming_moments": 0,
-            "ota_superpose_streaming": 0, "sumsq": 3}
+            "ota_superpose_streaming": 0, "sumsq": 3, "flash_attention": 0}
         cpu = Experiment(spec, device="cpu")
         cpu.run(3)
         for k, v in cpu.params.items():
             # same CPU-drawn inputs; fp32 sums in other orders on the card
             torch.testing.assert_close(gpu.params[k].cpu(), v, rtol=0,
                                        atol=1e-5)
+
+
+def _attention_inputs(b, h, hkv, s, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d))
+                                .astype(np.float32)).cuda().to(dtype)
+               for n in (h, hkv, hkv))
+    return q, k, v
+
+
+def attention_tol(want, dtype):
+    """chip_smoke.py's rule for K6 against its plain version (computed in
+    fp32 from the same inputs): fp32 |d| <= 1e-5 + 1e-5 |o| (the
+    reference's kernel test bound); bf16 |d| <= 2^-8 |o| + 1e-5, one bf16
+    rounding of the output."""
+    if dtype == torch.bfloat16:
+        return 2.0 ** -8 * want.abs() + 1e-5
+    return 1e-5 + 1e-5 * want.abs()
+
+
+@pytest.mark.cuda
+class TestFlashAttentionOnCard:
+    """K6 against its plain version at chip_smoke.py's shapes, with the
+    checks that its tolerance rejects a result that lacks the last kv tile
+    or has the window off by one."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
+        (4, 32, 8, 8192, 80, True, 4096),      # the serving layer's prefill
+        (1, 32, 8, 8192, 80, True, 4096),
+        (2, 8, 8, 1000, 128, True, None),      # ragged S
+        (2, 8, 8, 1000, 128, False, None),
+        (1, 4, 2, 333, 80, True, 16),          # window < the 64-key tile
+    ])
+    def test_flash_attention_matches_plain(self, b, h, hkv, s, d, causal,
+                                           window, dtype):
+        q, k, v = _attention_inputs(b, h, hkv, s, d, dtype, seed=s + d)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="kernel")
+        qf, kf, vf = q.float(), k.float(), v.float()
+        want = ops.flash_attention(qf, kf, vf, causal=causal, window=window,
+                                   impl="plain")
+        assert got.dtype == dtype and got.shape == q.shape
+        tol = attention_tol(want, dtype)
+        assert bool(((got.float() - want).abs() <= tol).all())
+        cut = (s - 1) // 64 * 64          # the kernel's last kv tile starts
+        dropped = ops.flash_attention(qf, kf[:, :, :cut], vf[:, :, :cut],
+                                      causal=causal, window=window,
+                                      impl="plain")
+        assert not bool(((dropped - want).abs() <= tol).all())
+        off = ops.flash_attention(qf, kf, vf, causal=causal,
+                                  window=(window or s) - 1, impl="plain")
+        assert not bool(((off - want).abs() <= tol).all())
