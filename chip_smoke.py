@@ -59,7 +59,23 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               where the device time goes; then in fp32 at B = 1 the kernel
               route against the plain route (final hidden states, greedy
               token) and prefill -> decode at position 8,192 against the
-              forward over 8,193 tokens.
+              forward over 8,193 tokens;
+11. scan   -- the selective scan (K7) against its plain version, fp32 and
+              bf16 u, B, C, at the Jamba prefill's [4, 8192, 8192, 16], at
+              B = 1, ragged [2, 1000, 1000, 16] and [1, 333, 77, 5], the
+              final state h_S too; each row also shows that its tolerance
+              rejects the plain result with one time step dropped and with
+              the state reset at a tile boundary; device times beside the
+              operations bound (no PyTorch call computes the scan);
+12. serve_hybrid -- jamba-v0.1-52b at full width, cut to one superblock of
+              its four (8 layers: 1 attention, 7 Mamba, 4 MoE and 4 dense
+              MLPs; 13.3 B parameters), random bf16 weights from a seed,
+              through the same serving steps and prompts; 7 K7 and 1 K6
+              launches a prefill; then in fp32 at B = 1 over 2,048 tokens
+              the kernel route against the plain route (hidden states,
+              greedy token, top-2 routing flips per MoE layer beside the
+              router gaps) and the prefill -> decode handoff at
+              capacity_factor 8.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
@@ -1110,6 +1126,345 @@ def phase_serve(ops) -> int:
     return launches
 
 
+# --------------------------------------------------------------------------
+# the Jamba hybrid's serving path: the selective scan (K7), Mamba and MoE
+
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8                # one superblock of the 32 (the full 103 GB
+                                 # in bf16 does not fit one 80 GB card)
+HYBRID_FP32_PROMPT = 2048        # fp32 weights are 53.2 GB at one superblock
+# (B, S, D, N) of the K7 rows: the Jamba prefill's scan (B = 4) and at
+# B = 1, a ragged S and D, and a ragged one with N below the kernel's 16
+SCAN_SHAPES = ((4, 8192, 8192, 16), (1, 8192, 8192, 16),
+               (2, 1000, 1000, 16), (1, 333, 77, 5))
+SCAN_TILE = 64                   # time steps per staged tile (kT in the .cu)
+# |kernel - plain| <= SCAN_RTOL * Y_abs, Y_abs the plain scan of |u|, dt,
+# a, |B|, |C| (an upper bound of sum_n |h_t,n C_t,n|): the two round
+# differently (expf vs torch.exp, fused multiply-adds, the N-way sum's
+# order), a few eps a step over the ~1e2-step memory of the slowest state
+# at these inputs, ~2e-5 at worst
+SCAN_RTOL = 1e-4
+# the SFU's exponentials: 16 a clock per SM, 132 SMs, 1.98 GHz (H100 SXM)
+EXP_PER_S = 16 * 132 * 1.98e9
+HYBRID_HIDDEN_REL = 1e-4         # fp32 kernel vs plain route, final hidden
+
+
+def scan_inputs(shape, dtype, gen):
+    """The reference kernel test's distributions (tests/test_kernels.py):
+    u, B, C normal in ``dtype``; dt = softplus(normal), a = -exp(normal)."""
+    b, s, d, n = shape
+
+    def normal(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+    u = normal(b, s, d).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, d))
+    a = -torch.exp(normal(d, n))
+    return u, dt, a, normal(b, s, n).to(dtype), normal(b, s, n).to(dtype)
+
+
+def scan_bound(shape, dtype):
+    """Bytes: u, dt, a, B, C read once, y and h_S written once; operations:
+    one exponential a (b, t, d, n) at the SFU rate, and ~6 fp32 flops a
+    state (dt a, dt u B, the multiply-add of h, the product and sum with C)
+    at 67 TFLOP/s; the largest of the three."""
+    b, s, d, n = shape
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (item * b * s * d + 4 * b * s * d + 4 * d * n
+              + 2 * item * b * s * n + 4 * b * s * d + 4 * b * d * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(b * s * d * n / EXP_PER_S,
+                6.0 * b * s * d * n / FP32_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scan(ops, shape, dtype, gen) -> dict:
+    b, s, d, n = shape
+    args = scan_inputs(shape, dtype, gen)
+    u, dt, a, bm, cm = args
+    y, h = ops.selective_scan(*args, return_state=True, impl="kernel")
+    yp, hp = ops.selective_scan(*args, return_state=True, impl="plain")
+    y_abs, h_abs = ops.selective_scan(u.abs(), dt, a, bm.abs(), cm.abs(),
+                                      return_state=True, impl="plain")
+    again = ops.selective_scan(*args, impl="kernel")
+    torch.cuda.synchronize()
+    tol = SCAN_RTOL * y_abs
+    d_y, d_h = (y - yp).abs(), (h - hp).abs()
+    # the rule must reject the plain result with one time step dropped
+    # (dt = 0 there: no update) and with the state reset at a tile boundary
+    dt_drop = dt.clone()
+    dt_drop[:, s // 2] = 0.0
+    dropped = ops.selective_scan(u, dt_drop, a, bm, cm, impl="plain")
+    rejects_dropped = not bool(((dropped - yp).abs() <= tol).all())
+    del dropped, dt_drop
+    cut = max(1, s // 2 // SCAN_TILE) * SCAN_TILE
+    reset = torch.cat([ops.selective_scan(
+        *(x[:, sl].contiguous() for x in (u, dt)), a,
+        *(x[:, sl].contiguous() for x in (bm, cm)), impl="plain")
+        for sl in (slice(0, cut), slice(cut, None))], dim=1)
+    rejects_reset = not bool(((reset - yp).abs() <= tol).all())
+    del reset
+    b_ms, b_by = scan_bound(shape, dtype)
+    row = {"kernel": "selective_scan", "dtype": str(dtype)[6:],
+           "b": b, "s": s, "d": d, "n": n,
+           "max_abs_err": float(d_y.max()),
+           "max_err_over_tol": float((d_y / tol).max()),
+           "state_max_abs_err": float(d_h.max()),
+           "state_max_err_over_tol": float((d_h / (SCAN_RTOL * h_abs))
+                                           .max()),
+           "tolerance": (f"|d| <= {SCAN_RTOL:g} * Y_abs (y) and H_abs (h_S):"
+                         " the plain scan of |u|, dt, a, |B|, |C| and its "
+                         "final state"),
+           "within_tolerance": bool((d_y <= tol).all()
+                                    and (d_h <= SCAN_RTOL * h_abs).all()),
+           "deterministic": bool(torch.equal(again, y)),
+           "rejects_dropped_step": rejects_dropped,
+           "rejects_state_reset_at_tile": rejects_reset,
+           "kernel_ms": flash_ms(lambda: ops.selective_scan(
+               *args, return_state=True, impl="kernel")),
+           "plain_ms": flash_ms(lambda: ops.selective_scan(
+               *args, return_state=True, impl="plain")),
+           "library_ms": None,
+           "library_call": "none: no single PyTorch call computes the "
+                           "selective scan",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "exponentials": b * s * d * n}
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def phase_scan(ops) -> dict:
+    """K7 against its plain version at SCAN_SHAPES, fp32 and bf16 u, B, C;
+    returns the row of the shape and type the hybrid prefill gives it."""
+    gen = torch.Generator(device="cuda").manual_seed(777)
+    path_row = None
+    for shape in SCAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_scan(ops, shape, dtype, gen)
+            row["phase"] = "scan"
+            emit(row)
+            where = f"{shape} {row['dtype']}"
+            if not (row["within_tolerance"] and row["deterministic"]):
+                fail(f"selective_scan disagrees with its plain version (or "
+                     f"with itself) at {where}: max |d| = "
+                     f"{row['max_abs_err']}")
+            if not (row["rejects_dropped_step"]
+                    and row["rejects_state_reset_at_tile"]):
+                fail(f"selective_scan's tolerance at {where} would pass a "
+                     "result that drops a time step or resets the state")
+            if shape == SCAN_SHAPES[0] and dtype == torch.bfloat16:
+                path_row = row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path_row
+
+
+class RouterLog:
+    """Records each MoE layer's router probabilities [T, E] while active:
+    it stands in for ``moe.router_probs`` (which ``moe_mlp`` looks up at
+    call time) and restores it on exit."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.probs = moe, []
+
+    def __enter__(self):
+        orig = self.orig = self.moe.router_probs
+
+        def record(params, x_flat):
+            probs, logits = orig(params, x_flat)
+            self.probs.append(probs.detach().clone())
+            return probs, logits
+        self.moe.router_probs = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_probs = self.orig
+
+
+def route_flips(probs_a, probs_b, k: int) -> list:
+    """Per MoE layer: the tokens whose ordered top-k experts differ between
+    two runs, and what could explain a flip: the smallest gap between
+    consecutive probabilities among the top k + 1 (run b), and the largest
+    change of a probability between the runs."""
+    rows = []
+    for pa, pb in zip(probs_a, probs_b):
+        ea = torch.topk(pa, k, dim=-1).indices
+        vb, eb = torch.topk(pb, k + 1, dim=-1)
+        flipped = (ea != eb[:, :k]).any(dim=-1)
+        gaps = (vb[:, :-1] - vb[:, 1:]).min(dim=-1).values
+        change = (pa - pb).abs().max(dim=-1).values
+        rows.append({"tokens": int(pa.shape[0]),
+                     "flips": int(flipped.sum()),
+                     "min_router_gap": float(gaps.min()),
+                     "max_router_prob_change": float(change.max()),
+                     # a flip is explained where the gap is within twice
+                     # the change measured at that token
+                     "unexplained_flips": int((flipped
+                                               & (gaps > 2 * change)).sum())})
+    return rows
+
+
+def phase_serve_hybrid(ops) -> dict:
+    """Jamba at full width, one superblock, through the serving steps
+    (bf16), then the fp32 checks at B = 1; returns the launch counts of
+    one counted prefill."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS)
+    b, s, n_dec = SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(params)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    # no sliding window: the cache holds every position decoded, the 32
+    # counted steps, the logits check and the 8 profiled steps
+    prefill = serve.build_prefill_cache_step(cfg, "cuda",
+                                             cache_len=s + n_dec + 8)
+    decode = serve.build_decode_step(cfg, "cuda")
+    ids, cache = prefill(params, {"tokens": tokens[:, :256]})   # warm-up
+    decode(params, cache, ids[:, None], 256)
+    del ids, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(ops.LAUNCH_COUNTS)
+    prefill_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    out = [ids]
+    for pos in range(s, s + n_dec):
+        ids, cache = decode(params, cache, ids[:, None], pos)
+        out.append(ids)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    generated = torch.stack(out, dim=1).cpu()
+    logits, _ = T.decode_step(params, cfg, cache, ids[:, None], s + n_dec)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(c[name]).all()) for c in cache for name in c)
+    n_mamba = sum(k.startswith("mamba") for k in cfg.block_pattern)
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    row = {"phase": "serve_hybrid", "arch": HYBRID_ARCH, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "pattern": list(cfg.block_pattern),
+           "cut": {"num_layers": f"{full.num_layers} -> {cfg.num_layers} "
+                                 "(one superblock; widths as published)"},
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+           "moe_d_ff": cfg.moe_d_ff, "d_inner": cfg.mamba_d_inner,
+           "d_state": cfg.mamba_d_state, "dt_rank": cfg.mamba_dt_rank,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "param_count_formula": cfg.param_count(),
+           "moe_capacity_prefill": MOE.capacity(b * s, cfg),
+           "batch": b, "prompt": s, "decode_steps": n_dec,
+           "init_s": init_s, "prefill_s": t1 - t0,
+           "prefill_tokens_per_s": b * s / (t1 - t0),
+           "decode_s": t2 - t1, "decode_tokens_per_s": b * n_dec / (t2 - t1),
+           "decode_ms_per_step": (t2 - t1) / n_dec * 1e3,
+           "prefill_peak_mem_mb": prefill_peak_mb, "peak_mem_mb": peak_mb,
+           "launches": launches,
+           "generated_ids": generated.tolist(), "finite": finite}
+    row["prefill_profile"] = _profile_top(
+        lambda: prefill(params, {"tokens": tokens}), n=14)
+    state = {"ids": ids, "cache": cache}
+
+    def steps():
+        for pos in range(s + n_dec, s + n_dec + 8):
+            state["ids"], state["cache"] = decode(
+                params, state["cache"], state["ids"][:, None], pos)
+    row["decode_profile_8_steps"] = _profile_top(steps)
+    emit(row)
+    if (launches["selective_scan"] != n_mamba
+            or launches["flash_attention"] != n_attn):
+        fail(f"one hybrid prefill launched selective_scan "
+             f"{launches['selective_scan']} times and flash_attention "
+             f"{launches['flash_attention']}, expected {n_mamba} and "
+             f"{n_attn}")
+    if not finite or generated.min() < 0 or generated.max() >= cfg.vocab_size:
+        fail("the hybrid serving run gave non-finite values or ids out of "
+             "range")
+    del params, cache, state, logits, tokens, ids, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 at B = 1: kernel route vs plain route, and the cache handoff
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s32 = HYBRID_FP32_PROMPT
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p32 = T.init_params(cfg32, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, s32 + 1), generator=gen,
+                         device="cuda")
+    w_un = L.unembed_matrix(p32["emb"], cfg32)
+    batch = {"tokens": toks[:, :s32]}
+    t0 = time.perf_counter()
+    with RouterLog() as log_kernel:
+        h_kernel = T.forward_hidden(p32, cfg32, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with RouterLog() as log_plain:
+        h_plain = T.forward_hidden(p32, cfg32, batch, impl="plain")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hid_rel = float((h_kernel - h_plain).abs().max() / h_plain.abs().max())
+    tok_kernel = int(torch.argmax(h_kernel[0, -1] @ w_un))
+    tok_plain = int(torch.argmax(h_plain[0, -1] @ w_un))
+    flips = route_flips(log_kernel.probs, log_plain.probs,
+                        cfg.experts_per_token)
+    del h_kernel, h_plain, log_kernel, log_plain
+    # the handoff at capacity_factor 8 (as tests/test_models.py:78-81): a
+    # prefill over T tokens drops pairs that a 1-token decode never drops
+    cfg_h = dataclasses.replace(cfg32, capacity_factor=8.0)
+    full_h = T.forward_hidden(p32, cfg_h, {"tokens": toks})    # s32 + 1
+    logits_full = (full_h[:, -1] @ w_un).float()
+    del full_h
+    _, cache = T.prefill_with_cache(p32, cfg_h, batch, s32 + n_dec)
+    logits_dec, _ = T.decode_step(p32, cfg_h, cache, toks[:, s32:], s32)
+    scale = float(logits_full.abs().max())
+    handoff = float((logits_dec - logits_full).abs().max())
+    check = {"phase": "serve_hybrid_fp32", "batch": 1, "prompt": s32,
+             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "kernel_route_s": t1 - t0, "plain_route_s": t2 - t1,
+             "hidden_max_rel_diff": hid_rel,
+             "hidden_tolerance": f"max|d| <= {HYBRID_HIDDEN_REL:g} "
+                                 "max|h_plain|",
+             "greedy_kernel": tok_kernel, "greedy_plain": tok_plain,
+             "route_flips_per_moe_layer": flips,
+             "handoff_capacity_factor": 8.0,
+             "handoff_max_abs_diff": handoff, "logits_max_abs": scale,
+             "handoff_tolerance": f"max|d| <= {HANDOFF_REL:g} max|logits| "
+                                  "(tests/test_models.py:96)"}
+    emit(check)
+    if any(f["unexplained_flips"] for f in flips):
+        fail(f"top-{cfg.experts_per_token} routing differs between the "
+             f"routes beyond the measured router gaps: {flips}")
+    if not hid_rel <= HYBRID_HIDDEN_REL:
+        fail(f"fp32 kernel route vs plain route: hidden differ by {hid_rel}")
+    if tok_kernel != tok_plain:
+        fail(f"greedy token: kernel route {tok_kernel}, plain {tok_plain}")
+    if not (scale > 0 and handoff <= HANDOFF_REL * scale):
+        fail(f"prefill -> decode at {s32}: logits differ by {handoff} > "
+             f"{HANDOFF_REL} * {scale}")
+    del p32, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
@@ -1195,6 +1550,10 @@ def main() -> None:
     emit_memory("flash")
     serve_launches = {"flash_attention": phase_serve(ops)}
     emit_memory("serve")
+    checks["selective_scan"] = phase_scan(ops)
+    emit_memory("scan")
+    hybrid_launches = phase_serve_hybrid(ops)
+    emit_memory("serve_hybrid")
     csrc = "src/repro_torch/kernels/csrc/"
     # kernel -> (source, TPU kernel it replaces, launches on its path)
     sources = {
@@ -1215,6 +1574,9 @@ def main() -> None:
         "flash_attention": (csrc + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:86",
                             serve_launches),
+        "selective_scan": (csrc + "selective_scan.cu",
+                           "src/repro/kernels/selective_scan.py:76",
+                           hybrid_launches),
     }
     kernels = []
     for name, (src, replaces, launches) in sources.items():

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"moments": "moments.cu", "ota_superpose": "ota_superpose.cu",
            "stream_moments": "stream_moments.cu",
            "ota_superpose_stream": "ota_superpose_stream.cu",
-           "sumsq": "sumsq.cu", "flash_attention": "flash_attention.cu"}
+           "sumsq": "sumsq.cu", "flash_attention": "flash_attention.cu",
+           "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

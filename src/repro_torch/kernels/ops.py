@@ -1,6 +1,6 @@
 """Public wrappers around the Hopper kernels (the port of
-``repro/kernels/ops.py``'s flat-reduction, OTA and flash-attention entry
-points).
+``repro/kernels/ops.py``'s flat-reduction, OTA, flash-attention and
+selective-scan entry points).
 
 Dispatch (``impl``):
 
@@ -28,12 +28,15 @@ from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
                                                ota_superpose_streaming_cuda)
+from repro_torch.kernels.selective_scan import (check_scan_shapes,
+                                                selective_scan_cuda)
 
 IMPLS = ("auto", "kernel", "plain")
 
 LAUNCH_COUNTS: Dict[str, int] = {
     "batched_moments": 0, "ota_superpose": 0, "streaming_moments": 0,
-    "ota_superpose_streaming": 0, "sumsq": 0, "flash_attention": 0}
+    "ota_superpose_streaming": 0, "sumsq": 0, "flash_attention": 0,
+    "selective_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -139,3 +142,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         LAUNCH_COUNTS["flash_attention"] += 1
         return o
     return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   bmat: torch.Tensor, cmat: torch.Tensor, *,
+                   return_state: bool = False, impl: str = "auto"):
+    """The Mamba selective scan: y_t = <h_t, C_t> with
+    h_t = exp(dt_t a) h_{t-1} + dt_t u_t B_t, h_0 = 0.
+
+    u: [B, S, D] bf16 or fp32; dt: [B, S, D] fp32; a: [D, N] fp32 (the
+    discretized -exp(A_log)); bmat, cmat: [B, S, N] of u's type.  Returns y
+    [B, S, D] fp32, and with ``return_state=True`` (y, h_S [B, D, N] fp32).
+    The kernel (K7) takes N up to 16 and any S and D."""
+    check_scan_shapes(u, dt, a, bmat, cmat)
+    if _use_kernel(u, impl):
+        out = selective_scan_cuda(u, dt, a, bmat, cmat,
+                                  return_state=return_state)
+        LAUNCH_COUNTS["selective_scan"] += 1
+        return out
+    return ref.selective_scan_ref(u, dt, a, bmat, cmat,
+                                  return_state=return_state)

@@ -125,3 +125,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.einsum("bjgqk,bjkd->bjgqd", p, vf)
         out[:, :, lo:hi] = o.reshape(b, h, hi - lo, d).to(q.dtype)
     return out
+
+
+def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor, *,
+                       return_state: bool = False):
+    """The sequential recurrence of the Mamba selective scan, fp32
+    throughout (the reference's ``selective_scan_ref``):
+    h_t = exp(dt_t a) h_{t-1} + (dt_t u_t) B_t, h_0 = 0; y_t = <h_t, C_t>.
+
+    u, dt: [B, S, D]; a: [D, N]; bmat, cmat: [B, S, N].  Returns y
+    [B, S, D] fp32, and with ``return_state=True`` also the final state
+    h_S [B, D, N] fp32 (the reference's Pallas kernel writes only y; the
+    prefill -> decode handoff needs h_S)."""
+    b, s, d = u.shape
+    n = a.shape[1]
+    uf, dtf, af = u.float(), dt.float(), a.float()
+    bf, cf = bmat.float(), cmat.float()
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+    y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
+    for t in range(s):
+        da = torch.exp(dtf[:, t, :, None] * af[None])
+        dbu = (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+        h = da * h + dbu
+        y[:, t] = torch.sum(h * cf[:, t, None, :], dim=-1)
+    return (y, h) if return_state else y

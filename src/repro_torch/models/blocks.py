@@ -2,9 +2,10 @@
 ``num_superblocks`` repetitions of ``cfg.block_pattern``, each pattern
 position's parameters stacked over superblocks.
 
-Only the dense decoder's block, ``attn+dense``, is ported.  The ``moe``
-MLP, ``mamba``, ``mlstm``, ``slstm`` and ``xattn`` mixers raise
-``NotImplementedError`` (ROADMAP queue 1 item 16).
+Ported: the ``attn`` and ``mamba`` mixers with the ``dense`` and ``moe``
+MLPs (the dense decoders, the MoE decoders and the Jamba hybrid).  The
+``mlstm``, ``slstm`` and ``xattn`` mixers raise ``NotImplementedError``
+(ROADMAP queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -14,24 +15,38 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+
+_MIXERS = ("attn", "mamba")
+_MLPS = ("dense", "moe")
 
 
-def _check_kind(kind: str) -> None:
+def _check_kind(kind: str) -> Tuple[str, str]:
+    """(mixer, mlp) of a ported block kind; raises for the others."""
     mixer, _, mlp_kind = kind.partition("+")
-    if mixer != "attn" or mlp_kind != "dense":
+    if mixer not in _MIXERS or mlp_kind not in _MLPS:
         raise NotImplementedError(
-            f"block kind {kind!r}: only 'attn+dense' (the dense decoder) is "
-            f"ported; the moe MLP and the mamba, mlstm, slstm and xattn "
-            f"mixers wait for {L.ZOO_ITEM}")
+            f"block kind {kind!r}: the attn and mamba mixers with dense or "
+            f"moe MLPs are ported; the mlstm, slstm and xattn mixers wait "
+            f"for {L.ZOO_ITEM}")
+    return mixer, mlp_kind
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device="cpu") -> Dict:
-    _check_kind(kind)
-    return {"ln1": L.init_rmsnorm(cfg.d_model, device),
-            "attn": L.init_attention(gen, cfg, device),
-            "ln2": L.init_rmsnorm(cfg.d_model, device),
-            "mlp": L.init_mlp(gen, cfg, device=device)}
+    mixer, mlp_kind = _check_kind(kind)
+    p = {"ln1": L.init_rmsnorm(cfg.d_model, device)}
+    if mixer == "attn":
+        p["attn"] = L.init_attention(gen, cfg, device)
+    else:
+        p["mamba"] = M.init_mamba(gen, cfg, device)
+    p["ln2"] = L.init_rmsnorm(cfg.d_model, device)
+    if mlp_kind == "dense":
+        p["mlp"] = L.init_mlp(gen, cfg, device=device)
+    else:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    return p
 
 
 def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -42,27 +57,38 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
     ``cache_len > 0`` collects this block's decode cache (prefill handoff),
     structured exactly like ``init_block_cache``.  ``impl`` goes to the
-    attention core (``ops.flash_attention``)."""
-    _check_kind(kind)
+    kernels' routes (``ops.flash_attention``, ``ops.selective_scan``)."""
+    mixer, mlp_kind = _check_kind(kind)
     if enc_out is not None:
         raise NotImplementedError(f"enc_out (encoder-decoder) waits for "
                                   f"{L.ZOO_ITEM}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     h_in = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if cache_len > 0:
+    if mixer == "attn" and cache_len > 0:
         h, (k_kv, v_kv) = L.attention(params["attn"], cfg, h_in,
                                       causal=causal,
                                       window=cfg.sliding_window,
                                       return_kv=True, impl=impl)
         ck, cv = L.prefill_kv_cache(cfg, k_kv, v_kv, x.shape[1], cache_len)
         cache = {"k": ck, "v": cv}
-    else:
+    elif mixer == "attn":
         h = L.attention(params["attn"], cfg, h_in, causal=causal,
                         window=cfg.sliding_window, impl=impl)
+    elif cache_len > 0:
+        h, (ssm, conv) = M.mamba_mix(params["mamba"], cfg, h_in,
+                                     return_state=True, impl=impl)
+        cache = {"ssm": ssm, "conv": conv}
+    else:
+        h = M.mamba_mix(params["mamba"], cfg, h_in, impl=impl)
     x = x + h
-    x = x + L.mlp(params["mlp"], cfg, L.rmsnorm(params["ln2"], x,
-                                                cfg.norm_eps))
+    h_in = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
+    if mlp_kind == "dense":
+        x = x + L.mlp(params["mlp"], cfg, h_in)
+    else:
+        y, moe_aux = MOE.moe_mlp(params["moe"], cfg, h_in)
+        x = x + y
+        aux = aux + MOE.aux_loss(cfg, moe_aux)
     return x, aux, cache
 
 
@@ -71,9 +97,13 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device="cpu") -> Dict:
-    """Cache for ONE layer of the given kind (unstacked)."""
-    _check_kind(kind)
+                     device="cuda") -> Dict:
+    """Cache for ONE layer of the given kind (unstacked): k/v for an
+    attention layer, ssm/conv state for a mamba layer."""
+    mixer, _ = _check_kind(kind)
+    if mixer == "mamba":
+        return {k: v[0] for k, v in M.init_mamba_cache(cfg, batch, 1,
+                                                       device).items()}
     window = cfg.sliding_window
     s = min(max_len, window) if window else max_len
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
@@ -86,24 +116,31 @@ def apply_block_decode(params: Dict, cfg: ModelConfig, kind: str,
                        axis_name: Optional[str] = None, shard_offset=None
                        ) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode through one block.  x: [B,1,D].  The cache's
-    tensors are updated in place (``layers.decode_attention``) and returned
-    in a new dict."""
-    _check_kind(kind)
+    tensors are updated in place (``layers.decode_attention``,
+    ``mamba.mamba_decode_step``) and returned in a new dict."""
+    mixer, _ = _check_kind(kind)
     if enc_out is not None:
         raise NotImplementedError(f"enc_out (encoder-decoder) waits for "
                                   f"{L.ZOO_ITEM}")
     new_cache = dict(cache)
-    h, nk, nv = L.decode_attention(
-        params["attn"], cfg, L.rmsnorm(params["ln1"], x, cfg.norm_eps),
-        cache["k"], cache["v"], pos, window=cfg.sliding_window,
-        axis_name=axis_name, shard_offset=shard_offset)
-    new_cache["k"], new_cache["v"] = nk, nv
+    h_in = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if mixer == "attn":
+        h, new_cache["k"], new_cache["v"] = L.decode_attention(
+            params["attn"], cfg, h_in, cache["k"], cache["v"], pos,
+            window=cfg.sliding_window, axis_name=axis_name,
+            shard_offset=shard_offset)
+    else:
+        h, new_cache["ssm"], new_cache["conv"] = M.mamba_decode_step(
+            params["mamba"], cfg, h_in, cache["ssm"], cache["conv"])
     x = x + h
     return _decode_mlp(params, cfg, kind, x), new_cache
 
 
 def _decode_mlp(params: Dict, cfg: ModelConfig, kind: str,
                 x: torch.Tensor) -> torch.Tensor:
-    return x + L.mlp(params["mlp"], cfg, L.rmsnorm(params["ln2"], x,
-                                                   cfg.norm_eps))
-
+    _, mlp_kind = _check_kind(kind)
+    h_in = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
+    if mlp_kind == "dense":
+        return x + L.mlp(params["mlp"], cfg, h_in)
+    y, _ = MOE.moe_mlp(params["moe"], cfg, h_in)
+    return x + y

@@ -1,4 +1,5 @@
-"""Top-level model API of the dense decoders (the port of
+"""Top-level model API of the decoder-only models -- dense, MoE and the
+Jamba hybrid (the port of
 ``repro/models/transformer.py``): init, prefill (hidden states, or hidden
 states plus the decode cache) and single-token decode.
 
@@ -106,7 +107,7 @@ def _check_decoder_only(cfg: ModelConfig) -> None:
 def forward_hidden(params, cfg: ModelConfig, batch: Dict, *,
                    impl: str = "auto") -> torch.Tensor:
     """Prefill: final hidden states [B,S,D] (no loss).  ``impl`` forces the
-    attention core's route (``ops.flash_attention``)."""
+    kernels' routes (``ops.flash_attention``, ``ops.selective_scan``)."""
     _check_decoder_only(cfg)
     x = _decoder_inputs(params, cfg, batch)
     x, _ = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
@@ -133,10 +134,10 @@ def prefill_with_cache(params, cfg: ModelConfig, batch: Dict,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cpu") -> PyTree:
+               device="cuda") -> PyTree:
     """Stacked decode cache: a tuple (per pattern position) of dicts whose
-    tensors have leading axis num_superblocks (zeros, allocated: decode
-    writes into them in place)."""
+    tensors have leading axis num_superblocks (zeros, allocated on
+    ``device``: decode writes into them in place)."""
     caches = []
     for kind in cfg.block_pattern:
         one = B.init_block_cache(cfg, kind, batch, max_len, device)

@@ -135,9 +135,13 @@ class TestDispatch:
         ops.grad_norm(torch.ones(9))
         ops.flash_attention(torch.ones(1, 2, 8, 8), torch.ones(1, 1, 8, 8),
                             torch.ones(1, 1, 8, 8))
+        ops.selective_scan(torch.ones(1, 4, 3), torch.ones(1, 4, 3),
+                           -torch.ones(3, 2), torch.ones(1, 4, 2),
+                           torch.ones(1, 4, 2))
         assert set(ops.LAUNCH_COUNTS) == {
             "batched_moments", "ota_superpose", "streaming_moments",
-            "ota_superpose_streaming", "sumsq", "flash_attention"}
+            "ota_superpose_streaming", "sumsq", "flash_attention",
+            "selective_scan"}
         assert set(ops.LAUNCH_COUNTS.values()) == {0}
 
     @pytest.mark.parametrize("call", [

@@ -1,6 +1,7 @@
-"""The port's dense-decoder serving path against the JAX package, on the CPU
-(fp32, ``reduce_config`` of h2o-danube-1.8b, qwen2-7b and phi3-mini-3.8b),
-and the reference's own model contracts held on the port.
+"""The port's serving path against the JAX package, on the CPU (fp32,
+``reduce_config`` of the dense h2o-danube-1.8b, qwen2-7b and phi3-mini-3.8b,
+the Mamba + MoE hybrid jamba-v0.1-52b and the MoE olmoe-1b-7b), and the
+reference's own model contracts held on the port.
 
 Params come from the reference's ``T.init_params`` and are carried across
 with ``interop.model_params_from_jax``; token ids are drawn with numpy.
@@ -31,10 +32,19 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 
 KEY = jax.random.PRNGKey(0)
 ARCHS = ("h2o-danube-1.8b", "qwen2-7b", "phi3-mini-3.8b")
+# the mamba and moe blocks: jamba's (attn+dense, mamba+moe) superblock and
+# olmoe's attn+moe (granite-moe's kind too)
+HYBRID = ("jamba-v0.1-52b", "olmoe-1b-7b")
+# the reference's serving functions, compiled (its eager associative scans
+# and MoE dispatch are slow on the CPU)
+_J_FORWARD = jax.jit(JT.forward_hidden, static_argnums=(1,))
+_J_PREFILL = jax.jit(JT.prefill_with_cache, static_argnums=(1, 3))
+_J_DECODE = jax.jit(JT.decode_step, static_argnums=(1,))
 REL = 1e-5
 
 
@@ -109,33 +119,37 @@ def test_attention_layer(arch):
     _close(v, jv)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + HYBRID)
 def test_forward_prefill_and_decode(arch):
     """forward_hidden; prefill_with_cache (hidden states and every cache
-    leaf); then four decode_steps (logits) from the two caches."""
+    leaf: k/v, and ssm/conv for a mamba layer); then four decode_steps
+    (logits) from the two caches."""
     jcfg, cfg, jp, p = _model(arch)
     toks = _tokens(cfg, 2, 24)
     _close(T.forward_hidden(p, cfg, {"tokens": torch.from_numpy(toks)}),
-           JT.forward_hidden(jp, jcfg, {"tokens": jnp.asarray(toks)}))
+           _J_FORWARD(jp, jcfg, {"tokens": jnp.asarray(toks)}))
     s, maxlen = 20, 28
-    jh, jc = JT.prefill_with_cache(
+    jh, jc = _J_PREFILL(
         jp, jcfg, {"tokens": jnp.asarray(toks[:, :s])}, maxlen)
     h, c = T.prefill_with_cache(
         p, cfg, {"tokens": torch.from_numpy(toks[:, :s])}, maxlen)
     _close(h, jh)
-    for pos_c, jpos_c in zip(c, jc):
-        assert set(pos_c) == set(jpos_c) == {"k", "v"}
-        for name in ("k", "v"):
+    for pos_c, jpos_c, kind in zip(c, jc, cfg.block_pattern):
+        assert set(pos_c) == set(jpos_c) == (
+            {"ssm", "conv"} if kind.startswith("mamba") else {"k", "v"})
+        for name in jpos_c:
+            assert pos_c[name].dtype == getattr(torch, str(
+                jpos_c[name].dtype))
             _close(pos_c[name], jpos_c[name])
     for pos in range(s, s + 4):
         t = toks[:, pos:pos + 1]
-        jl, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(t), jnp.asarray(pos))
+        jl, jc = _J_DECODE(jp, jcfg, jc, jnp.asarray(t), jnp.asarray(pos))
         lg, c = T.decode_step(p, cfg, c, torch.from_numpy(t), pos)
         assert lg.dtype == torch.float32
         _close(lg, jl)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + HYBRID)
 def test_serve_steps_greedy_ids(arch):
     """The serve builders' greedy ids: prefill without cache, prefill with
     cache, then four decode steps, each identical to the reference's."""
@@ -168,10 +182,10 @@ def test_decode_select_update_matches_reference():
                               sliding_window=8)
     toks = _tokens(cfg, 2, 14, seed=5)
     jc = JT.init_cache(jcfg, 2, 24)
-    c = T.init_cache(cfg, 2, 24)
+    c = T.init_cache(cfg, 2, 24, device="cpu")
     c_dyn = T.init_cache(dataclasses.replace(cfg,
                                              decode_cache_update="dynamic"),
-                         2, 24)
+                         2, 24, device="cpu")
     for pos in range(14):
         t = toks[:, pos:pos + 1]
         jl, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(t), jnp.asarray(pos))
@@ -191,13 +205,20 @@ def test_cache_layouts_and_kv_expansion_match_reference():
     _expand_kv repeats each kv head q_per_kv times as jnp.repeat does."""
     from repro.models import blocks as JB
     jcfg, cfg, _, _ = _model("h2o-danube-1.8b")
+    jhcfg, hcfg, _, _ = _model("jamba-v0.1-52b")
     pairs = [(L.init_kv_cache(cfg, 2, 48, 3),
               JL.init_kv_cache(jcfg, 2, 48, 3)),
-             (B.init_block_cache(cfg, "attn+dense", 2, 20),
+             (B.init_block_cache(cfg, "attn+dense", 2, 20, device="cpu"),
               JB.init_block_cache(jcfg, "attn+dense", 2, 20)),
-             (T.init_cache(cfg, 2, 48)[0], JT.init_cache(jcfg, 2, 48)[0])]
+             (T.init_cache(cfg, 2, 48, device="cpu")[0],
+              JT.init_cache(jcfg, 2, 48)[0]),
+             (B.init_block_cache(hcfg, "mamba+moe", 2, 20, device="cpu"),
+              JB.init_block_cache(jhcfg, "mamba+moe", 2, 20))]
+    pairs += list(zip(T.init_cache(hcfg, 2, 48, device="cpu"),
+                      JT.init_cache(jhcfg, 2, 48)))
     for got, want in pairs:
-        for name in ("k", "v"):
+        assert set(got) == set(want)
+        for name in want:
             assert tuple(got[name].shape) == want[name].shape
             assert str(got[name].dtype)[6:] == str(want[name].dtype)
             assert not bool(got[name].any())
@@ -226,21 +247,58 @@ def test_bf16_params_carry_across_bitwise():
     assert h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all())
 
 
+def test_bf16_hybrid_params_carry_across_bitwise():
+    """The hybrid's whole bf16 tree carries across leaf for leaf with the
+    reference's bits: A_log, D, dt_proj_b and the router stay fp32, the
+    rest bf16; a bf16 prefill with cache and a decode step run finite."""
+    cfg = reg.reduce_config(reg.get_config("jamba-v0.1-52b"))
+    jp = JT.init_params(jreg.reduce_config(jreg.get_config(
+        "jamba-v0.1-52b")), KEY)
+    p = interop.model_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    leaves, _ = jax.tree_util.tree_flatten_with_path(jp)
+    fp32 = set()
+    for path, want in leaves:
+        got = p
+        for key in path:
+            got = got[key.key if hasattr(key, "key") else key.idx]
+        want = np.asarray(want)
+        if want.dtype == np.float32:
+            fp32.add(str(path[-1].key))
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            assert got.dtype == torch.bfloat16, path
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          want.view(np.int16))
+    assert fp32 == {"A_log", "D", "dt_proj_b", "router", "scale"}
+    toks = torch.from_numpy(_tokens(cfg, 1, 12))
+    h, cache = T.prefill_with_cache(p, cfg, {"tokens": toks}, 16)
+    assert h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all())
+    mamba_cache = cache[cfg.block_pattern.index("mamba+moe")]
+    assert mamba_cache["ssm"].dtype == torch.float32
+    assert mamba_cache["conv"].dtype == torch.bfloat16
+    lg, _ = T.decode_step(p, cfg, cache, toks[:, -1:], 12)
+    assert bool(torch.isfinite(lg).all())
+
+
 # ---------------------------------------------------------------------------
 # the reference's model contracts (tests/test_models.py), on the port
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen2-7b"] + list(HYBRID))
 def test_prefill_decode_consistency(arch):
     """Teacher-forced full-sequence logits match step-by-step decode (the
     reference's bound, 2e-3 of max|logits|), here with a window of 4 that
-    the 16 positions overrun, so the rotating cache wraps."""
+    the 16 positions overrun, so the rotating cache wraps.  The MoE models
+    run capacity_factor 8.0, as the reference's test does: a prefill over
+    T tokens may drop pairs that a decode step never drops."""
     over = {"sliding_window": 4} if arch == "h2o-danube-1.8b" else {}
+    if arch in HYBRID:
+        over = {"capacity_factor": 8.0}
     _, cfg, _, p = _model(arch, **over)
     toks = torch.from_numpy(_tokens(cfg, 2, 16))
     full = (T.forward_hidden(p, cfg, {"tokens": toks})
             @ L.unembed_matrix(p["emb"], cfg)).float()
-    cache = T.init_cache(cfg, 2, 16)
+    cache = T.init_cache(cfg, 2, 16, device="cpu")
     errs = []
     for pos in range(16):
         lg, cache = T.decode_step(p, cfg, cache, toks[:, pos:pos + 1], pos)
@@ -249,16 +307,20 @@ def test_prefill_decode_consistency(arch):
 
 
 @pytest.mark.parametrize("arch,window", [("qwen2-7b", None),
-                                         ("h2o-danube-1.8b", 8)])
+                                         ("h2o-danube-1.8b", 8),
+                                         ("jamba-v0.1-52b", None)])
 def test_prefill_cache_handoff(arch, window):
     """prefill_with_cache + decode == decode from scratch (the reference's
     bound, 1e-4 of max|logits|); with window 8 the 12-token prefill already
-    rotates the cache."""
+    rotates the cache; jamba hands over the ssm and conv states
+    (capacity_factor 8.0, as the reference's test)."""
     over = {"sliding_window": window} if window else {}
+    if arch in HYBRID:
+        over = {"capacity_factor": 8.0}
     _, cfg, _, p = _model(arch, **over)
     toks = torch.from_numpy(_tokens(cfg, 2, 16))
     _, cache = T.prefill_with_cache(p, cfg, {"tokens": toks[:, :12]}, 24)
-    c2 = T.init_cache(cfg, 2, 24)
+    c2 = T.init_cache(cfg, 2, 24, device="cpu")
     for pos in range(12):
         _, c2 = T.decode_step(p, cfg, c2, toks[:, pos:pos + 1], pos)
     for pos in range(12, 16):
@@ -302,6 +364,38 @@ def test_param_count(arch):
                                is_leaf=lambda t: isinstance(t, torch.Tensor)))
 
 
+@pytest.mark.parametrize("arch", HYBRID)
+def test_hybrid_param_count_and_tree(arch):
+    """The port's own init has the reference's tree and count; the count is
+    the formula's plus the norm scales and, per mamba layer, the conv and
+    dt biases (which ModelConfig.param_count leaves out)."""
+    jcfg, cfg, jp, p = _model(arch)
+    n_mamba = cfg.num_superblocks * sum(k.startswith("mamba")
+                                        for k in cfg.block_pattern)
+    n_norm = (2 * cfg.num_layers + 1) * cfg.d_model
+    assert T.param_count(p) == JT.param_count(jp) == (
+        cfg.param_count() + n_norm + 2 * cfg.mamba_d_inner * n_mamba)
+    own = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert T.param_count(own) == T.param_count(p)
+    assert jax.tree_util.tree_structure(jp) == jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(lambda t: 0, own,
+                               is_leaf=lambda t: isinstance(t, torch.Tensor)))
+
+
+def test_hybrid_prefill_launch_counts_on_cpu():
+    """A CPU prefill of the hybrid counts no K6 or K7 launch; impl="kernel"
+    forced through the model raises rather than falling back."""
+    _, cfg, _, p = _model("jamba-v0.1-52b")
+    toks = torch.from_numpy(_tokens(cfg, 1, 8))
+    ops.reset_launch_counts()
+    T.prefill_with_cache(p, cfg, {"tokens": toks}, 8)
+    assert ops.LAUNCH_COUNTS["flash_attention"] == 0
+    assert ops.LAUNCH_COUNTS["selective_scan"] == 0
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        M.mamba_mix({k: v[0] for k, v in p["blocks"][1]["mamba"].items()},
+                    cfg, torch.zeros((1, 4, cfg.d_model)), impl="kernel")
+
+
 def test_prefill_counts_no_kernel_launch_on_cpu():
     """On CPU tensors the attention core takes the plain version; impl=
     "kernel" forced through the model raises rather than falling back."""
@@ -316,14 +410,13 @@ def test_prefill_counts_no_kernel_launch_on_cpu():
 
 def test_unported_paths_raise():
     _, cfg, _, p = _model("h2o-danube-1.8b")
-    for arch in ("jamba-v0.1-52b", "xlstm-1.3b", "olmoe-1b-7b",
-                 "seamless-m4t-medium", "pixtral-12b"):
+    for arch in ("xlstm-1.3b", "seamless-m4t-medium", "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="item 16"):
             T.init_params(reg.reduce_config(reg.get_config(arch)),
                           torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         serve.build_decode_step(cfg, "cpu", context_parallel=True)
-    cache = T.init_cache(cfg, 1, 8)
+    cache = T.init_cache(cfg, 1, 8, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="item 15"):
         T.decode_step(p, dataclasses.replace(cfg, decode_cache_seq_axis="m"),
@@ -335,7 +428,14 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         L.attention(attn, cfg, x, kv_x=x)
     with pytest.raises(NotImplementedError, match="item 16"):
-        B.init_block_cache(cfg, "mamba+dense", 1, 8)
+        B.init_block_cache(cfg, "slstm", 1, 8, device="cpu")
+    _, hcfg, _, hp = _model("jamba-v0.1-52b")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    for over, item in ((dict(mamba_scan_dtype="bfloat16"), "item 16"),
+                       (dict(mamba_shard_channels="model"), "item 15")):
+        with pytest.raises(NotImplementedError, match=item):
+            T.forward_hidden(hp, dataclasses.replace(hcfg, **over),
+                             {"tokens": toks})
 
 
 def test_serve_builders_default_to_the_card():
@@ -343,8 +443,8 @@ def test_serve_builders_default_to_the_card():
     for build in (serve.build_prefill_step, serve.build_decode_step,
                   serve.build_prefill_cache_step):
         assert inspect.signature(build).parameters["device"].default == "cuda"
-    assert inspect.signature(T.init_params).parameters[
-        "device"].default == "cuda"
+    for fn in (T.init_params, T.init_cache, B.init_block_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.build_prefill_cache_step(cfg, cache_len=8)

@@ -120,7 +120,8 @@ class TestOnCard:
         gpu.run(3)
         assert ops.LAUNCH_COUNTS == {
             "batched_moments": 3, "ota_superpose": 3, "streaming_moments": 0,
-            "ota_superpose_streaming": 0, "sumsq": 3, "flash_attention": 0}
+            "ota_superpose_streaming": 0, "sumsq": 3, "flash_attention": 0,
+            "selective_scan": 0}
         cpu = Experiment(spec, device="cpu")
         cpu.run(3)
         for k, v in cpu.params.items():
@@ -186,3 +187,90 @@ class TestFlashAttentionOnCard:
         off = ops.flash_attention(qf, kf, vf, causal=causal,
                                   window=(window or s) - 1, impl="plain")
         assert not bool(((off - want).abs() <= tol).all())
+
+
+# chip_smoke.py's rule for K7 against its plain version: per element,
+# |d| <= SCAN_RTOL * Y_abs, where Y_abs is the plain scan of |u|, dt, a,
+# |B|, |C| -- the recurrence on the absolute terms, an upper bound of
+# sum_n |h_t,n C_t,n| -- and likewise for h_S against the final state of
+# that scan.  The kernel and the plain version round differently (expf
+# against torch.exp, fused multiply-adds, the order of the N-way sum):
+# a few fp32 eps a step, compounded over the memory 1 / (dt |a|) of the
+# slowest state, ~1e2 steps for these inputs, about 2e-5 at worst.  A
+# result that drops one time step or resets the carried state at a
+# tile boundary is off by a sizeable share of Y_abs there.
+SCAN_RTOL = 1e-4
+SCAN_TILE = 64                    # time steps per staged tile (kT in the .cu)
+
+
+def scan_inputs(b, s, d, n, dtype, seed):
+    """The reference's kernel-test inputs (tests/test_kernels.py), drawn on
+    the card: u, B, C normal in ``dtype``; dt = softplus(normal) and
+    a = -exp(normal) in fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    u = normal(b, s, d).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, d))
+    a = -torch.exp(normal(d, n))
+    return u, dt, a, normal(b, s, n).to(dtype), normal(b, s, n).to(dtype)
+
+
+def scan_abs(u, dt, a, bm, cm):
+    """(Y_abs, H_abs): the plain scan on the absolute terms."""
+    return ops.selective_scan(u.abs(), dt, a, bm.abs(), cm.abs(),
+                              return_state=True, impl="plain")
+
+
+def scan_reset_at(u, dt, a, bm, cm, cut):
+    """The plain scan with the carried state reset to 0 at step ``cut``."""
+    halves = [ops.selective_scan(*(x[:, sl].contiguous()
+                                   for x in (u, dt)), a,
+                                 *(x[:, sl].contiguous() for x in (bm, cm)),
+                                 impl="plain")
+              for sl in (slice(0, cut), slice(cut, None))]
+    return torch.cat(halves, dim=1)
+
+
+@pytest.mark.cuda
+class TestSelectiveScanOnCard:
+    """K7 against its plain version at chip_smoke.py's shapes, with the
+    checks that its rule rejects a result that drops one time step or
+    resets the state at a tile boundary."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,s,d,n", [
+        (4, 8192, 8192, 16),      # the Jamba prefill's scan
+        (1, 8192, 8192, 16),
+        (2, 1000, 1000, 16),      # ragged S and D
+        (1, 333, 77, 5),          # ragged, N below the kernel's 16
+    ])
+    def test_selective_scan_matches_plain(self, b, s, d, n, dtype):
+        u, dt, a, bm, cm = scan_inputs(b, s, d, n, dtype, seed=s + d + n)
+        y, h = ops.selective_scan(u, dt, a, bm, cm, return_state=True,
+                                  impl="kernel")
+        yp, hp = ops.selective_scan(u, dt, a, bm, cm, return_state=True,
+                                    impl="plain")
+        assert y.dtype == h.dtype == torch.float32
+        assert y.shape == (b, s, d) and h.shape == (b, d, n)
+        y_abs, h_abs = scan_abs(u, dt, a, bm, cm)
+        tol = SCAN_RTOL * y_abs
+        assert bool(((y - yp).abs() <= tol).all())
+        assert bool(((h - hp).abs() <= SCAN_RTOL * h_abs).all())
+        assert torch.equal(ops.selective_scan(u, dt, a, bm, cm,
+                                              impl="kernel"), y)
+        t = s // 2                         # dt = 0 skips the update
+        dt_drop = dt.clone()
+        dt_drop[:, t] = 0.0
+        dropped = ops.selective_scan(u, dt_drop, a, bm, cm, impl="plain")
+        assert not bool(((dropped - yp).abs() <= tol).all())
+        cut = max(1, s // 2 // SCAN_TILE) * SCAN_TILE
+        reset = scan_reset_at(u, dt, a, bm, cm, cut)
+        assert not bool(((reset - yp).abs() <= tol).all())
