@@ -44,8 +44,10 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
 9. flash   -- flash attention (K6) against its plain version, fp32 and
               bf16, at the serving layer's shape ([4, 32, 8192, 80] over 8
               kv heads, window 4,096, as the prefill gives it, and at
-              B = 1), a ragged [2, 8, 1000, 128] causal and not, and a
-              window (16) smaller than the kernel's 64-key tile;
+              B = 1), at Jamba's attention layer's ([4 and 1, 32, 8192,
+              128] over 8 kv heads, causal, no window), a ragged
+              [2, 8, 1000, 128] causal and not, and a window (16) smaller
+              than the kernel's 64-key tile;
               each row also shows that its tolerance rejects the plain
               result with the last kv tile dropped and with the window off
               by one; device times beside the operations bound and
@@ -62,7 +64,9 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               forward over 8,193 tokens;
 11. scan   -- the selective scan (K7) against its plain version, fp32 and
               bf16 u, B, C, at the Jamba prefill's [4, 8192, 8192, 16], at
-              B = 1, ragged [2, 1000, 1000, 16] and [1, 333, 77, 5], the
+              B = 1, ragged [2, 1000, 1000, 16] and [1, 333, 77, 5] with
+              the reference kernel test's a and dt, and at the prefill's
+              shape with Jamba's own (a = -(1..16), dt in [1e-3, 0.1]), the
               final state h_S too; each row also shows that its tolerance
               rejects the plain result with one time step dropped and with
               the state reset at a tile boundary; device times beside the
@@ -72,9 +76,10 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               MLPs; 13.3 B parameters), random bf16 weights from a seed,
               through the same serving steps and prompts; 7 K7 and 1 K6
               launches a prefill; then in fp32 at B = 1 over 2,048 tokens
-              the kernel route against the plain route (hidden states,
-              greedy token, top-2 routing flips per MoE layer beside the
-              router gaps) and the prefill -> decode handoff at
+              the kernel route against the plain route (top-2 routing
+              flips per MoE layer beside the router gaps; hidden states
+              and greedy token over the tokens before the first flip) and
+              the prefill -> decode handoff at
               capacity_factor 8.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
@@ -826,10 +831,13 @@ def phase_stream(ops) -> dict:
 SERVE_ARCH = "h2o-danube-1.8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 8192, 32
 # (B, H, Hkv, S, d, causal, window) of the K6 rows: the serving layer as
-# the serve phase's prefill gives it (B = 4) and at B = 1, a ragged S causal
-# and not, a window smaller than the 64-key tile
+# the serve phase's prefill gives it (B = 4) and at B = 1, Jamba's
+# attention layer as the serve_hybrid phase's prefill gives it (B = 4) and
+# at B = 1, a ragged S causal and not, a window smaller than the 64-key tile
 FLASH_SHAPES = ((4, 32, 8, 8192, 80, True, 4096),
                 (1, 32, 8, 8192, 80, True, 4096),
+                (4, 32, 8, 8192, 128, True, None),
+                (1, 32, 8, 8192, 128, True, None),
                 (2, 8, 8, 1000, 128, True, None),
                 (2, 8, 8, 1000, 128, False, None),
                 (1, 4, 2, 333, 80, True, 16))
@@ -1133,16 +1141,19 @@ HYBRID_ARCH = "jamba-v0.1-52b"
 HYBRID_LAYERS = 8                # one superblock of the 32 (the full 103 GB
                                  # in bf16 does not fit one 80 GB card)
 HYBRID_FP32_PROMPT = 2048        # fp32 weights are 53.2 GB at one superblock
-# (B, S, D, N) of the K7 rows: the Jamba prefill's scan (B = 4) and at
-# B = 1, a ragged S and D, and a ragged one with N below the kernel's 16
-SCAN_SHAPES = ((4, 8192, 8192, 16), (1, 8192, 8192, 16),
-               (2, 1000, 1000, 16), (1, 333, 77, 5))
+# (B, S, D, N, draw) of the K7 rows: the Jamba prefill's scan (B = 4) and
+# at B = 1, a ragged S and D, and a ragged one with N below the kernel's
+# 16, with the reference kernel test's draw ("test"); and the prefill's
+# scan with Jamba's own a and dt ("jamba", see scan_inputs)
+SCAN_SHAPES = ((4, 8192, 8192, 16, "test"), (1, 8192, 8192, 16, "test"),
+               (2, 1000, 1000, 16, "test"), (1, 333, 77, 5, "test"),
+               (4, 8192, 8192, 16, "jamba"))
 SCAN_TILE = 64                   # time steps per staged tile (kT in the .cu)
 # |kernel - plain| <= SCAN_RTOL * Y_abs, Y_abs the plain scan of |u|, dt,
 # a, |B|, |C| (an upper bound of sum_n |h_t,n C_t,n|): the two round
 # differently (expf vs torch.exp, fused multiply-adds, the N-way sum's
-# order), a few eps a step over the ~1e2-step memory of the slowest state
-# at these inputs, ~2e-5 at worst
+# order), a few eps a step over the memory 1 / (dt |a|) of the slowest
+# state: ~1e2 steps for the "test" draw, ~1e3 for the "jamba" draw
 SCAN_RTOL = 1e-4
 # the SFU's exponentials: 16 a clock per SM, 132 SMs, 1.98 GHz (H100 SXM)
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -1150,15 +1161,27 @@ HYBRID_HIDDEN_REL = 1e-4         # fp32 kernel vs plain route, final hidden
 
 
 def scan_inputs(shape, dtype, gen):
-    """The reference kernel test's distributions (tests/test_kernels.py):
-    u, B, C normal in ``dtype``; dt = softplus(normal), a = -exp(normal)."""
-    b, s, d, n = shape
+    """u, B, C normal in ``dtype``.  Draw "test", the reference kernel
+    test's (tests/test_kernels.py): dt = softplus(normal), a = -exp(normal).
+    Draw "jamba", as models/mamba.py's init_mamba sets the operands up:
+    a = -(1..N) in every channel, and each channel's dt log-uniform in
+    [1e-3, 0.1] (dt_proj_b's range) and held over all steps, so the
+    slowest state (dt 1e-3, a -1) remembers ~1e3 steps."""
+    b, s, d, n, draw = shape
 
     def normal(*sh):
         return torch.randn(sh, generator=gen, device="cuda")
     u = normal(b, s, d).to(dtype)
-    dt = torch.nn.functional.softplus(normal(b, s, d))
-    a = -torch.exp(normal(d, n))
+    if draw == "jamba":
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt_init = torch.exp(lo + (hi - lo) * torch.rand(
+            (d,), generator=gen, device="cuda"))
+        dt = dt_init.expand(b, s, d).contiguous()
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device="cuda").expand(d, n).contiguous()
+    else:
+        dt = torch.nn.functional.softplus(normal(b, s, d))
+        a = -torch.exp(normal(d, n))
     return u, dt, a, normal(b, s, n).to(dtype), normal(b, s, n).to(dtype)
 
 
@@ -1167,7 +1190,7 @@ def scan_bound(shape, dtype):
     one exponential a (b, t, d, n) at the SFU rate, and ~6 fp32 flops a
     state (dt a, dt u B, the multiply-add of h, the product and sum with C)
     at 67 TFLOP/s; the largest of the three."""
-    b, s, d, n = shape
+    b, s, d, n = shape[:4]
     item = torch.finfo(dtype).bits // 8
     nbytes = (item * b * s * d + 4 * b * s * d + 4 * d * n
               + 2 * item * b * s * n + 4 * b * s * d + 4 * b * d * n)
@@ -1178,7 +1201,7 @@ def scan_bound(shape, dtype):
 
 
 def check_scan(ops, shape, dtype, gen) -> dict:
-    b, s, d, n = shape
+    b, s, d, n, draw = shape
     args = scan_inputs(shape, dtype, gen)
     u, dt, a, bm, cm = args
     y, h = ops.selective_scan(*args, return_state=True, impl="kernel")
@@ -1205,7 +1228,7 @@ def check_scan(ops, shape, dtype, gen) -> dict:
     del reset
     b_ms, b_by = scan_bound(shape, dtype)
     row = {"kernel": "selective_scan", "dtype": str(dtype)[6:],
-           "b": b, "s": s, "d": d, "n": n,
+           "b": b, "s": s, "d": d, "n": n, "draw": draw,
            "max_abs_err": float(d_y.max()),
            "max_err_over_tol": float((d_y / tol).max()),
            "state_max_abs_err": float(d_h.max()),
@@ -1261,7 +1284,9 @@ def phase_scan(ops) -> dict:
 class RouterLog:
     """Records each MoE layer's router probabilities [T, E] while active:
     it stands in for ``moe.router_probs`` (which ``moe_mlp`` looks up at
-    call time) and restores it on exit."""
+    call time) and restores it on exit.  The caller checks that it saw
+    every MoE layer, so a ``moe_mlp`` that stops looking the name up fails
+    the run instead of reading as no flips."""
 
     def __init__(self):
         from repro_torch.models import moe
@@ -1281,18 +1306,22 @@ class RouterLog:
         self.moe.router_probs = self.orig
 
 
-def route_flips(probs_a, probs_b, k: int) -> list:
+def route_flips(probs_a, probs_b, k: int) -> tuple:
     """Per MoE layer: the tokens whose ordered top-k experts differ between
     two runs, and what could explain a flip: the smallest gap between
     consecutive probabilities among the top k + 1 (run b), and the largest
-    change of a probability between the runs."""
-    rows = []
+    change of a probability between the runs.  Also the first token that
+    flipped in any layer (the token count if none did): every layer is
+    causal, so the tokens before it took the same experts everywhere."""
+    rows, first = [], int(probs_a[0].shape[0])
     for pa, pb in zip(probs_a, probs_b):
         ea = torch.topk(pa, k, dim=-1).indices
         vb, eb = torch.topk(pb, k + 1, dim=-1)
         flipped = (ea != eb[:, :k]).any(dim=-1)
         gaps = (vb[:, :-1] - vb[:, 1:]).min(dim=-1).values
         change = (pa - pb).abs().max(dim=-1).values
+        if bool(flipped.any()):
+            first = min(first, int(flipped.nonzero()[0, 0]))
         rows.append({"tokens": int(pa.shape[0]),
                      "flips": int(flipped.sum()),
                      "min_router_gap": float(gaps.min()),
@@ -1301,7 +1330,7 @@ def route_flips(probs_a, probs_b, k: int) -> list:
                      # the change measured at that token
                      "unexplained_flips": int((flipped
                                                & (gaps > 2 * change)).sum())})
-    return rows
+    return rows, first
 
 
 def phase_serve_hybrid(ops) -> dict:
@@ -1420,12 +1449,25 @@ def phase_serve_hybrid(ops) -> dict:
         h_plain = T.forward_hidden(p32, cfg32, batch, impl="plain")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    hid_rel = float((h_kernel - h_plain).abs().max() / h_plain.abs().max())
-    tok_kernel = int(torch.argmax(h_kernel[0, -1] @ w_un))
-    tok_plain = int(torch.argmax(h_plain[0, -1] @ w_un))
-    flips = route_flips(log_kernel.probs, log_plain.probs,
-                        cfg.experts_per_token)
-    del h_kernel, h_plain, log_kernel, log_plain
+    n_moe = sum(k.endswith("+moe") for k in cfg.block_pattern)
+    logged = [len(log.probs) for log in (log_kernel, log_plain)]
+    if logged != [n_moe, n_moe] or any(
+            p.shape[0] != s32 for p in log_kernel.probs + log_plain.probs):
+        fail(f"the router log saw {logged} MoE layers, expected {n_moe} "
+             f"of {s32} tokens each")
+    flips, clean = route_flips(log_kernel.probs, log_plain.probs,
+                               cfg.experts_per_token)
+    # an explained flip sends one token to other experts, and through the
+    # causal mixers every later token differs too: the routes are compared
+    # on the tokens before the first flip, the whole prompt when none flips
+    if clean == 0:
+        fail(f"top-{cfg.experts_per_token} routing differs at the first "
+             f"token: no tokens left to compare the routes on: {flips}")
+    hk, hp = h_kernel[:, :clean], h_plain[:, :clean]
+    hid_rel = float((hk - hp).abs().max() / hp.abs().max())
+    tok_kernel = int(torch.argmax(hk[0, -1] @ w_un))
+    tok_plain = int(torch.argmax(hp[0, -1] @ w_un))
+    del h_kernel, h_plain, hk, hp, log_kernel, log_plain
     # the handoff at capacity_factor 8 (as tests/test_models.py:78-81): a
     # prefill over T tokens drops pairs that a 1-token decode never drops
     cfg_h = dataclasses.replace(cfg32, capacity_factor=8.0)
@@ -1439,9 +1481,11 @@ def phase_serve_hybrid(ops) -> dict:
     check = {"phase": "serve_hybrid_fp32", "batch": 1, "prompt": s32,
              "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
              "kernel_route_s": t1 - t0, "plain_route_s": t2 - t1,
+             "tokens_compared": clean,
              "hidden_max_rel_diff": hid_rel,
              "hidden_tolerance": f"max|d| <= {HYBRID_HIDDEN_REL:g} "
-                                 "max|h_plain|",
+                                 "max|h_plain|, over the tokens before the "
+                                 "first routing flip",
              "greedy_kernel": tok_kernel, "greedy_plain": tok_plain,
              "route_flips_per_moe_layer": flips,
              "handoff_capacity_factor": 8.0,

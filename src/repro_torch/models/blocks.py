@@ -62,7 +62,6 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if enc_out is not None:
         raise NotImplementedError(f"enc_out (encoder-decoder) waits for "
                                   f"{L.ZOO_ITEM}")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     h_in = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mixer == "attn" and cache_len > 0:
@@ -81,15 +80,20 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         cache = {"ssm": ssm, "conv": conv}
     else:
         h = M.mamba_mix(params["mamba"], cfg, h_in, impl=impl)
-    x = x + h
+    x, aux = _mlp(params, cfg, mlp_kind, x + h)
+    return x, aux, cache
+
+
+def _mlp(params: Dict, cfg: ModelConfig, mlp_kind: str, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP half, residual included: (x, aux_loss), the MoE's
+    router losses or zero for a dense MLP."""
     h_in = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
     if mlp_kind == "dense":
-        x = x + L.mlp(params["mlp"], cfg, h_in)
-    else:
-        y, moe_aux = MOE.moe_mlp(params["moe"], cfg, h_in)
-        x = x + y
-        aux = aux + MOE.aux_loss(cfg, moe_aux)
-    return x, aux, cache
+        return (x + L.mlp(params["mlp"], cfg, h_in),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    y, moe_aux = MOE.moe_mlp(params["moe"], cfg, h_in)
+    return x + y, MOE.aux_loss(cfg, moe_aux)
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +122,7 @@ def apply_block_decode(params: Dict, cfg: ModelConfig, kind: str,
     """Single-token decode through one block.  x: [B,1,D].  The cache's
     tensors are updated in place (``layers.decode_attention``,
     ``mamba.mamba_decode_step``) and returned in a new dict."""
-    mixer, _ = _check_kind(kind)
+    mixer, mlp_kind = _check_kind(kind)
     if enc_out is not None:
         raise NotImplementedError(f"enc_out (encoder-decoder) waits for "
                                   f"{L.ZOO_ITEM}")
@@ -132,15 +136,4 @@ def apply_block_decode(params: Dict, cfg: ModelConfig, kind: str,
     else:
         h, new_cache["ssm"], new_cache["conv"] = M.mamba_decode_step(
             params["mamba"], cfg, h_in, cache["ssm"], cache["conv"])
-    x = x + h
-    return _decode_mlp(params, cfg, kind, x), new_cache
-
-
-def _decode_mlp(params: Dict, cfg: ModelConfig, kind: str,
-                x: torch.Tensor) -> torch.Tensor:
-    _, mlp_kind = _check_kind(kind)
-    h_in = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    if mlp_kind == "dense":
-        return x + L.mlp(params["mlp"], cfg, h_in)
-    y, _ = MOE.moe_mlp(params["moe"], cfg, h_in)
-    return x + y
+    return _mlp(params, cfg, mlp_kind, x + h)[0], new_cache

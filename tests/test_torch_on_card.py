@@ -4,6 +4,8 @@
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_on_card.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -164,6 +166,8 @@ class TestFlashAttentionOnCard:
     @pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
         (4, 32, 8, 8192, 80, True, 4096),      # the serving layer's prefill
         (1, 32, 8, 8192, 80, True, 4096),
+        (4, 32, 8, 8192, 128, True, None),     # Jamba's attention prefill
+        (1, 32, 8, 8192, 128, True, None),
         (2, 8, 8, 1000, 128, True, None),      # ragged S
         (2, 8, 8, 1000, 128, False, None),
         (1, 4, 2, 333, 80, True, 16),          # window < the 64-key tile
@@ -196,24 +200,35 @@ class TestFlashAttentionOnCard:
 # that scan.  The kernel and the plain version round differently (expf
 # against torch.exp, fused multiply-adds, the order of the N-way sum):
 # a few fp32 eps a step, compounded over the memory 1 / (dt |a|) of the
-# slowest state, ~1e2 steps for these inputs, about 2e-5 at worst.  A
-# result that drops one time step or resets the carried state at a
-# tile boundary is off by a sizeable share of Y_abs there.
+# slowest state, ~1e2 steps for the "test" draw and ~1e3 for the "jamba"
+# draw.  A result that drops one time step or resets the carried state at
+# a tile boundary is off by a sizeable share of Y_abs there.
 SCAN_RTOL = 1e-4
 SCAN_TILE = 64                    # time steps per staged tile (kT in the .cu)
 
 
-def scan_inputs(b, s, d, n, dtype, seed):
-    """The reference's kernel-test inputs (tests/test_kernels.py), drawn on
-    the card: u, B, C normal in ``dtype``; dt = softplus(normal) and
-    a = -exp(normal) in fp32."""
+def scan_inputs(b, s, d, n, dtype, seed, draw="test"):
+    """Drawn on the card: u, B, C normal in ``dtype``.  Draw "test", the
+    reference's kernel-test inputs (tests/test_kernels.py): dt =
+    softplus(normal) and a = -exp(normal) in fp32.  Draw "jamba", the
+    operands as models/mamba.py's init_mamba sets them up: a = -(1..N) in
+    every channel, each channel's dt log-uniform in [1e-3, 0.1] and held
+    over all steps (a memory of ~1e3 steps at dt 1e-3, a -1)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     u = normal(b, s, d).to(dtype)
-    dt = torch.nn.functional.softplus(normal(b, s, d))
-    a = -torch.exp(normal(d, n))
+    if draw == "jamba":
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt_init = torch.exp(lo + (hi - lo) * torch.rand(
+            (d,), generator=gen, device="cuda"))
+        dt = dt_init.expand(b, s, d).contiguous()
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device="cuda").expand(d, n).contiguous()
+    else:
+        dt = torch.nn.functional.softplus(normal(b, s, d))
+        a = -torch.exp(normal(d, n))
     return u, dt, a, normal(b, s, n).to(dtype), normal(b, s, n).to(dtype)
 
 
@@ -246,14 +261,16 @@ class TestSelectiveScanOnCard:
                         "False)")
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("b,s,d,n", [
-        (4, 8192, 8192, 16),      # the Jamba prefill's scan
-        (1, 8192, 8192, 16),
-        (2, 1000, 1000, 16),      # ragged S and D
-        (1, 333, 77, 5),          # ragged, N below the kernel's 16
+    @pytest.mark.parametrize("b,s,d,n,draw", [
+        (4, 8192, 8192, 16, "test"),      # the Jamba prefill's scan
+        (1, 8192, 8192, 16, "test"),
+        (2, 1000, 1000, 16, "test"),      # ragged S and D
+        (1, 333, 77, 5, "test"),          # ragged, N below the kernel's 16
+        (4, 8192, 8192, 16, "jamba"),     # with Jamba's own a and dt
     ])
-    def test_selective_scan_matches_plain(self, b, s, d, n, dtype):
-        u, dt, a, bm, cm = scan_inputs(b, s, d, n, dtype, seed=s + d + n)
+    def test_selective_scan_matches_plain(self, b, s, d, n, draw, dtype):
+        u, dt, a, bm, cm = scan_inputs(b, s, d, n, dtype, seed=s + d + n,
+                                       draw=draw)
         y, h = ops.selective_scan(u, dt, a, bm, cm, return_state=True,
                                   impl="kernel")
         yp, hp = ops.selective_scan(u, dt, a, bm, cm, return_state=True,
