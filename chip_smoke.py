@@ -41,16 +41,20 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               shared pool, batches made per K-block through
               ``block_batch_provider``; rounds/s, K2 launches (100 a round),
               peak device memory under 512 MiB, params against the CPU;
-9. flash   -- flash attention (K6) against its plain version, fp32 and
-              bf16, at the serving layer's shape ([4, 32, 8192, 80] over 8
-              kv heads, window 4,096, as the prefill gives it, and at
-              B = 1), at Jamba's attention layer's ([4 and 1, 32, 8192,
-              128] over 8 kv heads, causal, no window), a ragged
-              [2, 8, 1000, 128] causal and not, and a window (16) smaller
-              than the kernel's 64-key tile;
-              each row also shows that its tolerance rejects the plain
-              result with the last kv tile dropped and with the window off
-              by one; device times beside the operations bound and
+9. flash   -- flash attention (K6) against its plain version, both
+              bodies (fp32 on the fp32 cores, bf16 on the tensor cores
+              through wgmma and TMA), at the serving layer's shape ([4, 32,
+              8192, 80] over 8 kv heads, window 4,096, as the prefill gives
+              it, and at B = 1), at Jamba's attention layer's ([4 and 1, 32,
+              8192, 128] over 8 kv heads, causal, no window), a ragged
+              [2, 8, 1000, 128] causal and not, a window (16) smaller than a
+              kv tile, head dims 8, 24 and 64, and Sq != Skv (200 queries
+              over 700 keys; 700 over 200 with rows whose every key is
+              masked); each row also shows that its tolerance rejects the
+              plain result with the last kv tile dropped and with the window
+              off by one, that two launches are bitwise equal, and ptxas's
+              registers, shared memory and spills of the body (none may
+              spill); device times beside the operations bound and
               ``scaled_dot_product_attention`` (a yardstick only);
 10. serve  -- h2o-danube-1.8b at full width and depth (24 layers, d_model
               2,560, 32 heads over 8 kv heads, d_ff 6,912, vocab 32,000),
@@ -236,11 +240,10 @@ def phase_device() -> dict:
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     took = build.build_all()
-    ptxas = {name: [ln.strip() for ln in build.log_path(name).read_text()
-                    .splitlines() if "registers" in ln or "spill" in ln]
-             for name in build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": took, "ptxas": ptxas})
+          "per_kernel_s": took,
+          "ptxas": {name: build.ptxas_report(name)
+                    for name in build.SOURCES}})
 
 
 def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
@@ -830,18 +833,29 @@ def phase_stream(ops) -> dict:
 
 SERVE_ARCH = "h2o-danube-1.8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 8192, 32
-# (B, H, Hkv, S, d, causal, window) of the K6 rows: the serving layer as
-# the serve phase's prefill gives it (B = 4) and at B = 1, Jamba's
+# (B, H, Hkv, Sq, Skv, d, causal, window) of the K6 rows: the serving layer
+# as the serve phase's prefill gives it (B = 4) and at B = 1, Jamba's
 # attention layer as the serve_hybrid phase's prefill gives it (B = 4) and
-# at B = 1, a ragged S causal and not, a window smaller than the 64-key tile
-FLASH_SHAPES = ((4, 32, 8, 8192, 80, True, 4096),
-                (1, 32, 8, 8192, 80, True, 4096),
-                (4, 32, 8, 8192, 128, True, None),
-                (1, 32, 8, 8192, 128, True, None),
-                (2, 8, 8, 1000, 128, True, None),
-                (2, 8, 8, 1000, 128, False, None),
-                (1, 4, 2, 333, 80, True, 16))
-FLASH_TILE = 64                  # keys per kv tile in csrc/flash_attention.cu
+# at B = 1, a ragged S causal and not, a window smaller than a kv tile,
+# head dims 8, 24 and 64 (the bf16 body pads d to a multiple of 16 by TMA's
+# zero fill), and Sq != Skv: fewer queries than keys, and more, where no
+# tile is skipped and the rows past Skv + W - 1 have every key masked
+FLASH_SHAPES = ((4, 32, 8, 8192, 8192, 80, True, 4096),
+                (1, 32, 8, 8192, 8192, 80, True, 4096),
+                (4, 32, 8, 8192, 8192, 128, True, None),
+                (1, 32, 8, 8192, 8192, 128, True, None),
+                (2, 8, 8, 1000, 1000, 128, True, None),
+                (2, 8, 8, 1000, 1000, 128, False, None),
+                (1, 4, 2, 333, 333, 80, True, 16),
+                (1, 4, 2, 500, 500, 8, True, None),
+                (1, 4, 2, 500, 500, 24, True, 100),
+                (1, 4, 2, 500, 500, 64, False, None),
+                (1, 4, 2, 200, 700, 80, True, None),
+                (1, 4, 2, 700, 200, 80, True, 64),
+                (1, 4, 2, 700, 200, 128, False, 64))
+# keys per kv tile: kBK in csrc/flash_attention_wgmma.cu (bf16), kBK in
+# csrc/flash_attention.cu (fp32)
+FLASH_TILE = {torch.bfloat16: 128, torch.float32: 64}
 HIDDEN_REL = 1e-4                # fp32 kernel vs plain route, final hidden
 HANDOFF_REL = 2e-3               # tests/test_models.py:96's bound
 HEAVY_MS = 1.0                   # calls longer than this are timed eagerly
@@ -900,36 +914,57 @@ def flash_ms(fn) -> float:
     return statistics.median(samples)
 
 
-def check_flash(ops, shape, dtype, gen) -> dict:
+def flash_ptxas(build, dtype, d) -> dict:
+    """ptxas's report of the K6 body that runs ``dtype`` at head dim ``d``
+    (the bf16 body has one instantiation per d padded to 16), with the
+    launch's dynamic shared memory."""
+    from repro_torch.kernels import flash_attention as FA
+    report = build.ptxas_report(FA.BODIES[dtype][0])
+    if dtype == torch.bfloat16:
+        tag = f"ILi{(d + 15) // 16 * 16}E"
+        report = {k: r for k, r in report.items() if tag in k}
+    (row,) = report.values()
+    return dict(row, dynamic_smem=FA.smem_bytes(dtype, d))
+
+
+def check_flash(ops, build, shape, dtype, gen) -> dict:
     import torch.nn.functional as F
-    b, h, hkv, s, d, causal, window = shape
-    q, k, v = (torch.randn((b, n, s, d), generator=gen, device="cuda")
-               .to(dtype) for n in (h, hkv, hkv))
+    from repro_torch.kernels.flash_attention import BODIES
+    b, h, hkv, sq, skv, d, causal, window = shape
+    q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, hkv, skv, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
     kw = dict(causal=causal, window=window)
     got = ops.flash_attention(q, k, v, impl="kernel", **kw)
+    again = ops.flash_attention(q, k, v, impl="kernel", **kw)
     qf, kf, vf = q.float(), k.float(), v.float()
     want = ops.flash_attention(qf, kf, vf, impl="plain", **kw)
     torch.cuda.synchronize()
     tol = flash_tol(want, dtype)
     d_abs = (got.float() - want).abs()
-    # the rule must reject the plain result without the last kv tile, and
-    # with the window one narrower (no window: S - 1, which drops one pair)
-    cut = (s - 1) // FLASH_TILE * FLASH_TILE
+    # the rule must reject the plain result without the last kv tile the
+    # kernel visits (causal: the tile of key min(Sq, Skv) - 1; later keys
+    # are masked for every row), and with the window one narrower (no
+    # window: Sq - 1, which drops the pair (Sq - 1, 0))
+    last = min(sq, skv) if causal else skv
+    cut = (last - 1) // FLASH_TILE[dtype] * FLASH_TILE[dtype]
     dropped = ops.flash_attention(qf, kf[:, :, :cut], vf[:, :, :cut],
                                   impl="plain", **kw)
     off = ops.flash_attention(qf, kf, vf, causal=causal,
-                              window=(window or s) - 1, impl="plain")
+                              window=(window or sq) - 1, impl="plain")
     rejects_dropped = not bool(((dropped - want).abs() <= tol).all())
     rejects_window = not bool(((off - want).abs() <= tol).all())
     del dropped, off, qf, kf, vf
-    # the yardstick: one PyTorch call, on kv expanded to H heads
+    # the yardstick: one PyTorch call, on kv expanded to H heads (its
+    # is_causal keeps key j <= query i, as K6 does, at any Sq and Skv)
     ke = torch.repeat_interleave(k, h // hkv, dim=1)
     ve = torch.repeat_interleave(v, h // hkv, dim=1)
     if window:
-        i = torch.arange(s, device="cuda")
-        mask = (i[None, :] <= i[:, None]) if causal \
-            else torch.ones((s, s), dtype=torch.bool, device="cuda")
-        mask = mask & (i[:, None] - i[None, :] < window)
+        i = torch.arange(sq, device="cuda")[:, None]
+        j = torch.arange(skv, device="cuda")[None, :]
+        mask = (j <= i) if causal else torch.ones(
+            (sq, skv), dtype=torch.bool, device="cuda")
+        mask = mask & (i - j < window)
 
         def library():
             return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
@@ -938,10 +973,11 @@ def check_flash(ops, shape, dtype, gen) -> dict:
         def library():
             return F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
         call = f"scaled_dot_product_attention(is_causal={causal})"
-    b_ms, b_by = flash_bound(b, h, hkv, s, s, d, causal, window, dtype)
+    b_ms, b_by = flash_bound(b, h, hkv, sq, skv, d, causal, window, dtype)
     row = {"kernel": "flash_attention", "dtype": str(dtype)[6:],
-           "b": b, "h": h, "hkv": hkv, "s": s, "d": d, "causal": causal,
-           "window": window, "max_abs_err": float(d_abs.max()),
+           "body": BODIES[dtype][1], "b": b, "h": h, "hkv": hkv, "sq": sq,
+           "skv": skv, "d": d, "causal": causal, "window": window,
+           "max_abs_err": float(d_abs.max()),
            "max_err_over_tol": float((d_abs / tol).max()),
            "tolerance": ("|d| <= 2^-8 |o_plain| + 1e-5 (plain in fp32 from "
                          "the same bf16 inputs)" if dtype == torch.bfloat16
@@ -949,25 +985,28 @@ def check_flash(ops, shape, dtype, gen) -> dict:
            "within_tolerance": bool((d_abs <= tol).all()),
            "rejects_dropped_kv_tile": rejects_dropped,
            "rejects_window_off_by_one": rejects_window,
+           "two_launches_bitwise": bool(torch.equal(got, again)),
+           "ptxas": flash_ptxas(build, dtype, d),
            "kernel_ms": flash_ms(lambda: ops.flash_attention(
                q, k, v, impl="kernel", **kw)),
            "plain_ms": flash_ms(lambda: ops.flash_attention(
                q, k, v, impl="plain", **kw)),
            "library_ms": flash_ms(library), "library_call": call,
            "bound_ms": b_ms, "bound_by": b_by,
-           "band_pairs": b * h * band_pairs(s, s, causal, window)}
+           "band_pairs": b * h * band_pairs(sq, skv, causal, window)}
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     return row
 
 
-def phase_flash(ops) -> dict:
-    """K6 against its plain version at FLASH_SHAPES, fp32 and bf16; returns
-    the row of the shape and type the serve phase's prefill gives it."""
+def phase_flash(ops, build) -> dict:
+    """K6 against its plain version at FLASH_SHAPES, both bodies (fp32 on
+    the fp32 cores, bf16 on the tensor cores); returns the row of the shape
+    and type the serve phase's prefill gives it."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
     path_row = None
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            row = check_flash(ops, shape, dtype, gen)
+            row = check_flash(ops, build, shape, dtype, gen)
             row["phase"] = "flash"
             emit(row)
             where = f"{shape} {row['dtype']}"
@@ -979,6 +1018,11 @@ def phase_flash(ops) -> dict:
                 fail(f"flash_attention's tolerance at {where} would pass a "
                      "result without the last kv tile or with the window "
                      "off by one")
+            if not row["two_launches_bitwise"]:
+                fail(f"flash_attention at {where}: two launches differ")
+            if row["ptxas"]["spill_stores"] or row["ptxas"]["spill_loads"]:
+                fail(f"flash_attention's {row['body']} body spills: "
+                     f"{row['ptxas']}")
             if shape == FLASH_SHAPES[0] and dtype == torch.bfloat16:
                 path_row = row
     torch.cuda.empty_cache()
@@ -1590,7 +1634,7 @@ def main() -> None:
     emit_memory("stream_facade")
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
-    checks["flash_attention"] = phase_flash(ops)
+    checks["flash_attention"] = phase_flash(ops, build)
     emit_memory("flash")
     serve_launches = {"flash_attention": phase_serve(ops)}
     emit_memory("serve")
@@ -1615,7 +1659,7 @@ def main() -> None:
                                     stream_launches),
         "sumsq": (csrc + "sumsq.cu", "src/repro/kernels/grad_norm.py:50",
                   main_launches),
-        "flash_attention": (csrc + "flash_attention.cu",
+        "flash_attention": (csrc + "flash_attention_wgmma.cu",
                             "src/repro/kernels/flash_attention.py:86",
                             serve_launches),
         "selective_scan": (csrc + "selective_scan.cu",
@@ -1633,6 +1677,8 @@ def main() -> None:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+        if "body" in row:            # K6: the bf16 body runs on the path
+            kernels[-1]["body"] = row["body"]
     print(info["nvidia_smi"], flush=True)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all",
           file=sys.stderr, flush=True)

@@ -5,7 +5,9 @@ Takes numpy arrays (``np.asarray`` of JAX arrays), never JAX objects: this
 module, like the rest of the port, imports no ``jax``.  The FL models'
 parameter trees are flat dicts; the port orders their leaves by sorted key,
 as ``jax.tree_util`` orders a dict.  The model zoo's trees are nested dicts
-and tuples (``model_params_from_jax``).
+and tuples (``model_params_from_jax``).  Every function here puts its
+tensors on the card unless the caller passes ``device="cpu"`` (the tests),
+and raises without a card, as ``resolve_device`` does.
 """
 from __future__ import annotations
 
@@ -14,20 +16,22 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.fed.runtime import FLState
 
 
-def params_from_jax(tree: Mapping[str, Any], device="cpu"
+def params_from_jax(tree: Mapping[str, Any], device="cuda"
                     ) -> dict:
     """A flat ``{name: array}`` tree -> ``{name: Tensor}`` on ``device``
     (dtype kept)."""
-    return {k: torch.as_tensor(np.array(tree[k])).to(device)
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(tree[k])).to(dev)
             for k in sorted(tree)}
 
 
 def state_from_jax(params: Mapping[str, Any], h, h_hat, b, a, eta0,
                    round: int = 0, *, model_dim: int = 0,
-                   device="cpu") -> FLState:
+                   device="cuda") -> FLState:
     """An ``FLState`` holding the reference's parameters and channel state
     (``h``, ``h_hat``, ``b`` as float64 [K]; ``a``, ``eta0`` floats)."""
     h = np.asarray(h, np.float64)
@@ -46,10 +50,11 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a)).to(device)
 
 
-def model_params_from_jax(tree, device="cpu"):
+def model_params_from_jax(tree, device="cuda"):
     """A model zoo parameter tree (nested dicts and tuples of numpy arrays:
     ``jax.tree_util.tree_map(np.asarray, params)``) -> the same tree of
     tensors on ``device``, dtype kept (bfloat16 included)."""
+    device = resolve_device(device)
     if isinstance(tree, Mapping):
         return {k: model_params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

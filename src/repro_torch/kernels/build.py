@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +29,7 @@ SOURCES = {"moments": "moments.cu", "ota_superpose": "ota_superpose.cu",
            "stream_moments": "stream_moments.cu",
            "ota_superpose_stream": "ota_superpose_stream.cu",
            "sumsq": "sumsq.cu", "flash_attention": "flash_attention.cu",
+           "flash_attention_wgmma": "flash_attention_wgmma.cu",
            "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,6 +60,32 @@ def library_path(name: str) -> Path:
 def log_path(name: str) -> Path:
     """The compiler's output (ptxas register/shared-memory report)."""
     return library_path(name).with_suffix(".log")
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """ptxas's report of kernel ``name``'s built library, by entry function
+    (mangled name): registers, static shared memory, stack and spill
+    bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {"registers": 0, "smem": 0,
+                                                "stack": 0, "spill_stores": 0,
+                                                "spill_loads": 0})
+            continue
+        if entry is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                entry[key] = int(m.group(1))
+    return out
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

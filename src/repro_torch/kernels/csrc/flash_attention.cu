@@ -1,5 +1,5 @@
-// Flash attention (online softmax) over [B, H, S, d], bf16 or fp32 in, the
-// input type out, fp32 inside:
+// Flash attention (online softmax) on the fp32 cores: the fp32 body of K6.
+// Over [B, H, S, d], fp32 in and out:
 //   o[b,h,i] = sum_j softmax_j(s_ij) v[b,hk,j],
 //   s_ij = <q[b,h,i], k[b,hk,j]> / sqrt(d)
 // with hk = h / (H / Hkv) (grouped-query attention: k and v are read with
@@ -7,6 +7,8 @@
 // a key j is out of the domain when j >= Skv, and a score is set to -1e30
 // (not dropped) when causal and j > i, or when a window W is set and
 // i - j >= W.  The finish divides by max(l, 1e-30).
+// flash_attention_wgmma.cu computes the same function for bf16 on the
+// tensor cores; the wrapper (kernels/flash_attention.py) sends fp32 here.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
 // flash_attention_blocked (body _flash_kernel): a (B, H, S/bq, S/bk) grid
@@ -15,13 +17,11 @@
 // and kv already expanded to H heads.
 //
 // Bound on an H100: operations.  The work is 4 d flops per (query, key)
-// pair inside the causal/window band (two products of d multiply-adds).
-// At the serving shape (B 4, H 32 over Hkv 8, S 8192, W 4096, d 80, bf16)
-// a layer is 1.03 TFLOP, 1.04 ms at the 989 TFLOP/s bf16 tensor-core rate,
-// against 0.13 ms to move q, k, v and o once at 3.35 TB/s.  This kernel is
-// the simple first port: it does its products on the fp32 cores
-// (67 TFLOP/s), not the tensor cores, so its floor is ~15x the bound;
-// mma/wgmma, TMA and warp specialisation come later.
+// pair inside the causal/window band (two products of d multiply-adds), at
+// the 67 TFLOP/s fp32 rate: the tensor cores have no fp32 product, and
+// TF32's ~11 bits would not meet the fp32 rule (1e-5 + 1e-5 |o|).  At
+// danube's layer (B 4, H 32 over Hkv 8, S 8192, W 4096, d 80) that is
+// 15.4 ms, against 0.26 ms to move q, k, v and o once at 3.35 TB/s.
 //
 // Design:
 //  * Nothing carries over between CTAs on this card, so the TPU's
@@ -31,8 +31,8 @@
 //    columns tx + 8j (j < d/8): the online-softmax state (m, l) and the
 //    output accumulator live in fp32 registers; the 8 lanes of a row
 //    reduce their row max and sum with shuffles.
-//  * Q (once) and each 64-key K and V tile are staged in shared memory as
-//    fp32: Q and K transposed (so a thread's operands are contiguous or
+//  * Q (once) and each 64-key K and V tile are staged in shared memory:
+//    Q and K transposed (so a thread's operands are contiguous or
 //    broadcast across the warp), with strides 68 (float4 reads) and 65
 //    (conflict-free transposing stores).  The probabilities go through a
 //    transposed shared tile to the P V product.
@@ -47,7 +47,6 @@
 //    masked score gives p = exp(0) = 1 against m = -1e30, and the first
 //    real maximum multiplies that sum by exp(-1e30 - m) = 0 exactly.
 //  * q tiles are issued last-first, so the long causal rows start early.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,27 +69,11 @@ __device__ __forceinline__ void load8(const float* p, float x[8]) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float x[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Hkv, int Sq, int Skv, int d, int causal,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int H, int Hkv, int Sq, int Skv, int d, int causal,
                        int window, int skip, float scale) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [d][kQS]
@@ -109,10 +92,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nchunk = kBQ * cpr;        // chunks per tile (kBQ == kBK)
   const int ndj = cpr;                 // output columns per thread
 
-  const T* qb = q + ((long long)b * H + h) * Sq * d;
-  const T* kb = k + ((long long)b * Hkv + hk) * Skv * d;
-  const T* vb = v + ((long long)b * Hkv + hk) * Skv * d;
-  T* ob = o + ((long long)b * H + h) * Sq * d;
+  const float* qb = q + ((long long)b * H + h) * Sq * d;
+  const float* kb = k + ((long long)b * Hkv + hk) * Skv * d;
+  const float* vb = v + ((long long)b * Hkv + hk) * Skv * d;
+  float* ob = o + ((long long)b * H + h) * Sq * d;
 
   for (int c = tid; c < nchunk; c += kThreads) {
     const int r = c / cpr;
@@ -249,10 +232,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty * 4 + i;
     if (qp >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = ob + (long long)qp * d + tx;
+    float* orow = ob + (long long)qp * d + tx;
 #pragma unroll
     for (int j = 0; j < kMaxDJ; ++j)
-      if (j < ndj) store1(orow + 8 * j, acc[i][j] / denom);
+      if (j < ndj) orow[8 * j] = acc[i][j] / denom;
   }
 }
 
@@ -261,8 +244,7 @@ size_t smem_bytes(int d) {
                           (size_t)kBK * d + (size_t)kBK * kQS);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const float* q, const float* k, const float* v, float* o, int B,
            int H, int Hkv, int Sq, int Skv, int d, int causal, int window,
            int skip, float scale, cudaStream_t st) {
   // Above 48 KB of shared memory the kernel must be allowed it, once per
@@ -274,7 +256,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !((configured >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<T>,
+    err = cudaFuncSetAttribute(flash_attention_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes(kMaxD));
     if (err != cudaSuccess) return (int)err;
@@ -282,10 +264,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const size_t smem = smem_bytes(d);
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Skv, d,
-      causal, window, skip, scale);
+  flash_attention_kernel<<<grid, kThreads, smem, st>>>(
+      q, k, v, o, H, Hkv, Sq, Skv, d, causal, window, skip, scale);
   return (int)cudaGetLastError();
 }
 
@@ -294,23 +274,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // o = attention(q, k, v) on `stream`.  q, o: [B, H, Sq, d]; k, v:
-// [B, Hkv, Skv, d]; all contiguous and 16-byte aligned, of one type (bf16
-// when is_bf16, else fp32); d a multiple of 8 up to 128; Hkv divides H;
-// window 0 for none.  The wrapper checks all of that.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+// [B, Hkv, Skv, d]; all contiguous fp32 starting on 16-byte boundaries; d a
+// multiple of 8 up to 128; Hkv divides H; window 0 for none.  The wrapper
+// checks all of that.  Returns cudaGetLastError() (cudaErrorInvalidValue
+// for a shape it does not take).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int Hkv, int Sq, int Skv,
                            int d, int causal, int window, int skip,
-                           float scale, int is_bf16, void* stream) {
+                           float scale, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Skv < 1 || d < 8 ||
       d > kMaxD || d % 8 || window < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Skv, d, causal,
-                                 window, skip, scale, st);
-  return launch<float>(q, k, v, o, B, H, Hkv, Sq, Skv, d, causal, window,
-                       skip, scale, st);
+  return launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o), B, H,
+                Hkv, Sq, Skv, d, causal, window, skip, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of a launch at head dim d.
+long long flash_attention_smem_bytes(int d) {
+  return (long long)smem_bytes(d);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,6 +1,8 @@
-"""Flash attention on the card: the wrapper of ``csrc/flash_attention.cu``,
-the Hopper port of ``repro/kernels/flash_attention.py``'s
-``flash_attention_blocked``.
+"""Flash attention on the card: the wrapper of K6's two bodies, the Hopper
+port of ``repro/kernels/flash_attention.py``'s ``flash_attention_blocked``.
+bf16 runs ``csrc/flash_attention_wgmma.cu`` (the tensor cores through
+wgmma, TMA copies, warp-specialised; ``sm_90a`` only) and fp32 runs
+``csrc/flash_attention.cu`` (the fp32 cores); ``BODIES`` names them.
 
 ``flash_attention_cuda(q, k, v, causal=, window=)`` takes q [B, H, Sq, d]
 and k, v [B, Hkv, Skv, d] (Hkv dividing H: grouped-query attention reads
@@ -23,14 +25,30 @@ from repro_torch.kernels import _launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
+# dtype -> (library, the body's name in chip_smoke.py's rows)
+BODIES = {torch.bfloat16: ("flash_attention_wgmma", "wgmma_tma"),
+          torch.float32: ("flash_attention", "fp32_cores")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ENTRY_POINTS = {
-    "flash_attention_launch": (
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
-}
+_ARGS = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I)
 _INT_MAX = 2 ** 31 - 1
 _GRID_YZ_MAX = 65_535
+
+
+def _bind(dtype: torch.dtype):
+    """(library name, the bound library) of the body that runs ``dtype``;
+    both bodies export ``<name>_launch`` with one signature."""
+    name = BODIES[dtype][0]
+    return name, _launch.bind(name, {
+        f"{name}_launch": _ARGS,
+        f"{name}_smem_bytes": ([_I], ctypes.c_longlong)})
+
+
+def smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory of the ``dtype`` body's launch at head dim
+    ``d`` (builds and loads the body's library)."""
+    name, lib = _bind(dtype)
+    return int(getattr(lib, f"{name}_smem_bytes")(d))
 
 
 def check_window(window: Optional[int]) -> None:
@@ -84,13 +102,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # skipping kv tiles outside the band is exact only while every row has
     # a key inside it (the .cu file's note); with Sq > Skv it visits all
     skip = int(sq <= skv)
-    lib = _launch.bind("flash_attention", _ENTRY_POINTS)
+    name, lib = _bind(q.dtype)
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)
-        err = lib.flash_attention_launch(
+        err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, hkv,
             sq, skv, d, int(causal), window or 0, skip, 1.0 / math.sqrt(d),
-            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _launch.raise_on(err, lib.flash_attention_error_string, "flash_attention")
+    _launch.raise_on(err, getattr(lib, f"{name}_error_string"), name)
     return o

@@ -34,7 +34,7 @@ def _check_kind(kind: str) -> Tuple[str, str]:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               device="cpu") -> Dict:
+               device="cuda") -> Dict:
     mixer, mlp_kind = _check_kind(kind)
     p = {"ln1": L.init_rmsnorm(cfg.d_model, device)}
     if mixer == "attn":

@@ -53,7 +53,7 @@ def _normal(gen: torch.Generator, shape, scale: float, dt: torch.dtype,
 # norms
 
 
-def init_rmsnorm(d: int, device="cpu"):
+def init_rmsnorm(d: int, device="cuda"):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
@@ -68,7 +68,7 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # rotary position embeddings
 
 
-def rope_frequencies(head_dim: int, theta: float, device="cpu"
+def rope_frequencies(head_dim: int, theta: float, device="cuda"
                      ) -> torch.Tensor:
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
@@ -91,7 +91,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # attention
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device="cpu"):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     d, hd = cfg.d_model, cfg.head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg)
@@ -200,7 +200,7 @@ def prefill_kv_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
-                  dtype=None, device="cpu"):
+                  dtype=None, device="cuda"):
     """Stacked KV cache for the layer stack: [L, B, S, Hkv, Dh]."""
     dt = dtype or dtype_of(cfg)
     window = cfg.sliding_window
@@ -280,7 +280,7 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             d_ff: Optional[int] = None, device="cpu"):
+             d_ff: Optional[int] = None, device="cuda"):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     dt = dtype_of(cfg)
@@ -305,7 +305,7 @@ def mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # embeddings / unembedding
 
 
-def init_embeddings(gen: torch.Generator, cfg: ModelConfig, device="cpu"):
+def init_embeddings(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     dt = dtype_of(cfg)
     p = {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt,
                         device)}

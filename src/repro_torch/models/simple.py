@@ -21,7 +21,7 @@ Params = Dict[str, torch.Tensor]
 
 def init_mlp_classifier(generator: torch.Generator, in_dim: int = 784,
                         hidden: int = 64, num_classes: int = 10,
-                        device="cpu") -> Params:
+                        device="cuda") -> Params:
     s1, s2, s3 = (1 / math.sqrt(in_dim), 1 / math.sqrt(hidden),
                   1 / math.sqrt(hidden))
 
@@ -59,7 +59,7 @@ def mlp_classifier_accuracy(params: Params, x: torch.Tensor,
     return torch.mean((pred == y).float())
 
 
-def init_ridge(generator: torch.Generator, dim: int, device="cpu") -> Params:
+def init_ridge(generator: torch.Generator, dim: int, device="cuda") -> Params:
     w = torch.randn((dim,), generator=generator, dtype=torch.float32) * 0.1
     return {"w": w.to(device)}
 

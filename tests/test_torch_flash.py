@@ -117,6 +117,18 @@ class TestPlainMatchesReference:
 
 
 class TestDispatch:
+    def test_each_dtype_has_its_body(self):
+        """bf16 goes to the tensor-core body, fp32 to the fp32-core body;
+        both are sources that the build compiles."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention import BODIES, DTYPES
+        assert set(BODIES) == set(DTYPES)
+        assert BODIES[torch.bfloat16] == ("flash_attention_wgmma",
+                                          "wgmma_tma")
+        assert BODIES[torch.float32] == ("flash_attention", "fp32_cores")
+        for lib, _ in BODIES.values():
+            assert (build.CSRC / build.SOURCES[lib]).is_file()
+
     def test_cpu_takes_plain_and_counts_nothing(self):
         ops.reset_launch_counts()
         q = torch.ones(1, 2, 8, 8)

@@ -57,13 +57,49 @@ def test_entry_modules_load_without_jax_or_repro():
     assert "LOADED []" in r.stdout, r.stdout + r.stderr[-2000:]
 
 
-def test_entry_points_default_to_cuda():
-    from repro_torch import resolve_device
-    from repro_torch.fl import Experiment
+# (module, function) of every public entry point that places tensors: each
+# takes ``device`` and defaults to the card
+ENTRY_POINTS = [
+    ("repro_torch.device", "resolve_device"),
+    ("repro_torch.fl.experiment", "Experiment"),
+    ("repro_torch.interop", "params_from_jax"),
+    ("repro_torch.interop", "state_from_jax"),
+    ("repro_torch.interop", "model_params_from_jax"),
+    ("repro_torch.models.transformer", "init_params"),
+    ("repro_torch.models.transformer", "init_cache"),
+    ("repro_torch.models.blocks", "init_block"),
+    ("repro_torch.models.blocks", "init_block_cache"),
+    ("repro_torch.models.layers", "init_rmsnorm"),
+    ("repro_torch.models.layers", "rope_frequencies"),
+    ("repro_torch.models.layers", "init_attention"),
+    ("repro_torch.models.layers", "init_mlp"),
+    ("repro_torch.models.layers", "init_embeddings"),
+    ("repro_torch.models.layers", "init_kv_cache"),
+    ("repro_torch.models.mamba", "init_mamba"),
+    ("repro_torch.models.mamba", "init_mamba_cache"),
+    ("repro_torch.models.moe", "init_moe"),
+    ("repro_torch.models.simple", "init_mlp_classifier"),
+    ("repro_torch.models.simple", "init_ridge"),
+    ("repro_torch.launch.serve", "build_prefill_step"),
+    ("repro_torch.launch.serve", "build_prefill_cache_step"),
+    ("repro_torch.launch.serve", "build_decode_step"),
+]
+
+
+@pytest.mark.parametrize("module,name", ENTRY_POINTS,
+                         ids=[f"{m.rsplit('.', 1)[1]}.{n}"
+                              for m, n in ENTRY_POINTS])
+def test_entry_points_default_to_cuda(module, name):
+    import importlib
+    fn = getattr(importlib.import_module(module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_raises_without_a_card():
+    import numpy as np
+    from repro_torch import interop, resolve_device
+    from repro_torch.fl import Experiment, ExperimentSpec
     from repro_torch.fl.tasks import build_task
-    assert inspect.signature(Experiment).parameters["device"].default == "cuda"
-    assert inspect.signature(resolve_device).parameters[
-        "device"].default == "cuda"
     assert "device" in inspect.signature(build_task).parameters
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -71,6 +107,10 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device()
         with pytest.raises(RuntimeError, match="cuda"):
-            from repro_torch.fl import ExperimentSpec
             Experiment(ExperimentSpec())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            interop.model_params_from_jax({"w": np.zeros(2, np.float32)})
     assert resolve_device("cpu").type == "cpu"
+    got = interop.params_from_jax({"w": np.ones(2, np.float32)},
+                                  device="cpu")
+    assert got["w"].device.type == "cpu"

@@ -166,6 +166,30 @@ class TestDispatch:
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
             call()
 
+    def test_ptxas_report_reads_each_entry(self, tmp_path, monkeypatch):
+        """build.ptxas_report reads nvcc -Xptxas -v's lines per entry."""
+        from repro_torch.kernels import build
+        log = tmp_path / "k.log"
+        log.write_text(
+            "ptxas info    : 0 bytes gmem\n"
+            "ptxas info    : Compiling entry function '_Z1aILi80EEv' for "
+            "'sm_90a'\n"
+            "ptxas info    : Function properties for _Z1aILi80EEv\n"
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            "loads\n"
+            "ptxas info    : Used 168 registers, used 1 barriers\n"
+            "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+            "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+            "loads\n"
+            "ptxas info    : Used 32 registers, used 1 barriers, 64 bytes "
+            "smem\n")
+        monkeypatch.setattr(build, "log_path", lambda name: log)
+        assert build.ptxas_report("k") == {
+            "_Z1aILi80EEv": {"registers": 168, "smem": 0, "stack": 0,
+                             "spill_stores": 0, "spill_loads": 0},
+            "_Z1bv": {"registers": 32, "smem": 64, "stack": 8,
+                      "spill_stores": 8, "spill_loads": 4}}
+
     def test_cuda_tensor_cannot_be_made_without_a_card(self):
         if torch.cuda.is_available():
             pytest.skip("a card is present")

@@ -142,7 +142,8 @@ def _mamba(**over):
     cfg = dataclasses.replace(reg.reduce_config(reg.get_config(ARCH)),
                               **over)
     jp = JM.init_mamba(KEY, jcfg)
-    p = interop.model_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    p = interop.model_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jcfg, cfg, jp, p
 
 

@@ -66,7 +66,8 @@ def _model(arch, **over):
                                **over)
     cfg = dataclasses.replace(reg.reduce_config(reg.get_config(arch)), **over)
     jp = JT.init_params(jcfg, KEY)
-    p = interop.model_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    p = interop.model_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jcfg, cfg, jp, p
 
 
@@ -206,7 +207,7 @@ def test_cache_layouts_and_kv_expansion_match_reference():
     from repro.models import blocks as JB
     jcfg, cfg, _, _ = _model("h2o-danube-1.8b")
     jhcfg, hcfg, _, _ = _model("jamba-v0.1-52b")
-    pairs = [(L.init_kv_cache(cfg, 2, 48, 3),
+    pairs = [(L.init_kv_cache(cfg, 2, 48, 3, device="cpu"),
               JL.init_kv_cache(jcfg, 2, 48, 3)),
              (B.init_block_cache(cfg, "attn+dense", 2, 20, device="cpu"),
               JB.init_block_cache(jcfg, "attn+dense", 2, 20)),
@@ -235,7 +236,8 @@ def test_bf16_params_carry_across_bitwise():
     cfg = reg.reduce_config(reg.get_config("h2o-danube-1.8b"))
     jcfg = jreg.reduce_config(jreg.get_config("h2o-danube-1.8b"))
     jp = JT.init_params(jcfg, KEY)
-    p = interop.model_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    p = interop.model_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     jwq = np.asarray(jp["blocks"][0]["attn"]["wq"])
     wq = p["blocks"][0]["attn"]["wq"]
     assert wq.dtype == torch.bfloat16 and isinstance(p["blocks"], tuple)
@@ -254,7 +256,8 @@ def test_bf16_hybrid_params_carry_across_bitwise():
     cfg = reg.reduce_config(reg.get_config("jamba-v0.1-52b"))
     jp = JT.init_params(jreg.reduce_config(jreg.get_config(
         "jamba-v0.1-52b")), KEY)
-    p = interop.model_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    p = interop.model_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     leaves, _ = jax.tree_util.tree_flatten_with_path(jp)
     fp32 = set()
     for path, want in leaves:

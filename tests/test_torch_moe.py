@@ -40,7 +40,8 @@ def _moe(arch, **over):
     cfg = dataclasses.replace(reg.reduce_config(reg.get_config(arch)),
                               **over)
     jp = JMOE.init_moe(KEY, jcfg)
-    p = interop.model_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    p = interop.model_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jcfg, cfg, jp, p
 
 

@@ -132,11 +132,11 @@ class TestOnCard:
                                        atol=1e-5)
 
 
-def _attention_inputs(b, h, hkv, s, d, dtype, seed):
+def _attention_inputs(b, h, hkv, sq, skv, d, dtype, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d))
                                 .astype(np.float32)).cuda().to(dtype)
-               for n in (h, hkv, hkv))
+               for n, s in ((h, sq), (hkv, skv), (hkv, skv)))
     return q, k, v
 
 
@@ -150,11 +150,17 @@ def attention_tol(want, dtype):
     return 1e-5 + 1e-5 * want.abs()
 
 
+# keys per kv tile: kBK of csrc/flash_attention_wgmma.cu (bf16) and of
+# csrc/flash_attention.cu (fp32), as chip_smoke.py's FLASH_TILE
+FLASH_TILE = {torch.bfloat16: 128, torch.float32: 64}
+
+
 @pytest.mark.cuda
 class TestFlashAttentionOnCard:
-    """K6 against its plain version at chip_smoke.py's shapes, with the
-    checks that its tolerance rejects a result that lacks the last kv tile
-    or has the window off by one."""
+    """K6's two bodies against their plain version at chip_smoke.py's
+    shapes, with the checks that its tolerance rejects a result that lacks
+    the last kv tile or has the window off by one, and that two launches
+    give the same bits."""
 
     @pytest.fixture(autouse=True)
     def _card(self):
@@ -163,18 +169,25 @@ class TestFlashAttentionOnCard:
                         "False)")
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
-        (4, 32, 8, 8192, 80, True, 4096),      # the serving layer's prefill
-        (1, 32, 8, 8192, 80, True, 4096),
-        (4, 32, 8, 8192, 128, True, None),     # Jamba's attention prefill
-        (1, 32, 8, 8192, 128, True, None),
-        (2, 8, 8, 1000, 128, True, None),      # ragged S
-        (2, 8, 8, 1000, 128, False, None),
-        (1, 4, 2, 333, 80, True, 16),          # window < the 64-key tile
+    @pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window", [
+        (4, 32, 8, 8192, 8192, 80, True, 4096),    # the serving prefill
+        (1, 32, 8, 8192, 8192, 80, True, 4096),
+        (4, 32, 8, 8192, 8192, 128, True, None),   # Jamba's attention
+        (1, 32, 8, 8192, 8192, 128, True, None),
+        (2, 8, 8, 1000, 1000, 128, True, None),    # ragged S
+        (2, 8, 8, 1000, 1000, 128, False, None),
+        (1, 4, 2, 333, 333, 80, True, 16),         # window < a kv tile
+        (1, 4, 2, 500, 500, 8, True, None),        # d not a multiple of 16
+        (1, 4, 2, 500, 500, 24, True, 100),
+        (1, 4, 2, 500, 500, 64, False, None),
+        (1, 4, 2, 200, 700, 80, True, None),       # Sq < Skv
+        (1, 4, 2, 700, 200, 80, True, 64),         # Sq > Skv: no skipping,
+        (1, 4, 2, 700, 200, 128, False, 64),       # rows fully masked
     ])
-    def test_flash_attention_matches_plain(self, b, h, hkv, s, d, causal,
-                                           window, dtype):
-        q, k, v = _attention_inputs(b, h, hkv, s, d, dtype, seed=s + d)
+    def test_flash_attention_matches_plain(self, b, h, hkv, sq, skv, d,
+                                           causal, window, dtype):
+        q, k, v = _attention_inputs(b, h, hkv, sq, skv, d, dtype,
+                                    seed=sq + skv + d)
         got = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   impl="kernel")
         qf, kf, vf = q.float(), k.float(), v.float()
@@ -183,14 +196,32 @@ class TestFlashAttentionOnCard:
         assert got.dtype == dtype and got.shape == q.shape
         tol = attention_tol(want, dtype)
         assert bool(((got.float() - want).abs() <= tol).all())
-        cut = (s - 1) // 64 * 64          # the kernel's last kv tile starts
+        assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                               window=window, impl="kernel"),
+                           got)
+        # the last kv tile the kernel visits starts at cut (causal: keys
+        # past min(Sq, Skv) - 1 are masked for every row)
+        last = min(sq, skv) if causal else skv
+        cut = (last - 1) // FLASH_TILE[dtype] * FLASH_TILE[dtype]
         dropped = ops.flash_attention(qf, kf[:, :, :cut], vf[:, :, :cut],
                                       causal=causal, window=window,
                                       impl="plain")
         assert not bool(((dropped - want).abs() <= tol).all())
         off = ops.flash_attention(qf, kf, vf, causal=causal,
-                                  window=(window or s) - 1, impl="plain")
+                                  window=(window or sq) - 1, impl="plain")
         assert not bool(((off - want).abs() <= tol).all())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_bodies_build_without_spills(self, dtype):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention import BODIES
+        name = BODIES[dtype][0]
+        build.build_all([name])
+        report = build.ptxas_report(name)
+        # the bf16 body: one instantiation per head dim padded to 16
+        assert len(report) == (8 if dtype == torch.bfloat16 else 1)
+        for entry, row in report.items():
+            assert row["spill_stores"] == row["spill_loads"] == 0, entry
 
 
 # chip_smoke.py's rule for K7 against its plain version: per element,

@@ -110,7 +110,7 @@ def _port_task():
     jtask = _jtask()
     split = FederatedSplit(tuple(jtask.constants["split"].indices))
     params0 = interop.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jtask.params0))
+        jax.tree_util.tree_map(np.asarray, jtask.params0), device="cpu")
     n = DATA["num_train"]
     x, y = jsynthetic_mnist(jax.random.PRNGKey(DATA["seed"]),
                             n + DATA["num_test"])
@@ -131,7 +131,7 @@ def test_masked_rounds_match_reference(name, backend):
         **_fl_kwargs(mode, p, kb, gather))
     state = interop.state_from_jax(
         setup["params"], setup["h"], setup["h_hat"], setup["b"], setup["a"],
-        setup["eta0"], 0, model_dim=setup["model_dim"])
+        setup["eta0"], 0, model_dim=setup["model_dim"], device="cpu")
     task = _port_task()
     prev = {k: v.clone() for k, v in state.params.items()}
     for t in range(1, ROUNDS + 1):

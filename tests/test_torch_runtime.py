@@ -106,7 +106,7 @@ def _port_task(case, jtask):
     d = _data_kwargs(case)
     split = FederatedSplit(tuple(jtask.constants["split"].indices))
     params0 = interop.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jtask.params0))
+        jax.tree_util.tree_map(np.asarray, jtask.params0), device="cpu")
     if case["dataset"] == "ridge":
         return tasks.ridge_task(jtask.constants["x"], jtask.constants["y"],
                                 split, params0, lam=0.1,
@@ -135,7 +135,7 @@ def test_rounds_match_reference(name, backend):
         **_fl_kwargs(case, jtask.constants))
     state = interop.state_from_jax(
         setup["params"], setup["h"], setup["h_hat"], setup["b"], setup["a"],
-        setup["eta0"], 0, model_dim=setup["model_dim"])
+        setup["eta0"], 0, model_dim=setup["model_dim"], device="cpu")
     provider = lambda t: (torch.from_numpy(batches[t]),)
     noise_provider = lambda t: torch.from_numpy(noise[t])
     for t in range(1, ROUNDS + 1):

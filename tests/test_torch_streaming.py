@@ -267,7 +267,7 @@ def _reference(scheme, k_block):
 def _port_task(jtask):
     split = FederatedSplit(tuple(jtask.constants["split"].indices))
     params0 = interop.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jtask.params0))
+        jax.tree_util.tree_map(np.asarray, jtask.params0), device="cpu")
     n = DATA["num_train"]
     x, y = jsynthetic_mnist(jax.random.PRNGKey(DATA["seed"]),
                             n + DATA["num_test"])
@@ -288,7 +288,7 @@ def _port_run(scheme, backend, k_block, rounds=ROUNDS, per_round=None,
         **_fl_kwargs(scheme))
     state = interop.state_from_jax(
         setup["params"], setup["h"], setup["h_hat"], setup["b"], setup["a"],
-        setup["eta0"], 0, model_dim=setup["model_dim"])
+        setup["eta0"], 0, model_dim=setup["model_dim"], device="cpu")
     provider = lambda t: (torch.from_numpy(batches[t]),)
     hist = []
     for t in range(1, rounds + 1):
