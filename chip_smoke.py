@@ -8,6 +8,7 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
 1. device  -- the card, and ``nvidia-smi``'s name and power limit;
 2. build   -- compiles every Hopper kernel from ``src/repro_torch/kernels/
               csrc`` with nvcc (one process per source, started together);
+              fails if ptxas reports a spill in any kernel;
 3. kernel  -- each kernel against its plain PyTorch version on the card, with
               the tolerance stated in the line: the dense moments (K1) and
               superposition (K2) at the FL round's shape (K = 20,
@@ -16,7 +17,10 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               [1000, 2048]; the streamed moments (K3) and superposition (K4)
               at those three shapes (k_block 4, 100, 1) and the K-scale shape
               (K = 100,000, N = 2,048, k_block 1,000); the single-vector
-              norm (K5) at the round's N and on each stack flattened.  Device
+              norm (K5) at the round's N and on each stack flattened.  Each
+              K2 row shows its split S of the K-way sum and, where S > 1,
+              that its tolerance rejects a result that lacks one K-chunk;
+              each K3 row its chunks a row.  Device
               times (CUDA events over CUDA-graph replays, median of 50
               samples of 20 launches) beside the bytes bound and a PyTorch
               library call timed as a yardstick only, and the eager per-call
@@ -91,7 +95,8 @@ Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
     python3 chip_smoke.py --rates [--src OTHER_TREE/src]
 
 times only the warm Case-I round (20 rounds, no eval) and the K-scale round
-(one round), RATE_SAMPLES samples each, for the package under ``--src``
+(one round), RATE_SAMPLES samples each, then the device time of one more
+K-scale round by kernel (torch.profiler), for the package under ``--src``
 (default: this tree's), and prints one ``{"phase": "rates", ...}`` line:
 run it on two trees in one machine session to compare them.
 """
@@ -238,15 +243,21 @@ def phase_device() -> dict:
 
 
 def phase_build(build) -> None:
+    """Builds every library; fails if ptxas reports a spill in any kernel."""
     t0 = time.perf_counter()
     took = build.build_all()
+    ptxas = {name: build.ptxas_report(name) for name in build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": took,
-          "ptxas": {name: build.ptxas_report(name)
-                    for name in build.SOURCES}})
+          "per_kernel_s": took, "ptxas": ptxas})
+    spills = [f"{name}: {entry} {row}" for name, report in ptxas.items()
+              for entry, row in report.items()
+              if row["spill_stores"] or row["spill_loads"]]
+    if spills:
+        fail("ptxas reports spills: " + "; ".join(spills))
 
 
 def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
+    from repro_torch.kernels.grad_norm import stream_moments_chunks
     k, n = g.shape
     sq, s = ops.batched_moments(g, impl="kernel", k_block=k_block)
     sq_p, s_p = ops.batched_moments(g, impl="plain", k_block=k_block)
@@ -260,9 +271,11 @@ def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
     ok = bool(((sq - sq_p).abs().double() <= TERMS_RTOL * abs_sq).all()
               and ((s - s_p).abs().double() <= TERMS_RTOL * abs_s).all())
     b_ms, b_by = bound(k * n * 4 + 2 * k * 4, 3.0 * k * n)
+    split = {} if k_block is None else {
+        "chunks_per_row": stream_moments_chunks(n)}
     return {"kernel": ("batched_moments" if k_block is None
                        else "streaming_moments"),
-            "k": k, "n": n, "k_block": k_block,
+            "k": k, "n": n, "k_block": k_block, **split,
             "max_abs_err": err,
             "tolerance": f"|d| <= {TERMS_RTOL:g} * sum|terms| per device",
             "within_tolerance": ok,
@@ -277,6 +290,7 @@ def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
 
 def check_superpose(ops, g: torch.Tensor, pre: str,
                     gen: torch.Generator, k_block=None) -> dict:
+    from repro_torch.kernels.ota_aggregate import superpose_split
     k, n = g.shape
     scale = torch.rand((k,), generator=gen, device="cuda") + 0.5
     noise = 0.01 * torch.randn((n,), generator=gen, device="cuda")
@@ -295,13 +309,19 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
     tol = rtol * ref_abs
     d = (y - yp).abs().double()
     check = {}
-    if k_block is not None:
-        # the tolerance must reject a result that lacks one K-block: that
-        # result is off by block b's term a p_b (about sqrt(k_block) per
-        # column on these stacks, against about 1e-5 K)
-        lo = min(1, k // k_block - 1) * k_block
-        part = a * (scale[lo:lo + k_block].double()
-                    @ x[lo:lo + k_block].double())
+    # the rows the kernel sums apart: K4's K-blocks, K2's K-chunks
+    if k_block is None:
+        check["split_s"] = superpose_split(k, n)
+        block = -(-k // check["split_s"])
+    else:
+        block = k_block
+    if block < k:
+        # the tolerance must reject a result that lacks one K-block or
+        # K-chunk: that result is off by block b's term a p_b (about
+        # sqrt(block) per column on these stacks, against about 1e-5 K)
+        lo = min(1, -(-k // block) - 1) * block
+        part = a * (scale[lo:lo + block].double()
+                    @ x[lo:lo + block].double())
         check["rejects_dropped_block"] = not bool((part.abs() <= tol).all())
     b_ms, b_by = bound(k * n * 4 + 2 * n * 4 + k * 4, 2.0 * k * n)
     # one PyTorch call computes the identity sum: the yardstick
@@ -352,7 +372,7 @@ def _emit_checked(rows, where: str) -> None:
                  f"{where}: max |d| = {row['max_abs_err']}")
         if row.get("rejects_dropped_block") is False:
             fail(f"{row['kernel']}'s tolerance at {where} would pass a "
-                 "result that lacks a K-block")
+                 "result that lacks a K-block or K-chunk")
 
 
 def phase_kernels(ops) -> dict:
@@ -1584,12 +1604,24 @@ def phase_rates(src: str) -> None:
                                    block_batch_provider=provider)
             torch.cuda.synchronize()
             kscale.append(1.0 / (time.perf_counter() - t0))
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            runtime.run(cfg, state, grad_fn, None, 1,
+                        block_batch_provider=provider)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        kscale_busy = {"device_busy_us": sum(r[0] for r in rows),
+                       "top_kernels": [{"name": n[:80], "device_us": d,
+                                        "calls": c}
+                                       for d, n, c in rows[:6]]}
     emit({"phase": "rates", "src": src,
           "case_i_warm_rounds_per_s": case_i,
           "case_i_median": statistics.median(case_i),
           "kscale_rounds_per_s": kscale,
           "kscale_median": None if kscale is None
-          else statistics.median(kscale)})
+          else statistics.median(kscale),
+          "kscale_profiled_round": None if kscale is None else kscale_busy})
 
 
 def main() -> None:
@@ -1679,6 +1711,9 @@ def main() -> None:
                         "library_ms": row["library_ms"]})
         if "body" in row:            # K6: the bf16 body runs on the path
             kernels[-1]["body"] = row["body"]
+        for key in ("split_s", "chunks_per_row"):     # K2, K3
+            if key in row:
+                kernels[-1][key] = row[key]
     print(info["nvidia_smi"], flush=True)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all",
           file=sys.stderr, flush=True)

@@ -7,6 +7,7 @@ import importlib
 
 _EXPORTS = {
     "ChannelConfig": "repro_torch.core.channel",
+    "ClientConfig": "repro_torch.fl.clients",
     "FLConfig": "repro_torch.fed.runtime",
     "Experiment": "repro_torch.fl.experiment",
     "DataSpec": "repro_torch.fl.spec",

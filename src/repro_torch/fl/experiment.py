@@ -52,12 +52,25 @@ class Experiment:
         self.history = {}
         return self
 
-    def run(self, num_rounds: int, *, eval_every: Optional[int] = None,
+    def reset(self) -> "Experiment":
+        """Re-setup from round 0 (fresh params, optimizer and channel
+        state); the task already built is reused."""
+        return self.setup()
+
+    def run(self, num_rounds: int, *, driver: Optional[str] = None,
+            chunk_size: Optional[int] = None,
+            eval_every: Optional[int] = None,
             evaluate: Optional[bool] = None,
             noise_provider: Optional[Callable[[int], torch.Tensor]] = None
             ) -> Dict[str, List]:
         """Run ``num_rounds`` FL rounds and merge the produced history into
-        ``self.history``.  Returns this call's history."""
+        ``self.history``.  Returns this call's history.
+
+        ``driver`` and ``chunk_size`` override the spec's, as in the
+        reference.  Only ``driver="python"`` is ported; it runs round by
+        round, so ``chunk_size`` (the compiled driver's rounds a chunk)
+        changes nothing yet.  ``driver="scan"`` raises
+        ``NotImplementedError`` (ROADMAP queue 1 item 8)."""
         if self.state is None:
             self.setup()
         ev = self.spec.eval
@@ -66,7 +79,7 @@ class Experiment:
             self.cfg, self.state, self.task.grad_fn, self.task.batch_provider,
             num_rounds, eval_fn=self.task.eval_fn if enabled else None,
             eval_every=eval_every if eval_every is not None else ev.every,
-            driver=self.spec.driver, noise_provider=noise_provider)
+            driver=driver or self.spec.driver, noise_provider=noise_provider)
         for k, v in hist.items():
             self.history.setdefault(k, []).extend(v)
         return hist

@@ -66,9 +66,14 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     """ptxas's report of kernel ``name``'s built library, by entry function
     (mangled name): registers, static shared memory, stack and spill
     bytes."""
+    return parse_ptxas(log_path(name).read_text())
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """The per-entry report in the text of an ``nvcc -Xptxas -v`` run."""
     out: Dict[str, Dict[str, int]] = {}
     entry = None
-    for line in log_path(name).read_text().splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = out.setdefault(m.group(1), {"registers": 0, "smem": 0,

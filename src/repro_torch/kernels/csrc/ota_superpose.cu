@@ -8,70 +8,168 @@
 //
 // Bound on an H100: bytes.  The function reads K*N*4 + N*4 + K*4 bytes and
 // writes N*4; it does 2*K*N flops, far under the fp32 rate.  At the FL
-// round's shape (K = 20, N = 55,050) that is 4.84 MB, 1.45 us at 3.35 TB/s.
+// round's shape (K = 20, N = 55,050) that is 4.84 MB, 1.45 us at 3.35 TB/s;
+// at the streaming round's tile (K = 1,000, N = 2,048) 8.2 MB, 2.45 us.
 //
-// Design:
-//  * Each thread owns one column j and walks k = 0..K-1 in order, so a warp's
-//    loads of one row are 32 neighbouring floats (coalesced) and the K-way sum
-//    has one fixed order: deterministic, no atomics.  The k loop is unrolled
-//    so several rows' loads are in flight per thread.
-//  * No padding copy: the grid covers ceil(N / 256) blocks and the ragged
-//    last block is masked.
-//  * scale[k] is read through the read-only cache (one address per warp, a
-//    broadcast); a is a host float.
+// Design (split K, fold in a fixed order):
+//  * A thread owns one column j of one K-chunk and walks the chunk's rows in
+//    order, so a warp's loads of one row are 32 neighbouring floats
+//    (coalesced).  The k loop is unrolled so that several rows' loads are in
+//    flight per thread.  Rows of a ragged N start at alternating alignments,
+//    so the loads stay scalar.
+//  * The K rows are split into S chunks of equal length (the last may be
+//    shorter); the grid is (N-tiles, S).  One column a thread gives only
+//    ceil(N / 256) tiles -- 8 CTAs on 132 SMs at N = 2,048, each thread
+//    walking 1,000 rows -- so S is chosen on the host from (K, N) alone
+//    (repro_torch/kernels/ota_aggregate.py::superpose_split) to put several
+//    CTAs on each SM, with at least 32 rows a chunk so that the partials
+//    stay a small share of the bytes.
+//  * S = 1 (small K, as the FL round's K = 20): one launch, y written
+//    directly, the association of the unsplit sum.  S > 1: pass 1 writes
+//    each chunk's column sums to partials [S, N]; pass 2, one thread a
+//    column, adds p_0, p_1, ... in chunk order and applies the gain and the
+//    noise.  No atomics: the result depends on (K, N) and the data only, the
+//    same from launch to launch.
+//  * No padding copy: the ragged last tile is masked.  scale[k] is read
+//    through the read-only cache (one address per warp, a broadcast); a is
+//    a host float.
 //  * sign follows jnp.sign: sign(0) = 0 and NaN stays NaN.  copysignf is not
 //    used, since it returns +-1 at zero.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kFoldThreads = 128;
+constexpr int kMaxVec = 2;   // columns a thread at most
 
 __device__ __forceinline__ float sign_of(float x) {
   const float s = (float)((x > 0.f) - (x < 0.f));
   return x != x ? x : s;
 }
 
-template <bool kSign>
-__global__ void __launch_bounds__(kThreads)
-ota_superpose_kernel(const float* __restrict__ g,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ noise, float a, long long k,
-                     long long n, float* __restrict__ y) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n;
-       j += stride) {
-    const float* col = g + j;
-    float acc = 0.f;
-#pragma unroll 8
-    for (long long i = 0; i < k; ++i) {
-      float x = __ldg(col + i * n);
-      if (kSign) x = sign_of(x);
-      acc += __ldg(scale + i) * x;
-    }
-    y[j] = a * (acc + __ldg(noise + j));
+template <int kVec>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[kVec]) {
+  if constexpr (kVec == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (kVec == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = __ldg(p);
   }
+}
+
+// Column sums of rows [chunk * rows, min(K, (chunk + 1) * rows)), chunk =
+// blockIdx.y, kVec neighbouring columns a thread.  With one chunk
+// (gridDim.y == 1) writes y = a (acc + z); otherwise writes the chunk's
+// partial to out[chunk * N + j].
+template <bool kSign, int kVec>
+__global__ void __launch_bounds__(kThreads)
+superpose_chunk_kernel(const float* __restrict__ g,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ noise, float a, long long k,
+                       long long n, long long rows, float* __restrict__ out) {
+  const long long j = ((long long)blockIdx.x * kThreads + threadIdx.x) * kVec;
+  if (j >= n) return;
+  const long long i0 = (long long)blockIdx.y * rows;
+  const long long i1 = i0 + rows < k ? i0 + rows : k;
+  const float* col = g + j;
+  float acc[kVec];
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) acc[c] = 0.f;
+#pragma unroll 8
+  for (long long i = i0; i < i1; ++i) {
+    float x[kVec];
+    load_vec<kVec>(col + i * n, x);
+    const float sc = __ldg(scale + i);
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      if (kSign) x[c] = sign_of(x[c]);
+      acc[c] += sc * x[c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) {
+    if (gridDim.y == 1) {
+      out[j + c] = a * (acc[c] + __ldg(noise + j + c));
+    } else {
+      out[(long long)blockIdx.y * n + j + c] = acc[c];
+    }
+  }
+}
+
+template <bool kSign>
+void launch_chunks(dim3 grid, int vec, cudaStream_t st, const float* g,
+                   const float* scale, const float* noise, float a,
+                   long long k, long long n, long long rows, float* out) {
+  if (vec == 4) {
+    superpose_chunk_kernel<kSign, 4><<<grid, kThreads, 0, st>>>(
+        g, scale, noise, a, k, n, rows, out);
+  } else if (vec == 2) {
+    superpose_chunk_kernel<kSign, 2><<<grid, kThreads, 0, st>>>(
+        g, scale, noise, a, k, n, rows, out);
+  } else {
+    superpose_chunk_kernel<kSign, 1><<<grid, kThreads, 0, st>>>(
+        g, scale, noise, a, k, n, rows, out);
+  }
+}
+
+// y[j] = a (p_0[j] + p_1[j] + ... + p_{S-1}[j] + z[j]), in chunk order.
+__global__ void __launch_bounds__(kFoldThreads)
+superpose_fold_kernel(const float* __restrict__ part,
+                      const float* __restrict__ noise, float a, int s,
+                      long long n, float* __restrict__ y) {
+  const long long j = (long long)blockIdx.x * kFoldThreads + threadIdx.x;
+  if (j >= n) return;
+  float acc = __ldg(part + j);
+#pragma unroll 8
+  for (int c = 1; c < s; ++c) acc += __ldg(part + (long long)c * n + j);
+  y[j] = a * (acc + __ldg(noise + j));
 }
 
 }  // namespace
 
 extern "C" {
 
-// pre: 0 = identity, 1 = sign.  Launches on `stream`; returns
-// cudaGetLastError().
+// pre: 0 = identity, 1 = sign.  s: the number of K-chunks, each of
+// ceil(K / s) rows; it must leave no chunk empty (the wrapper's
+// superpose_split gives such an s).  part: [s, N] fp32 scratch when s > 1
+// (unused when s == 1).  Launches on `stream`; returns cudaGetLastError().
 int ota_superpose_launch(const float* g, const float* scale,
                          const float* noise, float a, long long k,
-                         long long n, int pre, float* y, void* stream) {
+                         long long n, int s, int pre, float* part, float* y,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // grid-stride covers the rest
-  if (pre == 1) {
-    ota_superpose_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(
-        g, scale, noise, a, k, n, y);
-  } else {
-    ota_superpose_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
-        g, scale, noise, a, k, n, y);
+  if (s < 1 || s > 65535) return (int)cudaErrorInvalidValue;
+  const long long rows = (k + s - 1) / s;
+  if ((k + rows - 1) / rows != s) return (int)cudaErrorInvalidValue;
+  // kVec neighbouring columns a thread where every row's first column is
+  // aligned for it; the sums do not depend on kVec
+  int vec = 1;
+  for (int v = kMaxVec; v > 1; v >>= 1) {
+    if (n % v == 0 && (uintptr_t)g % (4 * v) == 0) {
+      vec = v;
+      break;
+    }
   }
+  const long long tiles = (n + (long long)kThreads * vec - 1) /
+                          ((long long)kThreads * vec);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)s);
+  float* out = s == 1 ? y : part;
+  if (pre == 1) {
+    launch_chunks<true>(grid, vec, st, g, scale, noise, a, k, n, rows, out);
+  } else {
+    launch_chunks<false>(grid, vec, st, g, scale, noise, a, k, n, rows, out);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || s == 1) return (int)err;
+  const long long fold = (n + kFoldThreads - 1) / kFoldThreads;
+  superpose_fold_kernel<<<(unsigned)fold, kFoldThreads, 0, st>>>(
+      part, noise, a, s, n, y);
   return (int)cudaGetLastError();
 }
 

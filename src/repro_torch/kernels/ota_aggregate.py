@@ -7,9 +7,10 @@ ports of ``repro/kernels/ota_aggregate.py``'s ``ota_aggregate_blocked`` and
 ``y = a (sum_k scale_k pre(g_k) + z)``, in one pass over the [K, N] fp32
 stack; ``ota_superpose_streaming_cuda(..., k_block, pre)`` computes the same
 with the K-way sum folded K-block by K-block in order.  Ragged N is masked
-in the kernels, not padded.  Public callers go through
-``repro_torch.kernels.ops``, which counts the launches and serves CPU
-tensors with the plain versions.
+in the kernels, not padded.  ``superpose_split(k, n)`` is the number of
+K-chunks the first kernel splits its sum into (folded in chunk order).
+Public callers go through ``repro_torch.kernels.ops``, which counts the
+launches and serves CPU tensors with the plain versions.
 """
 from __future__ import annotations
 
@@ -20,18 +21,39 @@ from repro_torch.kernels import _launch
 
 PRE_KINDS = ("identity", "sign")
 
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+SUPERPOSE_THREADS = 256      # columns a CTA (kThreads, csrc/ota_superpose.cu)
+SUPERPOSE_CTAS_PER_SM = 4    # the grid the split aims for
+SUPERPOSE_MIN_ROWS = 32      # rows a K-chunk holds at least
+
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 # library -> {entry point: (argtypes, restype)}
 _ENTRY_POINTS = {
     "ota_superpose": {
-        "ota_superpose_launch": ([_P, _P, _P, _F, _LL, _LL, _I, _P, _P], _I),
+        "ota_superpose_launch": (
+            [_P, _P, _P, _F, _LL, _LL, _I, _I, _P, _P, _P], _I),
     },
     "ota_superpose_stream": {
         "ota_superpose_stream_launch": (
             [_P, _P, _P, _F, _LL, _LL, _LL, _I, _P, _P, _P], _I),
     },
 }
+
+
+def superpose_split(k: int, n: int) -> int:
+    """S, the number of K-chunks ``csrc/ota_superpose.cu`` sums apart and
+    then folds in chunk order, from (K, N) alone: enough for a grid of
+    ceil(N / 256) x S CTAs to put SUPERPOSE_CTAS_PER_SM on each SM, but
+    with at least SUPERPOSE_MIN_ROWS rows a chunk, so that the [S, N]
+    partials stay a small share of the bytes moved.  A small K (the FL
+    round's 20) keeps S = 1: one launch.  The chunks hold ceil(K / S) rows
+    each, and none is empty."""
+    tiles = -(-n // SUPERPOSE_THREADS)
+    want = -(-SMS * SUPERPOSE_CTAS_PER_SM // tiles)
+    s = max(1, min(want, k // SUPERPOSE_MIN_ROWS))
+    rows = -(-k // s)
+    return -(-k // rows)
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -61,11 +83,14 @@ def ota_superpose_cuda(g: torch.Tensor, scale: torch.Tensor,
     CUDA device) and the host gain ``a``; launched on the current stream."""
     k, n = _check(g, scale, noise, pre)
     lib = _library("ota_superpose")
+    s = superpose_split(k, n)
     with torch.cuda.device(g.device):
         y = torch.empty((n,), dtype=torch.float32, device=g.device)
+        part = (torch.empty((s, n), dtype=torch.float32, device=g.device)
+                if s > 1 else y)
         err = lib.ota_superpose_launch(
             g.data_ptr(), scale.data_ptr(), noise.data_ptr(), float(a), k, n,
-            PRE_KINDS.index(pre), y.data_ptr(),
+            s, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream(g.device).cuda_stream)
     _launch.raise_on(err, lib.ota_superpose_error_string, "ota_superpose")
     return y

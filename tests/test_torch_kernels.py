@@ -7,6 +7,7 @@ the CPU), so these tests pin the arithmetic the Hopper kernels must match;
 tests/test_torch_on_card.py holds the CUDA kernels themselves to the plain
 versions where a card is present.
 """
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _launch, ops
+from repro_torch.kernels import grad_norm, ota_aggregate
 from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
@@ -224,3 +226,62 @@ class TestDispatch:
     def test_layout_checks(self, bad, match):
         with pytest.raises(ValueError, match=match):
             _launch.check(bad, 2, "g")
+
+
+def _superpose_ctas(k, n):
+    return (-(-n // ota_aggregate.SUPERPOSE_THREADS)
+            * ota_aggregate.superpose_split(k, n))
+
+
+def _stream_moments_ctas(k, n):
+    chunks = grad_norm.stream_moments_chunks(n)
+    if chunks == 1:
+        return -(-k // grad_norm.STREAM_ROWS_PER_CTA)
+    return k * chunks
+
+
+class TestSplitChoosers:
+    """How K2 splits its K-way sum (``superpose_split``) and how K3 splits
+    its rows (``stream_moments_chunks``): the grids these give, and that
+    they read nothing but their stated arguments."""
+
+    def test_arguments(self):
+        assert list(inspect.signature(ota_aggregate.superpose_split)
+                    .parameters) == ["k", "n"]
+        assert list(inspect.signature(grad_norm.stream_moments_chunks)
+                    .parameters) == ["n"]
+
+    def test_superpose_keeps_one_launch_at_the_round_shape(self):
+        assert ota_aggregate.superpose_split(20, 55_050) == 1
+        assert ota_aggregate.superpose_split(1, 7) == 1
+
+    @pytest.mark.parametrize("k,n", [(1000, 2048), (1000, 55_050),
+                                     (7, 1_000_003)])
+    def test_grids_cover_the_card(self, k, n):
+        """At least one CTA on each of the H100's 132 SMs."""
+        assert _superpose_ctas(k, n) >= ota_aggregate.SMS
+        assert _stream_moments_ctas(k, n) >= ota_aggregate.SMS
+
+    @pytest.mark.parametrize("k", [1, 20, 31, 32, 63, 64, 100, 999, 1000,
+                                   1001, 4096, 100_000])
+    @pytest.mark.parametrize("n", [1, 7, 2048, 55_050, 1_000_003])
+    def test_superpose_chunks_are_whole(self, k, n):
+        """The S chunks of ceil(K / S) rows cover K with none empty, each
+        of at least SUPERPOSE_MIN_ROWS rows when the sum is split."""
+        s = ota_aggregate.superpose_split(k, n)
+        rows = -(-k // s)
+        assert 1 <= s <= k and -(-k // rows) == s
+        if s > 1:
+            assert rows >= ota_aggregate.SUPERPOSE_MIN_ROWS
+
+    @pytest.mark.parametrize("n", [1, 7, 2048, 4096, 4097, 55_050,
+                                   1_000_003])
+    def test_stream_moments_chunks(self, n):
+        """One chunk for a row one warp reads; longer rows take K1's
+        chunking of csrc/moments.cu (moments_num_chunks: ceil(ceil(N / 4)
+        / 1024))."""
+        chunks = grad_norm.stream_moments_chunks(n)
+        if n <= grad_norm.STREAM_ROW_MAX:
+            assert chunks == 1
+        else:
+            assert chunks == -(-(-(-n // 4)) // 1024) > 1

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ota_aggregate import superpose_split
 
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -51,7 +52,8 @@ class TestOnCard:
             pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                         "False)")
 
-    @pytest.mark.parametrize("k,n", [(1, 7), (20, 55_050), (7, 1_000_003)])
+    @pytest.mark.parametrize("k,n", [(1, 7), (20, 55_050), (7, 1_000_003),
+                                     (1000, 2048)])
     def test_kernels_match_plain(self, k, n):
         g = torch.from_numpy(_stack(k, n, seed=n, zeros_every=5)).cuda()
         sq, s = ops.batched_moments(g, impl="kernel")
@@ -105,6 +107,68 @@ class TestOnCard:
             want = ops.grad_norm(x, impl="plain").double() ** 2
             assert abs(got - want) <= TERMS_RTOL * float((x.double() ** 2)
                                                            .sum())
+
+    @pytest.mark.parametrize("k,n,kb", [
+        (20, 55_050, 4), (1000, 2048, 100), (1000, 55_050, 100),
+        (7, 1_000_003, 1), (100_000, 2_048, 1_000)])
+    def test_two_launches_bitwise(self, k, n, kb):
+        """K2 (split or not) and K3 give the same bits from launch to
+        launch."""
+        g = torch.from_numpy(_stack(k, n, seed=k + n, zeros_every=5)).cuda()
+        scale = torch.linspace(0.5, 1.5, k, device="cuda")
+        noise = 0.01 * torch.ones(n, device="cuda")
+        for pre in ("identity", "sign"):
+            y = ops.ota_superpose(g, scale, noise, 0.9, pre=pre,
+                                  impl="kernel")
+            assert torch.equal(ops.ota_superpose(g, scale, noise, 0.9,
+                                                 pre=pre, impl="kernel"), y)
+        sq, s = ops.batched_moments(g, k_block=kb, impl="kernel")
+        sq2, s2 = ops.batched_moments(g, k_block=kb, impl="kernel")
+        assert torch.equal(sq, sq2) and torch.equal(s, s2)
+
+    @pytest.mark.parametrize("n", [7, 2048, 2049, 55_050])
+    def test_stream_moments_rows_ignore_k_and_k_block(self, n):
+        """A device's K3 sums are the same bits in stacks of other K and
+        k_block (each row at the same place, so at the same alignment)."""
+        g = torch.from_numpy(_stack(24, n, seed=n, zeros_every=5)).cuda()
+        want = ops.batched_moments(g, k_block=4, impl="kernel")
+        for k, kb in ((24, 24), (24, 1), (12, 3), (8, 8), (5, 5)):
+            got = ops.batched_moments(g[:k].contiguous(), k_block=kb,
+                                      impl="kernel")
+            for a, b in zip(got, want):
+                assert torch.equal(a, b[:k]), (k, kb)
+
+    @pytest.mark.parametrize("k,n", [(1000, 2048), (1000, 55_050)])
+    def test_superpose_rule_rejects_a_dropped_chunk(self, k, n):
+        """Where K2 splits its sum (S > 1), the rule rejects the plain
+        result less one K-chunk's term."""
+        s = superpose_split(k, n)
+        assert s > 1
+        rows = -(-k // s)
+        g = torch.from_numpy(_stack(k, n, seed=k * n, zeros_every=5)).cuda()
+        scale = torch.linspace(0.5, 1.5, k, device="cuda")
+        noise = 0.01 * torch.ones(n, device="cuda")
+        for pre in ("identity", "sign"):
+            y = ops.ota_superpose(g, scale, noise, 0.9, pre=pre, impl="kernel")
+            yp = ops.ota_superpose(g, scale, noise, 0.9, pre=pre,
+                                   impl="plain")
+            x = torch.sign(g) if pre == "sign" else g
+            tol = _superpose_tol(k) * 0.9 * (scale.abs() @ x.abs()
+                                             + noise.abs())
+            assert bool(((y - yp).abs() <= tol).all())
+            dropped = 0.9 * (scale[rows:2 * rows] @ x[rows:2 * rows])
+            assert not bool((dropped.abs() <= tol).all())
+
+    def test_split_kernels_build_without_stack_or_spills(self):
+        """ptxas reports no stack frame and no spill in K2's and K3's
+        kernels."""
+        from repro_torch.kernels import build
+        names = ("ota_superpose", "stream_moments")
+        build.build_all(names)
+        for name in names:
+            for entry, row in build.ptxas_report(name).items():
+                assert row["stack"] == row["spill_stores"] == \
+                    row["spill_loads"] == 0, (name, entry, row)
 
     def test_tiny_round_on_card_matches_cpu(self):
         from repro_torch.core.channel import ChannelConfig
