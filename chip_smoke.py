@@ -838,7 +838,7 @@ def phase_stream(ops) -> dict:
         "unprofiled_round_us": round_us,
         "device_idle_share_of_unprofiled_round": 1 - busy / round_us,
         "top_kernels": [{"name": n[:80], "device_us": d, "calls": c}
-                        for d, n, c in rows[:8]]}
+                        for d, n, c in rows[:14]]}
     emit(out)
     if not (scale > 0 and diff <= KSCALE_REL * scale):
         fail(f"K-scale params: GPU vs CPU max|d| = {diff} > "

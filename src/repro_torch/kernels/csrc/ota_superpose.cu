@@ -15,104 +15,82 @@
 //  * A thread owns one column j of one K-chunk and walks the chunk's rows in
 //    order, so a warp's loads of one row are 32 neighbouring floats
 //    (coalesced).  The k loop is unrolled so that several rows' loads are in
-//    flight per thread.  Rows of a ragged N start at alternating alignments,
-//    so the loads stay scalar.
+//    flight per thread.  The loads stay scalar: 2 or 4 columns a thread
+//    (float2 or float4, where the rows allow) moved the wide shape by under
+//    2 % and slowed N = 2,048, whose grid they shrink.  The j loop keeps its
+//    grid-stride form: the same body behind an early return was slower.
 //  * The K rows are split into S chunks of equal length (the last may be
 //    shorter); the grid is (N-tiles, S).  One column a thread gives only
 //    ceil(N / 256) tiles -- 8 CTAs on 132 SMs at N = 2,048, each thread
 //    walking 1,000 rows -- so S is chosen on the host from (K, N) alone
-//    (repro_torch/kernels/ota_aggregate.py::superpose_split) to put several
-//    CTAs on each SM, with at least 32 rows a chunk so that the partials
-//    stay a small share of the bytes.
-//  * S = 1 (small K, as the FL round's K = 20): one launch, y written
-//    directly, the association of the unsplit sum.  S > 1: pass 1 writes
-//    each chunk's column sums to partials [S, N]; pass 2, one thread a
-//    column, adds p_0, p_1, ... in chunk order and applies the gain and the
-//    noise.  No atomics: the result depends on (K, N) and the data only, the
-//    same from launch to launch.
+//    (repro_torch/kernels/ota_aggregate.py::superpose_split): as many chunks
+//    as one wave of resident CTAs holds (8 of 256 threads an SM), with at
+//    least 32 rows a chunk so that the partials stay a small share of the
+//    bytes and the fold short.  A grid past one wave leaves a tail: at
+//    K = 1,000, N = 55,050, S = 5 (1,080 CTAs) is slower than S = 4 (864).
+//  * S = 1 (small K, as the FL round's K = 20, or a grid that fills a wave
+//    already): one launch, y written directly, the association of the
+//    unsplit sum.  S > 1: pass 1 writes each chunk's column sums to
+//    partials [S, N]; pass 2, one thread a column, adds p_0, p_1, ... in
+//    chunk order and applies the gain and the noise.  No atomics: the
+//    result depends on (K, N) and the data only, the same from launch to
+//    launch.
 //  * No padding copy: the ragged last tile is masked.  scale[k] is read
 //    through the read-only cache (one address per warp, a broadcast); a is
 //    a host float.
 //  * sign follows jnp.sign: sign(0) = 0 and NaN stays NaN.  copysignf is not
 //    used, since it returns +-1 at zero.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kFoldThreads = 128;
-constexpr int kMaxVec = 2;   // columns a thread at most
 
 __device__ __forceinline__ float sign_of(float x) {
   const float s = (float)((x > 0.f) - (x < 0.f));
   return x != x ? x : s;
 }
 
-template <int kVec>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[kVec]) {
-  if constexpr (kVec == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else if constexpr (kVec == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-    x[0] = v.x; x[1] = v.y;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
-// Column sums of rows [chunk * rows, min(K, (chunk + 1) * rows)), chunk =
-// blockIdx.y, kVec neighbouring columns a thread.  With one chunk
-// (gridDim.y == 1) writes y = a (acc + z); otherwise writes the chunk's
-// partial to out[chunk * N + j].
-template <bool kSign, int kVec>
+// Column sums of rows [i0, i1): with kSplit, chunk blockIdx.y's rows
+// [chunk * rows, min(K, (chunk + 1) * rows)), written to out[chunk * N + j];
+// without, all K rows, and out[j] = y[j] = a (acc + z[j]).
+template <bool kSign, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 superpose_chunk_kernel(const float* __restrict__ g,
                        const float* __restrict__ scale,
                        const float* __restrict__ noise, float a, long long k,
                        long long n, long long rows, float* __restrict__ out) {
-  const long long j = ((long long)blockIdx.x * kThreads + threadIdx.x) * kVec;
-  if (j >= n) return;
-  const long long i0 = (long long)blockIdx.y * rows;
-  const long long i1 = i0 + rows < k ? i0 + rows : k;
-  const float* col = g + j;
-  float acc[kVec];
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) acc[c] = 0.f;
+  const long long i0 = kSplit ? (long long)blockIdx.y * rows : 0;
+  const long long i1 = !kSplit ? k : i0 + rows < k ? i0 + rows : k;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n;
+       j += stride) {
+    const float* col = g + j;
+    float acc = 0.f;
 #pragma unroll 8
-  for (long long i = i0; i < i1; ++i) {
-    float x[kVec];
-    load_vec<kVec>(col + i * n, x);
-    const float sc = __ldg(scale + i);
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      if (kSign) x[c] = sign_of(x[c]);
-      acc[c] += sc * x[c];
+    for (long long i = i0; i < i1; ++i) {
+      float x = __ldg(col + i * n);
+      if (kSign) x = sign_of(x);
+      acc += __ldg(scale + i) * x;
     }
-  }
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    if (gridDim.y == 1) {
-      out[j + c] = a * (acc[c] + __ldg(noise + j + c));
+    if (kSplit) {
+      out[(long long)blockIdx.y * n + j] = acc;
     } else {
-      out[(long long)blockIdx.y * n + j + c] = acc[c];
+      out[j] = a * (acc + __ldg(noise + j));
     }
   }
 }
 
 template <bool kSign>
-void launch_chunks(dim3 grid, int vec, cudaStream_t st, const float* g,
+void launch_chunks(dim3 grid, cudaStream_t st, const float* g,
                    const float* scale, const float* noise, float a,
                    long long k, long long n, long long rows, float* out) {
-  if (vec == 4) {
-    superpose_chunk_kernel<kSign, 4><<<grid, kThreads, 0, st>>>(
-        g, scale, noise, a, k, n, rows, out);
-  } else if (vec == 2) {
-    superpose_chunk_kernel<kSign, 2><<<grid, kThreads, 0, st>>>(
+  if (grid.y == 1) {
+    superpose_chunk_kernel<kSign, false><<<grid, kThreads, 0, st>>>(
         g, scale, noise, a, k, n, rows, out);
   } else {
-    superpose_chunk_kernel<kSign, 1><<<grid, kThreads, 0, st>>>(
+    superpose_chunk_kernel<kSign, true><<<grid, kThreads, 0, st>>>(
         g, scale, noise, a, k, n, rows, out);
   }
 }
@@ -146,24 +124,14 @@ int ota_superpose_launch(const float* g, const float* scale,
   if (s < 1 || s > 65535) return (int)cudaErrorInvalidValue;
   const long long rows = (k + s - 1) / s;
   if ((k + rows - 1) / rows != s) return (int)cudaErrorInvalidValue;
-  // kVec neighbouring columns a thread where every row's first column is
-  // aligned for it; the sums do not depend on kVec
-  int vec = 1;
-  for (int v = kMaxVec; v > 1; v >>= 1) {
-    if (n % v == 0 && (uintptr_t)g % (4 * v) == 0) {
-      vec = v;
-      break;
-    }
-  }
-  const long long tiles = (n + (long long)kThreads * vec - 1) /
-                          ((long long)kThreads * vec);
+  const long long tiles = (n + kThreads - 1) / kThreads;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)tiles, (unsigned)s);
   float* out = s == 1 ? y : part;
   if (pre == 1) {
-    launch_chunks<true>(grid, vec, st, g, scale, noise, a, k, n, rows, out);
+    launch_chunks<true>(grid, st, g, scale, noise, a, k, n, rows, out);
   } else {
-    launch_chunks<false>(grid, vec, st, g, scale, noise, a, k, n, rows, out);
+    launch_chunks<false>(grid, st, g, scale, noise, a, k, n, rows, out);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || s == 1) return (int)err;

@@ -4,9 +4,9 @@
     python3 tools/kernel_sweep.py [--parent DIR]
 
 K2 (``csrc/ota_superpose.cu``): the device time of each split S of the
-K-way sum at the shapes its callers give it, with 1, 2 or 4 columns a
-thread at most and 8 or 16 rows' loads in flight, beside ``scale @ g``,
-with the S that ``superpose_split`` picks marked.  K3's short-row kernel
+K-way sum at the shapes its callers give it, with 8 or 16 rows' loads in
+flight, beside ``scale @ g``, with the S that ``superpose_split`` picks
+marked.  K3's short-row kernel
 (``csrc/stream_moments.cu``): 1, 2, 4 and 8 float4 loads in flight a lane,
 and CTAs of 4 or 8 warps, beside ``vector_norm(g, dim=1)``; K3's wrapper
 (K1's split for long rows) at the long-row shapes.  ``--parent DIR`` names
@@ -136,6 +136,14 @@ def sweep_k2(libs, parent: bool) -> None:
                     g.data_ptr(), scale.data_ptr(), noise.data_ptr(), 0.9, k,
                     n, 0, y.data_ptr(), torch.cuda.current_stream().cuda_stream)
             row["parent_ms"] = smoke.device_ms(launch_old)
+            # the order of the timings: the chosen S once more, after
+            lib = next(iter(news.values()))
+            part = torch.empty((chosen, n), device="cuda")
+            row["chosen_ms_after_parent"] = smoke.device_ms(
+                lambda: lib.ota_superpose_launch(
+                    g.data_ptr(), scale.data_ptr(), noise.data_ptr(), 0.9, k,
+                    n, chosen, 0, part.data_ptr(), y.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream))
         emit(row)
         del g
 
@@ -204,12 +212,10 @@ def main() -> None:
     k3 = (csrc / "stream_moments.cu").read_text()
     k2 = (csrc / "ota_superpose.cu").read_text()
     variants = {}
-    for vec in (1, 2, 4):
-        for unroll in (8, 16):
-            variants[f"k2_v{vec}_u{unroll}"] = k2.replace(
-                "kMaxVec = 2;", f"kMaxVec = {vec};").replace(
-                "#pragma unroll 8\n  for (long long i",
-                f"#pragma unroll {unroll}\n  for (long long i")
+    for unroll in (8, 16):
+        variants[f"k2_v1_u{unroll}"] = k2.replace(
+            "#pragma unroll 8\n  for (long long i",
+            f"#pragma unroll {unroll}\n  for (long long i")
     for unroll in (1, 2, 4, 8):
         for threads in (128, 256):
             variants[f"k3_u{unroll}_t{threads}"] = k3.replace(
