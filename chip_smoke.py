@@ -1604,17 +1604,8 @@ def phase_rates(src: str) -> None:
                                    block_batch_provider=provider)
             torch.cuda.synchronize()
             kscale.append(1.0 / (time.perf_counter() - t0))
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            runtime.run(cfg, state, grad_fn, None, 1,
-                        block_batch_provider=provider)
-            torch.cuda.synchronize()
-        rows = device_rows(prof)
-        kscale_busy = {"device_busy_us": sum(r[0] for r in rows),
-                       "top_kernels": [{"name": n[:80], "device_us": d,
-                                        "calls": c}
-                                       for d, n, c in rows[:6]]}
+        kscale_busy = _profile_top(lambda: runtime.run(
+            cfg, state, grad_fn, None, 1, block_batch_provider=provider))
     emit({"phase": "rates", "src": src,
           "case_i_warm_rounds_per_s": case_i,
           "case_i_median": statistics.median(case_i),
