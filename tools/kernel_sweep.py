@@ -15,8 +15,8 @@ a directory that holds another tree's ``ota_superpose.cu`` and
 same run.  Each variant is checked against its plain version and for two
 launches giving the same bits; ptxas's stack and spills and the number of
 CALL instructions in its SASS are printed.  Device times: CUDA events over
-CUDA-graph replays (``chip_smoke.device_ms``).  One JSON line per result,
-also written to ``chiprun_out/kernel_sweep.jsonl``.
+CUDA-graph replays (``chip_smoke.device_ms``).  One JSON line per result
+on standard output.
 """
 from __future__ import annotations
 
@@ -31,7 +31,6 @@ import sys
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-OUT = ROOT / "chiprun_out" / "kernel_sweep.jsonl"
 K2_SHAPES = ((20, 55_050), (1000, 2048), (1000, 55_050), (7, 1_000_003),
              (100_000, 2048))
 K2_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 31, 48, 62, 96, 125, 250)
@@ -43,10 +42,7 @@ _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 
 
 def emit(obj) -> None:
-    line = json.dumps(obj)
-    print(line, flush=True)
-    with OUT.open("a") as f:
-        f.write(line + "\n")
+    print(json.dumps(obj), flush=True)
 
 
 def compile_variants(variants: dict) -> dict:
@@ -202,8 +198,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs an NVIDIA GPU")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    OUT.parent.mkdir(exist_ok=True)
-    OUT.write_text("")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
