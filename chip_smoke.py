@@ -20,7 +20,9 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               norm (K5) at the round's N and on each stack flattened.  Each
               K2 row shows its split S of the K-way sum and, where S > 1,
               that its tolerance rejects a result that lacks one K-chunk;
-              each K3 row its chunks a row.  Device
+              each K4 row its chunks of whole K-blocks (S = 1: one pass)
+              and that its tolerance rejects a result that lacks one
+              K-block; each K3 row its chunks a row.  Device
               times (CUDA events over CUDA-graph replays, median of 50
               samples of 20 launches) beside the bytes bound and a PyTorch
               library call timed as a yardstick only, and the eager per-call
@@ -46,8 +48,8 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               ``block_batch_provider``; rounds/s, K2 launches (100 a round),
               peak device memory under 512 MiB, params against the CPU;
 9. flash   -- flash attention (K6) against its plain version, both
-              bodies (fp32 on the fp32 cores, bf16 on the tensor cores
-              through wgmma and TMA), at the serving layer's shape ([4, 32,
+              bodies (fp32 in 3xTF32 on the tensor cores through
+              mma.sync, bf16 on the tensor cores through wgmma and TMA), at the serving layer's shape ([4, 32,
               8192, 80] over 8 kv heads, window 4,096, as the prefill gives
               it, and at B = 1), at Jamba's attention layer's ([4 and 1, 32,
               8192, 128] over 8 kv heads, causal, no window), a ragged
@@ -127,6 +129,7 @@ STREAM_MEM_LIMIT_MB = 512.0      # a [K, B, 2048] batch stack alone is 6.55 GB
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 EPS32 = 2.0 ** -23
 SAMPLES, LAUNCHES = 50, 20
 # |kernel - plain| <= 1e-5 sum|terms| per device (moments) or per column
@@ -290,7 +293,7 @@ def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
 
 def check_superpose(ops, g: torch.Tensor, pre: str,
                     gen: torch.Generator, k_block=None) -> dict:
-    from repro_torch.kernels.ota_aggregate import superpose_split
+    from repro_torch.kernels.ota_aggregate import stream_split, superpose_split
     k, n = g.shape
     scale = torch.rand((k,), generator=gen, device="cuda") + 0.5
     noise = 0.01 * torch.randn((n,), generator=gen, device="cuda")
@@ -309,11 +312,13 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
     tol = rtol * ref_abs
     d = (y - yp).abs().double()
     check = {}
-    # the rows the kernel sums apart: K4's K-blocks, K2's K-chunks
+    # the rows the kernel sums apart: K4's K-blocks (in split_s chunks of
+    # whole blocks), K2's K-chunks
     if k_block is None:
         check["split_s"] = superpose_split(k, n)
         block = -(-k // check["split_s"])
     else:
+        check["split_s"] = stream_split(k, n, k_block)
         block = k_block
     if block < k:
         # the tolerance must reject a result that lacks one K-block or
@@ -899,14 +904,21 @@ def band_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return int((hi - lo).clamp(min=0).sum())
 
 
-def flash_bound(b, h, hkv, sq, skv, d, causal, window, dtype):
-    """Operations: 4 d flops a pair in the band, at the dtype's peak;
-    bytes: q, k, v read once and o written once, at 3.35 TB/s."""
+def flash_bound(b, h, hkv, sq, skv, d, causal, window, dtype,
+                fp32_cores: bool = False):
+    """Operations: 4 d flops a pair in the band at the dtype's peak; for
+    fp32 the least time of the two ways the card does that work, three TF32
+    products at 495 TFLOP/s (3xTF32) or one at the fp32 cores' 67 TFLOP/s
+    (``fp32_cores`` the latter alone); bytes: q, k, v read once and o
+    written once, at 3.35 TB/s."""
     item = torch.finfo(dtype).bits // 8
     nbytes = item * d * (2 * b * h * sq + 2 * b * hkv * skv)
     flops = 4.0 * d * b * h * band_pairs(sq, skv, causal, window)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    return bound(nbytes, flops, peak)
+    if dtype == torch.bfloat16:
+        return bound(nbytes, flops, BF16_FLOPS_PER_S)
+    if fp32_cores or flops / FP32_FLOPS_PER_S < 3 * flops / TF32_FLOPS_PER_S:
+        return bound(nbytes, flops, FP32_FLOPS_PER_S)
+    return bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
 
 
 def flash_ms(fn) -> float:
@@ -936,14 +948,12 @@ def flash_ms(fn) -> float:
 
 def flash_ptxas(build, dtype, d) -> dict:
     """ptxas's report of the K6 body that runs ``dtype`` at head dim ``d``
-    (the bf16 body has one instantiation per d padded to 16), with the
-    launch's dynamic shared memory."""
+    (each body has one instantiation per d padded to 16), with the launch's
+    dynamic shared memory."""
     from repro_torch.kernels import flash_attention as FA
     report = build.ptxas_report(FA.BODIES[dtype][0])
-    if dtype == torch.bfloat16:
-        tag = f"ILi{(d + 15) // 16 * 16}E"
-        report = {k: r for k, r in report.items() if tag in k}
-    (row,) = report.values()
+    tag = f"ILi{(d + 15) // 16 * 16}E"
+    (row,) = (r for k, r in report.items() if tag in k)
     return dict(row, dynamic_smem=FA.smem_bytes(dtype, d))
 
 
@@ -994,6 +1004,10 @@ def check_flash(ops, build, shape, dtype, gen) -> dict:
             return F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
         call = f"scaled_dot_product_attention(is_causal={causal})"
     b_ms, b_by = flash_bound(b, h, hkv, sq, skv, d, causal, window, dtype)
+    # the fp32 row keeps the fp32 cores' bound beside it, under its own name
+    cores = ({} if dtype == torch.bfloat16 else {
+        "bound_fp32_cores_ms": flash_bound(b, h, hkv, sq, skv, d, causal,
+                                           window, dtype, fp32_cores=True)[0]})
     row = {"kernel": "flash_attention", "dtype": str(dtype)[6:],
            "body": BODIES[dtype][1], "b": b, "h": h, "hkv": hkv, "sq": sq,
            "skv": skv, "d": d, "causal": causal, "window": window,
@@ -1012,15 +1026,15 @@ def check_flash(ops, build, shape, dtype, gen) -> dict:
            "plain_ms": flash_ms(lambda: ops.flash_attention(
                q, k, v, impl="plain", **kw)),
            "library_ms": flash_ms(library), "library_call": call,
-           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_ms": b_ms, "bound_by": b_by, **cores,
            "band_pairs": b * h * band_pairs(sq, skv, causal, window)}
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     return row
 
 
 def phase_flash(ops, build) -> dict:
-    """K6 against its plain version at FLASH_SHAPES, both bodies (fp32 on
-    the fp32 cores, bf16 on the tensor cores); returns the row of the shape
+    """K6 against its plain version at FLASH_SHAPES, both bodies (fp32 in
+    3xTF32, bf16 through wgmma); returns the row of the shape
     and type the serve phase's prefill gives it."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
     path_row = None
@@ -1677,7 +1691,7 @@ def main() -> None:
         "streaming_moments": (csrc + "stream_moments.cu",
                               "src/repro/kernels/grad_norm.py:134",
                               stream_launches),
-        "ota_superpose_streaming": (csrc + "ota_superpose_stream.cu",
+        "ota_superpose_streaming": (csrc + "ota_superpose.cu",
                                     "src/repro/kernels/ota_aggregate.py:125",
                                     stream_launches),
         "sumsq": (csrc + "sumsq.cu", "src/repro/kernels/grad_norm.py:50",
@@ -1702,7 +1716,7 @@ def main() -> None:
                         "library_ms": row["library_ms"]})
         if "body" in row:            # K6: the bf16 body runs on the path
             kernels[-1]["body"] = row["body"]
-        for key in ("split_s", "chunks_per_row"):     # K2, K3
+        for key in ("split_s", "chunks_per_row"):     # K2, K4; K3
             if key in row:
                 kernels[-1][key] = row[key]
     print(info["nvidia_smi"], flush=True)

@@ -8,7 +8,7 @@
 // set to -1e30 (not dropped) when causal and j > i, or when a window W is
 // set and i - j >= W, so a row whose every real key is masked gives the
 // uniform average over the Skv keys.  The finish divides by max(l, 1e-30).
-// flash_attention.cu computes the same function for fp32 on the fp32 cores;
+// flash_attention.cu computes the same function for fp32 in 3xTF32;
 // the wrapper (kernels/flash_attention.py) sends bf16 here, fp32 there.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::

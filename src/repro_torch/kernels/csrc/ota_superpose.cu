@@ -40,11 +40,39 @@
 //    a host float.
 //  * sign follows jnp.sign: sign(0) = 0 and NaN stays NaN.  copysignf is not
 //    used, since it returns +-1 at zero.
+//
+// The streamed superposition (K4) is the same sum folded K-block by K-block
+// in block order, the reference's association:
+//   p_b[j] = sum_{k in block b} scale[k] * pre(g[k, j])
+//   y[j]   = a * ( ((p_0[j] + p_1[j]) + p_2[j]) + ... + z[j] )
+// It replaces the TPU kernel repro/kernels/ota_aggregate.py::
+// ota_aggregate_streaming (body _ota_stream_kernel), whose (N-block,
+// K-block) grid runs in order on one core and revisits the output tile as
+// its accumulator.  Bound: the same bytes as above (819 MB, ~245 us at the
+// K-scale shape K = 100,000, N = 2,048).  superpose_blocks_kernel is the
+// chunk kernel with the block structure kept explicit:
+//  * S = 1 (the host's stream_split, from (K, N, k_block) alone): each
+//    thread walks the blocks in order, sums one block into a register from
+//    0, adds it to its running fold (the first block starts it) and writes
+//    y once: no partials and no second launch.  One fma chain across a
+//    block edge would round differently from fold + p_b.
+//  * S > 1: chunk c holds whole K-blocks; each thread writes each of its
+//    blocks' partials to part [nb, N], and superpose_fold_kernel adds the
+//    nb partials in block order.  S stays within one wave of CTAs.
+//  * Rows are loaded 8 at a time across block edges, so a short block
+//    (k_block 1 at K = 7) still has 8 loads in flight a thread; a
+//    countdown closes each block.
+//  * 128 columns a CTA, held to 32 registers (16 CTAs an SM): at 48, 5
+//    CTAs of 256 fit an SM and the K-scale shape's 800 ran in two waves;
+//    1,600 CTAs of 128 spread over 132 SMs more evenly than 800 of 256.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kStreamThreads = 128;  // K4: columns a CTA
+constexpr int kStreamCtasPerSm = 2048 / kStreamThreads;  // 32 registers
+constexpr int kRowsInFlight = 8;    // K4: rows loaded at once a thread
 constexpr int kFoldThreads = 128;
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -108,6 +136,67 @@ superpose_fold_kernel(const float* __restrict__ part,
   y[j] = a * (acc + __ldg(noise + j));
 }
 
+// K4: rows [i0, i1) of chunk blockIdx.y (all K rows without kSplit), in
+// K-blocks of kb rows (kb divides the chunk's rows).  With kSplit each
+// block's column sums go to out[b * N + j], b the block's index; without,
+// out[j] = y[j] = a (fold + z[j]), fold the blocks' sums in block order.
+template <bool kSign, bool kSplit>
+__global__ void __launch_bounds__(kStreamThreads, kStreamCtasPerSm)
+superpose_blocks_kernel(const float* __restrict__ g,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ noise, float a, int k,
+                        long long n, int kb, int rows,
+                        float* __restrict__ out) {
+  const int i0 = kSplit ? (int)blockIdx.y * rows : 0;
+  const int i1 = kSplit ? min(k, i0 + rows) : k;
+  const long long stride = (long long)gridDim.x * kStreamThreads;
+  for (long long j = (long long)blockIdx.x * kStreamThreads + threadIdx.x;
+       j < n; j += stride) {
+    const float* col = g + (long long)i0 * n + j;
+    float* part = out + (long long)(i0 / kb) * n + j;
+    float acc = 0.f, fold = 0.f;
+    bool first = true;
+    int left = kb;
+    for (int i = i0; i < i1; i += kRowsInFlight) {
+      float x[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u, col += n)
+        if (i + u < i1) x[u] = __ldg(col);
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        if (i + u < i1) {
+          acc += __ldg(scale + i + u) * (kSign ? sign_of(x[u]) : x[u]);
+          if (--left == 0) {  // the block ends: its sum is p_b
+            if (kSplit) {
+              *part = acc;
+              part += n;
+            } else {
+              fold = first ? acc : fold + acc;
+              first = false;
+            }
+            acc = 0.f;
+            left = kb;
+          }
+        }
+      }
+    }
+    if (!kSplit) out[j] = a * (fold + __ldg(noise + j));
+  }
+}
+
+template <bool kSign>
+void launch_blocks(dim3 grid, cudaStream_t st, const float* g,
+                   const float* scale, const float* noise, float a, int k,
+                   long long n, int kb, int rows, float* out) {
+  if (grid.y == 1) {
+    superpose_blocks_kernel<kSign, false><<<grid, kStreamThreads, 0, st>>>(
+        g, scale, noise, a, k, n, kb, rows, out);
+  } else {
+    superpose_blocks_kernel<kSign, true><<<grid, kStreamThreads, 0, st>>>(
+        g, scale, noise, a, k, n, kb, rows, out);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -138,6 +227,43 @@ int ota_superpose_launch(const float* g, const float* scale,
   const long long fold = (n + kFoldThreads - 1) / kFoldThreads;
   superpose_fold_kernel<<<(unsigned)fold, kFoldThreads, 0, st>>>(
       part, noise, a, s, n, y);
+  return (int)cudaGetLastError();
+}
+
+// K4: y = a (((p_0 + p_1) + ...) + z) over K-blocks of k_block rows
+// (k_block divides k), summed in s chunks of ceil(nb / s) whole blocks
+// (nb = k / k_block); s must leave no chunk empty (the wrapper's
+// stream_split gives such an s).  part: [nb, N] fp32 scratch when s > 1
+// (unused when s == 1).  Launches on `stream`; returns cudaGetLastError().
+int ota_superpose_stream_launch(const float* g, const float* scale,
+                                const float* noise, float a, long long k,
+                                long long n, long long k_block, int s,
+                                int pre, float* part, float* y,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k < 1 || n < 1 || k > 0x7fffffffLL || k_block < 1 || k % k_block)
+    return (int)cudaErrorInvalidValue;
+  const long long nb = k / k_block;
+  if (s < 1 || s > 65535 || s > nb) return (int)cudaErrorInvalidValue;
+  const long long per = (nb + s - 1) / s;
+  if ((nb + per - 1) / per != s) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + kStreamThreads - 1) / kStreamThreads;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)s);
+  float* out = s == 1 ? y : part;
+  const int kb = (int)k_block, rows = (int)(per * k_block);
+  if (pre == 1) {
+    launch_blocks<true>(grid, st, g, scale, noise, a, (int)k, n, kb, rows,
+                        out);
+  } else {
+    launch_blocks<false>(grid, st, g, scale, noise, a, (int)k, n, kb, rows,
+                         out);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || s == 1) return (int)err;
+  const long long fold = (n + kFoldThreads - 1) / kFoldThreads;
+  superpose_fold_kernel<<<(unsigned)fold, kFoldThreads, 0, st>>>(
+      part, noise, a, (int)nb, n, y);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 port of ``repro/kernels/flash_attention.py``'s ``flash_attention_blocked``.
 bf16 runs ``csrc/flash_attention_wgmma.cu`` (the tensor cores through
 wgmma, TMA copies, warp-specialised; ``sm_90a`` only) and fp32 runs
-``csrc/flash_attention.cu`` (the fp32 cores); ``BODIES`` names them.
+``csrc/flash_attention.cu`` (the tensor cores through mma.sync in 3xTF32:
+each product as three TF32 products, fp32-accurate); ``BODIES`` names
+them.
 
 ``flash_attention_cuda(q, k, v, causal=, window=)`` takes q [B, H, Sq, d]
 and k, v [B, Hkv, Skv, d] (Hkv dividing H: grouped-query attention reads
@@ -27,7 +29,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 # dtype -> (library, the body's name in chip_smoke.py's rows)
 BODIES = {torch.bfloat16: ("flash_attention_wgmma", "wgmma_tma"),
-          torch.float32: ("flash_attention", "fp32_cores")}
+          torch.float32: ("flash_attention", "tf32x3_mma")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I)

@@ -1,6 +1,6 @@
 """Fused OTA superposition on the card: the wrappers of
-``csrc/ota_superpose.cu`` and ``csrc/ota_superpose_stream.cu``, the Hopper
-ports of ``repro/kernels/ota_aggregate.py``'s ``ota_aggregate_blocked`` and
+``csrc/ota_superpose.cu``'s two entry points, the Hopper ports of
+``repro/kernels/ota_aggregate.py``'s ``ota_aggregate_blocked`` and
 ``ota_aggregate_streaming``.
 
 ``ota_superpose_cuda(g, scale, noise, a, pre)`` computes the paper's eq. 10,
@@ -8,7 +8,9 @@ ports of ``repro/kernels/ota_aggregate.py``'s ``ota_aggregate_blocked`` and
 stack; ``ota_superpose_streaming_cuda(..., k_block, pre)`` computes the same
 with the K-way sum folded K-block by K-block in order.  Ragged N is masked
 in the kernels, not padded.  ``superpose_split(k, n)`` is the number of
-K-chunks the first kernel splits its sum into (folded in chunk order).
+K-chunks the first kernel splits its sum into (folded in chunk order);
+``stream_split(k, n, k_block)`` the number of chunks of whole K-blocks the
+streamed one does (its block partials folded in block order).
 Public callers go through ``repro_torch.kernels.ops``, which counts the
 launches and serves CPU tensors with the plain versions.
 """
@@ -33,10 +35,8 @@ _ENTRY_POINTS = {
     "ota_superpose": {
         "ota_superpose_launch": (
             [_P, _P, _P, _F, _LL, _LL, _I, _I, _P, _P, _P], _I),
-    },
-    "ota_superpose_stream": {
         "ota_superpose_stream_launch": (
-            [_P, _P, _P, _F, _LL, _LL, _LL, _I, _P, _P, _P], _I),
+            [_P, _P, _P, _F, _LL, _LL, _LL, _I, _I, _P, _P, _P], _I),
     },
 }
 
@@ -54,6 +54,20 @@ def superpose_split(k: int, n: int) -> int:
                    k // SUPERPOSE_MIN_ROWS))
     rows = -(-k // s)
     return -(-k // rows)
+
+
+def stream_split(k: int, n: int, k_block: int) -> int:
+    """S, the number of chunks of whole K-blocks that the streamed kernel
+    sums apart, from (K, N, k_block) alone.  Where ``superpose_split``
+    keeps one pass (the FL round's K = 20; a grid that fills a wave, as
+    N = 1,000,003), S = 1: one launch folds the blocks in registers.
+    Otherwise as many chunks as it gives, but at most one a block; each
+    chunk holds ceil(nb / S) blocks, none is empty, and the grid stays
+    within one wave.  The partials are per block, [nb, N], whatever S."""
+    nb = k // k_block
+    s = min(nb, superpose_split(k, n))
+    per = -(-nb // s)
+    return -(-nb // per)
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -106,15 +120,16 @@ def ota_superpose_streaming_cuda(g: torch.Tensor, scale: torch.Tensor,
     k, n = _check(g, scale, noise, pre)
     if not 1 <= k_block <= k or k % k_block:
         raise ValueError(f"k_block {k_block} must divide K {k}")
-    lib = _library("ota_superpose_stream")
+    lib = _library("ota_superpose")
+    s = stream_split(k, n, k_block)
     with torch.cuda.device(g.device):
-        part = torch.empty((k // k_block, n), dtype=torch.float32,
-                           device=g.device)
         y = torch.empty((n,), dtype=torch.float32, device=g.device)
+        part = (torch.empty((k // k_block, n), dtype=torch.float32,
+                            device=g.device) if s > 1 else y)
         err = lib.ota_superpose_stream_launch(
             g.data_ptr(), scale.data_ptr(), noise.data_ptr(), float(a), k, n,
-            k_block, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
+            k_block, s, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream(g.device).cuda_stream)
-    _launch.raise_on(err, lib.ota_superpose_stream_error_string,
-                     "ota_superpose_stream")
+    _launch.raise_on(err, lib.ota_superpose_error_string,
+                     "ota_superpose_streaming")
     return y

@@ -7,7 +7,11 @@ TestFlashAttention``) plus a head dim of 80, a ragged S and grouped kv.
 Tolerances: fp32 rtol = atol = 1e-5 (the reference's bound for its kernel
 against its oracle: fp32 sums in another order); bf16 2e-2 (the
 reference's, one bf16 rounding of inputs handled in another order).
+``TestTF32Split`` emulates the fp32 body's 3xTF32 products in numpy and
+holds them to the card's fp32 rule, 1e-5 + 1e-5 |o|.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,14 +122,14 @@ class TestPlainMatchesReference:
 
 class TestDispatch:
     def test_each_dtype_has_its_body(self):
-        """bf16 goes to the tensor-core body, fp32 to the fp32-core body;
-        both are sources that the build compiles."""
+        """bf16 goes to the wgmma body, fp32 to the 3xTF32 body; both are
+        sources that the build compiles."""
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import BODIES, DTYPES
         assert set(BODIES) == set(DTYPES)
         assert BODIES[torch.bfloat16] == ("flash_attention_wgmma",
                                           "wgmma_tma")
-        assert BODIES[torch.float32] == ("flash_attention", "fp32_cores")
+        assert BODIES[torch.float32] == ("flash_attention", "tf32x3_mma")
         for lib, _ in BODIES.values():
             assert (build.CSRC / build.SOURCES[lib]).is_file()
 
@@ -166,3 +170,83 @@ class TestDispatch:
     def test_kernel_layout_checks(self, bad, match):
         with pytest.raises(ValueError, match=match):
             flash_attention_cuda(bad, bad, bad)
+
+
+def _tf32(x, mode):
+    """fp32 ``x`` rounded to TF32's 10 stored mantissa bits: to nearest
+    (ties away from zero, as ``cvt.rna.tf32.f32``) or toward zero (the low
+    13 bits cleared, as the fp32 body's split and the tensor cores' reading
+    of a raw fp32 operand)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if mode == "nearest":
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, b, terms, mode):
+    """a @ b from TF32 operands, each split as hi = tf32(x), lo = tf32(x -
+    hi): hi hi alone (``terms`` 1) or hi lo + lo hi + hi hi (3).  TF32
+    products are exact in fp32; the sums run in fp64."""
+    ah, bh = _tf32(a, mode), _tf32(b, mode)
+    out = ah.astype(np.float64) @ bh.astype(np.float64)
+    if terms == 3:
+        al, bl = _tf32(a - ah, mode), _tf32(b - bh, mode)
+        out += (ah.astype(np.float64) @ bl.astype(np.float64)
+                + al.astype(np.float64) @ bh.astype(np.float64))
+    return out
+
+
+def _attention_tf32(q, k, v, terms, mode):
+    """Causal attention whose two products (Q K^T and P V, P the unscaled
+    exponentials as the kernel keeps them) take ``terms`` TF32 products;
+    the softmax in fp32."""
+    sq, d = q.shape[-2:]
+    s = (_tf32_product(q, np.swapaxes(k, -1, -2), terms, mode)
+         .astype(np.float32) / np.float32(math.sqrt(d)))
+    i = np.arange(sq)[:, None]
+    s = np.where(np.arange(k.shape[-2])[None, :] <= i, s, np.float32(-1e30))
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    o = _tf32_product(p, v, terms, mode) / p.sum(-1, keepdims=True,
+                                                 dtype=np.float64)
+    return o.astype(np.float32)
+
+
+class TestTF32Split:
+    """The design evidence for the fp32 body on the tensor cores: with
+    every operand split into two TF32 parts, three products per product
+    meet the card's fp32 rule against the plain version; one TF32 product
+    does not.  Both roundings of the split: to nearest, and the kernel's
+    truncation."""
+
+    SHAPE = (1, 2, 192, 128)
+
+    def _plain(self, q, k, v):
+        o = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                causal=True)
+        return o.numpy()
+
+    @pytest.mark.parametrize("mode", ["nearest", "truncate"])
+    def test_three_products_meet_the_fp32_rule(self, mode):
+        q, k, v = _inputs(self.SHAPE, seed=17)
+        want = self._plain(q, k, v)
+        got = _attention_tf32(q, k, v, 3, mode)
+        assert bool((np.abs(got - want) <= 1e-5 + 1e-5 * np.abs(want)).all())
+
+    @pytest.mark.parametrize("mode", ["nearest", "truncate"])
+    def test_one_product_misses_the_fp32_rule(self, mode):
+        q, k, v = _inputs(self.SHAPE, seed=17)
+        want = self._plain(q, k, v)
+        got = _attention_tf32(q, k, v, 1, mode)
+        assert not bool((np.abs(got - want)
+                         <= 1e-5 + 1e-5 * np.abs(want)).all())
+
+    def test_tf32_rounding(self):
+        """1 + 2^-11 is a tie: to nearest rounds it away from zero to
+        1 + 2^-10, truncation to 1; 1 + 2^-10 is a TF32 value."""
+        x = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -10],
+                     np.float32)
+        np.testing.assert_array_equal(
+            _tf32(x, "nearest"), [1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                                  1 + 2.0 ** -10])
+        np.testing.assert_array_equal(_tf32(x, "truncate"),
+                                      [1.0, -1.0, 1 + 2.0 ** -10])

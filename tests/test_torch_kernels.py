@@ -241,13 +241,16 @@ def _stream_moments_ctas(k, n):
 
 
 class TestSplitChoosers:
-    """How K2 splits its K-way sum (``superpose_split``) and how K3 splits
-    its rows (``stream_moments_chunks``): the grids these give, and that
-    they read nothing but their stated arguments."""
+    """How K2 splits its K-way sum (``superpose_split``), how K4 groups its
+    K-blocks (``stream_split``) and how K3 splits its rows
+    (``stream_moments_chunks``): the grids these give, and that they read
+    nothing but their stated arguments."""
 
     def test_arguments(self):
         assert list(inspect.signature(ota_aggregate.superpose_split)
                     .parameters) == ["k", "n"]
+        assert list(inspect.signature(ota_aggregate.stream_split)
+                    .parameters) == ["k", "n", "k_block"]
         assert list(inspect.signature(grad_norm.stream_moments_chunks)
                     .parameters) == ["n"]
 
@@ -273,6 +276,42 @@ class TestSplitChoosers:
         assert 1 <= s <= k and -(-k // rows) == s
         if s > 1:
             assert rows >= ota_aggregate.SUPERPOSE_MIN_ROWS
+
+    @pytest.mark.parametrize("k,n,kb", [(20, 55_050, 4), (20, 55_050, 20),
+                                        (7, 1_000_003, 1), (1, 7, 1)])
+    def test_stream_keeps_one_pass(self, k, n, kb):
+        """Where K2 keeps one pass (the FL round's K = 20, the ragged N that
+        fills a wave), so does K4: one launch, no partials."""
+        assert ota_aggregate.stream_split(k, n, kb) == 1
+
+    @pytest.mark.parametrize("k,n,kb,s", [(1000, 55_050, 100, 4),
+                                          (100_000, 2048, 1000, 100),
+                                          (1000, 2048, 100, 10),
+                                          (1000, 2048, 1, 31)])
+    def test_stream_split_at_the_callers_shapes(self, k, n, kb, s):
+        """Wide: 10 blocks in 4 chunks of 3, 3, 3 and 1 (864 CTAs; 5 would
+        pass one wave); K-scale: one chunk a block (800 CTAs)."""
+        assert ota_aggregate.stream_split(k, n, kb) == s
+
+    @pytest.mark.parametrize("k,kb", [(1, 1), (7, 1), (20, 4), (20, 20),
+                                      (64, 2), (1000, 1), (1000, 100),
+                                      (1000, 125), (4096, 64),
+                                      (100_000, 1000), (100_000, 100_000)])
+    @pytest.mark.parametrize("n", [1, 7, 2048, 55_050, 1_000_003])
+    def test_stream_chunks_hold_whole_blocks(self, k, n, kb):
+        """The S chunks of ceil(nb / S) K-blocks cover the nb blocks once
+        with none empty, S is at most K2's split, and a split grid stays
+        within one wave of CTAs."""
+        s = ota_aggregate.stream_split(k, n, kb)
+        nb = k // kb
+        per = -(-nb // s)
+        assert 1 <= s <= nb and -(-nb // per) == s
+        assert sum(min(per, nb - c * per) for c in range(s)) == nb
+        assert s <= ota_aggregate.superpose_split(k, n)
+        if s > 1:
+            tiles = -(-n // ota_aggregate.SUPERPOSE_THREADS)
+            assert tiles * s <= (ota_aggregate.SMS
+                                 * ota_aggregate.SUPERPOSE_CTAS_PER_SM)
 
     @pytest.mark.parametrize("n", [1, 7, 2048, 4096, 4097, 55_050,
                                    1_000_003])

@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""The numbers behind the split choices of K2 and K3, on one NVIDIA GPU.
+"""The numbers behind the kernels' split and tile choices, on one NVIDIA GPU.
 
-    python3 tools/kernel_sweep.py [--parent DIR]
+    python3 tools/kernel_sweep.py [--only k2,k3,k4,k6] [--parent DIR]
 
 K2 (``csrc/ota_superpose.cu``): the device time of each split S of the
 K-way sum at the shapes its callers give it, with 8 or 16 rows' loads in
 flight, beside ``scale @ g``, with the S that ``superpose_split`` picks
-marked.  K3's short-row kernel
-(``csrc/stream_moments.cu``): 1, 2, 4 and 8 float4 loads in flight a lane,
-and CTAs of 4 or 8 warps, beside ``vector_norm(g, dim=1)``; K3's wrapper
-(K1's split for long rows) at the long-row shapes.  ``--parent DIR`` names
-a directory that holds another tree's ``ota_superpose.cu`` and
-``stream_moments.cu`` (earlier designs), timed at the same shapes in the
-same run.  Each variant is checked against its plain version and for two
-launches giving the same bits; ptxas's stack and spills and the number of
-CALL instructions in its SASS are printed.  Device times: CUDA events over
-CUDA-graph replays (``chip_smoke.device_ms``).  One JSON line per result
-on standard output.
+marked.  K3's short-row kernel (``csrc/stream_moments.cu``): 1, 2, 4 and 8
+float4 loads in flight a lane, and CTAs of 4 or 8 warps, beside
+``vector_norm(g, dim=1)``; K3's wrapper (K1's split for long rows) at the
+long-row shapes.  K4 (``ota_superpose_stream_launch`` in
+``csrc/ota_superpose.cu``): each number S of chunks of whole K-blocks at
+``chip_smoke.STREAM_SHAPES``, the S that ``stream_split`` picks marked,
+with pass 1 and the fold timed apart (torch.profiler) where S > 1, for
+CTAs of 64, 128 and 256 columns, the register bound, and 16 rows in
+flight.  K6's fp32 body (``csrc/flash_attention.cu``): query and kv tile
+sizes at danube's and Jamba's layers, and P V summed in one tensor-core
+accumulator across kv tiles, beside ``scaled_dot_product_attention``.
+``--parent DIR`` names a directory that holds another tree's
+``ota_superpose_stream.cu`` and ``flash_attention.cu`` (K4's and K6 fp32's
+earlier designs), timed at the same shapes in the same run; K4's chunkings
+are checked for the parent's bits.  Each variant is checked against its
+plain version and for two launches giving the same bits; ptxas's stack
+and spills and the number of CALL instructions in its SASS are printed.
+Device times: CUDA events over CUDA-graph replays (``chip_smoke.device_ms``;
+``chip_smoke.flash_ms`` for K6).  One JSON line per result on standard
+output.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -37,12 +47,27 @@ K2_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 31, 48, 62, 96, 125, 250)
 K2_MAX_ROWS = 5000       # longer chunks are far off at K = 100,000
 K3_SHORT = ((100_000, 2048), (1000, 2048), (20, 2048))
 K3_LONG = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
+K4_SPLITS = (1, 2, 3, 4, 5, 10, 20, 25, 34, 50, 100)
+# K4: (columns a CTA, launch bound in CTAs an SM, rows in flight a thread)
+# of each variant; the first is the tree's.  (256, 5): the register count
+# ptxas picks unbounded (48); 16 rows spill at 32 registers
+K4_VARIANTS = ((128, 16, 8), (64, 32, 8), (256, 8, 8), (256, 5, 8),
+               (128, 16, 16))
+# K6 fp32: (kBQ, kBK, kMinBlocks) of each variant; the first is the tree's
+K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
+_K4_ARGS = [_P, _P, _P, _F, _LL, _LL, _LL, _I, _I, _P, _P, _P]
+_K4_PARENT_ARGS = [_P, _P, _P, _F, _LL, _LL, _LL, _I, _P, _P, _P]
+_K6_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def compile_variants(variants: dict) -> dict:
@@ -75,7 +100,24 @@ def compile_variants(variants: dict) -> dict:
     return libs
 
 
-def sweep_k2(libs, parent: bool) -> None:
+def _superpose_inputs(gen, k, n):
+    import chip_smoke as smoke
+    g = smoke.test_stack(k, n, gen)
+    scale = torch.rand((k,), generator=gen, device="cuda") + 0.5
+    noise = 0.01 * torch.randn((n,), generator=gen, device="cuda")
+    return g, scale, noise
+
+
+def _superpose_tol(g, scale, noise, pre):
+    """chip_smoke's rule: min(2 (K+2) eps32, 1e-5) a sum|terms| a column."""
+    import chip_smoke as smoke
+    k = g.shape[0]
+    x = torch.sign(g) if pre == "sign" else g
+    return min(2 * (k + 2) * smoke.EPS32, smoke.TERMS_RTOL) * 0.9 * (
+        scale.abs() @ x.abs() + noise.abs())
+
+
+def sweep_k2(libs) -> None:
     import chip_smoke as smoke
     from repro_torch.kernels import ref
     from repro_torch.kernels.ota_aggregate import superpose_split
@@ -85,17 +127,10 @@ def sweep_k2(libs, parent: bool) -> None:
     for lib in news.values():
         lib.ota_superpose_launch.argtypes = [_P, _P, _P, _F, _LL, _LL, _I, _I,
                                              _P, _P, _P]
-    if parent:
-        old = libs["k2_parent"][0]
-        old.ota_superpose_launch.argtypes = [_P, _P, _P, _F, _LL, _LL, _I, _P,
-                                             _P]
     for k, n in K2_SHAPES:
-        g = smoke.test_stack(k, n, gen)
-        scale = torch.rand((k,), generator=gen, device="cuda") + 0.5
-        noise = 0.01 * torch.randn((n,), generator=gen, device="cuda")
+        g, scale, noise = _superpose_inputs(gen, k, n)
         want = ref.ota_superpose_ref(g, scale, noise, 0.9)
-        tol = min(2 * (k + 2) * smoke.EPS32, smoke.TERMS_RTOL) * 0.9 * (
-            scale.abs() @ g.abs() + noise.abs())
+        tol = _superpose_tol(g, scale, noise, "identity")
         y = torch.empty((n,), device="cuda")
         chosen = superpose_split(k, n)
         row = {"kernel": "ota_superpose", "k": k, "n": n, "chosen_s": chosen,
@@ -114,8 +149,7 @@ def sweep_k2(libs, parent: bool) -> None:
                 def launch():
                     err = lib.ota_superpose_launch(
                         g.data_ptr(), scale.data_ptr(), noise.data_ptr(), 0.9,
-                        k, n, s, 0, part.data_ptr(), y.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
+                        k, n, s, 0, part.data_ptr(), y.data_ptr(), _stream())
                     assert err == 0, err
                 launch()
                 first = y.clone()
@@ -126,34 +160,18 @@ def sweep_k2(libs, parent: bool) -> None:
                 ok = (bool(((y - want).abs() <= tol).all())
                       and bool(torch.equal(first, y)) and same)
                 times[s] = [smoke.device_ms(launch), ok]
-        if parent:
-            def launch_old():
-                old.ota_superpose_launch(
-                    g.data_ptr(), scale.data_ptr(), noise.data_ptr(), 0.9, k,
-                    n, 0, y.data_ptr(), torch.cuda.current_stream().cuda_stream)
-            row["parent_ms"] = smoke.device_ms(launch_old)
-            # the order of the timings: the chosen S once more, after
-            lib = next(iter(news.values()))
-            part = torch.empty((chosen, n), device="cuda")
-            row["chosen_ms_after_parent"] = smoke.device_ms(
-                lambda: lib.ota_superpose_launch(
-                    g.data_ptr(), scale.data_ptr(), noise.data_ptr(), 0.9, k,
-                    n, chosen, 0, part.data_ptr(), y.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream))
         emit(row)
         del g
 
 
-def sweep_k3(libs, parent: bool) -> None:
+def sweep_k3(libs) -> None:
     import chip_smoke as smoke
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(8)
     short = {name: lib for name, (lib, _, _) in libs.items()
              if name.startswith("k3_")}
-    for name, lib in short.items():
-        lib.stream_moments_launch.argtypes = (
-            [_P, _LL, _LL, _LL, _P, _P, _P] if name == "k3_parent"
-            else [_P, _LL, _LL, _P, _P, _P])
+    for lib in short.values():
+        lib.stream_moments_launch.argtypes = [_P, _LL, _LL, _P, _P, _P]
     for k, n in K3_SHORT + K3_LONG:
         g = smoke.test_stack(k, n, gen)
         want = ref.batched_moments_ref(g)
@@ -168,14 +186,13 @@ def sweep_k3(libs, parent: bool) -> None:
                    lambda: ops.batched_moments(g, k_block=kb, impl="kernel")),
                "variants": {}}
         for name, lib in short.items():
-            if n > 4096 and name != "k3_parent":
+            if n > 4096:
                 continue
-            args = ((k, n, kb) if name == "k3_parent" else (k, n))
 
             def launch():
                 err = lib.stream_moments_launch(
-                    g.data_ptr(), *args, out[0].data_ptr(), out[1].data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
+                    g.data_ptr(), k, n, out[0].data_ptr(), out[1].data_ptr(),
+                    _stream())
                 assert err == 0, err
             launch()
             first = out.clone()
@@ -190,38 +207,250 @@ def sweep_k3(libs, parent: bool) -> None:
         del g
 
 
+def _pass_and_fold_us(launch, count: int = 20) -> dict:
+    """Device time a launch of K4's pass 1 and of its fold, apart
+    (torch.profiler over ``count`` launches)."""
+    import chip_smoke as smoke
+    prof = smoke._profile_top(lambda: [launch() for _ in range(count)])
+    out = {"pass1_us": 0.0, "fold_us": 0.0}
+    for row in prof["top_kernels"]:
+        key = "fold_us" if "fold" in row["name"] else "pass1_us"
+        out[key] += row["device_us"] / count
+    return out
+
+
+def sweep_k4(libs, parent: bool) -> None:
+    """Every number S of chunks of whole K-blocks at STREAM_SHAPES, for each
+    launch bound; all of them fold the same block partials in block order,
+    so all must give the same bits (and, with --parent, the parent's)."""
+    import chip_smoke as smoke
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ota_aggregate import stream_split
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    news = {name: lib for name, (lib, _, _) in libs.items()
+            if name.startswith("k4_t")}
+    for lib in news.values():
+        lib.ota_superpose_stream_launch.argtypes = _K4_ARGS
+    if parent:
+        old = libs["k4_parent"][0]
+        old.ota_superpose_stream_launch.argtypes = _K4_PARENT_ARGS
+    for k, n, kb in smoke.STREAM_SHAPES:
+        g, scale, noise = _superpose_inputs(gen, k, n)
+        nb = k // kb
+        part = torch.empty((nb, n), device="cuda")
+        y = torch.empty((n,), device="cuda")
+        chosen = stream_split(k, n, kb)
+        row = {"kernel": "ota_superpose_streaming", "k": k, "n": n,
+               "k_block": kb, "blocks": nb, "chosen_s": chosen,
+               "library_ms": smoke.device_ms(lambda: scale @ g),
+               "bound_ms": smoke.bound(k * n * 4 + 2 * n * 4 + k * 4,
+                                       2.0 * k * n)[0], "variants": {}}
+        wants = {pre: ref.ota_superpose_streaming_ref(
+            g, scale, noise, 0.9, pre=pre, k_block=kb)
+            for pre in ("identity", "sign")}
+        tols = {pre: _superpose_tol(g, scale, noise, pre) for pre in wants}
+
+        def launcher(lib, s, pre):
+            def launch():
+                if s is None:           # the parent's entry point
+                    err = lib.ota_superpose_stream_launch(
+                        g.data_ptr(), scale.data_ptr(), noise.data_ptr(),
+                        0.9, k, n, kb, pre, part.data_ptr(), y.data_ptr(),
+                        _stream())
+                else:
+                    err = lib.ota_superpose_stream_launch(
+                        g.data_ptr(), scale.data_ptr(), noise.data_ptr(),
+                        0.9, k, n, kb, s, pre, part.data_ptr(),
+                        y.data_ptr(), _stream())
+                assert err == 0, err
+            return launch
+
+        bits = {}
+        for name, lib in news.items():
+            splits = row["variants"][name] = {}
+            for s in sorted(set(K4_SPLITS) | {chosen}):
+                per = -(-nb // s)
+                if (s > nb or -(-nb // per) != s
+                        or (per * kb > K2_MAX_ROWS and s != chosen)):
+                    continue
+                entry = splits[s] = {"chosen": s == chosen}
+                for i, pre in enumerate(wants):
+                    launch = launcher(lib, s, i)
+                    launch()
+                    first = y.clone()
+                    launch()
+                    torch.cuda.synchronize()
+                    bits.setdefault(pre, first)
+                    entry[pre] = {
+                        "within_tolerance": bool(
+                            ((y - wants[pre]).abs() <= tols[pre]).all()),
+                        "two_launches_bitwise": bool(torch.equal(first, y)),
+                        "same_bits_as_other_s": bool(
+                            torch.equal(bits[pre], y))}
+                launch = launcher(lib, s, 0)
+                entry["ms"] = smoke.device_ms(launch)
+                if s > 1:
+                    entry.update(_pass_and_fold_us(launch))
+        if parent:
+            tree = next(iter(news.values()))
+            for i, pre in enumerate(wants):
+                launcher(old, None, i)()
+                torch.cuda.synchronize()
+                row[f"bitwise_equal_to_parent_{pre}"] = bool(
+                    torch.equal(bits[pre], y))
+            row["parent_ms"] = smoke.device_ms(launcher(old, None, 0))
+            row["chosen_ms_after_parent"] = smoke.device_ms(
+                launcher(tree, chosen, 0))
+        emit(row)
+        del g, part
+
+
+def _set_constants(text: str, **values) -> str:
+    """``text`` with each ``constexpr int NAME = ...;`` set to values[NAME]."""
+    for name, value in values.items():
+        text, count = re.subn(rf"constexpr int {name} = [^;]+;",
+                              f"constexpr int {name} = {value};", text)
+        assert count == 1, name
+    return text
+
+
+def k6_one_accumulator(text: str) -> str:
+    """The fp32 body with P V summed on the tensor cores in O itself across
+    all kv tiles, as first built: the variant that missed the fp32 rule."""
+    out = text.replace(
+        "for (int e = 0; e < 4; ++e) pv[j][e] = 0.f;",
+        "for (int e = 0; e < 4; ++e)\n"
+        "          pv[j][e] = acc[j0 + j][e] * (e < 2 ? corr_a : corr_b);")
+    for e, corr in ((0, "a"), (1, "a"), (2, "b"), (3, "b")):
+        out = out.replace(
+            f"acc[j0 + j][{e}] = acc[j0 + j][{e}] * corr_{corr} + pv[j][{e}];",
+            f"acc[j0 + j][{e}] = pv[j][{e}];")
+    assert out.count("= pv[j][") == 4
+    return out
+
+
+def sweep_k6(libs) -> None:
+    """The fp32 body's variants (and the parent's, under --parent) at
+    danube's and Jamba's attention layers, B = 4."""
+    import chip_smoke as smoke
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bodies = {name: lib for name, (lib, _, _) in libs.items()
+              if name.startswith("k6_")}
+    for lib in bodies.values():
+        lib.flash_attention_launch.argtypes = _K6_ARGS
+    for shape in (smoke.FLASH_SHAPES[0], smoke.FLASH_SHAPES[2]):
+        b, h, hkv, sq, skv, d, causal, window = shape
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen, device="cuda")
+                for _ in range(2))
+        want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="plain")
+        tol = smoke.flash_tol(want, torch.float32)
+        o = torch.empty_like(q)
+        ke = torch.repeat_interleave(k, h // hkv, dim=1)
+        ve = torch.repeat_interleave(v, h // hkv, dim=1)
+        if window:
+            i = torch.arange(sq, device="cuda")[:, None]
+            j = torch.arange(skv, device="cuda")[None, :]
+            mask = (j <= i) & (i - j < window)
+
+            def library():
+                return F.scaled_dot_product_attention(q, ke, ve,
+                                                      attn_mask=mask)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=causal)
+        args = smoke.flash_bound(*shape, torch.float32)
+        row = {"kernel": "flash_attention", "dtype": "float32",
+               "shape": list(shape), "bound_ms": args[0],
+               "bound_fp32_cores_ms": smoke.flash_bound(
+                   *shape, torch.float32, fp32_cores=True)[0],
+               "library_ms": smoke.flash_ms(library), "variants": {}}
+        del ke, ve
+        for name, lib in bodies.items():
+            def launch():
+                err = lib.flash_attention_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    b, h, hkv, sq, skv, d, int(causal), window or 0,
+                    int(sq <= skv), 1.0 / math.sqrt(d), _stream())
+                assert err == 0, err
+            launch()
+            first = o.clone()
+            launch()
+            torch.cuda.synchronize()
+            err = (o - want).abs()
+            row["variants"][name] = {
+                "ms": smoke.flash_ms(launch),
+                "within_tolerance": bool((err <= tol).all()),
+                "max_err_over_tol": float((err / tol).max()),
+                "two_launches_bitwise": bool(torch.equal(first, o))}
+            del first, err
+        emit(row)
+        del q, k, v, o, want, tol
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="k2,k3,k4,k6",
+                    help="comma-separated sweeps to run (default: all)")
     ap.add_argument("--parent", help="directory with another tree's "
-                    "ota_superpose.cu and stream_moments.cu")
+                    "ota_superpose_stream.cu and flash_attention.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs an NVIDIA GPU")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    only = set(args.only.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    torch.backends.cuda.matmul.allow_tf32 = False
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    k3 = (csrc / "stream_moments.cu").read_text()
     k2 = (csrc / "ota_superpose.cu").read_text()
+    k3 = (csrc / "stream_moments.cu").read_text()
+    k6 = (csrc / "flash_attention.cu").read_text()
+    par = pathlib.Path(args.parent) if args.parent else None
     variants = {}
-    for unroll in (8, 16):
-        variants[f"k2_v1_u{unroll}"] = k2.replace(
-            "#pragma unroll 8\n  for (long long i",
-            f"#pragma unroll {unroll}\n  for (long long i")
-    for unroll in (1, 2, 4, 8):
-        for threads in (128, 256):
-            variants[f"k3_u{unroll}_t{threads}"] = k3.replace(
-                "kUnroll = 4;", f"kUnroll = {unroll};").replace(
-                "kThreads = 128;", f"kThreads = {threads};")
-    if args.parent:
-        par = pathlib.Path(args.parent)
-        variants["k2_parent"] = (par / "ota_superpose.cu").read_text()
-        variants["k3_parent"] = (par / "stream_moments.cu").read_text()
+    if "k2" in only:
+        for unroll in (8, 16):
+            variants[f"k2_v1_u{unroll}"] = k2.replace(
+                "#pragma unroll 8\n    for (long long i",
+                f"#pragma unroll {unroll}\n    for (long long i")
+            assert unroll == 8 or variants[f"k2_v1_u{unroll}"] != k2
+    if "k3" in only:
+        for unroll in (1, 2, 4, 8):
+            for threads in (128, 256):
+                variants[f"k3_u{unroll}_t{threads}"] = k3.replace(
+                    "kUnroll = 4;", f"kUnroll = {unroll};").replace(
+                    "kThreads = 128;", f"kThreads = {threads};")
+    if "k4" in only:
+        for threads, ctas, rows in K4_VARIANTS:
+            variants[f"k4_t{threads}_b{ctas}_r{rows}"] = _set_constants(
+                k2, kStreamThreads=threads, kStreamCtasPerSm=ctas,
+                kRowsInFlight=rows)
+        if par:
+            variants["k4_parent"] = (par / "ota_superpose_stream.cu"
+                                     ).read_text()
+    if "k6" in only:
+        for bq, bk, mb in K6_TILES:
+            variants[f"k6_q{bq}_k{bk}_b{mb}"] = _set_constants(
+                k6, kBQ=bq, kBK=bk, kMinBlocks=mb)
+        variants["k6_one_accumulator"] = k6_one_accumulator(k6)
+        if par:
+            variants["k6_parent"] = (par / "flash_attention.cu").read_text()
     libs = compile_variants(variants)
-    sweep_k2(libs, bool(args.parent))
-    sweep_k3(libs, bool(args.parent))
+    if "k2" in only:
+        sweep_k2(libs)
+    if "k3" in only:
+        sweep_k3(libs)
+    if "k4" in only:
+        sweep_k4(libs, par is not None)
+    if "k6" in only:
+        sweep_k6(libs)
 
 
 if __name__ == "__main__":
