@@ -3,26 +3,27 @@
 
     python3 tools/kernel_sweep.py [--only k2,k3,k4,k6] [--parent DIR]
 
-K2 (``csrc/ota_superpose.cu``): the device time of each split S of the
-K-way sum at the shapes its callers give it, with 8 or 16 rows' loads in
-flight, beside ``scale @ g``, with the S that ``superpose_split`` picks
-marked.  K3's short-row kernel (``csrc/stream_moments.cu``): 1, 2, 4 and 8
-float4 loads in flight a lane, and CTAs of 4 or 8 warps, beside
+K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
+time of each split S of the K-way sum at the shapes its callers give it,
+beside ``scale @ g``, with the S that ``superpose_split`` picks marked.
+K3's short-row kernel (``csrc/stream_moments.cu``): 1, 2, 4 and 8 float4
+loads in flight a lane, and CTAs of 4 or 8 warps, beside
 ``vector_norm(g, dim=1)``; K3's wrapper (K1's split for long rows) at the
-long-row shapes.  K4 (``ota_superpose_stream_launch`` in
-``csrc/ota_superpose.cu``): each number S of chunks of whole K-blocks at
-``chip_smoke.STREAM_SHAPES``, the S that ``stream_split`` picks marked,
-with pass 1 and the fold timed apart (torch.profiler) where S > 1, for
-CTAs of 64, 128 and 256 columns, the register bound, and 16 rows in
-flight.  K6's fp32 body (``csrc/flash_attention.cu``): query and kv tile
-sizes at danube's and Jamba's layers, and P V summed in one tensor-core
-accumulator across kv tiles, beside ``scaled_dot_product_attention``.
-``--parent DIR`` names a directory that holds another tree's
-``ota_superpose_stream.cu`` and ``flash_attention.cu`` (K4's and K6 fp32's
-earlier designs), timed at the same shapes in the same run; K4's chunkings
-are checked for the parent's bits.  Each variant is checked against its
-plain version and for two launches giving the same bits; ptxas's stack
-and spills and the number of CALL instructions in its SASS are printed.
+long-row shapes.  K4 (``ota_superpose_stream_launch`` in the same source):
+each number S of chunks of whole K-blocks at ``chip_smoke.STREAM_SHAPES``,
+the S that ``stream_split`` picks marked, with pass 1 and the fold timed
+apart (torch.profiler) where S > 1, for CTAs of 64, 128 and 256 columns,
+the register bound, and 16 rows in flight.  K6's fp32 body
+(``csrc/flash_attention.cu``): query and kv tile sizes at danube's and
+Jamba's layers, and P V summed in one tensor-core accumulator across kv
+tiles, beside ``scaled_dot_product_attention``.  ``--parent DIR`` names a
+directory that holds another tree's ``ota_superpose.cu``,
+``ota_superpose_stream.cu`` and ``flash_attention.cu`` (K2's, K4's and K6
+fp32's earlier designs), timed at the same shapes in the same run; K2's
+splits and K4's chunkings are checked for the parent's bits.  Each variant
+is checked against its plain version and for two launches giving the same
+bits; ptxas's stack and spills and the number of CALL instructions in its
+SASS are printed.
 Device times: CUDA events over CUDA-graph replays (``chip_smoke.device_ms``;
 ``chip_smoke.flash_ms`` for K6).  One JSON line per result on standard
 output.
@@ -117,14 +118,17 @@ def _superpose_tol(g, scale, noise, pre):
         scale.abs() @ x.abs() + noise.abs())
 
 
-def sweep_k2(libs) -> None:
+def sweep_k2(libs, parent: bool) -> None:
+    """Every split S of K2 at K2_SHAPES; with --parent, the parent's K2 at
+    the same S beside it, checked for the same bits (one S gives the same
+    chunks in both)."""
     import chip_smoke as smoke
     from repro_torch.kernels import ref
     from repro_torch.kernels.ota_aggregate import superpose_split
     gen = torch.Generator(device="cuda").manual_seed(7)
-    news = {name: lib for name, (lib, _, _) in libs.items()
-            if name.startswith("k2_v")}
-    for lib in news.values():
+    trees = {name: libs[name][0] for name in ("k2_tree", "k2_parent")
+             if name in libs and (parent or name == "k2_tree")}
+    for lib in trees.values():
         lib.ota_superpose_launch.argtypes = [_P, _P, _P, _F, _LL, _LL, _I, _I,
                                              _P, _P, _P]
     for k, n in K2_SHAPES:
@@ -138,7 +142,7 @@ def sweep_k2(libs) -> None:
                "bound_ms": smoke.bound(k * n * 4 + 2 * n * 4 + k * 4,
                                        2.0 * k * n)[0], "variants": {}}
         bits = {}
-        for name, lib in news.items():
+        for name, lib in trees.items():
             times = row["variants"][name] = {}
             for s in sorted(set(K2_SPLITS) | {chosen}):
                 rows = -(-k // s)
@@ -155,11 +159,14 @@ def sweep_k2(libs) -> None:
                 first = y.clone()
                 launch()
                 torch.cuda.synchronize()
-                # every variant of one S gives the same bits
+                # the tree and the parent give the same bits at one S
                 same = bool(torch.equal(bits.setdefault(s, first), y))
-                ok = (bool(((y - want).abs() <= tol).all())
-                      and bool(torch.equal(first, y)) and same)
-                times[s] = [smoke.device_ms(launch), ok]
+                times[s] = {"ms": smoke.device_ms(launch),
+                            "within_tolerance": bool(
+                                ((y - want).abs() <= tol).all()),
+                            "two_launches_bitwise": bool(
+                                torch.equal(first, y)),
+                            "same_bits_as_tree": same}
         emit(row)
         del g
 
@@ -398,7 +405,8 @@ def main() -> None:
     ap.add_argument("--only", default="k2,k3,k4,k6",
                     help="comma-separated sweeps to run (default: all)")
     ap.add_argument("--parent", help="directory with another tree's "
-                    "ota_superpose_stream.cu and flash_attention.cu")
+                    "ota_superpose.cu, ota_superpose_stream.cu and "
+                    "flash_attention.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs an NVIDIA GPU")
@@ -416,11 +424,9 @@ def main() -> None:
     par = pathlib.Path(args.parent) if args.parent else None
     variants = {}
     if "k2" in only:
-        for unroll in (8, 16):
-            variants[f"k2_v1_u{unroll}"] = k2.replace(
-                "#pragma unroll 8\n    for (long long i",
-                f"#pragma unroll {unroll}\n    for (long long i")
-            assert unroll == 8 or variants[f"k2_v1_u{unroll}"] != k2
+        variants["k2_tree"] = k2
+        if par:
+            variants["k2_parent"] = (par / "ota_superpose.cu").read_text()
     if "k3" in only:
         for unroll in (1, 2, 4, 8):
             for threads in (128, 256):
@@ -430,7 +436,7 @@ def main() -> None:
     if "k4" in only:
         for threads, ctas, rows in K4_VARIANTS:
             variants[f"k4_t{threads}_b{ctas}_r{rows}"] = _set_constants(
-                k2, kStreamThreads=threads, kStreamCtasPerSm=ctas,
+                k2, kThreads=threads, kCtasPerSm=ctas,
                 kRowsInFlight=rows)
         if par:
             variants["k4_parent"] = (par / "ota_superpose_stream.cu"
@@ -444,7 +450,7 @@ def main() -> None:
             variants["k6_parent"] = (par / "flash_attention.cu").read_text()
     libs = compile_variants(variants)
     if "k2" in only:
-        sweep_k2(libs)
+        sweep_k2(libs, par is not None)
     if "k3" in only:
         sweep_k3(libs)
     if "k4" in only:
