@@ -313,7 +313,8 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
     d = (y - yp).abs().double()
     check = {}
     # the rows the kernel sums apart: K4's K-blocks (in split_s chunks of
-    # whole blocks), K2's K-chunks
+    # whole blocks), K2's K-chunks; split_s is what the wrapper's chooser
+    # gives for this shape, printed in this row only (not a measurement)
     if k_block is None:
         check["split_s"] = superpose_split(k, n)
         block = -(-k // check["split_s"])
@@ -1716,9 +1717,6 @@ def main() -> None:
                         "library_ms": row["library_ms"]})
         if "body" in row:            # K6: the bf16 body runs on the path
             kernels[-1]["body"] = row["body"]
-        for key in ("split_s", "chunks_per_row"):     # K2, K4; K3
-            if key in row:
-                kernels[-1][key] = row[key]
     print(info["nvidia_smi"], flush=True)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all",
           file=sys.stderr, flush=True)

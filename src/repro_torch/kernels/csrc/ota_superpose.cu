@@ -14,21 +14,20 @@
 // Design (split K, fold in a fixed order):
 //  * A thread owns one column j of one K-chunk and walks the chunk's rows in
 //    order, so a warp's loads of one row are 32 neighbouring floats
-//    (coalesced).  Rows are loaded kRowsInFlight at a time, so that several
-//    rows' loads are in flight per thread.  The loads stay scalar: 2 or 4
-//    columns a thread (float2 or float4, where the rows allow) moved the
-//    wide shape by under 2 % and slowed N = 2,048, whose grid they shrink.
-//    The j loop keeps its grid-stride form: the same body behind an early
-//    return was slower.
+//    (coalesced).  The k loop is unrolled so that several rows' loads are in
+//    flight per thread.  The loads stay scalar: 2 or 4 columns a thread
+//    (float2 or float4, where the rows allow) moved the wide shape by under
+//    2 % and slowed N = 2,048, whose grid they shrink.  The j loop keeps its
+//    grid-stride form: the same body behind an early return was slower.
 //  * The K rows are split into S chunks of equal length (the last may be
 //    shorter); the grid is (N-tiles, S).  One column a thread gives only
-//    ceil(N / 128) tiles -- 16 CTAs on 132 SMs at N = 2,048, each thread
+//    ceil(N / 256) tiles -- 8 CTAs on 132 SMs at N = 2,048, each thread
 //    walking 1,000 rows -- so S is chosen on the host from (K, N) alone
 //    (repro_torch/kernels/ota_aggregate.py::superpose_split): as many chunks
-//    as one wave of resident CTAs holds (16 of 128 threads an SM), with at
+//    as one wave of resident CTAs holds (8 of 256 threads an SM), with at
 //    least 32 rows a chunk so that the partials stay a small share of the
 //    bytes and the fold short.  A grid past one wave leaves a tail: at
-//    K = 1,000, N = 55,050, S = 5 is slower than S = 4.
+//    K = 1,000, N = 55,050, S = 5 (1,080 CTAs) is slower than S = 4 (864).
 //  * S = 1 (small K, as the FL round's K = 20, or a grid that fills a wave
 //    already): one launch, y written directly, the association of the
 //    unsplit sum.  S > 1: pass 1 writes each chunk's column sums to
@@ -36,9 +35,6 @@
 //    chunk order and applies the gain and the noise.  No atomics: the
 //    result depends on (K, N) and the data only, the same from launch to
 //    launch.
-//  * 128 columns a CTA, held to 32 registers (16 CTAs an SM): at 48, 5
-//    CTAs of 256 fit an SM and the K-scale shape's 800 ran in two waves;
-//    1,600 CTAs of 128 spread over 132 SMs more evenly than 800 of 256.
 //  * No padding copy: the ragged last tile is masked.  scale[k] is read
 //    through the read-only cache (one address per warp, a broadcast); a is
 //    a host float.
@@ -53,9 +49,8 @@
 // ota_aggregate_streaming (body _ota_stream_kernel), whose (N-block,
 // K-block) grid runs in order on one core and revisits the output tile as
 // its accumulator.  Bound: the same bytes as above (819 MB, ~245 us at the
-// K-scale shape K = 100,000, N = 2,048).  superpose_kernel sums K-blocks
-// of kb rows and keeps the block structure explicit; K2 is the case of one
-// block a chunk (kb = the chunk's rows, or K at S = 1):
+// K-scale shape K = 100,000, N = 2,048).  superpose_blocks_kernel is the
+// chunk kernel with the block structure kept explicit:
 //  * S = 1 (the host's stream_split, from (K, N, k_block) alone): each
 //    thread walks the blocks in order, sums one block into a register from
 //    0, adds it to its running fold (the first block starts it) and writes
@@ -66,20 +61,74 @@
 //    nb partials in block order.  S stays within one wave of CTAs.
 //  * Rows are loaded 8 at a time across block edges, so a short block
 //    (k_block 1 at K = 7) still has 8 loads in flight a thread; a
-//    countdown closes each block, and the chunk's end closes a short last
-//    one (K2's last chunk).
+//    countdown closes each block.
+//  * 128 columns a CTA, held to 32 registers (16 CTAs an SM): at 48, 5
+//    CTAs of 256 fit an SM and the K-scale shape's 800 ran in two waves;
+//    1,600 CTAs of 128 spread over 132 SMs more evenly than 800 of 256.
+//  * K2 keeps superpose_chunk_kernel.  Run on this kernel instead (one
+//    block a chunk, a short last chunk closed at the chunk's end) it gave
+//    K2's bits but was slower at four of K2's five shapes on an H100
+//    (tools/kernel_sweep.py --only k2 against the chunk kernel): 3.65
+//    against 3.11 us at [20, 55050], 8.87 against 6.62 at [1000, 2048],
+//    84.2 against 77.4 at [1000, 55050], 285.8 against 269.8 at
+//    [100000, 2048] (its split body spilled 24 bytes at 32 registers);
+//    faster only at [7, 1000003], 10.5 against 12.5.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;                   // columns a CTA
-constexpr int kCtasPerSm = 2048 / kThreads;     // 32 registers
-constexpr int kRowsInFlight = 8;                // rows loaded at once
+constexpr int kThreads = 256;
+constexpr int kStreamThreads = 128;  // K4: columns a CTA
+constexpr int kStreamCtasPerSm = 2048 / kStreamThreads;  // 32 registers
+constexpr int kRowsInFlight = 8;    // K4: rows loaded at once a thread
 constexpr int kFoldThreads = 128;
 
 __device__ __forceinline__ float sign_of(float x) {
   const float s = (float)((x > 0.f) - (x < 0.f));
   return x != x ? x : s;
+}
+
+// Column sums of rows [i0, i1): with kSplit, chunk blockIdx.y's rows
+// [chunk * rows, min(K, (chunk + 1) * rows)), written to out[chunk * N + j];
+// without, all K rows, and out[j] = y[j] = a (acc + z[j]).
+template <bool kSign, bool kSplit>
+__global__ void __launch_bounds__(kThreads)
+superpose_chunk_kernel(const float* __restrict__ g,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ noise, float a, long long k,
+                       long long n, long long rows, float* __restrict__ out) {
+  const long long i0 = kSplit ? (long long)blockIdx.y * rows : 0;
+  const long long i1 = !kSplit ? k : i0 + rows < k ? i0 + rows : k;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n;
+       j += stride) {
+    const float* col = g + j;
+    float acc = 0.f;
+#pragma unroll 8
+    for (long long i = i0; i < i1; ++i) {
+      float x = __ldg(col + i * n);
+      if (kSign) x = sign_of(x);
+      acc += __ldg(scale + i) * x;
+    }
+    if (kSplit) {
+      out[(long long)blockIdx.y * n + j] = acc;
+    } else {
+      out[j] = a * (acc + __ldg(noise + j));
+    }
+  }
+}
+
+template <bool kSign>
+void launch_chunks(dim3 grid, cudaStream_t st, const float* g,
+                   const float* scale, const float* noise, float a,
+                   long long k, long long n, long long rows, float* out) {
+  if (grid.y == 1) {
+    superpose_chunk_kernel<kSign, false><<<grid, kThreads, 0, st>>>(
+        g, scale, noise, a, k, n, rows, out);
+  } else {
+    superpose_chunk_kernel<kSign, true><<<grid, kThreads, 0, st>>>(
+        g, scale, noise, a, k, n, rows, out);
+  }
 }
 
 // y[j] = a (p_0[j] + p_1[j] + ... + p_{S-1}[j] + z[j]), in chunk order.
@@ -95,21 +144,22 @@ superpose_fold_kernel(const float* __restrict__ part,
   y[j] = a * (acc + __ldg(noise + j));
 }
 
-// Rows [i0, i1) of chunk blockIdx.y (all K rows without kSplit), in
-// K-blocks of kb rows; each chunk starts a block, and a block the chunk's
-// end cuts short closes there.  With kSplit each block's column sums go to
-// out[b * N + j], b the block's index; without, out[j] = y[j] =
-// a (fold + z[j]), fold the blocks' sums in block order.
+// K4: rows [i0, i1) of chunk blockIdx.y (all K rows without kSplit), in
+// K-blocks of kb rows (kb divides the chunk's rows).  With kSplit each
+// block's column sums go to out[b * N + j], b the block's index; without,
+// out[j] = y[j] = a (fold + z[j]), fold the blocks' sums in block order.
 template <bool kSign, bool kSplit>
-__global__ void __launch_bounds__(kThreads, kCtasPerSm)
-superpose_kernel(const float* __restrict__ g, const float* __restrict__ scale,
-                 const float* __restrict__ noise, float a, int k, long long n,
-                 int kb, int rows, float* __restrict__ out) {
+__global__ void __launch_bounds__(kStreamThreads, kStreamCtasPerSm)
+superpose_blocks_kernel(const float* __restrict__ g,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ noise, float a, int k,
+                        long long n, int kb, int rows,
+                        float* __restrict__ out) {
   const int i0 = kSplit ? (int)blockIdx.y * rows : 0;
   const int i1 = kSplit ? min(k, i0 + rows) : k;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n;
-       j += stride) {
+  const long long stride = (long long)gridDim.x * kStreamThreads;
+  for (long long j = (long long)blockIdx.x * kStreamThreads + threadIdx.x;
+       j < n; j += stride) {
     const float* col = g + (long long)i0 * n + j;
     float* part = out + (long long)(i0 / kb) * n + j;
     float acc = 0.f, fold = 0.f;
@@ -138,46 +188,21 @@ superpose_kernel(const float* __restrict__ g, const float* __restrict__ scale,
         }
       }
     }
-    if (kSplit) {
-      if (left != kb) *part = acc;  // a short last chunk
-    } else {
-      out[j] = a * (fold + __ldg(noise + j));
-    }
+    if (!kSplit) out[j] = a * (fold + __ldg(noise + j));
   }
 }
 
-// The sum over K-blocks of kb rows in s chunks of `rows` rows (whole blocks,
-// or one block a chunk), then, for s > 1, the fold of its nparts block
-// partials; returns cudaGetLastError().
-int launch(const float* g, const float* scale, const float* noise, float a,
-           long long k, long long n, long long kb, long long rows, int s,
-           int pre, long long nparts, float* part, float* y,
-           cudaStream_t st) {
-  if (k > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const long long tiles = (n + kThreads - 1) / kThreads;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)s);
-  float* out = s == 1 ? y : part;
-  const int ki = (int)k, kbi = (int)kb, ri = (int)rows;
-  if (pre == 1 && s == 1) {
-    superpose_kernel<true, false><<<grid, kThreads, 0, st>>>(
-        g, scale, noise, a, ki, n, kbi, ri, out);
-  } else if (pre == 1) {
-    superpose_kernel<true, true><<<grid, kThreads, 0, st>>>(
-        g, scale, noise, a, ki, n, kbi, ri, out);
-  } else if (s == 1) {
-    superpose_kernel<false, false><<<grid, kThreads, 0, st>>>(
-        g, scale, noise, a, ki, n, kbi, ri, out);
+template <bool kSign>
+void launch_blocks(dim3 grid, cudaStream_t st, const float* g,
+                   const float* scale, const float* noise, float a, int k,
+                   long long n, int kb, int rows, float* out) {
+  if (grid.y == 1) {
+    superpose_blocks_kernel<kSign, false><<<grid, kStreamThreads, 0, st>>>(
+        g, scale, noise, a, k, n, kb, rows, out);
   } else {
-    superpose_kernel<false, true><<<grid, kThreads, 0, st>>>(
-        g, scale, noise, a, ki, n, kbi, ri, out);
+    superpose_blocks_kernel<kSign, true><<<grid, kStreamThreads, 0, st>>>(
+        g, scale, noise, a, k, n, kb, rows, out);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || s == 1) return (int)err;
-  const long long fold = (n + kFoldThreads - 1) / kFoldThreads;
-  superpose_fold_kernel<<<(unsigned)fold, kFoldThreads, 0, st>>>(
-      part, noise, a, (int)nparts, n, y);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -192,12 +217,25 @@ int ota_superpose_launch(const float* g, const float* scale,
                          const float* noise, float a, long long k,
                          long long n, int s, int pre, float* part, float* y,
                          void* stream) {
-  if (k < 1 || n < 1 || s < 1 || s > 65535)
-    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s < 1 || s > 65535) return (int)cudaErrorInvalidValue;
   const long long rows = (k + s - 1) / s;
   if ((k + rows - 1) / rows != s) return (int)cudaErrorInvalidValue;
-  return launch(g, scale, noise, a, k, n, rows, rows, s, pre, s, part, y,
-                static_cast<cudaStream_t>(stream));
+  const long long tiles = (n + kThreads - 1) / kThreads;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)s);
+  float* out = s == 1 ? y : part;
+  if (pre == 1) {
+    launch_chunks<true>(grid, st, g, scale, noise, a, k, n, rows, out);
+  } else {
+    launch_chunks<false>(grid, st, g, scale, noise, a, k, n, rows, out);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || s == 1) return (int)err;
+  const long long fold = (n + kFoldThreads - 1) / kFoldThreads;
+  superpose_fold_kernel<<<(unsigned)fold, kFoldThreads, 0, st>>>(
+      part, noise, a, s, n, y);
+  return (int)cudaGetLastError();
 }
 
 // K4: y = a (((p_0 + p_1) + ...) + z) over K-blocks of k_block rows
@@ -210,14 +248,31 @@ int ota_superpose_stream_launch(const float* g, const float* scale,
                                 long long n, long long k_block, int s,
                                 int pre, float* part, float* y,
                                 void* stream) {
-  if (k < 1 || n < 1 || k_block < 1 || k % k_block)
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k < 1 || n < 1 || k > 0x7fffffffLL || k_block < 1 || k % k_block)
     return (int)cudaErrorInvalidValue;
   const long long nb = k / k_block;
   if (s < 1 || s > 65535 || s > nb) return (int)cudaErrorInvalidValue;
   const long long per = (nb + s - 1) / s;
   if ((nb + per - 1) / per != s) return (int)cudaErrorInvalidValue;
-  return launch(g, scale, noise, a, k, n, k_block, per * k_block, s, pre, nb,
-                part, y, static_cast<cudaStream_t>(stream));
+  const long long tiles = (n + kStreamThreads - 1) / kStreamThreads;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)s);
+  float* out = s == 1 ? y : part;
+  const int kb = (int)k_block, rows = (int)(per * k_block);
+  if (pre == 1) {
+    launch_blocks<true>(grid, st, g, scale, noise, a, (int)k, n, kb, rows,
+                        out);
+  } else {
+    launch_blocks<false>(grid, st, g, scale, noise, a, (int)k, n, kb, rows,
+                         out);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || s == 1) return (int)err;
+  const long long fold = (n + kFoldThreads - 1) / kFoldThreads;
+  superpose_fold_kernel<<<(unsigned)fold, kFoldThreads, 0, st>>>(
+      part, noise, a, (int)nb, n, y);
+  return (int)cudaGetLastError();
 }
 
 const char* ota_superpose_error_string(int err) {

@@ -24,8 +24,8 @@ from repro_torch.kernels import _launch
 PRE_KINDS = ("identity", "sign")
 
 SMS = 132                    # streaming multiprocessors of an H100 SXM
-SUPERPOSE_THREADS = 128      # columns a CTA (kThreads, csrc/ota_superpose.cu)
-SUPERPOSE_CTAS_PER_SM = 16   # such CTAs an SM holds at once (2,048 threads)
+SUPERPOSE_THREADS = 256      # columns a CTA (kThreads, csrc/ota_superpose.cu)
+SUPERPOSE_CTAS_PER_SM = 8    # such CTAs an SM holds at once (2,048 threads)
 SUPERPOSE_MIN_ROWS = 32      # rows a K-chunk holds at least
 
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -44,7 +44,7 @@ _ENTRY_POINTS = {
 def superpose_split(k: int, n: int) -> int:
     """S, the number of K-chunks ``csrc/ota_superpose.cu`` sums apart and
     then folds in chunk order, from (K, N) alone: as many as a grid of
-    ceil(N / 128) x S CTAs holds in one wave (SUPERPOSE_CTAS_PER_SM on each
+    ceil(N / 256) x S CTAs holds in one wave (SUPERPOSE_CTAS_PER_SM on each
     SM), but with at least SUPERPOSE_MIN_ROWS rows a chunk, so that the
     [S, N] partials stay a small share of the bytes moved.  A small K (the
     FL round's 20) or a grid that fills a wave already keeps S = 1: one

@@ -183,46 +183,93 @@ def _tf32(x, mode):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _tf32_product(a, b, terms, mode):
-    """a @ b from TF32 operands, each split as hi = tf32(x), lo = tf32(x -
-    hi): hi hi alone (``terms`` 1) or hi lo + lo hi + hi hi (3).  TF32
-    products are exact in fp32; the sums run in fp64."""
-    ah, bh = _tf32(a, mode), _tf32(b, mode)
-    out = ah.astype(np.float64) @ bh.astype(np.float64)
-    if terms == 3:
-        al, bl = _tf32(a - ah, mode), _tf32(b - bh, mode)
-        out += (ah.astype(np.float64) @ bl.astype(np.float64)
-                + al.astype(np.float64) @ bh.astype(np.float64))
-    return out
+def _rz32(x):
+    """fp64 ``x`` to fp32, rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
 
 
-def _attention_tf32(q, k, v, terms, mode):
-    """Causal attention whose two products (Q K^T and P V, P the unscaled
-    exponentials as the kernel keeps them) take ``terms`` TF32 products;
-    the softmax in fp32."""
-    sq, d = q.shape[-2:]
-    s = (_tf32_product(q, np.swapaxes(k, -1, -2), terms, mode)
-         .astype(np.float32) / np.float32(math.sqrt(d)))
-    i = np.arange(sq)[:, None]
-    s = np.where(np.arange(k.shape[-2])[None, :] <= i, s, np.float32(-1e30))
-    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
-    o = _tf32_product(p, v, terms, mode) / p.sum(-1, keepdims=True,
-                                                 dtype=np.float64)
-    return o.astype(np.float32)
+def _mma(acc, a, b, terms, mode):
+    """acc + a @ b as the fp32 body sums it on the tensor cores: one
+    mma.sync m16n8k8 step per 8 of the inner dimension, on TF32 operands
+    split as hi = tf32(x), lo = tf32(x - hi).  ``terms`` 1: hi hi alone;
+    3: lo hi, hi lo, then hi hi, one step each.  A step's TF32 products
+    are exact; its sum with the fp32 accumulator is rounded toward zero,
+    as the tensor cores round it."""
+    for k0 in range(0, a.shape[-1], 8):
+        x, y = a[:, k0:k0 + 8], b[k0:k0 + 8]
+        xh, yh = _tf32(x, mode), _tf32(y, mode)
+        pairs = [(xh, yh)]
+        if terms == 3:
+            pairs = [(_tf32(x - xh, mode), yh), (xh, _tf32(y - yh, mode)),
+                     *pairs]
+        for u, w in pairs:
+            acc = _rz32(acc.astype(np.float64)
+                        + u.astype(np.float64) @ w.astype(np.float64))
+    return acc
+
+
+def _head_tf32(q, k, v, terms, mode, causal, pv):
+    """One head [S, d] as the fp32 body computes it: kv tiles of 64 keys,
+    the online softmax in fp32 in the log2 domain, and P V (P the
+    unnormalised exponentials) on the tensor cores.  ``pv`` "tile": each
+    tile's P V summed from zero and added to O in fp32 (one rounding, as
+    the body's fused multiply-add); "one_accumulator": O itself carried
+    across the tiles in the tensor cores' accumulator, as first built."""
+    sq, d = q.shape
+    scale = np.float32(1 / math.sqrt(d)) * np.float32(math.log2(math.e))
+    m = np.full((sq, 1), np.float32(-1e30))
+    l = np.zeros((sq, 1), np.float32)
+    o = np.zeros((sq, d), np.float32)
+    rows = np.arange(sq)[:, None]
+    for k0 in range(0, k.shape[0], 64):
+        kt, vt = k[k0:k0 + 64], v[k0:k0 + 64]
+        s = _mma(np.zeros((sq, len(kt)), np.float32), q,
+                 np.ascontiguousarray(kt.T), terms, mode) * scale
+        if causal:
+            s = np.where(np.arange(k0, k0 + len(kt))[None] <= rows, s,
+                         np.float32(-1e30))
+        mn = np.maximum(m, s.max(1, keepdims=True))
+        corr = np.exp2(m - mn).astype(np.float32)
+        p = np.exp2(s - mn).astype(np.float32)
+        l = l * corr + p.sum(1, keepdims=True, dtype=np.float32)
+        m = mn
+        if pv == "tile":
+            part = _mma(np.zeros((sq, d), np.float32), p, vt, terms, mode)
+            o = (o.astype(np.float64) * corr + part).astype(np.float32)
+        else:
+            o = _mma(o * corr, p, vt, terms, mode)
+    return o / np.maximum(l, np.float32(1e-30))
+
+
+def _attention_tf32(q, k, v, terms, mode, causal=True, pv="tile"):
+    """[B, H, S, d] attention (k and v with H heads) through
+    ``_head_tf32``."""
+    return np.stack([np.stack([
+        _head_tf32(q[b, h], k[b, h], v[b, h], terms, mode, causal, pv)
+        for h in range(q.shape[1])]) for b in range(q.shape[0])])
 
 
 class TestTF32Split:
-    """The design evidence for the fp32 body on the tensor cores: with
+    """The design evidence for the fp32 body on the tensor cores, in a
+    numpy emulation of its mma steps whose sums round toward zero: with
     every operand split into two TF32 parts, three products per product
     meet the card's fp32 rule against the plain version; one TF32 product
-    does not.  Both roundings of the split: to nearest, and the kernel's
-    truncation."""
+    does not; and P V carried across kv tiles in one tensor-core
+    accumulator misses the rule on long rows, where each tile's P V summed
+    from zero and added to O in fp32 meets it.  Both roundings of the
+    split: to nearest, and the kernel's truncation."""
 
     SHAPE = (1, 2, 192, 128)
+    # 16 query rows over 4,096 keys (64 tiles): the accumulator's shrink
+    # grows with the tiles it is carried over, relative to |o|; values
+    # offset by 1, a component all value vectors share, make |o| ~ 1
+    LONG = (1, 1, 16, 4096, 16)
 
-    def _plain(self, q, k, v):
+    def _plain(self, q, k, v, causal=True):
         o = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
-                                causal=True)
+                                causal=causal)
         return o.numpy()
 
     @pytest.mark.parametrize("mode", ["nearest", "truncate"])
@@ -239,6 +286,27 @@ class TestTF32Split:
         got = _attention_tf32(q, k, v, 1, mode)
         assert not bool((np.abs(got - want)
                          <= 1e-5 + 1e-5 * np.abs(want)).all())
+
+    @pytest.mark.parametrize("mode", ["nearest", "truncate"])
+    @pytest.mark.parametrize("pv,meets", [("tile", True),
+                                          ("one_accumulator", False)])
+    def test_pv_accumulation_on_long_rows(self, pv, meets, mode):
+        b, h, sq, skv, d = self.LONG
+        rng = np.random.default_rng(17)
+        q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+        k = rng.standard_normal((b, h, skv, d)).astype(np.float32)
+        v = (rng.standard_normal((b, h, skv, d)) + 1).astype(np.float32)
+        want = self._plain(q, k, v, causal=False)
+        got = _attention_tf32(q, k, v, 3, mode, causal=False, pv=pv)
+        assert bool((np.abs(got - want)
+                     <= 1e-5 + 1e-5 * np.abs(want)).all()) == meets
+
+    def test_tensor_core_sums_round_toward_zero(self):
+        """1 + 1.5 ulp rounds to 1 + 1 ulp, on either side of zero."""
+        ulp = 2.0 ** -23
+        x = np.array([1 + 1.5 * ulp, -(1 + 1.5 * ulp), 1 + ulp], np.float64)
+        np.testing.assert_array_equal(
+            _rz32(x), np.array([1 + ulp, -(1 + ulp), 1 + ulp], np.float32))
 
     def test_tf32_rounding(self):
         """1 + 2^-11 is a tie: to nearest rounds it away from zero to

@@ -436,7 +436,7 @@ def main() -> None:
     if "k4" in only:
         for threads, ctas, rows in K4_VARIANTS:
             variants[f"k4_t{threads}_b{ctas}_r{rows}"] = _set_constants(
-                k2, kThreads=threads, kCtasPerSm=ctas,
+                k2, kStreamThreads=threads, kStreamCtasPerSm=ctas,
                 kRowsInFlight=rows)
         if par:
             variants["k4_parent"] = (par / "ota_superpose_stream.cu"
