@@ -260,7 +260,8 @@ def phase_build(build) -> None:
 
 
 def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
-    from repro_torch.kernels.grad_norm import stream_moments_chunks
+    from repro_torch.kernels.grad_norm import (moments_split,
+                                               stream_moments_chunks)
     k, n = g.shape
     sq, s = ops.batched_moments(g, impl="kernel", k_block=k_block)
     sq_p, s_p = ops.batched_moments(g, impl="plain", k_block=k_block)
@@ -274,8 +275,9 @@ def check_moments(ops, g: torch.Tensor, k_block=None) -> dict:
     ok = bool(((sq - sq_p).abs().double() <= TERMS_RTOL * abs_sq).all()
               and ((s - s_p).abs().double() <= TERMS_RTOL * abs_s).all())
     b_ms, b_by = bound(k * n * 4 + 2 * k * 4, 3.0 * k * n)
-    split = {} if k_block is None else {
-        "chunks_per_row": stream_moments_chunks(n)}
+    # the host's chunks a row for this shape (not a measurement)
+    split = {"chunks_per_row": moments_split(k, n) if k_block is None
+             else stream_moments_chunks(n)}
     return {"kernel": ("batched_moments" if k_block is None
                        else "streaming_moments"),
             "k": k, "n": n, "k_block": k_block, **split,
@@ -1227,7 +1229,8 @@ HYBRID_FP32_PROMPT = 2048        # fp32 weights are 53.2 GB at one superblock
 SCAN_SHAPES = ((4, 8192, 8192, 16, "test"), (1, 8192, 8192, 16, "test"),
                (2, 1000, 1000, 16, "test"), (1, 333, 77, 5, "test"),
                (4, 8192, 8192, 16, "jamba"))
-SCAN_TILE = 64                   # time steps per staged tile (kT in the .cu)
+SCAN_TILE = 64                   # a multiple of every staged tile's steps
+                                 # (kT = 16 lanes in the .cu)
 # |kernel - plain| <= SCAN_RTOL * Y_abs, Y_abs the plain scan of |u|, dt,
 # a, |B|, |C| (an upper bound of sum_n |h_t,n C_t,n|): the two round
 # differently (expf vs torch.exp, fused multiply-adds, the N-way sum's
@@ -1279,6 +1282,16 @@ def scan_bound(shape, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scan_grid(b: int, s: int, d: int) -> tuple:
+    """(lanes, C, steps a chunk) of K7's grid at this shape, as the
+    wrapper's choosers give them."""
+    from repro_torch.kernels.selective_scan import (SCAN_TILE_BASE,
+                                                    scan_lanes, scan_split)
+    lanes, c = scan_lanes(b, d), scan_split(b, s, d)
+    tile = SCAN_TILE_BASE * lanes
+    return lanes, c, -(-(-(-s // tile)) // c) * tile
+
+
 def check_scan(ops, shape, dtype, gen) -> dict:
     b, s, d, n, draw = shape
     args = scan_inputs(shape, dtype, gen)
@@ -1305,6 +1318,19 @@ def check_scan(ops, shape, dtype, gen) -> dict:
         for sl in (slice(0, cut), slice(cut, None))], dim=1)
     rejects_reset = not bool(((reset - yp).abs() <= tol).all())
     del reset
+    # the host's choice for this shape (not a measurement); where the
+    # sequence is split, the rule must also reject a state reset at the
+    # first chunk boundary
+    lanes, c, chunk = scan_grid(b, s, d)
+    grid = {"lanes": lanes, "split_c": c}
+    if c > 1:
+        reset = torch.cat([ops.selective_scan(
+            *(x[:, sl].contiguous() for x in (u, dt)), a,
+            *(x[:, sl].contiguous() for x in (bm, cm)), impl="plain")
+            for sl in (slice(0, chunk), slice(chunk, None))], dim=1)
+        grid["rejects_state_reset_at_chunk"] = not bool(
+            ((reset - yp).abs() <= tol).all())
+        del reset
     b_ms, b_by = scan_bound(shape, dtype)
     row = {"kernel": "selective_scan", "dtype": str(dtype)[6:],
            "b": b, "s": s, "d": d, "n": n, "draw": draw,
@@ -1320,7 +1346,7 @@ def check_scan(ops, shape, dtype, gen) -> dict:
                                     and (d_h <= SCAN_RTOL * h_abs).all()),
            "deterministic": bool(torch.equal(again, y)),
            "rejects_dropped_step": rejects_dropped,
-           "rejects_state_reset_at_tile": rejects_reset,
+           "rejects_state_reset_at_tile": rejects_reset, **grid,
            "kernel_ms": flash_ms(lambda: ops.selective_scan(
                *args, return_state=True, impl="kernel")),
            "plain_ms": flash_ms(lambda: ops.selective_scan(
@@ -1350,7 +1376,8 @@ def phase_scan(ops) -> dict:
                      f"with itself) at {where}: max |d| = "
                      f"{row['max_abs_err']}")
             if not (row["rejects_dropped_step"]
-                    and row["rejects_state_reset_at_tile"]):
+                    and row["rejects_state_reset_at_tile"]
+                    and row.get("rejects_state_reset_at_chunk", True)):
                 fail(f"selective_scan's tolerance at {where} would pass a "
                      "result that drops a time step or resets the state")
             if shape == SCAN_SHAPES[0] and dtype == torch.bfloat16:

@@ -9,7 +9,13 @@
 // Bound on an H100: bytes.  The function reads K*N*4 bytes once and writes
 // 2*K*4; it does 3 flops per element, far under the fp32 rate.  At the FL
 // round's shape (K = 20, N = 55,050) that is 4.40 MB, 1.31 us at 3.35 TB/s,
-// so launch overhead dominates there; at K = 1000 it is 220 MB, ~66 us.
+// so launch overhead dominates there; ragged (K = 7, N = 1,000,003) 28 MB,
+// 8.36 us; at K = 1000 220 MB, ~66 us.
+//
+// What held PR 11's design back: chunks fixed at 4,096 elements whatever
+// (K, N), so the ragged stack ran 1,715 CTAs (1.6 waves) of four 16-byte
+// loads a thread, and a second kernel folded the partials after a launch
+// gap that costs as much as the round's whole read.
 //
 // Design:
 //  * The stack is read in place: no padding copy.  Each row is split into a
@@ -17,21 +23,46 @@
 //    scalar tail, so 16-byte loads are used wherever the row allows: when
 //    N % 4 != 0 (N = 55,050 on the FL round) consecutive rows start at
 //    different alignments, and the ragged tail runs on every launch.
-//  * One block would give only K blocks (20 on 132 SMs), so the grid is
-//    device x N-chunk, flattened to 1-D: block b handles device b / nchunks,
-//    float4 chunk b % nchunks.
-//  * Each block reduces with warp shuffles, then across its warps in a fixed
-//    order, into fp32 partials [K, nchunks].  A second small kernel sums each
-//    device's partials in chunk order.  No atomics: the result is the same
-//    from run to run.
+//  * The grid is device x chunk, flattened to 1-D; the number of chunks a
+//    row, `nchunks`, is the host's (kernels/grad_norm.py): `moments_split(k,
+//    n)` sizes K1's grid to one wave of CTAs, and K3's long rows take
+//    `stream_moments_chunks(n)`, from N alone, so that a device's sums do
+//    not depend on K.  A chunk is ceil(body / nchunks) float4s of the row.
+//  * Each thread keeps kUnroll 16-byte loads in flight; each block reduces
+//    with warp shuffles, then across its warps in a fixed order.
+//  * The fold runs in the same launch (kFoldInLaunch): each block writes its
+//    row's partial, then __threadfence and an atomicAdd on the row's
+//    arrival counter; the block that arrives last sums the row's partials
+//    (thread t the chunks t, t + 256, ..., then the same fixed tree) and
+//    sets the counter back to 0, so the next launch, or a replayed CUDA
+//    graph, starts clean.  The atomic counts arrivals only: no value is
+//    summed by an atomic, so the bits are the same from run to run.  The
+//    counters are a static array of kMaxRows a device; a longer stack runs
+//    in slabs of kMaxRows rows, one launch each.  Launches of this kernel
+//    on one device must not overlap (one stream, as every caller runs).
+//    With kFoldInLaunch = 0 the fold is a second kernel, launched as a
+//    programmatic dependent launch (the sweep's alternative).
+#include <cooperative_groups.h>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVecPerThread = 4;
-constexpr long long kChunkVec = (long long)kThreads * kVecPerThread;  // float4s per chunk
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;               // float4 loads in flight a thread
+// how a row's chunk partials are folded: 0 a second kernel, launched as a
+// programmatic dependent launch; 1 the row's last block, elected by
+// __threadfence and atomicAdd; 2 the same, by an acquire-release atomic;
+// 3 the row's cluster of blocks, through distributed shared memory
+constexpr int kFold = 1;
+constexpr int kMaxRows = 1 << 16;        // rows one launch's counters cover
+constexpr int kMaxCluster = 16;          // chunks a row in a cluster (kFold 3)
+
+__device__ unsigned int g_arrivals[kMaxRows];
 
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
@@ -41,9 +72,48 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
   }
 }
 
+// The block's sums, in thread 0 (warps in order: a fixed tree).
+__device__ __forceinline__ void block_sum2(float& sq, float& s) {
+  __shared__ float w_sq[kWarps];
+  __shared__ float w_s[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  warp_sum2(sq, s);
+  if (lane == 0) {
+    w_sq[warp] = sq;
+    w_s[warp] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    sq = lane < kWarps ? w_sq[lane] : 0.f;
+    s = lane < kWarps ? w_s[lane] : 0.f;
+    warp_sum2(sq, s);
+  }
+}
+
+// Sum of row k's nchunks partials, in thread 0, in the fixed order above.
+__device__ __forceinline__ void fold_row(const float* part_sq,
+                                         const float* part_s, long long k,
+                                         int nchunks, float* sumsq,
+                                         float* sums) {
+  float sq = 0.f, s = 0.f;
+  for (int c = threadIdx.x; c < nchunks; c += kThreads) {
+    sq += __ldcg(part_sq + k * nchunks + c);
+    s += __ldcg(part_s + k * nchunks + c);
+  }
+  block_sum2(sq, s);
+  if (threadIdx.x == 0) {
+    sumsq[k] = sq;
+    sums[k] = s;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-moments_partial_kernel(const float* __restrict__ g, long long n, int nchunks,
-                       float* __restrict__ part_sq, float* __restrict__ part_s) {
+moments_kernel(const float* __restrict__ g, long long n, int nchunks,
+               float* __restrict__ part_sq, float* __restrict__ part_s,
+               float* __restrict__ sumsq, float* __restrict__ sums) {
+  if (kFold == 0)                        // let the fold's blocks launch
+    asm volatile("griddepcontrol.launch_dependents;");
   const long long k = blockIdx.x / nchunks;
   const int j = blockIdx.x % nchunks;
   const float* row = g + k * n;
@@ -53,16 +123,25 @@ moments_partial_kernel(const float* __restrict__ g, long long n, int nchunks,
   if (head > n) head = n;
   const long long nvec = (n - head) >> 2;
   const float4* body = reinterpret_cast<const float4*>(row + head);
+  const long long per = (nvec + nchunks - 1) / nchunks;
+  const long long v0 = (long long)j * per;
+  const long long v1 = v0 + per < nvec ? v0 + per : nvec;
 
   float sq = 0.f, s = 0.f;
-  const long long v0 = (long long)j * kChunkVec;
-  long long v1 = v0 + kChunkVec;
-  if (v1 > nvec) v1 = nvec;
-#pragma unroll 4
-  for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
-    const float4 x = __ldg(body + v);
-    sq += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
-    s += x.x + x.y + x.z + x.w;
+  for (long long v = v0 + threadIdx.x; v < v1;
+       v += (long long)kThreads * kUnroll) {
+    float4 x[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const long long i = v + (long long)q * kThreads;
+      x[q] = i < v1 ? __ldg(body + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      sq += x[q].x * x[q].x + x[q].y * x[q].y + x[q].z * x[q].z +
+            x[q].w * x[q].w;
+      s += x[q].x + x[q].y + x[q].z + x[q].w;
+    }
   }
   if (j == 0 && threadIdx.x < head) {
     const float x = __ldg(row + threadIdx.x);
@@ -77,70 +156,126 @@ moments_partial_kernel(const float* __restrict__ g, long long n, int nchunks,
     }
   }
 
-  __shared__ float w_sq[kThreads / 32];
-  __shared__ float w_s[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_sum2(sq, s);
-  if (lane == 0) {
-    w_sq[warp] = sq;
-    w_s[warp] = s;
+  block_sum2(sq, s);
+  if (nchunks == 1) {
+    if (threadIdx.x == 0) {
+      sumsq[k] = sq;
+      sums[k] = s;
+    }
+    return;
   }
-  __syncthreads();
-  if (warp == 0) {
-    sq = lane < kThreads / 32 ? w_sq[lane] : 0.f;
-    s = lane < kThreads / 32 ? w_s[lane] : 0.f;
-    warp_sum2(sq, s);
-    if (lane == 0) {
-      part_sq[k * nchunks + j] = sq;
-      part_s[k * nchunks + j] = s;
+  if (kFold == 3) {
+    // the cluster is the row: each block's partial into block 0's shared
+    // memory, then block 0 adds them in chunk order
+    __shared__ float c_sq[kMaxCluster];
+    __shared__ float c_s[kMaxCluster];
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) {
+      cluster.map_shared_rank(c_sq, 0)[j] = sq;
+      cluster.map_shared_rank(c_s, 0)[j] = s;
+    }
+    cluster.sync();
+    if (j == 0 && threadIdx.x == 0) {
+      float a = 0.f, b = 0.f;
+      for (int c = 0; c < nchunks; ++c) {
+        a += c_sq[c];
+        b += c_s[c];
+      }
+      sumsq[k] = a;
+      sums[k] = b;
+    }
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    part_sq[k * nchunks + j] = sq;
+    part_s[k * nchunks + j] = s;
+    if (kFold == 1) {
+      __threadfence();                   // the partial, before the arrival
+      last = atomicAdd(&g_arrivals[k], 1u) == (unsigned)nchunks - 1;
+    } else if (kFold == 2) {
+      cuda::atomic_ref<unsigned int, cuda::thread_scope_device> arrivals(
+          g_arrivals[k]);
+      last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) ==
+             (unsigned)nchunks - 1;
     }
   }
+  if (kFold == 0) return;
+  __syncthreads();
+  if (!last) return;
+  if (kFold == 1) __threadfence();       // every partial of the row is seen
+  fold_row(part_sq, part_s, k, nchunks, sumsq, sums);
+  if (threadIdx.x == 0) g_arrivals[k] = 0;
 }
 
-__global__ void moments_finish_kernel(const float* __restrict__ part_sq,
-                                      const float* __restrict__ part_s,
-                                      long long k, int nchunks,
-                                      float* __restrict__ sumsq,
-                                      float* __restrict__ sums) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  float a = 0.f, b = 0.f;
-  for (int c = 0; c < nchunks; ++c) {  // fixed chunk order
-    a += part_sq[i * nchunks + c];
-    b += part_s[i * nchunks + c];
+// kFold 0: the fold as a programmatic dependent launch
+__global__ void __launch_bounds__(kThreads)
+moments_fold_kernel(const float* __restrict__ part_sq,
+                    const float* __restrict__ part_s, int nchunks,
+                    float* __restrict__ sumsq, float* __restrict__ sums) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  fold_row(part_sq, part_s, blockIdx.x, nchunks, sumsq, sums);
+}
+
+int launch_rows(const float* g, long long k, long long n, int nchunks,
+                float* part_sq, float* part_s, float* sumsq, float* sums,
+                cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(k * nchunks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  if (kFold == 3 && nchunks > 1) {
+    if (nchunks > kMaxCluster) return (int)cudaErrorInvalidValue;
+    if (nchunks > 8) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          moments_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return (int)e;
+    }
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)nchunks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
   }
-  sumsq[i] = a;
-  sums[i] = b;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, moments_kernel, g, n, nchunks,
+                                       part_sq, part_s, sumsq, sums);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || kFold != 0 || nchunks == 1) return (int)err;
+  cudaLaunchConfig_t fold = {};
+  fold.gridDim = dim3((unsigned)k);
+  fold.blockDim = dim3(kThreads);
+  fold.stream = st;
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  fold.attrs = attr;
+  fold.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&fold, moments_fold_kernel,
+                                 (const float*)part_sq, (const float*)part_s,
+                                 nchunks, sumsq, sums);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of N-chunks per device: the wrapper sizes the [2, K, nchunks]
-// partials scratch with it.
-int moments_num_chunks(long long n) {
-  const long long nvec_max = (n + 3) / 4;
-  const long long c = (nvec_max + kChunkVec - 1) / kChunkVec;
-  return c < 1 ? 1 : (int)c;
-}
-
-// Launches both passes on `stream`; returns cudaGetLastError().
+// sumsq, sums [K] = the moments of g [K, N], each row in `nchunks` chunks
+// (>= 1); part_sq, part_s [K, nchunks] scratch.  Launched on `stream`;
+// returns cudaGetLastError().
 int moments_launch(const float* g, long long k, long long n, int nchunks,
                    float* part_sq, float* part_s, float* sumsq, float* sums,
                    void* stream) {
+  if (k < 1 || n < 1 || nchunks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long blocks = k * nchunks;
-  moments_partial_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-      g, n, nchunks, part_sq, part_s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int fin_threads = 128;
-  const long long fin_blocks = (k + fin_threads - 1) / fin_threads;
-  moments_finish_kernel<<<(unsigned)fin_blocks, fin_threads, 0, st>>>(
-      part_sq, part_s, k, nchunks, sumsq, sums);
-  return (int)cudaGetLastError();
+  for (long long k0 = 0; k0 < k; k0 += kMaxRows) {
+    const long long rows = k - k0 < kMaxRows ? k - k0 : kMaxRows;
+    const int err = launch_rows(g + k0 * n, rows, n, nchunks,
+                                part_sq + k0 * nchunks, part_s + k0 * nchunks,
+                                sumsq + k0, sums + k0, st);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 const char* moments_error_string(int err) {

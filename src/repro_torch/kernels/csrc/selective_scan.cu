@@ -13,29 +13,56 @@
 //
 // Bound on an H100: operations, the exponentials.  Every (b, t, d, n)
 // takes one exp (B S D N of them: 4.29e9 at the serving shape
-// [4, 8192, 8192, 16]), about 1.0 ms at the SFU's 16 a clock per SM
-// (132 SMs, 1.98 GHz), against 0.80 ms to move u (bf16), dt and y (fp32)
-// once at 3.35 TB/s and 0.38 ms for the ~6 other flops a state at the fp32
-// rate.  This first port uses the accurate expf (a few instructions on the
-// fp32 pipes around one SFU op), which keeps its gap to the plain version
-// at rounding level; a faster exponential is later work.
+// [4, 8192, 8192, 16]), 1.03 ms at the SFU's 16 a clock per SM (132 SMs,
+// 1.98 GHz), against 0.80 ms to move u (bf16), dt and y (fp32) once at
+// 3.35 TB/s.  Besides its exponential a state costs four fp32
+// instructions (dt a, dt u B, the multiply-add of h, the product with C),
+// so the issue slots run at about 80 % of the SFU's pace: the kernel is
+// the SFU's if each SM scheduler has a warp with steps to issue.
+//
+// What held PR 14's design back (4.72 ms, 22 % of the bound): the accurate
+// expf (about ten fp32 instructions around its one SFU op, so the issue
+// slots, not the SFU, set the pace); 1,024 CTAs of 4 warps with 32 KB of
+// static shared memory each, 1.3 waves at B = 4, so the second wave ran a
+// whole sequence on a third of the card; plain loads of the next tile
+// between two barriers, with nothing in flight while the recurrence ran.
 //
 // Design:
-//  * Nothing carries over between CTAs, so the TPU's sequential seq-chunk
-//    axis becomes a loop over t inside the CTA, and the state h lives in
-//    fp32 registers for the whole sequence.  One CTA owns 32 channels of
-//    one batch row.
-//  * A thread owns one channel and a slice of 4 of its states (4 lanes a
-//    channel, N up to kMaxN = 16); y_t is the sum of the 4 lanes' partial
-//    dot products by two xor-shuffles, in a fixed order (no atomics: the
-//    result is deterministic).  The simpler one-thread-a-channel design
-//    gives 256 CTAs of 128 threads at the serving shape and 64 at B = 1,
-//    under one CTA an SM; the slice gives 1,024 and 256, so every SM holds
-//    several CTAs to hide the latency of the serial recurrence.
-//  * A tile of kT time steps is staged in shared memory: u and dt [kT][32]
-//    read coalesced along D (32 consecutive channels a row), and B_t, C_t
-//    [kT][kMaxN], which every channel of the batch row shares.  y goes back
-//    through a [kT][32] tile so its stores are coalesced along D too.
+//  * The exponential is one ex2.approx.ftz.f32 of dt (a log2 e), with
+//    a log2 e formed once a thread.  Rounding that product adds about
+//    |dt a| 2^-24 of relative error to the exponential, and ex2.approx's own
+//    is about 2^-22: both far under the rule's SCAN_RTOL = 1e-4 of the
+//    plain scan of the absolute terms (chip_smoke.py).  An input under
+//    2^-126 is flushed (exp = 1) and an output under 2^-126 is 0.
+//  * L lanes a channel (1, 2 or 4, from the host's `scan_lanes(b, d)`),
+//    each with 16 / L of the states in registers; y_t is the lanes'
+//    partial dot products summed by xor-shuffles in a fixed order.  L = 1
+//    (no shuffle, one store a step) where the batch alone fills the card's
+//    schedulers; more lanes where it does not (B = 1).
+//  * A CTA owns 32 channels of one batch row (32 L threads), so a grid
+//    that fits the card at once has CTAs small enough to spread over all
+//    132 SMs.
+//  * A tile of kT = 16 L time steps is staged in shared memory, fp32: u
+//    and dt [kT][32] read coalesced along D, B_t and C_t [kT][16], which
+//    every channel of the batch row shares.  The loads of tile i+1 are
+//    issued into registers before tile i is computed and stored to the
+//    other of two buffers after it: one barrier a tile, and a tile's
+//    worth of loads always in flight.
+//  * Inside a full tile the step loop is unrolled by kUnroll, so the next
+//    steps' exponentials and dt u B products (which do not depend on h)
+//    issue while the current step's multiply-adds wait.
+//  * The sequence may be split into C chunks (the TPU kernel's seq-chunk
+//    axis, C from the host's `scan_split(b, s, d)`), where the grid alone
+//    leaves schedulers idle.  Pass 1 (`mode` 1) scans chunks 0..C-2 from
+//    h = 0: chunk 0 writes y, every chunk its end state and its sum of dt
+//    (compensated, so the sum keeps fp32's precision over a long chunk).
+//    Pass 2 (`mode` 2) scans chunks 1..C-1 again from their true start
+//    state and writes y (and h_S from the last chunk); each of its CTAs
+//    first folds the carries of the chunks before its own, in chunk order:
+//    start_{j+1} = exp(a sdt_j) start_j + hend_j.  Folding in the second
+//    pass saves the fold a launch of its own.  No atomics: two launches
+//    give the same bits.  C = 1 (`mode` 0) is one launch over the whole
+//    sequence.
 //  * Ragged S and D: rows past S are not staged or computed; channels past
 //    D (and states past N) run on zeros (dt = 0, B = C = 0 keep h = 0) and
 //    are not written.  No shape needs to divide anything.
@@ -46,146 +73,316 @@
 
 namespace {
 
-constexpr int kChannels = 32;            // channels per CTA
-constexpr int kLanes = 4;                // threads per channel
+constexpr int kSlots = 32;               // channel slots per CTA (one warp
+                                         // width); each slot holds Dc channels
 constexpr int kMaxN = 16;                // states per channel, at most
-constexpr int kPer = kMaxN / kLanes;     // states per thread
-constexpr int kThreads = kChannels * kLanes;
-constexpr int kT = 64;                   // time steps per staged tile
+constexpr int kTileBase = 16;            // a thread's share of a staged array
+constexpr int kUnroll = 4;               // steps unrolled inside a full tile
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// exp2(x): one SFU op
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// L lanes a channel (each 16 / L of its states), Dc channels a lane
+template <int L, int Dc>
+struct Shape {
+  static constexpr int kThreads = kSlots * L;
+  static constexpr int kPer = kMaxN / L;       // states a thread a channel
+  static constexpr int kChannels = kSlots * Dc;  // channels a CTA
+  static constexpr int kT = kTileBase * L / Dc;  // steps a tile
+  static constexpr int kElems = kTileBase;     // a thread's u or dt a tile
+  static constexpr int kElemsBC = kTileBase / Dc;  // its B | C a tile
+  // floats of one buffer: u, dt [kT][kChannels] and B | C [kT][32]
+  static constexpr int kU = 0;
+  static constexpr int kDt = kT * kChannels;
+  static constexpr int kBC = 2 * kT * kChannels;
+  static constexpr int kBufFloats = kBC + kT * 2 * kMaxN;
+  static constexpr int kSmemBytes = 2 * kBufFloats * 4;
+  static_assert(kT >= 1 && kTileBase % Dc == 0, "tile shape");
+};
+
+template <typename T, int L, int Dc>
+__global__ void __launch_bounds__(Shape<L, Dc>::kThreads)
 selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                       const float* __restrict__ a, const T* __restrict__ bm,
                       const T* __restrict__ cm, float* __restrict__ y,
-                      float* __restrict__ h_out, int S, int D, int N) {
-  __shared__ float u_s[kT][kChannels];
-  __shared__ float dt_s[kT][kChannels];
-  __shared__ float y_s[kT][kChannels];
-  __shared__ __align__(16) float b_s[kT][kMaxN];
-  __shared__ __align__(16) float c_s[kT][kMaxN];
+                      float* __restrict__ h_out, float* __restrict__ hend,
+                      float* __restrict__ sdt, int S, int D, int N,
+                      int chunk, int nchunks, int mode) {
+  using Sh = Shape<L, Dc>;
+  constexpr int kT = Sh::kT;
+  constexpr int kPer = Sh::kPer;
+  constexpr int kThreads = Sh::kThreads;
+  constexpr int kCh = Sh::kChannels;
+  extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
-  const int ch = tid / kLanes;           // channel within the CTA
-  const int sub = tid % kLanes;          // which slice of the states
-  const int d0 = blockIdx.x * kChannels;
-  const int d = d0 + ch;
-  const int b = blockIdx.y;
-  const long long row0 = (long long)b * S;   // first (b, t) row
+  const int slot = tid / L;              // channel slot within the CTA
+  const int sub = tid % L;               // which slice of the states
+  const int d0 = blockIdx.x * kCh;       // channel q of the slot: d0 + slot
+                                         // + 32 q
+  const int b = blockIdx.z;
+  const int c = blockIdx.y + (mode == 2 ? 1 : 0);   // chunk
+  const int t_beg = c * chunk;
+  const int t_end = min(S, t_beg + chunk);
+  const long long row0 = (long long)b * S;           // first (b, t) row
+  const bool write_y = mode != 1 || c == 0;
 
-  float av[kPer], h[kPer];
+  float a2[Dc][kPer], h[Dc][kPer];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int n = sub * kPer + j;
-    av[j] = (d < D && n < N) ? a[(long long)d * N + n] : 0.f;
-    h[j] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < S; t0 += kT) {
-    const int rows = min(kT, S - t0);
-    __syncthreads();  // the last tile's staged reads and y stores are done
-    for (int e = tid; e < kT * kChannels; e += kThreads) {
-      const int r = e / kChannels;
-      const int c = e % kChannels;
-      float uv = 0.f, dv = 0.f;
-      if (r < rows && d0 + c < D) {
-        const long long off = (row0 + t0 + r) * D + d0 + c;
-        uv = to_f(u[off]);
-        dv = dt[off];
-      }
-      u_s[r][c] = uv;
-      dt_s[r][c] = dv;
-    }
-    for (int e = tid; e < kT * kMaxN; e += kThreads) {
-      const int r = e / kMaxN;
-      const int n = e % kMaxN;
-      float bv = 0.f, cv = 0.f;
-      if (r < rows && n < N) {
-        const long long off = (row0 + t0 + r) * N + n;
-        bv = to_f(bm[off]);
-        cv = to_f(cm[off]);
-      }
-      b_s[r][n] = bv;
-      c_s[r][n] = cv;
-    }
-    __syncthreads();
-
-    for (int r = 0; r < rows; ++r) {
-      const float dv = dt_s[r][ch];
-      const float dbu = dv * u_s[r][ch];
-      const float4 bq = *reinterpret_cast<const float4*>(&b_s[r][sub * kPer]);
-      const float4 cq = *reinterpret_cast<const float4*>(&c_s[r][sub * kPer]);
-      const float bb[kPer] = {bq.x, bq.y, bq.z, bq.w};
-      const float cc[kPer] = {cq.x, cq.y, cq.z, cq.w};
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        h[j] = expf(dv * av[j]) * h[j] + dbu * bb[j];
-        part += h[j] * cc[j];
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (sub == 0) y_s[r][ch] = part;
-    }
-    __syncthreads();
-    for (int e = tid; e < rows * kChannels; e += kThreads) {
-      const int r = e / kChannels;
-      const int c = e % kChannels;
-      if (d0 + c < D) y[(row0 + t0 + r) * D + d0 + c] = y_s[r][c];
-    }
-  }
-
-  if (h_out != nullptr && d < D) {
+  for (int q = 0; q < Dc; ++q) {
+    const int d = d0 + slot + kSlots * q;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int n = sub * kPer + j;
-      if (n < N) h_out[((long long)b * D + d) * N + n] = h[j];
+      a2[q][j] = (d < D && n < N) ? a[(long long)d * N + n] * kLog2e : 0.f;
+      h[q][j] = 0.f;
+    }
+    if (mode == 2 && d < D) {
+      // the carries of chunks 0..c-1, folded in chunk order
+      for (int p = 0; p < c; ++p) {
+        const long long cd = ((long long)b * (nchunks - 1) + p) * D + d;
+        const float sd = sdt[cd];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int n = sub * kPer + j;
+          const float he = n < N ? hend[cd * N + n] : 0.f;
+          h[q][j] = fmaf(exp2_sfu(sd * a2[q][j]), h[q][j], he);
+        }
+      }
+    }
+  }
+
+  // the next tile, held in registers from its loads to its stores
+  T ru[Sh::kElems], rbc[Sh::kElemsBC];
+  float rdt[Sh::kElems];
+  auto load = [&](int t0) {
+#pragma unroll
+    for (int i = 0; i < Sh::kElems; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / kCh;
+      const int col = e % kCh;
+      const bool ok = t0 + r < t_end && d0 + col < D;
+      const long long off = (row0 + t0 + r) * D + d0 + col;
+      ru[i] = ok ? u[off] : T(0.f);
+      rdt[i] = ok ? dt[off] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < Sh::kElemsBC; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / (2 * kMaxN);
+      const int col = e % (2 * kMaxN);
+      const int n = col % kMaxN;         // columns 0..15 B, 16..31 C
+      const T* src = col < kMaxN ? bm : cm;
+      rbc[i] = (t0 + r < t_end && n < N) ? src[(row0 + t0 + r) * N + n]
+                                          : T(0.f);
+    }
+  };
+  auto store = [&](int base) {
+#pragma unroll
+    for (int i = 0; i < Sh::kElems; ++i) {
+      const int e = tid + i * kThreads;
+      smem[base + Sh::kU + e] = to_f(ru[i]);
+      smem[base + Sh::kDt + e] = rdt[i];
+    }
+#pragma unroll
+    for (int i = 0; i < Sh::kElemsBC; ++i)
+      smem[base + Sh::kBC + tid + i * kThreads] = to_f(rbc[i]);
+  };
+
+  float sum_dt[Dc], comp[Dc];            // compensated sums of dt (mode 1)
+#pragma unroll
+  for (int q = 0; q < Dc; ++q) sum_dt[q] = comp[q] = 0.f;
+  auto step = [&](int base, int r, long long t) {
+    const float* bc = smem + base + Sh::kBC + r * 2 * kMaxN;
+    float bb[kPer], cc[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; j += 4) {
+      const float4 bq = *reinterpret_cast<const float4*>(bc + sub * kPer + j);
+      const float4 cq =
+          *reinterpret_cast<const float4*>(bc + kMaxN + sub * kPer + j);
+      bb[j] = bq.x; bb[j + 1] = bq.y; bb[j + 2] = bq.z; bb[j + 3] = bq.w;
+      cc[j] = cq.x; cc[j + 1] = cq.y; cc[j + 2] = cq.z; cc[j + 3] = cq.w;
+    }
+#pragma unroll
+    for (int q = 0; q < Dc; ++q) {
+      const int col = r * kCh + slot + kSlots * q;
+      const float uv = smem[base + Sh::kU + col];
+      const float dv = smem[base + Sh::kDt + col];
+      const float dbu = dv * uv;
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        h[q][j] = fmaf(exp2_sfu(dv * a2[q][j]), h[q][j], dbu * bb[j]);
+        p[j & 3] = fmaf(h[q][j], cc[j], p[j & 3]);
+      }
+      float part = (p[0] + p[1]) + (p[2] + p[3]);
+#pragma unroll
+      for (int off = 1; off < L; off <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      const int d = d0 + slot + kSlots * q;
+      if (write_y && sub == 0 && d < D) y[(row0 + t) * D + d] = part;
+      if (mode == 1) {                   // Kahan: sum_dt + comp holds sum dt
+        const float yk = dv - comp[q];
+        const float tk = sum_dt[q] + yk;
+        comp[q] = (tk - sum_dt[q]) - yk;
+        sum_dt[q] = tk;
+      }
+    }
+  };
+
+  int parity = 0;
+  if (t_beg < t_end) load(t_beg);
+  for (int t0 = t_beg; t0 < t_end; t0 += kT) {
+    const int base = parity * Sh::kBufFloats;
+    store(base);
+    __syncthreads();
+    if (t0 + kT < t_end) load(t0 + kT);
+    const int rows = min(kT, t_end - t0);
+    if (rows == kT) {
+#pragma unroll kUnroll
+      for (int r = 0; r < kT; ++r) step(base, r, t0 + r);
+    } else {
+      for (int r = 0; r < rows; ++r) step(base, r, t0 + r);
+    }
+    parity ^= 1;
+  }
+
+#pragma unroll
+  for (int q = 0; q < Dc; ++q) {
+    const int d = d0 + slot + kSlots * q;
+    if (d >= D) continue;
+    if (mode == 1) {                     // chunk c's carry
+      const long long cd = ((long long)b * (nchunks - 1) + c) * D + d;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int n = sub * kPer + j;
+        if (n < N) hend[cd * N + n] = h[q][j];
+      }
+      if (sub == 0) sdt[cd] = sum_dt[q];
+    } else if (h_out != nullptr && c == nchunks - 1) {  // after step S - 1
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int n = sub * kPer + j;
+        if (n < N) h_out[((long long)b * D + d) * N + n] = h[q][j];
+      }
     }
   }
 }
 
-static_assert(kPer == 4, "the B/C reads are one float4 a thread");
+static_assert(kMaxN % 16 == 0, "a thread reads B and C as float4s");
 
-template <typename T>
-int launch(const void* u, const float* dt, const float* a, const void* bm,
-           const void* cm, float* y, float* h_out, int B, int S, int D,
-           int N, cudaStream_t st) {
-  const dim3 grid((unsigned)((D + kChannels - 1) / kChannels), (unsigned)B);
-  selective_scan_kernel<T><<<grid, kThreads, 0, st>>>(
+template <typename T, int L, int Dc>
+int launch_pass(const void* u, const float* dt, const float* a,
+                const void* bm, const void* cm, float* y, float* h_out,
+                float* hend, float* sdt, int B, int S, int D, int N,
+                int chunk, int nchunks, int mode, int grid_chunks,
+                cudaStream_t st) {
+  using Sh = Shape<L, Dc>;
+  auto kernel = selective_scan_kernel<T, L, Dc>;
+  if (Sh::kSmemBytes > 48 * 1024) {      // above 48 KB only on request
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  const dim3 grid((unsigned)((D + Sh::kChannels - 1) / Sh::kChannels),
+                  (unsigned)grid_chunks, (unsigned)B);
+  kernel<<<grid, Sh::kThreads, Sh::kSmemBytes, st>>>(
       static_cast<const T*>(u), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), y, h_out, S, D, N);
+      static_cast<const T*>(cm), y, h_out, hend, sdt, S, D, N, chunk,
+      nchunks, mode);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int L, int Dc>
+int launch(const void* u, const float* dt, const float* a, const void* bm,
+           const void* cm, float* y, float* h_out, float* hend, float* sdt,
+           int B, int S, int D, int N, int nchunks, cudaStream_t st) {
+  constexpr int kT = Shape<L, Dc>::kT;
+  const int tiles = (S + kT - 1) / kT;
+  const int per = (tiles + nchunks - 1) / nchunks;
+  if ((tiles + per - 1) / per != nchunks) return (int)cudaErrorInvalidValue;
+  const int chunk = per * kT;
+  if (nchunks == 1)
+    return launch_pass<T, L, Dc>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S,
+                                 D, N, chunk, 1, 0, 1, st);
+  const int err = launch_pass<T, L, Dc>(u, dt, a, bm, cm, y, h_out, hend,
+                                        sdt, B, S, D, N, chunk, nchunks, 1,
+                                        nchunks - 1, st);
+  if (err != 0) return err;
+  return launch_pass<T, L, Dc>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S,
+                               D, N, chunk, nchunks, 2, nchunks - 1, st);
+}
+
+// the (lanes, channels a lane) layouts the kernel is built for
+template <typename T>
+int launch_layout(int lanes, int per_lane, const void* u, const float* dt,
+                  const float* a, const void* bm, const void* cm, float* y,
+                  float* h_out, float* hend, float* sdt, int B, int S, int D,
+                  int N, int nchunks, cudaStream_t st) {
+#define SCAN_LAYOUT(L, DC)                                                   \
+  if (lanes == L && per_lane == DC)                                          \
+    return launch<T, L, DC>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D,  \
+                            N, nchunks, st);
+  SCAN_LAYOUT(1, 1)
+  SCAN_LAYOUT(1, 2)
+  SCAN_LAYOUT(2, 1)
+  SCAN_LAYOUT(2, 2)
+  SCAN_LAYOUT(2, 4)
+  SCAN_LAYOUT(4, 1)
+  SCAN_LAYOUT(4, 2)
+  SCAN_LAYOUT(4, 4)
+#undef SCAN_LAYOUT
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+
 // y (and h_out, unless it is null) = selective_scan(u, dt, a, B, C) on
 // `stream`.  u [B, S, D] and bm, cm [B, S, N] of one type (bf16 when
 // is_bf16, else fp32); dt [B, S, D], a [D, N], y [B, S, D], h_out [B, D, N]
-// fp32; all contiguous; 1 <= N <= 16.  The wrapper checks all of that.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for a shape it does
-// not take).
+// fp32; all contiguous; 1 <= N <= 16.  `lanes` threads a channel and
+// `per_lane` channels a thread, one of the layouts of launch_layout; a tile
+// holds 16 lanes / per_lane steps, and the sequence runs in `nchunks`
+// chunks of whole tiles, none empty (ceil(tiles / ceil(tiles / nchunks))
+// == nchunks); with nchunks > 1,
+// hend [B, nchunks - 1, D, N] and sdt [B, nchunks - 1, D] fp32 scratch.
+// The wrapper checks all of that.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape or split it does not take).
 int selective_scan_launch(const void* u, const void* dt, const void* a,
                           const void* bm, const void* cm, void* y,
-                          void* h_out, int B, int S, int D, int N,
-                          int is_bf16, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN)
+                          void* h_out, void* hend, void* sdt, int B, int S,
+                          int D, int N, int is_bf16, int lanes, int per_lane,
+                          int nchunks, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN ||
+      nchunks < 1 || nchunks > 65535 ||
+      (nchunks > 1 && (hend == nullptr || sdt == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h_out);
+  float* he = static_cast<float*>(hend);
+  float* sd = static_cast<float*>(sdt);
   if (is_bf16)
-    return launch<__nv_bfloat16>(u, dtf, af, bm, cm, yf, hf, B, S, D, N, st);
-  return launch<float>(u, dtf, af, bm, cm, yf, hf, B, S, D, N, st);
+    return launch_layout<__nv_bfloat16>(lanes, per_lane, u, dtf, af, bm, cm,
+                                        yf, hf, he, sd, B, S, D, N, nchunks,
+                                        st);
+  return launch_layout<float>(lanes, per_lane, u, dtf, af, bm, cm, yf, hf, he,
+                              sd, B, S, D, N, nchunks, st);
 }
 
 const char* selective_scan_error_string(int err) {

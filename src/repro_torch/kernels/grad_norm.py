@@ -7,8 +7,11 @@ Hopper ports of ``repro/kernels/grad_norm.py``'s ``batched_blocked_moments``,
 the [K, N] fp32 stack in place (no padding copy) and return
 ``(sumsq, sums)``, each [K] fp32, summed in a fixed order;
 ``sumsq_cuda(x)`` returns the 0-d sum of squares of one flat vector.
-``stream_moments_chunks(n)`` is the number of chunks the streamed moments
-split each row into.
+``moments_split(k, n)`` is the number of chunks K1 splits each row into,
+sized so the grid fills one wave; ``stream_moments_chunks(n)`` the number
+the streamed moments split each row into, from N alone.  Both run
+``csrc/moments.cu``'s one launch: the block that finishes a row last
+folds its partials, in a fixed order, elected by an arrival counter.
 Public callers go through ``repro_torch.kernels.ops``, which counts the
 launches and serves CPU tensors with the plain versions.
 """
@@ -21,7 +24,11 @@ import torch
 
 from repro_torch.kernels import _launch
 
-MOMENTS_CHUNK = 4096     # elements a chunk of csrc/moments.cu (kChunkVec * 4)
+MOMENTS_CHUNK = 4096     # elements a chunk of K3's long rows
+MOMENTS_SMS = 132        # streaming multiprocessors of an H100 SXM
+MOMENTS_CTAS_PER_SM = 8  # CTAs of 256 threads an SM holds (kThreads,
+                         # csrc/moments.cu)
+MOMENTS_MIN_VEC = 1024   # float4s a chunk holds at least (4 a thread)
 STREAM_ROW_MAX = 4096    # rows one warp reads alone (kRowMax,
                          # csrc/stream_moments.cu)
 STREAM_ROWS_PER_CTA = 4  # such rows a CTA (kWarps, csrc/stream_moments.cu)
@@ -30,7 +37,6 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # library -> {entry point: (argtypes, restype)}
 _ENTRY_POINTS = {
     "moments": {
-        "moments_num_chunks": ([_LL], _I),
         "moments_launch": ([_P, _LL, _LL, _I, _P, _P, _P, _P, _P], _I),
     },
     "stream_moments": {
@@ -43,12 +49,26 @@ _ENTRY_POINTS = {
 }
 
 
+def moments_split(k: int, n: int) -> int:
+    """Chunks each row of K1's [K, N] stack is split into, from (K, N)
+    alone: as many as a grid of K x chunks CTAs holds in one wave
+    (MOMENTS_CTAS_PER_SM on each SM), but at least MOMENTS_MIN_VEC float4s
+    a chunk; a K that fills the wave alone keeps one chunk a row (no fold).
+    The chunks hold ceil(ceil(N / 4) / chunks) float4s each, and none is
+    empty."""
+    nvec = -(-n // 4)
+    c = max(1, min(MOMENTS_SMS * MOMENTS_CTAS_PER_SM // k,
+                   nvec // MOMENTS_MIN_VEC))
+    per = -(-nvec // c)
+    return -(-nvec // per)
+
+
 def stream_moments_chunks(n: int) -> int:
     """Chunks each device row of the streamed moments is split into, from
     N alone: 1 for a row that one warp reads whole (N <= STREAM_ROW_MAX,
-    csrc/stream_moments.cu), else K1's chunks of MOMENTS_CHUNK elements
-    (csrc/moments.cu), added in chunk order by a second pass.  So neither
-    K nor k_block changes how a device's sums are taken."""
+    csrc/stream_moments.cu), else chunks of MOMENTS_CHUNK elements on K1's
+    kernel (csrc/moments.cu), folded in a fixed order.  So neither K nor
+    k_block changes how a device's sums are taken."""
     return 1 if n <= STREAM_ROW_MAX else -(-n // MOMENTS_CHUNK)
 
 
@@ -62,8 +82,9 @@ def _stream(t: torch.Tensor) -> int:
 
 def _moments_split(g: torch.Tensor, nchunks: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's two passes: partials [K, nchunks], then each device's partials
-    added in chunk order."""
+    """K1's kernel with ``nchunks`` chunks a row: partials [K, nchunks],
+    each device's folded in a fixed order by the block that finishes the
+    row last."""
     lib = _library("moments")
     k, n = g.shape
     with torch.cuda.device(g.device):
@@ -82,8 +103,7 @@ def batched_moments_cuda(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of squares, sum) per row of a contiguous fp32 CUDA [K, N] stack,
     launched on the current stream (no synchronisation)."""
     _launch.check(g, 2, "g")
-    return _moments_split(g, _library("moments").moments_num_chunks(
-        g.shape[1]))
+    return _moments_split(g, moments_split(*g.shape))
 
 
 def streaming_moments_cuda(g: torch.Tensor, k_block: int
@@ -98,8 +118,6 @@ def streaming_moments_cuda(g: torch.Tensor, k_block: int
         raise ValueError(f"k_block {k_block} must divide K {k}")
     nchunks = stream_moments_chunks(n)
     if nchunks > 1:
-        if nchunks != _library("moments").moments_num_chunks(n):
-            raise RuntimeError("MOMENTS_CHUNK does not match csrc/moments.cu")
         return _moments_split(g, nchunks)
     lib = _library("stream_moments")
     with torch.cuda.device(g.device):

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.kernels import _launch, ops
-from repro_torch.kernels import grad_norm, ota_aggregate
+from repro.kernels import ref as jref
+from repro_torch.kernels import _launch, ops, ref
+from repro_torch.kernels import grad_norm, ota_aggregate, selective_scan
 from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
@@ -78,6 +79,35 @@ class TestMomentsParity:
         # positive); sqrt halves that and each side rounds once more
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=(math.ceil(math.log2(n)) + 1) * EPS32)
+
+
+class TestMomentsFold:
+    """K1's association (``ref.batched_moments_chunked_ref``): each row in
+    chunks summed apart, the chunk partials folded in csrc/moments.cu's
+    fixed tree (``ref.block_tree_sum``), held to the reference's oracle."""
+
+    @pytest.mark.parametrize("k,n", SHAPES)
+    @pytest.mark.parametrize("chunks", [1, 3, 13, 150, 300])
+    def test_chunked_fold_matches_reference(self, k, n, chunks):
+        g = _stack(k, n, seed=k * 7 + n + chunks, edges=True)
+        want_sq, want_s = jref.batched_moments_ref(jnp.asarray(g))
+        got_sq, got_s = ref.batched_moments_chunked_ref(torch.from_numpy(g),
+                                                        chunks)
+        g64 = g.astype(np.float64)
+        np.testing.assert_array_less(
+            np.abs(got_sq.numpy() - np.asarray(want_sq)),
+            _sum_tol(np.sum(g64 * g64, 1), n))
+        np.testing.assert_array_less(
+            np.abs(got_s.numpy() - np.asarray(want_s)),
+            _sum_tol(np.sum(np.abs(g64), 1), n))
+
+    @pytest.mark.parametrize("m", [1, 8, 31, 256, 257, 700])
+    def test_tree_sums_every_entry_once(self, m):
+        """Integers sum exactly in fp32: the tree adds each entry once,
+        thread-strided past 256 entries."""
+        x = torch.arange(1, m + 1, dtype=torch.float32).repeat(2, 1)
+        assert torch.equal(ref.block_tree_sum(x),
+                           torch.full((2,), m * (m + 1) / 2))
 
 
 class TestSuperposeParity:
@@ -316,11 +346,69 @@ class TestSplitChoosers:
     @pytest.mark.parametrize("n", [1, 7, 2048, 4096, 4097, 55_050,
                                    1_000_003])
     def test_stream_moments_chunks(self, n):
-        """One chunk for a row one warp reads; longer rows take K1's
-        chunking of csrc/moments.cu (moments_num_chunks: ceil(ceil(N / 4)
-        / 1024))."""
+        """One chunk for a row one warp reads; longer rows take chunks of
+        MOMENTS_CHUNK elements on K1's kernel (ceil(ceil(N / 4) / 1024)),
+        from N alone."""
         chunks = grad_norm.stream_moments_chunks(n)
         if n <= grad_norm.STREAM_ROW_MAX:
             assert chunks == 1
         else:
             assert chunks == -(-(-(-n // 4)) // 1024) > 1
+
+    def test_scan_and_moments_arguments(self):
+        """K7's and K1's choosers read only their stated arguments."""
+        assert list(inspect.signature(selective_scan.scan_split)
+                    .parameters) == ["b", "s", "d"]
+        assert list(inspect.signature(selective_scan.scan_lanes)
+                    .parameters) == ["b", "d"]
+        assert list(inspect.signature(grad_norm.moments_split)
+                    .parameters) == ["k", "n"]
+
+    @pytest.mark.parametrize("k", [1, 7, 20, 131, 1000, 1056, 1057, 100_000])
+    @pytest.mark.parametrize("n", [1, 7, 4095, 55_050, 1_000_003])
+    def test_moments_split_fills_one_wave(self, k, n):
+        """One chunk a row where K alone fills a wave of CTAs; otherwise
+        chunks of at least MOMENTS_MIN_VEC float4s, none empty, and the
+        grid within one wave."""
+        c = grad_norm.moments_split(k, n)
+        wave = grad_norm.MOMENTS_SMS * grad_norm.MOMENTS_CTAS_PER_SM
+        nvec = -(-n // 4)
+        per = -(-nvec // c)
+        assert 1 <= c and -(-nvec // per) == c
+        if k >= wave:
+            assert c == 1
+        if c > 1:
+            assert k * c <= wave and per >= grad_norm.MOMENTS_MIN_VEC
+
+    @pytest.mark.parametrize("k,n,c", [(20, 55_050, 13), (1000, 55_050, 1),
+                                       (7, 1_000_003, 150)])
+    def test_moments_split_at_the_callers_shapes(self, k, n, c):
+        assert grad_norm.moments_split(k, n) == c
+
+    @pytest.mark.parametrize("b", [1, 2, 4, 16, 64])
+    @pytest.mark.parametrize("s", [1, 5, 64, 333, 1000, 8192])
+    @pytest.mark.parametrize("d", [1, 77, 1000, 8192])
+    def test_scan_split_fills_one_wave(self, b, s, d):
+        """One pass where the grid at scan_lanes(b, d) lanes gives every
+        scheduler a warp; otherwise C - 1 chunks a pass within one wave
+        (SCAN_WARPS), never C = 2 (no gain), and no chunk empty."""
+        lanes = selective_scan.scan_lanes(b, d)
+        assert lanes in selective_scan.SCAN_LANES
+        warps = b * -(-d // selective_scan.SCAN_CHANNELS) * lanes
+        c = selective_scan.scan_split(b, s, d)
+        tiles = -(-s // (selective_scan.SCAN_TILE_BASE * lanes))
+        per = -(-tiles // c)
+        assert 1 <= c <= tiles and -(-tiles // per) == c and c != 2
+        if warps >= selective_scan.SCAN_WARPS:
+            assert c == 1
+        if c > 1:
+            assert (c - 1) * warps <= selective_scan.SCAN_WARPS
+
+    @pytest.mark.parametrize("b,s,d,lanes,c", [(4, 8192, 8192, 1, 1),
+                                               (1, 8192, 8192, 4, 1),
+                                               (2, 1000, 1000, 4, 3)])
+    def test_scan_split_at_the_callers_shapes(self, b, s, d, lanes, c):
+        """The Jamba prefill's scan (B = 4) and B = 1 fill the card with
+        lanes alone; the ragged [2, 1000, 1000] is split."""
+        assert selective_scan.scan_lanes(b, d) == lanes
+        assert selective_scan.scan_split(b, s, d) == c

@@ -1,7 +1,18 @@
 #!/usr/bin/env python3
 """The numbers behind the kernels' split and tile choices, on one NVIDIA GPU.
 
-    python3 tools/kernel_sweep.py [--only k2,k3,k4,k6] [--parent DIR]
+    python3 tools/kernel_sweep.py [--only k1,k2,k3,k4,k6,k7] [--parent DIR]
+
+K1 (``moments_launch`` in ``csrc/moments.cu``): chunks a row around the
+one ``moments_split`` picks, 2, 4 and 8 float4 loads in flight a thread,
+and the fold as a programmatic dependent launch in place of the last
+block's, at the FL round's, the wide and the ragged shapes, beside
+``vector_norm(g, dim=1)``; also each with the 50 MB L2 flushed before
+every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``):
+1, 2 and 4 lanes a channel and C chunks of the sequence at
+``chip_smoke.SCAN_SHAPES``, the (lanes, C) that ``scan_lanes`` and
+``scan_split`` pick marked, and variants of the source: the accurate
+expf, steps unrolled 1, 2 or 8 in a tile, tiles of 8 or 32 steps a lane.
 
 K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
 time of each split S of the K-way sum at the shapes its callers give it,
@@ -17,9 +28,10 @@ the register bound, and 16 rows in flight.  K6's fp32 body
 (``csrc/flash_attention.cu``): query and kv tile sizes at danube's and
 Jamba's layers, and P V summed in one tensor-core accumulator across kv
 tiles, beside ``scaled_dot_product_attention``.  ``--parent DIR`` names a
-directory that holds another tree's ``ota_superpose.cu``,
-``ota_superpose_stream.cu`` and ``flash_attention.cu`` (K2's, K4's and K6
-fp32's earlier designs), timed at the same shapes in the same run; K2's
+directory that holds another tree's ``moments.cu``, ``ota_superpose.cu``,
+``ota_superpose_stream.cu``, ``flash_attention.cu`` and
+``selective_scan.cu`` (K1's, K2's, K4's, K6 fp32's and K7's earlier
+designs), timed at the same shapes in the same run; K2's
 splits and K4's chunkings are checked for the parent's bits.  Each variant
 is checked against its plain version and for two launches giving the same
 bits; ptxas's stack and spills and the number of CALL instructions in its
@@ -56,6 +68,12 @@ K4_VARIANTS = ((128, 16, 8), (64, 32, 8), (256, 8, 8), (256, 5, 8),
                (128, 16, 16))
 # K6 fp32: (kBQ, kBK, kMinBlocks) of each variant; the first is the tree's
 K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
+K1_SHAPES = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
+K1_SPLITS = (1, 7, 13, 27, 52, 75, 100, 150, 200, 300)
+K7_SPLITS = (1, 3, 4, 6, 8, 12)
+# K7: (lanes a channel, channels a lane) of the layouts the source builds
+K7_LAYOUTS = ((1, 1), (1, 2), (2, 1), (2, 2), (2, 4), (4, 1), (4, 2), (4, 4))
+L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 _K4_ARGS = [_P, _P, _P, _F, _LL, _LL, _LL, _I, _I, _P, _P, _P]
@@ -312,6 +330,203 @@ def sweep_k4(libs, parent: bool) -> None:
         del g, part
 
 
+def _moments_parent_chunks(n: int) -> int:
+    """PR 11's K1 grid: chunks of 4,096 elements (kChunkVec)."""
+    return max(1, -(-(-(-n // 4)) // 1024))
+
+
+def _cold_ms(fn, flush) -> float:
+    """Device time of ``fn`` with the L2 cache flushed before each call:
+    the time of (flush, fn) less that of flush alone."""
+    import chip_smoke as smoke
+    return smoke.device_ms(lambda: (flush(), fn())) - smoke.device_ms(flush)
+
+
+def sweep_k1(libs, parent: bool) -> None:
+    """K1's variants at K1_SHAPES: every split of K1_SPLITS (and the chosen
+    one) on the tree's source; the others at the chosen split; the parent
+    at its own grid.  Each checked against the plain version, for two
+    launches and two replays of one CUDA graph giving the same bits."""
+    import chip_smoke as smoke
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grad_norm import moments_split
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    trees = {name: lib for name, (lib, _, _) in libs.items()
+             if name.startswith("k1_") and name != "k1_parent"}
+    if parent:
+        trees["k1_parent"] = libs["k1_parent"][0]
+    for lib in trees.values():
+        lib.moments_launch.argtypes = [_P, _LL, _LL, _I, _P, _P, _P, _P, _P]
+    flush_buf = torch.empty((L2_FLUSH_BYTES // 4,), device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+    for k, n in K1_SHAPES:
+        g = smoke.test_stack(k, n, gen)
+        want = ref.batched_moments_ref(g)
+        tol = smoke.TERMS_RTOL * (g.double() ** 2).sum(1)
+        tol_s = smoke.TERMS_RTOL * g.double().abs().sum(1)
+        chosen = moments_split(k, n)
+        out = torch.empty((2, k), device="cuda")
+
+        def library():
+            return torch.linalg.vector_norm(g, dim=1)
+        row = {"kernel": "batched_moments", "k": k, "n": n,
+               "chosen_chunks": chosen, "l2_resident": k * n * 4 < 50e6,
+               "library_ms": smoke.device_ms(library),
+               "library_cold_ms": _cold_ms(library, flush),
+               "bound_ms": smoke.bound(k * n * 4 + 2 * k * 4, 3.0 * k * n)[0],
+               "variants": {}}
+        for name, lib in trees.items():
+            if name == "k1_parent":
+                splits = (_moments_parent_chunks(n),)
+            elif name == "k1_tree":
+                splits = sorted(set(K1_SPLITS) | {chosen})
+            elif name.startswith("k1_cluster"):
+                splits = (1, 2, 4, 7, 8, 12, 16)
+            else:
+                splits = sorted({chosen, 7, 13, 27, 52, 100})
+            times = row["variants"][name] = {}
+            for c in splits:
+                part = torch.empty((2, k, c), device="cuda")
+
+                def launch():
+                    err = lib.moments_launch(
+                        g.data_ptr(), k, n, c, part[0].data_ptr(),
+                        part[1].data_ptr(), out[0].data_ptr(),
+                        out[1].data_ptr(), _stream())
+                    assert err == 0, err
+                launch()
+                first = out.clone()
+                launch()
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    launch()
+                graph.replay()
+                torch.cuda.synchronize()
+                replay1 = out.clone()
+                graph.replay()
+                torch.cuda.synchronize()
+                entry = times[c] = {
+                    "chosen": c == chosen,
+                    "ms": smoke.device_ms(launch),
+                    "within_tolerance": bool(
+                        ((out[0] - want[0]).abs().double() <= tol).all()
+                        and ((out[1] - want[1]).abs().double()
+                             <= tol_s).all()),
+                    "two_launches_bitwise": bool(torch.equal(first, out)),
+                    "graph_replays_bitwise": bool(
+                        torch.equal(replay1, out)
+                        and torch.equal(first, out))}
+                if c == chosen or name == "k1_parent":
+                    entry["cold_ms"] = _cold_ms(launch, flush)
+                del graph, part
+        emit(row)
+        del g
+    del flush_buf
+
+
+def _scan_tol(args):
+    """chip_smoke's rule: SCAN_RTOL * the plain scan of |u|, dt, a, |B|,
+    |C|."""
+    import chip_smoke as smoke
+    from repro_torch.kernels import ops
+    u, dt, a, bm, cm = args
+    return smoke.SCAN_RTOL * ops.selective_scan(
+        u.abs(), dt, a, bm.abs(), cm.abs(), impl="plain")
+
+
+def sweep_k7(libs, parent: bool) -> None:
+    """K7's variants at chip_smoke.SCAN_SHAPES, bf16 and fp32: the tree's
+    source at every (lanes, C) of (1, 2, 4) x K7_SPLITS, the other sources
+    at the (lanes, C) the choosers pick, the parent at its own grid.  Each
+    checked against the plain version and for two launches giving the same
+    bits."""
+    import chip_smoke as smoke
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.selective_scan import (SCAN_TILE_BASE,
+                                                    scan_lanes, scan_split)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    trees = {name: lib for name, (lib, _, _) in libs.items()
+             if name.startswith("k7_") and name != "k7_parent"}
+    for lib in trees.values():
+        lib.selective_scan_launch.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+    if parent:
+        old = libs["k7_parent"][0]
+        old.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    for shape in smoke.SCAN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            b, s, d, n, draw = shape
+            if dtype == torch.float32 and (b, s) != (4, 8192):
+                continue
+            args = smoke.scan_inputs(shape, dtype, gen)
+            u, dt, a, bm, cm = args
+            want = ops.selective_scan(*args, impl="plain")
+            tol = _scan_tol(args)
+            y = torch.empty((b, s, d), device="cuda")
+            lanes0, c0 = scan_lanes(b, d), scan_split(b, s, d)
+            row = {"kernel": "selective_scan", "dtype": str(dtype)[6:],
+                   "shape": list(shape), "chosen_lanes": lanes0,
+                   "chosen_c": c0, "bound_ms": smoke.scan_bound(
+                       shape, dtype)[0], "variants": {}}
+
+            def check(launch):
+                launch()
+                first = y.clone()
+                launch()
+                torch.cuda.synchronize()
+                err = (y - want).abs()
+                return {"ms": smoke.flash_ms(launch),
+                        "within_tolerance": bool((err <= tol).all()),
+                        "max_err_over_tol": float((err / tol).max()),
+                        "two_launches_bitwise": bool(torch.equal(first, y))}
+            splits = K7_SPLITS if b * d < 4 * 8192 else (1, 3)
+            for name, lib in trees.items():
+                grid = [(ln, dc, c) for ln, dc in K7_LAYOUTS
+                        for c in (splits if name == "k7_tree" else (1,))]
+                if name != "k7_tree" and (lanes0, 1, c0) not in grid:
+                    grid.append((lanes0, 1, c0))
+                base = {"k7_t8": 8, "k7_t32": 32}.get(name, SCAN_TILE_BASE)
+                seen = set()
+                entries = row["variants"][name] = {}
+                for lanes, dc, c in grid:
+                    tiles = -(-s // max(1, base * lanes // dc))
+                    per = -(-tiles // min(c, tiles))
+                    c = -(-tiles // per)
+                    if (lanes, dc, c) in seen:
+                        continue
+                    seen.add((lanes, dc, c))
+                    hend = torch.empty((b, max(1, c - 1), d, n),
+                                       device="cuda")
+                    sdt = torch.empty((b, max(1, c - 1), d), device="cuda")
+
+                    def launch():
+                        err = lib.selective_scan_launch(
+                            u.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                            bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
+                            hend.data_ptr(), sdt.data_ptr(), b, s, d, n,
+                            int(dtype == torch.bfloat16), lanes, dc, c,
+                            _stream())
+                        assert err == 0, err
+                    entries[f"L{lanes}_D{dc}_C{c}"] = {
+                        "chosen": name == "k7_tree"
+                        and (lanes, dc, c) == (lanes0, 1, c0),
+                        **check(launch)}
+                    del hend, sdt
+            if parent:
+                def launch():
+                    err = old.selective_scan_launch(
+                        u.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                        bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
+                        b, s, d, n, int(dtype == torch.bfloat16), _stream())
+                    assert err == 0, err
+                row["variants"]["k7_parent"] = check(launch)
+            emit(row)
+            del args, u, dt, a, bm, cm, want, tol, y
+            torch.cuda.empty_cache()
+
+
 def _set_constants(text: str, **values) -> str:
     """``text`` with each ``constexpr int NAME = ...;`` set to values[NAME]."""
     for name, value in values.items():
@@ -402,11 +617,11 @@ def sweep_k6(libs) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k2,k3,k4,k6",
+    ap.add_argument("--only", default="k1,k2,k3,k4,k6,k7",
                     help="comma-separated sweeps to run (default: all)")
     ap.add_argument("--parent", help="directory with another tree's "
-                    "ota_superpose.cu, ota_superpose_stream.cu and "
-                    "flash_attention.cu")
+                    "moments.cu, ota_superpose.cu, ota_superpose_stream.cu, "
+                    "flash_attention.cu and selective_scan.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs an NVIDIA GPU")
@@ -423,6 +638,40 @@ def main() -> None:
     k6 = (csrc / "flash_attention.cu").read_text()
     par = pathlib.Path(args.parent) if args.parent else None
     variants = {}
+    if "k1" in only:
+        k1 = (csrc / "moments.cu").read_text()
+        variants["k1_tree"] = k1
+        for unroll in (2, 8):
+            variants[f"k1_u{unroll}"] = _set_constants(k1, kUnroll=unroll)
+        variants["k1_pdl"] = _set_constants(k1, kFold=0)
+        variants["k1_acqrel"] = _set_constants(k1, kFold=2)
+        variants["k1_cluster"] = _set_constants(k1, kFold=3)
+        variants["k1_cluster_t1024"] = _set_constants(k1, kFold=3,
+                                                      kThreads=1024)
+        if par:
+            variants["k1_parent"] = (par / "moments.cu").read_text()
+    if "k7" in only:
+        k7 = (csrc / "selective_scan.cu").read_text()
+        variants["k7_tree"] = k7
+        # diagnostic only (wrong results): B and C not read from shared
+        # memory, to see what their broadcast reads cost
+        variants["k7_nobc"] = k7.replace(
+            """      const float4 bq = *reinterpret_cast<const float4*>(bc + sub * kPer + j);
+      const float4 cq =
+          *reinterpret_cast<const float4*>(bc + kMaxN + sub * kPer + j);""",
+            """      const float4 bq = make_float4(1e-3f * r, 0.f, 1.f, 2.f);
+      const float4 cq = bq;""")
+        assert variants["k7_nobc"] != k7
+        variants["k7_expf"] = k7.replace(
+            'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));',
+            "r = expf(x * 0.6931471805599453f);")
+        assert variants["k7_expf"] != k7
+        for unroll in (1, 2, 8):
+            variants[f"k7_u{unroll}"] = _set_constants(k7, kUnroll=unroll)
+        for base in (8, 32):
+            variants[f"k7_t{base}"] = _set_constants(k7, kTileBase=base)
+        if par:
+            variants["k7_parent"] = (par / "selective_scan.cu").read_text()
     if "k2" in only:
         variants["k2_tree"] = k2
         if par:
@@ -449,6 +698,10 @@ def main() -> None:
         if par:
             variants["k6_parent"] = (par / "flash_attention.cu").read_text()
     libs = compile_variants(variants)
+    if "k1" in only:
+        sweep_k1(libs, par is not None)
+    if "k7" in only:
+        sweep_k7(libs, par is not None)
     if "k2" in only:
         sweep_k2(libs, par is not None)
     if "k3" in only:
