@@ -12,10 +12,11 @@
 // so launch overhead dominates there; ragged (K = 7, N = 1,000,003) 28 MB,
 // 8.36 us; at K = 1000 220 MB, ~66 us.
 //
-// What held PR 11's design back: chunks fixed at 4,096 elements whatever
-// (K, N), so the ragged stack ran 1,715 CTAs (1.6 waves) of four 16-byte
-// loads a thread, and a second kernel folded the partials after a launch
-// gap that costs as much as the round's whole read.
+// What held PR 11's design back (4.77 us at the round's shape, 19.0 us
+// ragged, where vector_norm(g, dim=1) takes 14.76): chunks fixed at 4,096
+// elements whatever (K, N), so the ragged stack ran 1,715 CTAs (1.6 waves)
+// of four 16-byte loads a thread, and a second kernel folded the partials
+// after a launch gap that costs as much as the round's whole read.
 //
 // Design:
 //  * The stack is read in place: no padding copy.  Each row is split into a
@@ -23,45 +24,41 @@
 //    scalar tail, so 16-byte loads are used wherever the row allows: when
 //    N % 4 != 0 (N = 55,050 on the FL round) consecutive rows start at
 //    different alignments, and the ragged tail runs on every launch.
-//  * The grid is device x chunk, flattened to 1-D; the number of chunks a
-//    row, `nchunks`, is the host's (kernels/grad_norm.py): `moments_split(k,
-//    n)` sizes K1's grid to one wave of CTAs, and K3's long rows take
-//    `stream_moments_chunks(n)`, from N alone, so that a device's sums do
-//    not depend on K.  A chunk is ceil(body / nchunks) float4s of the row.
-//  * Each thread keeps kUnroll 16-byte loads in flight; each block reduces
-//    with warp shuffles, then across its warps in a fixed order.
-//  * The fold runs in the same launch (kFoldInLaunch): each block writes its
-//    row's partial, then __threadfence and an atomicAdd on the row's
-//    arrival counter; the block that arrives last sums the row's partials
-//    (thread t the chunks t, t + 256, ..., then the same fixed tree) and
-//    sets the counter back to 0, so the next launch, or a replayed CUDA
-//    graph, starts clean.  The atomic counts arrivals only: no value is
-//    summed by an atomic, so the bits are the same from run to run.  The
-//    counters are a static array of kMaxRows a device; a longer stack runs
-//    in slabs of kMaxRows rows, one launch each.  Launches of this kernel
-//    on one device must not overlap (one stream, as every caller runs).
-//    With kFoldInLaunch = 0 the fold is a second kernel, launched as a
-//    programmatic dependent launch (the sweep's alternative).
-#include <cooperative_groups.h>
+//  * The grid is device x chunk, flattened to 1-D, with `nchunks` chunks a
+//    row from the host (kernels/grad_norm.py): `moments_split(k, n)` for
+//    K1, at most one wave of CTAs with at least 8 float4s a thread; and
+//    for K3's long rows `stream_moments_chunks(n)`, from N alone, so that a
+//    device's sums do not depend on K.  A chunk is ceil(body / nchunks)
+//    float4s of the row.  Each thread keeps kUnroll 16-byte loads in
+//    flight; each block reduces with warp shuffles, then across its warps
+//    in a fixed order.
+//  * The fold runs in the same launch.  Each block writes its row's
+//    partial, then adds one to the row's arrival counter with an
+//    acquire-release atomic; the block that arrives last sums the row's
+//    partials in a fixed order (thread t the chunks t, t + 256, ... in
+//    turn, then the block's tree) and sets the counter back to 0, so the
+//    next launch, or a replayed CUDA graph, starts clean.  The atomic
+//    counts arrivals only: no value is summed by an atomic, so the bits
+//    are the same from run to run.  Against a second kernel as a
+//    programmatic dependent launch, a cluster folding through distributed
+//    shared memory, and __threadfence before a plain atomicAdd, this was
+//    the one that kept pace at all three of the round's, the wide and the
+//    ragged shapes (tools/kernel_sweep.py --only k1; PERF.md).
+//  * The counters are a static array of kMaxRows a device; a longer stack
+//    runs in slabs of kMaxRows rows, one launch each.  Launches on one
+//    device must not overlap (one stream, as every caller runs).
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;               // float4 loads in flight a thread
-// how a row's chunk partials are folded: 0 a second kernel, launched as a
-// programmatic dependent launch; 1 the row's last block, elected by
-// __threadfence and atomicAdd; 2 the same, by an acquire-release atomic;
-// 3 the row's cluster of blocks, through distributed shared memory
-constexpr int kFold = 1;
 constexpr int kMaxRows = 1 << 16;        // rows one launch's counters cover
-constexpr int kMaxCluster = 16;          // chunks a row in a cluster (kFold 3)
 
+// a row's arrival counter: 0 between launches
 __device__ unsigned int g_arrivals[kMaxRows];
 
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
@@ -91,29 +88,10 @@ __device__ __forceinline__ void block_sum2(float& sq, float& s) {
   }
 }
 
-// Sum of row k's nchunks partials, in thread 0, in the fixed order above.
-__device__ __forceinline__ void fold_row(const float* part_sq,
-                                         const float* part_s, long long k,
-                                         int nchunks, float* sumsq,
-                                         float* sums) {
-  float sq = 0.f, s = 0.f;
-  for (int c = threadIdx.x; c < nchunks; c += kThreads) {
-    sq += __ldcg(part_sq + k * nchunks + c);
-    s += __ldcg(part_s + k * nchunks + c);
-  }
-  block_sum2(sq, s);
-  if (threadIdx.x == 0) {
-    sumsq[k] = sq;
-    sums[k] = s;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 moments_kernel(const float* __restrict__ g, long long n, int nchunks,
                float* __restrict__ part_sq, float* __restrict__ part_s,
                float* __restrict__ sumsq, float* __restrict__ sums) {
-  if (kFold == 0)                        // let the fold's blocks launch
-    asm volatile("griddepcontrol.launch_dependents;");
   const long long k = blockIdx.x / nchunks;
   const int j = blockIdx.x % nchunks;
   const float* row = g + k * n;
@@ -164,96 +142,33 @@ moments_kernel(const float* __restrict__ g, long long n, int nchunks,
     }
     return;
   }
-  if (kFold == 3) {
-    // the cluster is the row: each block's partial into block 0's shared
-    // memory, then block 0 adds them in chunk order
-    __shared__ float c_sq[kMaxCluster];
-    __shared__ float c_s[kMaxCluster];
-    cg::cluster_group cluster = cg::this_cluster();
-    if (threadIdx.x == 0) {
-      cluster.map_shared_rank(c_sq, 0)[j] = sq;
-      cluster.map_shared_rank(c_s, 0)[j] = s;
-    }
-    cluster.sync();
-    if (j == 0 && threadIdx.x == 0) {
-      float a = 0.f, b = 0.f;
-      for (int c = 0; c < nchunks; ++c) {
-        a += c_sq[c];
-        b += c_s[c];
-      }
-      sumsq[k] = a;
-      sums[k] = b;
-    }
-    return;
-  }
   __shared__ bool last;
   if (threadIdx.x == 0) {
     part_sq[k * nchunks + j] = sq;
     part_s[k * nchunks + j] = s;
-    if (kFold == 1) {
-      __threadfence();                   // the partial, before the arrival
-      last = atomicAdd(&g_arrivals[k], 1u) == (unsigned)nchunks - 1;
-    } else if (kFold == 2) {
-      cuda::atomic_ref<unsigned int, cuda::thread_scope_device> arrivals(
-          g_arrivals[k]);
-      last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) ==
-             (unsigned)nchunks - 1;
-    }
+    // release: the partial before the arrival; acquire: the others'
+    // partials after it, for the block that arrives last
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> arrivals(
+        g_arrivals[k]);
+    last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) ==
+           (unsigned)nchunks - 1;
   }
-  if (kFold == 0) return;
   __syncthreads();
   if (!last) return;
-  if (kFold == 1) __threadfence();       // every partial of the row is seen
-  fold_row(part_sq, part_s, k, nchunks, sumsq, sums);
-  if (threadIdx.x == 0) g_arrivals[k] = 0;
-}
-
-// kFold 0: the fold as a programmatic dependent launch
-__global__ void __launch_bounds__(kThreads)
-moments_fold_kernel(const float* __restrict__ part_sq,
-                    const float* __restrict__ part_s, int nchunks,
-                    float* __restrict__ sumsq, float* __restrict__ sums) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  fold_row(part_sq, part_s, blockIdx.x, nchunks, sumsq, sums);
-}
-
-int launch_rows(const float* g, long long k, long long n, int nchunks,
-                float* part_sq, float* part_s, float* sumsq, float* sums,
-                cudaStream_t st) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(k * nchunks));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  if (kFold == 3 && nchunks > 1) {
-    if (nchunks > kMaxCluster) return (int)cudaErrorInvalidValue;
-    if (nchunks > 8) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          moments_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (e != cudaSuccess) return (int)e;
-    }
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)nchunks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+  // the row's last block: its partials, thread t the chunks t, t + 256, ...
+  // in turn, then the same fixed tree
+  sq = 0.f;
+  s = 0.f;
+  for (int c = threadIdx.x; c < nchunks; c += kThreads) {
+    sq += __ldcg(part_sq + k * nchunks + c);
+    s += __ldcg(part_s + k * nchunks + c);
   }
-  cudaError_t err = cudaLaunchKernelEx(&cfg, moments_kernel, g, n, nchunks,
-                                       part_sq, part_s, sumsq, sums);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess || kFold != 0 || nchunks == 1) return (int)err;
-  cudaLaunchConfig_t fold = {};
-  fold.gridDim = dim3((unsigned)k);
-  fold.blockDim = dim3(kThreads);
-  fold.stream = st;
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  fold.attrs = attr;
-  fold.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&fold, moments_fold_kernel,
-                                 (const float*)part_sq, (const float*)part_s,
-                                 nchunks, sumsq, sums);
+  block_sum2(sq, s);
+  if (threadIdx.x == 0) {
+    sumsq[k] = sq;
+    sums[k] = s;
+    g_arrivals[k] = 0;                   // clean for the next launch
+  }
 }
 
 }  // namespace
@@ -270,10 +185,11 @@ int moments_launch(const float* g, long long k, long long n, int nchunks,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (long long k0 = 0; k0 < k; k0 += kMaxRows) {
     const long long rows = k - k0 < kMaxRows ? k - k0 : kMaxRows;
-    const int err = launch_rows(g + k0 * n, rows, n, nchunks,
-                                part_sq + k0 * nchunks, part_s + k0 * nchunks,
-                                sumsq + k0, sums + k0, st);
-    if (err != 0) return err;
+    moments_kernel<<<(unsigned)(rows * nchunks), kThreads, 0, st>>>(
+        g + k0 * n, n, nchunks, part_sq + k0 * nchunks,
+        part_s + k0 * nchunks, sumsq + k0, sums + k0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }

@@ -73,11 +73,11 @@
 
 namespace {
 
-constexpr int kSlots = 32;               // channel slots per CTA (one warp
-                                         // width); each slot holds Dc channels
+constexpr int kChannels = 32;            // channels per CTA
 constexpr int kMaxN = 16;                // states per channel, at most
-constexpr int kTileBase = 16;            // a thread's share of a staged array
-constexpr int kUnroll = 4;               // steps unrolled inside a full tile
+constexpr int kTileBase = 16;            // steps a tile at one lane a channel
+constexpr int kUnroll = 2;               // steps unrolled inside a full tile
+constexpr int kAcc = 2;                  // partial sums of y_t a thread
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -92,44 +92,41 @@ __device__ __forceinline__ float exp2_sfu(float x) {
   return r;
 }
 
-// L lanes a channel (each 16 / L of its states), Dc channels a lane
-template <int L, int Dc>
+// L lanes a channel, each with 16 / L of its states
+template <int L>
 struct Shape {
-  static constexpr int kThreads = kSlots * L;
-  static constexpr int kPer = kMaxN / L;       // states a thread a channel
-  static constexpr int kChannels = kSlots * Dc;  // channels a CTA
-  static constexpr int kT = kTileBase * L / Dc;  // steps a tile
-  static constexpr int kElems = kTileBase;     // a thread's u or dt a tile
-  static constexpr int kElemsBC = kTileBase / Dc;  // its B | C a tile
-  // floats of one buffer: u, dt [kT][kChannels] and B | C [kT][32]
+  static constexpr int kThreads = kChannels * L;
+  static constexpr int kPer = kMaxN / L;       // states a thread
+  static constexpr int kT = kTileBase * L;     // steps a tile
+  static constexpr int kElems = kTileBase;     // a thread's share of one
+                                               // staged array a tile
+  // floats of one buffer: u, dt [kT][32] and B | C [kT][32]
   static constexpr int kU = 0;
   static constexpr int kDt = kT * kChannels;
   static constexpr int kBC = 2 * kT * kChannels;
-  static constexpr int kBufFloats = kBC + kT * 2 * kMaxN;
+  static constexpr int kBufFloats = 3 * kT * kChannels;
   static constexpr int kSmemBytes = 2 * kBufFloats * 4;
-  static_assert(kT >= 1 && kTileBase % Dc == 0, "tile shape");
 };
 
-template <typename T, int L, int Dc>
-__global__ void __launch_bounds__(Shape<L, Dc>::kThreads)
+template <typename T, int L>
+__global__ void __launch_bounds__(Shape<L>::kThreads)
 selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                       const float* __restrict__ a, const T* __restrict__ bm,
                       const T* __restrict__ cm, float* __restrict__ y,
                       float* __restrict__ h_out, float* __restrict__ hend,
                       float* __restrict__ sdt, int S, int D, int N,
                       int chunk, int nchunks, int mode) {
-  using Sh = Shape<L, Dc>;
+  using Sh = Shape<L>;
   constexpr int kT = Sh::kT;
   constexpr int kPer = Sh::kPer;
   constexpr int kThreads = Sh::kThreads;
-  constexpr int kCh = Sh::kChannels;
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
-  const int slot = tid / L;              // channel slot within the CTA
+  const int ch = tid / L;                // channel within the CTA
   const int sub = tid % L;               // which slice of the states
-  const int d0 = blockIdx.x * kCh;       // channel q of the slot: d0 + slot
-                                         // + 32 q
+  const int d0 = blockIdx.x * kChannels;
+  const int d = d0 + ch;
   const int b = blockIdx.z;
   const int c = blockIdx.y + (mode == 2 ? 1 : 0);   // chunk
   const int t_beg = c * chunk;
@@ -137,54 +134,44 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   const long long row0 = (long long)b * S;           // first (b, t) row
   const bool write_y = mode != 1 || c == 0;
 
-  float a2[Dc][kPer], h[Dc][kPer];
+  float a2[kPer], h[kPer];
 #pragma unroll
-  for (int q = 0; q < Dc; ++q) {
-    const int d = d0 + slot + kSlots * q;
+  for (int j = 0; j < kPer; ++j) {
+    const int n = sub * kPer + j;
+    a2[j] = (d < D && n < N) ? a[(long long)d * N + n] * kLog2e : 0.f;
+    h[j] = 0.f;
+  }
+  if (mode == 2 && d < D) {
+    // the carries of chunks 0..c-1, folded in chunk order
+    for (int q = 0; q < c; ++q) {
+      const long long cd = ((long long)b * (nchunks - 1) + q) * D + d;
+      const float sd = sdt[cd];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int n = sub * kPer + j;
-      a2[q][j] = (d < D && n < N) ? a[(long long)d * N + n] * kLog2e : 0.f;
-      h[q][j] = 0.f;
-    }
-    if (mode == 2 && d < D) {
-      // the carries of chunks 0..c-1, folded in chunk order
-      for (int p = 0; p < c; ++p) {
-        const long long cd = ((long long)b * (nchunks - 1) + p) * D + d;
-        const float sd = sdt[cd];
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int n = sub * kPer + j;
-          const float he = n < N ? hend[cd * N + n] : 0.f;
-          h[q][j] = fmaf(exp2_sfu(sd * a2[q][j]), h[q][j], he);
-        }
+      for (int j = 0; j < kPer; ++j) {
+        const int n = sub * kPer + j;
+        const float he = n < N ? hend[cd * N + n] : 0.f;
+        h[j] = fmaf(exp2_sfu(sd * a2[j]), h[j], he);
       }
     }
   }
 
   // the next tile, held in registers from its loads to its stores
-  T ru[Sh::kElems], rbc[Sh::kElemsBC];
+  T ru[Sh::kElems], rbc[Sh::kElems];
   float rdt[Sh::kElems];
   auto load = [&](int t0) {
 #pragma unroll
     for (int i = 0; i < Sh::kElems; ++i) {
       const int e = tid + i * kThreads;
-      const int r = e / kCh;
-      const int col = e % kCh;
-      const bool ok = t0 + r < t_end && d0 + col < D;
+      const int r = e / kChannels;
+      const int col = e % kChannels;
+      const bool in_t = t0 + r < t_end;
+      const bool ok = in_t && d0 + col < D;
       const long long off = (row0 + t0 + r) * D + d0 + col;
       ru[i] = ok ? u[off] : T(0.f);
       rdt[i] = ok ? dt[off] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < Sh::kElemsBC; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / (2 * kMaxN);
-      const int col = e % (2 * kMaxN);
       const int n = col % kMaxN;         // columns 0..15 B, 16..31 C
       const T* src = col < kMaxN ? bm : cm;
-      rbc[i] = (t0 + r < t_end && n < N) ? src[(row0 + t0 + r) * N + n]
-                                          : T(0.f);
+      rbc[i] = (in_t && n < N) ? src[(row0 + t0 + r) * N + n] : T(0.f);
     }
   };
   auto store = [&](int base) {
@@ -193,17 +180,16 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
       const int e = tid + i * kThreads;
       smem[base + Sh::kU + e] = to_f(ru[i]);
       smem[base + Sh::kDt + e] = rdt[i];
+      smem[base + Sh::kBC + e] = to_f(rbc[i]);
     }
-#pragma unroll
-    for (int i = 0; i < Sh::kElemsBC; ++i)
-      smem[base + Sh::kBC + tid + i * kThreads] = to_f(rbc[i]);
   };
 
-  float sum_dt[Dc], comp[Dc];            // compensated sums of dt (mode 1)
-#pragma unroll
-  for (int q = 0; q < Dc; ++q) sum_dt[q] = comp[q] = 0.f;
+  float sum_dt = 0.f, comp = 0.f;        // compensated sum of dt (mode 1)
   auto step = [&](int base, int r, long long t) {
-    const float* bc = smem + base + Sh::kBC + r * 2 * kMaxN;
+    const float uv = smem[base + Sh::kU + r * kChannels + ch];
+    const float dv = smem[base + Sh::kDt + r * kChannels + ch];
+    const float* bc = smem + base + Sh::kBC + r * kChannels;
+    const float dbu = dv * uv;
     float bb[kPer], cc[kPer];
 #pragma unroll
     for (int j = 0; j < kPer; j += 4) {
@@ -213,30 +199,26 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
       bb[j] = bq.x; bb[j + 1] = bq.y; bb[j + 2] = bq.z; bb[j + 3] = bq.w;
       cc[j] = cq.x; cc[j + 1] = cq.y; cc[j + 2] = cq.z; cc[j + 3] = cq.w;
     }
+    float p[kAcc];
 #pragma unroll
-    for (int q = 0; q < Dc; ++q) {
-      const int col = r * kCh + slot + kSlots * q;
-      const float uv = smem[base + Sh::kU + col];
-      const float dv = smem[base + Sh::kDt + col];
-      const float dbu = dv * uv;
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < kAcc; ++i) p[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        h[q][j] = fmaf(exp2_sfu(dv * a2[q][j]), h[q][j], dbu * bb[j]);
-        p[j & 3] = fmaf(h[q][j], cc[j], p[j & 3]);
-      }
-      float part = (p[0] + p[1]) + (p[2] + p[3]);
+    for (int j = 0; j < kPer; ++j) {
+      h[j] = fmaf(exp2_sfu(dv * a2[j]), h[j], dbu * bb[j]);
+      p[j % kAcc] = fmaf(h[j], cc[j], p[j % kAcc]);
+    }
+    float part = p[0];
 #pragma unroll
-      for (int off = 1; off < L; off <<= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      const int d = d0 + slot + kSlots * q;
-      if (write_y && sub == 0 && d < D) y[(row0 + t) * D + d] = part;
-      if (mode == 1) {                   // Kahan: sum_dt + comp holds sum dt
-        const float yk = dv - comp[q];
-        const float tk = sum_dt[q] + yk;
-        comp[q] = (tk - sum_dt[q]) - yk;
-        sum_dt[q] = tk;
-      }
+    for (int i = 1; i < kAcc; ++i) part += p[i];
+#pragma unroll
+    for (int off = 1; off < L; off <<= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (write_y && sub == 0 && d < D) y[(row0 + t) * D + d] = part;
+    if (mode == 1) {                     // Kahan: sum_dt + comp holds sum dt
+      const float yk = dv - comp;
+      const float tk = sum_dt + yk;
+      comp = (tk - sum_dt) - yk;
+      sum_dt = tk;
     }
   };
 
@@ -257,44 +239,41 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     parity ^= 1;
   }
 
+  if (d >= D) return;
+  if (mode == 1) {                       // chunk c's carry
+    const long long cd = ((long long)b * (nchunks - 1) + c) * D + d;
 #pragma unroll
-  for (int q = 0; q < Dc; ++q) {
-    const int d = d0 + slot + kSlots * q;
-    if (d >= D) continue;
-    if (mode == 1) {                     // chunk c's carry
-      const long long cd = ((long long)b * (nchunks - 1) + c) * D + d;
+    for (int j = 0; j < kPer; ++j) {
+      const int n = sub * kPer + j;
+      if (n < N) hend[cd * N + n] = h[j];
+    }
+    if (sub == 0) sdt[cd] = sum_dt;
+  } else if (h_out != nullptr && c == nchunks - 1) {  // after step S - 1
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int n = sub * kPer + j;
-        if (n < N) hend[cd * N + n] = h[q][j];
-      }
-      if (sub == 0) sdt[cd] = sum_dt[q];
-    } else if (h_out != nullptr && c == nchunks - 1) {  // after step S - 1
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int n = sub * kPer + j;
-        if (n < N) h_out[((long long)b * D + d) * N + n] = h[q][j];
-      }
+    for (int j = 0; j < kPer; ++j) {
+      const int n = sub * kPer + j;
+      if (n < N) h_out[((long long)b * D + d) * N + n] = h[j];
     }
   }
 }
 
-static_assert(kMaxN % 16 == 0, "a thread reads B and C as float4s");
+static_assert(kMaxN % 16 == 0 && kMaxN % kAcc == 0,
+              "a thread reads B and C as float4s");
 
-template <typename T, int L, int Dc>
+template <typename T, int L>
 int launch_pass(const void* u, const float* dt, const float* a,
                 const void* bm, const void* cm, float* y, float* h_out,
                 float* hend, float* sdt, int B, int S, int D, int N,
                 int chunk, int nchunks, int mode, int grid_chunks,
                 cudaStream_t st) {
-  using Sh = Shape<L, Dc>;
-  auto kernel = selective_scan_kernel<T, L, Dc>;
+  using Sh = Shape<L>;
+  auto kernel = selective_scan_kernel<T, L>;
   if (Sh::kSmemBytes > 48 * 1024) {      // above 48 KB only on request
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmemBytes);
     if (attr != cudaSuccess) return (int)attr;
   }
-  const dim3 grid((unsigned)((D + Sh::kChannels - 1) / Sh::kChannels),
+  const dim3 grid((unsigned)((D + kChannels - 1) / kChannels),
                   (unsigned)grid_chunks, (unsigned)B);
   kernel<<<grid, Sh::kThreads, Sh::kSmemBytes, st>>>(
       static_cast<const T*>(u), dt, a, static_cast<const T*>(bm),
@@ -303,45 +282,42 @@ int launch_pass(const void* u, const float* dt, const float* a,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int L, int Dc>
+template <typename T, int L>
 int launch(const void* u, const float* dt, const float* a, const void* bm,
            const void* cm, float* y, float* h_out, float* hend, float* sdt,
            int B, int S, int D, int N, int nchunks, cudaStream_t st) {
-  constexpr int kT = Shape<L, Dc>::kT;
+  constexpr int kT = Shape<L>::kT;
   const int tiles = (S + kT - 1) / kT;
   const int per = (tiles + nchunks - 1) / nchunks;
   if ((tiles + per - 1) / per != nchunks) return (int)cudaErrorInvalidValue;
   const int chunk = per * kT;
   if (nchunks == 1)
-    return launch_pass<T, L, Dc>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S,
-                                 D, N, chunk, 1, 0, 1, st);
-  const int err = launch_pass<T, L, Dc>(u, dt, a, bm, cm, y, h_out, hend,
-                                        sdt, B, S, D, N, chunk, nchunks, 1,
-                                        nchunks - 1, st);
+    return launch_pass<T, L>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D,
+                             N, chunk, 1, 0, 1, st);
+  const int err = launch_pass<T, L>(u, dt, a, bm, cm, y, h_out, hend, sdt,
+                                    B, S, D, N, chunk, nchunks, 1,
+                                    nchunks - 1, st);
   if (err != 0) return err;
-  return launch_pass<T, L, Dc>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S,
-                               D, N, chunk, nchunks, 2, nchunks - 1, st);
+  return launch_pass<T, L>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
+                           chunk, nchunks, 2, nchunks - 1, st);
 }
 
-// the (lanes, channels a lane) layouts the kernel is built for
 template <typename T>
-int launch_layout(int lanes, int per_lane, const void* u, const float* dt,
-                  const float* a, const void* bm, const void* cm, float* y,
-                  float* h_out, float* hend, float* sdt, int B, int S, int D,
-                  int N, int nchunks, cudaStream_t st) {
-#define SCAN_LAYOUT(L, DC)                                                   \
-  if (lanes == L && per_lane == DC)                                          \
-    return launch<T, L, DC>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D,  \
-                            N, nchunks, st);
-  SCAN_LAYOUT(1, 1)
-  SCAN_LAYOUT(1, 2)
-  SCAN_LAYOUT(2, 1)
-  SCAN_LAYOUT(2, 2)
-  SCAN_LAYOUT(2, 4)
-  SCAN_LAYOUT(4, 1)
-  SCAN_LAYOUT(4, 2)
-  SCAN_LAYOUT(4, 4)
-#undef SCAN_LAYOUT
+int launch_lanes(int lanes, const void* u, const float* dt, const float* a,
+                 const void* bm, const void* cm, float* y, float* h_out,
+                 float* hend, float* sdt, int B, int S, int D, int N,
+                 int nchunks, cudaStream_t st) {
+  switch (lanes) {
+    case 1:
+      return launch<T, 1>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
+                          nchunks, st);
+    case 2:
+      return launch<T, 2>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
+                          nchunks, st);
+    case 4:
+      return launch<T, 4>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
+                          nchunks, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -353,9 +329,8 @@ extern "C" {
 // y (and h_out, unless it is null) = selective_scan(u, dt, a, B, C) on
 // `stream`.  u [B, S, D] and bm, cm [B, S, N] of one type (bf16 when
 // is_bf16, else fp32); dt [B, S, D], a [D, N], y [B, S, D], h_out [B, D, N]
-// fp32; all contiguous; 1 <= N <= 16.  `lanes` threads a channel and
-// `per_lane` channels a thread, one of the layouts of launch_layout; a tile
-// holds 16 lanes / per_lane steps, and the sequence runs in `nchunks`
+// fp32; all contiguous; 1 <= N <= 16.  `lanes` (1, 2 or 4) threads a
+// channel; a tile holds 16 lanes steps, and the sequence runs in `nchunks`
 // chunks of whole tiles, none empty (ceil(tiles / ceil(tiles / nchunks))
 // == nchunks); with nchunks > 1,
 // hend [B, nchunks - 1, D, N] and sdt [B, nchunks - 1, D] fp32 scratch.
@@ -364,8 +339,8 @@ extern "C" {
 int selective_scan_launch(const void* u, const void* dt, const void* a,
                           const void* bm, const void* cm, void* y,
                           void* h_out, void* hend, void* sdt, int B, int S,
-                          int D, int N, int is_bf16, int lanes, int per_lane,
-                          int nchunks, void* stream) {
+                          int D, int N, int is_bf16, int lanes, int nchunks,
+                          void* stream) {
   if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN ||
       nchunks < 1 || nchunks > 65535 ||
       (nchunks > 1 && (hend == nullptr || sdt == nullptr)))
@@ -378,11 +353,10 @@ int selective_scan_launch(const void* u, const void* dt, const void* a,
   float* he = static_cast<float*>(hend);
   float* sd = static_cast<float*>(sdt);
   if (is_bf16)
-    return launch_layout<__nv_bfloat16>(lanes, per_lane, u, dtf, af, bm, cm,
-                                        yf, hf, he, sd, B, S, D, N, nchunks,
-                                        st);
-  return launch_layout<float>(lanes, per_lane, u, dtf, af, bm, cm, yf, hf, he,
-                              sd, B, S, D, N, nchunks, st);
+    return launch_lanes<__nv_bfloat16>(lanes, u, dtf, af, bm, cm, yf, hf, he,
+                                       sd, B, S, D, N, nchunks, st);
+  return launch_lanes<float>(lanes, u, dtf, af, bm, cm, yf, hf, he, sd, B, S,
+                             D, N, nchunks, st);
 }
 
 const char* selective_scan_error_string(int err) {

@@ -8,8 +8,8 @@ the [K, N] fp32 stack in place (no padding copy) and return
 ``(sumsq, sums)``, each [K] fp32, summed in a fixed order;
 ``sumsq_cuda(x)`` returns the 0-d sum of squares of one flat vector.
 ``moments_split(k, n)`` is the number of chunks K1 splits each row into,
-sized so the grid fills one wave; ``stream_moments_chunks(n)`` the number
-the streamed moments split each row into, from N alone.  Both run
+at most one wave of CTAs; ``stream_moments_chunks(n)`` the number the
+streamed moments split each row into, from N alone.  Both run
 ``csrc/moments.cu``'s one launch: the block that finishes a row last
 folds its partials, in a fixed order, elected by an arrival counter.
 Public callers go through ``repro_torch.kernels.ops``, which counts the
@@ -28,7 +28,7 @@ MOMENTS_CHUNK = 4096     # elements a chunk of K3's long rows
 MOMENTS_SMS = 132        # streaming multiprocessors of an H100 SXM
 MOMENTS_CTAS_PER_SM = 8  # CTAs of 256 threads an SM holds (kThreads,
                          # csrc/moments.cu)
-MOMENTS_MIN_VEC = 1024   # float4s a chunk holds at least (4 a thread)
+MOMENTS_MIN_VEC = 2048   # float4s a chunk holds at least (8 a thread)
 STREAM_ROW_MAX = 4096    # rows one warp reads alone (kRowMax,
                          # csrc/stream_moments.cu)
 STREAM_ROWS_PER_CTA = 4  # such rows a CTA (kWarps, csrc/stream_moments.cu)

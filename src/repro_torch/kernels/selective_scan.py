@@ -39,7 +39,7 @@ SCAN_MIN_TILES = 1               # tiles a chunk holds at least
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "selective_scan_launch": ([_P] * 9 + [_I] * 8 + [_P], _I),
+    "selective_scan_launch": ([_P] * 9 + [_I] * 7 + [_P], _I),
 }
 _GRID_Y_MAX = 65_535
 _INT_MAX = 2 ** 31 - 1
@@ -150,7 +150,7 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             cmat.data_ptr(), y.data_ptr(), None if h is None else h.data_ptr(),
             None if hend is None else hend.data_ptr(),
             None if sdt is None else sdt.data_ptr(),
-            b, s, d, n, int(u.dtype == torch.bfloat16), lanes, 1, chunks,
+            b, s, d, n, int(u.dtype == torch.bfloat16), lanes, chunks,
             torch.cuda.current_stream(u.device).cuda_stream)
     _launch.raise_on(err, lib.selective_scan_error_string, "selective_scan")
     return (y, h) if return_state else y

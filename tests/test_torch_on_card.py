@@ -191,6 +191,19 @@ class TestOnCard:
                 assert row["stack"] == row["spill_stores"] == \
                     row["spill_loads"] == 0, (name, entry, row)
 
+    def test_moments_and_scan_build_without_stack_or_spills(self):
+        """ptxas reports no stack frame and no spill in K1's kernel and in
+        each of K7's instantiations (bf16 and fp32, 1, 2 and 4 lanes)."""
+        from repro_torch.kernels import build
+        names = ("moments", "selective_scan")
+        build.build_all(names)
+        for name in names:
+            report = build.ptxas_report(name)
+            assert len(report) == (6 if name == "selective_scan" else 1)
+            for entry, row in report.items():
+                assert row["stack"] == row["spill_stores"] == \
+                    row["spill_loads"] == 0, (name, entry, row)
+
     def test_tiny_round_on_card_matches_cpu(self):
         from repro_torch.core.channel import ChannelConfig
         from repro_torch.fl import (DataSpec, Experiment, ExperimentSpec,

@@ -4,15 +4,15 @@
     python3 tools/kernel_sweep.py [--only k1,k2,k3,k4,k6,k7] [--parent DIR]
 
 K1 (``moments_launch`` in ``csrc/moments.cu``): chunks a row around the
-one ``moments_split`` picks, 2, 4 and 8 float4 loads in flight a thread,
-and the fold as a programmatic dependent launch in place of the last
-block's, at the FL round's, the wide and the ragged shapes, beside
+one ``moments_split`` picks, and 2 and 8 float4 loads in flight a thread
+(4 in the source), at the FL round's, the wide and the ragged shapes, beside
 ``vector_norm(g, dim=1)``; also each with the 50 MB L2 flushed before
 every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``):
 1, 2 and 4 lanes a channel and C chunks of the sequence at
 ``chip_smoke.SCAN_SHAPES``, the (lanes, C) that ``scan_lanes`` and
 ``scan_split`` pick marked, and variants of the source: the accurate
-expf, steps unrolled 1, 2 or 8 in a tile, tiles of 8 or 32 steps a lane.
+expf, steps unrolled 1 or 4 in a tile (2 in the source), y_t's products
+summed in 1 or 4 chains (2 in the source).
 
 K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
 time of each split S of the K-way sum at the shapes its callers give it,
@@ -69,10 +69,9 @@ K4_VARIANTS = ((128, 16, 8), (64, 32, 8), (256, 8, 8), (256, 5, 8),
 # K6 fp32: (kBQ, kBK, kMinBlocks) of each variant; the first is the tree's
 K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
 K1_SHAPES = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
-K1_SPLITS = (1, 7, 13, 27, 52, 75, 100, 150, 200, 300)
+K1_SPLITS = (1, 4, 6, 7, 13, 27, 52, 75, 100, 122, 150)
 K7_SPLITS = (1, 3, 4, 6, 8, 12)
-# K7: (lanes a channel, channels a lane) of the layouts the source builds
-K7_LAYOUTS = ((1, 1), (1, 2), (2, 1), (2, 2), (2, 4), (4, 1), (4, 2), (4, 4))
+K7_LANES = (1, 2, 4)
 L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
@@ -382,10 +381,8 @@ def sweep_k1(libs, parent: bool) -> None:
                 splits = (_moments_parent_chunks(n),)
             elif name == "k1_tree":
                 splits = sorted(set(K1_SPLITS) | {chosen})
-            elif name.startswith("k1_cluster"):
-                splits = (1, 2, 4, 7, 8, 12, 16)
             else:
-                splits = sorted({chosen, 7, 13, 27, 52, 100})
+                splits = sorted({chosen, 7, 52, 100})
             times = row["variants"][name] = {}
             for c in splits:
                 part = torch.empty((2, k, c), device="cuda")
@@ -451,7 +448,7 @@ def sweep_k7(libs, parent: bool) -> None:
     trees = {name: lib for name, (lib, _, _) in libs.items()
              if name.startswith("k7_") and name != "k7_parent"}
     for lib in trees.values():
-        lib.selective_scan_launch.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+        lib.selective_scan_launch.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     if parent:
         old = libs["k7_parent"][0]
         old.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
@@ -483,20 +480,19 @@ def sweep_k7(libs, parent: bool) -> None:
                         "two_launches_bitwise": bool(torch.equal(first, y))}
             splits = K7_SPLITS if b * d < 4 * 8192 else (1, 3)
             for name, lib in trees.items():
-                grid = [(ln, dc, c) for ln, dc in K7_LAYOUTS
+                grid = [(ln, c) for ln in K7_LANES
                         for c in (splits if name == "k7_tree" else (1,))]
-                if name != "k7_tree" and (lanes0, 1, c0) not in grid:
-                    grid.append((lanes0, 1, c0))
-                base = {"k7_t8": 8, "k7_t32": 32}.get(name, SCAN_TILE_BASE)
+                if name != "k7_tree" and (lanes0, c0) not in grid:
+                    grid.append((lanes0, c0))
                 seen = set()
                 entries = row["variants"][name] = {}
-                for lanes, dc, c in grid:
-                    tiles = -(-s // max(1, base * lanes // dc))
+                for lanes, c in grid:
+                    tiles = -(-s // (SCAN_TILE_BASE * lanes))
                     per = -(-tiles // min(c, tiles))
                     c = -(-tiles // per)
-                    if (lanes, dc, c) in seen:
+                    if (lanes, c) in seen:
                         continue
-                    seen.add((lanes, dc, c))
+                    seen.add((lanes, c))
                     hend = torch.empty((b, max(1, c - 1), d, n),
                                        device="cuda")
                     sdt = torch.empty((b, max(1, c - 1), d), device="cuda")
@@ -506,12 +502,12 @@ def sweep_k7(libs, parent: bool) -> None:
                             u.data_ptr(), dt.data_ptr(), a.data_ptr(),
                             bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
                             hend.data_ptr(), sdt.data_ptr(), b, s, d, n,
-                            int(dtype == torch.bfloat16), lanes, dc, c,
+                            int(dtype == torch.bfloat16), lanes, c,
                             _stream())
                         assert err == 0, err
-                    entries[f"L{lanes}_D{dc}_C{c}"] = {
+                    entries[f"L{lanes}_C{c}"] = {
                         "chosen": name == "k7_tree"
-                        and (lanes, dc, c) == (lanes0, 1, c0),
+                        and (lanes, c) == (lanes0, c0),
                         **check(launch)}
                     del hend, sdt
             if parent:
@@ -643,33 +639,20 @@ def main() -> None:
         variants["k1_tree"] = k1
         for unroll in (2, 8):
             variants[f"k1_u{unroll}"] = _set_constants(k1, kUnroll=unroll)
-        variants["k1_pdl"] = _set_constants(k1, kFold=0)
-        variants["k1_acqrel"] = _set_constants(k1, kFold=2)
-        variants["k1_cluster"] = _set_constants(k1, kFold=3)
-        variants["k1_cluster_t1024"] = _set_constants(k1, kFold=3,
-                                                      kThreads=1024)
+
         if par:
             variants["k1_parent"] = (par / "moments.cu").read_text()
     if "k7" in only:
         k7 = (csrc / "selective_scan.cu").read_text()
         variants["k7_tree"] = k7
-        # diagnostic only (wrong results): B and C not read from shared
-        # memory, to see what their broadcast reads cost
-        variants["k7_nobc"] = k7.replace(
-            """      const float4 bq = *reinterpret_cast<const float4*>(bc + sub * kPer + j);
-      const float4 cq =
-          *reinterpret_cast<const float4*>(bc + kMaxN + sub * kPer + j);""",
-            """      const float4 bq = make_float4(1e-3f * r, 0.f, 1.f, 2.f);
-      const float4 cq = bq;""")
-        assert variants["k7_nobc"] != k7
         variants["k7_expf"] = k7.replace(
             'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));',
             "r = expf(x * 0.6931471805599453f);")
         assert variants["k7_expf"] != k7
-        for unroll in (1, 2, 8):
+        for unroll in (1, 4):
             variants[f"k7_u{unroll}"] = _set_constants(k7, kUnroll=unroll)
-        for base in (8, 32):
-            variants[f"k7_t{base}"] = _set_constants(k7, kTileBase=base)
+        for acc in (1, 4):
+            variants[f"k7_acc{acc}"] = _set_constants(k7, kAcc=acc)
         if par:
             variants["k7_parent"] = (par / "selective_scan.cu").read_text()
     if "k2" in only:
