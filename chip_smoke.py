@@ -22,7 +22,7 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               that its tolerance rejects a result that lacks one K-chunk;
               each K4 row its chunks of whole K-blocks (S = 1: one pass)
               and that its tolerance rejects a result that lacks one
-              K-block; each K3 row its chunks a row.  Device
+              K-block; each K1 and K3 row its chunks a row.  Device
               times (CUDA events over CUDA-graph replays, median of 50
               samples of 20 launches) beside the bytes bound and a PyTorch
               library call timed as a yardstick only, and the eager per-call
@@ -77,9 +77,11 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               B = 1, ragged [2, 1000, 1000, 16] and [1, 333, 77, 5] with
               the reference kernel test's a and dt, and at the prefill's
               shape with Jamba's own (a = -(1..16), dt in [1e-3, 0.1]), the
-              final state h_S too; each row also shows that its tolerance
-              rejects the plain result with one time step dropped and with
-              the state reset at a tile boundary; device times beside the
+              final state h_S too; each row shows the lanes a channel and
+              the chunks C of the sequence that the wrapper picks, and that
+              its tolerance rejects the plain result with one time step
+              dropped, with the state reset at a tile boundary and, where
+              C > 1, at the first chunk boundary; device times beside the
               operations bound (no PyTorch call computes the scan);
 12. serve_hybrid -- jamba-v0.1-52b at full width, cut to one superblock of
               its four (8 layers: 1 attention, 7 Mamba, 4 MoE and 4 dense
@@ -1230,7 +1232,7 @@ SCAN_SHAPES = ((4, 8192, 8192, 16, "test"), (1, 8192, 8192, 16, "test"),
                (2, 1000, 1000, 16, "test"), (1, 333, 77, 5, "test"),
                (4, 8192, 8192, 16, "jamba"))
 SCAN_TILE = 64                   # a multiple of every staged tile's steps
-                                 # (kT = 16 lanes in the .cu)
+                                 # (kT = 16 lanes in the .cu: 16 or 32)
 # |kernel - plain| <= SCAN_RTOL * Y_abs, Y_abs the plain scan of |u|, dt,
 # a, |B|, |C| (an upper bound of sum_n |h_t,n C_t,n|): the two round
 # differently (expf vs torch.exp, fused multiply-adds, the N-way sum's

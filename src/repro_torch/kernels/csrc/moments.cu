@@ -12,7 +12,7 @@
 // so launch overhead dominates there; ragged (K = 7, N = 1,000,003) 28 MB,
 // 8.36 us; at K = 1000 220 MB, ~66 us.
 //
-// What held PR 11's design back (4.77 us at the round's shape, 19.0 us
+// What held the first design back (4.77 us at the round's shape, 19.0 us
 // ragged, where vector_norm(g, dim=1) takes 14.76): chunks fixed at 4,096
 // elements whatever (K, N), so the ragged stack ran 1,715 CTAs (1.6 waves)
 // of four 16-byte loads a thread, and a second kernel folded the partials
@@ -55,7 +55,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;               // float4 loads in flight a thread
+constexpr int kUnroll = 2;               // float4 loads in flight a thread
 constexpr int kMaxRows = 1 << 16;        // rows one launch's counters cover
 
 // a row's arrival counter: 0 between launches

@@ -17,44 +17,50 @@
 // 1.98 GHz), against 0.80 ms to move u (bf16), dt and y (fp32) once at
 // 3.35 TB/s.  Besides its exponential a state costs four fp32
 // instructions (dt a, dt u B, the multiply-add of h, the product with C),
-// so the issue slots run at about 80 % of the SFU's pace: the kernel is
-// the SFU's if each SM scheduler has a warp with steps to issue.
+// and a step about 30 more (its loads, y's sum and store), so the
+// schedulers' instruction slots are nearly as busy as the SFU: in this
+// kernel's measurements the time follows the instruction slots plus the
+// SFU's cycles, and the accurate expf (about ten instructions around its
+// SFU op) costs half again.
 //
-// What held PR 14's design back (4.72 ms, 22 % of the bound): the accurate
-// expf (about ten fp32 instructions around its one SFU op, so the issue
-// slots, not the SFU, set the pace); 1,024 CTAs of 4 warps with 32 KB of
-// static shared memory each, 1.3 waves at B = 4, so the second wave ran a
-// whole sequence on a third of the card; plain loads of the next tile
-// between two barriers, with nothing in flight while the recurrence ran.
+// What held the first design back (4.72 ms, 22 % of the bound): that expf;
+// 1,024 CTAs of 4 warps with 32 KB of static shared memory each, 1.3 waves
+// at B = 4, so the second wave ran a whole sequence on a third of the card;
+// plain loads of the next tile between two barriers, with nothing in
+// flight while the recurrence ran.
 //
-// Design:
+// Design (each choice held against the others by tools/kernel_sweep.py
+// --only k7; PERF.md):
 //  * The exponential is one ex2.approx.ftz.f32 of dt (a log2 e), with
 //    a log2 e formed once a thread.  Rounding that product adds about
 //    |dt a| 2^-24 of relative error to the exponential, and ex2.approx's own
 //    is about 2^-22: both far under the rule's SCAN_RTOL = 1e-4 of the
 //    plain scan of the absolute terms (chip_smoke.py).  An input under
 //    2^-126 is flushed (exp = 1) and an output under 2^-126 is 0.
-//  * L lanes a channel (1, 2 or 4, from the host's `scan_lanes(b, d)`),
-//    each with 16 / L of the states in registers; y_t is the lanes'
-//    partial dot products summed by xor-shuffles in a fixed order.  L = 1
-//    (no shuffle, one store a step) where the batch alone fills the card's
-//    schedulers; more lanes where it does not (B = 1).
-//  * A CTA owns 32 channels of one batch row (32 L threads), so a grid
-//    that fits the card at once has CTAs small enough to spread over all
-//    132 SMs.
+//  * L lanes a channel (1 or 2, from the host's `scan_lanes(b, d)`), each
+//    with 16 / L of the states in registers; y_t is the lanes' partial dot
+//    products summed by an xor-shuffle.  L = 1 (no shuffle, one store a
+//    step) where the batch alone fills the card's schedulers (B = 4: 1,024
+//    warps); L = 2 where it does not (B = 1).  Four lanes (the first design's) lost to
+//    two at every shape measured: more lanes repeat a step's loads and sums.
+//  * A CTA owns 32 channels of one batch row (32 L threads), so the grid
+//    has CTAs small enough to spread over all 132 SMs in one wave.
 //  * A tile of kT = 16 L time steps is staged in shared memory, fp32: u
 //    and dt [kT][32] read coalesced along D, B_t and C_t [kT][16], which
 //    every channel of the batch row shares.  The loads of tile i+1 are
-//    issued into registers before tile i is computed and stored to the
+//    started into registers before tile i is computed and stored to the
 //    other of two buffers after it: one barrier a tile, and a tile's
 //    worth of loads always in flight.
-//  * Inside a full tile the step loop is unrolled by kUnroll, so the next
-//    steps' exponentials and dt u B products (which do not depend on h)
-//    issue while the current step's multiply-adds wait.
+//  * Inside a full tile the step loop is unrolled (4 steps at one lane, 2
+//    at two), so the next steps' exponentials and dt u B products, which do
+//    not depend on h, go out while the current step's multiply-adds wait;
+//    a thread sums its share of y_t's products in one chain at one lane
+//    (the unrolled steps overlap its latency) and in two at two.
 //  * The sequence may be split into C chunks (the TPU kernel's seq-chunk
-//    axis, C from the host's `scan_split(b, s, d)`), where the grid alone
-//    leaves schedulers idle.  Pass 1 (`mode` 1) scans chunks 0..C-2 from
-//    h = 0: chunk 0 writes y, every chunk its end state and its sum of dt
+//    axis, C from the host's `scan_split(b, s, d)`), where even two lanes
+//    leave schedulers idle (the ragged shapes; C = 1 at the prefill's B = 4
+//    and at B = 1).  Pass 1 (`mode` 1) scans chunks 0..C-2 from h = 0:
+//    chunk 0 writes y, every chunk its end state and its sum of dt
 //    (compensated, so the sum keeps fp32's precision over a long chunk).
 //    Pass 2 (`mode` 2) scans chunks 1..C-1 again from their true start
 //    state and writes y (and h_S from the last chunk); each of its CTAs
@@ -76,8 +82,10 @@ namespace {
 constexpr int kChannels = 32;            // channels per CTA
 constexpr int kMaxN = 16;                // states per channel, at most
 constexpr int kTileBase = 16;            // steps a tile at one lane a channel
-constexpr int kUnroll = 2;               // steps unrolled inside a full tile
-constexpr int kAcc = 2;                  // partial sums of y_t a thread
+constexpr int kUnroll1 = 4;              // steps unrolled in a full tile at
+constexpr int kUnroll2 = 2;              // one lane a channel, and at two
+constexpr int kAcc1 = 1;                 // chains summing a thread's share of
+constexpr int kAcc2 = 2;                 // y_t at one lane, and at two
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -98,6 +106,8 @@ struct Shape {
   static constexpr int kThreads = kChannels * L;
   static constexpr int kPer = kMaxN / L;       // states a thread
   static constexpr int kT = kTileBase * L;     // steps a tile
+  static constexpr int kUnroll = L == 1 ? kUnroll1 : kUnroll2;
+  static constexpr int kAcc = L == 1 ? kAcc1 : kAcc2;
   static constexpr int kElems = kTileBase;     // a thread's share of one
                                                // staged array a tile
   // floats of one buffer: u, dt [kT][32] and B | C [kT][32]
@@ -120,6 +130,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   constexpr int kT = Sh::kT;
   constexpr int kPer = Sh::kPer;
   constexpr int kThreads = Sh::kThreads;
+  constexpr int kAcc = Sh::kAcc;
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
@@ -231,7 +242,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     if (t0 + kT < t_end) load(t0 + kT);
     const int rows = min(kT, t_end - t0);
     if (rows == kT) {
-#pragma unroll kUnroll
+#pragma unroll (Sh::kUnroll)
       for (int r = 0; r < kT; ++r) step(base, r, t0 + r);
     } else {
       for (int r = 0; r < rows; ++r) step(base, r, t0 + r);
@@ -257,8 +268,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   }
 }
 
-static_assert(kMaxN % 16 == 0 && kMaxN % kAcc == 0,
-              "a thread reads B and C as float4s");
+static_assert(kMaxN % 16 == 0, "a thread reads B and C as float4s");
 
 template <typename T, int L>
 int launch_pass(const void* u, const float* dt, const float* a,
@@ -314,9 +324,6 @@ int launch_lanes(int lanes, const void* u, const float* dt, const float* a,
     case 2:
       return launch<T, 2>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
                           nchunks, st);
-    case 4:
-      return launch<T, 4>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
-                          nchunks, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -329,7 +336,7 @@ extern "C" {
 // y (and h_out, unless it is null) = selective_scan(u, dt, a, B, C) on
 // `stream`.  u [B, S, D] and bm, cm [B, S, N] of one type (bf16 when
 // is_bf16, else fp32); dt [B, S, D], a [D, N], y [B, S, D], h_out [B, D, N]
-// fp32; all contiguous; 1 <= N <= 16.  `lanes` (1, 2 or 4) threads a
+// fp32; all contiguous; 1 <= N <= 16.  `lanes` (1 or 2) threads a
 // channel; a tile holds 16 lanes steps, and the sequence runs in `nchunks`
 // chunks of whole tiles, none empty (ceil(tiles / ceil(tiles / nchunks))
 // == nchunks); with nchunks > 1,

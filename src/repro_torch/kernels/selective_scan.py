@@ -10,12 +10,12 @@ returns y [B, S, D] fp32 and, with ``return_state=True``, also the final
 state h_S [B, D, N] fp32.
 
 Two host choosers shape the grid from the shape alone:
-``scan_lanes(b, d)`` is the number of threads a channel (1, 2 or 4; the
-channel's 16 states split among them), the fewest that give every SM
-scheduler a warp; ``scan_split(b, s, d)`` the number of chunks C the
+``scan_lanes(b, d)`` is the number of threads a channel (1 or 2; the
+channel's 16 states split among them), one where the batch alone fills
+the card's schedulers; ``scan_split(b, s, d)`` the number of chunks C the
 sequence is scanned in (two launches where C > 1: the chunks from zero,
 then again from their true start states, folded in chunk order), more
-than one only where even four lanes a channel leave schedulers idle.
+than one only where even two lanes a channel leave schedulers idle.
 Public callers go through ``repro_torch.kernels.ops``, which counts the
 launches and serves CPU tensors with the plain version.
 """
@@ -32,10 +32,10 @@ MAX_STATE = 16                   # kMaxN in csrc/selective_scan.cu
 SCAN_CHANNELS = 32               # channels a CTA (kChannels)
 SCAN_TILE_BASE = 16              # steps a tile a lane (kTileBase): a tile
                                  # holds SCAN_TILE_BASE * lanes steps
-SCAN_LANES = (1, 2, 4)
+SCAN_LANES = (1, 2)
 SCAN_SMS = 132                   # streaming multiprocessors of an H100 SXM
-SCAN_WARPS = 4 * SCAN_SMS        # one warp on each SM scheduler
-SCAN_MIN_TILES = 1               # tiles a chunk holds at least
+SCAN_FULL_WARPS = 3 * SCAN_SMS   # a grid of this many warps runs one pass
+SCAN_WAVE_WARPS = 8 * SCAN_SMS   # warps of a split pass, at most
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
@@ -50,14 +50,12 @@ def _warps(b: int, d: int, lanes: int) -> int:
 
 
 def scan_lanes(b: int, d: int) -> int:
-    """Threads a channel, from (B, D) alone: the fewest of SCAN_LANES whose
-    grid of B ceil(D / 32) CTAs gives each of the card's SM schedulers a
-    warp (SCAN_WARPS), else the most.  One lane keeps all 16 states of a
-    channel in its registers and needs no shuffle."""
-    for lanes in SCAN_LANES:
-        if _warps(b, d, lanes) >= SCAN_WARPS:
-            return lanes
-    return SCAN_LANES[-1]
+    """Threads a channel, from (B, D) alone: one (all 16 states of a
+    channel in its registers, no shuffle) where the B ceil(D / 32) warps
+    of that grid reach SCAN_FULL_WARPS, else two.  The choice and the
+    thresholds are tools/kernel_sweep.py's (PERF.md): four lanes lost to
+    two at every shape measured."""
+    return 1 if _warps(b, d, 1) >= SCAN_FULL_WARPS else 2
 
 
 def _even_chunks(tiles: int, c: int) -> int:
@@ -68,20 +66,19 @@ def _even_chunks(tiles: int, c: int) -> int:
 
 def scan_split(b: int, s: int, d: int) -> int:
     """C, the number of chunks of whole tiles the sequence is scanned in,
-    from (B, S, D) alone.  Each pass runs C - 1 chunks side by side, so C
-    chunks take about 2 / C of one pass's time on C - 1 times its warps,
-    and C = 2 gains nothing.  So C = 1 (one launch) wherever the grid at
-    ``scan_lanes(b, d)`` lanes gives every scheduler a warp; otherwise the
-    largest C whose C - 1 chunks stay within SCAN_WARPS warps (one wave),
-    with at least SCAN_MIN_TILES tiles a chunk, if that is 3 or more.
-    No chunk is empty."""
+    from (B, S, D) alone.  Each of the two passes runs C - 1 chunks side by
+    side, so C chunks take about 2 / C of one pass's time on C - 1 times
+    its warps, and C = 2 gains nothing.  So C = 1 (one launch) wherever the
+    grid at ``scan_lanes(b, d)`` lanes reaches SCAN_FULL_WARPS; otherwise
+    the largest C whose C - 1 chunks stay within SCAN_WAVE_WARPS (one
+    wave) and hold a tile or more each, if that is 3 or more.  No chunk is
+    empty."""
     lanes = scan_lanes(b, d)
     warps = _warps(b, d, lanes)
-    if warps >= SCAN_WARPS:
+    if warps >= SCAN_FULL_WARPS:
         return 1
     tiles = -(-s // (SCAN_TILE_BASE * lanes))
-    c = _even_chunks(tiles, min(1 + SCAN_WARPS // warps,
-                                tiles // SCAN_MIN_TILES))
+    c = _even_chunks(tiles, 1 + SCAN_WAVE_WARPS // warps)
     return c if c >= 3 else 1
 
 

@@ -389,9 +389,9 @@ class TestSplitChoosers:
     @pytest.mark.parametrize("s", [1, 5, 64, 333, 1000, 8192])
     @pytest.mark.parametrize("d", [1, 77, 1000, 8192])
     def test_scan_split_fills_one_wave(self, b, s, d):
-        """One pass where the grid at scan_lanes(b, d) lanes gives every
-        scheduler a warp; otherwise C - 1 chunks a pass within one wave
-        (SCAN_WARPS), never C = 2 (no gain), and no chunk empty."""
+        """One pass where the grid at scan_lanes(b, d) lanes reaches
+        SCAN_FULL_WARPS; otherwise C - 1 chunks a pass within one wave
+        (SCAN_WAVE_WARPS), never C = 2 (no gain), and no chunk empty."""
         lanes = selective_scan.scan_lanes(b, d)
         assert lanes in selective_scan.SCAN_LANES
         warps = b * -(-d // selective_scan.SCAN_CHANNELS) * lanes
@@ -399,16 +399,17 @@ class TestSplitChoosers:
         tiles = -(-s // (selective_scan.SCAN_TILE_BASE * lanes))
         per = -(-tiles // c)
         assert 1 <= c <= tiles and -(-tiles // per) == c and c != 2
-        if warps >= selective_scan.SCAN_WARPS:
+        if warps >= selective_scan.SCAN_FULL_WARPS:
             assert c == 1
         if c > 1:
-            assert (c - 1) * warps <= selective_scan.SCAN_WARPS
+            assert (c - 1) * warps <= selective_scan.SCAN_WAVE_WARPS
 
     @pytest.mark.parametrize("b,s,d,lanes,c", [(4, 8192, 8192, 1, 1),
-                                               (1, 8192, 8192, 4, 1),
-                                               (2, 1000, 1000, 4, 3)])
+                                               (1, 8192, 8192, 2, 1),
+                                               (2, 1000, 1000, 2, 8),
+                                               (1, 333, 77, 2, 11)])
     def test_scan_split_at_the_callers_shapes(self, b, s, d, lanes, c):
         """The Jamba prefill's scan (B = 4) and B = 1 fill the card with
-        lanes alone; the ragged [2, 1000, 1000] is split."""
+        lanes alone; the ragged shapes are split."""
         assert selective_scan.scan_lanes(b, d) == lanes
         assert selective_scan.scan_split(b, s, d) == c

@@ -4,15 +4,16 @@
     python3 tools/kernel_sweep.py [--only k1,k2,k3,k4,k6,k7] [--parent DIR]
 
 K1 (``moments_launch`` in ``csrc/moments.cu``): chunks a row around the
-one ``moments_split`` picks, and 2 and 8 float4 loads in flight a thread
-(4 in the source), at the FL round's, the wide and the ragged shapes, beside
+one ``moments_split`` picks, and 4 and 8 float4 loads in flight a thread
+(2 in the source), at the FL round's, the wide and the ragged shapes, beside
 ``vector_norm(g, dim=1)``; also each with the 50 MB L2 flushed before
 every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``):
-1, 2 and 4 lanes a channel and C chunks of the sequence at
+1 and 2 lanes a channel and C chunks of the sequence at
 ``chip_smoke.SCAN_SHAPES``, the (lanes, C) that ``scan_lanes`` and
 ``scan_split`` pick marked, and variants of the source: the accurate
-expf, steps unrolled 1 or 4 in a tile (2 in the source), y_t's products
-summed in 1 or 4 chains (2 in the source).
+expf, 2 steps unrolled at one lane (4 in the source) and 4 at two (2),
+y_t's products summed in 2 chains at one lane (1 in the source) and 1 at
+two (2).
 
 K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
 time of each split S of the K-way sum at the shapes its callers give it,
@@ -71,7 +72,7 @@ K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
 K1_SHAPES = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
 K1_SPLITS = (1, 4, 6, 7, 13, 27, 52, 75, 100, 122, 150)
 K7_SPLITS = (1, 3, 4, 6, 8, 12)
-K7_LANES = (1, 2, 4)
+K7_LANES = (1, 2)
 L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
@@ -330,7 +331,7 @@ def sweep_k4(libs, parent: bool) -> None:
 
 
 def _moments_parent_chunks(n: int) -> int:
-    """PR 11's K1 grid: chunks of 4,096 elements (kChunkVec)."""
+    """The parent's K1 grid: chunks of 4,096 elements (kChunkVec)."""
     return max(1, -(-(-(-n // 4)) // 1024))
 
 
@@ -436,7 +437,7 @@ def _scan_tol(args):
 
 def sweep_k7(libs, parent: bool) -> None:
     """K7's variants at chip_smoke.SCAN_SHAPES, bf16 and fp32: the tree's
-    source at every (lanes, C) of (1, 2, 4) x K7_SPLITS, the other sources
+    source at every (lanes, C) of K7_LANES x K7_SPLITS, the other sources
     at the (lanes, C) the choosers pick, the parent at its own grid.  Each
     checked against the plain version and for two launches giving the same
     bits."""
@@ -482,7 +483,7 @@ def sweep_k7(libs, parent: bool) -> None:
             for name, lib in trees.items():
                 grid = [(ln, c) for ln in K7_LANES
                         for c in (splits if name == "k7_tree" else (1,))]
-                if name != "k7_tree" and (lanes0, c0) not in grid:
+                if (lanes0, c0) not in grid:
                     grid.append((lanes0, c0))
                 seen = set()
                 entries = row["variants"][name] = {}
@@ -637,7 +638,7 @@ def main() -> None:
     if "k1" in only:
         k1 = (csrc / "moments.cu").read_text()
         variants["k1_tree"] = k1
-        for unroll in (2, 8):
+        for unroll in (4, 8):
             variants[f"k1_u{unroll}"] = _set_constants(k1, kUnroll=unroll)
 
         if par:
@@ -649,10 +650,10 @@ def main() -> None:
             'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));',
             "r = expf(x * 0.6931471805599453f);")
         assert variants["k7_expf"] != k7
-        for unroll in (1, 4):
-            variants[f"k7_u{unroll}"] = _set_constants(k7, kUnroll=unroll)
-        for acc in (1, 4):
-            variants[f"k7_acc{acc}"] = _set_constants(k7, kAcc=acc)
+        variants["k7_u2_at_one_lane"] = _set_constants(k7, kUnroll1=2)
+        variants["k7_u4_at_two_lanes"] = _set_constants(k7, kUnroll2=4)
+        variants["k7_acc2_at_one_lane"] = _set_constants(k7, kAcc1=2)
+        variants["k7_acc1_at_two_lanes"] = _set_constants(k7, kAcc2=1)
         if par:
             variants["k7_parent"] = (par / "selective_scan.cu").read_text()
     if "k2" in only:
