@@ -9,6 +9,9 @@ import torch
 
 from repro_torch.kernels import build
 
+SMS = 132        # streaming multiprocessors of an H100 SXM: the card the
+                 # split and grid choosers size their waves for
+
 _BOUND: Dict[str, ctypes.CDLL] = {}
 
 

@@ -44,9 +44,11 @@
 //    shared memory, and __threadfence before a plain atomicAdd, this was
 //    the one that kept pace at all three of the round's, the wide and the
 //    ragged shapes (tools/kernel_sweep.py --only k1; PERF.md).
-//  * The counters are a static array of kMaxRows a device; a longer stack
-//    runs in slabs of kMaxRows rows, one launch each.  Launches on one
-//    device must not overlap (one stream, as every caller runs).
+//  * The counters belong to the caller: K unsigned ints, 0 before the
+//    launch and 0 again after it.  The wrapper (kernels/grad_norm.py)
+//    keeps one zeroed array for each stream, so launches that may overlap
+//    (two streams, or two branches of a CUDA graph) never share one, and
+//    launches that share one are ordered by their stream.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,11 +58,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 2;               // float4 loads in flight a thread
-constexpr int kMaxRows = 1 << 16;        // rows one launch's counters cover
-
-// a row's arrival counter: 0 between launches
-__device__ unsigned int g_arrivals[kMaxRows];
-
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -91,7 +88,8 @@ __device__ __forceinline__ void block_sum2(float& sq, float& s) {
 __global__ void __launch_bounds__(kThreads)
 moments_kernel(const float* __restrict__ g, long long n, int nchunks,
                float* __restrict__ part_sq, float* __restrict__ part_s,
-               float* __restrict__ sumsq, float* __restrict__ sums) {
+               float* __restrict__ sumsq, float* __restrict__ sums,
+               unsigned int* __restrict__ arrivals) {
   const long long k = blockIdx.x / nchunks;
   const int j = blockIdx.x % nchunks;
   const float* row = g + k * n;
@@ -148,9 +146,9 @@ moments_kernel(const float* __restrict__ g, long long n, int nchunks,
     part_s[k * nchunks + j] = s;
     // release: the partial before the arrival; acquire: the others'
     // partials after it, for the block that arrives last
-    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> arrivals(
-        g_arrivals[k]);
-    last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) ==
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> arrived(
+        arrivals[k]);
+    last = arrived.fetch_add(1u, cuda::memory_order_acq_rel) ==
            (unsigned)nchunks - 1;
   }
   __syncthreads();
@@ -167,7 +165,7 @@ moments_kernel(const float* __restrict__ g, long long n, int nchunks,
   if (threadIdx.x == 0) {
     sumsq[k] = sq;
     sums[k] = s;
-    g_arrivals[k] = 0;                   // clean for the next launch
+    arrivals[k] = 0;                     // clean for the next launch
   }
 }
 
@@ -176,22 +174,19 @@ moments_kernel(const float* __restrict__ g, long long n, int nchunks,
 extern "C" {
 
 // sumsq, sums [K] = the moments of g [K, N], each row in `nchunks` chunks
-// (>= 1); part_sq, part_s [K, nchunks] scratch.  Launched on `stream`;
-// returns cudaGetLastError().
+// (>= 1); part_sq, part_s [K, nchunks] scratch; with nchunks > 1,
+// arrivals [K] counters that are 0 and that no overlapping launch uses
+// (left at 0).  Launched on `stream`; returns cudaGetLastError().
 int moments_launch(const float* g, long long k, long long n, int nchunks,
                    float* part_sq, float* part_s, float* sumsq, float* sums,
-                   void* stream) {
-  if (k < 1 || n < 1 || nchunks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (long long k0 = 0; k0 < k; k0 += kMaxRows) {
-    const long long rows = k - k0 < kMaxRows ? k - k0 : kMaxRows;
-    moments_kernel<<<(unsigned)(rows * nchunks), kThreads, 0, st>>>(
-        g + k0 * n, n, nchunks, part_sq + k0 * nchunks,
-        part_s + k0 * nchunks, sumsq + k0, sums + k0);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+                   unsigned int* arrivals, void* stream) {
+  if (k < 1 || n < 1 || nchunks < 1 || k * nchunks > 0x7fffffffLL ||
+      (nchunks > 1 && arrivals == nullptr))
+    return (int)cudaErrorInvalidValue;
+  moments_kernel<<<(unsigned)(k * nchunks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      g, n, nchunks, part_sq, part_s, sumsq, sums, arrivals);
+  return (int)cudaGetLastError();
 }
 
 const char* moments_error_string(int err) {

@@ -41,8 +41,9 @@
 //    with 16 / L of the states in registers; y_t is the lanes' partial dot
 //    products summed by an xor-shuffle.  L = 1 (no shuffle, one store a
 //    step) where the batch alone fills the card's schedulers (B = 4: 1,024
-//    warps); L = 2 where it does not (B = 1).  Four lanes (the first design's) lost to
-//    two at every shape measured: more lanes repeat a step's loads and sums.
+//    warps); L = 2 where it does not (B = 1).  Four lanes (the first
+//    design's) lost to two at every shape measured: more lanes repeat a
+//    step's loads and sums.
 //  * A CTA owns 32 channels of one batch row (32 L threads), so the grid
 //    has CTAs small enough to spread over all 132 SMs in one wave.
 //  * A tile of kT = 16 L time steps is staged in shared memory, fp32: u
@@ -51,24 +52,17 @@
 //    started into registers before tile i is computed and stored to the
 //    other of two buffers after it: one barrier a tile, and a tile's
 //    worth of loads always in flight.
-//  * Inside a full tile the step loop is unrolled (4 steps at one lane, 2
-//    at two), so the next steps' exponentials and dt u B products, which do
-//    not depend on h, go out while the current step's multiply-adds wait;
-//    a thread sums its share of y_t's products in one chain at one lane
-//    (the unrolled steps overlap its latency) and in two at two.
-//  * The sequence may be split into C chunks (the TPU kernel's seq-chunk
-//    axis, C from the host's `scan_split(b, s, d)`), where even two lanes
-//    leave schedulers idle (the ragged shapes; C = 1 at the prefill's B = 4
-//    and at B = 1).  Pass 1 (`mode` 1) scans chunks 0..C-2 from h = 0:
-//    chunk 0 writes y, every chunk its end state and its sum of dt
-//    (compensated, so the sum keeps fp32's precision over a long chunk).
-//    Pass 2 (`mode` 2) scans chunks 1..C-1 again from their true start
-//    state and writes y (and h_S from the last chunk); each of its CTAs
-//    first folds the carries of the chunks before its own, in chunk order:
-//    start_{j+1} = exp(a sdt_j) start_j + hend_j.  Folding in the second
-//    pass saves the fold a launch of its own.  No atomics: two launches
-//    give the same bits.  C = 1 (`mode` 0) is one launch over the whole
-//    sequence.
+//  * Inside a full tile the step loop is unrolled by 4, so the next
+//    steps' exponentials and dt u B products, which do not depend on h, go
+//    out while the current step's multiply-adds wait; a thread sums its
+//    share of y_t's products in one chain (the unrolled steps overlap its
+//    latency).
+//  * One launch scans the whole sequence.  A split of the sequence into
+//    chunks (the TPU kernel's seq-chunk axis: chunks from zero, then again
+//    from their carries folded in chunk order) was built and timed: it
+//    lost at the Jamba prefill's B = 4 and B = 1, where lanes alone fill
+//    the card, and paid only at small grids that no caller sends
+//    (PERF.md), so it is not kept.
 //  * Ragged S and D: rows past S are not staged or computed; channels past
 //    D (and states past N) run on zeros (dt = 0, B = C = 0 keep h = 0) and
 //    are not written.  No shape needs to divide anything.
@@ -83,9 +77,9 @@ constexpr int kChannels = 32;            // channels per CTA
 constexpr int kMaxN = 16;                // states per channel, at most
 constexpr int kTileBase = 16;            // steps a tile at one lane a channel
 constexpr int kUnroll1 = 4;              // steps unrolled in a full tile at
-constexpr int kUnroll2 = 2;              // one lane a channel, and at two
+constexpr int kUnroll2 = 4;              // one lane a channel, and at two
 constexpr int kAcc1 = 1;                 // chains summing a thread's share of
-constexpr int kAcc2 = 2;                 // y_t at one lane, and at two
+constexpr int kAcc2 = 1;                 // y_t at one lane, and at two
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -123,9 +117,7 @@ __global__ void __launch_bounds__(Shape<L>::kThreads)
 selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                       const float* __restrict__ a, const T* __restrict__ bm,
                       const T* __restrict__ cm, float* __restrict__ y,
-                      float* __restrict__ h_out, float* __restrict__ hend,
-                      float* __restrict__ sdt, int S, int D, int N,
-                      int chunk, int nchunks, int mode) {
+                      float* __restrict__ h_out, int S, int D, int N) {
   using Sh = Shape<L>;
   constexpr int kT = Sh::kT;
   constexpr int kPer = Sh::kPer;
@@ -138,12 +130,8 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   const int sub = tid % L;               // which slice of the states
   const int d0 = blockIdx.x * kChannels;
   const int d = d0 + ch;
-  const int b = blockIdx.z;
-  const int c = blockIdx.y + (mode == 2 ? 1 : 0);   // chunk
-  const int t_beg = c * chunk;
-  const int t_end = min(S, t_beg + chunk);
+  const int b = blockIdx.y;
   const long long row0 = (long long)b * S;           // first (b, t) row
-  const bool write_y = mode != 1 || c == 0;
 
   float a2[kPer], h[kPer];
 #pragma unroll
@@ -151,19 +139,6 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     const int n = sub * kPer + j;
     a2[j] = (d < D && n < N) ? a[(long long)d * N + n] * kLog2e : 0.f;
     h[j] = 0.f;
-  }
-  if (mode == 2 && d < D) {
-    // the carries of chunks 0..c-1, folded in chunk order
-    for (int q = 0; q < c; ++q) {
-      const long long cd = ((long long)b * (nchunks - 1) + q) * D + d;
-      const float sd = sdt[cd];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int n = sub * kPer + j;
-        const float he = n < N ? hend[cd * N + n] : 0.f;
-        h[j] = fmaf(exp2_sfu(sd * a2[j]), h[j], he);
-      }
-    }
   }
 
   // the next tile, held in registers from its loads to its stores
@@ -175,7 +150,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
       const int e = tid + i * kThreads;
       const int r = e / kChannels;
       const int col = e % kChannels;
-      const bool in_t = t0 + r < t_end;
+      const bool in_t = t0 + r < S;
       const bool ok = in_t && d0 + col < D;
       const long long off = (row0 + t0 + r) * D + d0 + col;
       ru[i] = ok ? u[off] : T(0.f);
@@ -195,7 +170,6 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     }
   };
 
-  float sum_dt = 0.f, comp = 0.f;        // compensated sum of dt (mode 1)
   auto step = [&](int base, int r, long long t) {
     const float uv = smem[base + Sh::kU + r * kChannels + ch];
     const float dv = smem[base + Sh::kDt + r * kChannels + ch];
@@ -224,23 +198,19 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
 #pragma unroll
     for (int off = 1; off < L; off <<= 1)
       part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (write_y && sub == 0 && d < D) y[(row0 + t) * D + d] = part;
-    if (mode == 1) {                     // Kahan: sum_dt + comp holds sum dt
-      const float yk = dv - comp;
-      const float tk = sum_dt + yk;
-      comp = (tk - sum_dt) - yk;
-      sum_dt = tk;
-    }
+    if (sub == 0 && d < D) y[(row0 + t) * D + d] = part;
   };
 
   int parity = 0;
-  if (t_beg < t_end) load(t_beg);
-  for (int t0 = t_beg; t0 < t_end; t0 += kT) {
+  // S >= 1 always; without this test ptxas gave every instantiation 255
+  // registers and spills, 20 % slower (tools/kernel_sweep.py, PERF.md)
+  if (S > 0) load(0);
+  for (int t0 = 0; t0 < S; t0 += kT) {
     const int base = parity * Sh::kBufFloats;
     store(base);
     __syncthreads();
-    if (t0 + kT < t_end) load(t0 + kT);
-    const int rows = min(kT, t_end - t0);
+    if (t0 + kT < S) load(t0 + kT);
+    const int rows = min(kT, S - t0);
     if (rows == kT) {
 #pragma unroll (Sh::kUnroll)
       for (int r = 0; r < kT; ++r) step(base, r, t0 + r);
@@ -250,32 +220,20 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     parity ^= 1;
   }
 
-  if (d >= D) return;
-  if (mode == 1) {                       // chunk c's carry
-    const long long cd = ((long long)b * (nchunks - 1) + c) * D + d;
+  if (d >= D || h_out == nullptr) return;
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int n = sub * kPer + j;
-      if (n < N) hend[cd * N + n] = h[j];
-    }
-    if (sub == 0) sdt[cd] = sum_dt;
-  } else if (h_out != nullptr && c == nchunks - 1) {  // after step S - 1
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int n = sub * kPer + j;
-      if (n < N) h_out[((long long)b * D + d) * N + n] = h[j];
-    }
+  for (int j = 0; j < kPer; ++j) {        // the state after step S - 1
+    const int n = sub * kPer + j;
+    if (n < N) h_out[((long long)b * D + d) * N + n] = h[j];
   }
 }
 
 static_assert(kMaxN % 16 == 0, "a thread reads B and C as float4s");
 
 template <typename T, int L>
-int launch_pass(const void* u, const float* dt, const float* a,
-                const void* bm, const void* cm, float* y, float* h_out,
-                float* hend, float* sdt, int B, int S, int D, int N,
-                int chunk, int nchunks, int mode, int grid_chunks,
-                cudaStream_t st) {
+int launch(const void* u, const float* dt, const float* a, const void* bm,
+           const void* cm, float* y, float* h_out, int B, int S, int D,
+           int N, cudaStream_t st) {
   using Sh = Shape<L>;
   auto kernel = selective_scan_kernel<T, L>;
   if (Sh::kSmemBytes > 48 * 1024) {      // above 48 KB only on request
@@ -283,47 +241,22 @@ int launch_pass(const void* u, const float* dt, const float* a,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmemBytes);
     if (attr != cudaSuccess) return (int)attr;
   }
-  const dim3 grid((unsigned)((D + kChannels - 1) / kChannels),
-                  (unsigned)grid_chunks, (unsigned)B);
+  const dim3 grid((unsigned)((D + kChannels - 1) / kChannels), (unsigned)B);
   kernel<<<grid, Sh::kThreads, Sh::kSmemBytes, st>>>(
       static_cast<const T*>(u), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), y, h_out, hend, sdt, S, D, N, chunk,
-      nchunks, mode);
+      static_cast<const T*>(cm), y, h_out, S, D, N);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int L>
-int launch(const void* u, const float* dt, const float* a, const void* bm,
-           const void* cm, float* y, float* h_out, float* hend, float* sdt,
-           int B, int S, int D, int N, int nchunks, cudaStream_t st) {
-  constexpr int kT = Shape<L>::kT;
-  const int tiles = (S + kT - 1) / kT;
-  const int per = (tiles + nchunks - 1) / nchunks;
-  if ((tiles + per - 1) / per != nchunks) return (int)cudaErrorInvalidValue;
-  const int chunk = per * kT;
-  if (nchunks == 1)
-    return launch_pass<T, L>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D,
-                             N, chunk, 1, 0, 1, st);
-  const int err = launch_pass<T, L>(u, dt, a, bm, cm, y, h_out, hend, sdt,
-                                    B, S, D, N, chunk, nchunks, 1,
-                                    nchunks - 1, st);
-  if (err != 0) return err;
-  return launch_pass<T, L>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
-                           chunk, nchunks, 2, nchunks - 1, st);
 }
 
 template <typename T>
 int launch_lanes(int lanes, const void* u, const float* dt, const float* a,
                  const void* bm, const void* cm, float* y, float* h_out,
-                 float* hend, float* sdt, int B, int S, int D, int N,
-                 int nchunks, cudaStream_t st) {
+                 int B, int S, int D, int N, cudaStream_t st) {
   switch (lanes) {
     case 1:
-      return launch<T, 1>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
-                          nchunks, st);
+      return launch<T, 1>(u, dt, a, bm, cm, y, h_out, B, S, D, N, st);
     case 2:
-      return launch<T, 2>(u, dt, a, bm, cm, y, h_out, hend, sdt, B, S, D, N,
-                          nchunks, st);
+      return launch<T, 2>(u, dt, a, bm, cm, y, h_out, B, S, D, N, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -332,38 +265,28 @@ int launch_lanes(int lanes, const void* u, const float* dt, const float* a,
 
 extern "C" {
 
-
 // y (and h_out, unless it is null) = selective_scan(u, dt, a, B, C) on
 // `stream`.  u [B, S, D] and bm, cm [B, S, N] of one type (bf16 when
 // is_bf16, else fp32); dt [B, S, D], a [D, N], y [B, S, D], h_out [B, D, N]
 // fp32; all contiguous; 1 <= N <= 16.  `lanes` (1 or 2) threads a
-// channel; a tile holds 16 lanes steps, and the sequence runs in `nchunks`
-// chunks of whole tiles, none empty (ceil(tiles / ceil(tiles / nchunks))
-// == nchunks); with nchunks > 1,
-// hend [B, nchunks - 1, D, N] and sdt [B, nchunks - 1, D] fp32 scratch.
-// The wrapper checks all of that.  Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape or split it does not take).
+// channel.  The wrapper checks all of that.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
 int selective_scan_launch(const void* u, const void* dt, const void* a,
                           const void* bm, const void* cm, void* y,
-                          void* h_out, void* hend, void* sdt, int B, int S,
-                          int D, int N, int is_bf16, int lanes, int nchunks,
-                          void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN ||
-      nchunks < 1 || nchunks > 65535 ||
-      (nchunks > 1 && (hend == nullptr || sdt == nullptr)))
+                          void* h_out, int B, int S, int D, int N,
+                          int is_bf16, int lanes, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h_out);
-  float* he = static_cast<float*>(hend);
-  float* sd = static_cast<float*>(sdt);
   if (is_bf16)
-    return launch_lanes<__nv_bfloat16>(lanes, u, dtf, af, bm, cm, yf, hf, he,
-                                       sd, B, S, D, N, nchunks, st);
-  return launch_lanes<float>(lanes, u, dtf, af, bm, cm, yf, hf, he, sd, B, S,
-                             D, N, nchunks, st);
+    return launch_lanes<__nv_bfloat16>(lanes, u, dtf, af, bm, cm, yf, hf, B,
+                                       S, D, N, st);
+  return launch_lanes<float>(lanes, u, dtf, af, bm, cm, yf, hf, B, S, D, N,
+                             st);
 }
 
 const char* selective_scan_error_string(int err) {

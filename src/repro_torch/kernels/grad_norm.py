@@ -11,21 +11,26 @@ the [K, N] fp32 stack in place (no padding copy) and return
 at most one wave of CTAs; ``stream_moments_chunks(n)`` the number the
 streamed moments split each row into, from N alone.  Both run
 ``csrc/moments.cu``'s one launch: the block that finishes a row last
-folds its partials, in a fixed order, elected by an arrival counter.
+folds its partials, in a fixed order, elected by an arrival counter that
+it sets back to 0.  The counters are one zeroed int32 array a (device,
+stream), so launches on two streams never share them; a CUDA graph keeps
+the array of the stream it was captured on, so two graphs captured on
+one stream are not replayed at once.
 Public callers go through ``repro_torch.kernels.ops``, which counts the
 launches and serves CPU tensors with the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _launch
 
-MOMENTS_CHUNK = 4096     # elements a chunk of K3's long rows
-MOMENTS_SMS = 132        # streaming multiprocessors of an H100 SXM
+MOMENTS_CHUNK = 8192     # elements a chunk of K3's long rows: 8,192 ran
+                         # ahead of 4,096 and 16,384 at the round's, the
+                         # wide and the ragged shapes (kernel_sweep k1)
 MOMENTS_CTAS_PER_SM = 8  # CTAs of 256 threads an SM holds (kThreads,
                          # csrc/moments.cu)
 MOMENTS_MIN_VEC = 2048   # float4s a chunk holds at least (8 a thread)
@@ -37,7 +42,7 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # library -> {entry point: (argtypes, restype)}
 _ENTRY_POINTS = {
     "moments": {
-        "moments_launch": ([_P, _LL, _LL, _I, _P, _P, _P, _P, _P], _I),
+        "moments_launch": ([_P, _LL, _LL, _I] + [_P] * 6, _I),
     },
     "stream_moments": {
         "stream_moments_launch": ([_P, _LL, _LL, _P, _P, _P], _I),
@@ -47,6 +52,10 @@ _ENTRY_POINTS = {
         "sumsq_launch": ([_P, _LL, _I, _P, _P, _P], _I),
     },
 }
+# (device index, stream, K) -> K1's arrival counters [K] int32: zeroed
+# once, and 0 again after every launch.  Never freed, since a captured
+# CUDA graph holds their address.
+_ARRIVALS: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
 
 def moments_split(k: int, n: int) -> int:
@@ -57,7 +66,7 @@ def moments_split(k: int, n: int) -> int:
     The chunks hold ceil(ceil(N / 4) / chunks) float4s each, and none is
     empty."""
     nvec = -(-n // 4)
-    c = max(1, min(MOMENTS_SMS * MOMENTS_CTAS_PER_SM // k,
+    c = max(1, min(_launch.SMS * MOMENTS_CTAS_PER_SM // k,
                    nvec // MOMENTS_MIN_VEC))
     per = -(-nvec // c)
     return -(-nvec // per)
@@ -66,10 +75,11 @@ def moments_split(k: int, n: int) -> int:
 def stream_moments_chunks(n: int) -> int:
     """Chunks each device row of the streamed moments is split into, from
     N alone: 1 for a row that one warp reads whole (N <= STREAM_ROW_MAX,
-    csrc/stream_moments.cu), else chunks of MOMENTS_CHUNK elements on K1's
-    kernel (csrc/moments.cu), folded in a fixed order.  So neither K nor
-    k_block changes how a device's sums are taken."""
-    return 1 if n <= STREAM_ROW_MAX else -(-n // MOMENTS_CHUNK)
+    csrc/stream_moments.cu), else two or more chunks of at most
+    MOMENTS_CHUNK elements on K1's kernel (csrc/moments.cu), folded in a
+    fixed order.  So neither K nor k_block changes how a device's sums are
+    taken."""
+    return 1 if n <= STREAM_ROW_MAX else max(2, -(-n // MOMENTS_CHUNK))
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -80,6 +90,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _arrivals(device: torch.device, stream: int, k: int) -> torch.Tensor:
+    """K zeroed counters of this stream's K1 launches (zeroed on the
+    stream itself, at first use)."""
+    key = (device.index, stream, k)
+    if key not in _ARRIVALS:
+        _ARRIVALS[key] = torch.zeros((k,), dtype=torch.int32, device=device)
+    return _ARRIVALS[key]
+
+
 def _moments_split(g: torch.Tensor, nchunks: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's kernel with ``nchunks`` chunks a row: partials [K, nchunks],
@@ -87,14 +106,17 @@ def _moments_split(g: torch.Tensor, nchunks: int
     row last."""
     lib = _library("moments")
     k, n = g.shape
+    stream = _stream(g)
     with torch.cuda.device(g.device):
         part = torch.empty((2, k, nchunks), dtype=torch.float32,
                            device=g.device)
         out = torch.empty((2, k), dtype=torch.float32, device=g.device)
+        arrivals = (_arrivals(g.device, stream, k).data_ptr()
+                    if nchunks > 1 else None)
         err = lib.moments_launch(
             g.data_ptr(), k, n, nchunks, part[0].data_ptr(),
             part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            _stream(g))
+            arrivals, stream)
     _launch.raise_on(err, lib.moments_error_string, "moments")
     return out[0], out[1]
 

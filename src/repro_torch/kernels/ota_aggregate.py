@@ -23,7 +23,6 @@ from repro_torch.kernels import _launch
 
 PRE_KINDS = ("identity", "sign")
 
-SMS = 132                    # streaming multiprocessors of an H100 SXM
 SUPERPOSE_THREADS = 256      # columns a CTA (kThreads, csrc/ota_superpose.cu)
 SUPERPOSE_CTAS_PER_SM = 8    # such CTAs an SM holds at once (2,048 threads)
 SUPERPOSE_MIN_ROWS = 32      # rows a K-chunk holds at least
@@ -50,7 +49,7 @@ def superpose_split(k: int, n: int) -> int:
     FL round's 20) or a grid that fills a wave already keeps S = 1: one
     launch.  The chunks hold ceil(K / S) rows each, and none is empty."""
     tiles = -(-n // SUPERPOSE_THREADS)
-    s = max(1, min(SMS * SUPERPOSE_CTAS_PER_SM // tiles,
+    s = max(1, min(_launch.SMS * SUPERPOSE_CTAS_PER_SM // tiles,
                    k // SUPERPOSE_MIN_ROWS))
     rows = -(-k // s)
     return -(-k // rows)

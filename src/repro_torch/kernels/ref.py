@@ -73,10 +73,13 @@ def block_tree_sum(x: torch.Tensor, threads: int = 256) -> torch.Tensor:
 
 
 def batched_moments_chunked_ref(g: torch.Tensor, chunks: int):
-    """Per-device (sum of squares, sum) as K1's kernel associates them:
-    each row in ``chunks`` contiguous chunks of ceil(N / chunks) elements
-    summed apart, then each row's chunk partials folded by
-    ``block_tree_sum`` (``csrc/moments.cu``'s fold)."""
+    """Per-device (sum of squares, sum) in the same fold order as K1's
+    kernel: each row in ``chunks`` contiguous chunks summed apart, then
+    each row's chunk partials folded by ``block_tree_sum``
+    (``csrc/moments.cu``'s fold).  The chunks here are ceil(N / chunks)
+    elements each and summed by ``torch.sum``; the kernel's are float4s
+    after a row's alignment head, summed thread-strided, so this holds the
+    fold's algebra, not the kernel's bits."""
     k, n = g.shape
     per = -(-n // chunks)
     gf = g.float()
@@ -179,51 +182,15 @@ def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     [B, S, D] fp32, and with ``return_state=True`` also the final state
     h_S [B, D, N] fp32 (the reference's Pallas kernel writes only y; the
     prefill -> decode handoff needs h_S)."""
-    b, d, n = u.shape[0], u.shape[2], a.shape[1]
-    h0 = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
-    y, h = _scan_from(h0, u, dt, a, bmat, cmat)
-    return (y, h) if return_state else y
-
-
-def _scan_from(h: torch.Tensor, u, dt, a, bmat, cmat):
-    """(y, final state) of the recurrence from the state ``h`` [B, D, N]."""
     b, s, d = u.shape
+    n = a.shape[1]
     uf, dtf, af = u.float(), dt.float(), a.float()
     bf, cf = bmat.float(), cmat.float()
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
     y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
     for t in range(s):
         da = torch.exp(dtf[:, t, :, None] * af[None])
         dbu = (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
         h = da * h + dbu
         y[:, t] = torch.sum(h * cf[:, t, None, :], dim=-1)
-    return y, h
-
-
-def selective_scan_chunked_ref(u: torch.Tensor, dt: torch.Tensor,
-                               a: torch.Tensor, bmat: torch.Tensor,
-                               cmat: torch.Tensor, chunks: int, *,
-                               return_state: bool = False):
-    """The selective scan as K7 computes it with the sequence split into
-    ``chunks`` chunks of ceil(S / chunks) steps (fewer where some would be
-    empty): pass 1 scans every chunk but the last from h = 0 and keeps its
-    end state and its sum of dt; pass 2 folds those in chunk order,
-    start_{c+1} = exp(a sdt_c) start_c + hend_c; pass 3 scans each chunk
-    from its start state.  Same arguments and results as
-    ``selective_scan_ref``."""
-    b, s, d = u.shape
-    n = a.shape[1]
-    per = -(-s // chunks)
-    bounds = [(lo, min(s, lo + per)) for lo in range(0, s, per)]
-    af = a.float()
-    start = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
-    ys = []
-    for i, (lo, hi) in enumerate(bounds):
-        uc, dtc, bc, cc = (x[:, lo:hi] for x in (u, dt, bmat, cmat))
-        y, h = _scan_from(start, uc, dtc, a, bc, cc)
-        ys.append(y)
-        if i + 1 < len(bounds):
-            _, hend = _scan_from(torch.zeros_like(start), uc, dtc, a, bc, cc)
-            sdt = dt[:, lo:hi].double().sum(1).float()
-            start = torch.exp(sdt[..., None] * af[None]) * start + hend
-    y = torch.cat(ys, dim=1)
     return (y, h) if return_state else y

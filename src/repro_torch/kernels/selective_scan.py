@@ -9,14 +9,10 @@
 returns y [B, S, D] fp32 and, with ``return_state=True``, also the final
 state h_S [B, D, N] fp32.
 
-Two host choosers shape the grid from the shape alone:
-``scan_lanes(b, d)`` is the number of threads a channel (1 or 2; the
-channel's 16 states split among them), one where the batch alone fills
-the card's schedulers; ``scan_split(b, s, d)`` the number of chunks C the
-sequence is scanned in (two launches where C > 1: the chunks from zero,
-then again from their true start states, folded in chunk order), more
-than one only where even two lanes a channel leave schedulers idle.
-Public callers go through ``repro_torch.kernels.ops``, which counts the
+One launch scans the whole sequence.  The host chooser ``scan_lanes(b, d)``
+shapes its grid from (B, D) alone: the number of threads a channel (1 or
+2; the channel's 16 states split among them), one where the batch alone
+fills the card's schedulers.  Public callers go through ``repro_torch.kernels.ops``, which counts the
 launches and serves CPU tensors with the plain version.
 """
 from __future__ import annotations
@@ -30,23 +26,16 @@ from repro_torch.kernels import _launch
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 16                   # kMaxN in csrc/selective_scan.cu
 SCAN_CHANNELS = 32               # channels a CTA (kChannels)
-SCAN_TILE_BASE = 16              # steps a tile a lane (kTileBase): a tile
-                                 # holds SCAN_TILE_BASE * lanes steps
 SCAN_LANES = (1, 2)
-SCAN_SMS = 132                   # streaming multiprocessors of an H100 SXM
-SCAN_FULL_WARPS = 3 * SCAN_SMS   # a grid of this many warps runs one pass
-SCAN_WAVE_WARPS = 8 * SCAN_SMS   # warps of a split pass, at most
+SCAN_FULL_WARPS = 3 * _launch.SMS   # a grid of this many warps fills the
+                                    # card's schedulers at one lane
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "selective_scan_launch": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "selective_scan_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
 }
 _GRID_Y_MAX = 65_535
 _INT_MAX = 2 ** 31 - 1
-
-
-def _warps(b: int, d: int, lanes: int) -> int:
-    return b * -(-d // SCAN_CHANNELS) * lanes
 
 
 def scan_lanes(b: int, d: int) -> int:
@@ -55,31 +44,7 @@ def scan_lanes(b: int, d: int) -> int:
     of that grid reach SCAN_FULL_WARPS, else two.  The choice and the
     thresholds are tools/kernel_sweep.py's (PERF.md): four lanes lost to
     two at every shape measured."""
-    return 1 if _warps(b, d, 1) >= SCAN_FULL_WARPS else 2
-
-
-def _even_chunks(tiles: int, c: int) -> int:
-    """c, lowered until ceil(tiles / c)-tile chunks leave none empty."""
-    per = -(-tiles // max(1, min(c, tiles)))
-    return -(-tiles // per)
-
-
-def scan_split(b: int, s: int, d: int) -> int:
-    """C, the number of chunks of whole tiles the sequence is scanned in,
-    from (B, S, D) alone.  Each of the two passes runs C - 1 chunks side by
-    side, so C chunks take about 2 / C of one pass's time on C - 1 times
-    its warps, and C = 2 gains nothing.  So C = 1 (one launch) wherever the
-    grid at ``scan_lanes(b, d)`` lanes reaches SCAN_FULL_WARPS; otherwise
-    the largest C whose C - 1 chunks stay within SCAN_WAVE_WARPS (one
-    wave) and hold a tile or more each, if that is 3 or more.  No chunk is
-    empty."""
-    lanes = scan_lanes(b, d)
-    warps = _warps(b, d, lanes)
-    if warps >= SCAN_FULL_WARPS:
-        return 1
-    tiles = -(-s // (SCAN_TILE_BASE * lanes))
-    c = _even_chunks(tiles, 1 + SCAN_WAVE_WARPS // warps)
-    return c if c >= 3 else 1
+    return 1 if b * -(-d // SCAN_CHANNELS) >= SCAN_FULL_WARPS else 2
 
 
 def check_scan_shapes(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -102,12 +67,10 @@ def check_scan_shapes(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                         bmat: torch.Tensor, cmat: torch.Tensor, *,
-                        return_state: bool = False, split=None):
+                        return_state: bool = False):
     """y_t = <h_t, C_t>, h_t = exp(dt_t a) h_{t-1} + dt_t u_t B_t, launched
     on the current stream (no synchronisation); see the module docstring
-    for what it takes.  ``split`` (tests and the sweep) forces the number
-    of chunks in place of ``scan_split``'s, lowered so that none is
-    empty."""
+    for what it takes."""
     _launch.check(u, 3, "u", DTYPES)
     _launch.check(dt, 3, "dt")
     _launch.check(a, 2, "a")
@@ -126,28 +89,15 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"{MAX_STATE}")
     if b > _GRID_Y_MAX or max(s, d) > _INT_MAX:
         raise ValueError(f"shape {tuple(u.shape)} exceeds the kernel's grid")
-    lanes = scan_lanes(b, d)
-    if split is None:
-        chunks = scan_split(b, s, d)
-    else:
-        chunks = _even_chunks(-(-s // (SCAN_TILE_BASE * lanes)), int(split))
     lib = _launch.bind("selective_scan", _ENTRY_POINTS)
     with torch.cuda.device(u.device):
         y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
         h = (torch.empty((b, d, n), dtype=torch.float32, device=u.device)
              if return_state else None)
-        # the carries of chunks 0..C-2: end states from zero, sums of dt
-        hend, sdt = ((torch.empty((b, chunks - 1, d, n), dtype=torch.float32,
-                                  device=u.device),
-                      torch.empty((b, chunks - 1, d), dtype=torch.float32,
-                                  device=u.device))
-                     if chunks > 1 else (None, None))
         err = lib.selective_scan_launch(
             u.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
             cmat.data_ptr(), y.data_ptr(), None if h is None else h.data_ptr(),
-            None if hend is None else hend.data_ptr(),
-            None if sdt is None else sdt.data_ptr(),
-            b, s, d, n, int(u.dtype == torch.bfloat16), lanes, chunks,
+            b, s, d, n, int(u.dtype == torch.bfloat16), scan_lanes(b, d),
             torch.cuda.current_stream(u.device).cuda_stream)
     _launch.raise_on(err, lib.selective_scan_error_string, "selective_scan")
     return (y, h) if return_state else y

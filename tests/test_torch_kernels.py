@@ -292,8 +292,8 @@ class TestSplitChoosers:
                                      (7, 1_000_003)])
     def test_grids_cover_the_card(self, k, n):
         """At least one CTA on each of the H100's 132 SMs."""
-        assert _superpose_ctas(k, n) >= ota_aggregate.SMS
-        assert _stream_moments_ctas(k, n) >= ota_aggregate.SMS
+        assert _superpose_ctas(k, n) >= _launch.SMS
+        assert _stream_moments_ctas(k, n) >= _launch.SMS
 
     @pytest.mark.parametrize("k", [1, 20, 31, 32, 63, 64, 100, 999, 1000,
                                    1001, 4096, 100_000])
@@ -340,25 +340,25 @@ class TestSplitChoosers:
         assert s <= ota_aggregate.superpose_split(k, n)
         if s > 1:
             tiles = -(-n // ota_aggregate.SUPERPOSE_THREADS)
-            assert tiles * s <= (ota_aggregate.SMS
+            assert tiles * s <= (_launch.SMS
                                  * ota_aggregate.SUPERPOSE_CTAS_PER_SM)
 
     @pytest.mark.parametrize("n", [1, 7, 2048, 4096, 4097, 55_050,
                                    1_000_003])
     def test_stream_moments_chunks(self, n):
-        """One chunk for a row one warp reads; longer rows take chunks of
-        MOMENTS_CHUNK elements on K1's kernel (ceil(ceil(N / 4) / 1024)),
-        from N alone."""
+        """One chunk for a row one warp reads; longer rows take two or
+        more chunks of at most MOMENTS_CHUNK elements on K1's kernel
+        (ceil(ceil(N / 4) / (MOMENTS_CHUNK / 4)) float4 chunks), from N
+        alone."""
         chunks = grad_norm.stream_moments_chunks(n)
         if n <= grad_norm.STREAM_ROW_MAX:
             assert chunks == 1
         else:
-            assert chunks == -(-(-(-n // 4)) // 1024) > 1
+            assert chunks == max(2, -(-(-(-n // 4))
+                                      // (grad_norm.MOMENTS_CHUNK // 4))) > 1
 
     def test_scan_and_moments_arguments(self):
         """K7's and K1's choosers read only their stated arguments."""
-        assert list(inspect.signature(selective_scan.scan_split)
-                    .parameters) == ["b", "s", "d"]
         assert list(inspect.signature(selective_scan.scan_lanes)
                     .parameters) == ["b", "d"]
         assert list(inspect.signature(grad_norm.moments_split)
@@ -371,7 +371,7 @@ class TestSplitChoosers:
         chunks of at least MOMENTS_MIN_VEC float4s, none empty, and the
         grid within one wave."""
         c = grad_norm.moments_split(k, n)
-        wave = grad_norm.MOMENTS_SMS * grad_norm.MOMENTS_CTAS_PER_SM
+        wave = _launch.SMS * grad_norm.MOMENTS_CTAS_PER_SM
         nvec = -(-n // 4)
         per = -(-nvec // c)
         assert 1 <= c and -(-nvec // per) == c
@@ -385,31 +385,21 @@ class TestSplitChoosers:
     def test_moments_split_at_the_callers_shapes(self, k, n, c):
         assert grad_norm.moments_split(k, n) == c
 
-    @pytest.mark.parametrize("b", [1, 2, 4, 16, 64])
-    @pytest.mark.parametrize("s", [1, 5, 64, 333, 1000, 8192])
-    @pytest.mark.parametrize("d", [1, 77, 1000, 8192])
-    def test_scan_split_fills_one_wave(self, b, s, d):
-        """One pass where the grid at scan_lanes(b, d) lanes reaches
-        SCAN_FULL_WARPS; otherwise C - 1 chunks a pass within one wave
-        (SCAN_WAVE_WARPS), never C = 2 (no gain), and no chunk empty."""
+    @pytest.mark.parametrize("b", [1, 2, 3, 4, 16, 64])
+    @pytest.mark.parametrize("d", [1, 77, 1000, 4096, 8192])
+    def test_scan_lanes_fill_the_card(self, b, d):
+        """One lane a channel where the grid's B ceil(D / 32) warps reach
+        SCAN_FULL_WARPS (three an SM), else two: the lanes double a grid
+        too small to fill the card's schedulers."""
         lanes = selective_scan.scan_lanes(b, d)
         assert lanes in selective_scan.SCAN_LANES
-        warps = b * -(-d // selective_scan.SCAN_CHANNELS) * lanes
-        c = selective_scan.scan_split(b, s, d)
-        tiles = -(-s // (selective_scan.SCAN_TILE_BASE * lanes))
-        per = -(-tiles // c)
-        assert 1 <= c <= tiles and -(-tiles // per) == c and c != 2
-        if warps >= selective_scan.SCAN_FULL_WARPS:
-            assert c == 1
-        if c > 1:
-            assert (c - 1) * warps <= selective_scan.SCAN_WAVE_WARPS
+        warps = b * -(-d // selective_scan.SCAN_CHANNELS)
+        assert (lanes == 1) == (warps >= selective_scan.SCAN_FULL_WARPS)
+        assert selective_scan.SCAN_FULL_WARPS == 3 * _launch.SMS
 
-    @pytest.mark.parametrize("b,s,d,lanes,c", [(4, 8192, 8192, 1, 1),
-                                               (1, 8192, 8192, 2, 1),
-                                               (2, 1000, 1000, 2, 8),
-                                               (1, 333, 77, 2, 11)])
-    def test_scan_split_at_the_callers_shapes(self, b, s, d, lanes, c):
-        """The Jamba prefill's scan (B = 4) and B = 1 fill the card with
-        lanes alone; the ragged shapes are split."""
+    @pytest.mark.parametrize("b,d,lanes", [(4, 8192, 1), (1, 8192, 2),
+                                           (2, 1000, 2), (1, 77, 2)])
+    def test_scan_lanes_at_the_callers_shapes(self, b, d, lanes):
+        """The Jamba prefill's scan (B = 4: 1,024 warps) takes one lane a
+        channel; B = 1 (256 warps) and the small grids two."""
         assert selective_scan.scan_lanes(b, d) == lanes
-        assert selective_scan.scan_split(b, s, d) == c

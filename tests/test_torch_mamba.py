@@ -20,7 +20,7 @@ from repro.kernels import ref as jref
 from repro.models import mamba as JM
 from repro_torch import interop
 from repro_torch.configs import registry as reg
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.kernels.selective_scan import selective_scan_cuda
 from repro_torch.models import mamba as M
 
@@ -96,37 +96,6 @@ def test_scan_final_state_matches_chunk_scan(b, s, d, n):
     assert h.shape == (b, d, n) and h.dtype == torch.float32
     _close(h, h_last)
     assert torch.equal(y, ops.selective_scan(*_t(u, dt, a, bm, cm)))
-
-
-@pytest.mark.parametrize("chunks", [1, 2, 3, "S"])
-@pytest.mark.parametrize("b,s,d,n", SHAPES)
-def test_chunked_scan_matches_reference_oracle(b, s, d, n, chunks):
-    """K7's split algebra in plain torch (chunks from zero, carries folded
-    in chunk order, chunks again from their start states) against the
-    reference's sequential oracle: rtol 1e-5, atol 1e-6 of max|y|."""
-    args = _scan_inputs(b, s, d, n, seed=s + 2)
-    got = ref.selective_scan_chunked_ref(
-        *_t(*args), s if chunks == "S" else chunks)
-    want = np.asarray(jref.selective_scan_ref(*map(jnp.asarray, args)))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
-                               atol=1e-6 * float(np.abs(want).max()))
-
-
-@pytest.mark.parametrize("chunks", [1, 2, 3, "S"])
-@pytest.mark.parametrize("b,s,d,n", SHAPES)
-def test_chunked_scan_final_state_matches_chunk_scan(b, s, d, n, chunks):
-    """The split algebra's h_S against the final state of the reference
-    model's ``_chunk_scan`` (1e-5 of max|h|)."""
-    u, dt, a, bm, cm = _scan_inputs(b, s, d, n, seed=s + 3)
-    _, h = ref.selective_scan_chunked_ref(
-        *_t(u, dt, a, bm, cm), s if chunks == "S" else chunks,
-        return_state=True)
-    da = jnp.exp(jnp.asarray(dt)[..., None] * jnp.asarray(a)[None, None])
-    dbu = (jnp.asarray(dt) * jnp.asarray(u))[..., None] \
-        * jnp.asarray(bm)[..., None, :]
-    _, h_last = jax.jit(JM._chunk_scan)(jnp.zeros((b, d, n), jnp.float32),
-                                        da, dbu)
-    _close(h, h_last)
 
 
 def test_scan_bf16_inputs_read_as_fp32():

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, selective_scan
+from repro_torch.kernels import ops
 from repro_torch.kernels.ota_aggregate import superpose_split
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -146,18 +146,58 @@ class TestOnCard:
     def test_moments_graph_replays_bitwise(self, k, n, kb):
         """K1 (and K3's long rows, on K1's kernel) replayed twice inside one
         CUDA graph gives the eager launch's bits both times: the block that
-        folds a row sets its arrival counter back to 0."""
+        folds a row sets its arrival counter back to 0.  The graph is
+        captured on a stream that already ran the kernel, so it holds the
+        stream's counters and no zeroing of its own."""
         g = torch.from_numpy(_stack(k, n, seed=k + n, zeros_every=5)).cuda()
-        eager = ops.batched_moments(g, k_block=kb, impl="kernel")
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            eager = ops.batched_moments(g, k_block=kb, impl="kernel")
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             out = ops.batched_moments(g, k_block=kb, impl="kernel")
         for _ in range(2):
             graph.replay()
             torch.cuda.synchronize()
             for a, b in zip(out, eager):
                 assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("k,n,kb", [(7, 1_000_003, None),
+                                        (20, 55_050, None),
+                                        (24, 55_050, 4)])
+    def test_moments_on_two_streams_at_once(self, k, n, kb):
+        """K1 (and K3's long rows) launched on two streams that run at once
+        gives each launch the bits it gets alone: each stream has arrival
+        counters of its own, so no launch counts another's blocks.  Every
+        launch reads a stack of its own, so a fold of another launch's
+        partials, or a row left unfolded, shows.  Both streams wait on one
+        event that a sleeping third stream records, so that their queues
+        fill first and then drain side by side from the same instant."""
+        reps = 16
+        gs = [[torch.from_numpy(_stack(k, n, seed=k + n + 10 * i + r,
+                                       zeros_every=5)).cuda()
+               for r in range(reps)] for i in range(2)]
+        want = [[ops.batched_moments(g, k_block=kb, impl="kernel")
+                 for g in row] for row in gs]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream() for _ in gs]
+        gate, opened = torch.cuda.Stream(), torch.cuda.Event()
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(50_000_000)
+            opened.record()
+        for s in streams:
+            s.wait_event(opened)
+        outs = [[], []]
+        for r in range(reps):
+            for i, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    outs[i].append(ops.batched_moments(
+                        gs[i][r], k_block=kb, impl="kernel"))
+        torch.cuda.synchronize()
+        for got_row, want_row in zip(outs, want):
+            for (q, r_), (sq, s_) in zip(got_row, want_row):
+                assert torch.equal(q, sq) and torch.equal(r_, s_)
 
     @pytest.mark.parametrize("k,n", [(1000, 2048), (1000, 55_050)])
     def test_superpose_rule_rejects_a_dropped_chunk(self, k, n):
@@ -422,55 +462,3 @@ class TestSelectiveScanOnCard:
         reset = scan_reset_at(u, dt, a, bm, cm, cut)
         assert not bool(((reset - yp).abs() <= tol).all())
 
-
-def scan_chunks(b, s, d, split=None):
-    """(C, steps a chunk) of K7's grid at this shape: the wrapper's lanes,
-    and split or scan_split's C lowered so that no chunk is empty."""
-    lanes = selective_scan.scan_lanes(b, d)
-    tile = selective_scan.SCAN_TILE_BASE * lanes
-    tiles = -(-s // tile)
-    c = selective_scan.scan_split(b, s, d) if split is None else split
-    per = -(-tiles // min(c, tiles))
-    return -(-tiles // per), per * tile
-
-
-@pytest.mark.cuda
-class TestSelectiveScanSplitOnCard:
-    """K7 with the sequence in C > 1 chunks (two launches): where
-    ``scan_split`` picks it and where ``split=`` forces it."""
-
-    @pytest.fixture(autouse=True)
-    def _card(self):
-        if not torch.cuda.is_available():
-            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                        "False)")
-
-    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("b,s,d,n,split,draw", [
-        (2, 1000, 1000, 16, None, "test"),     # scan_split's C
-        (1, 333, 77, 5, None, "test"),          # scan_split's C
-        (2, 1000, 1000, 16, 7, "test"),
-        (1, 8192, 8192, 16, 4, "test"),
-        (1, 8192, 8192, 16, 5, "jamba"),        # long memory across chunks
-    ])
-    def test_split_scan_matches_plain(self, b, s, d, n, split, draw, dtype):
-        """Within the rule (y and h_S), the same bits from two launches, and
-        the rule rejects the plain result with the state reset at the
-        first chunk boundary."""
-        c, chunk = scan_chunks(b, s, d, split)
-        assert c > 1
-        u, dt, a, bm, cm = scan_inputs(b, s, d, n, dtype, seed=s + d + c,
-                                       draw=draw)
-        y, h = selective_scan.selective_scan_cuda(
-            u, dt, a, bm, cm, return_state=True, split=split)
-        yp, hp = ops.selective_scan(u, dt, a, bm, cm, return_state=True,
-                                    impl="plain")
-        y_abs, h_abs = scan_abs(u, dt, a, bm, cm)
-        tol = SCAN_RTOL * y_abs
-        assert bool(((y - yp).abs() <= tol).all())
-        assert bool(((h - hp).abs() <= SCAN_RTOL * h_abs).all())
-        again, h2 = selective_scan.selective_scan_cuda(
-            u, dt, a, bm, cm, return_state=True, split=split)
-        assert torch.equal(again, y) and torch.equal(h2, h)
-        reset = scan_reset_at(u, dt, a, bm, cm, chunk)
-        assert not bool(((reset - yp).abs() <= tol).all())

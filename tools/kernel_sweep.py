@@ -4,16 +4,16 @@
     python3 tools/kernel_sweep.py [--only k1,k2,k3,k4,k6,k7] [--parent DIR]
 
 K1 (``moments_launch`` in ``csrc/moments.cu``): chunks a row around the
-one ``moments_split`` picks, and 4 and 8 float4 loads in flight a thread
-(2 in the source), at the FL round's, the wide and the ragged shapes, beside
+one ``moments_split`` picks and those that chunks of 4,096, 8,192 and
+16,384 elements give K3's long rows (``stream_moments_chunks``), and 4 and 8 float4 loads in flight a thread (2 in the
+source), at the FL round's, the wide and the ragged shapes, beside
 ``vector_norm(g, dim=1)``; also each with the 50 MB L2 flushed before
 every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``):
-1 and 2 lanes a channel and C chunks of the sequence at
-``chip_smoke.SCAN_SHAPES``, the (lanes, C) that ``scan_lanes`` and
-``scan_split`` pick marked, and variants of the source: the accurate
-expf, 2 steps unrolled at one lane (4 in the source) and 4 at two (2),
-y_t's products summed in 2 chains at one lane (1 in the source) and 1 at
-two (2).
+1 and 2 lanes a channel at ``chip_smoke.SCAN_SHAPES``, the lanes that
+``scan_lanes`` picks marked, and variants of the source: the accurate
+expf, the first tile's loads without their S > 0 test, 2 steps unrolled
+at one lane and at two (4 in the source), y_t's products summed in 2
+chains at one lane and at two (1 in the source).
 
 K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
 time of each split S of the K-way sum at the shapes its callers give it,
@@ -71,7 +71,7 @@ K4_VARIANTS = ((128, 16, 8), (64, 32, 8), (256, 8, 8), (256, 5, 8),
 K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
 K1_SHAPES = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
 K1_SPLITS = (1, 4, 6, 7, 13, 27, 52, 75, 100, 122, 150)
-K7_SPLITS = (1, 3, 4, 6, 8, 12)
+K3_CHUNK_ELEMS = (4096, 8192, 16384)   # K3's long rows: chunks from N alone
 K7_LANES = (1, 2)
 L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -349,14 +349,16 @@ def sweep_k1(libs, parent: bool) -> None:
     launches and two replays of one CUDA graph giving the same bits."""
     import chip_smoke as smoke
     from repro_torch.kernels import ref
-    from repro_torch.kernels.grad_norm import moments_split
+    from repro_torch.kernels.grad_norm import (moments_split,
+                                               stream_moments_chunks)
     gen = torch.Generator(device="cuda").manual_seed(11)
     trees = {name: lib for name, (lib, _, _) in libs.items()
              if name.startswith("k1_") and name != "k1_parent"}
     if parent:
         trees["k1_parent"] = libs["k1_parent"][0]
-    for lib in trees.values():
-        lib.moments_launch.argtypes = [_P, _LL, _LL, _I, _P, _P, _P, _P, _P]
+    for name, lib in trees.items():
+        lib.moments_launch.argtypes = [_P, _LL, _LL, _I] + [_P] * (
+            5 if name == "k1_parent" else 6)
     flush_buf = torch.empty((L2_FLUSH_BYTES // 4,), device="cuda")
 
     def flush():
@@ -367,12 +369,18 @@ def sweep_k1(libs, parent: bool) -> None:
         tol = smoke.TERMS_RTOL * (g.double() ** 2).sum(1)
         tol_s = smoke.TERMS_RTOL * g.double().abs().sum(1)
         chosen = moments_split(k, n)
+        k3 = stream_moments_chunks(n)
+        # K3's chunks a row at each chunk length of K3_CHUNK_ELEMS
+        k3_alts = {e: -(-(-(-n // 4)) // (e // 4)) for e in K3_CHUNK_ELEMS}
         out = torch.empty((2, k), device="cuda")
+        arrivals = torch.zeros((k,), dtype=torch.int32, device="cuda")
 
         def library():
             return torch.linalg.vector_norm(g, dim=1)
         row = {"kernel": "batched_moments", "k": k, "n": n,
-               "chosen_chunks": chosen, "l2_resident": k * n * 4 < 50e6,
+               "chosen_chunks": chosen, "k3_chunks": k3,
+               "k3_chunks_at": k3_alts,
+               "l2_resident": k * n * 4 < 50e6,
                "library_ms": smoke.device_ms(library),
                "library_cold_ms": _cold_ms(library, flush),
                "bound_ms": smoke.bound(k * n * 4 + 2 * k * 4, 3.0 * k * n)[0],
@@ -381,18 +389,20 @@ def sweep_k1(libs, parent: bool) -> None:
             if name == "k1_parent":
                 splits = (_moments_parent_chunks(n),)
             elif name == "k1_tree":
-                splits = sorted(set(K1_SPLITS) | {chosen})
+                splits = sorted(set(K1_SPLITS) | {chosen, k3}
+                                | set(k3_alts.values()))
             else:
                 splits = sorted({chosen, 7, 52, 100})
             times = row["variants"][name] = {}
             for c in splits:
                 part = torch.empty((2, k, c), device="cuda")
+                extra = () if name == "k1_parent" else (arrivals.data_ptr(),)
 
                 def launch():
                     err = lib.moments_launch(
                         g.data_ptr(), k, n, c, part[0].data_ptr(),
                         part[1].data_ptr(), out[0].data_ptr(),
-                        out[1].data_ptr(), _stream())
+                        out[1].data_ptr(), *extra, _stream())
                     assert err == 0, err
                 launch()
                 first = out.clone()
@@ -407,7 +417,7 @@ def sweep_k1(libs, parent: bool) -> None:
                 graph.replay()
                 torch.cuda.synchronize()
                 entry = times[c] = {
-                    "chosen": c == chosen,
+                    "chosen": c == chosen, "k3": c == k3,
                     "ms": smoke.device_ms(launch),
                     "within_tolerance": bool(
                         ((out[0] - want[0]).abs().double() <= tol).all()
@@ -417,7 +427,8 @@ def sweep_k1(libs, parent: bool) -> None:
                     "graph_replays_bitwise": bool(
                         torch.equal(replay1, out)
                         and torch.equal(first, out))}
-                if c == chosen or name == "k1_parent":
+                if (c in (chosen, k3, *k3_alts.values())
+                        or name == "k1_parent"):
                     entry["cold_ms"] = _cold_ms(launch, flush)
                 del graph, part
         emit(row)
@@ -436,20 +447,18 @@ def _scan_tol(args):
 
 
 def sweep_k7(libs, parent: bool) -> None:
-    """K7's variants at chip_smoke.SCAN_SHAPES, bf16 and fp32: the tree's
-    source at every (lanes, C) of K7_LANES x K7_SPLITS, the other sources
-    at the (lanes, C) the choosers pick, the parent at its own grid.  Each
+    """K7's variants at chip_smoke.SCAN_SHAPES, bf16 and fp32: each source
+    at every lane count of K7_LANES, the parent at its own grid.  Each
     checked against the plain version and for two launches giving the same
     bits."""
     import chip_smoke as smoke
     from repro_torch.kernels import ops
-    from repro_torch.kernels.selective_scan import (SCAN_TILE_BASE,
-                                                    scan_lanes, scan_split)
+    from repro_torch.kernels.selective_scan import scan_lanes
     gen = torch.Generator(device="cuda").manual_seed(12)
     trees = {name: lib for name, (lib, _, _) in libs.items()
              if name.startswith("k7_") and name != "k7_parent"}
     for lib in trees.values():
-        lib.selective_scan_launch.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+        lib.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     if parent:
         old = libs["k7_parent"][0]
         old.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
@@ -463,11 +472,11 @@ def sweep_k7(libs, parent: bool) -> None:
             want = ops.selective_scan(*args, impl="plain")
             tol = _scan_tol(args)
             y = torch.empty((b, s, d), device="cuda")
-            lanes0, c0 = scan_lanes(b, d), scan_split(b, s, d)
+            lanes0 = scan_lanes(b, d)
             row = {"kernel": "selective_scan", "dtype": str(dtype)[6:],
                    "shape": list(shape), "chosen_lanes": lanes0,
-                   "chosen_c": c0, "bound_ms": smoke.scan_bound(
-                       shape, dtype)[0], "variants": {}}
+                   "bound_ms": smoke.scan_bound(shape, dtype)[0],
+                   "variants": {}}
 
             def check(launch):
                 launch()
@@ -479,38 +488,19 @@ def sweep_k7(libs, parent: bool) -> None:
                         "within_tolerance": bool((err <= tol).all()),
                         "max_err_over_tol": float((err / tol).max()),
                         "two_launches_bitwise": bool(torch.equal(first, y))}
-            splits = K7_SPLITS if b * d < 4 * 8192 else (1, 3)
             for name, lib in trees.items():
-                grid = [(ln, c) for ln in K7_LANES
-                        for c in (splits if name == "k7_tree" else (1,))]
-                if (lanes0, c0) not in grid:
-                    grid.append((lanes0, c0))
-                seen = set()
                 entries = row["variants"][name] = {}
-                for lanes, c in grid:
-                    tiles = -(-s // (SCAN_TILE_BASE * lanes))
-                    per = -(-tiles // min(c, tiles))
-                    c = -(-tiles // per)
-                    if (lanes, c) in seen:
-                        continue
-                    seen.add((lanes, c))
-                    hend = torch.empty((b, max(1, c - 1), d, n),
-                                       device="cuda")
-                    sdt = torch.empty((b, max(1, c - 1), d), device="cuda")
-
+                for lanes in K7_LANES:
                     def launch():
                         err = lib.selective_scan_launch(
                             u.data_ptr(), dt.data_ptr(), a.data_ptr(),
                             bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
-                            hend.data_ptr(), sdt.data_ptr(), b, s, d, n,
-                            int(dtype == torch.bfloat16), lanes, c,
+                            b, s, d, n, int(dtype == torch.bfloat16), lanes,
                             _stream())
                         assert err == 0, err
-                    entries[f"L{lanes}_C{c}"] = {
-                        "chosen": name == "k7_tree"
-                        and (lanes, c) == (lanes0, c0),
+                    entries[f"L{lanes}"] = {
+                        "chosen": name == "k7_tree" and lanes == lanes0,
                         **check(launch)}
-                    del hend, sdt
             if parent:
                 def launch():
                     err = old.selective_scan_launch(
@@ -650,10 +640,13 @@ def main() -> None:
             'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));',
             "r = expf(x * 0.6931471805599453f);")
         assert variants["k7_expf"] != k7
+        variants["k7_unguarded"] = k7.replace("  if (S > 0) load(0);",
+                                              "  load(0);")
+        assert variants["k7_unguarded"] != k7
         variants["k7_u2_at_one_lane"] = _set_constants(k7, kUnroll1=2)
-        variants["k7_u4_at_two_lanes"] = _set_constants(k7, kUnroll2=4)
+        variants["k7_u2_at_two_lanes"] = _set_constants(k7, kUnroll2=2)
         variants["k7_acc2_at_one_lane"] = _set_constants(k7, kAcc1=2)
-        variants["k7_acc1_at_two_lanes"] = _set_constants(k7, kAcc2=1)
+        variants["k7_acc2_at_two_lanes"] = _set_constants(k7, kAcc2=2)
         if par:
             variants["k7_parent"] = (par / "selective_scan.cu").read_text()
     if "k2" in only:
