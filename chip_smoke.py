@@ -77,11 +77,10 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               B = 1, ragged [2, 1000, 1000, 16] and [1, 333, 77, 5] with
               the reference kernel test's a and dt, and at the prefill's
               shape with Jamba's own (a = -(1..16), dt in [1e-3, 0.1]), the
-              final state h_S too; each row shows the lanes a channel that
-              the wrapper picks, and that its tolerance rejects the plain
-              result with one time step dropped and with the state reset at
-              a tile boundary; device times beside the operations bound (no
-              PyTorch call computes the scan);
+              final state h_S too; each row also shows that its tolerance
+              rejects the plain result with one time step dropped and with
+              the state reset at a tile boundary; device times beside the
+              operations bound (no PyTorch call computes the scan);
 12. serve_hybrid -- jamba-v0.1-52b at full width, cut to one superblock of
               its four (8 layers: 1 attention, 7 Mamba, 4 MoE and 4 dense
               MLPs; 13.3 B parameters), random bf16 weights from a seed,
@@ -1231,8 +1230,8 @@ HYBRID_FP32_PROMPT = 2048        # fp32 weights are 53.2 GB at one superblock
 SCAN_SHAPES = ((4, 8192, 8192, 16, "test"), (1, 8192, 8192, 16, "test"),
                (2, 1000, 1000, 16, "test"), (1, 333, 77, 5, "test"),
                (4, 8192, 8192, 16, "jamba"))
-SCAN_TILE = 64                   # a multiple of every staged tile's steps
-                                 # (kT = 16 lanes in the .cu: 16 or 32)
+SCAN_TILE = 64                   # a multiple of the staged tile's steps
+                                 # (kT = 32 in the .cu)
 # |kernel - plain| <= SCAN_RTOL * Y_abs, Y_abs the plain scan of |u|, dt,
 # a, |B|, |C| (an upper bound of sum_n |h_t,n C_t,n|): the two round
 # differently (expf vs torch.exp, fused multiply-adds, the N-way sum's
@@ -1285,7 +1284,6 @@ def scan_bound(shape, dtype):
 
 
 def check_scan(ops, shape, dtype, gen) -> dict:
-    from repro_torch.kernels.selective_scan import scan_lanes
     b, s, d, n, draw = shape
     args = scan_inputs(shape, dtype, gen)
     u, dt, a, bm, cm = args
@@ -1327,8 +1325,6 @@ def check_scan(ops, shape, dtype, gen) -> dict:
            "deterministic": bool(torch.equal(again, y)),
            "rejects_dropped_step": rejects_dropped,
            "rejects_state_reset_at_tile": rejects_reset,
-           # the host's choice for this shape (not a measurement)
-           "lanes": scan_lanes(b, d),
            "kernel_ms": flash_ms(lambda: ops.selective_scan(
                *args, return_state=True, impl="kernel")),
            "plain_ms": flash_ms(lambda: ops.selective_scan(

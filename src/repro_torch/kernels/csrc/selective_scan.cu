@@ -37,16 +37,15 @@
 //    is about 2^-22: both far under the rule's SCAN_RTOL = 1e-4 of the
 //    plain scan of the absolute terms (chip_smoke.py).  An input under
 //    2^-126 is flushed (exp = 1) and an output under 2^-126 is 0.
-//  * L lanes a channel (1 or 2, from the host's `scan_lanes(b, d)`), each
-//    with 16 / L of the states in registers; y_t is the lanes' partial dot
-//    products summed by an xor-shuffle.  L = 1 (no shuffle, one store a
-//    step) where the batch alone fills the card's schedulers (B = 4: 1,024
-//    warps); L = 2 where it does not (B = 1).  Four lanes (the first
-//    design's) lost to two at every shape measured: more lanes repeat a
-//    step's loads and sums.
-//  * A CTA owns 32 channels of one batch row (32 L threads), so the grid
+//  * kLanes = 2 lanes a channel, each with 8 of the 16 states in
+//    registers; y_t is the two lanes' partial dot products summed by one
+//    xor-shuffle.  Two lanes beat one at every shape measured, the Jamba
+//    prefill's B = 4 included (1,024 warps at one lane), and four (the
+//    first design's) lost to two: more lanes repeat a step's loads and
+//    sums.
+//  * A CTA owns 32 channels of one batch row (64 threads), so the grid
 //    has CTAs small enough to spread over all 132 SMs in one wave.
-//  * A tile of kT = 16 L time steps is staged in shared memory, fp32: u
+//  * A tile of kT = 32 time steps is staged in shared memory, fp32: u
 //    and dt [kT][32] read coalesced along D, B_t and C_t [kT][16], which
 //    every channel of the batch row shares.  The loads of tile i+1 are
 //    started into registers before tile i is computed and stored to the
@@ -60,8 +59,8 @@
 //  * One launch scans the whole sequence.  A split of the sequence into
 //    chunks (the TPU kernel's seq-chunk axis: chunks from zero, then again
 //    from their carries folded in chunk order) was built and timed: it
-//    lost at the Jamba prefill's B = 4 and B = 1, where lanes alone fill
-//    the card, and paid only at small grids that no caller sends
+//    lost at the Jamba prefill's B = 4 and B = 1, where the grid alone
+//    fills the card, and paid only at small grids that no caller sends
 //    (PERF.md), so it is not kept.
 //  * Ragged S and D: rows past S are not staged or computed; channels past
 //    D (and states past N) run on zeros (dt = 0, B = C = 0 keep h = 0) and
@@ -75,11 +74,11 @@ namespace {
 
 constexpr int kChannels = 32;            // channels per CTA
 constexpr int kMaxN = 16;                // states per channel, at most
-constexpr int kTileBase = 16;            // steps a tile at one lane a channel
-constexpr int kUnroll1 = 4;              // steps unrolled in a full tile at
-constexpr int kUnroll2 = 4;              // one lane a channel, and at two
-constexpr int kAcc1 = 1;                 // chains summing a thread's share of
-constexpr int kAcc2 = 1;                 // y_t at one lane, and at two
+constexpr int kLanes = 2;                // threads a channel
+constexpr int kTileBase = 16;            // steps a tile a lane
+constexpr int kUnroll = 4;               // steps unrolled in a full tile
+constexpr int kAcc = 1;                  // chains summing a thread's share
+                                         // of y_t
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -100,8 +99,6 @@ struct Shape {
   static constexpr int kThreads = kChannels * L;
   static constexpr int kPer = kMaxN / L;       // states a thread
   static constexpr int kT = kTileBase * L;     // steps a tile
-  static constexpr int kUnroll = L == 1 ? kUnroll1 : kUnroll2;
-  static constexpr int kAcc = L == 1 ? kAcc1 : kAcc2;
   static constexpr int kElems = kTileBase;     // a thread's share of one
                                                // staged array a tile
   // floats of one buffer: u, dt [kT][32] and B | C [kT][32]
@@ -122,7 +119,6 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   constexpr int kT = Sh::kT;
   constexpr int kPer = Sh::kPer;
   constexpr int kThreads = Sh::kThreads;
-  constexpr int kAcc = Sh::kAcc;
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
@@ -212,7 +208,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     if (t0 + kT < S) load(t0 + kT);
     const int rows = min(kT, S - t0);
     if (rows == kT) {
-#pragma unroll (Sh::kUnroll)
+#pragma unroll (kUnroll)
       for (int r = 0; r < kT; ++r) step(base, r, t0 + r);
     } else {
       for (int r = 0; r < rows; ++r) step(base, r, t0 + r);
@@ -248,19 +244,6 @@ int launch(const void* u, const float* dt, const float* a, const void* bm,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_lanes(int lanes, const void* u, const float* dt, const float* a,
-                 const void* bm, const void* cm, float* y, float* h_out,
-                 int B, int S, int D, int N, cudaStream_t st) {
-  switch (lanes) {
-    case 1:
-      return launch<T, 1>(u, dt, a, bm, cm, y, h_out, B, S, D, N, st);
-    case 2:
-      return launch<T, 2>(u, dt, a, bm, cm, y, h_out, B, S, D, N, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
@@ -268,13 +251,13 @@ extern "C" {
 // y (and h_out, unless it is null) = selective_scan(u, dt, a, B, C) on
 // `stream`.  u [B, S, D] and bm, cm [B, S, N] of one type (bf16 when
 // is_bf16, else fp32); dt [B, S, D], a [D, N], y [B, S, D], h_out [B, D, N]
-// fp32; all contiguous; 1 <= N <= 16.  `lanes` (1 or 2) threads a
-// channel.  The wrapper checks all of that.  Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape it does not take).
+// fp32; all contiguous; 1 <= N <= 16.  The wrapper checks all of that.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a shape it does not
+// take).
 int selective_scan_launch(const void* u, const void* dt, const void* a,
                           const void* bm, const void* cm, void* y,
                           void* h_out, int B, int S, int D, int N,
-                          int is_bf16, int lanes, void* stream) {
+                          int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -283,10 +266,9 @@ int selective_scan_launch(const void* u, const void* dt, const void* a,
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h_out);
   if (is_bf16)
-    return launch_lanes<__nv_bfloat16>(lanes, u, dtf, af, bm, cm, yf, hf, B,
-                                       S, D, N, st);
-  return launch_lanes<float>(lanes, u, dtf, af, bm, cm, yf, hf, B, S, D, N,
-                             st);
+    return launch<__nv_bfloat16, kLanes>(u, dtf, af, bm, cm, yf, hf, B, S, D,
+                                         N, st);
+  return launch<float, kLanes>(u, dtf, af, bm, cm, yf, hf, B, S, D, N, st);
 }
 
 const char* selective_scan_error_string(int err) {

@@ -7,13 +7,10 @@
 [B, S, D] and a [D, N] contiguous fp32, on one CUDA device, any S and D
 (the kernel masks the ragged edges) and 1 <= N <= ``MAX_STATE``.  It
 returns y [B, S, D] fp32 and, with ``return_state=True``, also the final
-state h_S [B, D, N] fp32.
-
-One launch scans the whole sequence.  The host chooser ``scan_lanes(b, d)``
-shapes its grid from (B, D) alone: the number of threads a channel (1 or
-2; the channel's 16 states split among them), one where the batch alone
-fills the card's schedulers.  Public callers go through ``repro_torch.kernels.ops``, which counts the
-launches and serves CPU tensors with the plain version.
+state h_S [B, D, N] fp32, in one launch over the whole sequence (two
+threads a channel).  Public callers go through
+``repro_torch.kernels.ops``, which counts the launches and serves CPU
+tensors with the plain version.
 """
 from __future__ import annotations
 
@@ -25,26 +22,13 @@ from repro_torch.kernels import _launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 16                   # kMaxN in csrc/selective_scan.cu
-SCAN_CHANNELS = 32               # channels a CTA (kChannels)
-SCAN_LANES = (1, 2)
-SCAN_FULL_WARPS = 3 * _launch.SMS   # a grid of this many warps fills the
-                                    # card's schedulers at one lane
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "selective_scan_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "selective_scan_launch": ([_P] * 7 + [_I] * 5 + [_P], _I),
 }
 _GRID_Y_MAX = 65_535
 _INT_MAX = 2 ** 31 - 1
-
-
-def scan_lanes(b: int, d: int) -> int:
-    """Threads a channel, from (B, D) alone: one (all 16 states of a
-    channel in its registers, no shuffle) where the B ceil(D / 32) warps
-    of that grid reach SCAN_FULL_WARPS, else two.  The choice and the
-    thresholds are tools/kernel_sweep.py's (PERF.md): four lanes lost to
-    two at every shape measured."""
-    return 1 if b * -(-d // SCAN_CHANNELS) >= SCAN_FULL_WARPS else 2
 
 
 def check_scan_shapes(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -97,7 +81,7 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         err = lib.selective_scan_launch(
             u.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
             cmat.data_ptr(), y.data_ptr(), None if h is None else h.data_ptr(),
-            b, s, d, n, int(u.dtype == torch.bfloat16), scan_lanes(b, d),
+            b, s, d, n, int(u.dtype == torch.bfloat16),
             torch.cuda.current_stream(u.device).cuda_stream)
     _launch.raise_on(err, lib.selective_scan_error_string, "selective_scan")
     return (y, h) if return_state else y

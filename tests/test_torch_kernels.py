@@ -18,7 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _launch, ops, ref
-from repro_torch.kernels import grad_norm, ota_aggregate, selective_scan
+from repro_torch.kernels import grad_norm, ota_aggregate
 from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
@@ -82,7 +82,7 @@ class TestMomentsParity:
 
 
 class TestMomentsFold:
-    """K1's association (``ref.batched_moments_chunked_ref``): each row in
+    """K1's fold order (``ref.batched_moments_chunked_ref``): each row in
     chunks summed apart, the chunk partials folded in csrc/moments.cu's
     fixed tree (``ref.block_tree_sum``), held to the reference's oracle."""
 
@@ -357,10 +357,8 @@ class TestSplitChoosers:
             assert chunks == max(2, -(-(-(-n // 4))
                                       // (grad_norm.MOMENTS_CHUNK // 4))) > 1
 
-    def test_scan_and_moments_arguments(self):
-        """K7's and K1's choosers read only their stated arguments."""
-        assert list(inspect.signature(selective_scan.scan_lanes)
-                    .parameters) == ["b", "d"]
+    def test_moments_split_arguments(self):
+        """K1's chooser reads only its stated arguments."""
         assert list(inspect.signature(grad_norm.moments_split)
                     .parameters) == ["k", "n"]
 
@@ -384,22 +382,3 @@ class TestSplitChoosers:
                                        (7, 1_000_003, 122)])
     def test_moments_split_at_the_callers_shapes(self, k, n, c):
         assert grad_norm.moments_split(k, n) == c
-
-    @pytest.mark.parametrize("b", [1, 2, 3, 4, 16, 64])
-    @pytest.mark.parametrize("d", [1, 77, 1000, 4096, 8192])
-    def test_scan_lanes_fill_the_card(self, b, d):
-        """One lane a channel where the grid's B ceil(D / 32) warps reach
-        SCAN_FULL_WARPS (three an SM), else two: the lanes double a grid
-        too small to fill the card's schedulers."""
-        lanes = selective_scan.scan_lanes(b, d)
-        assert lanes in selective_scan.SCAN_LANES
-        warps = b * -(-d // selective_scan.SCAN_CHANNELS)
-        assert (lanes == 1) == (warps >= selective_scan.SCAN_FULL_WARPS)
-        assert selective_scan.SCAN_FULL_WARPS == 3 * _launch.SMS
-
-    @pytest.mark.parametrize("b,d,lanes", [(4, 8192, 1), (1, 8192, 2),
-                                           (2, 1000, 2), (1, 77, 2)])
-    def test_scan_lanes_at_the_callers_shapes(self, b, d, lanes):
-        """The Jamba prefill's scan (B = 4: 1,024 warps) takes one lane a
-        channel; B = 1 (256 warps) and the small grids two."""
-        assert selective_scan.scan_lanes(b, d) == lanes

@@ -8,12 +8,11 @@ one ``moments_split`` picks and those that chunks of 4,096, 8,192 and
 16,384 elements give K3's long rows (``stream_moments_chunks``), and 4 and 8 float4 loads in flight a thread (2 in the
 source), at the FL round's, the wide and the ragged shapes, beside
 ``vector_norm(g, dim=1)``; also each with the 50 MB L2 flushed before
-every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``):
-1 and 2 lanes a channel at ``chip_smoke.SCAN_SHAPES``, the lanes that
-``scan_lanes`` picks marked, and variants of the source: the accurate
-expf, the first tile's loads without their S > 0 test, 2 steps unrolled
-at one lane and at two (4 in the source), y_t's products summed in 2
-chains at one lane and at two (1 in the source).
+every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``)
+at ``chip_smoke.SCAN_SHAPES``, with variants of the source: 1 and 4 lanes
+a channel (2 in the source), the accurate expf, the first tile's loads
+without their S > 0 test, 2 steps unrolled (4 in the source) and y_t's
+products summed in 2 chains (1 in the source).
 
 K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
 time of each split S of the K-way sum at the shapes its callers give it,
@@ -72,7 +71,6 @@ K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
 K1_SHAPES = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
 K1_SPLITS = (1, 4, 6, 7, 13, 27, 52, 75, 100, 122, 150)
 K3_CHUNK_ELEMS = (4096, 8192, 16384)   # K3's long rows: chunks from N alone
-K7_LANES = (1, 2)
 L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
@@ -446,22 +444,17 @@ def _scan_tol(args):
         u.abs(), dt, a, bm.abs(), cm.abs(), impl="plain")
 
 
-def sweep_k7(libs, parent: bool) -> None:
-    """K7's variants at chip_smoke.SCAN_SHAPES, bf16 and fp32: each source
-    at every lane count of K7_LANES, the parent at its own grid.  Each
-    checked against the plain version and for two launches giving the same
-    bits."""
+def sweep_k7(libs) -> None:
+    """K7's variants at chip_smoke.SCAN_SHAPES, bf16 and fp32, the parent
+    among them.  Each checked against the plain version and for two
+    launches giving the same bits."""
     import chip_smoke as smoke
     from repro_torch.kernels import ops
-    from repro_torch.kernels.selective_scan import scan_lanes
     gen = torch.Generator(device="cuda").manual_seed(12)
     trees = {name: lib for name, (lib, _, _) in libs.items()
-             if name.startswith("k7_") and name != "k7_parent"}
-    for lib in trees.values():
-        lib.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
-    if parent:
-        old = libs["k7_parent"][0]
-        old.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+             if name.startswith("k7_")}
+    for lib in trees.values():          # the parent's entry point too
+        lib.selective_scan_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
     for shape in smoke.SCAN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             b, s, d, n, draw = shape
@@ -472,43 +465,27 @@ def sweep_k7(libs, parent: bool) -> None:
             want = ops.selective_scan(*args, impl="plain")
             tol = _scan_tol(args)
             y = torch.empty((b, s, d), device="cuda")
-            lanes0 = scan_lanes(b, d)
             row = {"kernel": "selective_scan", "dtype": str(dtype)[6:],
-                   "shape": list(shape), "chosen_lanes": lanes0,
+                   "shape": list(shape),
                    "bound_ms": smoke.scan_bound(shape, dtype)[0],
                    "variants": {}}
-
-            def check(launch):
+            for name, lib in trees.items():
+                def launch():
+                    err = lib.selective_scan_launch(
+                        u.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                        bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
+                        b, s, d, n, int(dtype == torch.bfloat16), _stream())
+                    assert err == 0, err
                 launch()
                 first = y.clone()
                 launch()
                 torch.cuda.synchronize()
                 err = (y - want).abs()
-                return {"ms": smoke.flash_ms(launch),
-                        "within_tolerance": bool((err <= tol).all()),
-                        "max_err_over_tol": float((err / tol).max()),
-                        "two_launches_bitwise": bool(torch.equal(first, y))}
-            for name, lib in trees.items():
-                entries = row["variants"][name] = {}
-                for lanes in K7_LANES:
-                    def launch():
-                        err = lib.selective_scan_launch(
-                            u.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                            bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
-                            b, s, d, n, int(dtype == torch.bfloat16), lanes,
-                            _stream())
-                        assert err == 0, err
-                    entries[f"L{lanes}"] = {
-                        "chosen": name == "k7_tree" and lanes == lanes0,
-                        **check(launch)}
-            if parent:
-                def launch():
-                    err = old.selective_scan_launch(
-                        u.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                        bm.data_ptr(), cm.data_ptr(), y.data_ptr(), None,
-                        b, s, d, n, int(dtype == torch.bfloat16), _stream())
-                    assert err == 0, err
-                row["variants"]["k7_parent"] = check(launch)
+                row["variants"][name] = {
+                    "ms": smoke.flash_ms(launch),
+                    "within_tolerance": bool((err <= tol).all()),
+                    "max_err_over_tol": float((err / tol).max()),
+                    "two_launches_bitwise": bool(torch.equal(first, y))}
             emit(row)
             del args, u, dt, a, bm, cm, want, tol, y
             torch.cuda.empty_cache()
@@ -643,10 +620,10 @@ def main() -> None:
         variants["k7_unguarded"] = k7.replace("  if (S > 0) load(0);",
                                               "  load(0);")
         assert variants["k7_unguarded"] != k7
-        variants["k7_u2_at_one_lane"] = _set_constants(k7, kUnroll1=2)
-        variants["k7_u2_at_two_lanes"] = _set_constants(k7, kUnroll2=2)
-        variants["k7_acc2_at_one_lane"] = _set_constants(k7, kAcc1=2)
-        variants["k7_acc2_at_two_lanes"] = _set_constants(k7, kAcc2=2)
+        variants["k7_one_lane"] = _set_constants(k7, kLanes=1)
+        variants["k7_four_lanes"] = _set_constants(k7, kLanes=4)
+        variants["k7_unroll2"] = _set_constants(k7, kUnroll=2)
+        variants["k7_acc2"] = _set_constants(k7, kAcc=2)
         if par:
             variants["k7_parent"] = (par / "selective_scan.cu").read_text()
     if "k2" in only:
@@ -678,7 +655,7 @@ def main() -> None:
     if "k1" in only:
         sweep_k1(libs, par is not None)
     if "k7" in only:
-        sweep_k7(libs, par is not None)
+        sweep_k7(libs)
     if "k2" in only:
         sweep_k2(libs, par is not None)
     if "k3" in only:
