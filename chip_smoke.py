@@ -17,12 +17,17 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               [1000, 2048]; the streamed moments (K3) and superposition (K4)
               at those three shapes (k_block 4, 100, 1) and the K-scale shape
               (K = 100,000, N = 2,048, k_block 1,000); the single-vector
-              norm (K5) at the round's N and on each stack flattened.  Each
+              norm (K5, K1's kernel over one row, one launch with its
+              root) at the Case-I round's N = 55,050, the K-scale
+              round's N = 2,048 and on each stack flattened.  First
+              one launch's floor: ``torch.cuda._sleep(0)`` timed as the
+              kernels are (phase ``launch_floor``).  Each
               K2 row shows its split S of the K-way sum and, where S > 1,
               that its tolerance rejects a result that lacks one K-chunk;
               each K4 row its chunks of whole K-blocks (S = 1: one pass)
               and that its tolerance rejects a result that lacks one
-              K-block; each K1 and K3 row its chunks a row.  Device
+              K-block; each K1 and K3 row its chunks a row, each K5
+              row its chunks.  Device
               times (CUDA events over CUDA-graph replays, median of 50
               samples of 20 launches) beside the bytes bound and a PyTorch
               library call timed as a yardstick only, and the eager per-call
@@ -354,17 +359,27 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
 
 
 def check_sumsq(ops, x: torch.Tensor) -> dict:
+    from repro_torch.kernels.grad_norm import sumsq_cuda, sumsq_split
     n = x.shape[0]
     got = ops.grad_norm(x, impl="kernel")
     want = ops.grad_norm(x, impl="plain")
+    # the kernel's sum of squares (the same launch as the norm's) against
+    # the plain one: two fp32 sums of n positive terms, relative 1e-5
+    sq = sumsq_cuda(x)
+    sq_plain = torch.sum(torch.square(x))
     torch.cuda.synchronize()
-    # sums of squares: two fp32 sums of n positive terms, relative 1e-5
-    d = abs(float(got.double() ** 2 - want.double() ** 2))
+    total = float((x.double() ** 2).sum())
+    d = abs(float(sq.double() - sq_plain.double()))
+    d_norm = abs(float(got.double() ** 2 - want.double() ** 2))
     b_ms, b_by = bound(n * 4 + 4, 2.0 * n)
-    return {"kernel": "sumsq", "n": n, "max_abs_err": d,
-            "tolerance": f"|d(sum x^2)| <= {TERMS_RTOL:g} * sum x^2",
-            "within_tolerance": d <= TERMS_RTOL * float((x.double() ** 2)
-                                                          .sum()),
+    # the host's chunks for this N (not a measurement)
+    return {"kernel": "sumsq", "n": n, "chunks": sumsq_split(n),
+            "max_abs_err": d, "norm_sq_abs_err": d_norm,
+            "root_is_sqrt": bool(torch.equal(torch.sqrt(sq), got)),
+            "tolerance": f"|d(sum x^2)| <= {TERMS_RTOL:g} * sum x^2, for "
+                         "the sums and the norms squared",
+            "within_tolerance": (d <= TERMS_RTOL * total
+                                 and d_norm <= TERMS_RTOL * total),
             **timings(lambda: ops.grad_norm(x, impl="kernel"),
                       lambda: ops.grad_norm(x, impl="plain"),
                       lambda: torch.linalg.vector_norm(x)),
@@ -379,9 +394,21 @@ def _emit_checked(rows, where: str) -> None:
         if not row["within_tolerance"]:
             fail(f"{row['kernel']} disagrees with its plain version at "
                  f"{where}: max |d| = {row['max_abs_err']}")
+        if row.get("root_is_sqrt") is False:
+            fail(f"{row['kernel']}'s norm at {where} is not the root of its "
+                 "sum of squares")
         if row.get("rejects_dropped_block") is False:
             fail(f"{row['kernel']}'s tolerance at {where} would pass a "
                  "result that lacks a K-block or K-chunk")
+
+
+def phase_launch_floor() -> None:
+    """What any launch costs in the harness that times the kernels: an
+    empty ``torch.cuda._sleep(0)`` timed as ``timings`` times a kernel."""
+    def sleep0():
+        torch.cuda._sleep(0)
+    emit({"phase": "launch_floor", "call": "torch.cuda._sleep(0)",
+          "ms": device_ms(sleep0), "call_ms": call_ms(sleep0)})
 
 
 def phase_kernels(ops) -> dict:
@@ -397,13 +424,15 @@ def phase_kernels(ops) -> dict:
                  for pre in ("identity", "sign")]
         for row in rows:
             row["l2_resident"] = k * n * 4 < 50e6
+        if (k, n) in ((K_MAIN, N_MAIN), (KB_SCALE, N_SCALE)):
+            # the update norm at the Case-I and the K-scale round's N
+            rows.append(check_sumsq(ops, g[0].contiguous()))
+            rows[-1]["l2_resident"] = True
         _emit_checked(rows, f"K={k} N={n}")
         if (k, n) == (K_MAIN, N_MAIN):
             path_rows["batched_moments"] = rows[0]
             path_rows["ota_superpose"] = rows[1]
-            row = check_sumsq(ops, g[0].contiguous())
-            _emit_checked([row], f"N={n}")
-            path_rows["sumsq"] = row
+            path_rows["sumsq"] = rows[3]
         del g
     for k, n, kb in STREAM_SHAPES:
         g = test_stack(k, n, gen)
@@ -1662,6 +1691,7 @@ def main() -> None:
     # device memory is its own
     phase_stream(ops)
     emit_memory("stream")
+    phase_launch_floor()
     checks = phase_kernels(ops)
     emit_memory("kernel")
     main_run = phase_main(ops)
@@ -1699,7 +1729,7 @@ def main() -> None:
         "ota_superpose_streaming": (csrc + "ota_superpose.cu",
                                     "src/repro/kernels/ota_aggregate.py:125",
                                     stream_launches),
-        "sumsq": (csrc + "sumsq.cu", "src/repro/kernels/grad_norm.py:50",
+        "sumsq": (csrc + "moments.cu", "src/repro/kernels/grad_norm.py:50",
                   main_launches),
         "flash_attention": (csrc + "flash_attention_wgmma.cu",
                             "src/repro/kernels/flash_attention.py:86",

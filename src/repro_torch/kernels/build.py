@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"moments": "moments.cu", "ota_superpose": "ota_superpose.cu",
            "stream_moments": "stream_moments.cu",
-           "sumsq": "sumsq.cu", "flash_attention": "flash_attention.cu",
+           "flash_attention": "flash_attention.cu",
            "flash_attention_wgmma": "flash_attention_wgmma.cu",
            "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

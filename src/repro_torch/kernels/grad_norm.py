@@ -1,15 +1,17 @@
 """Reductions of flat gradients on the card: the wrappers of
-``csrc/moments.cu``, ``csrc/stream_moments.cu`` and ``csrc/sumsq.cu``, the
-Hopper ports of ``repro/kernels/grad_norm.py``'s ``batched_blocked_moments``,
+``csrc/moments.cu`` and ``csrc/stream_moments.cu``, the Hopper ports of
+``repro/kernels/grad_norm.py``'s ``batched_blocked_moments``,
 ``streaming_blocked_moments`` and ``blocked_sumsq``.
 
 ``batched_moments_cuda(g)`` and ``streaming_moments_cuda(g, k_block)`` read
 the [K, N] fp32 stack in place (no padding copy) and return
 ``(sumsq, sums)``, each [K] fp32, summed in a fixed order;
-``sumsq_cuda(x)`` returns the 0-d sum of squares of one flat vector.
-``moments_split(k, n)`` is the number of chunks K1 splits each row into,
-at most one wave of CTAs; ``stream_moments_chunks(n)`` the number the
-streamed moments split each row into, from N alone.  Both run
+``sumsq_cuda(x)`` and ``norm_cuda(x)`` return the 0-d sum of squares and
+its root of one flat vector, from one launch of K1's kernel over a single
+row.  ``moments_split(k, n)`` is the number of chunks K1 splits each row
+into, at most one wave of CTAs; ``stream_moments_chunks(n)`` the number the
+streamed moments split each row into, and ``sumsq_split(n)`` the number the
+single vector is split into, both from N alone.  All run
 ``csrc/moments.cu``'s one launch: the block that finishes a row last
 folds its partials, in a fixed order, elected by an arrival counter that
 it sets back to 0.  The counters are one zeroed int32 array a (device,
@@ -22,6 +24,7 @@ launches and serves CPU tensors with the plain versions.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -34,6 +37,12 @@ MOMENTS_CHUNK = 8192     # elements a chunk of K3's long rows: 8,192 ran
 MOMENTS_CTAS_PER_SM = 8  # CTAs of 256 threads an SM holds (kThreads,
                          # csrc/moments.cu)
 MOMENTS_MIN_VEC = 2048   # float4s a chunk holds at least (8 a thread)
+SUMSQ_TILE = 512         # float4s a tile of the single vector (kTile,
+                         # csrc/moments.cu): one load round of a CTA
+SUMSQ_FOLD_RATIO = 120   # one tile read in series (~0.47 us from the L2
+                         # on an H100) over what one more CTA adds to the
+                         # fold and the arrival counter (~3.9 ns), fitted
+                         # to tools/kernel_sweep.py --only k5
 STREAM_ROW_MAX = 4096    # rows one warp reads alone (kRowMax,
                          # csrc/stream_moments.cu)
 STREAM_ROWS_PER_CTA = 4  # such rows a CTA (kWarps, csrc/stream_moments.cu)
@@ -43,13 +52,10 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ENTRY_POINTS = {
     "moments": {
         "moments_launch": ([_P, _LL, _LL, _I] + [_P] * 6, _I),
+        "norm_launch": ([_P, _LL, _I] + [_P] * 5, _I),
     },
     "stream_moments": {
         "stream_moments_launch": ([_P, _LL, _LL, _P, _P, _P], _I),
-    },
-    "sumsq": {
-        "sumsq_num_partials": ([_LL], _I),
-        "sumsq_launch": ([_P, _LL, _I, _P, _P, _P], _I),
     },
 }
 # (device index, stream, K) -> K1's arrival counters [K] int32: zeroed
@@ -70,6 +76,22 @@ def moments_split(k: int, n: int) -> int:
                    nvec // MOMENTS_MIN_VEC))
     per = -(-nvec // c)
     return -(-nvec // per)
+
+
+def sumsq_split(n: int) -> int:
+    """Chunks (CTAs) the single vector of the update norm is split into,
+    from N alone.  Chunk j reads the tiles j, j + chunks, ... of
+    SUMSQ_TILE float4s, so chunks of p tiles cost about p tile reads in
+    series plus chunks / SUMSQ_FOLD_RATIO more for the fold: p =
+    sqrt(tiles / SUMSQ_FOLD_RATIO), rounded, at least 1, and enough that
+    the chunks fit one wave of CTAs (MOMENTS_CTAS_PER_SM on each SM).  So
+    one CTA with no fold up to N = 4 SUMSQ_TILE, one tile a CTA at the
+    Case-I round's N, and every chunk holds ceil(tiles / chunks) tiles or
+    one fewer, none empty."""
+    tiles = -(-(-(-n // 4)) // SUMSQ_TILE)
+    wave = _launch.SMS * MOMENTS_CTAS_PER_SM
+    per = max(1, round(math.sqrt(tiles / SUMSQ_FOLD_RATIO)), -(-tiles // wave))
+    return -(-tiles // per)
 
 
 def stream_moments_chunks(n: int) -> int:
@@ -151,16 +173,34 @@ def streaming_moments_cuda(g: torch.Tensor, k_block: int
     return out[0], out[1]
 
 
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """[2]: the sum of squares of a contiguous fp32 CUDA vector and its
+    root, from one launch of K1's kernel over one row in ``sumsq_split(N)``
+    chunks (``norm_launch``), on the current stream."""
+    _launch.check(x, 1, "x")
+    lib = _library("moments")
+    n = x.shape[0]
+    nchunks = sumsq_split(n)
+    stream = _stream(x)
+    with torch.cuda.device(x.device):
+        part = torch.empty((nchunks,), dtype=torch.float32, device=x.device)
+        out = torch.empty((2,), dtype=torch.float32, device=x.device)
+        arrivals = (_arrivals(x.device, stream, 1).data_ptr()
+                    if nchunks > 1 else None)
+        err = lib.norm_launch(x.data_ptr(), n, nchunks, part.data_ptr(),
+                              out[0].data_ptr(), out[1].data_ptr(),
+                              arrivals, stream)
+    _launch.raise_on(err, lib.moments_error_string, "moments")
+    return out
+
+
 def sumsq_cuda(x: torch.Tensor) -> torch.Tensor:
     """0-d fp32 sum of squares of a contiguous fp32 CUDA vector, launched on
     the current stream."""
-    _launch.check(x, 1, "x")
-    lib = _library("sumsq")
-    nparts = lib.sumsq_num_partials(x.shape[0])
-    with torch.cuda.device(x.device):
-        part = torch.empty((nparts,), dtype=torch.float32, device=x.device)
-        out = torch.empty((), dtype=torch.float32, device=x.device)
-        err = lib.sumsq_launch(x.data_ptr(), x.shape[0], nparts,
-                               part.data_ptr(), out.data_ptr(), _stream(x))
-    _launch.raise_on(err, lib.sumsq_error_string, "sumsq")
-    return out
+    return _norm(x)[0]
+
+
+def norm_cuda(x: torch.Tensor) -> torch.Tensor:
+    """0-d fp32 L2 norm of a contiguous fp32 CUDA vector: the root of
+    ``sumsq_cuda(x)``, taken in the same launch."""
+    return _norm(x)[1]

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (check_heads, check_window,
                                                  flash_attention_cuda)
-from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
+from repro_torch.kernels.grad_norm import (batched_moments_cuda, norm_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
                                                ota_superpose_streaming_cuda)
@@ -57,11 +57,12 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
 
 
 def grad_norm(x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
-    """Global L2 norm (0-d fp32) of a gradient vector of any shape."""
+    """Global L2 norm (0-d fp32) of a gradient vector of any shape (on the
+    card one launch: the sum of squares and its root)."""
     if _use_kernel(x, impl):
-        sq = sumsq_cuda(x.reshape(-1).contiguous())
+        norm = norm_cuda(x.reshape(-1).contiguous())
         LAUNCH_COUNTS["sumsq"] += 1
-        return torch.sqrt(sq)
+        return norm
     return ref.grad_norm_ref(x)
 
 

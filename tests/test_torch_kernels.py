@@ -19,7 +19,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _launch, ops, ref
 from repro_torch.kernels import grad_norm, ota_aggregate
-from repro_torch.kernels.grad_norm import (batched_moments_cuda, sumsq_cuda,
+from repro_torch.kernels.grad_norm import (batched_moments_cuda, norm_cuda,
+                                           sumsq_cuda,
                                            streaming_moments_cuda)
 from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
                                                ota_superpose_streaming_cuda)
@@ -193,6 +194,7 @@ class TestDispatch:
         lambda: ota_superpose_streaming_cuda(torch.ones(2, 9), torch.ones(2),
                                              torch.zeros(9), 1.0, 1),
         lambda: sumsq_cuda(torch.ones(9)),
+        lambda: norm_cuda(torch.ones(9)),
     ])
     def test_kernel_request_on_cpu_raises(self, call):
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
@@ -382,3 +384,39 @@ class TestSplitChoosers:
                                        (7, 1_000_003, 122)])
     def test_moments_split_at_the_callers_shapes(self, k, n, c):
         assert grad_norm.moments_split(k, n) == c
+
+    def test_sumsq_split_arguments(self):
+        """K5's chooser reads N alone."""
+        assert list(inspect.signature(grad_norm.sumsq_split)
+                    .parameters) == ["n"]
+
+    @pytest.mark.parametrize("n", [1, 7, 2047, 2048, 2049, 55_050,
+                                   1_000_003, 1_101_000, 7_000_021,
+                                   55_050_000, 204_800_000])
+    def test_sumsq_split_fills_one_wave(self, n):
+        """At most one wave of CTAs and no more chunks than tiles of
+        SUMSQ_TILE float4s, so none is empty; the interleaved tiles give
+        each chunk ceil(tiles / chunks) of them or one fewer; about
+        sqrt(tiles / SUMSQ_FOLD_RATIO) tiles a chunk where the wave allows
+        it; one chunk (no fold) for a single tile."""
+        c = grad_norm.sumsq_split(n)
+        wave = _launch.SMS * grad_norm.MOMENTS_CTAS_PER_SM
+        tiles = -(-(-(-n // 4)) // grad_norm.SUMSQ_TILE)
+        assert 1 <= c <= min(wave, tiles)
+        counts = [len(range(j, tiles, c)) for j in range(c)]
+        assert sum(counts) == tiles and min(counts) >= max(counts) - 1 >= 0
+        per = -(-tiles // c)
+        balanced = math.sqrt(tiles / grad_norm.SUMSQ_FOLD_RATIO)
+        assert per >= -(-tiles // wave)
+        if per > -(-tiles // wave):
+            assert abs(per - balanced) <= 1
+        if tiles == 1:
+            assert c == 1
+
+    @pytest.mark.parametrize("n,c", [(2048, 1), (55_050, 27),
+                                     (1_000_003, 245), (204_800_000, 1053)])
+    def test_sumsq_split_at_the_callers_shapes(self, n, c):
+        """One CTA at the K-scale round's N = 2,048, one tile a CTA at the
+        Case-I round's N = 55,050, two tiles a CTA at a million, and a
+        wave at the K-scale stack flattened."""
+        assert grad_norm.sumsq_split(n) == c

@@ -199,6 +199,94 @@ class TestOnCard:
             for (q, r_), (sq, s_) in zip(got_row, want_row):
                 assert torch.equal(q, sq) and torch.equal(r_, s_)
 
+    @staticmethod
+    def _vectors(n):
+        """K5's inputs at N: a row of its own, and a view that starts one
+        element into a row (off the 16-byte grid: a scalar head of 3)."""
+        g = torch.from_numpy(_stack(1, n + 1, seed=n, zeros_every=5)).cuda()
+        return {"row": g[0, :n].contiguous(), "head": g.reshape(-1)[1:]}
+
+    @pytest.mark.parametrize("view", ["row", "head"])
+    @pytest.mark.parametrize("n", [2048, 55_050])
+    def test_norm_matches_plain(self, n, view):
+        """K5 at the K-scale and the Case-I round's N: the sum of squares
+        within chip_smoke.py's rule of the plain one, and the norm its
+        root."""
+        from repro_torch.kernels.grad_norm import norm_cuda, sumsq_cuda
+        x = self._vectors(n)[view]
+        got = ops.grad_norm(x, impl="kernel")
+        want = ops.grad_norm(x, impl="plain")
+        assert got.shape == () and got.dtype == torch.float32
+        assert abs(float(got.double() ** 2 - want.double() ** 2)) <= \
+            TERMS_RTOL * float((x.double() ** 2).sum())
+        sq = sumsq_cuda(x)
+        assert sq.shape == () and torch.equal(torch.sqrt(sq), got)
+        assert torch.equal(norm_cuda(x), got)
+
+    @pytest.mark.parametrize("n", [2048, 55_050, 1_000_003])
+    def test_norm_launches_and_graph_replays_bitwise(self, n):
+        """Two launches of K5, and two replays of one CUDA graph captured
+        on a stream that already ran it, give the same bits."""
+        x = self._vectors(n)["head"]
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            eager = ops.grad_norm(x, impl="kernel")
+            assert torch.equal(ops.grad_norm(x, impl="kernel"), eager)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = ops.grad_norm(x, impl="kernel")
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+    @pytest.mark.parametrize("n", [55_050, 1_000_003])
+    def test_norm_on_two_streams_at_once(self, n):
+        """K5 launched on two streams that run at once, both released by
+        one event (as test_moments_on_two_streams_at_once), gives each
+        launch the bits it gets alone: its fold reads only its own
+        partials, elected by its own stream's counter."""
+        reps = 16
+        xs = [[torch.from_numpy(_stack(1, n, seed=n + 10 * i + r,
+                                       zeros_every=5)).cuda()[0]
+               for r in range(reps)] for i in range(2)]
+        want = [[ops.grad_norm(x, impl="kernel") for x in row] for row in xs]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream() for _ in xs]
+        gate, opened = torch.cuda.Stream(), torch.cuda.Event()
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(50_000_000)
+            opened.record()
+        for s in streams:
+            s.wait_event(opened)
+        outs = [[], []]
+        for r in range(reps):
+            for i, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    outs[i].append(ops.grad_norm(xs[i][r], impl="kernel"))
+        torch.cuda.synchronize()
+        for got_row, want_row in zip(outs, want):
+            for got, w in zip(got_row, want_row):
+                assert torch.equal(got, w)
+
+    @pytest.mark.parametrize("n", [2048, 55_050])
+    def test_norm_is_one_kernel(self, n):
+        """One ops.grad_norm call runs exactly one kernel on the card (the
+        sum of squares, its fold and its root in one launch)."""
+        from torch.profiler import ProfilerActivity, profile
+        x = self._vectors(n)["row"]
+        ops.grad_norm(x, impl="kernel")      # builds, zeroes the counters
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.grad_norm(x, impl="kernel")
+            torch.cuda.synchronize()
+        kernels = [(ev.key, ev.count) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+        assert "moments_kernel" in kernels[0][0], kernels
+
     @pytest.mark.parametrize("k,n", [(1000, 2048), (1000, 55_050)])
     def test_superpose_rule_rejects_a_dropped_chunk(self, k, n):
         """Where K2 splits its sum (S > 1), the rule rejects the plain
@@ -232,14 +320,15 @@ class TestOnCard:
                     row["spill_loads"] == 0, (name, entry, row)
 
     def test_moments_and_scan_build_without_stack_or_spills(self):
-        """ptxas reports no stack frame and no spill in K1's kernel and in
-        each of K7's instantiations (bf16 and fp32)."""
+        """ptxas reports no stack frame and no spill in each of K1's
+        kernel's instantiations (K1 and K3's long rows, and the update norm
+        K5) and in each of K7's (bf16 and fp32)."""
         from repro_torch.kernels import build
         names = ("moments", "selective_scan")
         build.build_all(names)
         for name in names:
             report = build.ptxas_report(name)
-            assert len(report) == (2 if name == "selective_scan" else 1)
+            assert len(report) == 2
             for entry, row in report.items():
                 assert row["stack"] == row["spill_stores"] == \
                     row["spill_loads"] == 0, (name, entry, row)

@@ -120,8 +120,13 @@ class TestStreamedPlainVersions:
              for i in (0, 2, 4)]
         assert torch.equal(got, 1.0 * ((((z + p[0]) + p[1]) + p[2]) + z))
 
+    # the K-scale round's N = 2,048 and the Case-I round's N = 55,050 among
+    # them, in one-row blocks: at two rows or more the reference's
+    # blocked_sumsq_ref and its interpreted kernel differ by an ulp there
+    # (the norm is compared at ops.grad_norm's default block_rows anyway)
     @pytest.mark.parametrize("n,block_rows", [(3001, 1), (8193, 8),
-                                              (1000, 256)])
+                                              (1000, 256), (2048, 1),
+                                              (55_050, 1)])
     def test_sumsq_matches_reference(self, n, block_rows):
         x = _stack(1, n, seed=n)[0]
         x2, _, br = jops._pack_flat(jnp.asarray(x), block_rows=block_rows)

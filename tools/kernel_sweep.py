@@ -1,18 +1,29 @@
 #!/usr/bin/env python3
 """The numbers behind the kernels' split and tile choices, on one NVIDIA GPU.
 
-    python3 tools/kernel_sweep.py [--only k1,k2,k3,k4,k6,k7] [--parent DIR]
+    python3 tools/kernel_sweep.py [--only k1,k2,k3,k4,k5,k6,k7] [--parent DIR]
 
 K1 (``moments_launch`` in ``csrc/moments.cu``): chunks a row around the
 one ``moments_split`` picks and those that chunks of 4,096, 8,192 and
-16,384 elements give K3's long rows (``stream_moments_chunks``), and 4 and 8 float4 loads in flight a thread (2 in the
-source), at the FL round's, the wide and the ragged shapes, beside
-``vector_norm(g, dim=1)``; also each with the 50 MB L2 flushed before
-every launch.  K7 (``selective_scan_launch`` in ``csrc/selective_scan.cu``)
-at ``chip_smoke.SCAN_SHAPES``, with variants of the source: 1 and 4 lanes
+16,384 elements give K3's long rows (``stream_moments_chunks``), and 4
+and 8 float4 loads in flight a thread (2 in the source), at the FL
+round's, the wide and the ragged shapes, beside ``vector_norm(g, dim=1)``;
+also each with the 50 MB L2 flushed before every launch.  K7
+(``selective_scan_launch`` in ``csrc/selective_scan.cu``) at
+``chip_smoke.SCAN_SHAPES``, with variants of the source: 1 and 4 lanes
 a channel (2 in the source), the accurate expf, the first tile's loads
 without their S > 0 test, 2 steps unrolled (4 in the source) and y_t's
-products summed in 2 chains (1 in the source).
+products summed in 2 chains (1 in the source).  K5, the update norm
+(``norm_launch`` in ``csrc/moments.cu``: K1's kernel over one row, the
+sum of squares alone and its root in the same launch): chunk counts 1 to
+54 at N = 55,050, those that 1 to 8 tiles of 512 float4s a chunk give,
+and the one ``sumsq_split`` picks, at the FL rounds' N, a ragged million
+and the rounds' stacks flattened, with the chunks interleaved (the
+source) and contiguous, 4 loads in flight a thread, the sum of the
+values reduced too, and K1's ``moments_launch`` over one row, beside
+``vector_norm(x)`` and one launch's floor (``torch.cuda._sleep(0)``);
+rows of a million elements and more also with the L2 flushed; the
+variants at the chosen count timed again in turns.
 
 K2 (``ota_superpose_launch`` in ``csrc/ota_superpose.cu``): the device
 time of each split S of the K-way sum at the shapes its callers give it,
@@ -29,9 +40,9 @@ the register bound, and 16 rows in flight.  K6's fp32 body
 Jamba's layers, and P V summed in one tensor-core accumulator across kv
 tiles, beside ``scaled_dot_product_attention``.  ``--parent DIR`` names a
 directory that holds another tree's ``moments.cu``, ``ota_superpose.cu``,
-``ota_superpose_stream.cu``, ``flash_attention.cu`` and
-``selective_scan.cu`` (K1's, K2's, K4's, K6 fp32's and K7's earlier
-designs), timed at the same shapes in the same run; K2's
+``ota_superpose_stream.cu``, ``sumsq.cu``, ``flash_attention.cu`` and
+``selective_scan.cu`` (K1's, K2's, K4's, K5's two-pass, K6 fp32's and
+K7's earlier designs), timed at the same shapes in the same run; K2's
 splits and K4's chunkings are checked for the parent's bits.  Each variant
 is checked against its plain version and for two launches giving the same
 bits; ptxas's stack and spills and the number of CALL instructions in its
@@ -71,6 +82,13 @@ K6_TILES = ((128, 64, 1), (64, 64, 2), (64, 32, 3), (128, 32, 2))
 K1_SHAPES = ((20, 55_050), (1000, 55_050), (7, 1_000_003))
 K1_SPLITS = (1, 4, 6, 7, 13, 27, 52, 75, 100, 122, 150)
 K3_CHUNK_ELEMS = (4096, 8192, 16384)   # K3's long rows: chunks from N alone
+# K5: (K, N) of each vector, the stack flattened (K = 1: one row); the
+# K-scale round's N, the Case-I round's, a ragged million, and the three
+# stacks that the FL rounds' shapes give flattened
+K5_SHAPES = ((1, 2048), (1, 55_050), (1, 1_000_003), (20, 55_050),
+             (1000, 55_050), (100_000, 2048))
+K5_SPLITS = (1, 2, 3, 6, 13, 27, 54)   # chunks at N = 55,050
+K5_TILES_PER_CHUNK = (1, 2, 3, 4, 8)   # tiles of 512 float4s a chunk
 L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
@@ -434,6 +452,219 @@ def sweep_k1(libs, parent: bool) -> None:
     del flush_buf
 
 
+def _k5_chunks(n: int, per: int) -> int:
+    """The chunks ``sumsq_split`` would give N with ``per`` tiles a chunk
+    (at least as many as one wave of CTAs needs)."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.grad_norm import MOMENTS_CTAS_PER_SM, SUMSQ_TILE
+    tiles = -(-(-(-n // 4)) // SUMSQ_TILE)
+    per = max(per, -(-tiles // (_launch.SMS * MOMENTS_CTAS_PER_SM)))
+    return -(-tiles // per)
+
+
+def _k5_contiguous(text: str) -> str:
+    """K1's source with the update norm's chunks contiguous runs of the
+    vector, as K1's rows are split, in place of interleaved tiles."""
+    old = "  if constexpr (kNorm) {\n    v0 = (long long)j * kTile;"
+    assert old in text
+    return text.replace(old, "  if constexpr (false) {\n"
+                             "    v0 = (long long)j * kTile;")
+
+
+def _k5_with_sums(text: str) -> str:
+    """K1's source with the update norm summing the values too (their
+    partials written after the squares' and folded; only the final Σx is
+    not stored), as K1 does."""
+    text, count = re.subn(r"if constexpr \(!kNorm\)", "if constexpr (true)",
+                          text)
+    assert count == 8, count
+    old = "x, n, nchunks, part, nullptr, sumsq, norm, arrivals);"
+    assert old in text
+    return text.replace(old, "x, n, nchunks, part, part + nchunks, sumsq, "
+                             "norm, arrivals);")
+
+
+def _alternating_ms(launches: dict, rounds: int = 3) -> dict:
+    """{name: (median ms, samples)} of each launch, timed in turns, the
+    order reversed every round (A B C, C B A, ...), so that no variant
+    gains from where it stands in the run."""
+    import chip_smoke as smoke
+    names = list(launches)
+    samples = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            samples[name].append(smoke.device_ms(launches[name]))
+    return {name: {"median_ms": sorted(v)[len(v) // 2], "ms": v}
+            for name, v in samples.items()}
+
+
+def _checked_launch(launch, out, want, tol, root=True) -> dict:
+    """Device time of ``launch`` (which writes the sum of squares to out[0]
+    and, with ``root``, its root to out[1]), its error over chip_smoke's
+    rule, and two launches and two replays of one CUDA graph compared for
+    the same bits."""
+    import chip_smoke as smoke
+    launch()
+    first = out.clone()
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    replay1 = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    err = abs(float(out[0].double()) - want)
+    entry = {"ms": smoke.device_ms(launch), "max_err_over_tol": err / tol,
+             "within_tolerance": err <= tol,
+             "two_launches_bitwise": bool(torch.equal(first, out)),
+             "graph_replays_bitwise": bool(torch.equal(replay1, out)
+                                           and torch.equal(first, out))}
+    if root:
+        entry["root_is_sqrt"] = bool(torch.equal(out[1],
+                                                 torch.sqrt(out[0])))
+    del graph
+    return entry
+
+
+def sweep_k5(libs, parent: bool) -> None:
+    """The update norm at K5_SHAPES (``norm_launch``: K1's kernel over one
+    row, the sum of squares alone and its root): at the chunk counts of
+    K5_SPLITS, of K5_TILES_PER_CHUNK tiles a chunk and the one
+    ``sumsq_split`` picks, with the chunks interleaved tile by tile (the
+    tree) and contiguous; at the chosen count also 4 loads in flight a
+    thread, the sum of the values reduced too, and K1's own
+    ``moments_launch`` over one row (the sum of the values, no root; also
+    at ``moments_split(1, n)``'s count); with --parent the parent's
+    two-pass kernel (``sumsq_launch``), alone and with the root its
+    ``ops.grad_norm`` took after it; beside ``vector_norm(x)`` and one
+    launch's floor (``torch.cuda._sleep(0)``).  Each checked against the
+    plain version (chip_smoke's rule), its root against ``torch.sqrt`` of
+    its sum of squares, for two launches and two replays of one CUDA
+    graph giving the same bits; rows of a million elements and more also
+    with the L2 flushed before each launch.  The variants at the chosen
+    count are timed again in turns (``alternating``)."""
+    import chip_smoke as smoke
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grad_norm import moments_split, sumsq_split
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    trees = {name: libs[name][0] for name in (
+        "k5_tree", "k5_contiguous", "k5_u4", "k5_with_sums")}
+    for lib in trees.values():
+        lib.norm_launch.argtypes = [_P, _LL, _I] + [_P] * 5
+    k1 = trees["k5_tree"]
+    k1.moments_launch.argtypes = [_P, _LL, _LL, _I] + [_P] * 6
+    two_pass = libs["k5_parent"][0] if parent else None
+    if two_pass is not None:
+        two_pass.sumsq_num_partials.argtypes = [_LL]
+        two_pass.sumsq_num_partials.restype = _I
+        two_pass.sumsq_launch.argtypes = [_P, _LL, _I, _P, _P, _P]
+    flush_buf = torch.empty((L2_FLUSH_BYTES // 4,), device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+
+    def sleep0():
+        torch.cuda._sleep(0)
+    emit({"kernel": "launch_floor", "call": "torch.cuda._sleep(0)",
+          "ms": smoke.device_ms(sleep0)})
+    for k, n in K5_SHAPES:
+        x = smoke.test_stack(k, n, gen).reshape(-1)
+        size = x.shape[0]
+        want = float(ref.grad_norm_ref(x).double() ** 2)
+        tol = smoke.TERMS_RTOL * float((x.double() ** 2).sum())
+        chosen = sumsq_split(size)
+        cold = size >= 1_000_000
+        out = torch.empty((2,), device="cuda")
+        arrivals = torch.zeros((1,), dtype=torch.int32, device="cuda")
+
+        def library():
+            return torch.linalg.vector_norm(x)
+        row = {"kernel": "sumsq", "k": k, "n": n, "size": size,
+               "chosen_chunks": chosen,
+               "moments_split_chunks": moments_split(1, size),
+               "l2_resident": size * 4 < 50e6,
+               "library_ms": smoke.device_ms(library),
+               "bound_ms": smoke.bound(size * 4 + 4, 2.0 * size)[0],
+               "variants": {}}
+        if cold:
+            row["library_cold_ms"] = _cold_ms(library, flush)
+        splits = {chosen} | {_k5_chunks(size, p) for p in K5_TILES_PER_CHUNK}
+        if size == 55_050:
+            splits |= set(K5_SPLITS)
+
+        def norm_launcher(lib, c):
+            part = torch.empty((2 * c,), device="cuda")
+
+            def launch():
+                err = lib.norm_launch(
+                    x.data_ptr(), size, c, part.data_ptr(),
+                    out[0].data_ptr(), out[1].data_ptr(),
+                    arrivals.data_ptr(), _stream())
+                assert err == 0, err
+            return launch
+
+        def k1_launcher(c):
+            part = torch.empty((2, c), device="cuda")
+
+            def launch():
+                err = k1.moments_launch(
+                    x.data_ptr(), 1, size, c, part[0].data_ptr(),
+                    part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                    arrivals.data_ptr(), _stream())
+                assert err == 0, err
+            return launch
+        at_chosen = {}
+        for name, lib in trees.items():
+            times = row["variants"][name] = {}
+            scan = name in ("k5_tree", "k5_contiguous")
+            for c in sorted(splits) if scan else (chosen,):
+                launch = norm_launcher(lib, c)
+                entry = times[c] = {"chosen": c == chosen,
+                                    **_checked_launch(launch, out, want, tol)}
+                if c == chosen:
+                    at_chosen[name] = launch
+                    if cold:
+                        entry["cold_ms"] = _cold_ms(launch, flush)
+        times = row["variants"]["k1_moments_launch"] = {}
+        for c in sorted({chosen, moments_split(1, size)}):
+            launch = k1_launcher(c)
+            times[c] = {"chosen": c == chosen,
+                        **_checked_launch(launch, out, want, tol,
+                                          root=False)}
+            if c == chosen:
+                at_chosen["k1_moments_launch"] = launch
+        if two_pass is not None:
+            nparts = two_pass.sumsq_num_partials(size)
+            part = torch.empty((nparts,), device="cuda")
+
+            def launch_two_pass():
+                err = two_pass.sumsq_launch(x.data_ptr(), size, nparts,
+                                            part.data_ptr(),
+                                            out[0].data_ptr(), _stream())
+                assert err == 0, err
+
+            def parent_grad_norm():
+                launch_two_pass()
+                return torch.sqrt(out[0])
+            entry = row["variants"]["k5_parent"] = {
+                "partials": nparts,
+                **_checked_launch(launch_two_pass, out, want, tol,
+                                  root=False),
+                "with_root_ms": smoke.device_ms(parent_grad_norm)}
+            if cold:
+                entry["cold_ms"] = _cold_ms(launch_two_pass, flush)
+            at_chosen["k5_parent"] = launch_two_pass
+            at_chosen["k5_parent_with_root"] = parent_grad_norm
+        row["alternating"] = _alternating_ms(at_chosen)
+        emit(row)
+        del x, at_chosen
+        torch.cuda.empty_cache()
+    del flush_buf
+
+
 def _scan_tol(args):
     """chip_smoke's rule: SCAN_RTOL * the plain scan of |u|, dt, a, |B|,
     |C|."""
@@ -581,11 +812,11 @@ def sweep_k6(libs) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k1,k2,k3,k4,k6,k7",
+    ap.add_argument("--only", default="k1,k2,k3,k4,k5,k6,k7",
                     help="comma-separated sweeps to run (default: all)")
     ap.add_argument("--parent", help="directory with another tree's "
                     "moments.cu, ota_superpose.cu, ota_superpose_stream.cu, "
-                    "flash_attention.cu and selective_scan.cu")
+                    "sumsq.cu, flash_attention.cu and selective_scan.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs an NVIDIA GPU")
@@ -610,6 +841,14 @@ def main() -> None:
 
         if par:
             variants["k1_parent"] = (par / "moments.cu").read_text()
+    if "k5" in only:
+        k1 = (csrc / "moments.cu").read_text()
+        variants["k5_tree"] = k1
+        variants["k5_contiguous"] = _k5_contiguous(k1)
+        variants["k5_u4"] = _set_constants(k1, kUnroll=4)
+        variants["k5_with_sums"] = _k5_with_sums(k1)
+        if par:
+            variants["k5_parent"] = (par / "sumsq.cu").read_text()
     if "k7" in only:
         k7 = (csrc / "selective_scan.cu").read_text()
         variants["k7_tree"] = k7
@@ -654,6 +893,8 @@ def main() -> None:
     libs = compile_variants(variants)
     if "k1" in only:
         sweep_k1(libs, par is not None)
+    if "k5" in only:
+        sweep_k5(libs, par is not None)
     if "k7" in only:
         sweep_k7(libs)
     if "k2" in only:
