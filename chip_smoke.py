@@ -34,15 +34,28 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               times (host included);
 4. main    -- 20 rounds of the paper's Case-I experiment (synthetic MNIST,
               784-64-64-10 MLP, K = 20, normalized scheme, kernels backend)
-              through ``Experiment(spec, device="cuda").run``; the launch
-              counts of K1, K2 and K5, finite history, falling train loss,
-              and the final params against the same spec run on the CPU;
+              through ``Experiment(spec, device="cuda").run`` on the
+              default driver (``scan``: a CUDA graph of the round, replayed
+              a chunk of rounds per host transfer); the launch counts of
+              K1, K2 and K5 (replays counted), finite history, falling
+              train loss, and the final params against the same spec run
+              on the CPU.  Phases 5, 6 and 8 run the default driver too;
 5. profile -- device time by kernel over 5 rounds (torch.profiler), and
               host time by function over 10 rounds (cProfile);
 6. stream_facade -- the Case-I spec with k_block = 4 through
               ``Experiment.run``, 20 rounds, against the dense run of phase 4
               (STREAM_TOL); then participation 0.5 (bernoulli, fixed, fixed
               with active_gather) for 5 rounds each;
+6b. driver -- the two drivers against each other: the Case-I spec for 20
+              rounds (chunks of 16, eval every 10), params and every
+              DIAG_KEYS history bitwise (else the reference's rule,
+              tests/test_engine.py:157-162); run(5); run(5) against
+              run(10) under scan; participation 0.5 (bernoulli, and fixed
+              with active_gather) for 10 rounds; 3 K-scale rounds, peak
+              device memory under 512 MiB; the engines' capture counts
+              (a second run adds none); and for both drivers and both
+              rounds the warm rounds/s, device busy time a round and the
+              device's idle share (torch.profiler);
 7. stream_ota -- ``ota.aggregate(OTAConfig(backend="kernels",
               k_block=1000))`` at the K-scale shape for four schemes, against
               the dense aggregate on the card and the plain route on the
@@ -50,8 +63,9 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
 8. stream  -- the repo's 100,000-device case (benchmarks/kscale_case.py):
               3 streaming rounds of a {"w": [2048]} linear model over a
               shared pool, batches made per K-block through
-              ``block_batch_provider``; rounds/s, K2 launches (100 a round),
-              peak device memory under 512 MiB, params against the CPU;
+              ``block_batch_provider``; rounds/s, K2 launches (100 a round,
+              the graph's warm-up rounds included), peak device memory
+              under 512 MiB, params against the CPU;
 9. flash   -- flash attention (K6) against its plain version, both
               bodies (fp32 in 3xTF32 on the tensor cores through
               mma.sync, bf16 on the tensor cores through wgmma and TMA), at the serving layer's shape ([4, 32,
@@ -102,10 +116,16 @@ Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
     python3 chip_smoke.py --rates [--src OTHER_TREE/src]
 
 times only the warm Case-I round (20 rounds, no eval) and the K-scale round
-(one round), RATE_SAMPLES samples each, then the device time of one more
+(one round), RATE_SAMPLES samples each on each driver (``null`` for the
+scan driver of a tree that lacks it), then the device time of one more
 K-scale round by kernel (torch.profiler), for the package under ``--src``
 (default: this tree's), and prints one ``{"phase": "rates", ...}`` line:
 run it on two trees in one machine session to compare them.
+
+    python3 chip_smoke.py --driver
+
+runs only phases 1, 2 and 6b (the two drivers against each other, their
+rates and idle shares).
 """
 from __future__ import annotations
 
@@ -305,7 +325,9 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
     k, n = g.shape
     scale = torch.rand((k,), generator=gen, device="cuda") + 0.5
     noise = 0.01 * torch.randn((n,), generator=gen, device="cuda")
-    a = 0.9
+    # the gain as the FL round passes it: a 0-d fp32 tensor on the card
+    # (a float would add a fill launch to each timed call)
+    a = torch.tensor(0.9, dtype=torch.float32, device="cuda")
     kw = dict(pre=pre, k_block=k_block)
     y = ops.ota_superpose(g, scale, noise, a, impl="kernel", **kw)
     yp = ops.ota_superpose(g, scale, noise, a, impl="plain", **kw)
@@ -337,7 +359,7 @@ def check_superpose(ops, g: torch.Tensor, pre: str,
         part = a * (scale[lo:lo + block].double()
                     @ x[lo:lo + block].double())
         check["rejects_dropped_block"] = not bool((part.abs() <= tol).all())
-    b_ms, b_by = bound(k * n * 4 + 2 * n * 4 + k * 4, 2.0 * k * n)
+    b_ms, b_by = bound(k * n * 4 + 2 * n * 4 + k * 4 + 4, 2.0 * k * n)
     # one PyTorch call computes the identity sum: the yardstick
     library = (lambda: scale @ g) if pre == "identity" else None
     return {"kernel": ("ota_superpose" if k_block is None
@@ -820,6 +842,8 @@ def phase_stream(ops) -> dict:
     launches = dict(ops.LAUNCH_COUNTS)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     blocks = K_SCALE // KB_SCALE
+    # the scan driver's warm-up rounds before its capture launch too
+    launched_rounds = STREAM_ROUNDS + runtime.GRAPH_WARMUP_ROUNDS
     hist = {k: first[k] + rest[k] for k in first}
     out = {"phase": "stream", "k": K_SCALE, "k_block": KB_SCALE,
            "n": N_SCALE, "batch": 8, "pool": 4096,
@@ -832,10 +856,10 @@ def phase_stream(ops) -> dict:
            "update_norm": hist["update_norm"],
            "channel": "the port's dense Rayleigh draw (geometry gains: "
                       "ROADMAP queue 1 item 11)"}
-    if launches["ota_superpose"] != blocks * STREAM_ROUNDS:
+    if launches["ota_superpose"] != blocks * launched_rounds:
         emit(out)
         fail(f"ota_superpose launched {launches['ota_superpose']} times, "
-             f"expected {blocks} a round")
+             f"expected {blocks} a round over {launched_rounds} rounds")
     if not peak_mb < STREAM_MEM_LIMIT_MB:
         emit(out)
         fail(f"peak device memory {peak_mb:.1f} MiB >= "
@@ -1621,46 +1645,219 @@ def phase_serve_hybrid(ops) -> dict:
     return launches
 
 
+# the reference's rule for its two drivers where they are not bitwise
+# (tests/test_engine.py:157-162)
+DRIVER_PARAMS_RTOL, DRIVER_PARAMS_ATOL = 2e-6, 1e-7
+DRIVER_HIST_RTOL, DRIVER_HIST_ATOL = 2e-6, 1e-9
+DRIVER_RATE_SAMPLES = 3
+
+
+def compare_runs(a_params: dict, a_hist: dict, b_params: dict,
+                 b_hist: dict) -> dict:
+    """Two runs' params and every DIAG_KEYS history: bitwise, and else the
+    reference's rule for its drivers."""
+    from repro_torch.fed import runtime
+    bitwise = (all(torch.equal(a_params[k], b_params[k]) for k in b_params)
+               and all(a_hist[k] == b_hist[k] for k in runtime.DIAG_KEYS))
+    within = all(torch.allclose(a_params[k], b_params[k],
+                                rtol=DRIVER_PARAMS_RTOL,
+                                atol=DRIVER_PARAMS_ATOL) for k in b_params)
+    for k in runtime.DIAG_KEYS:
+        want = torch.tensor(b_hist[k], dtype=torch.float64)
+        got = torch.tensor(a_hist[k], dtype=torch.float64)
+        within = within and bool(torch.allclose(
+            got, want, rtol=DRIVER_HIST_RTOL, atol=DRIVER_HIST_ATOL))
+    diff = max(float((a_params[k].float() - b_params[k].float()).abs().max())
+               for k in b_params)
+    hist_keys = [k for k in runtime.DIAG_KEYS if a_hist[k] != b_hist[k]]
+    return {"bitwise": bitwise, "within_rule": within,
+            "max_abs_param_diff": diff, "history_keys_that_differ": hist_keys}
+
+
+def _profiled_round(run, rounds: int) -> dict:
+    """Device busy time a round and the device's idle share over ``rounds``
+    rounds of ``run(rounds)`` (torch.profiler)."""
+    prof = _profile_top(lambda: run(rounds), n=6)
+    busy = prof["device_busy_us"]
+    return {"profiled_rounds": rounds,
+            "device_busy_us_per_round": busy / rounds,
+            "profiled_wall_us_per_round": prof["wall_us"] / rounds,
+            "device_idle_share": (1 - busy / prof["wall_us"]) if busy
+            else None,
+            "top_kernels": prof["top_kernels"]}
+
+
+def driver_rates(run, rounds: int, profiled: int) -> dict:
+    """Warm rounds/s of ``run(rounds)`` (DRIVER_RATE_SAMPLES samples, after
+    one call that builds and warms up), then one profiled call."""
+    run(rounds)
+    samples = []
+    for _ in range(DRIVER_RATE_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(rounds)
+        torch.cuda.synchronize()
+        samples.append(rounds / (time.perf_counter() - t0))
+    out = {"rounds_per_call": rounds, "rounds_per_s": samples,
+           "median_rounds_per_s": statistics.median(samples)}
+    out.update(_profiled_round(run, profiled))
+    out["device_idle_share_of_unprofiled_round"] = (
+        1 - out["device_busy_us_per_round"] * 1e-6
+        * out["median_rounds_per_s"])
+    return out
+
+
+def phase_driver(ops) -> None:
+    """The scan driver against the python driver on both rounds; their
+    rates, device busy time and idle share."""
+    import dataclasses
+    from repro_torch.fed import runtime
+    from repro_torch.fl import Experiment
+    spec = dataclasses.replace(case_i_spec(), chunk_size=16)
+    out = {"phase": "driver", "chunk_size": spec.chunk_size,
+           "eval_every": spec.eval.every}
+    runtime.clear_compile_caches()
+    runtime.cache_info()
+
+    def pair(over: dict, rounds: int) -> dict:
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(spec, driver=driver, **over),
+                           device="cuda")
+            e.run(rounds)
+            runs[driver] = e
+        row = compare_runs(runs["scan"].params, runs["scan"].history,
+                           runs["python"].params, runs["python"].history)
+        row["rounds"] = rounds
+        row["num_participants"] = runs["scan"].history["num_participants"]
+        return row
+
+    out["case_i"] = pair({}, ROUNDS)
+    out["bernoulli"] = pair(dict(participation=0.5), 10)
+    out["fixed_active_gather"] = pair(dict(participation=0.5,
+                                           participation_mode="fixed",
+                                           active_gather=True), 10)
+    a = Experiment(spec, device="cuda")
+    a.run(5)
+    a.run(5)
+    b = Experiment(spec, device="cuda")
+    b.run(10)
+    out["run5_run5_vs_run10"] = compare_runs(a.params, a.history, b.params,
+                                             b.history)
+    out["captures_after_case_i"] = runtime.cache_info()
+    a.run(10)
+    out["captures_of_a_second_run"] = runtime.cache_info()["traces_delta"]
+    del a, b
+
+    # the K-scale round on both drivers, on a card holding nothing else
+    runtime.clear_compile_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    kscale = {}
+    for driver in ("scan", "python"):
+        cfg, state, grad_fn, provider = kscale_case("cuda")
+        state, hist = runtime.run(cfg, state, grad_fn, None, STREAM_ROUNDS,
+                                  driver=driver,
+                                  block_batch_provider=provider)
+        kscale[driver] = (state.params, hist)
+        if driver == "scan":
+            out["kscale_peak_mem_mb"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 20)
+    out["kscale_mem_before_mb"] = base_mb
+    out["kscale"] = compare_runs(*kscale["scan"], *kscale["python"])
+    out["kscale"]["rounds"] = STREAM_ROUNDS
+
+    # rates: warm rounds/s, device busy time and idle share
+    rates = {}
+    for driver in ("scan", "python"):
+        e = Experiment(dataclasses.replace(spec, driver=driver),
+                       device="cuda")
+        e.run(1)
+        rates[f"case_i_{driver}"] = driver_rates(
+            lambda n, e=e: e.run(n, evaluate=False), ROUNDS, 5)
+        del e
+    for driver in ("scan", "python"):
+        cfg, state, grad_fn, provider = kscale_case("cuda")
+
+        def run_k(n, cfg=cfg, state=state, grad_fn=grad_fn,
+                  provider=provider, driver=driver):
+            runtime.run(cfg, state, grad_fn, None, n, driver=driver,
+                        block_batch_provider=provider)
+        rates[f"kscale_{driver}"] = driver_rates(run_k, 1, 1)
+        del state
+    out["rates"] = rates
+    out["captures"] = runtime.cache_info()["traces"]
+    # what the engines hold, and what clear_compile_caches() gives back
+    out["allocated_mb_with_engines"] = torch.cuda.memory_allocated() / 2 ** 20
+    runtime.clear_compile_caches()
+    out["allocated_mb_after_clear"] = torch.cuda.memory_allocated() / 2 ** 20
+    emit(out)
+    failed = [name for name in ("case_i", "bernoulli", "fixed_active_gather",
+                                "kscale")
+              if not out[name]["within_rule"]]
+    if failed:
+        fail(f"scan and python drivers leave the reference's rule on "
+             f"{failed}")
+    if not out["run5_run5_vs_run10"]["bitwise"]:
+        fail("run(5); run(5) differs from run(10) under scan")
+    if any(out["captures_of_a_second_run"].values()):
+        fail("a second identical run captured again: "
+             f"{out['captures_of_a_second_run']}")
+    if not out["kscale_peak_mem_mb"] < STREAM_MEM_LIMIT_MB:
+        fail(f"K-scale round under scan: peak device memory "
+             f"{out['kscale_peak_mem_mb']:.1f} MiB >= {STREAM_MEM_LIMIT_MB}")
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
-    samples each."""
+    samples each, on each driver (None for a driver the package lacks)."""
     from repro_torch.fed import runtime
     from repro_torch.fl import Experiment
-    exp = Experiment(case_i_spec(), device="cuda")
-    exp.run(ROUNDS, evaluate=False)      # builds the kernels, warms up
-    case_i = []
-    for _ in range(RATE_SAMPLES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exp.run(ROUNDS, evaluate=False)
-        torch.cuda.synchronize()
-        case_i.append(ROUNDS / (time.perf_counter() - t0))
-    del exp
-    try:
-        cfg, state, grad_fn, provider = kscale_case("cuda")
-    except (TypeError, NotImplementedError):
-        kscale = None                    # a tree without the streaming round
-    else:
-        state, _ = runtime.run(cfg, state, grad_fn, None, 1,
-                               block_batch_provider=provider)
-        kscale = []
+
+    def timed(run, rounds):
+        run(rounds)                      # builds the kernels, warms up
+        out = []
         for _ in range(RATE_SAMPLES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, _ = runtime.run(cfg, state, grad_fn, None, 1,
-                                   block_batch_provider=provider)
+            run(rounds)
             torch.cuda.synchronize()
-            kscale.append(1.0 / (time.perf_counter() - t0))
-        kscale_busy = _profile_top(lambda: runtime.run(
-            cfg, state, grad_fn, None, 1, block_batch_provider=provider))
+            out.append(rounds / (time.perf_counter() - t0))
+        return out
+
+    case_i, kscale, busy = {}, {}, {}
+    for driver in ("python", "scan"):
+        try:
+            exp = Experiment(case_i_spec(), device="cuda")
+            case_i[driver] = timed(
+                lambda n: exp.run(n, evaluate=False, driver=driver), ROUNDS)
+        except NotImplementedError:      # a tree without the scan driver
+            case_i[driver] = None
+        try:
+            cfg, state, grad_fn, provider = kscale_case("cuda")
+        except (TypeError, NotImplementedError):
+            kscale[driver] = None        # a tree without the streaming round
+            continue
+
+        def run_k(n):
+            runtime.run(cfg, state, grad_fn, None, n, driver=driver,
+                        block_batch_provider=provider)
+        try:
+            kscale[driver] = timed(run_k, 1)
+        except NotImplementedError:
+            kscale[driver] = None
+            continue
+        busy[driver] = _profile_top(lambda: run_k(1))
+    med = lambda v: None if v is None else statistics.median(v)
     emit({"phase": "rates", "src": src,
           "case_i_warm_rounds_per_s": case_i,
-          "case_i_median": statistics.median(case_i),
+          "case_i_median": {d: med(v) for d, v in case_i.items()},
           "kscale_rounds_per_s": kscale,
-          "kscale_median": None if kscale is None
-          else statistics.median(kscale),
-          "kscale_profiled_round": None if kscale is None else kscale_busy})
+          "kscale_median": {d: med(v) for d, v in kscale.items()},
+          "kscale_profiled_round": busy})
 
 
 def main() -> None:
@@ -1669,6 +1866,8 @@ def main() -> None:
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
     ap.add_argument("--rates", action="store_true",
                     help="time only the warm Case-I and K-scale rounds")
+    ap.add_argument("--driver", action="store_true",
+                    help="run only the build and phase driver")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -1687,6 +1886,9 @@ def main() -> None:
         phase_rates(args.src)
         return
     phase_build(build)
+    if args.driver:
+        phase_driver(ops)
+        return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)
@@ -1704,6 +1906,8 @@ def main() -> None:
     emit_memory("host_profile")
     phase_stream_facade(dense_params)
     emit_memory("stream_facade")
+    phase_driver(ops)
+    emit_memory("driver")
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
     checks["flash_attention"] = phase_flash(ops, build)

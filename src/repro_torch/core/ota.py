@@ -12,7 +12,10 @@ followed by ``w <- w - eta * y`` (eq. 11).  The schemes are defined once in
              fused superposition launch per round.
 
 Both draw the channel noise the same way (``schemes.add_channel_noise``), or
-take it injected as a flat [N] vector in sorted-key leaf order.
+take it injected as a flat [N] vector in sorted-key leaf order.  The
+receiver gain is ``OTAConfig.a``, or ``aggregate(a=)``: a 0-d fp32 tensor on
+the gradients' device, as the FL runtime passes each round's gain (a CUDA
+graph of the round then reads it from device memory).
 
 ``OTAConfig.k_block`` streams the device axis K-block by K-block: the
 kernels backend launches the streamed kernels (``aggregate_kernels``), the
@@ -366,7 +369,7 @@ def streaming_finish(cfg: OTAConfig, carry: dict, template: Tree, a,
 def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
                          h: torch.Tensor, b: torch.Tensor,
                          noise: Optional[torch.Tensor],
-                         h_hat: torch.Tensor) -> Tree:
+                         h_hat: torch.Tensor, a) -> Tree:
     """The K-blocked aggregation behind ``aggregate`` (vmap backend): the
     stacked tree is cut into [k_block, ...] blocks, folded in order through
     the carry API."""
@@ -381,25 +384,29 @@ def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
         blk = {name: l[lo:lo + kb] for name, l in stacked_grads.items()}
         carry = streaming_block(cfg, carry, blk, hb_air[lo:lo + kb],
                                 hb_srv[lo:lo + kb])
-    return streaming_finish(cfg, carry, template, cfg.a, noise,
+    return streaming_finish(cfg, carry, template, a, noise,
                             num_devices=float(k))
 
 
 def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
               b: torch.Tensor, generator: Optional[torch.Generator] = None,
               h_hat: Optional[torch.Tensor] = None, *,
-              noise: Optional[torch.Tensor] = None) -> Tree:
+              noise: Optional[torch.Tensor] = None, a=None) -> Tree:
     """Full OTA aggregation: device transform -> superpose -> server post,
     on the backend of ``cfg.backend``.  ``h`` is the true channel (the air),
     ``h_hat`` the server's estimate (None: perfect CSI).  The noise is drawn
-    from the CPU ``generator`` or injected as ``noise`` [N].  Returns the
-    update direction y with ``w <- w - eta * y``.
+    from the CPU ``generator`` or injected as ``noise`` [N].  ``a`` replaces
+    ``cfg.a`` as the receiver gain (a float, or a 0-d fp32 tensor on the
+    gradients' device).  Returns the update direction y with
+    ``w <- w - eta * y``.
 
     ``cfg.k_block`` streams the device axis: the kernels backend launches
     the streamed kernels, the vmap backend folds the carry API over the
     blocks."""
     if h_hat is None:
         h_hat = h
+    if a is None:
+        a = cfg.a
     sch = schemes.get(cfg.scheme)
     streamed = cfg.k_block is not None and cfg.backend == "vmap"
     if sch.baseline and not streamed:
@@ -410,11 +417,11 @@ def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
     if cfg.backend == "kernels":
         from repro_torch.fed.kernel_path import aggregate_kernels
         return aggregate_kernels(cfg, stacked_grads, h, b, z, h_hat=h_hat,
-                                 k_block=cfg.k_block)
+                                 k_block=cfg.k_block, a=a)
     if streamed:
-        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat)
+        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat, a)
     x, side = device_transform(cfg.scheme, stacked_grads, cfg.grad_bound)
-    y = superpose(x, h, b, cfg.a, z)
+    y = superpose(x, h, b, a, z)
     return server_post(cfg.scheme, y, side, h_hat, b)
 
 

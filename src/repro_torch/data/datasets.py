@@ -9,7 +9,7 @@ from the JAX package's (threefry): parity tests hand JAX-made data across.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,10 +103,20 @@ def device_batches(seed: int, split: FederatedSplit, batch_size: int,
     """[K, batch_size] example indices for one round: device k samples its
     shard uniformly with replacement, from a generator seeded by
     ``(seed, round_idx)`` so any round can be drawn on its own."""
-    gen = generator(seed, round_idx)
+    return device_batches_many(seed, split, batch_size, (round_idx,))[0]
+
+
+def device_batches_many(seed: int, split: FederatedSplit, batch_size: int,
+                        rounds: Sequence[int]) -> np.ndarray:
+    """[T, K, batch_size] example indices for a chunk of rounds: row i is
+    round ``rounds[i]``'s ``device_batches``, drawn from its own generator,
+    and each device's shard is gathered once for the whole chunk (the
+    compiled driver's data path)."""
     sizes = torch.as_tensor(split.sizes, dtype=torch.float64)
-    u = torch.rand((len(split.indices), batch_size), generator=gen,
-                   dtype=torch.float64)
+    u = torch.stack([torch.rand((len(split.indices), batch_size),
+                                generator=generator(seed, t),
+                                dtype=torch.float64) for t in rounds])
     choices = torch.minimum(torch.floor(u * sizes[:, None]),
                             sizes[:, None] - 1).long().numpy()
-    return np.stack([idx[choices[d]] for d, idx in enumerate(split.indices)])
+    return np.stack([idx[choices[:, d]] for d, idx in
+                     enumerate(split.indices)], axis=1)

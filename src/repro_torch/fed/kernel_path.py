@@ -37,16 +37,20 @@ from repro_torch.kernels import ops
 def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
                       b: torch.Tensor, noise: Optional[torch.Tensor] = None,
                       *, h_hat: Optional[torch.Tensor] = None,
-                      k_block: Optional[int] = None) -> Tree:
+                      k_block: Optional[int] = None, a=None) -> Tree:
     """Kernel implementation of ``aggregate`` for any registered scheme.
     stacked_grads: tree of [K, ...] leaves; ``noise``: the flat channel
     noise z [N] in sorted-key leaf order (None: noiseless).  ``h`` is the
     true channel folded into the superposition scale; ``h_hat`` the server's
     estimate, used only by the side-info fold.  Returns the update
     direction y with the single-device tree structure.  ``k_block`` routes
-    both launches through the streamed kernels; it must divide K."""
+    both launches through the streamed kernels; it must divide K.  ``a``
+    replaces ``cfg.a`` as the receiver gain: a float, or a 0-d fp32 tensor
+    on the gradients' device, which K2 and K4 read there."""
     if h_hat is None:
         h_hat = h
+    if a is None:
+        a = cfg.a
     sch = schemes.validate_config(cfg.scheme, cfg.grad_bound)
     if sch.baseline:
         return schemes.tree_map(lambda l: torch.mean(l, dim=0), stacked_grads)
@@ -89,11 +93,11 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
     if noise is None:
         noise = torch.zeros((n,), dtype=torch.float32, device=flat.device)
     y_flat = ops.ota_superpose(flat, scale.float().contiguous(),
-                               noise.contiguous(), cfg.a, pre=kernel_pre,
+                               noise.contiguous(), a, pre=kernel_pre,
                                k_block=k_block)
     if shift is not None:
         # sum_k scale_k (g_k + shift_k) = kernel result + a sum_k scale_k shift_k
-        y_flat = y_flat + cfg.a * torch.sum(scale * shift)
+        y_flat = y_flat + a * torch.sum(scale * shift)
 
     y = unravel(y_flat, device_template(stacked_grads))
     if sch.server_post is not None:

@@ -67,10 +67,10 @@ class Experiment:
         ``self.history``.  Returns this call's history.
 
         ``driver`` and ``chunk_size`` override the spec's, as in the
-        reference.  Only ``driver="python"`` is ported; it runs round by
-        round, so ``chunk_size`` (the compiled driver's rounds a chunk)
-        changes nothing yet.  ``driver="scan"`` raises
-        ``NotImplementedError`` (ROADMAP queue 1 item 8)."""
+        reference: ``"scan"`` (the spec's default) runs the chunked engine,
+        up to ``chunk_size`` rounds a chunk with the task's
+        ``chunk_batch_provider``, ``"python"`` one round at a time (where
+        ``chunk_size`` changes nothing); both give the same bits."""
         if self.state is None:
             self.setup()
         ev = self.spec.eval
@@ -79,7 +79,10 @@ class Experiment:
             self.cfg, self.state, self.task.grad_fn, self.task.batch_provider,
             num_rounds, eval_fn=self.task.eval_fn if enabled else None,
             eval_every=eval_every if eval_every is not None else ev.every,
-            driver=driver or self.spec.driver, noise_provider=noise_provider)
+            driver=driver or self.spec.driver,
+            chunk_size=chunk_size or self.spec.chunk_size,
+            chunk_batch_provider=self.task.chunk_batch_provider,
+            noise_provider=noise_provider)
         for k, v in hist.items():
             self.history.setdefault(k, []).extend(v)
         return hist

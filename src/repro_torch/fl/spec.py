@@ -3,9 +3,9 @@ object describes a full OTA-FL experiment -- channel/scheme/schedule
 (``FLConfig``), data (task, split, batch size), model/loss, eval policy,
 and the scenario-axis overrides.
 
-The port's only driver is ``"python"`` (the default here) until the
-compiled driver lands (ROADMAP queue 1 item 8); the reference holds its scan
-driver bitwise equal to its python driver, so the trajectory is the same.
+``driver`` defaults to ``"scan"``, the chunked engine (a CUDA graph of the
+round on the card), as in the reference; ``"python"`` runs the same round
+body one round at a time and gives the same bits.
 """
 from __future__ import annotations
 
@@ -89,17 +89,13 @@ class ExperimentSpec:
     k_block: Optional[int] = None
     active_gather: Optional[bool] = None
     device_mesh: Optional[int] = None
-    driver: str = "python"
+    driver: str = "scan"
     chunk_size: int = 16
 
     def __post_init__(self):
         if self.driver not in DRIVERS:
             raise ValueError(f"unknown driver {self.driver!r}; "
                              f"one of {DRIVERS}")
-        if self.driver == "scan":
-            raise NotImplementedError(
-                "the compiled (scan) driver is not ported yet: ROADMAP queue "
-                "1 item 8; use driver='python'")
         self.fl_config()   # fail on an invalid axis override at spec time
 
     def fl_config(self) -> FLConfig:

@@ -5,21 +5,24 @@ task constants.
 
 A round's batch is the [K, B] example-INDEX tuple ``(idx,)``; ``grad_fn``
 gathers the rows from the resident training arrays inside
-``torch.func.grad``, as the reference does in its trace.  ``mlp_task`` and
+``torch.func.grad``, as the reference does in its trace.  A chunk's batches
+(``chunk_batch_provider(ts)``) are the [T, K, B] stack of those indices, made
+on the host and copied to the device once.  ``mlp_task`` and
 ``ridge_task`` build a Task from given arrays, so the parity tests can hand
 in the JAX package's data.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.data.datasets import (FederatedSplit, device_batches,
-                                       ridge_data, split_dirichlet, split_iid,
+                                       device_batches_many, ridge_data,
+                                       split_dirichlet, split_iid,
                                        synthetic_mnist)
 from repro_torch.fl.spec import DataSpec, ModelSpec
 from repro_torch.models.simple import (init_mlp_classifier, init_ridge,
@@ -45,6 +48,7 @@ class Task:
     model_dim: int
     grad_fn: Callable[[Tree, Any], Tree]
     batch_provider: Callable[[int], Any]
+    chunk_batch_provider: Callable[[Sequence[int]], Any]
     eval_fn: Callable[[Tree], Dict[str, float]]
     constants: Dict[str, Any]
 
@@ -53,11 +57,17 @@ def _model_dim(params: Tree) -> int:
     return sum(int(v.numel()) for v in params.values())
 
 
-def _provider(seed: int, split: FederatedSplit, batch_size: int, device):
+def _providers(seed: int, split: FederatedSplit, batch_size: int, device):
+    """The round's and the chunk's index-batch providers: one
+    host-to-device copy each."""
     def provider(t):
         idx = device_batches(seed, split, batch_size, t)
         return (torch.as_tensor(idx, dtype=torch.int64, device=device),)
-    return provider
+
+    def provider_chunk(ts):
+        idx = device_batches_many(seed, split, batch_size, ts)
+        return (torch.as_tensor(idx, dtype=torch.int64, device=device),)
+    return provider, provider_chunk
 
 
 def mlp_task(x_tr, y_tr, x_te, y_te, split: FederatedSplit, params0: Tree,
@@ -83,8 +93,8 @@ def mlp_task(x_tr, y_tr, x_te, y_te, split: FederatedSplit, params0: Tree,
         }
 
     return Task(params0, _model_dim(params0), grad_fn,
-                _provider(provider_seed, split, batch_size, device), eval_fn,
-                {"split": split})
+                *_providers(provider_seed, split, batch_size, device),
+                eval_fn, {"split": split})
 
 
 def ridge_task(x, y, split: FederatedSplit, params0: Tree, *, lam: float,
@@ -111,7 +121,8 @@ def ridge_task(x, y, split: FederatedSplit, params0: Tree, *, lam: float,
         return {"loss": loss, "gap": loss - f_star}
 
     return Task(params0, _model_dim(params0), grad_fn,
-                _provider(provider_seed, split, batch_size, device), eval_fn,
+                *_providers(provider_seed, split, batch_size, device),
+                eval_fn,
                 {"split": split, "smoothness_L": L, "strong_convexity_M": M,
                  "f_star": f_star})
 

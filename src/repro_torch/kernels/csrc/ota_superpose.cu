@@ -36,8 +36,13 @@
 //    result depends on (K, N) and the data only, the same from launch to
 //    launch.
 //  * No padding copy: the ragged last tile is masked.  scale[k] is read
-//    through the read-only cache (one address per warp, a broadcast); a is
-//    a host float.
+//    through the read-only cache (one address per warp, a broadcast).  So
+//    is the gain a, a 0-d fp32 tensor in device memory, where a column is
+//    written: a CUDA graph that replays the launch then reads each round's
+//    gain (the FL round's a_eff changes every round under partial
+//    participation).  The product with a comes last, y = a * (acc + z), so
+//    no fma can absorb it, and the bits are those of the same gain passed
+//    by value.
 //  * sign follows jnp.sign: sign(0) = 0 and NaN stays NaN.  copysignf is not
 //    used, since it returns +-1 at zero.
 //
@@ -95,7 +100,8 @@ template <bool kSign, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 superpose_chunk_kernel(const float* __restrict__ g,
                        const float* __restrict__ scale,
-                       const float* __restrict__ noise, float a, long long k,
+                       const float* __restrict__ noise,
+                       const float* __restrict__ gain, long long k,
                        long long n, long long rows, float* __restrict__ out) {
   const long long i0 = kSplit ? (long long)blockIdx.y * rows : 0;
   const long long i1 = !kSplit ? k : i0 + rows < k ? i0 + rows : k;
@@ -113,14 +119,14 @@ superpose_chunk_kernel(const float* __restrict__ g,
     if (kSplit) {
       out[(long long)blockIdx.y * n + j] = acc;
     } else {
-      out[j] = a * (acc + __ldg(noise + j));
+      out[j] = __ldg(gain) * (acc + __ldg(noise + j));
     }
   }
 }
 
 template <bool kSign>
 void launch_chunks(dim3 grid, cudaStream_t st, const float* g,
-                   const float* scale, const float* noise, float a,
+                   const float* scale, const float* noise, const float* a,
                    long long k, long long n, long long rows, float* out) {
   if (grid.y == 1) {
     superpose_chunk_kernel<kSign, false><<<grid, kThreads, 0, st>>>(
@@ -134,14 +140,15 @@ void launch_chunks(dim3 grid, cudaStream_t st, const float* g,
 // y[j] = a (p_0[j] + p_1[j] + ... + p_{S-1}[j] + z[j]), in chunk order.
 __global__ void __launch_bounds__(kFoldThreads)
 superpose_fold_kernel(const float* __restrict__ part,
-                      const float* __restrict__ noise, float a, int s,
-                      long long n, float* __restrict__ y) {
+                      const float* __restrict__ noise,
+                      const float* __restrict__ gain, int s, long long n,
+                      float* __restrict__ y) {
   const long long j = (long long)blockIdx.x * kFoldThreads + threadIdx.x;
   if (j >= n) return;
   float acc = __ldg(part + j);
 #pragma unroll 8
   for (int c = 1; c < s; ++c) acc += __ldg(part + (long long)c * n + j);
-  y[j] = a * (acc + __ldg(noise + j));
+  y[j] = __ldg(gain) * (acc + __ldg(noise + j));
 }
 
 // K4: rows [i0, i1) of chunk blockIdx.y (all K rows without kSplit), in
@@ -152,9 +159,9 @@ template <bool kSign, bool kSplit>
 __global__ void __launch_bounds__(kStreamThreads, kStreamCtasPerSm)
 superpose_blocks_kernel(const float* __restrict__ g,
                         const float* __restrict__ scale,
-                        const float* __restrict__ noise, float a, int k,
-                        long long n, int kb, int rows,
-                        float* __restrict__ out) {
+                        const float* __restrict__ noise,
+                        const float* __restrict__ gain, int k, long long n,
+                        int kb, int rows, float* __restrict__ out) {
   const int i0 = kSplit ? (int)blockIdx.y * rows : 0;
   const int i1 = kSplit ? min(k, i0 + rows) : k;
   const long long stride = (long long)gridDim.x * kStreamThreads;
@@ -188,14 +195,14 @@ superpose_blocks_kernel(const float* __restrict__ g,
         }
       }
     }
-    if (!kSplit) out[j] = a * (fold + __ldg(noise + j));
+    if (!kSplit) out[j] = __ldg(gain) * (fold + __ldg(noise + j));
   }
 }
 
 template <bool kSign>
 void launch_blocks(dim3 grid, cudaStream_t st, const float* g,
-                   const float* scale, const float* noise, float a, int k,
-                   long long n, int kb, int rows, float* out) {
+                   const float* scale, const float* noise, const float* a,
+                   int k, long long n, int kb, int rows, float* out) {
   if (grid.y == 1) {
     superpose_blocks_kernel<kSign, false><<<grid, kStreamThreads, 0, st>>>(
         g, scale, noise, a, k, n, kb, rows, out);
@@ -209,12 +216,13 @@ void launch_blocks(dim3 grid, cudaStream_t st, const float* g,
 
 extern "C" {
 
+// a: the gain, one fp32 in device memory.
 // pre: 0 = identity, 1 = sign.  s: the number of K-chunks, each of
 // ceil(K / s) rows; it must leave no chunk empty (the wrapper's
 // superpose_split gives such an s).  part: [s, N] fp32 scratch when s > 1
 // (unused when s == 1).  Launches on `stream`; returns cudaGetLastError().
 int ota_superpose_launch(const float* g, const float* scale,
-                         const float* noise, float a, long long k,
+                         const float* noise, const float* a, long long k,
                          long long n, int s, int pre, float* part, float* y,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -244,8 +252,9 @@ int ota_superpose_launch(const float* g, const float* scale,
 // stream_split gives such an s).  part: [nb, N] fp32 scratch when s > 1
 // (unused when s == 1).  Launches on `stream`; returns cudaGetLastError().
 int ota_superpose_stream_launch(const float* g, const float* scale,
-                                const float* noise, float a, long long k,
-                                long long n, long long k_block, int s,
+                                const float* noise, const float* a,
+                                long long k, long long n, long long k_block,
+                                int s,
                                 int pre, float* part, float* y,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -13,11 +13,15 @@ Dispatch (``impl``):
 
 ``k_block`` selects the streamed kernels (the K-way work tiled into K-blocks
 of that many devices, which must divide K).  ``LAUNCH_COUNTS`` counts kernel
-launches per kernel; plain calls do not count.
+launches per kernel; plain calls do not count.  A wrapper called while a
+CUDA graph is captured launches nothing: ``capture_counts`` takes back what
+such calls counted and ``replay_counts`` adds it again at each replay, so the
+counts hold the launches the card ran under either driver.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -42,6 +46,27 @@ LAUNCH_COUNTS: Dict[str, int] = {
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+
+
+@contextlib.contextmanager
+def capture_counts() -> Iterator[Dict[str, int]]:
+    """Around a CUDA-graph capture: yields a dict that, on exit, holds the
+    launches each replay of the graph makes, and takes them back out of
+    ``LAUNCH_COUNTS`` (the capture itself ran nothing)."""
+    before = dict(LAUNCH_COUNTS)
+    per_replay: Dict[str, int] = {}
+    try:
+        yield per_replay
+    finally:
+        for name, n in before.items():
+            per_replay[name] = LAUNCH_COUNTS[name] - n
+            LAUNCH_COUNTS[name] = n
+
+
+def replay_counts(per_replay: Dict[str, int], replays: int = 1) -> None:
+    """Count the launches of ``replays`` replays of a captured graph."""
+    for name, n in per_replay.items():
+        LAUNCH_COUNTS[name] += n * replays
 
 
 def _use_kernel(t: torch.Tensor, impl: str) -> bool:
@@ -93,26 +118,36 @@ def batched_grad_norms(g: torch.Tensor, *, impl: str = "auto"
     return torch.sqrt(sumsq)
 
 
+def _gain(a, g: torch.Tensor) -> torch.Tensor:
+    """The gain as the 0-d fp32 tensor on ``g``'s device that K2 and K4
+    read: a python float is written there by a fill (no host copy, so the
+    call can be captured in a CUDA graph, which then keeps the value)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.full((), float(a), dtype=torch.float32, device=g.device)
+
+
 def ota_superpose(g: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor,
                   a, *, pre: str = "identity", impl: str = "auto",
                   k_block: Optional[int] = None) -> torch.Tensor:
     """Fused superposition y = a (sum_k scale_k pre(g_k) + z) (paper eq. 10).
 
     g: [K, N]; scale: [K] composite per-device scale; noise: [N]; a: scalar
-    receiver gain (a python float, or a 0-d tensor read on the host);
-    pre: 'identity' | 'sign'.  ``k_block`` folds the K-way sum K-block by
-    K-block in order (the streamed kernel).  Returns y [N] fp32."""
+    receiver gain, a python float or a 0-d fp32 tensor on g's device (the
+    kernels read it there, never on the host); pre: 'identity' | 'sign'.
+    ``k_block`` folds the K-way sum K-block by K-block in order (the
+    streamed kernel).  Returns y [N] fp32."""
     if k_block is not None:
         kb = ref.k_block_size(g.shape[0], k_block)
         if _use_kernel(g, impl):
-            y = ota_superpose_streaming_cuda(g, scale, noise, float(a), kb,
+            y = ota_superpose_streaming_cuda(g, scale, noise, _gain(a, g), kb,
                                              pre=pre)
             LAUNCH_COUNTS["ota_superpose_streaming"] += 1
             return y
         return ref.ota_superpose_streaming_ref(g, scale, noise, a, pre=pre,
                                                k_block=kb)
     if _use_kernel(g, impl):
-        y = ota_superpose_cuda(g, scale, noise, float(a), pre=pre)
+        y = ota_superpose_cuda(g, scale, noise, _gain(a, g), pre=pre)
         LAUNCH_COUNTS["ota_superpose"] += 1
         return y
     return ref.ota_superpose_ref(g, scale, noise, a, pre=pre)

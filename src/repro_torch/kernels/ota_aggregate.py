@@ -5,7 +5,8 @@
 
 ``ota_superpose_cuda(g, scale, noise, a, pre)`` computes the paper's eq. 10,
 ``y = a (sum_k scale_k pre(g_k) + z)``, in one pass over the [K, N] fp32
-stack; ``ota_superpose_streaming_cuda(..., k_block, pre)`` computes the same
+stack, with the gain ``a`` a 0-d fp32 tensor that the kernel reads from
+device memory (so a CUDA graph replays it with each round's value); ``ota_superpose_streaming_cuda(..., k_block, pre)`` computes the same
 with the K-way sum folded K-block by K-block in order.  Ragged N is masked
 in the kernels, not padded.  ``superpose_split(k, n)`` is the number of
 K-chunks the first kernel splits its sum into (folded in chunk order);
@@ -27,15 +28,14 @@ SUPERPOSE_THREADS = 256      # columns a CTA (kThreads, csrc/ota_superpose.cu)
 SUPERPOSE_CTAS_PER_SM = 8    # such CTAs an SM holds at once (2,048 threads)
 SUPERPOSE_MIN_ROWS = 32      # rows a K-chunk holds at least
 
-_P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_float)
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # library -> {entry point: (argtypes, restype)}
 _ENTRY_POINTS = {
     "ota_superpose": {
         "ota_superpose_launch": (
-            [_P, _P, _P, _F, _LL, _LL, _I, _I, _P, _P, _P], _I),
+            [_P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P], _I),
         "ota_superpose_stream_launch": (
-            [_P, _P, _P, _F, _LL, _LL, _LL, _I, _I, _P, _P, _P], _I),
+            [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P, _P, _P], _I),
     },
 }
 
@@ -73,28 +73,30 @@ def _library(name: str) -> ctypes.CDLL:
     return _launch.bind(name, _ENTRY_POINTS[name])
 
 
-def _check(g, scale, noise, pre):
+def _check(g, scale, noise, a, pre):
     if pre not in PRE_KINDS:
         raise ValueError(f"unknown pre-transform {pre!r}; one of {PRE_KINDS}")
     _launch.check(g, 2, "g")
     _launch.check(scale, 1, "scale")
     _launch.check(noise, 1, "noise")
+    _launch.check(a, 0, "a")
     k, n = g.shape
     if scale.shape[0] != k:
         raise ValueError(f"scale has {scale.shape[0]} entries for K={k}")
     if noise.shape[0] != n:
         raise ValueError(f"noise has {noise.shape[0]} entries for N={n}")
-    if scale.device != g.device or noise.device != g.device:
-        raise ValueError("g, scale and noise must be on one device")
+    if any(t.device != g.device for t in (scale, noise, a)):
+        raise ValueError("g, scale, noise and a must be on one device")
     return k, n
 
 
 def ota_superpose_cuda(g: torch.Tensor, scale: torch.Tensor,
-                       noise: torch.Tensor, a: float,
+                       noise: torch.Tensor, a: torch.Tensor,
                        pre: str = "identity") -> torch.Tensor:
-    """y [N] fp32 from g [K, N], scale [K], noise [N] (contiguous fp32, one
-    CUDA device) and the host gain ``a``; launched on the current stream."""
-    k, n = _check(g, scale, noise, pre)
+    """y [N] fp32 from g [K, N], scale [K], noise [N] and the 0-d gain
+    ``a`` (contiguous fp32, one CUDA device); launched on the current
+    stream."""
+    k, n = _check(g, scale, noise, a, pre)
     lib = _library("ota_superpose")
     s = superpose_split(k, n)
     with torch.cuda.device(g.device):
@@ -102,21 +104,21 @@ def ota_superpose_cuda(g: torch.Tensor, scale: torch.Tensor,
         part = (torch.empty((s, n), dtype=torch.float32, device=g.device)
                 if s > 1 else y)
         err = lib.ota_superpose_launch(
-            g.data_ptr(), scale.data_ptr(), noise.data_ptr(), float(a), k, n,
-            s, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
+            g.data_ptr(), scale.data_ptr(), noise.data_ptr(), a.data_ptr(), k,
+            n, s, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream(g.device).cuda_stream)
     _launch.raise_on(err, lib.ota_superpose_error_string, "ota_superpose")
     return y
 
 
 def ota_superpose_streaming_cuda(g: torch.Tensor, scale: torch.Tensor,
-                                 noise: torch.Tensor, a: float,
+                                 noise: torch.Tensor, a: torch.Tensor,
                                  k_block: int, pre: str = "identity"
                                  ) -> torch.Tensor:
     """As ``ota_superpose_cuda``, with the K-way sum folded K-block by
     K-block (``k_block`` must divide K) in block order; launched on the
     current stream."""
-    k, n = _check(g, scale, noise, pre)
+    k, n = _check(g, scale, noise, a, pre)
     if not 1 <= k_block <= k or k % k_block:
         raise ValueError(f"k_block {k_block} must divide K {k}")
     lib = _library("ota_superpose")
@@ -126,8 +128,8 @@ def ota_superpose_streaming_cuda(g: torch.Tensor, scale: torch.Tensor,
         part = (torch.empty((k // k_block, n), dtype=torch.float32,
                             device=g.device) if s > 1 else y)
         err = lib.ota_superpose_stream_launch(
-            g.data_ptr(), scale.data_ptr(), noise.data_ptr(), float(a), k, n,
-            k_block, s, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
+            g.data_ptr(), scale.data_ptr(), noise.data_ptr(), a.data_ptr(), k,
+            n, k_block, s, PRE_KINDS.index(pre), part.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream(g.device).cuda_stream)
     _launch.raise_on(err, lib.ota_superpose_error_string,
                      "ota_superpose_streaming")

@@ -94,7 +94,8 @@ def batched_moments_chunked_ref(g: torch.Tensor, chunks: int):
 def ota_superpose_ref(g: torch.Tensor, scale: torch.Tensor,
                       noise: torch.Tensor, a, pre: str = "identity"
                       ) -> torch.Tensor:
-    """y = a * (sum_k scale_k pre(g_k) + z) with pre in {identity, sign}."""
+    """y = a * (sum_k scale_k pre(g_k) + z) with pre in {identity, sign};
+    the gain ``a`` a float or a 0-d fp32 tensor."""
     gf = g.float()
     if pre == "sign":
         gf = torch.sign(gf)
@@ -123,7 +124,8 @@ def ota_superpose_streaming_ref(g: torch.Tensor, scale: torch.Tensor,
     """y = a * (sum_k scale_k pre(g_k) + z) with the K-way sum folded
     K-block by K-block, in order, into one fp32 accumulator:
     acc = ((p_0 + p_1) + p_2) + ..., p_b the block's partial sum (the
-    association order of the reference's streaming kernel)."""
+    association order of the reference's streaming kernel).  The gain
+    ``a`` is a float or a 0-d fp32 tensor."""
     k, n = g.shape
     kb = k_block_size(k, k_block)
     sf = scale.float()

@@ -2,8 +2,10 @@
 momentum and AdamW, on ``dict[str, Tensor]`` parameters.
 
 ``update(grads, state, params, lr=None) -> (new_params, new_state)``; ``lr``
-overrides the constructor's rate for that call (the FL runtime passes the
-paper's eta_t).  Updates are functional: new tensors, inputs untouched.
+overrides the constructor's rate for that call: a float, or a 0-d fp32
+tensor on the params' device (the FL runtime passes the paper's eta_t so,
+read from device memory by a CUDA graph of the round).  Updates are
+functional: new tensors, inputs untouched.
 """
 from __future__ import annotations
 

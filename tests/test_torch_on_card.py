@@ -344,12 +344,17 @@ class TestOnCard:
                                               channel_mean=1e-3)),
             data=DataSpec(num_train=200, num_test=50, batch_size=10),
             model=ModelSpec(hidden=8))
+        from repro_torch.fed import runtime
+        runtime.clear_compile_caches()
         ops.reset_launch_counts()
         gpu = Experiment(spec, device="cuda")
         gpu.run(3)
+        # the default (scan) driver: the graph's eager warm-up rounds, then
+        # one replay a round, each replay counted
+        n = 3 + runtime.GRAPH_WARMUP_ROUNDS
         assert ops.LAUNCH_COUNTS == {
-            "batched_moments": 3, "ota_superpose": 3, "streaming_moments": 0,
-            "ota_superpose_streaming": 0, "sumsq": 3, "flash_attention": 0,
+            "batched_moments": n, "ota_superpose": n, "streaming_moments": 0,
+            "ota_superpose_streaming": 0, "sumsq": n, "flash_attention": 0,
             "selective_scan": 0}
         cpu = Experiment(spec, device="cpu")
         cpu.run(3)
@@ -357,6 +362,142 @@ class TestOnCard:
             # same CPU-drawn inputs; fp32 sums in other orders on the card
             torch.testing.assert_close(gpu.params[k].cpu(), v, rtol=0,
                                        atol=1e-5)
+
+
+# the reference's rule for its two drivers where they are not bitwise
+# (tests/test_engine.py:157-162)
+DRIVER_RULE = dict(params=dict(rtol=2e-6, atol=1e-7),
+                   hist=dict(rtol=2e-6, atol=1e-9))
+
+
+def _case_i_spec(**over):
+    """chip_smoke.py's Case-I spec (K = 20, N = 55,050), chunks of 16 rounds
+    and eval every 10."""
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.fl import (DataSpec, EvalSpec, ExperimentSpec,
+                                FLConfig, ModelSpec)
+    fl = FLConfig(num_devices=20, scheme="normalized", backend="kernels",
+                  case="I", p=0.75, smoothness_L=5.0, expected_loss_drop=2.0,
+                  channel=ChannelConfig(num_devices=20, channel_mean=1e-3),
+                  seed=0)
+    data = DataSpec(dataset="synthetic_mnist", split="dirichlet", alpha=1.0,
+                    batch_size=50, num_train=4000, num_test=1000, seed=0)
+    return ExperimentSpec(fl=fl, data=data,
+                          model=ModelSpec(kind="mlp", hidden=64),
+                          eval=EvalSpec(every=10), chunk_size=16, **over)
+
+
+@pytest.mark.cuda
+class TestDriverOnCard:
+    """The compiled driver on the card: a CUDA graph of the round, replayed
+    a chunk of rounds per host transfer, against the python driver's eager
+    rounds; K2's and K4's gain read from device memory; launch counts under
+    replay; no capture on a second run."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @pytest.mark.parametrize("over", [{}, dict(participation=0.5),
+                                      dict(participation=0.5,
+                                           participation_mode="fixed",
+                                           active_gather=True)],
+                             ids=["case_i", "bernoulli", "fixed_gather"])
+    def test_scan_matches_python(self, over):
+        import dataclasses
+        from repro_torch.fed import runtime
+        from repro_torch.fl import Experiment
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(_case_i_spec(**over),
+                                               driver=driver), device="cuda")
+            e.run(20)
+            runs[driver] = e
+        scan, python = runs["scan"], runs["python"]
+        assert scan.history["eval_round"] == [1, 10, 20]
+        for k in python.params:
+            torch.testing.assert_close(scan.params[k], python.params[k],
+                                       **DRIVER_RULE["params"])
+        for k in runtime.DIAG_KEYS:
+            np.testing.assert_allclose(scan.history[k], python.history[k],
+                                       **DRIVER_RULE["hist"], err_msg=k)
+        assert (scan.history["num_participants"]
+                == python.history["num_participants"])
+
+    def test_run_5_5_is_run_10(self):
+        from repro_torch.fl import Experiment
+        a = Experiment(_case_i_spec(), device="cuda")
+        a.run(5)
+        a.run(5)
+        b = Experiment(_case_i_spec(), device="cuda")
+        b.run(10)
+        assert a.history == b.history
+        for k in b.params:
+            assert torch.equal(a.params[k], b.params[k]), k
+
+    def test_launch_counts_count_replays_and_no_second_capture(self):
+        from repro_torch.fed import runtime
+        from repro_torch.fl import Experiment
+        runtime.clear_compile_caches()
+        e = Experiment(_case_i_spec(), device="cuda")
+        runtime.cache_info()
+        e.run(3, evaluate=False)
+        assert runtime.cache_info()["traces_delta"]["run_chunk"] == 1
+        ops.reset_launch_counts()
+        e.run(21, evaluate=False)         # chunks of 16 and 5: 21 replays
+        assert set(runtime.cache_info()["traces_delta"].values()) == {0}
+        for name in ("batched_moments", "ota_superpose", "sumsq"):
+            assert ops.LAUNCH_COUNTS[name] == 21, name
+        runtime.clear_compile_caches()
+
+    @pytest.mark.parametrize("k,n,kb", [(20, 55_050, None), (1000, 2048, None),
+                                        (1000, 55_050, None),
+                                        (20, 55_050, 4), (1000, 2048, 100),
+                                        (7, 1_000_003, 1)])
+    @pytest.mark.parametrize("pre", ["identity", "sign"])
+    def test_gain_from_device_memory(self, k, n, kb, pre):
+        """K2 and K4 read the gain from a 0-d fp32 tensor on the card: the
+        same bits as the float gain, and as that gain times the result at
+        a = 1 (the product comes last: y = a (sum + z))."""
+        g = torch.from_numpy(_stack(k, n, 21, zeros_every=7)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        scale = torch.rand((k,), generator=gen, device="cuda") + 0.5
+        noise = 0.01 * torch.randn((n,), generator=gen, device="cuda")
+        a = float(np.float32(0.3719))
+        run = lambda gain: ops.ota_superpose(g, scale, noise, gain, pre=pre,
+                                             k_block=kb, impl="kernel")
+        y_float = run(a)
+        y_tensor = run(torch.tensor(a, dtype=torch.float32, device="cuda"))
+        y_one = run(1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(y_float, y_tensor)
+        assert torch.equal(y_tensor, a * y_one)
+
+    def test_gain_changes_between_graph_replays(self):
+        """A CUDA graph of K2 replays each value written to its gain
+        tensor (a value captured by value would stay the first one)."""
+        g = torch.from_numpy(_stack(20, 55_050, 22)).cuda()
+        scale = torch.rand((20,), device="cuda")
+        noise = torch.zeros((55_050,), device="cuda")
+        gain = torch.ones((), device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.ota_superpose(g, scale, noise, gain)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            y = ops.ota_superpose(g, scale, noise, gain)
+        outs = []
+        for value in (1.0, 0.25, 3.0):
+            gain.fill_(value)
+            graph.replay()
+            outs.append(y.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(outs[1], 0.25 * outs[0])
+        assert torch.equal(outs[2], 3.0 * outs[0])
 
 
 def _attention_inputs(b, h, hkv, sq, skv, d, dtype, seed):

@@ -154,6 +154,36 @@ def test_rounds_match_reference(name, backend):
                                                rel=1e-4, abs=1e-9), (name, t, k)
 
 
+@pytest.mark.parametrize("backend", ["vmap", "kernels"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_scan_rounds_match_reference(name, backend):
+    """All rounds in one scan run (chunks of 2 rounds) against the JAX
+    package's rounds: the final params and every round's diagnostics, at
+    the tolerance of ``test_rounds_match_reference``."""
+    case = CASES[name]
+    jtask, jcfg, setup, noise, batches, want_params, want_hist = \
+        _reference_run(name)
+    task = _port_task(case, jtask)
+    cfg = runtime.FLConfig(
+        backend=backend, channel=ChannelConfig(num_devices=K,
+                                               channel_mean=1e-3),
+        **_fl_kwargs(case, jtask.constants))
+    state = interop.state_from_jax(
+        setup["params"], setup["h"], setup["h_hat"], setup["b"], setup["a"],
+        setup["eta0"], 0, model_dim=setup["model_dim"], device="cpu")
+    state, hist = runtime.run(
+        cfg, state, task.grad_fn, lambda t: (torch.from_numpy(batches[t]),),
+        ROUNDS, driver="scan", chunk_size=2,
+        noise_provider=lambda t: torch.from_numpy(noise[t]))
+    for k, want in want_params[-1].items():
+        np.testing.assert_allclose(state.params[k].numpy(), want,
+                                   rtol=1e-4, atol=1e-6, err_msg=f"{name} {k}")
+    for t in range(ROUNDS):
+        for k in runtime.DIAG_KEYS:
+            assert hist[k][t] == pytest.approx(want_hist[t][k], rel=1e-4,
+                                               abs=1e-9), (name, t + 1, k)
+
+
 def _tiny_spec(**fl):
     return ExperimentSpec(
         fl=runtime.FLConfig(num_devices=4, backend="kernels",
@@ -248,8 +278,19 @@ def test_unported_channel_fields_raise(field, value, item):
 
 
 def test_unported_driver_and_client_raise():
+    """The scan driver is ported (it raised, naming item 8, until it was):
+    it is the spec's default and runs the python driver's rounds bitwise.
+    Non-sgd clients still raise, naming item 12."""
     from repro_torch.fl.clients import ClientConfig
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ExperimentSpec(driver="scan")
+    assert ExperimentSpec().driver == "scan"
+    runs = []
+    for driver in ("scan", "python"):
+        e = Experiment(dataclasses.replace(_tiny_spec(), driver=driver),
+                       device="cpu")
+        e.run(4)
+        runs.append(e)
+    assert runs[0].history == runs[1].history
+    for k in runs[1].params:
+        assert torch.equal(runs[0].params[k], runs[1].params[k]), k
     with pytest.raises(NotImplementedError, match="item 12"):
         ClientConfig(algo="scaffold")

@@ -346,8 +346,9 @@ def test_block_batch_provider_is_bitwise_dense_batches():
     seen = []
 
     def block_provider(t, dev):
+        # t is the round index as a 0-d int64 tensor on the device
         seen.append(dev.tolist())
-        return (torch.from_numpy(batches[t])[dev],)
+        return (torch.from_numpy(batches[int(t)])[dev],)
 
     s1, h1, batches, _ = _port_run("normalized", "kernels", KB, rounds=3)
     s2, h2, _, _ = _port_run("normalized", "kernels", KB, rounds=3,

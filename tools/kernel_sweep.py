@@ -43,7 +43,10 @@ directory that holds another tree's ``moments.cu``, ``ota_superpose.cu``,
 ``ota_superpose_stream.cu``, ``sumsq.cu``, ``flash_attention.cu`` and
 ``selective_scan.cu`` (K1's, K2's, K4's, K5's two-pass, K6 fp32's and
 K7's earlier designs), timed at the same shapes in the same run; K2's
-splits and K4's chunkings are checked for the parent's bits.  Each variant
+splits and K4's chunkings are checked for the parent's bits (a parent
+``ota_superpose.cu`` that takes the gain by value, as before the gain moved
+to device memory, is bound so).  The tree's K2 and K4 read the gain from a
+0-d fp32 tensor on the card.  Each variant
 is checked against its plain version and for two launches giving the same
 bits; ptxas's stack and spills and the number of CALL instructions in its
 SASS are printed.
@@ -92,7 +95,7 @@ K5_TILES_PER_CHUNK = (1, 2, 3, 4, 8)   # tiles of 512 float4s a chunk
 L2_FLUSH_BYTES = 128 << 20       # written between launches: > the 50 MB L2
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
-_K4_ARGS = [_P, _P, _P, _F, _LL, _LL, _LL, _I, _I, _P, _P, _P]
+_K4_ARGS = [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P, _P, _P]
 _K4_PARENT_ARGS = [_P, _P, _P, _F, _LL, _LL, _LL, _I, _P, _P, _P]
 _K6_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 
@@ -152,19 +155,25 @@ def _superpose_tol(g, scale, noise, pre):
         scale.abs() @ x.abs() + noise.abs())
 
 
-def sweep_k2(libs, parent: bool) -> None:
+def sweep_k2(libs, parent: bool, float_gain: dict) -> None:
     """Every split S of K2 at K2_SHAPES; with --parent, the parent's K2 at
     the same S beside it, checked for the same bits (one S gives the same
-    chunks in both)."""
+    chunks in both).  ``float_gain[name]``: the variant takes the gain by
+    value (a parent from before the gain moved to device memory)."""
     import chip_smoke as smoke
     from repro_torch.kernels import ref
     from repro_torch.kernels.ota_aggregate import superpose_split
     gen = torch.Generator(device="cuda").manual_seed(7)
     trees = {name: libs[name][0] for name in ("k2_tree", "k2_parent")
              if name in libs and (parent or name == "k2_tree")}
-    for lib in trees.values():
-        lib.ota_superpose_launch.argtypes = [_P, _P, _P, _F, _LL, _LL, _I, _I,
+    gain_dev = torch.tensor(0.9, dtype=torch.float32, device="cuda")
+    gains = {}
+    for name, lib in trees.items():
+        by_value = float_gain.get(name, False)
+        lib.ota_superpose_launch.argtypes = [_P, _P, _P, _F if by_value
+                                             else _P, _LL, _LL, _I, _I,
                                              _P, _P, _P]
+        gains[name] = 0.9 if by_value else gain_dev.data_ptr()
     for k, n in K2_SHAPES:
         g, scale, noise = _superpose_inputs(gen, k, n)
         want = ref.ota_superpose_ref(g, scale, noise, 0.9)
@@ -186,8 +195,9 @@ def sweep_k2(libs, parent: bool) -> None:
 
                 def launch():
                     err = lib.ota_superpose_launch(
-                        g.data_ptr(), scale.data_ptr(), noise.data_ptr(), 0.9,
-                        k, n, s, 0, part.data_ptr(), y.data_ptr(), _stream())
+                        g.data_ptr(), scale.data_ptr(), noise.data_ptr(),
+                        gains[name], k, n, s, 0, part.data_ptr(),
+                        y.data_ptr(), _stream())
                     assert err == 0, err
                 launch()
                 first = y.clone()
@@ -270,6 +280,7 @@ def sweep_k4(libs, parent: bool) -> None:
     gen = torch.Generator(device="cuda").manual_seed(9)
     news = {name: lib for name, (lib, _, _) in libs.items()
             if name.startswith("k4_t")}
+    gain = torch.tensor(0.9, dtype=torch.float32, device="cuda")
     for lib in news.values():
         lib.ota_superpose_stream_launch.argtypes = _K4_ARGS
     if parent:
@@ -301,7 +312,7 @@ def sweep_k4(libs, parent: bool) -> None:
                 else:
                     err = lib.ota_superpose_stream_launch(
                         g.data_ptr(), scale.data_ptr(), noise.data_ptr(),
-                        0.9, k, n, kb, s, pre, part.data_ptr(),
+                        gain.data_ptr(), k, n, kb, s, pre, part.data_ptr(),
                         y.data_ptr(), _stream())
                 assert err == 0, err
             return launch
@@ -898,7 +909,9 @@ def main() -> None:
     if "k7" in only:
         sweep_k7(libs)
     if "k2" in only:
-        sweep_k2(libs, par is not None)
+        sweep_k2(libs, par is not None,
+                 {name: "const float* a" not in variants[name]
+                  for name in ("k2_tree", "k2_parent") if name in variants})
     if "k3" in only:
         sweep_k3(libs)
     if "k4" in only:
