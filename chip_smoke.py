@@ -56,6 +56,22 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               (a second run adds none); and for both drivers and both
               rounds the warm rounds/s, device busy time a round and the
               device's idle share (torch.profiler);
+6c. local_steps -- the Case-I spec with H = 4 local SGD steps a round
+              (local_lr 0.05, benchmarks/figures.py:331): scan == python
+              bitwise over 20 rounds on the dense round and on a
+              k_block = 4 round, the card against a CPU run at phase 4's
+              tolerance, K1, K2 and K5 launched every round, warm rounds/s,
+              device busy a round and idle share;
+6d. sweep  -- two of the paper's sweeps through ``run_sweep`` at full
+              width: the fig1a grid (Case I, amplification {optimal, bmax}
+              x 3 seeds: 2 structural groups of 3 lanes) and the sweep
+              headline (Case-II ridge, noise_var {s2, 2 s2} x 4 seeds: 1
+              group of 8 lanes); batched == sequential bitwise (every
+              DIAG_KEYS history, each point's params digest), K1, K2 and K5
+              launched every round, one capture a group and none on a warm
+              repeat, warm aggregate lane-rounds/s batched against
+              sequential, the device's idle share of profiled batched
+              rounds, and the allocator's growth;
 7. stream_ota -- ``ota.aggregate(OTAConfig(backend="kernels",
               k_block=1000))`` at the K-scale shape for four schemes, against
               the dense aggregate on the card and the plain route on the
@@ -125,7 +141,11 @@ run it on two trees in one machine session to compare them.
     python3 chip_smoke.py --driver
 
 runs only phases 1, 2 and 6b (the two drivers against each other, their
-rates and idle shares).
+rates and idle shares), and
+
+    python3 chip_smoke.py --sweep
+
+only phases 1, 2, 6c and 6d.
 """
 from __future__ import annotations
 
@@ -138,6 +158,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROUNDS = 20
@@ -493,6 +514,11 @@ def case_i_spec():
 
 def phase_main(ops) -> dict:
     from repro_torch.fl import Experiment
+    # the peak of this phase alone (phase kernel's test stacks are gone)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     spec = case_i_spec()
     gpu = Experiment(spec, device="cuda").setup()
     if gpu.task.model_dim != N_MAIN:
@@ -915,6 +941,7 @@ def phase_stream(ops) -> dict:
 
 SERVE_ARCH = "h2o-danube-1.8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 8192, 32
+PREFILL_SAMPLES = 3              # timed prefills a serving phase, median kept
 # (B, H, Hkv, Sq, Skv, d, causal, window) of the K6 rows: the serving layer
 # as the serve phase's prefill gives it (B = 4) and at B = 1, Jamba's
 # attention layer as the serve_hybrid phase's prefill gives it (B = 4) and
@@ -1139,6 +1166,31 @@ def _profile_top(fn, n: int = 10) -> dict:
                             for us, nm, c in rows[:n]]}
 
 
+def timed_prefills(ops, prefill, params, tokens):
+    """PREFILL_SAMPLES timed prefills at the full shape, after a caller's
+    warm-up at that shape; returns the last prefill's (ids, cache), the
+    seconds of each and the launch counts of one."""
+    ids = cache = None
+    seconds = []
+    for _ in range(PREFILL_SAMPLES):
+        ids = cache = None               # the last prefill's cache freed
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCH_COUNTS)
+    return ids, cache, seconds, launches
+
+
+def prefill_rates(b: int, s: int, seconds: list) -> dict:
+    med = statistics.median(seconds)
+    return {"prefill_s": med, "prefill_s_samples": seconds,
+            "prefill_tokens_per_s": b * s / med,
+            "prefill_tokens_per_s_samples": [b * s / x for x in seconds]}
+
+
 def phase_serve(ops) -> int:
     """h2o-danube-1.8b through the serving steps (bf16), then the fp32
     checks at B = 1; returns K6's launches in the counted serving run."""
@@ -1161,16 +1213,15 @@ def phase_serve(ops) -> int:
                            device="cuda")
     prefill = serve.build_prefill_cache_step(cfg, "cuda", cache_len=s + n_dec)
     decode = serve.build_decode_step(cfg, "cuda")
-    # warm-up on a short prompt: cuBLAS handles and workspaces, first launches
-    ids, cache = prefill(params, {"tokens": tokens[:, :256]})
-    decode(params, cache, ids[:, None], 256)
+    # warm-up at the full shape: cuBLAS handles and workspaces, the first
+    # launches at the timed shape and the allocator's growth
+    ids, cache = prefill(params, {"tokens": tokens})
+    decode(params, cache, ids[:, None], s)
     del ids, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    ids, cache = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
+    ids, cache, prefill_s, counted = timed_prefills(ops, prefill, params,
+                                                    tokens)
     t1 = time.perf_counter()
     out = [ids]
     for pos in range(s, s + n_dec):
@@ -1178,7 +1229,7 @@ def phase_serve(ops) -> int:
         out.append(ids)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = ops.LAUNCH_COUNTS["flash_attention"]
+    launches = counted["flash_attention"]
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     generated = torch.stack(out, dim=1).cpu()
     logits, _ = T.decode_step(params, cfg, cache, ids[:, None], s + n_dec)
@@ -1191,8 +1242,7 @@ def phase_serve(ops) -> int:
            "window": cfg.sliding_window, "params": n_params,
            "param_count_formula": cfg.param_count(),
            "batch": b, "prompt": s, "decode_steps": n_dec,
-           "init_s": init_s, "prefill_s": t1 - t0,
-           "prefill_tokens_per_s": b * s / (t1 - t0),
+           "init_s": init_s, **prefill_rates(b, s, prefill_s),
            "decode_s": t2 - t1, "decode_tokens_per_s": b * n_dec / (t2 - t1),
            "decode_ms_per_step": (t2 - t1) / n_dec * 1e3,
            "peak_mem_mb": peak_mb, "flash_attention_launches": launches,
@@ -1200,6 +1250,8 @@ def phase_serve(ops) -> int:
     # where the time goes: one more prefill and 8 decode steps, profiled
     row["prefill_profile"] = _profile_top(
         lambda: prefill(params, {"tokens": tokens}))
+    row["prefill_device_busy_ms"] = (row["prefill_profile"]["device_busy_us"]
+                                     / 1e3)
     state = {"ids": ids, "cache": cache}
 
     def steps():
@@ -1497,17 +1549,15 @@ def phase_serve_hybrid(ops) -> dict:
     prefill = serve.build_prefill_cache_step(cfg, "cuda",
                                              cache_len=s + n_dec + 8)
     decode = serve.build_decode_step(cfg, "cuda")
-    ids, cache = prefill(params, {"tokens": tokens[:, :256]})   # warm-up
-    decode(params, cache, ids[:, None], 256)
+    # warm-up at the full shape (as phase serve)
+    ids, cache = prefill(params, {"tokens": tokens})
+    decode(params, cache, ids[:, None], s)
     del ids, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    ids, cache = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
+    ids, cache, prefill_s, launches = timed_prefills(ops, prefill, params,
+                                                     tokens)
     t1 = time.perf_counter()
-    launches = dict(ops.LAUNCH_COUNTS)
     prefill_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     out = [ids]
     for pos in range(s, s + n_dec):
@@ -1535,8 +1585,7 @@ def phase_serve_hybrid(ops) -> dict:
            "param_count_formula": cfg.param_count(),
            "moe_capacity_prefill": MOE.capacity(b * s, cfg),
            "batch": b, "prompt": s, "decode_steps": n_dec,
-           "init_s": init_s, "prefill_s": t1 - t0,
-           "prefill_tokens_per_s": b * s / (t1 - t0),
+           "init_s": init_s, **prefill_rates(b, s, prefill_s),
            "decode_s": t2 - t1, "decode_tokens_per_s": b * n_dec / (t2 - t1),
            "decode_ms_per_step": (t2 - t1) / n_dec * 1e3,
            "prefill_peak_mem_mb": prefill_peak_mb, "peak_mem_mb": peak_mb,
@@ -1544,6 +1593,8 @@ def phase_serve_hybrid(ops) -> dict:
            "generated_ids": generated.tolist(), "finite": finite}
     row["prefill_profile"] = _profile_top(
         lambda: prefill(params, {"tokens": tokens}), n=14)
+    row["prefill_device_busy_ms"] = (row["prefill_profile"]["device_busy_us"]
+                                     / 1e3)
     state = {"ids": ids, "cache": cache}
 
     def steps():
@@ -1810,6 +1861,261 @@ def phase_driver(ops) -> None:
              f"{out['kscale_peak_mem_mb']:.1f} MiB >= {STREAM_MEM_LIMIT_MB}")
 
 
+LOCAL_STEPS, LOCAL_LR = 4, 0.05  # benchmarks/figures.py:331 (scenarios)
+SWEEP_RATE_ROUNDS = 64           # rounds a timed sweep call (chunks of 16)
+PATH_KERNELS = ("batched_moments", "ota_superpose", "sumsq")
+
+
+def check_path_launches(launches: dict, rounds: int, where: str) -> None:
+    """The round's kernels (K1, K2, K5) launched at least once a round."""
+    for name in PATH_KERNELS:
+        if launches[name] < rounds:
+            fail(f"{where}: {name} launched {launches[name]} times in "
+                 f"{rounds} rounds")
+
+
+def phase_local_steps(ops) -> None:
+    """Case I at full width with H = 4 local SGD steps (local_lr 0.05):
+    scan == python bitwise over 20 rounds on the dense round and on a
+    k_block = 4 round, the card against a CPU run at phase main's
+    tolerance, warm rounds/s, device busy a round and idle share."""
+    import dataclasses
+    from repro_torch.fl import Experiment
+    spec = dataclasses.replace(case_i_spec(), local_steps=LOCAL_STEPS,
+                               local_lr=LOCAL_LR)
+    out = {"phase": "local_steps", "local_steps": LOCAL_STEPS,
+           "local_lr": LOCAL_LR, "rounds": ROUNDS}
+    scan = None
+    for name, over in (("dense", {}), ("k_block_4", {"k_block": 4})):
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(spec, driver=driver, **over),
+                           device="cuda").setup()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            e.run(ROUNDS)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCH_COUNTS)
+            runs[driver] = e
+            if name == "dense" and driver == "scan":
+                out["launches"] = launches
+                check_path_launches(launches, ROUNDS, "local_steps")
+        out[name] = compare_runs(runs["scan"].params, runs["scan"].history,
+                                 runs["python"].params,
+                                 runs["python"].history)
+        if name == "dense":
+            scan = runs["scan"]
+    cpu = Experiment(spec, device="cpu")
+    cpu.run(ROUNDS)
+    diff = max(float((scan.params[k].cpu() - cpu.params[k]).abs().max())
+               for k in cpu.params)
+    loss = scan.history["train_loss"]
+    out.update(max_abs_param_diff_vs_cpu=diff,
+               tolerance=f"|d| <= {PARAMS_ATOL:g} (phase main's)",
+               train_loss=loss, test_acc=scan.history["test_acc"])
+    out["rates"] = driver_rates(
+        lambda n: scan.run(n, evaluate=False), ROUNDS, 5)
+    emit(out)
+    for name in ("dense", "k_block_4"):
+        if not out[name]["bitwise"]:
+            fail(f"local steps: scan and python differ on the {name} round "
+                 f"({out[name]})")
+    if not diff <= PARAMS_ATOL:
+        fail(f"local steps: GPU and CPU params differ by {diff}")
+    if not all(math.isfinite(v) for v in loss) or not loss[-1] < loss[0]:
+        fail(f"local steps: train_loss did not fall: {loss}")
+
+
+def case_ii_spec():
+    """The paper's Case-II experiment (benchmarks/common.py::
+    CaseIIExperiment): ridge regression, K = 20, N = 30 (the weights; the
+    model has no bias), eta 0.01, s_target 0.995, G from a noiseless mean-aggregation
+    calibration run (30 rounds, max device norm x 1.2), on the kernels
+    backend."""
+    import dataclasses
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.fl import (DataSpec, EvalSpec, Experiment,
+                                ExperimentSpec, FLConfig, ModelSpec,
+                                build_task)
+    data = DataSpec(dataset="ridge", split="iid", batch_size=50,
+                    num_train=2000, dim=30, seed=10)
+    model = ModelSpec(kind="ridge", lam=0.1)
+    c = build_task(data, model, K_MAIN, "cuda").constants
+    fl = FLConfig(num_devices=K_MAIN, case="II", eta=0.01,
+                  channel=ChannelConfig(num_devices=K_MAIN,
+                                        channel_mean=1e-3),
+                  smoothness_L=c["smoothness_L"],
+                  strong_convexity_M=c["strong_convexity_M"],
+                  s_target=0.995, seed=0, backend="kernels")
+    spec = ExperimentSpec(fl=fl, data=data, model=model,
+                          eval=EvalSpec(every=10))
+    cal = Experiment(dataclasses.replace(
+        spec, fl=dataclasses.replace(fl, scheme="mean", grad_bound=1.0)),
+        device="cuda")
+    g = 1.2 * max(cal.run(30, evaluate=False)["grad_norm_max"])
+    return dataclasses.replace(spec, fl=dataclasses.replace(fl,
+                                                            grad_bound=g))
+
+
+def _batched_round_profile(sweep, rounds: int) -> dict:
+    """Device busy time and idle share of ``rounds`` warm batched rounds of
+    every group of ``sweep`` (states set up outside the profile)."""
+    from repro_torch.fed import runtime
+    from repro_torch.fl import build_task
+    from repro_torch.fl.sweep import _structural_signature
+    groups = {}
+    for pt in sweep.points():
+        groups.setdefault(_structural_signature(pt.spec), []).append(pt.spec)
+    calls = []
+    for specs in groups.values():
+        cfgs = [s.fl_config() for s in specs]
+        task = build_task(specs[0].data, specs[0].model, cfgs[0].num_devices,
+                          "cuda")
+        states = [runtime.setup(c, task.params0, task.model_dim)
+                  for c in cfgs]
+        calls.append((cfgs, states, task))
+
+    def run():
+        for cfgs, states, task in calls:
+            runtime.run_batched(cfgs, states, task.grad_fn,
+                                task.batch_provider, rounds,
+                                chunk_batch_provider=
+                                task.chunk_batch_provider)
+    run()                                # warm: every state past round 0
+    lane_rounds = sweep.size * rounds
+    prof = _profile_top(run, n=6)
+    busy = prof["device_busy_us"]
+    return {"profiled_rounds": rounds,
+            "device_busy_us_per_lane_round": busy / lane_rounds,
+            "wall_us_per_lane_round": prof["wall_us"] / lane_rounds,
+            "device_idle_share": (1 - busy / prof["wall_us"]) if busy
+            else None,
+            "top_kernels": prof["top_kernels"]}
+
+
+def _host_profile(run, n: int = 10) -> dict:
+    """Where the calling thread's time goes in ``run()``: cProfile, the
+    functions with the most own time (the stage threads' draws show as
+    the wait for them)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(((v[2], v[3], v[1],
+                    f"{pathlib.Path(k[0]).name}:{k[1]}:{k[2]}")
+                   for k, v in st.stats.items()), reverse=True)
+    return {"total_s": st.total_tt,
+            "top_own_time": [{"fn": name, "own_s": own, "cum_s": cum,
+                              "calls": calls}
+                             for own, cum, calls, name in rows[:n]]}
+
+
+def _sweep_rate(run, lane_rounds: int) -> dict:
+    samples = []
+    for _ in range(DRIVER_RATE_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        samples.append(lane_rounds / (time.perf_counter() - t0))
+    return {"lane_rounds_per_s": samples,
+            "median_lane_rounds_per_s": statistics.median(samples)}
+
+
+def phase_sweep(ops) -> None:
+    """Two of the paper's sweeps at full width through ``run_sweep``: the
+    fig1a grid (Case I, amplification {optimal, bmax} x 3 seeds: 2 groups
+    of 3 lanes) and the sweep headline (Case-II ridge, noise_var {s2, 2 s2}
+    x 4 seeds: 1 group of 8 lanes).  For each: batched == sequential
+    bitwise (every DIAG_KEYS history and each point's params digest), warm
+    aggregate lane-rounds/s batched and sequential (both on the scan
+    engine), the device's idle share of profiled batched rounds, the
+    captures of a warm repeat (must be 0) and the allocator's growth."""
+    from repro_torch.fed import runtime
+    from repro_torch.fl import SweepSpec, run_sweep
+    from repro_torch.fl.sweep import _structural_signature
+    case_ii = case_ii_spec()
+    nv = case_ii.fl.channel.noise_var
+    grids = {
+        "fig1a": SweepSpec(case_i_spec(),
+                           {"amplification": ("optimal", "bmax"),
+                            "seed": (0, 1, 2)}),
+        "sweep_headline": SweepSpec(case_ii, {"noise_var": (nv, 2.0 * nv),
+                                              "seed": (0, 1, 2, 3)}),
+    }
+    for name, sweep in grids.items():
+        runtime.clear_compile_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        runtime.cache_info()
+        row = {"phase": "sweep", "grid": name, "axes": {
+            n: [str(v) for v in sweep.values(n)] for n in sweep.names},
+            "classification": sweep.classification(), "size": sweep.size,
+            "rounds": ROUNDS}
+        ops.reset_launch_counts()
+        batched = run_sweep(sweep, ROUNDS)
+        torch.cuda.synchronize()
+        row["launches"] = dict(ops.LAUNCH_COUNTS)
+        row["captures_first_run"] = runtime.cache_info()["traces_delta"]
+        sequential = run_sweep(sweep, ROUNDS, vectorized=False)
+        row["bitwise_history"] = all(
+            np.array_equal(batched.history[k], sequential.history[k])
+            for k in runtime.DIAG_KEYS)
+        row["bitwise_params"] = (batched.params_digests
+                                 == sequential.params_digests)
+        row["history_keys_that_differ"] = [
+            k for k in runtime.DIAG_KEYS
+            if not np.array_equal(batched.history[k], sequential.history[k])]
+        row["params_sha256"] = batched.params_sha256()
+        loss_key = "train_loss" if "train_loss" in batched.history else "gap"
+        row[loss_key] = batched.history[loss_key].tolist()
+        runtime.cache_info()
+        run_sweep(sweep, ROUNDS)
+        row["captures_warm_repeat"] = runtime.cache_info()["traces_delta"]
+        lane_rounds = sweep.size * SWEEP_RATE_ROUNDS
+        for mode, vec in (("batched", True), ("sequential", False)):
+            row[mode] = _sweep_rate(
+                lambda vec=vec: run_sweep(sweep, SWEEP_RATE_ROUNDS,
+                                          vectorized=vec, evaluate=False),
+                lane_rounds)
+        row["speedup"] = (row["batched"]["median_lane_rounds_per_s"]
+                          / row["sequential"]["median_lane_rounds_per_s"])
+        for mode, vec in (("batched", True), ("sequential", False)):
+            row[f"host_profile_{mode}"] = _host_profile(
+                lambda vec=vec: run_sweep(sweep, SWEEP_RATE_ROUNDS,
+                                          vectorized=vec, evaluate=False))
+        row["batched_profile"] = _batched_round_profile(sweep, 16)
+        row["allocated_mb_before"] = base_mb
+        row["allocated_mb_after"] = torch.cuda.memory_allocated() / 2 ** 20
+        row["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        emit(row)
+        check_path_launches(row["launches"], ROUNDS, f"sweep {name}")
+        if not (row["bitwise_history"] and row["bitwise_params"]):
+            fail(f"sweep {name}: batched differs from sequential "
+                 f"({row['history_keys_that_differ']})")
+        if any(row["captures_warm_repeat"].values()):
+            fail(f"sweep {name}: a warm repeat captured "
+                 f"{row['captures_warm_repeat']}")
+        groups = len({_structural_signature(p.spec)
+                      for p in sweep.points()})
+        if row["captures_first_run"]["run_chunk_batched"] != groups:
+            fail(f"sweep {name}: {row['captures_first_run']} captures for "
+                 f"{groups} structural groups")
+        flat = [v for k in runtime.DIAG_KEYS
+                for v in batched.history[k].ravel()]
+        if not all(math.isfinite(v) for v in flat):
+            fail(f"sweep {name}: non-finite history")
+    runtime.clear_compile_caches()
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
@@ -1868,6 +2174,9 @@ def main() -> None:
                     help="time only the warm Case-I and K-scale rounds")
     ap.add_argument("--driver", action="store_true",
                     help="run only the build and phase driver")
+    ap.add_argument("--sweep", action="store_true",
+                    help="run only the build and phases local_steps and "
+                         "sweep")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -1889,6 +2198,10 @@ def main() -> None:
     if args.driver:
         phase_driver(ops)
         return
+    if args.sweep:
+        phase_local_steps(ops)
+        phase_sweep(ops)
+        return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)
@@ -1908,6 +2221,10 @@ def main() -> None:
     emit_memory("stream_facade")
     phase_driver(ops)
     emit_memory("driver")
+    phase_local_steps(ops)
+    emit_memory("local_steps")
+    phase_sweep(ops)
+    emit_memory("sweep")
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
     checks["flash_attention"] = phase_flash(ops, build)

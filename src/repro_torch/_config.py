@@ -3,9 +3,10 @@ import dataclasses
 
 # The JAX package's static analysis (tracelint TL005) finds the FLConfig /
 # ChannelConfig / ClientConfig / OTAConfig dataclasses by class name over the
-# whole source tree and holds them to the reference's sweep-classification
-# tables (repro/fed/runtime.py).  The port has no sweep engine yet (ROADMAP
-# queue 1 item 13), so its configs are declared through this alias, which
-# TL005 does not read as a dataclass decorator: the tables keep applying to
-# the reference's own classes.
+# whole source tree and holds them to the first sweep-classification tables
+# it meets (the reference's, repro/fed/runtime.py) and to the LAST
+# ``structural_config`` it meets (the port's).  The port's configs are
+# declared through this alias, which TL005 does not read as a dataclass
+# decorator, so the tables keep applying to the reference's own classes; the
+# port's ``structural_config`` collapses exactly the reference's fields.
 config = dataclasses.dataclass(frozen=True)

@@ -108,7 +108,7 @@ def resolve_noise(cfg: OTAConfig, shapes: Dict[str, torch.Size],
     """The round's flat channel noise z [N] on ``device``, or None for a
     noiseless round (``cfg.noiseless``, sigma^2 = 0, or neither a generator
     nor an injected vector).  An injected ``noise`` replaces the draw."""
-    if cfg.noiseless or cfg.noise_var <= 0.0:
+    if cfg.noiseless or not schemes.maybe_positive(cfg.noise_var):
         return None
     if noise is not None:
         n = sum(math.prod(s) for s in shapes.values())
@@ -256,18 +256,21 @@ def streaming_carry(cfg: OTAConfig, template: Tree) -> dict:
 def streaming_block(cfg: OTAConfig, carry: dict, block_tree: Tree,
                     hb_air: torch.Tensor, hb_srv: torch.Tensor, *,
                     stats: Optional[schemes.DeviceStats] = None,
+                    grad_bound=None,
                     baseline_weights: Optional[torch.Tensor] = None) -> dict:
     """Accumulate one K-block of device gradients into the carry.
 
     ``hb_air`` is the block's true-channel weight h_k b_k (the air),
     ``hb_srv`` the server-known weight h_hat_k b_k (side-info folding).
     ``stats`` lets a caller that already has the block's per-device
-    statistics share them.  ``baseline_weights`` (baseline schemes only)
-    turns the running plain sum into a weighted one -- the runtime's masked
-    participant mean -- and the caller then finishes with
-    ``num_devices=1``."""
+    statistics share them.  ``grad_bound`` overrides ``cfg.grad_bound``
+    (the FL round passes its G as a 0-d tensor on the device).
+    ``baseline_weights`` (baseline schemes only) turns the running plain
+    sum into a weighted one -- the runtime's masked participant mean -- and
+    the caller then finishes with ``num_devices=1``."""
     sch = schemes.get(cfg.scheme)
-    grad_bound = cfg.grad_bound
+    if grad_bound is None:
+        grad_bound = cfg.grad_bound
     if stats is None:
         stats = schemes.compute_stats(block_tree, sch, batched=True)
     hb_air = hb_air.float()
@@ -369,7 +372,7 @@ def streaming_finish(cfg: OTAConfig, carry: dict, template: Tree, a,
 def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
                          h: torch.Tensor, b: torch.Tensor,
                          noise: Optional[torch.Tensor],
-                         h_hat: torch.Tensor, a) -> Tree:
+                         h_hat: torch.Tensor, a, grad_bound=None) -> Tree:
     """The K-blocked aggregation behind ``aggregate`` (vmap backend): the
     stacked tree is cut into [k_block, ...] blocks, folded in order through
     the carry API."""
@@ -383,7 +386,7 @@ def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
     for lo in range(0, k, kb):
         blk = {name: l[lo:lo + kb] for name, l in stacked_grads.items()}
         carry = streaming_block(cfg, carry, blk, hb_air[lo:lo + kb],
-                                hb_srv[lo:lo + kb])
+                                hb_srv[lo:lo + kb], grad_bound=grad_bound)
     return streaming_finish(cfg, carry, template, a, noise,
                             num_devices=float(k))
 
@@ -391,14 +394,15 @@ def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
 def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
               b: torch.Tensor, generator: Optional[torch.Generator] = None,
               h_hat: Optional[torch.Tensor] = None, *,
-              noise: Optional[torch.Tensor] = None, a=None) -> Tree:
+              noise: Optional[torch.Tensor] = None, a=None,
+              grad_bound=None) -> Tree:
     """Full OTA aggregation: device transform -> superpose -> server post,
     on the backend of ``cfg.backend``.  ``h`` is the true channel (the air),
     ``h_hat`` the server's estimate (None: perfect CSI).  The noise is drawn
     from the CPU ``generator`` or injected as ``noise`` [N].  ``a`` replaces
     ``cfg.a`` as the receiver gain (a float, or a 0-d fp32 tensor on the
-    gradients' device).  Returns the update direction y with
-    ``w <- w - eta * y``.
+    gradients' device), ``grad_bound`` replaces ``cfg.grad_bound`` (as
+    ``a``).  Returns the update direction y with ``w <- w - eta * y``.
 
     ``cfg.k_block`` streams the device axis: the kernels backend launches
     the streamed kernels, the vmap backend folds the carry API over the
@@ -407,6 +411,8 @@ def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
         h_hat = h
     if a is None:
         a = cfg.a
+    if grad_bound is None:
+        grad_bound = cfg.grad_bound
     sch = schemes.get(cfg.scheme)
     streamed = cfg.k_block is not None and cfg.backend == "vmap"
     if sch.baseline and not streamed:
@@ -417,10 +423,12 @@ def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
     if cfg.backend == "kernels":
         from repro_torch.fed.kernel_path import aggregate_kernels
         return aggregate_kernels(cfg, stacked_grads, h, b, z, h_hat=h_hat,
-                                 k_block=cfg.k_block, a=a)
+                                 k_block=cfg.k_block, a=a,
+                                 grad_bound=grad_bound)
     if streamed:
-        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat, a)
-    x, side = device_transform(cfg.scheme, stacked_grads, cfg.grad_bound)
+        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat, a,
+                                    grad_bound)
+    x, side = device_transform(cfg.scheme, stacked_grads, grad_bound)
     y = superpose(x, h, b, a, z)
     return server_post(cfg.scheme, y, side, h_hat, b)
 

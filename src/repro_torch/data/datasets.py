@@ -66,6 +66,12 @@ class FederatedSplit:
     def sizes(self) -> np.ndarray:
         return np.array([len(i) for i in self.indices])
 
+    def weights(self) -> np.ndarray:
+        """The paper's D_k / D_A weights: each device's share of the
+        examples."""
+        s = self.sizes
+        return s / s.sum()
+
 
 def split_iid(gen: torch.Generator, num_examples: int,
               num_devices: int) -> FederatedSplit:

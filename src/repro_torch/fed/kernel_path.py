@@ -37,7 +37,8 @@ from repro_torch.kernels import ops
 def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
                       b: torch.Tensor, noise: Optional[torch.Tensor] = None,
                       *, h_hat: Optional[torch.Tensor] = None,
-                      k_block: Optional[int] = None, a=None) -> Tree:
+                      k_block: Optional[int] = None, a=None,
+                      grad_bound=None) -> Tree:
     """Kernel implementation of ``aggregate`` for any registered scheme.
     stacked_grads: tree of [K, ...] leaves; ``noise``: the flat channel
     noise z [N] in sorted-key leaf order (None: noiseless).  ``h`` is the
@@ -46,12 +47,15 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
     direction y with the single-device tree structure.  ``k_block`` routes
     both launches through the streamed kernels; it must divide K.  ``a``
     replaces ``cfg.a`` as the receiver gain: a float, or a 0-d fp32 tensor
-    on the gradients' device, which K2 and K4 read there."""
+    on the gradients' device, which K2 and K4 read there; ``grad_bound``
+    replaces ``cfg.grad_bound`` in the same way."""
     if h_hat is None:
         h_hat = h
     if a is None:
         a = cfg.a
     sch = schemes.validate_config(cfg.scheme, cfg.grad_bound)
+    if grad_bound is None:
+        grad_bound = cfg.grad_bound
     if sch.baseline:
         return schemes.tree_map(lambda l: torch.mean(l, dim=0), stacked_grads)
 
@@ -74,7 +78,7 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
         stats = schemes.DeviceStats(
             count=sum(l2.shape[1] for l2 in flat2d),
             sq_norm=sum(tensor_sq), tensor_sq_norms=tensor_sq)
-        scales = sch.tensor_scale(stats, cfg.grad_bound)
+        scales = sch.tensor_scale(stats, grad_bound)
         flat = torch.cat(
             [pre_fn(l2) * s[:, None] for l2, s in zip(flat2d, scales)], dim=1)
         scale = hb
@@ -84,9 +88,9 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
         stats = schemes.DeviceStats(
             count=flat.shape[1], sq_norm=sumsq,
             total=total if sch.needs_moments else None)
-        scale = sch.device_scale(stats, cfg.grad_bound)
+        scale = sch.device_scale(stats, grad_bound)
         if sch.device_shift is not None:
-            shift = sch.device_shift(stats, cfg.grad_bound)
+            shift = sch.device_shift(stats, grad_bound)
         scale = scale * hb
 
     n = flat.shape[1]

@@ -38,11 +38,19 @@ host sync and no CPU tensor in it.  Two drivers run that one body
 ``python`` the body run eagerly, one round at a time, with its history read
            back every round.  The two drivers give the same bits.
 
+``local_steps`` H > 1 runs H local SGD steps on every device inside the
+round body (``_local_transmit``), on the dense, active-gather and streaming
+rounds alike.
+
+``run_batched`` runs E structurally identical configs (equal
+``structural_config``) as lanes of one engine: on the card one CUDA graph
+holds one round of every lane, lane after lane, and each lane gives the bits
+of its own ``run``.  ``repro_torch.fl.sweep`` groups a grid into such runs.
+
 Config values of unported paths raise ``NotImplementedError`` naming their
-ROADMAP item: ``device_mesh``, ``local_steps > 1``, the ``mesh`` backend,
-the two-slot client round, and (through ``ChannelConfig``/``ClientConfig``)
-block fading, non-Rayleigh models, imperfect CSI, geometry and non-sgd
-clients.
+ROADMAP item: ``device_mesh``, the ``mesh`` backend, the two-slot client
+round, and (through ``ChannelConfig``/``ClientConfig``) block fading,
+non-Rayleigh models, imperfect CSI, geometry and non-sgd clients.
 
 Random streams: the channel draw uses ``rng.generator(cfg.seed)``, round t's
 channel noise ``rng.generator(cfg.seed + 1, t)`` and its participation mask
@@ -58,6 +66,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import math
+import os
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 import numpy as np
@@ -84,13 +94,15 @@ DIAG_KEYS = ("grad_norm_mean", "grad_norm_min", "grad_norm_max", "eta",
              "update_norm", "tx_energy", "num_participants", "csi_gain_err")
 
 # Engines cached on (config, grad_fn, ...) by the builders below, each
-# holding a captured CUDA graph (and its memory pool) on the card
-ENGINE_CACHE_SIZE = 64
+# holding a captured CUDA graph on the card (the graphs of a device share one
+# memory pool, ``_graph_pool``); sized for sweeps, and settable without a
+# code change, as in the reference
+ENGINE_CACHE_SIZE = int(os.environ.get("REPRO_ENGINE_CACHE_SIZE", "64"))
 # Counted where a builder makes its engine: ``round_step`` for the python
 # driver's round body, ``run_chunk`` for each CUDA-graph capture of the scan
-# driver (on the CPU: each body it builds).  ``run_chunk_batched`` (sweeps,
-# ROADMAP queue 1 item 13) and ``fading_refresh`` (block fading, item 11)
-# stay 0 until those items land.
+# driver and ``run_chunk_batched`` for each capture of a batched run's lanes
+# (on the CPU: each engine built).  ``fading_refresh`` (block fading, ROADMAP
+# queue 1 item 11) stays 0 until that item lands.
 TRACE_KINDS = ("round_step", "run_chunk", "run_chunk_batched",
                "fading_refresh")
 TRACE_COUNTS: collections.Counter = collections.Counter()
@@ -139,6 +151,47 @@ def clear_compile_caches() -> None:
         torch.cuda.empty_cache()
 
 
+# FLConfig fields a batched run may vary per lane (the reference's tables).
+# In the port they act on the host only -- ``setup``, and the staged
+# ``eta_t``, ``a_eff``, ``b_eff`` and noise of ``_stage`` -- except
+# ``grad_bound``, which the round body reads from device memory
+# (``BatchAxes.grad_bound``, one value a lane).  Everything else changes the
+# round body and is *structural*: vary it across engines, not lanes.
+BATCHED_FL_FIELDS = ("seed", "eta", "s_target", "epsilon_target",
+                     "grad_bound", "smoothness_L", "strong_convexity_M",
+                     "expected_loss_drop", "theta_th")
+BATCHED_CHANNEL_FIELDS = ("noise_var", "channel_mean", "b_max", "rho",
+                          "csi_error")
+# The structural complement: every FLConfig / ChannelConfig field is claimed
+# by exactly one of the tables
+STRUCTURAL_FL_FIELDS = (
+    "num_devices", "scheme", "backend", "case", "p", "channel",
+    "amplification", "server_opt", "server_momentum", "server_b1",
+    "server_b2", "server_eps", "server_weight_decay", "local_steps",
+    "local_lr", "participation", "participation_mode", "k_block",
+    "active_gather", "device_mesh", "client")
+STRUCTURAL_CHANNEL_FIELDS = ("num_devices", "block_fading", "model",
+                             "rician_k", "csi_error_model", "geometry")
+
+
+class BatchAxes(NamedTuple):
+    """Per-lane numerics of a batched run, each [E] (the reference's
+    fields).  The port carries ``noise_var`` (on the CPU, where it gates the
+    group's staged noise) and ``grad_bound`` (on the run's device: each
+    lane's round body reads its own value); ``b_max`` and the channel and
+    client fields stay None until ROADMAP queue 1 items 5, 11 and 12 make
+    them reach the round."""
+
+    noise_var: Optional[torch.Tensor] = None
+    grad_bound: Optional[torch.Tensor] = None
+    b_max: Optional[torch.Tensor] = None
+    rayleigh_scale: Optional[torch.Tensor] = None
+    rho: Optional[torch.Tensor] = None
+    csi_error: Optional[torch.Tensor] = None
+    client_mu: Optional[torch.Tensor] = None
+    client_alpha: Optional[torch.Tensor] = None
+
+
 @config
 class FLConfig:
     num_devices: int = 20
@@ -167,7 +220,9 @@ class FLConfig:
     server_b2: float = 0.95
     server_eps: float = 1e-8
     server_weight_decay: float = 0.0
-    local_steps: int = 1                 # > 1 not ported
+    # H local SGD steps per device a round; for H > 1 a device transmits
+    # (w - w_H) / (H local_lr)
+    local_steps: int = 1
     local_lr: float = 0.01
     participation: float = 1.0
     participation_mode: str = "bernoulli"
@@ -234,8 +289,6 @@ class FLConfig:
         unported = (
             (self.backend == "mesh",
              "the mesh backend", "queue 1 item 15"),
-            (self.local_steps > 1,
-             "local_steps > 1", "queue 1 item 7 (local-step round)"),
             (self.device_mesh is not None, "device_mesh", "queue 1 item 15"),
         )
         for hit, what, item in unported:
@@ -249,6 +302,24 @@ class FLConfig:
         if self.active_gather:
             return max(1, int(round(self.participation * self.num_devices)))
         return self.num_devices
+
+
+def structural_config(cfg: FLConfig) -> FLConfig:
+    """The structural signature of a config: every batchable field
+    (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS``) collapsed to a
+    fixed sentinel.  Configs with equal signatures run as lanes of one
+    engine, which ``run_batched`` caches on the signature.  ``grad_bound``
+    keeps its None-ness (present or absent changes the round body), not its
+    value."""
+    channel = dataclasses.replace(cfg.channel, noise_var=0.0,
+                                  channel_mean=1.0, b_max=1.0, rho=0.0,
+                                  csi_error=0.0)
+    client = dataclasses.replace(cfg.client, mu=0.0, alpha=0.01)
+    return dataclasses.replace(
+        cfg, seed=0, eta=0.01, s_target=None, epsilon_target=None,
+        grad_bound=None if cfg.grad_bound is None else 1.0,
+        smoothness_L=1.0, strong_convexity_M=1.0, expected_loss_drop=1.0,
+        theta_th=chan.DEFAULT_THETA_TH, channel=channel, client=client)
 
 
 @dataclasses.dataclass
@@ -366,27 +437,46 @@ def _map_batch(fn: Callable[[torch.Tensor], torch.Tensor], batch):
 
 def _local_transmit(cfg: FLConfig, grad_fn: GradFn, params: Tree,
                     batch) -> Tree:
-    """Every device's local gradient (``local_steps == 1``, the paper):
-    ``grad_fn`` vmapped over the leading K axis of the batch.  The params
-    are expanded along that axis (a view, no copy), so each matrix product
-    runs as a batched product with one matrix per device: a device's
-    gradient is then bitwise the same whichever devices share the call,
-    which the active-set gather relies on (a plain product over the
-    stacked rows splits its work, and its sums, by the row count)."""
+    """What every device hands to the scheme's transform: its local
+    gradient for ``local_steps == 1`` (the paper), ``grad_fn`` vmapped over
+    the leading K axis of the batch; for H = ``local_steps`` > 1 the
+    accumulated model delta of H local SGD steps on its round batch,
+    ``w <- w - local_lr g``, transmitted as ``(w_0 - w_H) / (H local_lr)``
+    (the reference's ``_local_transmit`` without a client correction, its
+    fp32 casts and operation order).  The H steps are a fixed-length loop,
+    so one CUDA graph holds them all.
+
+    The params are expanded along the device axis (a view, no copy), and
+    after the first local step each device holds its own [K, ...] params, so
+    each matrix product runs as a batched product with one matrix per
+    device: a device's result is then bitwise the same whichever devices
+    share the call, which the active-set gather relies on (a plain product
+    over the stacked rows splits its work, and its sums, by the row
+    count)."""
     first = batch
     while not isinstance(first, torch.Tensor):
         first = next(iter(first.values() if isinstance(first, dict)
                           else first))
     k = first.shape[0]
     per_device = {n: p.expand((k,) + p.shape) for n, p in params.items()}
-    return torch.func.vmap(grad_fn, in_dims=(0, 0))(per_device, batch)
+    local_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
+    if cfg.local_steps == 1:
+        return local_grads(per_device, batch)
+    w = per_device
+    for _ in range(cfg.local_steps):
+        g = local_grads(w, batch)
+        w = {n: w[n] - cfg.local_lr * g[n].to(w[n].dtype) for n in w}
+    inv = 1.0 / (cfg.local_steps * cfg.local_lr)
+    return {n: (per_device[n] - w[n]) * inv for n in w}
 
 
 class RoundInputs(NamedTuple):
-    """What the host makes for one round, or, with a leading [T] axis on
-    every tensor, for a chunk of T rounds (the staged buffers the round
-    body reads at its cursor).  A field that the config does not use is
-    None in every round."""
+    """What the host makes for one round of one run, or, with leading
+    [T, E] axes on every tensor but the batch, for a chunk of T rounds of E
+    lanes (the staged buffers the round body reads at its cursor; lane e's
+    view is ``_lane(staged, e)``).  The batch is shared by the lanes: [T, K,
+    ...] for a chunk.  A field that the config does not use is None in
+    every round."""
     t: torch.Tensor                          # int64, the round index
     eta: torch.Tensor                        # fp32 eta_t
     a_eff: torch.Tensor                      # fp32 receiver gain, folded
@@ -406,24 +496,34 @@ def _map_inputs(fn: Callable[[torch.Tensor], torch.Tensor],
                          for v in r))
 
 
+def _lane(staged: RoundInputs, e: int) -> RoundInputs:
+    """Lane e's [T, ...] view of a [T, E, ...] staged chunk (the batch is
+    the lanes' own, shared)."""
+    return staged._replace(**{
+        name: v[:, e] for name, v in zip(RoundInputs._fields, staged)
+        if v is not None and name != "batch"})
+
+
 def _round_math(cfg: FLConfig, sch: schemes.Scheme, opt: optim.Optimizer,
                 grad_fn: GradFn, ocfg: ota.OTAConfig, params: Tree, opt_state,
                 r: RoundInputs, h: torch.Tensor,
+                gb: Optional[torch.Tensor] = None,
                 h_hat: Optional[torch.Tensor] = None):
-    """One dense FL round (local gradients -> OTA aggregate -> server step)
-    plus the ``DIAG_KEYS`` diagnostics, from the round's inputs ``r`` on
-    the device.  ``h_hat=None`` is perfect CSI (the estimate IS ``h``, so
-    ``csi_gain_err`` is a hard 0).  The round's participation mask is
-    already folded into ``r.b_eff`` and ``r.a_eff``
-    (``ota.participation_fold``).  Returns ``(params, opt_state, diag)``
-    with diag values as 0-d tensors."""
+    """One dense FL round (local computation -> OTA aggregate -> server
+    step) plus the ``DIAG_KEYS`` diagnostics, from the round's inputs ``r``
+    on the device.  ``gb`` is the run's grad_bound G as a 0-d fp32 tensor on
+    the device (None where the config has none).  ``h_hat=None`` is perfect
+    CSI (the estimate IS ``h``, so ``csi_gain_err`` is a hard 0).  The
+    round's participation mask is already folded into ``r.b_eff`` and
+    ``r.a_eff`` (``ota.participation_fold``).  Returns ``(params,
+    opt_state, diag)`` with diag values as 0-d tensors."""
     if h_hat is None:
         h_hat = h
     k = cfg.num_devices
     if cfg.active_gather:
         # gather the scheduled participants' batches BEFORE the local
-        # computation, so gradient compute scales with m = round(p K), then
-        # scatter the m gradients back into a zero [K, ...] stack and run the
+        # computation, so its cost scales with m = round(p K), then scatter
+        # the m results back into a zero [K, ...] stack and run the
         # unchanged dense aggregation: a masked device's terms are exact
         # zeros either way (b_eff = 0), so the round is bitwise the dense
         # masked round
@@ -445,14 +545,14 @@ def _round_math(cfg: FLConfig, sch: schemes.Scheme, opt: optim.Optimizer,
             stacked)
     else:
         y = ota.aggregate(ocfg, stacked, h, r.b_eff, h_hat=h_hat,
-                          noise=r.noise, a=r.a_eff)
+                          noise=r.noise, a=r.a_eff, grad_bound=gb)
     # one stats pass feeds both diagnostics (grad norms and the eq.-8
     # transmit energy); the aggregate above keeps its own internal stats.
     # Under active_gather the stats cover the participants only, and their
     # energies are scattered back to the [K] layout (masked devices spent 0)
     stats = schemes.compute_stats(active, sch, batched=True)
     norms = torch.sqrt(stats.sq_norm)
-    tx = schemes.transmit_energy(sch, stats, b_air, cfg.grad_bound,
+    tx = schemes.transmit_energy(sch, stats, b_air, gb,
                                  None if idx is not None else r.mask)
     if idx is not None:
         tx = tx.new_zeros((k,)).index_copy_(0, idx, tx)
@@ -470,14 +570,16 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
                           opt: optim.Optimizer, grad_fn: GradFn,
                           ocfg: ota.OTAConfig, params: Tree, opt_state,
                           r: RoundInputs, h: torch.Tensor,
+                          gb: Optional[torch.Tensor] = None,
                           h_hat: Optional[torch.Tensor] = None, *,
                           block_batch_fn: Optional[Callable] = None):
-    """The flat-memory round (``cfg.k_block``): local gradients are
-    computed and folded into the OTA accumulator ``k_block`` devices at a
-    time through the carry API (``ota.streaming_carry/_block/_finish``), so
-    the [K, ...] gradient stack never exists; the working set is
-    O(k_block N) plus O(K) channel vectors.  On the kernels backend each
-    block is one launch of the dense superposition kernel.
+    """The flat-memory round (``cfg.k_block``): each device's local
+    computation (``_local_transmit``, H local steps included) is made and
+    folded into the OTA accumulator ``k_block`` devices at a time through
+    the carry API (``ota.streaming_carry/_block/_finish``), so the [K, ...]
+    stack never exists; the working set is O(k_block N) plus O(K) channel
+    vectors.  On the kernels backend each block is one launch of the dense
+    superposition kernel.
 
     ``r.batch`` is the dense per-device batch over all K devices (cut into
     blocks here, and gathered to the active set under ``active_gather``),
@@ -525,10 +627,10 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         stats = schemes.compute_stats(g_blk, sch, batched=True)
         norms = torch.sqrt(stats.sq_norm)
         tx = schemes.transmit_energy(
-            sch, stats, b_air[blk], cfg.grad_bound,
+            sch, stats, b_air[blk], gb,
             None if block_mask is None else block_mask[blk])
         oc = ota.streaming_block(ocfg, oc, g_blk, ha[blk], hs[blk],
-                                 stats=stats,
+                                 stats=stats, grad_bound=gb,
                                  baseline_weights=w[blk] if weighted else None)
         txsum = txsum + torch.sum(tx)
         nsum = nsum + torch.sum(norms)
@@ -544,8 +646,6 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
     }
     return _round_tail(sch, opt, params, opt_state, y, r, diag_core, h,
                        h_hat)
-
-
 def _keep_if(empty: torch.Tensor, old, new):
     """``old`` where the round is empty, else ``new``: an exact selection,
     leaf by leaf, of params or an optimizer state."""
@@ -592,32 +692,44 @@ def _round_tail(sch, opt, params, opt_state, y, r: RoundInputs, diag_core,
 
 class RoundBody:
     """The device work of one round of one (config, grad_fn,
-    block_batch_fn): ``body(params, opt_state, h, staged, cursor, hist)``
-    reads the round's inputs at row ``cursor`` of the staged chunk, runs the
-    dense or the streaming round, writes its ``DIAG_KEYS`` to the same row
-    of ``hist`` [T, 8] and advances ``cursor`` (a [1] int64 tensor).  It
-    makes no host sync and reads no CPU tensor, so a CUDA graph can capture
-    it.  Returns the new ``(params, opt_state)``."""
+    block_batch_fn): ``body(params, opt_state, h, gb, staged, cursor,
+    hist)`` reads the round's inputs at row ``cursor`` of the staged chunk,
+    runs the dense or the streaming round, writes its ``DIAG_KEYS`` to the
+    same row of ``hist`` [T, 8] and advances ``cursor`` (a [1] int64
+    tensor).  ``gb`` is the run's grad_bound as a 0-d fp32 tensor on the
+    device, or None.  It makes no host sync and reads no CPU tensor, so a
+    CUDA graph can capture it.  Returns the new ``(params, opt_state)``.
+
+    The body reads nothing of the batchable fields but the noise gate:
+    ``noisy`` says whether the staged chunks carry channel noise (default:
+    ``cfg``'s noise_var > 0; a batched run passes its group's gate), so the
+    body of ``structural_config(cfg)`` is the body of ``cfg``."""
 
     def __init__(self, cfg: FLConfig, grad_fn: GradFn,
-                 block_batch_fn: Optional[Callable] = None):
+                 block_batch_fn: Optional[Callable] = None, *,
+                 noisy: Optional[bool] = None):
         self.cfg, self.grad_fn, self.block_batch_fn = cfg, grad_fn, \
             block_batch_fn
         self.sch = schemes.get(cfg.scheme)
         self.opt = server_optimizer(cfg)
+        if noisy is None:
+            noisy = schemes.maybe_positive(cfg.channel.noise_var)
         kb = (None if cfg.k_block is None
               else min(cfg.k_block, cfg.stream_length()))
+        # noise_var only gates the staged noise here (the values come
+        # staged); grad_bound only passes validation (the body takes G as
+        # ``gb``)
         self.ocfg = ota.OTAConfig(scheme=cfg.scheme,
-                                  noise_var=cfg.channel.noise_var,
+                                  noise_var=1.0 if noisy else 0.0,
                                   grad_bound=cfg.grad_bound,
                                   backend=cfg.backend, k_block=kb)
 
     def __call__(self, params: Tree, opt_state, h: torch.Tensor,
-                 staged: RoundInputs, cursor: torch.Tensor,
-                 hist: torch.Tensor):
+                 gb: Optional[torch.Tensor], staged: RoundInputs,
+                 cursor: torch.Tensor, hist: torch.Tensor):
         r = _map_inputs(lambda v: v.index_select(0, cursor)[0], staged)
         args = (self.cfg, self.sch, self.opt, self.grad_fn, self.ocfg,
-                params, opt_state, r, h)
+                params, opt_state, r, h, gb)
         if self.cfg.k_block is not None:
             params, opt_state, diag = _round_math_streaming(
                 *args, block_batch_fn=self.block_batch_fn)
@@ -629,56 +741,120 @@ class RoundBody:
         return params, opt_state
 
 
-def _stage(cfg: FLConfig, sch: schemes.Scheme, h_hat: torch.Tensor,
-           b: torch.Tensor, a: float, eta0: float,
+class _LaneHost(NamedTuple):
+    """One run's (a lane's) host side: its config and the CPU fp32 channel
+    of its participation fold, with its fp32 gain and step size."""
+    cfg: FLConfig
+    h_hat: torch.Tensor
+    b: torch.Tensor
+    a: float
+    eta0: float
+
+
+def _zero_noise(cfg: FLConfig) -> float:
+    """The noise a lane with sigma^2 = 0 stages in a group whose other lanes
+    have noise: what its own run adds.  The dense round on the kernels
+    backend hands K2 zeros (+0.0) where it has no noise; the other rounds
+    add nothing, and x + (-0.0) == x for every fp32 x."""
+    return 0.0 if cfg.backend == "kernels" and cfg.k_block is None else -0.0
+
+
+def _draw_row(row: torch.Tensor, gen: torch.Generator,
+              shapes: Dict[str, torch.Size], std: float) -> None:
+    """One round's noise of one lane into ``row`` [N]: one draw a leaf in
+    sorted-key order, each into its slice, then scaled in place."""
+    off = 0
+    for k in sorted(shapes):
+        m = math.prod(shapes[k])
+        torch.randn(shapes[k], generator=gen,
+                    out=row[off:off + m].view(shapes[k]))
+        off += m
+    row.mul_(std)
+
+
+def _stage_noise(lanes: Sequence[_LaneHost], shapes: Dict[str, torch.Size],
+                 ts: Sequence[int],
+                 noise_provider: Optional[Callable] = None) -> torch.Tensor:
+    """The [T, E, N] fp32 channel noise of the rounds ``ts`` of the lanes,
+    drawn straight into one CPU buffer: round t of a lane draws on
+    ``rng.generator(seed + 1, t)`` one leaf at a time in sorted-key order,
+    each into its slice, and is scaled in place by ``sqrt(noise_var)``
+    (``_draw_row``); the values are bitwise ``ota.resolve_noise``'s, with
+    no zeros, add, concatenation or stack on the way.
+    ``noise_provider(t)`` gives a single run's flat noise instead."""
+    n = sum(math.prod(s) for s in shapes.values())
+    buf = torch.empty((len(ts), len(lanes), n), dtype=torch.float32)
+    for e, lane in enumerate(lanes):
+        noise_var = lane.cfg.channel.noise_var
+        if noise_var <= 0.0:
+            buf[:, e].fill_(_zero_noise(lane.cfg))
+            continue
+        for i, t in enumerate(ts):
+            if noise_provider is None:
+                _draw_row(buf[i, e], rng.generator(lane.cfg.seed + 1, t),
+                          shapes, math.sqrt(noise_var))
+                continue
+            z = noise_provider(t)
+            if tuple(z.shape) != (n,):
+                raise ValueError(f"injected noise has shape "
+                                 f"{tuple(z.shape)}, expected ({n},)")
+            buf[i, e].copy_(z)
+    return buf
+
+
+def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
            shapes: Dict[str, torch.Size], ts: Sequence[int],
            noise_provider: Optional[Callable] = None,
            mask_provider: Optional[Callable] = None) -> RoundInputs:
-    """The host work of the rounds ``ts``: each round's inputs drawn on the
-    CPU generators (or taken from the providers) exactly as a round of its
-    own would draw them, stacked into [T, ...] CPU tensors (``batch``
-    left None).  ``h_hat`` and ``b`` are the CPU fp32 channel of the
-    participation fold; ``shapes`` the single-device leaf shapes."""
-    ocfg = ota.OTAConfig(scheme=cfg.scheme, noise_var=cfg.channel.noise_var,
-                         grad_bound=cfg.grad_bound)
-    k = cfg.num_devices
+    """The host work of the rounds ``ts`` of E structurally identical
+    lanes: each round's inputs drawn on the lane's CPU generators (or taken
+    from the providers) exactly as a round of its own run would draw them,
+    as [T, E, ...] CPU tensors (``batch`` left None).  ``shapes`` are the
+    single-device leaf shapes.  The noise is staged for every lane when any
+    lane has noise (``schemes.maybe_positive``); a lane without stages
+    zeros (``_zero_noise``)."""
+    cfg0 = lanes[0].cfg
+    rounds, num, k = len(ts), len(lanes), cfg0.num_devices
+    noise = None
+    if not sch.baseline and any(schemes.maybe_positive(
+            lane.cfg.channel.noise_var) for lane in lanes):
+        noise = _stage_noise(lanes, shapes, ts, noise_provider)
+    t = torch.tensor(list(ts), dtype=torch.int64)[:, None].expand(rounds, num)
+    eta = torch.tensor([[_eta_t(lane.cfg, lane.eta0, s) for lane in lanes]
+                        for s in ts], dtype=torch.float32)
+    if cfg0.participation >= 1.0:
+        return RoundInputs(
+            t=t, eta=eta,
+            a_eff=torch.tensor([lane.a for lane in lanes],
+                               dtype=torch.float32).expand(rounds, num),
+            b_eff=torch.stack([lane.b for lane in lanes]).expand(rounds, num,
+                                                                  k),
+            participants=torch.full((rounds, num), float(k)), noise=noise)
     fields = collections.defaultdict(list)
-    for t in ts:
-        fields["t"].append(torch.tensor(t, dtype=torch.int64))
-        fields["eta"].append(torch.tensor(_eta_t(cfg, eta0, t),
-                                          dtype=torch.float32))
-        if not sch.baseline:
-            if noise_provider is not None:
-                noise = ota.resolve_noise(ocfg, shapes, "cpu",
-                                          noise=noise_provider(t))
-            else:
-                noise = ota.resolve_noise(ocfg, shapes, "cpu",
-                                          rng.generator(cfg.seed + 1, t))
-            if noise is not None:
-                fields["noise"].append(noise)
-        if cfg.participation >= 1.0:
-            fields["a_eff"].append(torch.tensor(a, dtype=torch.float32))
-            fields["b_eff"].append(b)
-            fields["participants"].append(torch.tensor(float(k)))
-            continue
-        mask = (mask_provider(t) if mask_provider is not None
-                else _participation_mask(cfg, t))
-        mask = mask.to(device="cpu", dtype=torch.float32)
-        if mask.shape != (k,):
-            raise ValueError(f"round {t}'s mask has shape "
-                             f"{tuple(mask.shape)}, expected ({k},)")
-        b_eff, a_eff = ota.participation_fold(h_hat, b, a, mask)
-        count = float(mask.sum())
-        fields["a_eff"].append(a_eff)
-        fields["b_eff"].append(b_eff)
-        fields["participants"].append(torch.tensor(count))
-        fields["mask"].append(mask)
-        fields["empty"].append(torch.tensor(count == 0.0))
-        if sch.baseline:
-            fields["weights"].append(mask / max(count, 1.0))
-        if cfg.active_gather:
-            fields["active"].append(_active_indices(cfg, mask))
-    return RoundInputs(**{name: torch.stack(v) for name, v in fields.items()})
+    for s in ts:
+        for lane in lanes:
+            cfg = lane.cfg
+            mask = (mask_provider(s) if mask_provider is not None
+                    else _participation_mask(cfg, s))
+            mask = mask.to(device="cpu", dtype=torch.float32)
+            if mask.shape != (k,):
+                raise ValueError(f"round {s}'s mask has shape "
+                                 f"{tuple(mask.shape)}, expected ({k},)")
+            b_eff, a_eff = ota.participation_fold(lane.h_hat, lane.b, lane.a,
+                                                  mask)
+            count = float(mask.sum())
+            fields["a_eff"].append(a_eff)
+            fields["b_eff"].append(b_eff)
+            fields["participants"].append(torch.tensor(count))
+            fields["mask"].append(mask)
+            fields["empty"].append(torch.tensor(count == 0.0))
+            if sch.baseline:
+                fields["weights"].append(mask / max(count, 1.0))
+            if cfg.active_gather:
+                fields["active"].append(_active_indices(cfg, mask))
+    staged = {name: torch.stack(v).reshape((rounds, num) + v[0].shape)
+              for name, v in fields.items()}
+    return RoundInputs(t=t, eta=eta, noise=noise, **staged)
 
 
 def _batch_leaves(batch) -> List[torch.Tensor]:
@@ -705,8 +881,11 @@ def _stack_batches(batch_provider: Callable[[int], Any],
 
 
 def _copy_into(dst, src) -> None:
-    """Copy params or an optimizer state (a tensor, dict or tuple of them)
-    into buffers of the same structure."""
+    """Copy params, an optimizer state or a lane's state (a tensor, or a
+    dict, tuple or list of them, None left alone) into buffers of the same
+    structure."""
+    if dst is None:
+        return
     if isinstance(dst, torch.Tensor):
         dst.copy_(src)
     elif isinstance(dst, dict):
@@ -725,6 +904,8 @@ def _rebuild(like, values):
 
 
 def _clone(tree):
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     if isinstance(tree, dict):
@@ -732,41 +913,52 @@ def _clone(tree):
     return _rebuild(tree, (_clone(v) for v in tree))
 
 
-def _run_eager(body: RoundBody, params, opt_state, h, staged: RoundInputs):
-    """The body over every round of a staged chunk, launched from the host
-    round by round; returns the new state and the [T, 8] history (one
-    device-to-host copy)."""
+def _run_eager(body: RoundBody, params, opt_state, h, gb,
+               staged: RoundInputs):
+    """The body over every round of one lane's staged chunk, launched from
+    the host round by round; returns the new state and the [T, 8] history
+    (one device-to-host copy)."""
     rounds = staged.t.shape[0]
     cursor = torch.zeros((1,), dtype=torch.int64, device=h.device)
     hist = torch.empty((rounds, len(DIAG_KEYS)), dtype=torch.float32,
                        device=h.device)
     for _ in range(rounds):
-        params, opt_state = body(params, opt_state, h, staged, cursor, hist)
+        params, opt_state = body(params, opt_state, h, gb, staged, cursor,
+                                 hist)
     return params, opt_state, hist.cpu()
 
 
 class _EagerChunks:
-    """The scan driver's engine on the CPU: the round body run eagerly,
-    chunk by chunk."""
+    """The scan driver's engine on the CPU: each lane's round body run
+    eagerly, chunk by chunk.  A lane is ``(params, opt_state, h, gb)``;
+    ``launch`` takes a [T, E, ...] staged chunk, ``rows`` gives the [E, T,
+    8] history and ``state`` each lane's ``(params, opt_state)``."""
 
-    def __init__(self, body: RoundBody):
+    def __init__(self, body: RoundBody, kind: str = "run_chunk"):
         self.body = body
-        self.params = self.opt_state = self.h = self.hist = None
-        _count_trace("run_chunk")
+        self.lanes: List[tuple] = []
+        self.hist = None
+        _count_trace(kind)
 
-    def start(self, params: Tree, opt_state, h: torch.Tensor) -> None:
-        self.params, self.opt_state, self.h = params, opt_state, h
+    def start(self, lanes: Sequence[tuple]) -> None:
+        self.lanes = list(lanes)
 
     def launch(self, staged: RoundInputs) -> None:
-        staged = _map_inputs(lambda v: v.to(self.h.device), staged)
-        self.params, self.opt_state, self.hist = _run_eager(
-            self.body, self.params, self.opt_state, self.h, staged)
+        device = self.lanes[0][2].device
+        staged = _map_inputs(lambda v: v.to(device), staged)
+        rows = []
+        for e, (params, opt_state, h, gb) in enumerate(self.lanes):
+            params, opt_state, hist = _run_eager(self.body, params, opt_state,
+                                                 h, gb, _lane(staged, e))
+            self.lanes[e] = (params, opt_state, h, gb)
+            rows.append(hist)
+        self.hist = torch.stack(rows)
 
     def rows(self) -> torch.Tensor:
         return self.hist
 
-    def state(self):
-        return self.params, self.opt_state
+    def state(self) -> List[tuple]:
+        return [(params, opt_state) for params, opt_state, _, _ in self.lanes]
 
 
 # device index -> the stream every graph of the scan driver is captured on
@@ -774,6 +966,12 @@ class _EagerChunks:
 # K1's and K5's arrival counters exist before the capture; graphs captured
 # on one stream share those counters, and are replayed one at a time)
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+# device index -> the one memory pool every graph of the device is captured
+# into.  A graph's allocations are all temporaries of its round (the state,
+# the staged buffers, the cursor and the history live outside the pool), so
+# graphs may share them: safe because every capture and every replay runs on
+# one stream, one at a time, never concurrently
+_GRAPH_POOLS: Dict[int, Any] = {}
 GRAPH_WARMUP_ROUNDS = 2
 
 
@@ -783,26 +981,37 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return _CAPTURE_STREAMS[device.index]
 
 
+def _graph_pool(device: torch.device):
+    if device.index not in _GRAPH_POOLS:
+        _GRAPH_POOLS[device.index] = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOLS[device.index]
+
+
 class _GraphChunks:
-    """The scan driver's engine on a CUDA device: one round captured in a
-    CUDA graph over fixed buffers (the params, the optimizer state, the
-    channel, the [chunk_size, ...] staged inputs, the cursor and the
-    [chunk_size, 8] history), and replayed once per round of a chunk.  The
-    graph's private memory pool lives as long as the engine."""
+    """The scan driver's engine on a CUDA device: one round of every lane
+    captured in one CUDA graph over fixed buffers (each lane's params,
+    optimizer state, channel, grad_bound, cursor and [chunk_size, 8]
+    history; the [chunk_size, E, ...] staged inputs), and replayed once per
+    round of a chunk.  A single run is one lane.  The lanes run one after
+    another on the capture stream, so they share K1's and K5's arrival
+    counters (``grad_norm._arrivals``, one set a stream) safely; spreading
+    lanes over streams would need a set of counters for each stream."""
 
     def __init__(self, body: RoundBody, device: torch.device,
-                 chunk_size: int):
+                 chunk_size: int, lanes: int = 1, kind: str = "run_chunk"):
         self.body, self.device, self.chunk_size = body, device, chunk_size
+        self.kind = kind
         self.graph = None
         self.rounds = 0
         self.per_replay: Dict[str, int] = {}
         self.static = self.staged = self.pending = None
-        self.cursor = torch.zeros((1,), dtype=torch.int64, device=device)
-        self.hist = torch.zeros((chunk_size, len(DIAG_KEYS)),
+        self.cursor = torch.zeros((lanes, 1), dtype=torch.int64,
+                                  device=device)
+        self.hist = torch.zeros((lanes, chunk_size, len(DIAG_KEYS)),
                                 dtype=torch.float32, device=device)
 
-    def start(self, params: Tree, opt_state, h: torch.Tensor) -> None:
-        self.pending = (params, opt_state, h)
+    def start(self, lanes: Sequence[tuple]) -> None:
+        self.pending = list(lanes)
 
     def _stage(self, staged: RoundInputs) -> None:
         rounds = staged.t.shape[0]
@@ -818,10 +1027,10 @@ class _GraphChunks:
             buf[:rounds].copy_(v)
 
     def _step(self) -> None:
-        params, opt_state, h = self.static
-        new = self.body(params, opt_state, h, self.staged, self.cursor,
-                        self.hist)
-        _copy_into((params, opt_state), new)
+        for e, (params, opt_state, h, gb) in enumerate(self.static):
+            new = self.body(params, opt_state, h, gb, _lane(self.staged, e),
+                            self.cursor[e], self.hist[e])
+            _copy_into((params, opt_state), new)
 
     def _warm_up(self) -> "torch.cuda.Stream":
         """Run the body eagerly on the capture stream, on scratch copies of
@@ -838,15 +1047,17 @@ class _GraphChunks:
         return stream
 
     def _capture(self) -> None:
-        """Warm up, then capture one round.  A capture that fails raises:
-        the run never falls back to eager rounds on the card."""
+        """Warm up, then capture one round of every lane.  A capture that
+        fails raises: the run never falls back to eager rounds on the
+        card."""
         stream = self._warm_up()
         graph = torch.cuda.CUDAGraph()
         with ops.capture_counts() as self.per_replay:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(graph, pool=_graph_pool(self.device),
+                                  stream=stream):
                 self._step()
         self.graph = graph
-        _count_trace("run_chunk")
+        _count_trace(self.kind)
 
     def launch(self, staged: RoundInputs) -> None:
         """Copy a chunk's inputs in and replay the graph once a round;
@@ -864,12 +1075,12 @@ class _GraphChunks:
         ops.replay_counts(self.per_replay, self.rounds)
 
     def rows(self) -> torch.Tensor:
-        """The last chunk's [T, 8] history: one device-to-host copy."""
-        return self.hist[:self.rounds].cpu()
+        """The last chunk's [E, T, 8] history: one device-to-host copy."""
+        return self.hist[:, :self.rounds].cpu()
 
-    def state(self):
-        params, opt_state, _ = self.static
-        return _clone(params), _clone(opt_state)
+    def state(self) -> List[tuple]:
+        return [(_clone(params), _clone(opt_state))
+                for params, opt_state, _, _ in self.static]
 
 
 @functools.lru_cache(maxsize=ENGINE_CACHE_SIZE)
@@ -893,9 +1104,27 @@ def _make_run_chunk(cfg: FLConfig, grad_fn: GradFn, block_batch_fn,
     return _EagerChunks(body)
 
 
+@functools.lru_cache(maxsize=ENGINE_CACHE_SIZE)
+def _make_run_chunk_batched(sig: FLConfig, grad_fn: GradFn,
+                            device: torch.device, chunk_size: int,
+                            batch_spec, lanes: int, noisy: bool):
+    """A batched run's engine, cached on (the structural config, grad_fn,
+    device, chunk_size, the batch spec, the lane count and the group's
+    noise gate): on a CUDA device one CUDA graph of one round of every
+    lane, on the CPU the lanes' bodies run eagerly.  Each lane runs the
+    body of its own config (the body reads no batchable field), so a lane
+    gives its own run's bits."""
+    body = RoundBody(sig, grad_fn, noisy=noisy)
+    if device.type == "cuda":
+        return _GraphChunks(body, device, chunk_size, lanes,
+                            kind="run_chunk_batched")
+    return _EagerChunks(body, kind="run_chunk_batched")
+
+
 # name -> lru-cached builder, for cache_info()/clear_compile_caches()
 _CACHED_BUILDERS = {"round_step": make_round_step,
-                    "run_chunk": _make_run_chunk}
+                    "run_chunk": _make_run_chunk,
+                    "run_chunk_batched": _make_run_chunk_batched}
 
 
 def _plan_chunks(t0: int, num_rounds: int, eval_every: Optional[int],
@@ -919,18 +1148,71 @@ def _plan_chunks(t0: int, num_rounds: int, eval_every: Optional[int],
 
 def _locked_eval_keys(metrics: Dict[str, float],
                       eval_keys: Optional[Tuple[str, ...]],
-                      t) -> Tuple[str, ...]:
+                      t, where: str = "") -> Tuple[str, ...]:
     """The metric key set is locked on the first eval, so per-round metric
     lists stay aligned with ``hist['eval_round']``."""
     if eval_keys is None:
         return tuple(metrics)
     if set(metrics) != set(eval_keys):
         raise ValueError(
-            f"eval_fn returned metric keys {sorted(metrics)} at round {t}, "
-            f"but the history locked {sorted(eval_keys)} on the first eval "
-            "-- per-round metric lists must stay aligned with "
+            f"eval_fn returned metric keys {sorted(metrics)} at round {t}"
+            f"{where}, but the history locked {sorted(eval_keys)} on the "
+            "first eval -- per-round metric lists must stay aligned with "
             "hist['eval_round']")
     return eval_keys
+
+
+def _lane_inputs(cfg: FLConfig, state: FLState,
+                 device: torch.device) -> Tuple[_LaneHost, tuple]:
+    """A run's host side (``_LaneHost``) and its device constants ``(h,
+    gb)``: the fp32 channel and grad_bound as the reference holds them (a
+    and eta0 as fp32 scalars)."""
+    h_cpu = torch.as_tensor(state.h, dtype=torch.float32)
+    h_hat_cpu = (h_cpu if state.h_hat is None
+                 else torch.as_tensor(state.h_hat, dtype=torch.float32))
+    host = _LaneHost(cfg, h_hat_cpu,
+                     torch.as_tensor(state.b, dtype=torch.float32),
+                     float(np.float32(state.a)), float(np.float32(state.eta0)))
+    gb = (None if cfg.grad_bound is None else
+          torch.tensor(cfg.grad_bound, dtype=torch.float32, device=device))
+    return host, (h_cpu.to(device), gb)
+
+
+def _init_opt_state(cfg: FLConfig, state: FLState,
+                    device: torch.device) -> None:
+    if state.opt_state is None:
+        # step = rounds already taken, so Adam bias correction matches an
+        # unbroken run
+        init = server_optimizer(cfg).init(state.params)
+        state.opt_state = init._replace(
+            step=torch.tensor(state.round, dtype=torch.int32, device=device))
+
+
+def _params_device(params: Tree) -> torch.device:
+    return params[sorted(params)[0]].device
+
+
+def _drive_chunks(make_engine: Callable[[RoundInputs], Any],
+                  chunks: List[List[int]], staged_chunk: Callable,
+                  record: Callable):
+    """The scan driver's loop: each chunk's replays are queued, the next
+    chunk's host work runs while the card replays, then the chunk's
+    history is read back and recorded.  ``make_engine(staged)`` gives the
+    engine from the first staged chunk.  Returns the engine."""
+    staged = staged_chunk(chunks[0])
+    engine = make_engine(staged)
+    for i, ts in enumerate(chunks):
+        engine.launch(staged)
+        if i + 1 < len(chunks):
+            staged = staged_chunk(chunks[i + 1])
+        record(ts, engine.rows(), engine)
+    return engine
+
+
+def _batch_spec(staged: RoundInputs):
+    """The leaf shapes (past the round axis) and types of a staged batch."""
+    return tuple((tuple(l.shape[1:]), l.dtype) for l in
+                 _batch_leaves(() if staged.batch is None else staged.batch))
 
 
 def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
@@ -985,27 +1267,13 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
                          "set cfg.participation < 1")
     sch = schemes.get(cfg.scheme)
     params = state.params
-    device = params[sorted(params)[0]].device
-    if state.opt_state is None:
-        # step = rounds already taken, so Adam bias correction matches an
-        # unbroken run
-        init = server_optimizer(cfg).init(params)
-        state.opt_state = init._replace(
-            step=torch.tensor(state.round, dtype=torch.int32, device=device))
-    # fp32 channel vectors on the CPU (the participation fold) and on the
-    # device; the reference holds a and eta0 as fp32 scalars
-    h_cpu = torch.as_tensor(state.h, dtype=torch.float32)
-    h_hat_cpu = (h_cpu if state.h_hat is None
-                 else torch.as_tensor(state.h_hat, dtype=torch.float32))
-    b_cpu = torch.as_tensor(state.b, dtype=torch.float32)
-    h = h_cpu.to(device)
-    a = float(np.float32(state.a))
-    eta0 = float(np.float32(state.eta0))
+    device = _params_device(params)
+    _init_opt_state(cfg, state, device)
+    host, (h, gb) = _lane_inputs(cfg, state, device)
     shapes = {k: params[k].shape for k in sorted(params)}
 
     def staged_chunk(ts: Sequence[int]) -> RoundInputs:
-        r = _stage(cfg, sch, h_hat_cpu, b_cpu, a, eta0, shapes, ts,
-                   noise_provider, mask_provider)
+        r = _stage([host], sch, shapes, ts, noise_provider, mask_provider)
         if block_batch_provider is not None:
             return r
         batch = (chunk_batch_provider(ts) if chunk_batch_provider is not None
@@ -1031,39 +1299,166 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
             hist["eval_round"].append(t)
 
     t0 = state.round
+    opt_state = state.opt_state
     if driver == "python":
         body = make_round_step(cfg, grad_fn, block_batch_provider)
-        opt_state = state.opt_state
         for t in range(t0 + 1, t0 + num_rounds + 1):
             staged = _map_inputs(lambda v: v.to(device), staged_chunk([t]))
             params, opt_state, rows = _run_eager(body, params, opt_state, h,
-                                                 staged)
+                                                 gb, _lane(staged, 0))
             record([t], rows, lambda: params)
     else:
-        engine = None
         chunks = _plan_chunks(t0, num_rounds,
                               eval_every if eval_fn is not None else None,
                               chunk_size)
-        staged = staged_chunk(chunks[0]) if chunks else None
-        for i, ts in enumerate(chunks):
-            if engine is None:
-                spec = tuple((tuple(l.shape[1:]), l.dtype) for l in
-                             _batch_leaves(() if staged.batch is None
-                                           else staged.batch))
-                engine = _make_run_chunk(cfg, grad_fn, block_batch_provider,
-                                         device, chunk_size, spec)
-                engine.start(params, state.opt_state, h)
-            engine.launch(staged)
-            if i + 1 < len(chunks):
-                # the next chunk's host work, while the card runs this one
-                staged = staged_chunk(chunks[i + 1])
-            record(ts, engine.rows(), lambda: engine.state()[0])
-        if engine is not None:
-            params, opt_state = engine.state()
-        else:
-            opt_state = state.opt_state
+
+        def make_engine(staged):
+            engine = _make_run_chunk(cfg, grad_fn, block_batch_provider,
+                                     device, chunk_size, _batch_spec(staged))
+            engine.start([(params, opt_state, h, gb)])
+            return engine
+
+        if chunks:
+            engine = _drive_chunks(
+                make_engine, chunks, staged_chunk,
+                lambda ts, rows, eng: record(ts, rows[0],
+                                             lambda: eng.state()[0][0]))
+            params, opt_state = engine.state()[0]
 
     state.params = params
     state.opt_state = opt_state
     state.round += num_rounds
     return state, hist
+
+
+def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
+                grad_fn: GradFn, batch_provider: Callable[[int], Any],
+                num_rounds: int,
+                eval_fn: Optional[Callable[[Tree], Dict[str, float]]] = None,
+                eval_every: int = 10, *, chunk_size: int = 16,
+                chunk_batch_provider: Optional[
+                    Callable[[Sequence[int]], Any]] = None,
+                ) -> Tuple[List[FLState], Dict[str, Any]]:
+    """Run E experiments as lanes of one engine: the batched twin of
+    ``run(driver='scan')``, on the device of the states' params.
+
+    The configs must be structurally identical (equal
+    ``structural_config``), differing only in the batchable fields
+    (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS``).  The host stages
+    every lane's chunk ([T, E, ...]: noise, eta_t, the folded gains) and
+    copies it once; on the card one CUDA graph holds one round of every
+    lane, lane after lane, replayed once a round, and the [E, T, 8] history
+    comes back once a chunk.  Each lane runs its own config's round body on
+    its own state and launches every kernel at its own shape, so lane e is
+    bitwise ``run(cfgs[e], states[e], ...)``.  All lanes share ``grad_fn``
+    and the batch providers (one task), the round counter and the eval
+    schedule.
+
+    Returns ``(states, hist)``: every ``DIAG_KEYS`` entry of ``hist`` an
+    ``np.ndarray`` [E, num_rounds], eval metrics [E, num_evals], and
+    ``hist['round']`` / ``hist['eval_round']`` flat lists shared by the
+    lanes.  ``states`` are updated in place as ``run`` updates its one."""
+    if len(cfgs) != len(states) or not cfgs:
+        raise ValueError("need equal, nonzero numbers of configs and states")
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    cfg0 = cfgs[0]
+    if cfg0.backend == "mesh":
+        raise ValueError("the mesh backend reserves the device axis for the "
+                         "FL devices; run mesh experiments sequentially")
+    if cfg0.device_mesh is not None:
+        raise ValueError("device_mesh owns the local devices for the "
+                         "FL-device axis; run device_mesh experiments "
+                         "sequentially")
+    sig = structural_config(cfg0)
+    for c in cfgs[1:]:
+        if structural_config(c) != sig:
+            raise ValueError(
+                "configs in a batched run must be structurally identical "
+                "(they may differ only in "
+                f"{BATCHED_FL_FIELDS + BATCHED_CHANNEL_FIELDS}); got "
+                f"{structural_config(c)} vs {sig}")
+    t0s = {s.round for s in states}
+    if len(t0s) != 1:
+        raise ValueError(f"states disagree on the round counter: {t0s}")
+    t0 = t0s.pop()
+    dims = {s.model_dim for s in states}
+    if len(dims) != 1:
+        raise ValueError(f"states disagree on model_dim: {dims} -- a batched "
+                         "run shares one task")
+    devices = {_params_device(s.params) for s in states}
+    if len(devices) != 1:
+        raise ValueError(f"states live on different devices: {devices}")
+    device = devices.pop()
+    sch = schemes.get(cfg0.scheme)
+    for c, s in zip(cfgs, states):
+        _init_opt_state(c, s, device)
+    hosts, consts = zip(*(_lane_inputs(c, s, device)
+                          for c, s in zip(cfgs, states)))
+    over = BatchAxes(
+        noise_var=torch.tensor([c.channel.noise_var for c in cfgs],
+                               dtype=torch.float32),
+        grad_bound=(None if cfg0.grad_bound is None else torch.tensor(
+            [c.grad_bound for c in cfgs], dtype=torch.float32,
+            device=device)))
+    lanes = [(s.params, s.opt_state, h,
+              None if over.grad_bound is None else over.grad_bound[e])
+             for e, (s, (h, _)) in enumerate(zip(states, consts))]
+    noisy = any(schemes.maybe_positive(float(v)) for v in over.noise_var)
+    params0 = states[0].params
+    shapes = {k: params0[k].shape for k in sorted(params0)}
+
+    def staged_chunk(ts: Sequence[int]) -> RoundInputs:
+        # the host's own work first: a provider's copy to the card may wait
+        # for the replays queued before it
+        r = _stage(hosts, sch, shapes, ts)
+        batch = (chunk_batch_provider(ts) if chunk_batch_provider is not None
+                 else _stack_batches(batch_provider, ts))
+        return r._replace(batch=batch)
+
+    def make_engine(staged):
+        engine = _make_run_chunk_batched(sig, grad_fn, device, chunk_size,
+                                         _batch_spec(staged), len(cfgs),
+                                         noisy)
+        engine.start(lanes)
+        return engine
+
+    hist: Dict[str, Any] = {"round": [], "eval_round": []}
+    diag_chunks: List[np.ndarray] = []
+    eval_cols: Dict[str, List[List[float]]] = {}
+    eval_keys: Optional[Tuple[str, ...]] = None
+
+    def record(ts, rows, engine):
+        nonlocal eval_keys
+        hist["round"].extend(ts)
+        diag_chunks.append(rows.double().numpy())
+        t = ts[-1]
+        if eval_fn is not None and (t % eval_every == 0 or t == 1):
+            per_lane: Dict[str, List[float]] = {}
+            for e, (params, _) in enumerate(engine.state()):
+                metrics = eval_fn(params)
+                eval_keys = _locked_eval_keys(metrics, eval_keys, t,
+                                              where=f" (experiment {e})")
+                for mk in eval_keys:
+                    per_lane.setdefault(mk, []).append(metrics[mk])
+            for mk in eval_keys:
+                eval_cols.setdefault(mk, []).append(per_lane[mk])
+            hist["eval_round"].append(t)
+
+    chunks = _plan_chunks(t0, num_rounds,
+                          eval_every if eval_fn is not None else None,
+                          chunk_size)
+    if chunks:
+        engine = _drive_chunks(make_engine, chunks, staged_chunk, record)
+        for s, (params, opt_state) in zip(states, engine.state()):
+            s.params, s.opt_state = params, opt_state
+        rows = np.concatenate(diag_chunks, axis=1)          # [E, T, 8]
+    else:
+        rows = np.zeros((len(cfgs), 0, len(DIAG_KEYS)))
+    for i, k in enumerate(DIAG_KEYS):
+        hist[k] = rows[:, :, i].copy()
+    for mk, cols in eval_cols.items():
+        hist[mk] = np.asarray(cols, np.float64).T            # [E, evals]
+    for s in states:
+        s.round += num_rounds
+    return list(states), hist

@@ -1,4 +1,5 @@
-"""The declarative experiment API of the port: spec -> ``Experiment``.
+"""The declarative experiment API of the port: spec -> ``Experiment``, and
+a grid of specs -> ``run_sweep``.
 
 Names resolve on first access (PEP 562): ``repro_torch.fed.runtime``
 imports ``repro_torch.fl.clients``, and an eager import of the runtime here
@@ -14,6 +15,13 @@ _EXPORTS = {
     "EvalSpec": "repro_torch.fl.spec",
     "ExperimentSpec": "repro_torch.fl.spec",
     "ModelSpec": "repro_torch.fl.spec",
+    "apply_axes": "repro_torch.fl.spec",
+    "apply_axis": "repro_torch.fl.spec",
+    "resolve_axis": "repro_torch.fl.spec",
+    "SweepPoint": "repro_torch.fl.sweep",
+    "SweepResult": "repro_torch.fl.sweep",
+    "SweepSpec": "repro_torch.fl.sweep",
+    "run_sweep": "repro_torch.fl.sweep",
     "Task": "repro_torch.fl.tasks",
     "build_task": "repro_torch.fl.tasks",
 }

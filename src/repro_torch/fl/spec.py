@@ -6,13 +6,18 @@ and the scenario-axis overrides.
 ``driver`` defaults to ``"scan"``, the chunked engine (a CUDA graph of the
 round on the card), as in the reference; ``"python"`` runs the same round
 body one round at a time and gives the same bits.
+
+``resolve_axis`` / ``apply_axis`` / ``apply_axes`` address the nested spec
+through one flat namespace of sweep axes (``repro_torch.fl.sweep``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Mapping, Optional, Tuple
 
+from repro_torch.core.channel import ChannelConfig
 from repro_torch.fed.runtime import DRIVERS, FLConfig
+from repro_torch.fl.clients import ClientConfig
 
 DATASETS = ("synthetic_mnist", "ridge")
 SPLITS = ("iid", "dirichlet")
@@ -111,3 +116,98 @@ class ExperimentSpec:
             ("device_mesh", self.device_mesh),
         ) if v is not None}
         return dataclasses.replace(self.fl, **over) if over else self.fl
+
+
+# ---------------------------------------------------------------------------
+# sweep axes: one flat namespace over the nested spec
+#
+# A bare name resolves to the first scope, in this order, that has the
+# field: "seed" -> fl.seed, "noise_var" -> channel.noise_var, "alpha" ->
+# data.alpha (the dirichlet concentration; the feddyn strength is
+# "client.alpha"), and bare "model" to the CHANNEL model (the model spec is
+# reachable dotted only: "model.hidden").  Dotted names pick the scope.
+
+_SCOPE_ORDER: Tuple[Tuple[str, type], ...] = (
+    ("fl", FLConfig),
+    ("channel", ChannelConfig),
+    ("data", DataSpec),
+    ("model", ModelSpec),
+    ("client", ClientConfig),
+)
+_SCOPE_FIELDS = {scope: tuple(f.name for f in dataclasses.fields(cls))
+                 for scope, cls in _SCOPE_ORDER}
+# execution knobs are owned by the sweep engine; the scenario-axis
+# overrides sweep through their FLConfig name (apply_axis writes the
+# spec-level override, so a base-spec override cannot shadow the axis)
+_UNSWEEPABLE = ("eval", "driver", "chunk_size")
+_OVERRIDE_FIELDS = ("server_opt", "local_steps", "local_lr",
+                    "participation", "participation_mode", "k_block",
+                    "active_gather", "device_mesh")
+
+
+def resolve_axis(name: str) -> Tuple[str, str]:
+    """A sweep-axis name as ``(scope, field)``, scope one of ``fl``,
+    ``channel``, ``data``, ``model``, ``client``.  Raises ``ValueError`` for
+    unknown or unsweepable names."""
+    if "." in name:
+        scope, _, field = name.partition(".")
+        if scope not in _SCOPE_FIELDS:
+            raise ValueError(f"unknown sweep scope {scope!r} in {name!r}; "
+                             f"one of {tuple(_SCOPE_FIELDS)}")
+        if field not in _SCOPE_FIELDS[scope]:
+            raise ValueError(f"{scope!r} spec has no field {field!r}; "
+                             f"one of {_SCOPE_FIELDS[scope]}")
+        return scope, field
+    for scope, fields in _SCOPE_FIELDS.items():
+        if name in fields:
+            return scope, name
+    if name in _UNSWEEPABLE or name in {
+            f.name for f in dataclasses.fields(ExperimentSpec)}:
+        raise ValueError(f"{name!r} is not sweepable (execution/eval knobs "
+                         "are owned by the sweep engine; scenario-axis "
+                         "overrides sweep via their FLConfig field)")
+    known = sorted(set().union(*_SCOPE_FIELDS.values()))
+    raise ValueError(f"unknown sweep axis {name!r}; known fields: {known}")
+
+
+def apply_axis(spec: ExperimentSpec, name: str, value: Any) -> ExperimentSpec:
+    """``spec`` with one resolved axis field replaced (the dataclasses'
+    ``__post_init__`` validate the result)."""
+    scope, field = resolve_axis(name)
+    if scope == "fl":
+        if field in _OVERRIDE_FIELDS:
+            return dataclasses.replace(spec, **{field: value})
+        if field == "num_devices":
+            # K lives in FLConfig and in its ChannelConfig: move them
+            # together, or setup draws a channel of the old length
+            channel = dataclasses.replace(spec.fl.channel, num_devices=value)
+            return dataclasses.replace(
+                spec, fl=dataclasses.replace(spec.fl, num_devices=value,
+                                             channel=channel))
+        return dataclasses.replace(
+            spec, fl=dataclasses.replace(spec.fl, **{field: value}))
+    if scope == "channel":
+        if field == "num_devices":
+            raise ValueError("sweep the cohort size via 'num_devices' (the "
+                             "FLConfig field) -- it keeps the channel length "
+                             "in sync")
+        channel = dataclasses.replace(spec.fl.channel, **{field: value})
+        return dataclasses.replace(
+            spec, fl=dataclasses.replace(spec.fl, channel=channel))
+    if scope == "client":
+        client = dataclasses.replace(spec.fl.client, **{field: value})
+        return dataclasses.replace(
+            spec, fl=dataclasses.replace(spec.fl, client=client))
+    if scope == "data":
+        return dataclasses.replace(
+            spec, data=dataclasses.replace(spec.data, **{field: value}))
+    return dataclasses.replace(
+        spec, model=dataclasses.replace(spec.model, **{field: value}))
+
+
+def apply_axes(spec: ExperimentSpec,
+               coords: Mapping[str, Any]) -> ExperimentSpec:
+    """Fold a mapping of axis name -> value into a spec: one grid point."""
+    for name, value in coords.items():
+        spec = apply_axis(spec, name, value)
+    return spec

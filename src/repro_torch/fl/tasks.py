@@ -10,16 +10,23 @@ gathers the rows from the resident training arrays inside
 on the host and copied to the device once.  ``mlp_task`` and
 ``ridge_task`` build a Task from given arrays, so the parity tests can hand
 in the JAX package's data.
+
+``build_task`` is cached on (data, model, K, device), as the reference's is
+on (data, model, K): experiments and sweeps over one task share its arrays
+and its ``grad_fn``, and with it the engines cached on that ``grad_fn``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.device import resolve_device
 from repro_torch.data.datasets import (FederatedSplit, device_batches,
                                        device_batches_many, ridge_data,
                                        split_dirichlet, split_iid,
@@ -127,12 +134,34 @@ def ridge_task(x, y, split: FederatedSplit, params0: Tree, *, lam: float,
                  "f_star": f_star})
 
 
+# sized for sweeps: a grid over data/model axes walks one entry per
+# distinct (data, model, K, device), and an eviction drops the arrays and
+# the grad_fn identity the engine caches key on
+TASK_CACHE_SIZE = int(os.environ.get("REPRO_TASK_CACHE_SIZE", "32"))
+
+
+def task_cache_info() -> Dict[str, int]:
+    """``lru_cache`` statistics of ``build_task`` (hits mean shared arrays
+    and warm engines across experiments and sweeps)."""
+    return _build_task.cache_info()._asdict()
+
+
 def build_task(data: DataSpec, model: ModelSpec, num_devices: int,
-               device) -> Task:
-    """Build the ``Task`` of a data/model spec pair on ``device``.  Every
-    draw is made on a CPU generator first, so the task is the same on every
-    device.  ``dirichlet`` splits of the ridge task fall back to IID (the
-    task has no labels to skew by)."""
+               device="cuda") -> Task:
+    """Build (or fetch the cached) ``Task`` of a data/model spec pair on
+    ``device``.  Every draw is made on a CPU generator first, so the task
+    is the same on every device.  ``dirichlet`` splits of the ridge task
+    fall back to IID (the task has no labels to skew by), through the
+    cache, so both specs share one Task."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _build_task(data, model, num_devices, dev)
+
+
+@functools.lru_cache(maxsize=TASK_CACHE_SIZE)
+def _build_task(data: DataSpec, model: ModelSpec, num_devices: int,
+                device: torch.device) -> Task:
     kind = model.resolve(data.dataset)
     gen = rng.generator(data.seed)
     split_gen = rng.generator(data.seed, _SPLIT_SALT)
@@ -157,6 +186,9 @@ def build_task(data: DataSpec, model: ModelSpec, num_devices: int,
     if kind != "ridge":
         raise ValueError(f"model kind {kind!r} cannot train on the ridge "
                          "task (use 'ridge' or 'auto')")
+    if data.split == "dirichlet":
+        return _build_task(dataclasses.replace(data, split="iid"), model,
+                           num_devices, device)
     x, y, _ = ridge_data(gen, data.num_train, data.dim)
     split = split_iid(split_gen, data.num_train, num_devices)
     params0 = init_ridge(init_gen, data.dim, device=device)

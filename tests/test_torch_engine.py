@@ -316,3 +316,67 @@ def test_graph_engine_stages_loads_and_resumes(monkeypatch):
         assert a.history == b.history
         for k in b.params:
             assert torch.equal(a.params[k], b.params[k]), (over, k)
+
+
+# Case I's six leaves (784-64-64-10 MLP, N = 55,050) and the ridge model's
+# one leaf
+STAGE_SHAPES = {
+    "case_i": {"w1": (784, 64), "b1": (64,), "w2": (64, 64), "b2": (64,),
+               "w3": (64, 10), "b3": (10,)},
+    "ridge": {"w": (30,)},
+}
+
+
+def _lane(seed, noise_var, backend="kernels", k_block=None):
+    cfg = runtime.FLConfig(num_devices=4, seed=seed, backend=backend,
+                           k_block=k_block,
+                           channel=ChannelConfig(num_devices=4,
+                                                 noise_var=noise_var))
+    return runtime._LaneHost(cfg, torch.ones(4), torch.ones(4), 1.0, 1.0)
+
+
+@pytest.mark.parametrize("rounds", [1, 16])
+@pytest.mark.parametrize("model", list(STAGE_SHAPES))
+def test_staged_noise_is_resolve_noise(model, rounds):
+    """The staging draws each round's noise straight into its slice of one
+    [T, E, N] buffer, leaf by leaf, and scales it in place: the bits of
+    ``ota.resolve_noise`` on the same generator, round by round."""
+    from repro_torch import rng
+    from repro_torch.core import ota
+    shapes = {k: torch.Size(v) for k, v in STAGE_SHAPES[model].items()}
+    lane = _lane(seed=5, noise_var=3e-7)
+    ts = list(range(7, 7 + rounds))
+    got = runtime._stage_noise([lane], shapes, ts)
+    ocfg = ota.OTAConfig(noise_var=lane.cfg.channel.noise_var)
+    want = torch.stack([ota.resolve_noise(ocfg, shapes, "cpu",
+                                          rng.generator(lane.cfg.seed + 1, t))
+                        for t in ts])
+    assert got.shape == (rounds, 1, want.shape[1])
+    assert torch.equal(got[:, 0], want)
+
+
+def test_staged_lanes_are_their_own_runs():
+    """A batched chunk stages each lane as its own run stages it; a lane
+    without noise in a noisy group stages the zeros its own round adds
+    (+0.0 where the dense kernels round hands K2 zeros, -0.0 where the
+    round would add nothing)."""
+    shapes = {k: torch.Size(v) for k, v in STAGE_SHAPES["case_i"].items()}
+    sch = runtime.schemes.get("normalized")
+    lanes = [_lane(0, 1e-7), _lane(3, 0.0), _lane(3, 2e-7)]
+    ts = [1, 2, 3]
+    got = runtime._stage(lanes, sch, shapes, ts)
+    for e, lane in enumerate(lanes):
+        alone = runtime._stage([lane], sch, shapes, ts)
+        for name, v in zip(runtime.RoundInputs._fields, alone):
+            if v is not None:
+                assert torch.equal(runtime._lane(got, e)._asdict()[name],
+                                   v[:, 0]), (e, name)
+            elif name != "noise":
+                assert getattr(got, name) is None, name
+    zero = runtime._lane(got, 1).noise
+    assert torch.equal(zero, torch.zeros_like(zero))
+    assert not torch.signbit(zero).any()
+    for kw in (dict(backend="vmap"), dict(k_block=2)):
+        z = runtime._stage([_lane(0, 1e-7, **kw), _lane(1, 0.0, **kw)], sch,
+                           shapes, ts).noise[:, 1]
+        assert torch.equal(z, torch.zeros_like(z)) and torch.signbit(z).all()

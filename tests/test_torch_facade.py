@@ -6,6 +6,7 @@ that ports it."""
 import importlib
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,3 +122,14 @@ def test_fl_exports_what_is_ported():
         if has:
             assert getattr(fl, name) is value, name
     assert fl.ClientConfig().algo == "sgd"
+
+
+def test_federated_split_weights_are_the_reference_weights():
+    """FederatedSplit.weights(): each device's share of the examples, the
+    paper's D_k / D_A, as the reference's."""
+    from repro.data.datasets import FederatedSplit as JFederatedSplit
+    from repro_torch.data.datasets import FederatedSplit
+    indices = tuple(np.arange(n) for n in (3, 5, 2, 10))
+    got = FederatedSplit(indices).weights()
+    np.testing.assert_array_equal(got, JFederatedSplit(indices).weights())
+    assert got.sum() == pytest.approx(1.0)

@@ -47,7 +47,10 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.launch.serve, repro_torch.models.transformer\n"
         "import repro_torch.models.mamba, repro_torch.models.moe\n"
         "import repro_torch.configs.registry\n"
+        "import repro_torch.obs, repro_torch.obs.manifest\n"
+        "import repro_torch.fl.sweep, repro_torch.fl.tasks\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
+        "from repro_torch.fl import SweepSpec, run_sweep, build_task\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")
@@ -62,6 +65,8 @@ def test_entry_modules_load_without_jax_or_repro():
 ENTRY_POINTS = [
     ("repro_torch.device", "resolve_device"),
     ("repro_torch.fl.experiment", "Experiment"),
+    ("repro_torch.fl.sweep", "run_sweep"),
+    ("repro_torch.fl.tasks", "build_task"),
     ("repro_torch.interop", "params_from_jax"),
     ("repro_torch.interop", "state_from_jax"),
     ("repro_torch.interop", "model_params_from_jax"),

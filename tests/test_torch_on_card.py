@@ -500,6 +500,118 @@ class TestDriverOnCard:
         assert torch.equal(outs[2], 3.0 * outs[0])
 
 
+@pytest.mark.cuda
+class TestSweepOnCard:
+    """Local steps and the batched sweep engine on the card: H = 4 local
+    steps, scan against python; ``run_batched``'s lanes (one CUDA graph of
+    a round of every lane) against their own sequential runs, bitwise; no
+    capture on a warm repeat; engines sharing one graph memory pool,
+    replayed out of their capture order, against eager runs."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _same(a, b):
+        assert a.history == b.history
+        for k in b.params:
+            assert torch.equal(a.params[k], b.params[k]), k
+
+    @pytest.mark.parametrize("over", [{}, dict(k_block=4),
+                                      dict(participation=0.5,
+                                           participation_mode="fixed",
+                                           active_gather=True)],
+                             ids=["dense", "k_block", "fixed_gather"])
+    def test_local_steps_scan_is_bitwise_python(self, over):
+        import dataclasses
+        from repro_torch.fl import Experiment
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(
+                _case_i_spec(local_steps=4, local_lr=0.05, **over),
+                driver=driver), device="cuda")
+            e.run(12)
+            runs[driver] = e
+        self._same(runs["scan"], runs["python"])
+
+    @staticmethod
+    def _lanes(scheme, axis):
+        """Three lanes of the Case-I spec that differ in one batchable
+        field, and their task."""
+        import dataclasses
+        from repro_torch.fl import build_task
+        spec = _case_i_spec()
+        spec = dataclasses.replace(spec, fl=dataclasses.replace(
+            spec.fl, scheme=scheme, grad_bound=2.0))
+        task = build_task(spec.data, spec.model, 20, "cuda")
+        values = {"seed": (0, 1, 2), "grad_bound": (0.5, 2.0, 8.0)}[axis]
+        cfgs = [dataclasses.replace(spec.fl, **{axis: v}) for v in values]
+        return cfgs, task
+
+    @pytest.mark.parametrize("scheme,axis", [("normalized", "seed"),
+                                             ("clipped", "grad_bound")])
+    def test_run_batched_lane_is_its_run(self, scheme, axis):
+        from repro_torch.fed import runtime
+        from repro_torch.obs import params_sha256
+        cfgs, task = self._lanes(scheme, axis)
+        states = [runtime.setup(c, task.params0, task.model_dim)
+                  for c in cfgs]
+        states, hist = runtime.run_batched(
+            cfgs, states, task.grad_fn, task.batch_provider, 20,
+            eval_fn=task.eval_fn,
+            chunk_batch_provider=task.chunk_batch_provider)
+        for e, cfg in enumerate(cfgs):
+            state = runtime.setup(cfg, task.params0, task.model_dim)
+            state, want = runtime.run(
+                cfg, state, task.grad_fn, task.batch_provider, 20,
+                eval_fn=task.eval_fn,
+                chunk_batch_provider=task.chunk_batch_provider)
+            for k in runtime.DIAG_KEYS + ("test_acc", "train_loss"):
+                assert hist[k][e].tolist() == want[k], (e, k)
+            assert params_sha256(states[e].params) == params_sha256(
+                state.params), e
+
+    def test_warm_repeat_of_a_sweep_captures_nothing(self):
+        import dataclasses
+        from repro_torch.fed import runtime
+        from repro_torch.fl import SweepSpec, run_sweep
+        sweep = SweepSpec(dataclasses.replace(_case_i_spec(), chunk_size=8),
+                          {"amplification": ("optimal", "bmax"),
+                           "seed": (0, 1)})
+        runtime.clear_compile_caches()
+        runtime.cache_info()
+        first = run_sweep(sweep, 10)
+        assert runtime.cache_info()["traces_delta"]["run_chunk_batched"] == 2
+        again = run_sweep(sweep, 10)
+        assert set(runtime.cache_info()["traces_delta"].values()) == {0}
+        assert first.params_digests == again.params_digests
+        runtime.clear_compile_caches()
+
+    def test_shared_pool_replays_out_of_capture_order(self):
+        """Engines A (the dense round) and B (the streamed round, other
+        temporaries) captured into the one pool, then run A, B, A, B: each
+        keeps the bits of its eager (python-driver) run."""
+        import dataclasses
+        from repro_torch.fed import runtime
+        from repro_torch.fl import Experiment
+        runtime.clear_compile_caches()
+        specs = {"A": _case_i_spec(), "B": _case_i_spec(k_block=4)}
+        scan = {n: Experiment(s, device="cuda") for n, s in specs.items()}
+        for name in ("A", "B", "A", "B", "A"):
+            scan[name].run(5)
+        assert runtime.cache_info()["traces"]["run_chunk"] == 2
+        for name, rounds in (("A", 15), ("B", 10)):
+            eager = Experiment(dataclasses.replace(specs[name],
+                                                   driver="python"),
+                               device="cuda")
+            eager.run(rounds)
+            self._same(scan[name], eager)
+        runtime.clear_compile_caches()
+
+
 def _attention_inputs(b, h, hkv, sq, skv, d, dtype, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d))

@@ -236,7 +236,6 @@ def test_task_is_deterministic_across_builds():
 
 @pytest.mark.parametrize("field,value,item", [
     ("backend", "mesh", "item 15"),
-    ("local_steps", 2, "item 7"),
     ("device_mesh", 2, "item 15"),
 ])
 def test_unported_fl_fields_raise(field, value, item):
