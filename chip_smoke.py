@@ -1170,7 +1170,6 @@ def timed_prefills(ops, prefill, params, tokens):
     """PREFILL_SAMPLES timed prefills at the full shape, after a caller's
     warm-up at that shape; returns the last prefill's (ids, cache), the
     seconds of each and the launch counts of one."""
-    ids = cache = None
     seconds = []
     for _ in range(PREFILL_SAMPLES):
         ids = cache = None               # the last prefill's cache freed

@@ -7,10 +7,9 @@ from __future__ import annotations
 from repro_torch._config import config
 
 ALGOS = ("sgd", "fedprox", "feddyn", "scaffold")
-# the reference's classification of the ClientConfig fields for sweeps
-# (repro_torch.fed.runtime's tables hold FLConfig's and ChannelConfig's)
+# the ClientConfig fields a sweep may vary per lane (the reference's table;
+# repro_torch.fed.runtime's hold FLConfig's and ChannelConfig's)
 BATCHED_CLIENT_FIELDS = ("mu", "alpha")
-STRUCTURAL_CLIENT_FIELDS = ("algo", "variate_scheme")
 
 
 @config
