@@ -1865,12 +1865,22 @@ SWEEP_RATE_ROUNDS = 64           # rounds a timed sweep call (chunks of 16)
 PATH_KERNELS = ("batched_moments", "ota_superpose", "sumsq")
 
 
-def check_path_launches(launches: dict, rounds: int, where: str) -> None:
-    """The round's kernels (K1, K2, K5) launched at least once a round."""
+def check_path_launches(launches: dict, rounds: int, where: str,
+                        lanes: int | None = None) -> None:
+    """The round's kernels (K1, K2, K5) launched at least once a round;
+    given ``lanes``, exactly once a lane a round of a batched run, its
+    graph's eager warm-up rounds included."""
+    from repro_torch.fed import runtime
     for name in PATH_KERNELS:
-        if launches[name] < rounds:
+        if lanes is None:
+            bad = launches[name] < rounds
+        else:
+            bad = launches[name] != lanes * (
+                rounds + runtime.GRAPH_WARMUP_ROUNDS)
+        if bad:
             fail(f"{where}: {name} launched {launches[name]} times in "
-                 f"{rounds} rounds")
+                 f"{rounds} rounds"
+                 + ("" if lanes is None else f" of {lanes} lanes"))
 
 
 def phase_local_steps(ops) -> None:
@@ -1994,8 +2004,7 @@ def _batched_round_profile(sweep, rounds: int) -> dict:
 
 def _host_profile(run, n: int = 10) -> dict:
     """Where the calling thread's time goes in ``run()``: cProfile, the
-    functions with the most own time (the stage threads' draws show as
-    the wait for them)."""
+    functions with the most own time."""
     import cProfile
     import pstats
     prof = cProfile.Profile()
@@ -2096,7 +2105,8 @@ def phase_sweep(ops) -> None:
         row["allocated_mb_after"] = torch.cuda.memory_allocated() / 2 ** 20
         row["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
         emit(row)
-        check_path_launches(row["launches"], ROUNDS, f"sweep {name}")
+        check_path_launches(row["launches"], ROUNDS, f"sweep {name}",
+                            lanes=sweep.size)
         if not (row["bitwise_history"] and row["bitwise_params"]):
             fail(f"sweep {name}: batched differs from sequential "
                  f"({row['history_keys_that_differ']})")

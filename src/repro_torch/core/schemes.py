@@ -228,12 +228,12 @@ def transmit_energy(scheme: Scheme, stats: DeviceStats, b: torch.Tensor,
     return e
 
 
-def maybe_positive(noise_var) -> bool:
-    """Whether a round carries channel noise: True for a tensor variance (a
-    batched run's per-lane sigma^2, decided for its group) and for a
-    positive number.  A lane with sigma^2 = 0 in a noisy group stages
-    exact zeros, so the gate preserves its values."""
-    return isinstance(noise_var, torch.Tensor) or noise_var > 0.0
+def maybe_positive(noise_var: float) -> bool:
+    """Whether a round carries channel noise: sigma^2 > 0.  A batched run
+    gates its group on any lane's (``runtime._noisy``); a lane with
+    sigma^2 = 0 in a noisy group stages exact zeros, so the gate preserves
+    its values."""
+    return noise_var > 0.0
 
 
 def add_channel_noise(tree: Tree, generator: torch.Generator,

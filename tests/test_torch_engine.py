@@ -364,9 +364,11 @@ def test_staged_lanes_are_their_own_runs():
     sch = runtime.schemes.get("normalized")
     lanes = [_lane(0, 1e-7), _lane(3, 0.0), _lane(3, 2e-7)]
     ts = [1, 2, 3]
-    got = runtime._stage(lanes, sch, shapes, ts)
+    got = runtime._stage(lanes, sch, shapes, ts,
+                         noisy=runtime._noisy([l.cfg for l in lanes]))
     for e, lane in enumerate(lanes):
-        alone = runtime._stage([lane], sch, shapes, ts)
+        alone = runtime._stage([lane], sch, shapes, ts,
+                               noisy=runtime._noisy([lane.cfg]))
         for name, v in zip(runtime.RoundInputs._fields, alone):
             if v is not None:
                 assert torch.equal(runtime._lane(got, e)._asdict()[name],
@@ -378,5 +380,5 @@ def test_staged_lanes_are_their_own_runs():
     assert not torch.signbit(zero).any()
     for kw in (dict(backend="vmap"), dict(k_block=2)):
         z = runtime._stage([_lane(0, 1e-7, **kw), _lane(1, 0.0, **kw)], sch,
-                           shapes, ts).noise[:, 1]
+                           shapes, ts, noisy=True).noise[:, 1]
         assert torch.equal(z, torch.zeros_like(z)) and torch.signbit(z).all()

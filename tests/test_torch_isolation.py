@@ -38,6 +38,26 @@ def test_no_jax_or_repro_import_in_the_port():
     assert not bad, bad
 
 
+def test_port_leaves_the_reference_to_tracelint_tl005():
+    """The JAX package's TL005 reads the sweep tables, the config
+    dataclasses and the ``structural_config`` collapse it finds over the
+    whole source tree; the collapse it keeps is the last one in path order,
+    which would be the port's.  The port declares none of them in a form the
+    rule reads, so the rule goes on checking the reference."""
+    from repro.lint import rules_contracts as rc
+    files = sorted(PORT.rglob("*.py"))
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        where = path.relative_to(ROOT)
+        assert not any(rc._collapse_kwargs(tree).values()), where
+        assert not [n.name for n in ast.walk(tree)
+                    if isinstance(n, ast.ClassDef)
+                    and rc._is_dataclass_def(n)
+                    and n.name in {c.class_name for c in rc._SPECS}], where
+    ref = ast.parse((ROOT / "src/repro/fed/runtime.py").read_text())
+    assert "seed" in rc._collapse_kwargs(ref)["fl"]
+
+
 def test_entry_modules_load_without_jax_or_repro():
     code = (
         "import sys\n"
