@@ -72,6 +72,20 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               repeat, warm aggregate lane-rounds/s batched against
               sequential, the device's idle share of profiled batched
               rounds, and the allocator's growth;
+6e. channel -- the radio environment at Case II's width (ridge, K = 20,
+              N = 30, kernels backend) in benchmarks/figures.py::
+              channel_rounds_per_sec's four variants (fixed, i.i.d. block
+              fading, AR(1) rho 0.9, AR(1) + CSI error 0.2): scan == python
+              bitwise over 20 rounds, the card against a CPU run, K1, K2
+              and K5 once a round, warm rounds/s, the host's staging a
+              round and its Problem-3 re-solve share (cProfile), the
+              device's idle share; the overhead ratio iid_fading / ar1_csi
+              beside the reference's 2x budget (reported, not failed); then
+              a reduced csi_robustness grid (scheme {normalized,
+              benchmark1} x csi_error {0, 0.1, 0.3, 0.6} x 2 seeds, block
+              fading: 2 groups of 8 lanes) through ``run_sweep``, batched
+              == sequential bitwise, one capture a group, none on a warm
+              repeat;
 7. stream_ota -- ``ota.aggregate(OTAConfig(backend="kernels",
               k_block=1000))`` at the K-scale shape for four schemes, against
               the dense aggregate on the card and the plain route on the
@@ -79,7 +93,8 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
 8. stream  -- the repo's 100,000-device case (benchmarks/kscale_case.py):
               3 streaming rounds of a {"w": [2048]} linear model over a
               shared pool, batches made per K-block through
-              ``block_batch_provider``; rounds/s, K2 launches (100 a round,
+              ``block_batch_provider``, the channel from geometry gains and
+              Rayleigh amplitudes drawn one K-block at a time; rounds/s, K2 launches (100 a round,
               the graph's warm-up rounds included), peak device memory
               under 512 MiB, params against the CPU;
 9. flash   -- flash attention (K6) against its plain version, both
@@ -145,7 +160,11 @@ rates and idle shares), and
 
     python3 chip_smoke.py --sweep
 
-only phases 1, 2, 6c and 6d.
+only phases 1, 2, 6c and 6d, and
+
+    python3 chip_smoke.py --channel
+
+only phases 1, 2 and 6e.
 """
 from __future__ import annotations
 
@@ -804,13 +823,15 @@ def kscale_case(device: str, k: int = K_SCALE, kb: int = KB_SCALE):
     examples x 2,048 features, B = 8 rows per device drawn by (round,
     device) index, a {"w": [2048]} linear model, the normalized scheme on
     the kernels backend, b = b_max and a = 1 / sum(h b) (Problem 3 at this
-    K is O(K^2)).  The channel is the port's dense Rayleigh draw (the
-    reference's geometry gains wait for ROADMAP queue 1 item 11).  Every
-    input is drawn on the CPU from a seed, so the GPU and the CPU run see
-    the same."""
+    K is O(K^2)).  The channel is the reference's: geometry gains
+    (``GeometryConfig(shadowing_std_db=4.0)``) and Rayleigh amplitudes on
+    the device-indexed block schedule, drawn one K-block at a time
+    (benchmarks/kscale_case.py:96-104).  Every input is drawn on the CPU
+    from a seed, so the GPU and the CPU run see the same."""
     import numpy as np
-    from repro_torch import rng
-    from repro_torch.core.channel import ChannelConfig, draw_channel
+    from repro_torch.channels import GeometryConfig
+    from repro_torch.channels.geometry import relative_gains_block
+    from repro_torch.core.channel import ChannelConfig, draw_channel_block
     from repro_torch.fed import runtime
     d, bsz, pool = N_SCALE, 8, 4096
     gen = torch.Generator().manual_seed(0)
@@ -819,7 +840,14 @@ def kscale_case(device: str, k: int = K_SCALE, kb: int = KB_SCALE):
     y = x @ w_true + 0.1 * torch.randn((pool,), generator=gen)
     x, y = x.to(device), y.to(device)
     ccfg = ChannelConfig(num_devices=k, channel_mean=1e-3, noise_var=1e-7)
-    h = draw_channel(rng.generator(0), ccfg).double().numpy()
+    geo = GeometryConfig(shadowing_std_db=4.0)
+    blocks = []
+    for lo in range(0, k, kb):
+        devs = torch.arange(lo, min(lo + kb, k))
+        scale = (ccfg.rayleigh_scale()
+                 * relative_gains_block(7, geo, devs)).float()
+        blocks.append(draw_channel_block(7, ccfg, devs, scale))
+    h = torch.cat(blocks).double().numpy()
     b = np.full(k, ccfg.b_max)
     cfg = runtime.FLConfig(
         num_devices=k, case="I", p=0.75, channel=ccfg, scheme="normalized",
@@ -880,8 +908,8 @@ def phase_stream(ops) -> dict:
            "mem_limit_mb": STREAM_MEM_LIMIT_MB,
            "grad_norm_mean": hist["grad_norm_mean"],
            "update_norm": hist["update_norm"],
-           "channel": "the port's dense Rayleigh draw (geometry gains: "
-                      "ROADMAP queue 1 item 11)"}
+           "channel": "geometry gains (shadowing 4 dB) and Rayleigh "
+                      "amplitudes, block draws of 1,000 devices"}
     if launches["ota_superpose"] != blocks * launched_rounds:
         emit(out)
         fail(f"ota_superpose launched {launches['ota_superpose']} times, "
@@ -2035,94 +2063,225 @@ def _sweep_rate(run, lane_rounds: int) -> dict:
             "median_lane_rounds_per_s": statistics.median(samples)}
 
 
-def phase_sweep(ops) -> None:
-    """Two of the paper's sweeps at full width through ``run_sweep``: the
-    fig1a grid (Case I, amplification {optimal, bmax} x 3 seeds: 2 groups
-    of 3 lanes) and the sweep headline (Case-II ridge, noise_var {s2, 2 s2}
-    x 4 seeds: 1 group of 8 lanes).  For each: batched == sequential
-    bitwise (every DIAG_KEYS history and each point's params digest), warm
-    aggregate lane-rounds/s batched and sequential (both on the scan
-    engine), the device's idle share of profiled batched rounds, the
-    captures of a warm repeat (must be 0) and the allocator's growth."""
+def sweep_grid(ops, name: str, sweep, profile: bool = True) -> dict:
+    """One grid through ``run_sweep`` at ROUNDS rounds: batched ==
+    sequential bitwise (every DIAG_KEYS history and each point's params
+    digest), K1, K2 and K5 once a lane a round, one capture a structural
+    group and none on a warm repeat, warm aggregate lane-rounds/s batched
+    and sequential over SWEEP_RATE_ROUNDS rounds (both on the scan engine),
+    the allocator's growth; with ``profile``, the host's and the device's
+    profiles too.  Emits the row and fails on any check."""
     from repro_torch.fed import runtime
-    from repro_torch.fl import SweepSpec, run_sweep
+    from repro_torch.fl import run_sweep
     from repro_torch.fl.sweep import _structural_signature
-    case_ii = case_ii_spec()
-    nv = case_ii.fl.channel.noise_var
-    grids = {
-        "fig1a": SweepSpec(case_i_spec(),
-                           {"amplification": ("optimal", "bmax"),
-                            "seed": (0, 1, 2)}),
-        "sweep_headline": SweepSpec(case_ii, {"noise_var": (nv, 2.0 * nv),
-                                              "seed": (0, 1, 2, 3)}),
-    }
-    for name, sweep in grids.items():
-        runtime.clear_compile_caches()
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_mb = torch.cuda.memory_allocated() / 2 ** 20
-        runtime.cache_info()
-        row = {"phase": "sweep", "grid": name, "axes": {
-            n: [str(v) for v in sweep.values(n)] for n in sweep.names},
-            "classification": sweep.classification(), "size": sweep.size,
-            "rounds": ROUNDS}
-        ops.reset_launch_counts()
-        batched = run_sweep(sweep, ROUNDS)
-        torch.cuda.synchronize()
-        row["launches"] = dict(ops.LAUNCH_COUNTS)
-        row["captures_first_run"] = runtime.cache_info()["traces_delta"]
-        sequential = run_sweep(sweep, ROUNDS, vectorized=False)
-        row["bitwise_history"] = all(
-            np.array_equal(batched.history[k], sequential.history[k])
-            for k in runtime.DIAG_KEYS)
-        row["bitwise_params"] = (batched.params_digests
-                                 == sequential.params_digests)
-        row["history_keys_that_differ"] = [
-            k for k in runtime.DIAG_KEYS
-            if not np.array_equal(batched.history[k], sequential.history[k])]
-        row["params_sha256"] = batched.params_sha256()
-        loss_key = "train_loss" if "train_loss" in batched.history else "gap"
-        row[loss_key] = batched.history[loss_key].tolist()
-        runtime.cache_info()
-        run_sweep(sweep, ROUNDS)
-        row["captures_warm_repeat"] = runtime.cache_info()["traces_delta"]
-        lane_rounds = sweep.size * SWEEP_RATE_ROUNDS
-        for mode, vec in (("batched", True), ("sequential", False)):
-            row[mode] = _sweep_rate(
-                lambda vec=vec: run_sweep(sweep, SWEEP_RATE_ROUNDS,
-                                          vectorized=vec, evaluate=False),
-                lane_rounds)
-        row["speedup"] = (row["batched"]["median_lane_rounds_per_s"]
-                          / row["sequential"]["median_lane_rounds_per_s"])
+    runtime.clear_compile_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    runtime.cache_info()
+    row = {"phase": "sweep", "grid": name, "axes": {
+        n: [str(v) for v in sweep.values(n)] for n in sweep.names},
+        "classification": sweep.classification(), "size": sweep.size,
+        "rounds": ROUNDS}
+    ops.reset_launch_counts()
+    batched = run_sweep(sweep, ROUNDS)
+    torch.cuda.synchronize()
+    row["launches"] = dict(ops.LAUNCH_COUNTS)
+    row["captures_first_run"] = runtime.cache_info()["traces_delta"]
+    sequential = run_sweep(sweep, ROUNDS, vectorized=False)
+    row["bitwise_history"] = all(
+        np.array_equal(batched.history[k], sequential.history[k])
+        for k in runtime.DIAG_KEYS)
+    row["bitwise_params"] = (batched.params_digests
+                             == sequential.params_digests)
+    row["history_keys_that_differ"] = [
+        k for k in runtime.DIAG_KEYS
+        if not np.array_equal(batched.history[k], sequential.history[k])]
+    row["params_sha256"] = batched.params_sha256()
+    loss_key = "train_loss" if "train_loss" in batched.history else "gap"
+    row[loss_key] = batched.history[loss_key].tolist()
+    runtime.cache_info()
+    run_sweep(sweep, ROUNDS)
+    row["captures_warm_repeat"] = runtime.cache_info()["traces_delta"]
+    lane_rounds = sweep.size * SWEEP_RATE_ROUNDS
+    for mode, vec in (("batched", True), ("sequential", False)):
+        row[mode] = _sweep_rate(
+            lambda vec=vec: run_sweep(sweep, SWEEP_RATE_ROUNDS,
+                                      vectorized=vec, evaluate=False),
+            lane_rounds)
+    row["speedup"] = (row["batched"]["median_lane_rounds_per_s"]
+                      / row["sequential"]["median_lane_rounds_per_s"])
+    if profile:
         for mode, vec in (("batched", True), ("sequential", False)):
             row[f"host_profile_{mode}"] = _host_profile(
                 lambda vec=vec: run_sweep(sweep, SWEEP_RATE_ROUNDS,
                                           vectorized=vec, evaluate=False))
         row["batched_profile"] = _batched_round_profile(sweep, 16)
-        row["allocated_mb_before"] = base_mb
-        row["allocated_mb_after"] = torch.cuda.memory_allocated() / 2 ** 20
-        row["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
-        emit(row)
-        check_path_launches(row["launches"], ROUNDS, f"sweep {name}",
-                            lanes=sweep.size)
-        if not (row["bitwise_history"] and row["bitwise_params"]):
-            fail(f"sweep {name}: batched differs from sequential "
-                 f"({row['history_keys_that_differ']})")
-        if any(row["captures_warm_repeat"].values()):
-            fail(f"sweep {name}: a warm repeat captured "
-                 f"{row['captures_warm_repeat']}")
-        groups = len({_structural_signature(p.spec)
-                      for p in sweep.points()})
-        if row["captures_first_run"]["run_chunk_batched"] != groups:
-            fail(f"sweep {name}: {row['captures_first_run']} captures for "
-                 f"{groups} structural groups")
-        flat = [v for k in runtime.DIAG_KEYS
-                for v in batched.history[k].ravel()]
-        if not all(math.isfinite(v) for v in flat):
-            fail(f"sweep {name}: non-finite history")
+    row["allocated_mb_before"] = base_mb
+    row["allocated_mb_after"] = torch.cuda.memory_allocated() / 2 ** 20
+    row["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    emit(row)
+    check_path_launches(row["launches"], ROUNDS, f"sweep {name}",
+                        lanes=sweep.size)
+    if not (row["bitwise_history"] and row["bitwise_params"]):
+        fail(f"sweep {name}: batched differs from sequential "
+             f"({row['history_keys_that_differ']})")
+    if any(row["captures_warm_repeat"].values()):
+        fail(f"sweep {name}: a warm repeat captured "
+             f"{row['captures_warm_repeat']}")
+    groups = len({_structural_signature(p.spec) for p in sweep.points()})
+    if row["captures_first_run"]["run_chunk_batched"] != groups:
+        fail(f"sweep {name}: {row['captures_first_run']} captures for "
+             f"{groups} structural groups")
+    flat = [v for k in runtime.DIAG_KEYS
+            for v in batched.history[k].ravel()]
+    if not all(math.isfinite(v) for v in flat):
+        fail(f"sweep {name}: non-finite history")
     runtime.clear_compile_caches()
+    return row
+
+
+def phase_sweep(ops) -> None:
+    """Two of the paper's sweeps at full width through ``run_sweep``
+    (``sweep_grid``): the fig1a grid (Case I, amplification {optimal,
+    bmax} x 3 seeds: 2 groups of 3 lanes) and the sweep headline (Case-II
+    ridge, noise_var {s2, 2 s2} x 4 seeds: 1 group of 8 lanes), with the
+    host's profile and the device's idle share of profiled batched
+    rounds."""
+    from repro_torch.fl import SweepSpec
+    case_ii = case_ii_spec()
+    nv = case_ii.fl.channel.noise_var
+    sweep_grid(ops, "fig1a", SweepSpec(case_i_spec(),
+                                       {"amplification": ("optimal", "bmax"),
+                                        "seed": (0, 1, 2)}))
+    sweep_grid(ops, "sweep_headline",
+               SweepSpec(case_ii, {"noise_var": (nv, 2.0 * nv),
+                                   "seed": (0, 1, 2, 3)}))
+
+
+# benchmarks/figures.py::channel_rounds_per_sec's four environments
+CHANNEL_VARIANTS = (("fixed", {}),
+                    ("iid_fading", {"block_fading": True}),
+                    ("ar1", {"model": "ar1", "rho": 0.9}),
+                    ("ar1_csi", {"model": "ar1", "rho": 0.9,
+                                 "csi_error": 0.2}))
+CSI_OVERHEAD_BUDGET = 2.0        # benchmarks/figures.py:400-405
+
+
+def _staging_profile(run, rounds: int) -> dict:
+    """The host's staging of ``run(rounds)`` under cProfile: ``_stage``'s
+    cumulative time a round and the share of it in the Problem-3 re-solve
+    and in the rest of the channel refresh (cProfile's own cost inflates
+    the Python-heavy parts)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    run(rounds)
+    torch.cuda.synchronize()
+    prof.disable()
+    cum = {}
+    for (path, _, fn), v in pstats.Stats(prof).stats.items():
+        if path.endswith(("runtime.py", "amplification.py")):
+            cum[fn] = cum.get(fn, 0.0) + v[3]
+    stage = cum.get("_stage", 0.0)
+    solve = cum.get("solve_problem3_torch", 0.0)
+    refresh = cum.get("_refresh", 0.0)
+    return {"rounds": rounds, "stage_ms_per_round": 1e3 * stage / rounds,
+            "resolve_ms_per_round": 1e3 * solve / rounds,
+            "refresh_ms_per_round": 1e3 * refresh / rounds,
+            "resolve_share_of_stage": solve / stage if stage else None,
+            "refresh_share_of_stage": refresh / stage if stage else None}
+
+
+def phase_channel(ops) -> dict:
+    """The radio environment on the card at Case II's width (ridge, K = 20,
+    N = 30, kernels backend), in benchmarks/figures.py::
+    channel_rounds_per_sec's four variants: scan == python bitwise over 20
+    rounds, the card against a CPU run (PARAMS_ATOL), K1, K2 and K5 once a
+    round, warm rounds/s under scan over SWEEP_RATE_ROUNDS rounds, the
+    host's staging a round with its Problem-3 re-solve share (cProfile),
+    and the device's idle share; the overhead ratio iid_fading / ar1_csi
+    beside the reference's 2x budget; then the reduced csi_robustness grid
+    through ``run_sweep`` (``sweep_grid``).  Returns the launches of the
+    variants' scan runs."""
+    import collections
+    import dataclasses
+    from repro_torch.fed import runtime
+    from repro_torch.fl import Experiment, SweepSpec
+    t_phase = time.perf_counter()
+    base = case_ii_spec()
+    launches = collections.Counter()
+    rates = {}
+
+    def with_channel(spec, chkw):
+        channel = dataclasses.replace(spec.fl.channel, **chkw)
+        return dataclasses.replace(
+            spec, fl=dataclasses.replace(spec.fl, channel=channel))
+
+    for name, chkw in CHANNEL_VARIANTS:
+        runtime.clear_compile_caches()
+        spec = with_channel(base, chkw)
+        row = {"phase": "channel", "variant": name, "channel": chkw,
+               "rounds": ROUNDS}
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(spec, driver=driver),
+                           device="cuda").setup()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            e.run(ROUNDS)
+            torch.cuda.synchronize()
+            if driver == "scan":
+                row["launches"] = dict(ops.LAUNCH_COUNTS)
+                launches.update(row["launches"])
+            runs[driver] = e
+        row["scan_vs_python"] = compare_runs(
+            runs["scan"].params, runs["scan"].history,
+            runs["python"].params, runs["python"].history)
+        cpu = Experiment(spec, device="cpu")
+        cpu.run(ROUNDS)
+        scan = runs["scan"]
+        diff = max(float((scan.params[k].cpu() - cpu.params[k]).abs().max())
+                   for k in cpu.params)
+        row.update(max_abs_param_diff_vs_cpu=diff,
+                   tolerance=f"|d| <= {PARAMS_ATOL:g} (phase main's)",
+                   gap=scan.history["gap"],
+                   csi_gain_err=scan.history["csi_gain_err"][:4])
+        warm = lambda n, e=scan: e.run(n, evaluate=False)
+        row["rates"] = driver_rates(warm, SWEEP_RATE_ROUNDS, 16)
+        row["staging"] = _staging_profile(warm, SWEEP_RATE_ROUNDS)
+        rates[name] = row["rates"]["median_rounds_per_s"]
+        emit(row)
+        check_path_launches(row["launches"], ROUNDS, f"channel {name}",
+                            lanes=1)
+        if not row["scan_vs_python"]["bitwise"]:
+            fail(f"channel {name}: scan and python differ "
+                 f"({row['scan_vs_python']})")
+        if not diff <= PARAMS_ATOL:
+            fail(f"channel {name}: GPU and CPU params differ by {diff}")
+        flat = [v for k in runtime.DIAG_KEYS for v in scan.history[k]]
+        if not all(math.isfinite(v) for v in flat + scan.history["gap"]):
+            fail(f"channel {name}: non-finite history")
+        del runs, scan, cpu
+    overhead = rates["iid_fading"] / rates["ar1_csi"]
+    emit({"phase": "channel_overhead", "rounds_per_s": rates,
+          "iid_fading_over_ar1_csi": overhead,
+          "budget": CSI_OVERHEAD_BUDGET,
+          "within_budget": overhead <= CSI_OVERHEAD_BUDGET})
+    # the reduced csi_robustness grid (benchmarks/figures.py:414-445): 2
+    # structural groups (scheme) of 8 lanes (csi_error x seed)
+    fading = with_channel(base, {"block_fading": True})
+    sweep_grid(ops, "csi_robustness", SweepSpec(
+        fading, {"scheme": ("normalized", "benchmark1"),
+                 "csi_error": (0.0, 0.1, 0.3, 0.6), "seed": (0, 1)}),
+        profile=False)
+    emit({"phase": "channel_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return dict(launches)
 
 
 def phase_rates(src: str) -> None:
@@ -2153,8 +2312,9 @@ def phase_rates(src: str) -> None:
             case_i[driver] = None
         try:
             cfg, state, grad_fn, provider = kscale_case("cuda")
-        except (TypeError, NotImplementedError):
-            kscale[driver] = None        # a tree without the streaming round
+        except (TypeError, NotImplementedError, ImportError):
+            # a tree without the streaming round or the block draws
+            kscale[driver] = None
             continue
 
         def run_k(n):
@@ -2186,6 +2346,8 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true",
                     help="run only the build and phases local_steps and "
                          "sweep")
+    ap.add_argument("--channel", action="store_true",
+                    help="run only the build and phase channel")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -2211,6 +2373,9 @@ def main() -> None:
         phase_local_steps(ops)
         phase_sweep(ops)
         return
+    if args.channel:
+        phase_channel(ops)
+        return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)
@@ -2234,6 +2399,12 @@ def main() -> None:
     emit_memory("local_steps")
     phase_sweep(ops)
     emit_memory("sweep")
+    channel_launches = phase_channel(ops)
+    emit_memory("channel")
+    # the round's kernels run on two paths: phase main's round and phase
+    # channel's time-varying rounds, each read from counts set to 0 before it
+    round_launches = {name: main_launches[name] + channel_launches[name]
+                      for name in PATH_KERNELS}
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
     checks["flash_attention"] = phase_flash(ops, build)
@@ -2249,10 +2420,10 @@ def main() -> None:
     sources = {
         "batched_moments": (csrc + "moments.cu",
                             "src/repro/kernels/grad_norm.py:81",
-                            main_launches),
+                            round_launches),
         "ota_superpose": (csrc + "ota_superpose.cu",
                           "src/repro/kernels/ota_aggregate.py:61",
-                          main_launches),
+                          round_launches),
         "streaming_moments": (csrc + "stream_moments.cu",
                               "src/repro/kernels/grad_norm.py:134",
                               stream_launches),
@@ -2260,7 +2431,7 @@ def main() -> None:
                                     "src/repro/kernels/ota_aggregate.py:125",
                                     stream_launches),
         "sumsq": (csrc + "moments.cu", "src/repro/kernels/grad_norm.py:50",
-                  main_launches),
+                  round_launches),
         "flash_attention": (csrc + "flash_attention_wgmma.cu",
                             "src/repro/kernels/flash_attention.py:86",
                             serve_launches),

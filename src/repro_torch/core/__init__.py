@@ -1,9 +1,12 @@
-"""The paper's core: scheme registry, channel, amplification, OTA aggregate.
+"""The paper's core: scheme registry, channel, amplification, OTA aggregate
+and the convergence bounds.
 
-Re-exports the names of ``repro/core/__init__.py`` that the port has; the
-others (the block-fading and noise draws, the per-device norm helpers, the
-in-graph Problem-3 solver, ``convergence``) wait for their ROADMAP items."""
+Re-exports the names of ``repro/core/__init__.py`` that the port has (the
+in-round Problem-3 solver under its own name, ``solve_problem3_torch``); the
+per-device norm helpers of ``core/ota.py`` wait for their ROADMAP item."""
 from repro_torch.core.channel import (ChannelConfig, draw_channel,
+                                      channel_for_round, draw_fading_state,
+                                      draw_noise, envelope,
                                       DEFAULT_B_MAX, DEFAULT_CHANNEL_MEAN,
                                       DEFAULT_MODEL, DEFAULT_NOISE_VAR,
                                       DEFAULT_THETA_TH)
@@ -13,11 +16,19 @@ from repro_torch.core.ota import (OTAConfig, BACKENDS, aggregate,
 from repro_torch.core.schemes import (Scheme, DeviceStats,
                                       register as register_scheme,
                                       get as get_scheme)
-from repro_torch.core.amplification import (Problem3Solution, solve_problem3,
+from repro_torch.core.amplification import (Problem3Solution,
+                                            Problem3SolutionTorch,
+                                            solve_problem3,
+                                            solve_problem3_torch,
+                                            solve_problem6,
                                             problem3_objective, optimal_S,
                                             case1_receiver_gain,
                                             optimize_case1, optimize_case2,
                                             Case1Parameters, Case2Parameters)
+from repro_torch.core.convergence import (case1_bound, case2_bound, q_max,
+                                          case2_bias_floor, s_for_epsilon,
+                                          variance_term, rounds_to_reach,
+                                          fit_rate, RateFit)
 
 
 def __getattr__(name):

@@ -19,9 +19,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from scipy import optimize as sopt
 
 
@@ -113,6 +114,181 @@ def _solve_problem3_cached(h_bytes: bytes, k: int, noise_var: float, n: int,
     Z = problem3_objective(b_best, h, noise_var, n)
     return Problem3Solution(b=b_best, Z=Z, r_star=math.sqrt(Z),
                             iterations=iters)
+
+
+class Problem3SolutionTorch(NamedTuple):
+    """``solve_problem3_torch``'s result: [R, K] (or [K]) ``b`` and [R] (or
+    0-d) ``Z``, ``r_star`` and ``iterations``."""
+
+    b: torch.Tensor
+    Z: torch.Tensor
+    r_star: torch.Tensor
+    iterations: torch.Tensor
+
+
+EPS_DENOM = 1e-20
+
+
+def _waterfill(r: np.ndarray, u_max: np.ndarray, q: np.ndarray,
+               lo: np.ndarray, d_cap: np.ndarray, m: np.ndarray,
+               c: np.ndarray):
+    """Closed-form inner feasibility program of [R] rows at once (the
+    reference's ``_phi_min_waterfill``): the minimum over the box of
+    ``phi_r(u) = sqrt(4 ||u||^2 + c) - r 1'u`` in received-signal
+    coordinates ``u_k = h_k b_k`` lies on the water-filling path
+    ``u_k(t) = min(t, u_max_k)``, piecewise affine in t between the sorted
+    caps ``q``; on each piece the stationary point solves
+    ``16 t^2 = r^2 (4 m t^2 + 4 D + c)`` (m uncapped coordinates, D the
+    squared caps below).  Evaluating phi_r at every clamped stationary
+    point is exact.  ``q``, ``lo``, ``d_cap`` and ``m`` depend on the caps
+    alone and come sorted once a solve.  fp32 throughout; returns ``(min
+    phi_r, argmin t)``, each [R]."""
+    r1 = r[:, None]
+    denom = np.float32(16.0) - np.float32(4.0) * m * r1 * r1
+    t_star = r1 * np.sqrt((np.float32(4.0) * d_cap + c[:, None])
+                          / np.maximum(denom, np.float32(EPS_DENOM)))
+    # denom <= 0: phi_r falls over the whole piece -> its right end
+    t_star = np.where(denom > 0.0, t_star, q[:, -1:])
+    cand = np.concatenate([np.minimum(np.maximum(t_star, lo), q),
+                           q[:, -1:]], axis=1)                # [R, K+1]
+    u = np.minimum(cand[:, :, None], u_max[:, None, :])      # [R, K+1, K]
+    vals = (np.sqrt(np.float32(4.0) * np.sum(u * u, axis=2) + c[:, None])
+            - r1 * np.sum(u, axis=2))
+    i = np.argmin(vals, axis=1)[:, None]
+    return (np.take_along_axis(vals, i, 1)[:, 0],
+            np.take_along_axis(cand, i, 1)[:, 0])
+
+
+def _f32(v) -> np.ndarray:
+    return np.asarray(torch.as_tensor(v).detach().cpu(), dtype=np.float32)
+
+
+def solve_problem3_torch(h, noise_var, n: int, b_max, tol: float = 1e-6,
+                         max_iters: int = 100) -> Problem3SolutionTorch:
+    """Algorithm 1 Part I in fp32 on the host: bisection on r with the
+    closed-form water-filling feasibility check, the counterpart of the
+    reference's ``solve_problem3_jax`` (``repro/core/amplification.py``)
+    with its arithmetic: fp32, relative ``tol`` on r, ``max_iters``, the
+    noiseless floor ``c = max(n sigma^2, 1e-12 sum 4 u_max^2)`` and the
+    polish (the true objective at the argmin).
+
+    ``h`` is [K] or a stack [R, K] of rows (rounds x lanes); ``noise_var``
+    and ``b_max`` are scalars or [R] vectors a row (``b_max`` also [R, K],
+    or [K] with a [K] ``h``).  Every row bisects until its own condition
+    fails and is frozen after, as the reference's vmapped ``while_loop``
+    masks its finished lanes: each step computes every row and keeps the
+    live rows' results, so a row's bits do not depend on the rows beside
+    it.  The arithmetic runs in numpy fp32 (a few microseconds an
+    operation at these sizes, where a torch call costs ten); returns fp32
+    CPU tensors, squeezed to ``h``'s rank."""
+    h = _f32(h)
+    solo = h.ndim == 1
+    if solo:
+        h = h[None]
+    rows = h.shape[0]
+    b_max = _f32(b_max)
+    if b_max.ndim == 1 and not solo:
+        b_max = b_max[:, None]
+    u_max = h * np.broadcast_to(b_max, h.shape)
+    noise = np.broadcast_to(_f32(noise_var).reshape(-1), (rows,))
+    four = np.float32(4.0)
+    c = np.float32(n) * noise
+    c = np.maximum(c, np.float32(1e-12) * np.sum(four * u_max * u_max,
+                                                   axis=1))
+    r_hi = (np.sqrt(four * np.sum(u_max * u_max, axis=1) + c)
+            / np.sum(u_max, axis=1))
+    r_lo = np.zeros(rows, np.float32)
+    t_best = np.max(u_max, axis=1)             # upper corner: feasible
+    it = np.zeros(rows, np.int32)
+    # the caps do not change inside a solve: sort once a row
+    q = np.sort(u_max, axis=1)
+    k = q.shape[1]
+    zero = np.zeros((rows, 1), np.float32)
+    lo = np.concatenate([zero, q[:, :-1]], axis=1)
+    d_cap = np.concatenate([zero, np.cumsum(q * q, axis=1)[:, :-1]], axis=1)
+    m = (k - np.arange(k)).astype(np.float32)[None, :]
+    tol = np.float32(tol)
+    while True:
+        live = ((r_hi - r_lo) > tol * np.maximum(np.float32(1.0), r_hi)) \
+            & (it < max_iters)
+        if not live.any():
+            break
+        r_mid = np.float32(0.5) * (r_lo + r_hi)
+        val, t_arg = _waterfill(r_mid, u_max, q, lo, d_cap, m, c)
+        feas = val <= 0.0
+        r_lo = np.where(live & ~feas, r_mid, r_lo)
+        r_hi = np.where(live & feas, r_mid, r_hi)
+        t_best = np.where(live & feas, t_arg, t_best)
+        it = it + live.astype(np.int32)
+    u = np.minimum(t_best[:, None], u_max)
+    pos = h > 0
+    b = np.where(pos, u / np.where(pos, h, np.float32(1.0)), np.float32(0.0))
+    Z = (four * np.sum(u * u, axis=1) + c) / np.square(np.sum(u, axis=1))
+    sol = Problem3SolutionTorch(*(torch.from_numpy(np.ascontiguousarray(v))
+                                  for v in (b, Z, np.sqrt(Z), it)))
+    if solo:
+        return Problem3SolutionTorch(*(v[0] for v in sol))
+    return sol
+
+
+def solve_problem6(r: float, h: np.ndarray, noise_var: float, n: int,
+                   b_max: np.ndarray) -> Tuple[float, np.ndarray]:
+    """Literal Problem 6 (paper eq. (25)): min v s.t. the cone constraint
+    and 0 <= b_k <= b_k^max + v; a cross-check of the value-form
+    feasibility test (V(r) <= 0 iff min_b phi_r(b) <= 0).  SciPy SLSQP
+    (convex, Lemma 3), the reference's code."""
+    K = h.shape[0]
+    c = float(n) * float(noise_var)
+
+    def obj(x):
+        return x[-1]
+
+    def obj_jac(x):
+        g = np.zeros_like(x)
+        g[-1] = 1.0
+        return g
+
+    def cone(x):
+        b = x[:K]
+        return r * float(np.sum(h * b)) - math.sqrt(
+            float(np.sum(4 * h * h * b * b)) + c)
+
+    cons = [{"type": "ineq", "fun": cone}]
+    # 0 <= b_k <= b_max_k + v  ->  b_max_k + v - b_k >= 0
+    for k in range(K):
+        cons.append({"type": "ineq",
+                     "fun": (lambda x, k=k: b_max[k] + x[-1] - x[k])})
+        cons.append({"type": "ineq", "fun": (lambda x, k=k: x[k])})
+
+    def solve_from(x0):
+        return sopt.minimize(obj, x0, jac=obj_jac, constraints=cons,
+                             method="SLSQP",
+                             options={"maxiter": 500, "ftol": 1e-12})
+
+    def accepted(res):
+        return (res.success and cone(res.x) >= -1e-8
+                and float(np.min(res.x[:K])) >= -1e-10)
+
+    res = solve_from(np.concatenate([b_max, [0.0]]))
+    if not accepted(res):
+        # SLSQP can fail from the cone-infeasible b_max start.  The cone is
+        # satisfiable at some scale iff r > 2/sqrt(K); if it is, retry from
+        # a strictly feasible interior point, else the feasible set is empty
+        # at any v and the minimum is +inf
+        gap = r * r * K * K - 4.0 * K
+        if gap <= 1e-12 * max(1.0, c):
+            if c <= 0.0:
+                # noiseless edge: b = 0 meets the cone with equality
+                return -float(np.min(b_max)), np.zeros(K)
+            return math.inf, np.asarray(res.x[:K])
+        t = 1.1 * math.sqrt(c / gap)
+        b0 = t / h
+        v0 = max(float(np.max(b0 - b_max)), 0.0) + 1e-6
+        res = solve_from(np.concatenate([b0, [v0]]))
+        if not accepted(res):
+            # a conservative upper bound from the feasible start itself
+            return v0, b0
+    return float(res.x[-1]), np.asarray(res.x[:K])
 
 
 def optimal_S(Z: float, L: float, p: float, expected_loss_drop: float) -> float:

@@ -47,19 +47,31 @@ rounds alike.
 holds one round of every lane, lane after lane, and each lane gives the bits
 of its own ``run``.  ``repro_torch.fl.sweep`` groups a grid into such runs.
 
+The radio environment is the ``repro_torch.channels`` subsystem's
+(``ChannelConfig``): a fading model, geometry and imperfect CSI, the true
+``h`` for the air and the server's estimate ``h_hat`` for everything the
+server computes.  A time-varying channel (block fading, or the AR(1) model)
+is host work too: for every staged round ``_stage`` steps the model,
+estimates ``h_hat_t``, re-solves Problem 3 on it for the whole chunk at once
+(``amplification.solve_problem3_torch``), sets ``a_t = eff_gain /
+sum h_hat_t b_t`` and stages ``h_t`` and ``h_hat_t`` beside the folded
+gains (the reference's in-scan ``_fading_refresh``).
+
 Config values of unported paths raise ``NotImplementedError`` naming their
 ROADMAP item: ``device_mesh``, the ``mesh`` backend, the two-slot client
-round, and (through ``ChannelConfig``/``ClientConfig``) block fading,
-non-Rayleigh models, imperfect CSI, geometry and non-sgd clients.
+round, and (through ``ClientConfig``) non-sgd clients.
 
-Random streams: the channel draw uses ``rng.generator(cfg.seed)``, round t's
-channel noise ``rng.generator(cfg.seed + 1, t)`` and its participation mask
-``rng.generator(cfg.seed + 1, rng.MASK_SALT, t)``, all on the CPU, so a CPU
-and a GPU run from one seed see the same channel, masks and noise, and
-``run(5); run(5)`` continues ``run(10)``.  ``run(noise_provider=...)`` and
-``run(mask_provider=...)`` inject the flat noise vector and the [K] mask
-instead (the parity tests' seams).  The participation fold runs on the
-CPU copies of the channel.
+Random streams (``repro_torch.rng``): the setup's channel draw uses
+``rng.generator(cfg.seed)``, round t's channel ``rng.generator(cfg.seed + 2,
+t)`` and its estimate ``rng.generator(cfg.seed + 2, rng.CSI_SALT, t)``,
+round t's channel noise ``rng.generator(cfg.seed + 1, t)`` and its
+participation mask ``rng.generator(cfg.seed + 1, rng.MASK_SALT, t)``, all on
+the CPU, so a CPU and a GPU run from one seed see the same channel, masks
+and noise, and ``run(5); run(5)`` continues ``run(10)``.
+``run(noise_provider=...)``, ``run(mask_provider=...)`` and
+``run(fading_provider=...)`` inject the flat noise vector, the [K] mask and
+the round's fading and estimation normals instead (the parity tests'
+seams).  The participation fold runs on the CPU copies of the channel.
 """
 from __future__ import annotations
 
@@ -74,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch._config import config
+from repro_torch import channels as chl
 from repro_torch import rng
 from repro_torch.core import amplification as amp
 from repro_torch.core import channel as chan
@@ -101,8 +114,9 @@ ENGINE_CACHE_SIZE = int(os.environ.get("REPRO_ENGINE_CACHE_SIZE", "64"))
 # Counted where a builder makes its engine: ``round_step`` for the python
 # driver's round body, ``run_chunk`` for each CUDA-graph capture of the scan
 # driver and ``run_chunk_batched`` for each capture of a batched run's lanes
-# (on the CPU: each engine built).  ``fading_refresh`` (block fading, ROADMAP
-# queue 1 item 11) stays 0 until that item lands.
+# (on the CPU: each engine built).  ``fading_refresh`` stays 0: the refresh
+# of a time-varying channel is host code in ``_stage``, and nothing is built
+# or captured for it (the key stays for the reference's cache_info()).
 TRACE_KINDS = ("round_step", "run_chunk", "run_chunk_batched",
                "fading_refresh")
 TRACE_COUNTS: collections.Counter = collections.Counter()
@@ -177,10 +191,11 @@ STRUCTURAL_CHANNEL_FIELDS = ("num_devices", "block_fading", "model",
 class BatchAxes(NamedTuple):
     """Per-lane numerics of a batched run, each [E] (the reference's
     fields).  The port carries ``grad_bound`` only (on the run's device:
-    each lane's round body reads its own value).  ``noise_var`` and
-    ``b_max`` act on the host (``_stage``; the group's noise gate is
-    ``_noisy`` of the configs), and the channel and client fields stay None
-    until ROADMAP queue 1 items 5, 11 and 12 make them reach the round."""
+    each lane's round body reads its own value).  ``noise_var``, ``b_max``,
+    the channel mean and the channel's ``rho`` and ``csi_error`` act on the
+    host (``setup`` and ``_stage``; the group's noise gate is ``_noisy`` of
+    the configs), and the client fields stay None until ROADMAP queue 1
+    item 12 makes them reach the round."""
 
     noise_var: Optional[torch.Tensor] = None
     grad_bound: Optional[torch.Tensor] = None
@@ -339,7 +354,18 @@ class FLState:
     round: int = 0
     model_dim: int = 0
     opt_state: Optional[optim.OptState] = None
-    h_hat: Optional[np.ndarray] = None   # the server's estimate (== h here)
+    # the server's channel estimate (None: perfect CSI, h itself)
+    h_hat: Optional[np.ndarray] = None
+    # the fading process's [K, 2] state ('ar1'; None for stateless models)
+    fad_state: Optional[np.ndarray] = None
+    # per-device amplitude scales from the geometry ([K]; None keeps the
+    # scalar ChannelConfig.amplitude_scale())
+    scale: Optional[np.ndarray] = None
+    # a time-varying channel's designed effective gain a sum h_hat_k b_k,
+    # fixed by the first run from setup()'s values and kept, so a resumed
+    # run re-solves against the same fp32 gain (the reference re-derives it
+    # from the last round's a and b at every run)
+    eff_gain: Optional[float] = None
 
 
 def server_optimizer(cfg: FLConfig) -> optim.Optimizer:
@@ -352,14 +378,44 @@ def server_optimizer(cfg: FLConfig) -> optim.Optimizer:
     return optim.sgd(0.0, momentum=cfg.server_momentum)
 
 
-def setup(cfg: FLConfig, params0: Tree, model_dim: int) -> FLState:
-    """Draw the channel and run the paper's parameter optimization
-    (Algorithm 1 and the receiver gain) on the host in float64."""
-    h = chan.draw_channel(rng.generator(cfg.seed),
-                          cfg.channel).double().numpy()
+def _setup_channel(cfg: FLConfig):
+    """The round-0 radio environment on the host: the per-device amplitude
+    scales (geometry, on ``rng.generator(seed, GEOM_SALT)``), the model's
+    first draw and state (``rng.generator(seed)``, the default draw's
+    bits), and the server's estimate under imperfect CSI (normals from
+    ``rng.generator(seed, CSI_SALT)``).  Returns ``(h, h_hat, fad_state,
+    scale_vec)``, ``h`` and ``h_hat`` float64 [K]; ``h_hat`` is ``h`` under
+    perfect CSI."""
+    ccfg = cfg.channel
+    model = chl.get(ccfg.model)
+    scale = ccfg.amplitude_scale()
+    scale_vec = None
+    if ccfg.geometry is not None:
+        rel = chl.relative_gains(rng.generator(cfg.seed, rng.GEOM_SALT),
+                                 ccfg.geometry, cfg.num_devices)
+        scale_vec = (scale * rel).numpy()
+        scale = torch.as_tensor(scale_vec, dtype=torch.float32)
+    h32, fad0 = model.init(ccfg, scale, rng.generator(cfg.seed))
+    h = h32.double().numpy()
+    fad_state = None if fad0 is None else fad0.double().numpy()
     h_hat = h
+    if ccfg.csi_error > 0.0:
+        e = torch.randn(cfg.num_devices,
+                        generator=rng.generator(cfg.seed, rng.CSI_SALT))
+        h_hat = chl.estimate(h32, e, ccfg.csi_error, scale,
+                             ccfg.csi_error_model).double().numpy()
+    return h, h_hat, fad_state, scale_vec
+
+
+def setup(cfg: FLConfig, params0: Tree, model_dim: int) -> FLState:
+    """Draw the radio environment and run the paper's parameter
+    optimization (Algorithm 1 and the receiver gain) on the host in
+    float64, on the server's estimate ``h_hat`` (``h`` under perfect
+    CSI)."""
+    h, h_hat, fad_state, scale_vec = _setup_channel(cfg)
     b_max = np.full(cfg.num_devices, cfg.channel.b_max)
-    extra = dict(model_dim=model_dim, h_hat=h_hat)
+    extra = dict(model_dim=model_dim, h_hat=h_hat, fad_state=fad_state,
+                 scale=scale_vec)
 
     if cfg.amplification == "bmax":
         b = b_max.copy()
@@ -494,6 +550,9 @@ class RoundInputs(NamedTuple):
     empty: Optional[torch.Tensor] = None     # bool: nobody participates
     weights: Optional[torch.Tensor] = None   # [K] masked-baseline weights
     active: Optional[torch.Tensor] = None    # [m] int64 fixed-mode set
+    # a time-varying channel's round: the true h and the estimate h_hat
+    h: Optional[torch.Tensor] = None         # [K] fp32
+    h_hat: Optional[torch.Tensor] = None     # [K] fp32
     batch: Any = None                        # per-device batch (None: lazy)
 
 
@@ -699,11 +758,15 @@ def _round_tail(sch, opt, params, opt_state, y, r: RoundInputs, diag_core,
 
 class RoundBody:
     """The device work of one round of one (config, grad_fn,
-    block_batch_fn): ``body(params, opt_state, h, gb, staged, cursor,
+    block_batch_fn): ``body(params, opt_state, h, h_hat, gb, staged, cursor,
     hist)`` reads the round's inputs at row ``cursor`` of the staged chunk,
     runs the dense or the streaming round, writes its ``DIAG_KEYS`` to the
     same row of ``hist`` [T, 8] and advances ``cursor`` (a [1] int64
-    tensor).  ``gb`` is the run's grad_bound as a 0-d fp32 tensor on the
+    tensor).  ``h`` and ``h_hat`` are the run's fixed channel and the
+    server's estimate on the device (the same tensor under perfect CSI); a
+    time-varying channel's staged ``h``/``h_hat`` take their place.  Both
+    rounds get ``h_hat``: the air uses ``h``, every server-side quantity
+    ``h_hat``.  ``gb`` is the run's grad_bound as a 0-d fp32 tensor on the
     device, or None.  It makes no host sync and reads no CPU tensor, so a
     CUDA graph can capture it.  Returns the new ``(params, opt_state)``.
 
@@ -732,30 +795,44 @@ class RoundBody:
                                   backend=cfg.backend, k_block=kb)
 
     def __call__(self, params: Tree, opt_state, h: torch.Tensor,
-                 gb: Optional[torch.Tensor], staged: RoundInputs,
-                 cursor: torch.Tensor, hist: torch.Tensor):
+                 h_hat: torch.Tensor, gb: Optional[torch.Tensor],
+                 staged: RoundInputs, cursor: torch.Tensor,
+                 hist: torch.Tensor):
         r = _map_inputs(lambda v: v.index_select(0, cursor)[0], staged)
+        if r.h is not None:
+            h, h_hat = r.h, r.h_hat
         args = (self.cfg, self.sch, self.opt, self.grad_fn, self.ocfg,
                 params, opt_state, r, h, gb)
         if self.cfg.k_block is not None:
             params, opt_state, diag = _round_math_streaming(
-                *args, block_batch_fn=self.block_batch_fn)
+                *args, h_hat=h_hat, block_batch_fn=self.block_batch_fn)
         else:
-            params, opt_state, diag = _round_math(*args)
+            params, opt_state, diag = _round_math(*args, h_hat=h_hat)
         row = torch.stack([diag[k].float() for k in DIAG_KEYS])
         hist.index_copy_(0, cursor, row[None])
         cursor.add_(1)
         return params, opt_state
 
 
-class _LaneHost(NamedTuple):
-    """One run's (a lane's) host side: its config and the CPU fp32 channel
-    of its participation fold, with its fp32 gain and step size."""
+@dataclasses.dataclass
+class _LaneHost:
+    """One run's (a lane's) host side: its config, the CPU fp32 channel of
+    its participation fold (the estimate ``h_hat``, ``b``, the gain ``a``)
+    and step size.  Under a time-varying channel ``_stage`` advances ``h``,
+    ``h_hat``, ``b`` and ``a`` to the last staged round, with the fading
+    state ``fad``; ``scale`` is the amplitude scale (a float, or the
+    geometry's [K] fp32 vector) and ``eff_gain`` the designed effective
+    gain (0-d fp32)."""
     cfg: FLConfig
     h_hat: torch.Tensor
     b: torch.Tensor
     a: float
     eta0: float
+    model_dim: int = 0
+    h: Optional[torch.Tensor] = None
+    fad: Optional[torch.Tensor] = None
+    scale: Any = None
+    eff_gain: Optional[torch.Tensor] = None
 
 
 def _zero_noise(cfg: FLConfig) -> float:
@@ -816,10 +893,64 @@ def _noisy(cfgs: Sequence[FLConfig]) -> bool:
     return any(schemes.maybe_positive(c.channel.noise_var) for c in cfgs)
 
 
+def _refresh(lanes: Sequence[_LaneHost], ts: Sequence[int],
+             fading_provider: Optional[Callable] = None):
+    """A time-varying channel's rounds ``ts`` of the lanes on the host (the
+    reference's ``_fading_refresh``): round t of a lane steps its model on
+    ``rng.generator(seed + 2, t)`` from its running fading state, estimates
+    ``h_hat_t`` on ``rng.generator(seed + 2, rng.CSI_SALT, t)`` when
+    ``csi_error > 0``, then every round of every lane re-solves Problem 3
+    on ``h_hat_t`` in one batched call (or takes ``b_max`` under
+    ``amplification='bmax'``) and sets ``a_t = eff_gain / sum h_hat_t b_t``
+    in fp32.  ``fading_provider(t)`` gives a single run's ``(w, e)``
+    instead: the [K, 2] innovation normals and the [K] estimation normals
+    (or None under perfect CSI).  Advances each lane to the last round and
+    returns ``h, h_hat, b`` [T, E, K] and ``a`` [T, E], fp32 on the CPU."""
+    cfg0 = lanes[0].cfg
+    rounds, num, k = len(ts), len(lanes), cfg0.num_devices
+    model = chl.get(cfg0.channel.model)
+    hs, h_hats = [], []
+    for t in ts:
+        for lane in lanes:
+            ccfg = lane.cfg.channel
+            seed = lane.cfg.seed + 2
+            w, e = ((rng.generator(seed, t), None) if fading_provider is None
+                    else fading_provider(t))
+            h, lane.fad = model.step(ccfg, lane.scale, w, lane.fad, ccfg.rho)
+            h_hat = h
+            if ccfg.csi_error > 0.0:
+                if e is None:
+                    e = torch.randn(k, generator=rng.generator(
+                        seed, rng.CSI_SALT, t))
+                h_hat = chl.estimate(h, e, ccfg.csi_error, lane.scale,
+                                     ccfg.csi_error_model)
+            hs.append(h)
+            h_hats.append(h_hat)
+    h, h_hat = torch.stack(hs), torch.stack(h_hats)           # [T E, K]
+    b_max = torch.tensor([lane.cfg.channel.b_max for lane in lanes],
+                         dtype=torch.float32).repeat(rounds)
+    if cfg0.amplification == "optimal":
+        noise_var = torch.tensor([lane.cfg.channel.noise_var
+                                  for lane in lanes]).repeat(rounds)
+        b = amp.solve_problem3_torch(h_hat, noise_var, lanes[0].model_dim,
+                                     b_max).b
+    else:
+        b = b_max[:, None].expand(h.shape).contiguous()
+    eff = torch.stack([lane.eff_gain for lane in lanes]).repeat(rounds)
+    a = eff / torch.sum(h_hat * b, dim=1)
+    h, h_hat, b = (v.reshape(rounds, num, k) for v in (h, h_hat, b))
+    a = a.reshape(rounds, num)
+    for e, lane in enumerate(lanes):
+        lane.h, lane.h_hat, lane.b = h[-1, e], h_hat[-1, e], b[-1, e]
+        lane.a = a[-1, e]
+    return h, h_hat, b, a
+
+
 def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
            shapes: Dict[str, torch.Size], ts: Sequence[int],
            noise_provider: Optional[Callable] = None,
-           mask_provider: Optional[Callable] = None, *,
+           mask_provider: Optional[Callable] = None,
+           fading_provider: Optional[Callable] = None, *,
            noisy: bool) -> RoundInputs:
     """The host work of the rounds ``ts`` of E structurally identical
     lanes: each round's inputs drawn on the lane's CPU generators (or taken
@@ -827,7 +958,10 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
     as [T, E, ...] CPU tensors (``batch`` left None).  ``shapes`` are the
     single-device leaf shapes.  The noise is staged for every lane when the
     group is ``noisy`` (``_noisy``, the gate its round body was built
-    with); a lane without noise stages zeros (``_zero_noise``)."""
+    with); a lane without noise stages zeros (``_zero_noise``).  A
+    time-varying channel is refreshed first (``_refresh``) and staged as
+    ``h``/``h_hat``; the participation fold then runs on each round's
+    ``(h_hat_t, b_t, a_t)``."""
     cfg0 = lanes[0].cfg
     rounds, num, k = len(ts), len(lanes), cfg0.num_devices
     noise = None
@@ -836,17 +970,24 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
     t = torch.tensor(list(ts), dtype=torch.int64)[:, None].expand(rounds, num)
     eta = torch.tensor([[_eta_t(lane.cfg, lane.eta0, s) for lane in lanes]
                         for s in ts], dtype=torch.float32)
+    chan_in: Dict[str, torch.Tensor] = {}
+    if cfg0.channel.time_varying():
+        h, h_hat, b, a = _refresh(lanes, ts, fading_provider)
+        chan_in = dict(h=h, h_hat=h_hat)
+    else:
+        h_hat = torch.stack([lane.h_hat for lane in lanes]).expand(rounds,
+                                                                   num, k)
+        b = torch.stack([lane.b for lane in lanes]).expand(rounds, num, k)
+        a = torch.tensor([lane.a for lane in lanes],
+                         dtype=torch.float32).expand(rounds, num)
     if cfg0.participation >= 1.0:
         return RoundInputs(
-            t=t, eta=eta,
-            a_eff=torch.tensor([lane.a for lane in lanes],
-                               dtype=torch.float32).expand(rounds, num),
-            b_eff=torch.stack([lane.b for lane in lanes]).expand(rounds, num,
-                                                                  k),
-            participants=torch.full((rounds, num), float(k)), noise=noise)
+            t=t, eta=eta, a_eff=a, b_eff=b,
+            participants=torch.full((rounds, num), float(k)), noise=noise,
+            **chan_in)
     fields = collections.defaultdict(list)
-    for s in ts:
-        for lane in lanes:
+    for i, s in enumerate(ts):
+        for e, lane in enumerate(lanes):
             cfg = lane.cfg
             mask = (mask_provider(s) if mask_provider is not None
                     else _participation_mask(cfg, s))
@@ -854,8 +995,8 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
             if mask.shape != (k,):
                 raise ValueError(f"round {s}'s mask has shape "
                                  f"{tuple(mask.shape)}, expected ({k},)")
-            b_eff, a_eff = ota.participation_fold(lane.h_hat, lane.b, lane.a,
-                                                  mask)
+            b_eff, a_eff = ota.participation_fold(h_hat[i, e], b[i, e],
+                                                  a[i, e], mask)
             count = float(mask.sum())
             fields["a_eff"].append(a_eff)
             fields["b_eff"].append(b_eff)
@@ -868,7 +1009,7 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
                 fields["active"].append(_active_indices(cfg, mask))
     staged = {name: torch.stack(v).reshape((rounds, num) + v[0].shape)
               for name, v in fields.items()}
-    return RoundInputs(t=t, eta=eta, noise=noise, **staged)
+    return RoundInputs(t=t, eta=eta, noise=noise, **staged, **chan_in)
 
 
 def _batch_leaves(batch) -> List[torch.Tensor]:
@@ -927,7 +1068,7 @@ def _clone(tree):
     return _rebuild(tree, (_clone(v) for v in tree))
 
 
-def _run_eager(body: RoundBody, params, opt_state, h, gb,
+def _run_eager(body: RoundBody, params, opt_state, h, h_hat, gb,
                staged: RoundInputs):
     """The body over every round of one lane's staged chunk, launched from
     the host round by round; returns the new state and the [T, 8] history
@@ -937,14 +1078,15 @@ def _run_eager(body: RoundBody, params, opt_state, h, gb,
     hist = torch.empty((rounds, len(DIAG_KEYS)), dtype=torch.float32,
                        device=h.device)
     for _ in range(rounds):
-        params, opt_state = body(params, opt_state, h, gb, staged, cursor,
-                                 hist)
+        params, opt_state = body(params, opt_state, h, h_hat, gb, staged,
+                                 cursor, hist)
     return params, opt_state, hist.cpu()
 
 
 class _EagerChunks:
     """The scan driver's engine on the CPU: each lane's round body run
-    eagerly, chunk by chunk.  A lane is ``(params, opt_state, h, gb)``;
+    eagerly, chunk by chunk.  A lane is ``(params, opt_state, h, h_hat,
+    gb)``;
     ``launch`` takes a [T, E, ...] staged chunk, ``rows`` gives the [E, T,
     8] history and ``state`` each lane's ``(params, opt_state)``."""
 
@@ -961,10 +1103,10 @@ class _EagerChunks:
         device = self.lanes[0][2].device
         staged = _map_inputs(lambda v: v.to(device), staged)
         rows = []
-        for e, (params, opt_state, h, gb) in enumerate(self.lanes):
+        for e, (params, opt_state, *chan_gb) in enumerate(self.lanes):
             params, opt_state, hist = _run_eager(self.body, params, opt_state,
-                                                 h, gb, _lane(staged, e))
-            self.lanes[e] = (params, opt_state, h, gb)
+                                                 *chan_gb, _lane(staged, e))
+            self.lanes[e] = (params, opt_state, *chan_gb)
             rows.append(hist)
         self.hist = torch.stack(rows)
 
@@ -972,7 +1114,7 @@ class _EagerChunks:
         return self.hist
 
     def state(self) -> List[tuple]:
-        return [(params, opt_state) for params, opt_state, _, _ in self.lanes]
+        return [(params, opt_state) for params, opt_state, *_ in self.lanes]
 
 
 # device index -> the stream every graph of the scan driver is captured on
@@ -1004,7 +1146,8 @@ def _graph_pool(device: torch.device):
 class _GraphChunks:
     """The scan driver's engine on a CUDA device: one round of every lane
     captured in one CUDA graph over fixed buffers (each lane's params,
-    optimizer state, channel, grad_bound, cursor and [chunk_size, 8]
+    optimizer state, channel and estimate, grad_bound, cursor and
+    [chunk_size, 8]
     history; the [chunk_size, E, ...] staged inputs), and replayed once per
     round of a chunk.  A single run is one lane.  The lanes run one after
     another on the capture stream, so they share K1's and K5's arrival
@@ -1041,9 +1184,10 @@ class _GraphChunks:
             buf[:rounds].copy_(v)
 
     def _step(self) -> None:
-        for e, (params, opt_state, h, gb) in enumerate(self.static):
-            new = self.body(params, opt_state, h, gb, _lane(self.staged, e),
-                            self.cursor[e], self.hist[e])
+        for e, (params, opt_state, *chan_gb) in enumerate(self.static):
+            new = self.body(params, opt_state, *chan_gb,
+                            _lane(self.staged, e), self.cursor[e],
+                            self.hist[e])
             _copy_into((params, opt_state), new)
 
     def _warm_up(self) -> "torch.cuda.Stream":
@@ -1094,7 +1238,7 @@ class _GraphChunks:
 
     def state(self) -> List[tuple]:
         return [(_clone(params), _clone(opt_state))
-                for params, opt_state, _, _ in self.static]
+                for params, opt_state, *_ in self.static]
 
 
 @functools.lru_cache(maxsize=ENGINE_CACHE_SIZE)
@@ -1179,17 +1323,65 @@ def _locked_eval_keys(metrics: Dict[str, float],
 def _lane_inputs(cfg: FLConfig, state: FLState,
                  device: torch.device) -> Tuple[_LaneHost, tuple]:
     """A run's host side (``_LaneHost``) and its device constants ``(h,
-    gb)``: the fp32 channel and grad_bound as the reference holds them (a
-    and eta0 as fp32 scalars)."""
+    h_hat, gb)``: the fp32 channel, the server's estimate (``h`` itself
+    under perfect CSI, as the reference's ``h_hat = None``) and grad_bound
+    as the reference holds them (a and eta0 as fp32 scalars).  Checks what
+    a time-varying channel needs of the state and fixes its designed gain
+    ``state.eff_gain`` on the first run."""
+    ccfg = cfg.channel
+    model = chl.get(ccfg.model)
+    fad = None
+    if model.has_state:
+        if state.fad_state is None:
+            raise ValueError(
+                f"channel model {ccfg.model!r} threads a persistent fading "
+                "state; FLState.fad_state is unset -- build the state via "
+                "setup()")
+        fad = torch.as_tensor(state.fad_state, dtype=torch.float32)
     h_cpu = torch.as_tensor(state.h, dtype=torch.float32)
-    h_hat_cpu = (h_cpu if state.h_hat is None
-                 else torch.as_tensor(state.h_hat, dtype=torch.float32))
+    h_hat_np = state.h if state.h_hat is None else state.h_hat
+    h_hat_cpu = (h_cpu if ccfg.csi_error == 0.0
+                 else torch.as_tensor(h_hat_np, dtype=torch.float32))
+    eff_gain = None
+    if ccfg.time_varying():
+        if state.model_dim <= 0:
+            raise ValueError("a time-varying channel re-solves Problem 3 "
+                             "with the real model dimension; "
+                             "FLState.model_dim is unset -- build the state "
+                             "via setup()")
+        if state.eff_gain is None:
+            # the designed effective gain: what the server set on its
+            # estimate (the reference's float64 sum, cast to fp32)
+            state.eff_gain = float(np.float32(state.a * float(np.sum(
+                np.asarray(h_hat_np, np.float64)
+                * np.asarray(state.b, np.float64)))))
+        eff_gain = torch.tensor(state.eff_gain, dtype=torch.float32)
+    scale = (ccfg.amplitude_scale() if state.scale is None
+             else torch.as_tensor(state.scale, dtype=torch.float32))
     host = _LaneHost(cfg, h_hat_cpu,
                      torch.as_tensor(state.b, dtype=torch.float32),
-                     float(np.float32(state.a)), float(np.float32(state.eta0)))
+                     float(np.float32(state.a)), float(np.float32(state.eta0)),
+                     model_dim=state.model_dim, h=h_cpu, fad=fad,
+                     scale=scale, eff_gain=eff_gain)
     gb = (None if cfg.grad_bound is None else
           torch.tensor(cfg.grad_bound, dtype=torch.float32, device=device))
-    return host, (h_cpu.to(device), gb)
+    h_dev = h_cpu.to(device)
+    h_hat_dev = h_dev if h_hat_cpu is h_cpu else h_hat_cpu.to(device)
+    return host, (h_dev, h_hat_dev, gb)
+
+
+def _write_back(state: FLState, host: _LaneHost) -> None:
+    """A time-varying channel's last round into the state (the reference's
+    write-back): ``h``, ``h_hat``, ``b``, ``a`` and the fading state, so a
+    second ``run`` resumes from it."""
+    if not host.cfg.channel.time_varying():
+        return
+    state.h = host.h.double().numpy()
+    state.h_hat = host.h_hat.double().numpy()
+    state.b = host.b.double().numpy()
+    state.a = float(host.a)
+    if host.fad is not None:
+        state.fad_state = host.fad.double().numpy()
 
 
 def _init_opt_state(cfg: FLConfig, state: FLState,
@@ -1239,6 +1431,8 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         mask_provider: Optional[Callable[[int], torch.Tensor]] = None,
         block_batch_provider: Optional[Callable[[torch.Tensor, torch.Tensor],
                                                 Any]] = None,
+        fading_provider: Optional[Callable[[int], Tuple[
+            torch.Tensor, Optional[torch.Tensor]]]] = None,
         ) -> Tuple[FLState, Dict[str, List]]:
     """Run ``num_rounds`` FL rounds on the selected driver.
 
@@ -1256,7 +1450,12 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
     z [N] (sorted-key leaf order) instead of the draw from
     ``rng.generator(cfg.seed + 1, t)``; ``mask_provider(t)`` returns round
     t's [K] 0/1 participation mask (``participation`` < 1) instead of
-    ``_participation_mask``'s draw.
+    ``_participation_mask``'s draw.  Under a time-varying channel
+    ``fading_provider(t)`` returns round t's standard normals ``(w, e)``:
+    the [K, 2] innovation pair of the model's step and the [K] estimation
+    error under imperfect CSI (else None), in place of the draws on
+    ``rng.generator(cfg.seed + 2, ...)``; the model step, the estimate, the
+    Problem-3 re-solve and the gain stay the port's own.
 
     ``block_batch_provider(t, dev_idx)`` is the streaming round's lazy-batch
     hook (requires ``cfg.k_block``): it returns one K-block's [k_block, ...]
@@ -1267,8 +1466,10 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
     round body, which a CUDA graph replays, so it must compute on the
     device and never read ``t`` on the host.
 
-    The params, server optimizer state and round counter persist in
-    ``state``, so a second ``run`` resumes where the first stopped."""
+    The params, server optimizer state, round counter and a time-varying
+    channel (``h``, ``h_hat``, ``b``, ``a``, ``fad_state``, as of the last
+    round) persist in ``state``, so a second ``run`` resumes where the
+    first stopped."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r}; one of {DRIVERS}")
     if chunk_size < 1:
@@ -1279,17 +1480,20 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
     if mask_provider is not None and cfg.participation >= 1.0:
         raise ValueError("mask_provider replaces the participation draw; "
                          "set cfg.participation < 1")
+    if fading_provider is not None and not cfg.channel.time_varying():
+        raise ValueError("fading_provider replaces the per-round channel "
+                         "draws; the channel is fixed")
     sch = schemes.get(cfg.scheme)
     params = state.params
     device = _params_device(params)
     _init_opt_state(cfg, state, device)
-    host, (h, gb) = _lane_inputs(cfg, state, device)
+    host, (h, h_hat, gb) = _lane_inputs(cfg, state, device)
     shapes = {k: params[k].shape for k in sorted(params)}
     noisy = _noisy([cfg])
 
     def staged_chunk(ts: Sequence[int]) -> RoundInputs:
         r = _stage([host], sch, shapes, ts, noise_provider, mask_provider,
-                   noisy=noisy)
+                   fading_provider, noisy=noisy)
         if block_batch_provider is not None:
             return r
         batch = (chunk_batch_provider(ts) if chunk_batch_provider is not None
@@ -1321,7 +1525,7 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         for t in range(t0 + 1, t0 + num_rounds + 1):
             staged = _map_inputs(lambda v: v.to(device), staged_chunk([t]))
             params, opt_state, rows = _run_eager(body, params, opt_state, h,
-                                                 gb, _lane(staged, 0))
+                                                 h_hat, gb, _lane(staged, 0))
             record([t], rows, lambda: params)
     else:
         chunks = _plan_chunks(t0, num_rounds,
@@ -1331,7 +1535,7 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         def make_engine(staged):
             engine = _make_run_chunk(cfg, grad_fn, block_batch_provider,
                                      device, chunk_size, _batch_spec(staged))
-            engine.start([(params, opt_state, h, gb)])
+            engine.start([(params, opt_state, h, h_hat, gb)])
             return engine
 
         if chunks:
@@ -1343,6 +1547,7 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
 
     state.params = params
     state.opt_state = opt_state
+    _write_back(state, host)
     state.round += num_rounds
     return state, hist
 
@@ -1362,7 +1567,9 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     ``structural_config``), differing only in the batchable fields
     (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS``).  The host stages
     every lane's chunk ([T, E, ...]: noise, eta_t, the folded gains) and
-    copies it once; on the card one CUDA graph holds one round of every
+    copies it once (a time-varying channel's refresh and Problem-3 re-solve
+    included, every lane with its own ``rho``, ``csi_error``, channel mean
+    and geometry); on the card one CUDA graph holds one round of every
     lane, lane after lane, replayed once a round, and the [E, T, 8] history
     comes back once a chunk.  Each lane runs its own config's round body on
     its own state and launches every kernel at its own shape, so lane e is
@@ -1415,9 +1622,9 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
         None if cfg0.grad_bound is None else torch.tensor(
             [c.grad_bound for c in cfgs], dtype=torch.float32,
             device=device)))
-    lanes = [(s.params, s.opt_state, h,
+    lanes = [(s.params, s.opt_state, h, h_hat,
               None if over.grad_bound is None else over.grad_bound[e])
-             for e, (s, (h, _)) in enumerate(zip(states, consts))]
+             for e, (s, (h, h_hat, _)) in enumerate(zip(states, consts))]
     noisy = _noisy(cfgs)
     params0 = states[0].params
     shapes = {k: params0[k].shape for k in sorted(params0)}
@@ -1473,6 +1680,7 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
         hist[k] = rows[:, :, i].copy()
     for mk, cols in eval_cols.items():
         hist[mk] = np.asarray(cols, np.float64).T            # [E, evals]
-    for s in states:
+    for s, host in zip(states, hosts):
+        _write_back(s, host)
         s.round += num_rounds
     return list(states), hist

@@ -30,16 +30,20 @@ def params_from_jax(tree: Mapping[str, Any], device="cuda"
 
 
 def state_from_jax(params: Mapping[str, Any], h, h_hat, b, a, eta0,
-                   round: int = 0, *, model_dim: int = 0,
-                   device="cuda") -> FLState:
+                   round: int = 0, *, model_dim: int = 0, fad_state=None,
+                   scale=None, device="cuda") -> FLState:
     """An ``FLState`` holding the reference's parameters and channel state
-    (``h``, ``h_hat``, ``b`` as float64 [K]; ``a``, ``eta0`` floats)."""
+    (``h``, ``h_hat``, ``b`` as float64 [K]; ``a``, ``eta0`` floats; the
+    AR(1) model's [K, 2] ``fad_state`` and the geometry's [K] ``scale``
+    as float64, or None), so a state from the reference's ``setup()``
+    runs in the port."""
     h = np.asarray(h, np.float64)
+    as64 = lambda v: None if v is None else np.asarray(v, np.float64)
     return FLState(params=params_from_jax(params, device),
                    h=h, b=np.asarray(b, np.float64), a=float(a),
                    eta0=float(eta0), round=int(round), model_dim=model_dim,
-                   h_hat=h if h_hat is None else np.asarray(h_hat,
-                                                            np.float64))
+                   h_hat=h if h_hat is None else as64(h_hat),
+                   fad_state=as64(fad_state), scale=as64(scale))
 
 
 def _tensor(a, device) -> torch.Tensor:

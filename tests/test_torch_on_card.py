@@ -612,6 +612,79 @@ class TestSweepOnCard:
         runtime.clear_compile_caches()
 
 
+def _case_ii_spec(**chkw):
+    """The paper's Case-II experiment (ridge, K = 20, N = 30, eta 0.01,
+    s_target 0.995, kernels backend; G fixed at 25) under the channel
+    ``chkw``."""
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.fl import (DataSpec, EvalSpec, ExperimentSpec,
+                                FLConfig, ModelSpec, build_task)
+    data = DataSpec(dataset="ridge", split="iid", batch_size=50,
+                    num_train=2000, dim=30, seed=10)
+    model = ModelSpec(kind="ridge", lam=0.1)
+    c = build_task(data, model, 20, "cpu").constants
+    fl = FLConfig(num_devices=20, case="II", eta=0.01, backend="kernels",
+                  channel=ChannelConfig(num_devices=20, channel_mean=1e-3,
+                                        **chkw),
+                  smoothness_L=c["smoothness_L"],
+                  strong_convexity_M=c["strong_convexity_M"],
+                  s_target=0.995, grad_bound=25.0, seed=0)
+    return ExperimentSpec(fl=fl, data=data, model=model,
+                          eval=EvalSpec(every=10))
+
+
+CHANNEL_VARIANTS = {"iid_fading": dict(block_fading=True),
+                    "ar1_csi": dict(model="ar1", rho=0.9, csi_error=0.2)}
+
+
+@pytest.mark.cuda
+class TestChannelOnCard:
+    """Time-varying channels on the card: the host refresh (model step,
+    estimate, Problem-3 re-solve) staged beside the captured round; scan
+    against python bitwise, the card against the CPU, and K1, K2 and K5
+    once a round."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @pytest.mark.parametrize("variant", list(CHANNEL_VARIANTS))
+    def test_scan_is_python_and_card_is_cpu(self, variant):
+        import dataclasses
+        from repro_torch.fed import runtime
+        from repro_torch.fl import Experiment
+        spec = _case_ii_spec(**CHANNEL_VARIANTS[variant])
+        runtime.clear_compile_caches()
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(spec, driver=driver),
+                           device="cuda").setup()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            e.run(20)
+            torch.cuda.synchronize()
+            if driver == "scan":
+                for name in ("batched_moments", "ota_superpose", "sumsq"):
+                    assert ops.LAUNCH_COUNTS[name] == (
+                        20 + runtime.GRAPH_WARMUP_ROUNDS), name
+            runs[driver] = e
+        assert runs["scan"].history == runs["python"].history
+        for k in runs["python"].params:
+            assert torch.equal(runs["scan"].params[k],
+                               runs["python"].params[k]), k
+        cpu = Experiment(spec, device="cpu")
+        cpu.run(20)
+        for k, v in cpu.params.items():
+            # the same host-drawn channel and re-solve; the round's fp32
+            # sums in other orders on the card
+            torch.testing.assert_close(runs["scan"].params[k].cpu(), v,
+                                       rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(runs["scan"].state.h, cpu.state.h)
+        runtime.clear_compile_caches()
+
+
 def _attention_inputs(b, h, hkv, sq, skv, d, dtype, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d))

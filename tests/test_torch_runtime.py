@@ -265,15 +265,41 @@ def test_streaming_and_participation_fields_build(fields, error):
                 cls(num_devices=4, **fields)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("model", "rician", "item 11"),
-    ("csi_error", 0.1, "item 11"),
-    ("geometry", object(), "item 11"),
-    ("block_fading", True, "item 5"),
-])
-def test_unported_channel_fields_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ChannelConfig(num_devices=4, **{field: value})
+def _geometry(pkg, **kw):
+    if pkg == "port":
+        from repro_torch.channels import GeometryConfig
+    else:
+        from repro.channels import GeometryConfig
+    return GeometryConfig(**kw)
+
+
+# these four fields raised NotImplementedError until the channel slice was
+# ported; each case now holds the port's ChannelConfig to the reference's on
+# a valid and an invalid value (the ids are the ones the cases had)
+@pytest.mark.parametrize("field,valid,invalid", [
+    ("model", dict(model="rician", rician_k=2.0), dict(model="nope")),
+    ("csi_error", dict(csi_error=0.1, csi_error_model="multiplicative"),
+     dict(csi_error=0.1, csi_error_model="nope")),
+    ("geometry", dict(shadowing_std_db=4.0), dict(min_distance=0.0)),
+    ("block_fading", dict(block_fading=True, model="ar1", rho=0.9),
+     dict(block_fading=True, rho=1.0)),
+], ids=["model-rician-item 11", "csi_error-0.1-item 11",
+        "geometry-value2-item 11", "block_fading-True-item 5"])
+def test_unported_channel_fields_raise(field, valid, invalid):
+    """The same values build on both packages, and an invalid value raises
+    ValueError on both."""
+    for pkg, cls in (("port", ChannelConfig), ("ref", JChannelConfig)):
+        if field == "geometry":
+            cfg = cls(num_devices=4, geometry=_geometry(pkg, **valid))
+            assert cfg.geometry.shadowing_std_db == 4.0
+            with pytest.raises(ValueError, match="min_distance"):
+                _geometry(pkg, **invalid)
+            continue
+        cfg = cls(num_devices=4, **valid)
+        for k, v in valid.items():
+            assert getattr(cfg, k) == v
+        with pytest.raises(ValueError):
+            cls(num_devices=4, **invalid)
 
 
 def test_unported_driver_and_client_raise():

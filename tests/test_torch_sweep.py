@@ -133,8 +133,11 @@ class TestSweepSpecGeometry:
             SweepSpec(ridge_spec(), (("seed", (0,)), ("seed", (1,))))
         with pytest.raises(ValueError):        # invalid value fails eagerly
             SweepSpec(ridge_spec(), {"scheme": ("normalized", "nope")})
-        with pytest.raises(NotImplementedError, match="item 11"):
-            SweepSpec(ridge_spec(), {"channel.model": ("rayleigh", "ar1")})
+        # the channel axes build (they raised NotImplementedError until the
+        # channel slice was ported); an unknown model fails eagerly
+        SweepSpec(ridge_spec(), {"channel.model": ("rayleigh", "ar1")})
+        with pytest.raises(ValueError, match="unknown channel model"):
+            SweepSpec(ridge_spec(), {"channel.model": ("rayleigh", "nope")})
 
     def test_classify_field_matches_the_reference(self):
         """Every field name of every scope, bare and dotted, classifies as
