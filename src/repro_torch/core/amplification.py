@@ -178,9 +178,9 @@ def solve_problem3_torch(h, noise_var, n: int, b_max, tol: float = 1e-6,
     fails and is frozen after, as the reference's vmapped ``while_loop``
     masks its finished lanes: each step computes every row and keeps the
     live rows' results, so a row's bits do not depend on the rows beside
-    it.  The arithmetic runs in numpy fp32 (a few microseconds an
-    operation at these sizes, where a torch call costs ten); returns fp32
-    CPU tensors, squeezed to ``h``'s rank."""
+    it.  The arithmetic runs in numpy fp32 (at these sizes a torch call's
+    fixed cost would set the pace); returns fp32 CPU tensors, squeezed to
+    ``h``'s rank."""
     h = _f32(h)
     solo = h.ndim == 1
     if solo:
