@@ -86,6 +86,24 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               fading: 2 groups of 8 lanes) through ``run_sweep``, batched
               == sequential bitwise, one capture a group, none on a warm
               repeat;
+6f. clients -- the client algorithms (benchmarks/figures.py::
+              client_algorithms: H = 4, local_lr 0.05, noise_var 1e-10) on
+              Case I at full width: sgd, fedprox (mu 0.1), feddyn (alpha
+              0.1) and scaffold, 20 rounds each: scan == python bitwise on
+              the dense and a k_block = 4 round (params, history, client
+              state), K1 and K2 once a slot and K5 once a round (two slots
+              for feddyn and scaffold), the card against a CPU run round
+              by round (params and client state), warm rounds/s, device
+              busy a round and idle share; then the figure's grid through
+              ``run_sweep`` (algorithm x Dirichlet alpha {0.1, 100} x
+              participation {1.0, 0.5} x 3 seeds: 48 lanes in 16
+              structural groups): batched == sequential bitwise over 20
+              rounds, one capture a group and none on a warm repeat,
+              lane-rounds/s both ways, the device's idle share; 200
+              batched rounds for the feddyn/sgd and scaffold/sgd energy
+              ratios (failed outside [1.95, 2.05], figures.py:528-534) and
+              the final train-loss bands on the alpha = 0.1 split, whose
+              separation from sgd is reported, not failed;
 7. stream_ota -- ``ota.aggregate(OTAConfig(backend="kernels",
               k_block=1000))`` at the K-scale shape for four schemes, against
               the dense aggregate on the card and the plain route on the
@@ -164,7 +182,11 @@ only phases 1, 2, 6c and 6d, and
 
     python3 chip_smoke.py --channel
 
-only phases 1, 2 and 6e.
+only phases 1, 2 and 6e, and
+
+    python3 chip_smoke.py --clients
+
+only phases 1, 2 and 6f.
 """
 from __future__ import annotations
 
@@ -2284,6 +2306,272 @@ def phase_channel(ops) -> dict:
     return dict(launches)
 
 
+# benchmarks/figures.py::client_algorithms: H = 4, local_lr 0.05 (as phase
+# local_steps), noise_var 1e-10 (figures.py:466-474: the de-gained slot-2
+# aggregate amplifies the channel noise by about 1 / (a sum h b))
+CLIENT_NOISE_VAR = 1e-10
+CLIENT_ALGOS = (("sgd", {"client.algo": "sgd"}),
+                ("fedprox", {"client.algo": "fedprox", "client.mu": 0.1}),
+                ("feddyn", {"client.algo": "feddyn", "client.alpha": 0.1}),
+                ("scaffold", {"client.algo": "scaffold"}))
+CLIENT_GRID_ROUNDS = 200         # figures.py::client_algorithms' default
+ENERGY_RATIO_BAND = (1.95, 2.05)  # figures.py:528-534
+# the card against a CPU run, every round: the params at phase main's
+# tolerance, the client state at CLIENT_STATE_RTOL of its largest
+# magnitude.  The de-gain divides, so the slot-2 roundoff stays relative;
+# measured on an H100 over 20 rounds, the largest gap was 1.9e-5 of
+# max |state| (SCAFFOLD's variates, round 5), so 1e-4 leaves a 5x margin
+CLIENT_STATE_RTOL = 1e-4
+
+
+def clients_spec(client: dict | None = None):
+    """Case I at full width as figures.py::client_algorithms runs it."""
+    import dataclasses
+    from repro_torch.fl.spec import apply_axes
+    spec = case_i_spec()
+    channel = dataclasses.replace(spec.fl.channel, noise_var=CLIENT_NOISE_VAR)
+    spec = dataclasses.replace(
+        spec, fl=dataclasses.replace(spec.fl, channel=channel),
+        local_steps=LOCAL_STEPS, local_lr=LOCAL_LR)
+    return apply_axes(spec, client or {})
+
+
+def check_slot_launches(launches: dict, lane_slots, rounds: int,
+                        where: str) -> None:
+    """Exact launches of the round's kernels over ``rounds`` rounds under
+    scan (the graph's eager warm-up rounds included): K1 and K2 once a slot
+    of each lane (``lane_slots``, one entry a lane), K5 once a lane."""
+    from repro_torch.fed import runtime
+    per_lane = rounds + runtime.GRAPH_WARMUP_ROUNDS
+    want = {"batched_moments": per_lane * sum(lane_slots),
+            "ota_superpose": per_lane * sum(lane_slots),
+            "sumsq": per_lane * len(lane_slots)}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{where}: {name} launched {launches[name]} times, "
+                 f"expected {n} ({rounds} rounds, slots {lane_slots})")
+
+
+def _state_gap(a: dict, b: dict) -> tuple:
+    """max |a - b| over a client state's trees, and max |b|."""
+    gap = top = 0.0
+    for part in ("dev", "srv"):
+        for k, v in b[part].items():
+            gap = max(gap, float((a[part][k].cpu() - v).abs().max()))
+            top = max(top, float(v.abs().max()))
+    return gap, top
+
+
+def _client_bitwise(a, b) -> bool:
+    sa, sb = a.state.client_state, b.state.client_state
+    if sa is None or sb is None:
+        return sa is sb
+    return all(torch.equal(sa[p][k], sb[p][k]) for p in ("dev", "srv")
+               for k in sb[p])
+
+
+def _client_algo(name: str, gpu_launches) -> dict:
+    """One algorithm on Case I: scan == python bitwise over ROUNDS on the
+    dense and a k_block = 4 round, K1/K2/K5 per slot, the card against a
+    CPU run round by round, and the warm rate with the device's busy time
+    and idle share."""
+    import dataclasses
+    from repro_torch.fl import Experiment, clients
+    client = dict(CLIENT_ALGOS)[name]
+    spec = clients_spec(client)
+    slots = clients.get(spec.fl.client.algo).num_slots
+    row = {"phase": "clients", "algo": name, "client": client,
+           "rounds": ROUNDS, "slots": slots}
+    for kind, over in (("dense", {}), ("k_block_4", {"k_block": 4})):
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(spec, driver=driver, **over),
+                           device="cuda").setup()
+            _, ops_counts = _launches_of(lambda: e.run(ROUNDS))
+            runs[driver] = e
+            if driver == "scan":
+                row[f"launches_{kind}"] = ops_counts
+                if kind == "dense":
+                    gpu_launches.update(ops_counts)
+                    check_slot_launches(ops_counts, [slots], ROUNDS,
+                                        f"clients {name}")
+        row[kind] = compare_runs(runs["scan"].params, runs["scan"].history,
+                                 runs["python"].params,
+                                 runs["python"].history)
+        row[kind]["client_state_bitwise"] = _client_bitwise(runs["scan"],
+                                                            runs["python"])
+    # the card against the CPU, round by round
+    gpu = Experiment(spec, device="cuda")
+    cpu = Experiment(spec, device="cpu")
+    gaps = []
+    for _ in range(ROUNDS):
+        gpu.run(1, evaluate=False)
+        cpu.run(1, evaluate=False)
+        g = {"params": max(float((gpu.params[k].cpu() - cpu.params[k])
+                                 .abs().max()) for k in cpu.params)}
+        if cpu.state.client_state is not None:
+            g["state"], g["state_max"] = _state_gap(gpu.state.client_state,
+                                                    cpu.state.client_state)
+        gaps.append(g)
+    row["gpu_vs_cpu_by_round"] = gaps
+    row["tolerance"] = (f"every round: params |d| <= {PARAMS_ATOL:g} (phase "
+                        f"main's); client state |d| <= "
+                        f"{CLIENT_STATE_RTOL:g} max|state|")
+    warm = Experiment(spec, device="cuda")
+    warm.run(1, evaluate=False)
+    row["rates"] = driver_rates(lambda n: warm.run(n, evaluate=False),
+                                ROUNDS, 5)
+    row["train_loss"] = runs["python"].history["train_loss"]
+    emit(row)
+    for kind in ("dense", "k_block_4"):
+        if not (row[kind]["bitwise"] and row[kind]["client_state_bitwise"]):
+            fail(f"clients {name}: scan and python differ on the {kind} "
+                 f"round ({row[kind]})")
+    for t, g in enumerate(gaps, start=1):
+        if not g["params"] <= PARAMS_ATOL:
+            fail(f"clients {name}: GPU and CPU params differ by "
+                 f"{g['params']} at round {t}")
+        if "state" in g and not g["state"] <= (CLIENT_STATE_RTOL
+                                               * g["state_max"]):
+            fail(f"clients {name}: GPU and CPU client state differ by "
+                 f"{g['state']} at round {t} (max |state| "
+                 f"{g['state_max']})")
+    hist = runs["scan"].history
+    flat = [v for k in hist if k != "round" for v in hist[k]]
+    if not all(math.isfinite(v) for v in flat):
+        fail(f"clients {name}: non-finite history")
+    return row
+
+
+def _launches_of(run) -> tuple:
+    """``run()``'s result and the kernels' launch counts in it, from counts
+    set to 0 just before it."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCH_COUNTS)
+
+
+def _client_grid(grid_launches) -> dict:
+    """figures.py::client_algorithms' grid at full width through
+    ``run_sweep``: batched == sequential over ROUNDS rounds of every lane,
+    captures, lane-rounds/s both ways, the energy ratios, and the final
+    train-loss bands after CLIENT_GRID_ROUNDS rounds."""
+    import dataclasses
+    from repro_torch.fed import runtime
+    from repro_torch.fl import EvalSpec, SweepSpec, clients, run_sweep
+    from repro_torch.fl.sweep import _structural_signature
+    base = dataclasses.replace(
+        clients_spec(), eval=EvalSpec(every=max(CLIENT_GRID_ROUNDS // 10, 5)))
+    sweep = SweepSpec(base, {"algo": CLIENT_ALGOS, "alpha": (0.1, 100.0),
+                             "participation": (1.0, 0.5),
+                             "seed": (0, 1, 2)})
+    groups = len({_structural_signature(p.spec) for p in sweep.points()})
+    row = {"phase": "clients_grid", "size": sweep.size, "groups": groups,
+           "classification": sweep.classification(), "rounds": ROUNDS,
+           "grid_rounds": CLIENT_GRID_ROUNDS}
+    runtime.clear_compile_caches()
+    runtime.cache_info()
+    t0 = time.perf_counter()
+    batched, launches = _launches_of(lambda: run_sweep(sweep, ROUNDS))
+    row["batched_first_call_s"] = time.perf_counter() - t0
+    grid_launches.update(launches)
+    row["launches"] = launches
+    row["captures_first_run"] = runtime.cache_info()["traces_delta"]
+    slots = [clients.get(p.spec.fl.client.algo).num_slots
+             for p in sweep.points()]
+    check_slot_launches(launches, slots, ROUNDS, "clients grid")
+    t0 = time.perf_counter()
+    sequential = run_sweep(sweep, ROUNDS, vectorized=False)
+    row["sequential_first_call_s"] = time.perf_counter() - t0
+    row["bitwise_history"] = all(
+        np.array_equal(batched.history[k], sequential.history[k])
+        for k in batched.history)
+    row["bitwise_params"] = (batched.params_digests
+                             == sequential.params_digests)
+    runtime.cache_info()
+    run_sweep(sweep, ROUNDS)
+    row["captures_warm_repeat"] = runtime.cache_info()["traces_delta"]
+    for mode, vec in (("batched", True), ("sequential", False)):
+        row[mode] = _sweep_rate(
+            lambda vec=vec: run_sweep(sweep, ROUNDS, vectorized=vec,
+                                      evaluate=False), sweep.size * ROUNDS)
+    row["speedup"] = (row["batched"]["median_lane_rounds_per_s"]
+                      / row["sequential"]["median_lane_rounds_per_s"])
+    row["batched_profile"] = _batched_round_profile(sweep, 16)
+    # the figure: CLIENT_GRID_ROUNDS rounds, batched
+    t0 = time.perf_counter()
+    res = run_sweep(sweep, CLIENT_GRID_ROUNDS)
+    row["figure_s"] = time.perf_counter() - t0
+    mean, std = res.band("train_loss", over="seed")   # [algo, alpha, part, E]
+    emean, _ = res.band("tx_energy", over="seed")
+    names = res.sweep.values("algo")
+    energy = {n: float(np.sum(emean[i, 0, 0])) for i, n in enumerate(names)}
+    row["total_tx_energy_alpha0.1_part1"] = energy
+    row["energy_ratio"] = {n: energy[n] / energy["sgd"]
+                           for n in ("feddyn", "scaffold")}
+    final = {}
+    for i, n in enumerate(names):
+        for j, al in enumerate(res.sweep.values("alpha")):
+            for k, part in enumerate(res.sweep.values("participation")):
+                final[f"{n}/alpha={al}/part={part}"] = [
+                    float(mean[i, j, k][-1]), float(std[i, j, k][-1])]
+    row["final_train_loss_mean_std"] = final
+    sm, ss = final["sgd/alpha=0.1/part=1.0"]
+    row["separates_from_sgd_alpha0.1_part1"] = {
+        n: final[f"{n}/alpha=0.1/part=1.0"][0]
+        + final[f"{n}/alpha=0.1/part=1.0"][1] < sm - ss
+        for n in ("feddyn", "scaffold")}
+    row["figure_finite"] = all(
+        math.isfinite(v) for k in runtime.DIAG_KEYS
+        for v in res.history[k].ravel())
+    emit(row)
+    if not (row["bitwise_history"] and row["bitwise_params"]):
+        fail("clients grid: batched differs from sequential")
+    if row["captures_first_run"]["run_chunk_batched"] != groups:
+        fail(f"clients grid: {row['captures_first_run']} captures for "
+             f"{groups} structural groups")
+    if any(row["captures_warm_repeat"].values()):
+        fail(f"clients grid: a warm repeat captured "
+             f"{row['captures_warm_repeat']}")
+    lo, hi = ENERGY_RATIO_BAND
+    for n, ratio in row["energy_ratio"].items():
+        if not lo <= ratio <= hi:
+            fail(f"clients grid: {n}/sgd transmit-energy ratio {ratio} "
+                 f"outside [{lo}, {hi}]")
+    if not row["figure_finite"]:
+        fail("clients grid: non-finite history")
+    runtime.clear_compile_caches()
+    return row
+
+
+def phase_clients(ops) -> dict:
+    """The client algorithms on Case I at full width (``_client_algo`` for
+    sgd and the three correctors), then the figure's grid
+    (``_client_grid``).  Returns the launches of the three correctors'
+    dense scan runs and of the grid's first batched run."""
+    import collections
+    from repro_torch.fed import runtime
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    rates = {}
+    for name, _ in CLIENT_ALGOS:
+        runtime.clear_compile_caches()
+        counted = launches if name != "sgd" else collections.Counter()
+        row = _client_algo(name, counted)
+        rates[name] = {k: row["rates"][k] for k in (
+            "median_rounds_per_s", "device_busy_us_per_round",
+            "device_idle_share")}
+    runtime.clear_compile_caches()
+    emit({"phase": "clients_rates", "rates": rates})
+    _client_grid(launches)
+    emit({"phase": "clients_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return dict(launches)
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
@@ -2348,6 +2636,8 @@ def main() -> None:
                          "sweep")
     ap.add_argument("--channel", action="store_true",
                     help="run only the build and phase channel")
+    ap.add_argument("--clients", action="store_true",
+                    help="run only the build and phase clients")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -2376,6 +2666,9 @@ def main() -> None:
     if args.channel:
         phase_channel(ops)
         return
+    if args.clients:
+        phase_clients(ops)
+        return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)
@@ -2401,10 +2694,13 @@ def main() -> None:
     emit_memory("sweep")
     channel_launches = phase_channel(ops)
     emit_memory("channel")
-    # the round's kernels run on two paths: phase main's round and phase
-    # channel's time-varying rounds, each read from counts set to 0 before it
+    client_launches = phase_clients(ops)
+    emit_memory("clients")
+    # the round's kernels run on three paths: phase main's round, phase
+    # channel's time-varying rounds and phase clients' two-slot rounds, each
+    # read from counts set to 0 before it
     round_launches = {name: main_launches[name] + channel_launches[name]
-                      for name in PATH_KERNELS}
+                      + client_launches[name] for name in PATH_KERNELS}
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
     checks["flash_attention"] = phase_flash(ops, build)

@@ -57,21 +57,34 @@ estimates ``h_hat_t``, re-solves Problem 3 on it for the whole chunk at once
 sum h_hat_t b_t`` and stages ``h_t`` and ``h_hat_t`` beside the folded
 gains (the reference's in-scan ``_fading_refresh``).
 
+The client algorithm (``FLConfig.client``, the ``repro_torch.fl.clients``
+registry) corrects every local gradient of the H steps (``_local_transmit``)
+and threads its state ``{"dev": [K, ...], "srv": ...}`` through
+``FLState.client_state`` and the round body beside the params.  FedDyn and
+SCAFFOLD run a SECOND OTA slot after the gradient slot, on every round: the
+refreshed per-device states go through the air with the scheme
+``client.variate_scheme``, the same channel and gains, and their own staged
+noise; their eq.-8 energy is added to ``tx_energy``, and the server tracks
+its state from the aggregate de-gained by ``a_eff sum h_hat b_eff``.  ``mu``
+and ``alpha`` reach the round as 0-d fp32 tensors in device memory (a lane's
+own in a batched run).
+
 Config values of unported paths raise ``NotImplementedError`` naming their
-ROADMAP item: ``device_mesh``, the ``mesh`` backend, the two-slot client
-round, and (through ``ClientConfig``) non-sgd clients.
+ROADMAP item: ``device_mesh`` and the ``mesh`` backend.
 
 Random streams (``repro_torch.rng``): the setup's channel draw uses
 ``rng.generator(cfg.seed)``, round t's channel ``rng.generator(cfg.seed + 2,
 t)`` and its estimate ``rng.generator(cfg.seed + 2, rng.CSI_SALT, t)``,
-round t's channel noise ``rng.generator(cfg.seed + 1, t)`` and its
-participation mask ``rng.generator(cfg.seed + 1, rng.MASK_SALT, t)``, all on
-the CPU, so a CPU and a GPU run from one seed see the same channel, masks
-and noise, and ``run(5); run(5)`` continues ``run(10)``.
-``run(noise_provider=...)``, ``run(mask_provider=...)`` and
-``run(fading_provider=...)`` inject the flat noise vector, the [K] mask and
-the round's fading and estimation normals instead (the parity tests'
-seams).  The participation fold runs on the CPU copies of the channel.
+round t's channel noise ``rng.generator(cfg.seed + 1, t)`` (slot 2's
+``rng.generator(cfg.seed + 1, rng.SLOT_SALT, t)``) and its participation
+mask ``rng.generator(cfg.seed + 1, rng.MASK_SALT, t)``, all on the CPU, so a
+CPU and a GPU run from one seed see the same channel, masks and noise, and
+``run(5); run(5)`` continues ``run(10)``.  ``run(noise_provider=...)``,
+``run(slot2_noise_provider=...)``, ``run(mask_provider=...)`` and
+``run(fading_provider=...)`` inject the flat noise vector of either slot,
+the [K] mask and the round's fading and estimation normals instead (the
+parity tests' seams).  The participation fold runs on the CPU copies of the
+channel.
 """
 from __future__ import annotations
 
@@ -92,6 +105,7 @@ from repro_torch.core import amplification as amp
 from repro_torch.core import channel as chan
 from repro_torch.core import ota
 from repro_torch.core import schemes
+from repro_torch.fl import clients
 from repro_torch.fl.clients import ClientConfig
 from repro_torch.kernels import ops
 from repro_torch.optim import optimizers as optim
@@ -190,12 +204,12 @@ STRUCTURAL_CHANNEL_FIELDS = ("num_devices", "block_fading", "model",
 
 class BatchAxes(NamedTuple):
     """Per-lane numerics of a batched run, each [E] (the reference's
-    fields).  The port carries ``grad_bound`` only (on the run's device:
-    each lane's round body reads its own value).  ``noise_var``, ``b_max``,
-    the channel mean and the channel's ``rho`` and ``csi_error`` act on the
-    host (``setup`` and ``_stage``; the group's noise gate is ``_noisy`` of
-    the configs), and the client fields stay None until ROADMAP queue 1
-    item 12 makes them reach the round."""
+    fields).  The port carries ``grad_bound`` and the client's ``mu`` and
+    ``alpha`` (where the algorithm reads them) on the run's device: each
+    lane's round body reads its own values there.  ``noise_var``,
+    ``b_max``, the channel mean and the channel's ``rho`` and ``csi_error``
+    act on the host (``setup`` and ``_stage``; the group's noise gate is
+    ``_noisy`` of the configs)."""
 
     noise_var: Optional[torch.Tensor] = None
     grad_bound: Optional[torch.Tensor] = None
@@ -245,7 +259,7 @@ class FLConfig:
     k_block: Optional[int] = None        # the streaming round
     active_gather: bool = False          # fixed-mode active-set gather
     device_mesh: Optional[int] = None    # not ported
-    # --- client-algorithm axis (only 'sgd' is ported) -----------------------
+    # --- client-algorithm axis (repro_torch.fl.clients) ---------------------
     client: ClientConfig = None
 
     def __post_init__(self):
@@ -254,6 +268,14 @@ class FLConfig:
                                chan.ChannelConfig(num_devices=self.num_devices))
         if self.client is None:
             object.__setattr__(self, "client", ClientConfig())
+        if clients.get(self.client.algo).num_slots > 1:
+            # the slot-2 scheme must exist and go through the air: a
+            # baseline scheme has no superposition to de-gain
+            if schemes.get(self.client.variate_scheme).baseline:
+                raise ValueError(
+                    f"variate_scheme {self.client.variate_scheme!r} is a "
+                    "baseline (channel-bypassing) scheme; the second OTA "
+                    "slot is a genuine transmission")
         if self.backend not in ota.BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"one of {ota.BACKENDS}")
@@ -366,6 +388,11 @@ class FLState:
     # run re-solves against the same fp32 gain (the reference re-derives it
     # from the last round's a and b at every run)
     eff_gain: Optional[float] = None
+    # the client algorithm's state (repro_torch.fl.clients.init_state):
+    # {"dev": [K, ...] tree or None, "srv": param-shaped tree or None} on
+    # the params' device; None for the stateless algorithms.  run() sets a
+    # stateful algorithm's zero state when a state was built without it
+    client_state: Optional[Dict[str, Any]] = None
 
 
 def server_optimizer(cfg: FLConfig) -> optim.Optimizer:
@@ -415,7 +442,9 @@ def setup(cfg: FLConfig, params0: Tree, model_dim: int) -> FLState:
     h, h_hat, fad_state, scale_vec = _setup_channel(cfg)
     b_max = np.full(cfg.num_devices, cfg.channel.b_max)
     extra = dict(model_dim=model_dim, h_hat=h_hat, fad_state=fad_state,
-                 scale=scale_vec)
+                 scale=scale_vec,
+                 client_state=clients.init_state(cfg.client, params0,
+                                                 cfg.num_devices))
 
     if cfg.amplification == "bmax":
         b = b_max.copy()
@@ -499,15 +528,22 @@ def _map_batch(fn: Callable[[torch.Tensor], torch.Tensor], batch):
 
 
 def _local_transmit(cfg: FLConfig, grad_fn: GradFn, params: Tree,
-                    batch) -> Tree:
+                    batch, corr: Optional[Callable] = None,
+                    dev_state: Optional[Tree] = None) -> Tree:
     """What every device hands to the scheme's transform: its local
     gradient for ``local_steps == 1`` (the paper), ``grad_fn`` vmapped over
     the leading K axis of the batch; for H = ``local_steps`` > 1 the
     accumulated model delta of H local SGD steps on its round batch,
     ``w <- w - local_lr g``, transmitted as ``(w_0 - w_H) / (H local_lr)``
-    (the reference's ``_local_transmit`` without a client correction, its
-    fp32 casts and operation order).  The H steps are a fixed-length loop,
-    so one CUDA graph holds them all.
+    (the reference's ``_local_transmit``, its fp32 casts and operation
+    order).  The H steps are a fixed-length loop, so one CUDA graph holds
+    them all.
+
+    ``corr(w, g, dev_state)`` is the client algorithm's correction, applied
+    to every local gradient of the H steps on the stacked [K, ...] local
+    weights ``w`` and gradients ``g``; ``dev_state`` is the per-device
+    state it reads ([K, ...] rows of the devices in the batch, or None).
+    ``corr=None`` (sgd) is the uncorrected round.
 
     The params are expanded along the device axis (a view, no copy), and
     after the first local step each device holds its own [K, ...] params, so
@@ -522,7 +558,9 @@ def _local_transmit(cfg: FLConfig, grad_fn: GradFn, params: Tree,
                           else first))
     k = first.shape[0]
     per_device = {n: p.expand((k,) + p.shape) for n, p in params.items()}
-    local_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
+    vmapped = torch.func.vmap(grad_fn, in_dims=(0, 0))
+    local_grads = (vmapped if corr is None else
+                   lambda w, b: corr(w, vmapped(w, b), dev_state))
     if cfg.local_steps == 1:
         return local_grads(per_device, batch)
     w = per_device
@@ -546,6 +584,7 @@ class RoundInputs(NamedTuple):
     b_eff: torch.Tensor                      # [K] fp32 amplification, folded
     participants: torch.Tensor               # fp32 num_participants
     noise: Optional[torch.Tensor] = None     # [N] fp32 flat channel noise
+    noise2: Optional[torch.Tensor] = None    # [N] fp32, the second slot's
     mask: Optional[torch.Tensor] = None      # [K] fp32 0/1 participation
     empty: Optional[torch.Tensor] = None     # bool: nobody participates
     weights: Optional[torch.Tensor] = None   # [K] masked-baseline weights
@@ -570,38 +609,105 @@ def _lane(staged: RoundInputs, e: int) -> RoundInputs:
         if v is not None and name != "batch"})
 
 
+def _scatter_rows(tree: Tree, idx: torch.Tensor, k: int) -> Tree:
+    """A [K, ...] zero stack with the [m, ...] rows of ``tree`` at the
+    devices ``idx``."""
+    return {name: l.new_zeros((k,) + l.shape[1:]).index_copy_(0, idx, l)
+            for name, l in tree.items()}
+
+
+def _keep_rows(mask: torch.Tensor, new: Tree, old: Tree) -> Tree:
+    """``new``'s rows where ``mask`` is 1, ``old``'s where it is 0: a
+    masked device keeps its client state."""
+    keep = mask.bool()
+    return {n: torch.where(keep.reshape((-1,) + (1,) * (l.ndim - 1)), l,
+                           old[n]) for n, l in new.items()}
+
+
+def _client_round(cfg: FLConfig, alg: clients.ClientAlgorithm,
+                  grad_fn: GradFn, params: Tree, cstate,
+                  cp: clients.ClientParams):
+    """The round's client state and numerics: ``(dev_state, srv_state, cp,
+    transmit)``, where ``transmit(batch, dev_rows)`` is ``_local_transmit``
+    with the algorithm's correction (the broadcast ``params`` as w_t).
+    ``cp`` holds the lane's 0-d fp32 ``mu``/``alpha`` tensors, resolved
+    against the config here as the reference resolves its lanes."""
+    cp = clients.resolve_params(cfg.client, cp.mu, cp.alpha)
+    dev_state = cstate["dev"] if cstate is not None else None
+    srv_state = cstate["srv"] if cstate is not None else None
+    if alg.correction is None:
+        def transmit(batch, rows):
+            return _local_transmit(cfg, grad_fn, params, batch)
+    else:
+        def corr(w, g, rows):
+            return alg.correction(cp, w, params, rows, srv_state, g)
+
+        def transmit(batch, rows):
+            return _local_transmit(cfg, grad_fn, params, batch, corr, rows)
+    return dev_state, srv_state, cp, transmit
+
+
+def _track_server(alg: clients.ClientAlgorithm, cp, srv_state: Tree,
+                  y2: Tree, r: RoundInputs, h_hat: torch.Tensor,
+                  k: int) -> Tree:
+    """The server's state step from the slot-2 aggregate: ``y2`` de-gained
+    by ``a_eff sum h_hat b_eff`` (clamped at EPS) is about the participant
+    mean of the transmitted states, tracked with ``frac = m / K``.  An
+    empty round has ``a_eff = 0``, a finite ``y2 = 0`` and ``frac = 0``:
+    the state holds."""
+    gain = r.a_eff * torch.sum(h_hat * r.b_eff)
+    y2_hat = schemes.tree_map(
+        lambda l: l / torch.clamp(gain, min=schemes.EPS), y2)
+    return alg.apply_variate(cp, srv_state, y2_hat, r.participants / k)
+
+
 def _round_math(cfg: FLConfig, sch: schemes.Scheme, opt: optim.Optimizer,
                 grad_fn: GradFn, ocfg: ota.OTAConfig, params: Tree, opt_state,
                 r: RoundInputs, h: torch.Tensor,
                 gb: Optional[torch.Tensor] = None,
-                h_hat: Optional[torch.Tensor] = None):
-    """One dense FL round (local computation -> OTA aggregate -> server
+                h_hat: Optional[torch.Tensor] = None, *, cstate=None,
+                cp: clients.ClientParams = clients.ClientParams(),
+                ocfg2: Optional[ota.OTAConfig] = None):
+    """One dense FL round (local computation -> OTA aggregate(s) -> server
     step) plus the ``DIAG_KEYS`` diagnostics, from the round's inputs ``r``
     on the device.  ``gb`` is the run's grad_bound G as a 0-d fp32 tensor on
     the device (None where the config has none).  ``h_hat=None`` is perfect
     CSI (the estimate IS ``h``, so ``csi_gain_err`` is a hard 0).  The
     round's participation mask is already folded into ``r.b_eff`` and
-    ``r.a_eff`` (``ota.participation_fold``).  Returns ``(params,
-    opt_state, diag)`` with diag values as 0-d tensors."""
+    ``r.a_eff`` (``ota.participation_fold``).
+
+    ``cstate`` is the client state (``{"dev", "srv"}`` or None) and ``cp``
+    the lane's client numerics; a two-slot algorithm runs its second OTA
+    slot on ``ocfg2`` after the gradient slot (the same ``h``, ``b_eff``
+    and ``a_eff``, the noise ``r.noise2``), adds its eq.-8 energy to
+    ``tx_energy`` and steps the server state from the de-gained aggregate.
+    Returns ``(params, opt_state, cstate, diag)`` with diag values as 0-d
+    tensors."""
     if h_hat is None:
         h_hat = h
     k = cfg.num_devices
+    # the algorithm is static (the config's); its state and numerics are
+    # the lane's tensors
+    alg = clients.get(cfg.client.algo)
+    dev_state, srv_state, cp, transmit = _client_round(
+        cfg, alg, grad_fn, params, cstate, cp)
     if cfg.active_gather:
-        # gather the scheduled participants' batches BEFORE the local
-        # computation, so its cost scales with m = round(p K), then scatter
-        # the m results back into a zero [K, ...] stack and run the
-        # unchanged dense aggregation: a masked device's terms are exact
-        # zeros either way (b_eff = 0), so the round is bitwise the dense
-        # masked round
+        # gather the scheduled participants' batches (and client states)
+        # BEFORE the local computation, so its cost scales with m =
+        # round(p K), then scatter the m results back into a zero [K, ...]
+        # stack and run the unchanged dense aggregation: a masked device's
+        # terms are exact zeros either way (b_eff = 0), so the round is
+        # bitwise the dense masked round
         idx = r.active
-        active = _local_transmit(cfg, grad_fn, params,
-                                 _map_batch(lambda l: l[idx], r.batch))
-        stacked = {name: l.new_zeros((k,) + l.shape[1:]).index_copy_(0, idx, l)
-                   for name, l in active.items()}
+        dev_active = (None if dev_state is None else
+                      {n: l[idx] for n, l in dev_state.items()})
+        active = transmit(_map_batch(lambda l: l[idx], r.batch), dev_active)
+        stacked = _scatter_rows(active, idx, k)
         b_air = r.b_eff[idx]
     else:
         idx = None
-        active = stacked = _local_transmit(cfg, grad_fn, params, r.batch)
+        dev_active = dev_state
+        active = stacked = transmit(r.batch, dev_state)
         b_air = r.b_eff
     if r.mask is not None and sch.baseline:
         # the baseline bypasses the channel, so the mask cannot reach it
@@ -622,14 +728,53 @@ def _round_math(cfg: FLConfig, sch: schemes.Scheme, opt: optim.Optimizer,
                                  None if idx is not None else r.mask)
     if idx is not None:
         tx = tx.new_zeros((k,)).index_copy_(0, idx, tx)
+    tx_energy = torch.sum(tx)
+
+    if alg.stateful:
+        # the state transition sees the round's transmitted statistic
+        # (``active``: the gradient for H = 1, the model delta otherwise)
+        dev_new, dev_new_active = dev_state, dev_active
+        if alg.has_state:
+            dev_new_active = alg.update_state(
+                cp, cfg.local_steps * cfg.local_lr, dev_active, srv_state,
+                active)
+            if idx is not None:
+                dev_new = {n: l.index_copy(0, idx, dev_new_active[n])
+                           for n, l in dev_state.items()}
+            elif r.mask is not None:
+                # a masked device did not participate: its state holds (the
+                # raw transition still feeds slot 2, where b_eff = 0
+                # silences its row)
+                dev_new = _keep_rows(r.mask, dev_new_active, dev_state)
+            else:
+                dev_new = dev_new_active
+        srv_new = srv_state
+        if alg.num_slots == 2:
+            # the second OTA slot: the same channel realization, its own
+            # scheme, noise and eq.-8 energy
+            sch2 = schemes.get(cfg.client.variate_scheme)
+            x2_active = alg.variate_stat(cp, dev_active, dev_new_active,
+                                         srv_state, active)
+            x2 = (x2_active if idx is None
+                  else _scatter_rows(x2_active, idx, k))
+            stats2 = schemes.compute_stats(x2_active, sch2, batched=True)
+            tx2 = schemes.transmit_energy(sch2, stats2, b_air, gb,
+                                          None if idx is not None else r.mask)
+            if idx is not None:
+                tx2 = tx2.new_zeros((k,)).index_copy_(0, idx, tx2)
+            tx_energy = tx_energy + torch.sum(tx2)
+            y2 = ota.aggregate(ocfg2, x2, h, r.b_eff, h_hat=h_hat,
+                               noise=r.noise2, a=r.a_eff, grad_bound=gb)
+            srv_new = _track_server(alg, cp, srv_state, y2, r, h_hat, k)
+        cstate = {"dev": dev_new, "srv": srv_new}
     diag_core = {
         "grad_norm_mean": torch.mean(norms),
         "grad_norm_min": torch.min(norms),
         "grad_norm_max": torch.max(norms),
-        "tx_energy": torch.sum(tx),
+        "tx_energy": tx_energy,
     }
     return _round_tail(sch, opt, params, opt_state, y, r, diag_core, h,
-                       h_hat)
+                       h_hat) + (cstate,)
 
 
 def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
@@ -638,7 +783,10 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
                           r: RoundInputs, h: torch.Tensor,
                           gb: Optional[torch.Tensor] = None,
                           h_hat: Optional[torch.Tensor] = None, *,
-                          block_batch_fn: Optional[Callable] = None):
+                          block_batch_fn: Optional[Callable] = None,
+                          cstate=None,
+                          cp: clients.ClientParams = clients.ClientParams(),
+                          ocfg2: Optional[ota.OTAConfig] = None):
     """The flat-memory round (``cfg.k_block``): each device's local
     computation (``_local_transmit``, H local steps included) is made and
     folded into the OTA accumulator ``k_block`` devices at a time through
@@ -651,21 +799,33 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
     blocks here, and gathered to the active set under ``active_gather``),
     or None: then ``block_batch_fn(r.t, dev_idx)`` makes one block's
     [k_block, ...] batch from the round index (a 0-d int64 tensor on the
-    device) and its [k_block] device indices.  Arguments and result are
-    ``_round_math``'s.  Versus the dense round every per-device term is the
-    same; the K-way sums associate K-block by K-block, and the channel
-    noise is the same draw."""
+    device) and its [k_block] device indices.  The client state goes
+    through the blocks as the batch does (its refreshed rows gathered back
+    after the last block), and a second OTA slot folds into its own carry
+    beside slot 1's, block by block, closed with its own noise.  Arguments
+    and result are ``_round_math``'s.  Versus the dense round every
+    per-device term is the same; the K-way sums associate K-block by
+    K-block, and the channel noise is the same draw."""
     if h_hat is None:
         h_hat = h
     device = h.device
     batch = r.batch
+    # the algorithm is static (the config's); its state and numerics are
+    # the lane's tensors
+    alg = clients.get(cfg.client.algo)
+    dev_state, srv_state, cp, transmit = _client_round(
+        cfg, alg, grad_fn, params, cstate, cp)
+    dev_str = dev_state
     if cfg.active_gather:
         idx = r.active
         if batch is not None:
             batch = _map_batch(lambda l: l[idx], batch)
+        if dev_state is not None:
+            dev_str = {n: l[idx] for n, l in dev_state.items()}
         h_air, h_srv, b_air, dev = h[idx], h_hat[idx], r.b_eff[idx], idx
         block_mask = None
     else:
+        idx = None
         h_air, h_srv, b_air = h, h_hat, r.b_eff
         dev = torch.arange(cfg.num_devices, device=device)
         block_mask = r.mask
@@ -681,6 +841,12 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
     template = {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
                 for k, p in sorted(params.items())}
     oc = ota.streaming_carry(ocfg, template)
+    two_slot = alg.num_slots == 2
+    if two_slot:
+        sch2 = schemes.get(cfg.client.variate_scheme)
+        oc2 = ota.streaming_carry(ocfg2, template)
+    hlr = cfg.local_steps * cfg.local_lr
+    new_rows = []
     zero = torch.zeros((), dtype=torch.float32, device=device)
     nsum, txsum = zero, zero
     nmin = torch.full((), float("inf"), device=device)
@@ -689,12 +855,13 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         blk = slice(lo, lo + kb)
         bat = (_map_batch(lambda l: l[blk], batch) if batch is not None
                else block_batch_fn(r.t, dev[blk]))
-        g_blk = _local_transmit(cfg, grad_fn, params, bat)
+        rows = (None if dev_str is None else
+                {n: l[blk] for n, l in dev_str.items()})
+        g_blk = transmit(bat, rows)
         stats = schemes.compute_stats(g_blk, sch, batched=True)
         norms = torch.sqrt(stats.sq_norm)
-        tx = schemes.transmit_energy(
-            sch, stats, b_air[blk], gb,
-            None if block_mask is None else block_mask[blk])
+        mask_blk = None if block_mask is None else block_mask[blk]
+        tx = schemes.transmit_energy(sch, stats, b_air[blk], gb, mask_blk)
         oc = ota.streaming_block(ocfg, oc, g_blk, ha[blk], hs[blk],
                                  stats=stats, grad_bound=gb,
                                  baseline_weights=w[blk] if weighted else None)
@@ -702,8 +869,38 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         nsum = nsum + torch.sum(norms)
         nmin = torch.minimum(nmin, torch.min(norms))
         nmax = torch.maximum(nmax, torch.max(norms))
+        raw_new = rows
+        if alg.has_state:
+            raw_new = alg.update_state(cp, hlr, rows, srv_state, g_blk)
+            # masked devices keep their state (the raw transition still
+            # feeds slot 2, where b_eff = 0 silences those rows)
+            new_rows.append(raw_new if mask_blk is None
+                            else _keep_rows(mask_blk, raw_new, rows))
+        if two_slot:
+            x2_blk = alg.variate_stat(cp, rows, raw_new, srv_state, g_blk)
+            stats2 = schemes.compute_stats(x2_blk, sch2, batched=True)
+            tx2 = schemes.transmit_energy(sch2, stats2, b_air[blk], gb,
+                                          mask_blk)
+            oc2 = ota.streaming_block(ocfg2, oc2, x2_blk, ha[blk], hs[blk],
+                                      stats=stats2, grad_bound=gb)
+            txsum = txsum + torch.sum(tx2)
     y = ota.streaming_finish(ocfg, oc, template, r.a_eff, r.noise,
                              num_devices=1.0 if weighted else float(s))
+    if alg.stateful:
+        dev_new = dev_state
+        if alg.has_state:
+            flat = {n: torch.cat([b[n] for b in new_rows])
+                    for n in dev_state}
+            dev_new = (flat if idx is None else
+                       {n: l.index_copy(0, idx, flat[n])
+                        for n, l in dev_state.items()})
+        srv_new = srv_state
+        if two_slot:
+            y2 = ota.streaming_finish(ocfg2, oc2, template, r.a_eff,
+                                      r.noise2, num_devices=float(s))
+            srv_new = _track_server(alg, cp, srv_state, y2, r, h_hat,
+                                    cfg.num_devices)
+        cstate = {"dev": dev_new, "srv": srv_new}
     diag_core = {
         "grad_norm_mean": nsum / s,
         "grad_norm_min": nmin,
@@ -711,7 +908,9 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         "tx_energy": txsum,
     }
     return _round_tail(sch, opt, params, opt_state, y, r, diag_core, h,
-                       h_hat)
+                       h_hat) + (cstate,)
+
+
 def _keep_if(empty: torch.Tensor, old, new):
     """``old`` where the round is empty, else ``new``: an exact selection,
     leaf by leaf, of params or an optimizer state."""
@@ -756,24 +955,39 @@ def _round_tail(sch, opt, params, opt_state, y, r: RoundInputs, diag_core,
     return new_params, new_opt_state, diag
 
 
+class Lane(NamedTuple):
+    """One run's device side, as a round body reads it: the state a round
+    rewrites (params, the server optimizer's state, the client state) and
+    the run's constants (the fixed channel ``h`` and the server's estimate
+    ``h_hat``, the same tensor under perfect CSI; grad_bound as a 0-d fp32
+    tensor or None; the client numerics as ``ClientParams`` of 0-d fp32
+    tensors).  A batched run has one a lane."""
+    params: Tree
+    opt_state: Any
+    cstate: Optional[Dict[str, Any]]
+    h: torch.Tensor
+    h_hat: torch.Tensor
+    gb: Optional[torch.Tensor]
+    cp: clients.ClientParams
+
+
 class RoundBody:
     """The device work of one round of one (config, grad_fn,
-    block_batch_fn): ``body(params, opt_state, h, h_hat, gb, staged, cursor,
-    hist)`` reads the round's inputs at row ``cursor`` of the staged chunk,
-    runs the dense or the streaming round, writes its ``DIAG_KEYS`` to the
+    block_batch_fn): ``body(lane, staged, cursor, hist)`` reads the round's
+    inputs at row ``cursor`` of the staged chunk, runs the dense or the
+    streaming round on the lane (``Lane``), writes its ``DIAG_KEYS`` to the
     same row of ``hist`` [T, 8] and advances ``cursor`` (a [1] int64
-    tensor).  ``h`` and ``h_hat`` are the run's fixed channel and the
-    server's estimate on the device (the same tensor under perfect CSI); a
-    time-varying channel's staged ``h``/``h_hat`` take their place.  Both
-    rounds get ``h_hat``: the air uses ``h``, every server-side quantity
-    ``h_hat``.  ``gb`` is the run's grad_bound as a 0-d fp32 tensor on the
-    device, or None.  It makes no host sync and reads no CPU tensor, so a
-    CUDA graph can capture it.  Returns the new ``(params, opt_state)``.
+    tensor).  A time-varying channel's staged ``h``/``h_hat`` take the place
+    of the lane's.  Both rounds get ``h_hat``: the air uses ``h``, every
+    server-side quantity ``h_hat``.  It makes no host sync and reads no CPU
+    tensor, so a CUDA graph can capture it.  Returns the new ``(params,
+    opt_state, cstate)``.
 
     The body reads nothing of the batchable fields but the noise gate:
     ``noisy`` says whether the staged chunks carry channel noise (default:
     ``_noisy([cfg])``; a batched run passes its group's gate), so the body
-    of ``structural_config(cfg)`` is the body of ``cfg``."""
+    of ``structural_config(cfg)`` is the body of ``cfg``: grad_bound, mu
+    and alpha come from the lane, in device memory."""
 
     def __init__(self, cfg: FLConfig, grad_fn: GradFn,
                  block_batch_fn: Optional[Callable] = None, *,
@@ -793,25 +1007,30 @@ class RoundBody:
                                   noise_var=1.0 if noisy else 0.0,
                                   grad_bound=cfg.grad_bound,
                                   backend=cfg.backend, k_block=kb)
+        # the second OTA slot of a two-slot client algorithm
+        self.ocfg2 = None
+        if clients.get(cfg.client.algo).num_slots == 2:
+            self.ocfg2 = dataclasses.replace(
+                self.ocfg, scheme=cfg.client.variate_scheme)
 
-    def __call__(self, params: Tree, opt_state, h: torch.Tensor,
-                 h_hat: torch.Tensor, gb: Optional[torch.Tensor],
-                 staged: RoundInputs, cursor: torch.Tensor,
-                 hist: torch.Tensor):
+    def __call__(self, lane: Lane, staged: RoundInputs,
+                 cursor: torch.Tensor, hist: torch.Tensor):
         r = _map_inputs(lambda v: v.index_select(0, cursor)[0], staged)
-        if r.h is not None:
-            h, h_hat = r.h, r.h_hat
+        h, h_hat = (lane.h, lane.h_hat) if r.h is None else (r.h, r.h_hat)
         args = (self.cfg, self.sch, self.opt, self.grad_fn, self.ocfg,
-                params, opt_state, r, h, gb)
+                lane.params, lane.opt_state, r, h, lane.gb)
+        client = dict(cstate=lane.cstate, cp=lane.cp, ocfg2=self.ocfg2)
         if self.cfg.k_block is not None:
-            params, opt_state, diag = _round_math_streaming(
-                *args, h_hat=h_hat, block_batch_fn=self.block_batch_fn)
+            params, opt_state, diag, cstate = _round_math_streaming(
+                *args, h_hat=h_hat, block_batch_fn=self.block_batch_fn,
+                **client)
         else:
-            params, opt_state, diag = _round_math(*args, h_hat=h_hat)
+            params, opt_state, diag, cstate = _round_math(
+                *args, h_hat=h_hat, **client)
         row = torch.stack([diag[k].float() for k in DIAG_KEYS])
         hist.index_copy_(0, cursor, row[None])
         cursor.add_(1)
-        return params, opt_state
+        return params, opt_state, cstate
 
 
 @dataclasses.dataclass
@@ -858,14 +1077,17 @@ def _draw_row(row: torch.Tensor, gen: torch.Generator,
 
 def _stage_noise(lanes: Sequence[_LaneHost], shapes: Dict[str, torch.Size],
                  ts: Sequence[int],
-                 noise_provider: Optional[Callable] = None) -> torch.Tensor:
+                 noise_provider: Optional[Callable] = None,
+                 salts: Tuple[int, ...] = ()) -> torch.Tensor:
     """The [T, E, N] fp32 channel noise of the rounds ``ts`` of the lanes,
     drawn straight into one CPU buffer: round t of a lane draws on
-    ``rng.generator(seed + 1, t)`` one leaf at a time in sorted-key order,
-    each into its slice, and is scaled in place by ``sqrt(noise_var)``
-    (``_draw_row``); the values are bitwise ``ota.resolve_noise``'s, with
-    no zeros, add, concatenation or stack on the way.
-    ``noise_provider(t)`` gives a single run's flat noise instead."""
+    ``rng.generator(seed + 1, *salts, t)`` (``salts`` empty for slot 1,
+    ``(rng.SLOT_SALT,)`` for slot 2) one leaf at a time in sorted-key
+    order, each into its slice, and is scaled in place by
+    ``sqrt(noise_var)`` (``_draw_row``); the values are bitwise
+    ``ota.resolve_noise``'s, with no zeros, add, concatenation or stack on
+    the way.  ``noise_provider(t)`` gives a single run's flat noise
+    instead."""
     n = sum(math.prod(s) for s in shapes.values())
     buf = torch.empty((len(ts), len(lanes), n), dtype=torch.float32)
     for e, lane in enumerate(lanes):
@@ -875,7 +1097,8 @@ def _stage_noise(lanes: Sequence[_LaneHost], shapes: Dict[str, torch.Size],
             continue
         for i, t in enumerate(ts):
             if noise_provider is None:
-                _draw_row(buf[i, e], rng.generator(lane.cfg.seed + 1, t),
+                _draw_row(buf[i, e],
+                          rng.generator(lane.cfg.seed + 1, *salts, t),
                           shapes, math.sqrt(noise_var))
                 continue
             z = noise_provider(t)
@@ -950,7 +1173,8 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
            shapes: Dict[str, torch.Size], ts: Sequence[int],
            noise_provider: Optional[Callable] = None,
            mask_provider: Optional[Callable] = None,
-           fading_provider: Optional[Callable] = None, *,
+           fading_provider: Optional[Callable] = None,
+           slot2_noise_provider: Optional[Callable] = None, *,
            noisy: bool) -> RoundInputs:
     """The host work of the rounds ``ts`` of E structurally identical
     lanes: each round's inputs drawn on the lane's CPU generators (or taken
@@ -959,14 +1183,20 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
     single-device leaf shapes.  The noise is staged for every lane when the
     group is ``noisy`` (``_noisy``, the gate its round body was built
     with); a lane without noise stages zeros (``_zero_noise``).  A
-    time-varying channel is refreshed first (``_refresh``) and staged as
-    ``h``/``h_hat``; the participation fold then runs on each round's
-    ``(h_hat_t, b_t, a_t)``."""
+    two-slot client algorithm stages its second slot's noise as ``noise2``
+    (its own stream, ``rng.SLOT_SALT``; ``slot2_noise_provider(t)``
+    replaces it as ``noise_provider`` does slot 1's).  A time-varying
+    channel is refreshed first (``_refresh``) and staged as ``h``/``h_hat``;
+    the participation fold then runs on each round's ``(h_hat_t, b_t,
+    a_t)``."""
     cfg0 = lanes[0].cfg
     rounds, num, k = len(ts), len(lanes), cfg0.num_devices
-    noise = None
+    noise = noise2 = None
     if not sch.baseline and noisy:
         noise = _stage_noise(lanes, shapes, ts, noise_provider)
+    if noisy and clients.get(cfg0.client.algo).num_slots == 2:
+        noise2 = _stage_noise(lanes, shapes, ts, slot2_noise_provider,
+                              salts=(rng.SLOT_SALT,))
     t = torch.tensor(list(ts), dtype=torch.int64)[:, None].expand(rounds, num)
     eta = torch.tensor([[_eta_t(lane.cfg, lane.eta0, s) for lane in lanes]
                         for s in ts], dtype=torch.float32)
@@ -984,7 +1214,7 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
         return RoundInputs(
             t=t, eta=eta, a_eff=a, b_eff=b,
             participants=torch.full((rounds, num), float(k)), noise=noise,
-            **chan_in)
+            noise2=noise2, **chan_in)
     fields = collections.defaultdict(list)
     for i, s in enumerate(ts):
         for e, lane in enumerate(lanes):
@@ -1009,7 +1239,8 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
                 fields["active"].append(_active_indices(cfg, mask))
     staged = {name: torch.stack(v).reshape((rounds, num) + v[0].shape)
               for name, v in fields.items()}
-    return RoundInputs(t=t, eta=eta, noise=noise, **staged, **chan_in)
+    return RoundInputs(t=t, eta=eta, noise=noise, noise2=noise2, **staged,
+                       **chan_in)
 
 
 def _batch_leaves(batch) -> List[torch.Tensor]:
@@ -1036,9 +1267,9 @@ def _stack_batches(batch_provider: Callable[[int], Any],
 
 
 def _copy_into(dst, src) -> None:
-    """Copy params, an optimizer state or a lane's state (a tensor, or a
-    dict, tuple or list of them, None left alone) into buffers of the same
-    structure."""
+    """Copy params, an optimizer state, a client state or a lane (a tensor,
+    or a dict, tuple or list of them, None left alone) into buffers of the
+    same structure."""
     if dst is None:
         return
     if isinstance(dst, torch.Tensor):
@@ -1068,45 +1299,48 @@ def _clone(tree):
     return _rebuild(tree, (_clone(v) for v in tree))
 
 
-def _run_eager(body: RoundBody, params, opt_state, h, h_hat, gb,
-               staged: RoundInputs):
+def _run_eager(body: RoundBody, lane: Lane, staged: RoundInputs):
     """The body over every round of one lane's staged chunk, launched from
-    the host round by round; returns the new state and the [T, 8] history
-    (one device-to-host copy)."""
+    the host round by round; returns the lane with its new state and the
+    [T, 8] history (one device-to-host copy)."""
     rounds = staged.t.shape[0]
-    cursor = torch.zeros((1,), dtype=torch.int64, device=h.device)
+    cursor = torch.zeros((1,), dtype=torch.int64, device=lane.h.device)
     hist = torch.empty((rounds, len(DIAG_KEYS)), dtype=torch.float32,
-                       device=h.device)
+                       device=lane.h.device)
     for _ in range(rounds):
-        params, opt_state = body(params, opt_state, h, h_hat, gb, staged,
-                                 cursor, hist)
-    return params, opt_state, hist.cpu()
+        lane = lane._replace(**dict(zip(
+            ("params", "opt_state", "cstate"),
+            body(lane, staged, cursor, hist))))
+    return lane, hist.cpu()
+
+
+def _lane_state(lane: Lane) -> tuple:
+    """What a round rewrites: ``(params, opt_state, cstate)``."""
+    return lane.params, lane.opt_state, lane.cstate
 
 
 class _EagerChunks:
     """The scan driver's engine on the CPU: each lane's round body run
-    eagerly, chunk by chunk.  A lane is ``(params, opt_state, h, h_hat,
-    gb)``;
-    ``launch`` takes a [T, E, ...] staged chunk, ``rows`` gives the [E, T,
-    8] history and ``state`` each lane's ``(params, opt_state)``."""
+    eagerly, chunk by chunk.  ``launch`` takes a [T, E, ...] staged chunk,
+    ``rows`` gives the [E, T, 8] history and ``state`` each lane's
+    ``(params, opt_state, cstate)``."""
 
     def __init__(self, body: RoundBody, kind: str = "run_chunk"):
         self.body = body
-        self.lanes: List[tuple] = []
+        self.lanes: List[Lane] = []
         self.hist = None
         _count_trace(kind)
 
-    def start(self, lanes: Sequence[tuple]) -> None:
+    def start(self, lanes: Sequence[Lane]) -> None:
         self.lanes = list(lanes)
 
     def launch(self, staged: RoundInputs) -> None:
-        device = self.lanes[0][2].device
+        device = self.lanes[0].h.device
         staged = _map_inputs(lambda v: v.to(device), staged)
         rows = []
-        for e, (params, opt_state, *chan_gb) in enumerate(self.lanes):
-            params, opt_state, hist = _run_eager(self.body, params, opt_state,
-                                                 *chan_gb, _lane(staged, e))
-            self.lanes[e] = (params, opt_state, *chan_gb)
+        for e, lane in enumerate(self.lanes):
+            self.lanes[e], hist = _run_eager(self.body, lane,
+                                             _lane(staged, e))
             rows.append(hist)
         self.hist = torch.stack(rows)
 
@@ -1114,7 +1348,7 @@ class _EagerChunks:
         return self.hist
 
     def state(self) -> List[tuple]:
-        return [(params, opt_state) for params, opt_state, *_ in self.lanes]
+        return [_lane_state(lane) for lane in self.lanes]
 
 
 # device index -> the stream every graph of the scan driver is captured on
@@ -1145,11 +1379,12 @@ def _graph_pool(device: torch.device):
 
 class _GraphChunks:
     """The scan driver's engine on a CUDA device: one round of every lane
-    captured in one CUDA graph over fixed buffers (each lane's params,
-    optimizer state, channel and estimate, grad_bound, cursor and
-    [chunk_size, 8]
-    history; the [chunk_size, E, ...] staged inputs), and replayed once per
-    round of a chunk.  A single run is one lane.  The lanes run one after
+    captured in one CUDA graph over fixed buffers (each ``Lane``: params,
+    optimizer and client state, channel and estimate, grad_bound and client
+    numerics; each lane's cursor and [chunk_size, 8] history; the
+    [chunk_size, E, ...] staged inputs), and replayed once per round of a
+    chunk.  The round's new state is copied into the lane's buffers in
+    place (``_copy_into``), since a replay reads fixed addresses.  A single run is one lane.  The lanes run one after
     another on the capture stream, so they share K1's and K5's arrival
     counters (``grad_norm._arrivals``, one set a stream) safely; spreading
     lanes over streams would need a set of counters for each stream."""
@@ -1167,7 +1402,7 @@ class _GraphChunks:
         self.hist = torch.zeros((lanes, chunk_size, len(DIAG_KEYS)),
                                 dtype=torch.float32, device=device)
 
-    def start(self, lanes: Sequence[tuple]) -> None:
+    def start(self, lanes: Sequence[Lane]) -> None:
         self.pending = list(lanes)
 
     def _stage(self, staged: RoundInputs) -> None:
@@ -1184,11 +1419,10 @@ class _GraphChunks:
             buf[:rounds].copy_(v)
 
     def _step(self) -> None:
-        for e, (params, opt_state, *chan_gb) in enumerate(self.static):
-            new = self.body(params, opt_state, *chan_gb,
-                            _lane(self.staged, e), self.cursor[e],
+        for e, lane in enumerate(self.static):
+            new = self.body(lane, _lane(self.staged, e), self.cursor[e],
                             self.hist[e])
-            _copy_into((params, opt_state), new)
+            _copy_into(_lane_state(lane), new)
 
     def _warm_up(self) -> "torch.cuda.Stream":
         """Run the body eagerly on the capture stream, on scratch copies of
@@ -1237,8 +1471,7 @@ class _GraphChunks:
         return self.hist[:, :self.rounds].cpu()
 
     def state(self) -> List[tuple]:
-        return [(_clone(params), _clone(opt_state))
-                for params, opt_state, *_ in self.static]
+        return [_clone(_lane_state(lane)) for lane in self.static]
 
 
 @functools.lru_cache(maxsize=ENGINE_CACHE_SIZE)
@@ -1322,11 +1555,11 @@ def _locked_eval_keys(metrics: Dict[str, float],
 
 def _lane_inputs(cfg: FLConfig, state: FLState,
                  device: torch.device) -> Tuple[_LaneHost, tuple]:
-    """A run's host side (``_LaneHost``) and its device constants ``(h,
-    h_hat, gb)``: the fp32 channel, the server's estimate (``h`` itself
-    under perfect CSI, as the reference's ``h_hat = None``) and grad_bound
-    as the reference holds them (a and eta0 as fp32 scalars).  Checks what
-    a time-varying channel needs of the state and fixes its designed gain
+    """A run's host side (``_LaneHost``) and its channel on the device
+    ``(h, h_hat)``: the fp32 channel and the server's estimate (``h`` itself
+    under perfect CSI, as the reference's ``h_hat = None``), as the
+    reference holds them (a and eta0 as fp32 scalars).  Checks what a
+    time-varying channel needs of the state and fixes its designed gain
     ``state.eff_gain`` on the first run."""
     ccfg = cfg.channel
     model = chl.get(ccfg.model)
@@ -1363,11 +1596,37 @@ def _lane_inputs(cfg: FLConfig, state: FLState,
                      float(np.float32(state.a)), float(np.float32(state.eta0)),
                      model_dim=state.model_dim, h=h_cpu, fad=fad,
                      scale=scale, eff_gain=eff_gain)
-    gb = (None if cfg.grad_bound is None else
-          torch.tensor(cfg.grad_bound, dtype=torch.float32, device=device))
     h_dev = h_cpu.to(device)
     h_hat_dev = h_dev if h_hat_cpu is h_cpu else h_hat_cpu.to(device)
-    return host, (h_dev, h_hat_dev, gb)
+    return host, (h_dev, h_hat_dev)
+
+
+def _batch_axes(cfgs: Sequence[FLConfig], device: torch.device) -> BatchAxes:
+    """The per-lane numerics the round body reads from device memory, each
+    [E] fp32 on ``device``: grad_bound where the configs have one, and the
+    client's ``mu`` / ``alpha`` where the algorithm reads them (the
+    reference's lanes).  A single run is one lane."""
+    alg = clients.get(cfgs[0].client.algo)
+
+    def lanes(values, present):
+        return (torch.tensor(values, dtype=torch.float32, device=device)
+                if present else None)
+    return BatchAxes(
+        grad_bound=lanes([c.grad_bound for c in cfgs],
+                         cfgs[0].grad_bound is not None),
+        client_mu=lanes([c.client.mu for c in cfgs], alg.uses_mu),
+        client_alpha=lanes([c.client.alpha for c in cfgs], alg.uses_alpha))
+
+
+def _make_lane(state: FLState, h: torch.Tensor, h_hat: torch.Tensor,
+               over: BatchAxes, e: int) -> Lane:
+    """Lane e of a run: the state's params, optimizer and client state,
+    the channel, and the lane's entries of ``over``."""
+    pick = lambda v: None if v is None else v[e]
+    return Lane(state.params, state.opt_state, state.client_state, h, h_hat,
+                pick(over.grad_bound),
+                clients.ClientParams(pick(over.client_mu),
+                                     pick(over.client_alpha)))
 
 
 def _write_back(state: FLState, host: _LaneHost) -> None:
@@ -1384,14 +1643,20 @@ def _write_back(state: FLState, host: _LaneHost) -> None:
         state.fad_state = host.fad.double().numpy()
 
 
-def _init_opt_state(cfg: FLConfig, state: FLState,
-                    device: torch.device) -> None:
+def _init_missing_state(cfg: FLConfig, state: FLState,
+                        device: torch.device) -> None:
+    """The server optimizer's state, and a stateful client algorithm's zero
+    state, where a state was built without them (as the reference)."""
     if state.opt_state is None:
         # step = rounds already taken, so Adam bias correction matches an
         # unbroken run
         init = server_optimizer(cfg).init(state.params)
         state.opt_state = init._replace(
             step=torch.tensor(state.round, dtype=torch.int32, device=device))
+    if (clients.get(cfg.client.algo).stateful
+            and state.client_state is None):
+        state.client_state = clients.init_state(cfg.client, state.params,
+                                                cfg.num_devices)
 
 
 def _params_device(params: Tree) -> torch.device:
@@ -1433,6 +1698,7 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
                                                 Any]] = None,
         fading_provider: Optional[Callable[[int], Tuple[
             torch.Tensor, Optional[torch.Tensor]]]] = None,
+        slot2_noise_provider: Optional[Callable[[int], torch.Tensor]] = None,
         ) -> Tuple[FLState, Dict[str, List]]:
     """Run ``num_rounds`` FL rounds on the selected driver.
 
@@ -1448,7 +1714,10 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
 
     ``noise_provider(t)``, when given, returns round t's flat channel noise
     z [N] (sorted-key leaf order) instead of the draw from
-    ``rng.generator(cfg.seed + 1, t)``; ``mask_provider(t)`` returns round
+    ``rng.generator(cfg.seed + 1, t)``, and ``slot2_noise_provider(t)``
+    the second OTA slot's (a two-slot client algorithm) instead of the draw
+    from ``rng.generator(cfg.seed + 1, rng.SLOT_SALT, t)``;
+    ``mask_provider(t)`` returns round
     t's [K] 0/1 participation mask (``participation`` < 1) instead of
     ``_participation_mask``'s draw.  Under a time-varying channel
     ``fading_provider(t)`` returns round t's standard normals ``(w, e)``:
@@ -1466,10 +1735,10 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
     round body, which a CUDA graph replays, so it must compute on the
     device and never read ``t`` on the host.
 
-    The params, server optimizer state, round counter and a time-varying
-    channel (``h``, ``h_hat``, ``b``, ``a``, ``fad_state``, as of the last
-    round) persist in ``state``, so a second ``run`` resumes where the
-    first stopped."""
+    The params, server optimizer state, client state, round counter and a
+    time-varying channel (``h``, ``h_hat``, ``b``, ``a``, ``fad_state``, as
+    of the last round) persist in ``state``, so a second ``run`` resumes
+    where the first stopped."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r}; one of {DRIVERS}")
     if chunk_size < 1:
@@ -1483,17 +1752,23 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
     if fading_provider is not None and not cfg.channel.time_varying():
         raise ValueError("fading_provider replaces the per-round channel "
                          "draws; the channel is fixed")
+    if (slot2_noise_provider is not None
+            and clients.get(cfg.client.algo).num_slots != 2):
+        raise ValueError("slot2_noise_provider replaces the second OTA "
+                         f"slot's noise; client algorithm "
+                         f"{cfg.client.algo!r} has one slot")
     sch = schemes.get(cfg.scheme)
     params = state.params
     device = _params_device(params)
-    _init_opt_state(cfg, state, device)
-    host, (h, h_hat, gb) = _lane_inputs(cfg, state, device)
+    _init_missing_state(cfg, state, device)
+    host, (h, h_hat) = _lane_inputs(cfg, state, device)
+    lane = _make_lane(state, h, h_hat, _batch_axes([cfg], device), 0)
     shapes = {k: params[k].shape for k in sorted(params)}
     noisy = _noisy([cfg])
 
     def staged_chunk(ts: Sequence[int]) -> RoundInputs:
         r = _stage([host], sch, shapes, ts, noise_provider, mask_provider,
-                   fading_provider, noisy=noisy)
+                   fading_provider, slot2_noise_provider, noisy=noisy)
         if block_batch_provider is not None:
             return r
         batch = (chunk_batch_provider(ts) if chunk_batch_provider is not None
@@ -1519,14 +1794,13 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
             hist["eval_round"].append(t)
 
     t0 = state.round
-    opt_state = state.opt_state
     if driver == "python":
         body = make_round_step(cfg, grad_fn, block_batch_provider)
         for t in range(t0 + 1, t0 + num_rounds + 1):
             staged = _map_inputs(lambda v: v.to(device), staged_chunk([t]))
-            params, opt_state, rows = _run_eager(body, params, opt_state, h,
-                                                 h_hat, gb, _lane(staged, 0))
-            record([t], rows, lambda: params)
+            lane, rows = _run_eager(body, lane, _lane(staged, 0))
+            record([t], rows, lambda: lane.params)
+        new_state = _lane_state(lane)
     else:
         chunks = _plan_chunks(t0, num_rounds,
                               eval_every if eval_fn is not None else None,
@@ -1535,18 +1809,18 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         def make_engine(staged):
             engine = _make_run_chunk(cfg, grad_fn, block_batch_provider,
                                      device, chunk_size, _batch_spec(staged))
-            engine.start([(params, opt_state, h, h_hat, gb)])
+            engine.start([lane])
             return engine
 
+        new_state = _lane_state(lane)
         if chunks:
             engine = _drive_chunks(
                 make_engine, chunks, staged_chunk,
                 lambda ts, rows, eng: record(ts, rows[0],
                                              lambda: eng.state()[0][0]))
-            params, opt_state = engine.state()[0]
+            new_state = engine.state()[0]
 
-    state.params = params
-    state.opt_state = opt_state
+    state.params, state.opt_state, state.client_state = new_state
     _write_back(state, host)
     state.round += num_rounds
     return state, hist
@@ -1565,7 +1839,9 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
 
     The configs must be structurally identical (equal
     ``structural_config``), differing only in the batchable fields
-    (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS``).  The host stages
+    (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS`` /
+    ``clients.BATCHED_CLIENT_FIELDS``: each lane has its own client state,
+    and its own ``mu``/``alpha`` in device memory).  The host stages
     every lane's chunk ([T, E, ...]: noise, eta_t, the folded gains) and
     copies it once (a time-varying channel's refresh and Problem-3 re-solve
     included, every lane with its own ``rho``, ``csi_error``, channel mean
@@ -1599,7 +1875,8 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
             raise ValueError(
                 "configs in a batched run must be structurally identical "
                 "(they may differ only in "
-                f"{BATCHED_FL_FIELDS + BATCHED_CHANNEL_FIELDS}); got "
+                f"{BATCHED_FL_FIELDS + BATCHED_CHANNEL_FIELDS}"
+                f" and client {clients.BATCHED_CLIENT_FIELDS}); got "
                 f"{structural_config(c)} vs {sig}")
     t0s = {s.round for s in states}
     if len(t0s) != 1:
@@ -1615,16 +1892,12 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     device = devices.pop()
     sch = schemes.get(cfg0.scheme)
     for c, s in zip(cfgs, states):
-        _init_opt_state(c, s, device)
-    hosts, consts = zip(*(_lane_inputs(c, s, device)
-                          for c, s in zip(cfgs, states)))
-    over = BatchAxes(grad_bound=(
-        None if cfg0.grad_bound is None else torch.tensor(
-            [c.grad_bound for c in cfgs], dtype=torch.float32,
-            device=device)))
-    lanes = [(s.params, s.opt_state, h, h_hat,
-              None if over.grad_bound is None else over.grad_bound[e])
-             for e, (s, (h, h_hat, _)) in enumerate(zip(states, consts))]
+        _init_missing_state(c, s, device)
+    hosts, chans = zip(*(_lane_inputs(c, s, device)
+                         for c, s in zip(cfgs, states)))
+    over = _batch_axes(cfgs, device)
+    lanes = [_make_lane(s, h, h_hat, over, e)
+             for e, (s, (h, h_hat)) in enumerate(zip(states, chans))]
     noisy = _noisy(cfgs)
     params0 = states[0].params
     shapes = {k: params0[k].shape for k in sorted(params0)}
@@ -1656,7 +1929,7 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
         t = ts[-1]
         if eval_fn is not None and (t % eval_every == 0 or t == 1):
             per_lane: Dict[str, List[float]] = {}
-            for e, (params, _) in enumerate(engine.state()):
+            for e, (params, *_) in enumerate(engine.state()):
                 metrics = eval_fn(params)
                 eval_keys = _locked_eval_keys(metrics, eval_keys, t,
                                               where=f" (experiment {e})")
@@ -1671,8 +1944,8 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
                           chunk_size)
     if chunks:
         engine = _drive_chunks(make_engine, chunks, staged_chunk, record)
-        for s, (params, opt_state) in zip(states, engine.state()):
-            s.params, s.opt_state = params, opt_state
+        for s, new_state in zip(states, engine.state()):
+            s.params, s.opt_state, s.client_state = new_state
         rows = np.concatenate(diag_chunks, axis=1)          # [E, T, 8]
     else:
         rows = np.zeros((len(cfgs), 0, len(DIAG_KEYS)))

@@ -53,15 +53,17 @@ class Experiment:
         return self
 
     def reset(self) -> "Experiment":
-        """Re-setup from round 0 (fresh params, optimizer and channel
-        state); the task already built is reused."""
+        """Re-setup from round 0 (fresh params, optimizer, channel and
+        client state); the task already built is reused."""
         return self.setup()
 
     def run(self, num_rounds: int, *, driver: Optional[str] = None,
             chunk_size: Optional[int] = None,
             eval_every: Optional[int] = None,
             evaluate: Optional[bool] = None,
-            noise_provider: Optional[Callable[[int], torch.Tensor]] = None
+            noise_provider: Optional[Callable[[int], torch.Tensor]] = None,
+            slot2_noise_provider: Optional[Callable[[int],
+                                                    torch.Tensor]] = None
             ) -> Dict[str, List]:
         """Run ``num_rounds`` FL rounds and merge the produced history into
         ``self.history``.  Returns this call's history.
@@ -70,7 +72,11 @@ class Experiment:
         reference: ``"scan"`` (the spec's default) runs the chunked engine,
         up to ``chunk_size`` rounds a chunk with the task's
         ``chunk_batch_provider``, ``"python"`` one round at a time (where
-        ``chunk_size`` changes nothing); both give the same bits."""
+        ``chunk_size`` changes nothing); both give the same bits.  The
+        state -- params, optimizer, channel and the client algorithm's
+        state -- carries from one call to the next (``reset`` starts them
+        anew).  ``noise_provider`` and ``slot2_noise_provider`` are
+        ``runtime.run``'s parity seams for the two OTA slots' noise."""
         if self.state is None:
             self.setup()
         ev = self.spec.eval
@@ -82,7 +88,8 @@ class Experiment:
             driver=driver or self.spec.driver,
             chunk_size=chunk_size or self.spec.chunk_size,
             chunk_batch_provider=self.task.chunk_batch_provider,
-            noise_provider=noise_provider)
+            noise_provider=noise_provider,
+            slot2_noise_provider=slot2_noise_provider)
         for k, v in hist.items():
             self.history.setdefault(k, []).extend(v)
         return hist

@@ -10,9 +10,11 @@ in as few engines as the structure allows.
 
 Axis names address the nested spec through one flat namespace
 (``repro_torch.fl.spec.resolve_axis``).  Which fields are batchable is the
-runtime's (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS``); everything
-else -- scheme, case, backend, amplification, the scenario axes, any data
-or model field -- is structural.
+runtime's (``BATCHED_FL_FIELDS`` / ``BATCHED_CHANNEL_FIELDS``) and the
+client registry's (``clients.BATCHED_CLIENT_FIELDS``: ``client.mu`` and
+``client.alpha`` reach each lane's round from device memory); everything
+else -- scheme, case, backend, amplification, the scenario axes,
+``client.algo``, any data or model field -- is structural.
 
 Grid points are grouped by structural signature (the runtime's
 ``structural_config`` of the point's config, with its data and model

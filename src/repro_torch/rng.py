@@ -13,8 +13,15 @@ round slices it per K-block.  The reference draws lazily per device
 [K] floats are 400 KB at K = 100,000, and slicing one draw is invariant to
 the blocking by construction.
 
-The channel's streams (the reference's ``PRNGKey(seed)`` for the setup and
-``chan_key = PRNGKey(seed + 2)``, ``fold_in(t)``, for the rounds):
+The OTA noise: round t's slot-1 channel noise is drawn from
+``generator(seed + 1, t)``; the second transmission slot of the two-slot
+client algorithms (``SLOT_SALT``, the reference's ``_SLOT_SALT``) draws its
+own from ``generator(seed + 1, SLOT_SALT, t)``, so slot 1 keeps its bits and
+the two slots' noise is independent.
+
+The streams (for the channel, the reference's ``PRNGKey(seed)`` for the
+setup and ``chan_key = PRNGKey(seed + 2)``, ``fold_in(t)``, for the
+rounds):
 
 ======================  ===============================================
 draw                    stream
@@ -25,6 +32,9 @@ geometry                ``generator(seed, GEOM_SALT)``; its shadowing
 setup estimate          ``generator(seed, CSI_SALT)``
 round t's channel       ``generator(seed + 2, t)``
 round t's estimate      ``generator(seed + 2, CSI_SALT, t)``
+round t's slot-1 noise  ``generator(seed + 1, t)``
+round t's slot-2 noise  ``generator(seed + 1, SLOT_SALT, t)``
+round t's mask          ``generator(seed + 1, MASK_SALT, t)``
 ======================  ===============================================
 
 The block schedule (``block_normals`` / ``block_uniforms``, behind
@@ -44,6 +54,7 @@ _MASK = 0x7FFFFFFFFFFFFFFF
 MASK_SALT = 0x5EED          # the participation-mask stream (the reference's)
 CSI_SALT = 0xC51            # the CSI-estimation stream (the reference's)
 GEOM_SALT = 0x6E0           # the geometry draw (the reference's)
+SLOT_SALT = 0x510           # the second OTA slot's noise (the reference's)
 _MUL = 0x9E3779B97F4A7C15
 _ADD = 0x632BE59BD9B4E019
 

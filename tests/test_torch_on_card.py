@@ -685,6 +685,95 @@ class TestChannelOnCard:
         runtime.clear_compile_caches()
 
 
+def _clients_spec(client, **over):
+    """The Case-I spec as benchmarks/figures.py::client_algorithms runs it
+    (H = 4, local_lr 0.05, noise_var 1e-10), with ``client`` fields set."""
+    import dataclasses
+    spec = _case_i_spec(local_steps=4, local_lr=0.05, **over)
+    channel = dataclasses.replace(spec.fl.channel, noise_var=1e-10)
+    return dataclasses.replace(spec, fl=dataclasses.replace(
+        spec.fl, channel=channel,
+        client=dataclasses.replace(spec.fl.client, **client)))
+
+
+@pytest.mark.cuda
+class TestClientsOnCard:
+    """The client algorithms on the card: a two-slot round captured in a
+    CUDA graph and replayed, against eager rounds; batched lanes whose
+    ``mu`` differs, each against its own run (a value baked into the
+    captured graph would give every lane the structural config's)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @pytest.mark.parametrize("over", [{}, dict(k_block=4),
+                                      dict(participation=0.5)],
+                             ids=["dense", "k_block", "bernoulli"])
+    def test_scaffold_graph_replays_are_eager_rounds(self, over):
+        import dataclasses
+        from repro_torch.fed import runtime
+        from repro_torch.fl import Experiment
+        spec = _clients_spec(dict(algo="scaffold"), **over)
+        runs = {}
+        for driver in ("scan", "python"):
+            e = Experiment(dataclasses.replace(spec, driver=driver),
+                           device="cuda").setup()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            e.run(12)
+            torch.cuda.synchronize()
+            if driver == "scan" and not over:
+                n = 12 + runtime.GRAPH_WARMUP_ROUNDS
+                assert ops.LAUNCH_COUNTS["batched_moments"] == 2 * n
+                assert ops.LAUNCH_COUNTS["ota_superpose"] == 2 * n
+                assert ops.LAUNCH_COUNTS["sumsq"] == n
+            runs[driver] = e
+        scan, eager = runs["scan"], runs["python"]
+        assert scan.history == eager.history
+        for k in eager.params:
+            assert torch.equal(scan.params[k], eager.params[k]), k
+        for part in ("dev", "srv"):
+            for k, v in eager.state.client_state[part].items():
+                assert torch.equal(scan.state.client_state[part][k], v), \
+                    (part, k)
+        assert scan.state.client_state["srv"]["w1"].abs().max() > 0
+        runtime.clear_compile_caches()
+
+    @pytest.mark.parametrize("algo,field,values", [
+        ("fedprox", "mu", (0.0, 0.5)),
+        ("feddyn", "alpha", (0.01, 0.3)),
+    ])
+    def test_batched_client_lanes_are_their_runs(self, algo, field, values):
+        from repro_torch.fed import runtime
+        from repro_torch.fl import build_task
+        from repro_torch.obs import params_sha256
+        runtime.clear_compile_caches()
+        spec = _clients_spec(dict(algo=algo))
+        task = build_task(spec.data, spec.model, 20, "cuda")
+        cfgs = [_clients_spec({"algo": algo, field: v}).fl_config()
+                for v in values]
+        states = [runtime.setup(c, task.params0, task.model_dim)
+                  for c in cfgs]
+        states, hist = runtime.run_batched(
+            cfgs, states, task.grad_fn, task.batch_provider, 12,
+            chunk_batch_provider=task.chunk_batch_provider)
+        digests = []
+        for e, cfg in enumerate(cfgs):
+            state = runtime.setup(cfg, task.params0, task.model_dim)
+            state, want = runtime.run(
+                cfg, state, task.grad_fn, task.batch_provider, 12,
+                chunk_batch_provider=task.chunk_batch_provider)
+            for k in runtime.DIAG_KEYS:
+                assert hist[k][e].tolist() == want[k], (e, k)
+            digests.append(params_sha256(state.params))
+            assert params_sha256(states[e].params) == digests[-1], e
+        assert digests[0] != digests[1]
+        runtime.clear_compile_caches()
+
+
 def _attention_inputs(b, h, hkv, sq, skv, d, dtype, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d))

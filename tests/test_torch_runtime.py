@@ -305,7 +305,9 @@ def test_unported_channel_fields_raise(field, valid, invalid):
 def test_unported_driver_and_client_raise():
     """The scan driver is ported (it raised, naming item 8, until it was):
     it is the spec's default and runs the python driver's rounds bitwise.
-    Non-sgd clients still raise, naming item 12."""
+    The client algorithms are ported too (they raised, naming item 12,
+    until they were): every registered one builds, and an unknown name
+    raises ValueError naming the registry."""
     from repro_torch.fl.clients import ClientConfig
     assert ExperimentSpec().driver == "scan"
     runs = []
@@ -317,5 +319,7 @@ def test_unported_driver_and_client_raise():
     assert runs[0].history == runs[1].history
     for k in runs[1].params:
         assert torch.equal(runs[0].params[k], runs[1].params[k]), k
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ClientConfig(algo="scaffold")
+    for algo in ("sgd", "fedprox", "feddyn", "scaffold"):
+        assert ClientConfig(algo=algo).algo == algo
+    with pytest.raises(ValueError, match="unknown client algorithm.*scaffold"):
+        ClientConfig(algo="fedavgm")

@@ -294,6 +294,20 @@ class TestBatchedSequentialBitwise:
                           local_steps=2, local_lr=0.05)
         assert_bitwise(SweepSpec(spec, {"seed": (0, 1, 2)}))
 
+    @pytest.mark.parametrize("algo,axis", [
+        ("fedprox", {"client.mu": (0.0, 0.5)}),
+        ("feddyn", {"client.alpha": (0.01, 0.3)}),
+    ])
+    def test_client_axes(self, algo, axis):
+        # mu and alpha are lanes: each reaches its lane's round from device
+        # memory, so a value baked into the body (built from the structural
+        # config, mu = 0.0, alpha = 0.01) breaks the lane that differs
+        from repro_torch.fl.clients import ClientConfig
+        spec = mnist_spec(local_steps=2, local_lr=0.05,
+                          client=ClientConfig(algo=algo))
+        res = assert_bitwise(SweepSpec(spec, axis), rounds=4)
+        assert len(set(res.params_digests)) == res.sweep.size
+
     def test_noise_var_with_zero_on_the_streamed_gather_round(self):
         spec = mnist_spec(participation=0.5, participation_mode="fixed",
                           active_gather=True, k_block=1, backend="vmap")
