@@ -1916,17 +1916,21 @@ PATH_KERNELS = ("batched_moments", "ota_superpose", "sumsq")
 
 
 def check_path_launches(launches: dict, rounds: int, where: str,
-                        lanes: int | None = None) -> None:
+                        lanes: int | None = None, slots=1) -> None:
     """The round's kernels (K1, K2, K5) launched at least once a round;
     given ``lanes``, exactly once a lane a round of a batched run, its
-    graph's eager warm-up rounds included."""
+    graph's eager warm-up rounds included, with K1 and K2 once an OTA slot
+    (``slots`` a lane, or one entry a lane)."""
     from repro_torch.fed import runtime
+    per_lane = rounds + runtime.GRAPH_WARMUP_ROUNDS
+    lane_slots = (sum(slots) if not isinstance(slots, int)
+                  else slots * (lanes or 0))
     for name in PATH_KERNELS:
         if lanes is None:
             bad = launches[name] < rounds
         else:
-            bad = launches[name] != lanes * (
-                rounds + runtime.GRAPH_WARMUP_ROUNDS)
+            bad = launches[name] != per_lane * (
+                lanes if name == "sumsq" else lane_slots)
         if bad:
             fail(f"{where}: {name} launched {launches[name]} times in "
                  f"{rounds} rounds"
@@ -2085,13 +2089,15 @@ def _sweep_rate(run, lane_rounds: int) -> dict:
             "median_lane_rounds_per_s": statistics.median(samples)}
 
 
-def sweep_grid(ops, name: str, sweep, profile: bool = True) -> dict:
+def sweep_grid(ops, name: str, sweep, profile: bool = True,
+               lane_slots=1) -> dict:
     """One grid through ``run_sweep`` at ROUNDS rounds: batched ==
     sequential bitwise (every DIAG_KEYS history and each point's params
-    digest), K1, K2 and K5 once a lane a round, one capture a structural
-    group and none on a warm repeat, warm aggregate lane-rounds/s batched
-    and sequential over SWEEP_RATE_ROUNDS rounds (both on the scan engine),
-    the allocator's growth; with ``profile``, the host's and the device's
+    digest), K1, K2 and K5 once a lane a round (K1 and K2 once an OTA
+    slot: ``lane_slots``, as ``check_path_launches`` reads it), one
+    capture a structural group and none on a warm repeat, warm aggregate
+    lane-rounds/s batched and sequential over SWEEP_RATE_ROUNDS rounds
+    (both on the scan engine), the allocator's growth; with ``profile``, the host's and the device's
     profiles too.  Emits the row and fails on any check."""
     from repro_torch.fed import runtime
     from repro_torch.fl import run_sweep
@@ -2146,7 +2152,7 @@ def sweep_grid(ops, name: str, sweep, profile: bool = True) -> dict:
     row["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
     emit(row)
     check_path_launches(row["launches"], ROUNDS, f"sweep {name}",
-                        lanes=sweep.size)
+                        lanes=sweep.size, slots=lane_slots)
     if not (row["bitwise_history"] and row["bitwise_params"]):
         fail(f"sweep {name}: batched differs from sequential "
              f"({row['history_keys_that_differ']})")
@@ -2336,22 +2342,6 @@ def clients_spec(client: dict | None = None):
     return apply_axes(spec, client or {})
 
 
-def check_slot_launches(launches: dict, lane_slots, rounds: int,
-                        where: str) -> None:
-    """Exact launches of the round's kernels over ``rounds`` rounds under
-    scan (the graph's eager warm-up rounds included): K1 and K2 once a slot
-    of each lane (``lane_slots``, one entry a lane), K5 once a lane."""
-    from repro_torch.fed import runtime
-    per_lane = rounds + runtime.GRAPH_WARMUP_ROUNDS
-    want = {"batched_moments": per_lane * sum(lane_slots),
-            "ota_superpose": per_lane * sum(lane_slots),
-            "sumsq": per_lane * len(lane_slots)}
-    for name, n in want.items():
-        if launches[name] != n:
-            fail(f"{where}: {name} launched {launches[name]} times, "
-                 f"expected {n} ({rounds} rounds, slots {lane_slots})")
-
-
 def _state_gap(a: dict, b: dict) -> tuple:
     """max |a - b| over a client state's trees, and max |b|."""
     gap = top = 0.0
@@ -2393,8 +2383,9 @@ def _client_algo(name: str, gpu_launches) -> dict:
                 row[f"launches_{kind}"] = ops_counts
                 if kind == "dense":
                     gpu_launches.update(ops_counts)
-                    check_slot_launches(ops_counts, [slots], ROUNDS,
-                                        f"clients {name}")
+                    check_path_launches(ops_counts, ROUNDS,
+                                        f"clients {name}", lanes=1,
+                                        slots=slots)
         row[kind] = compare_runs(runs["scan"].params, runs["scan"].history,
                                  runs["python"].params,
                                  runs["python"].history)
@@ -2454,54 +2445,27 @@ def _launches_of(run) -> tuple:
     return out, dict(ops.LAUNCH_COUNTS)
 
 
-def _client_grid(grid_launches) -> dict:
-    """figures.py::client_algorithms' grid at full width through
-    ``run_sweep``: batched == sequential over ROUNDS rounds of every lane,
-    captures, lane-rounds/s both ways, the energy ratios, and the final
-    train-loss bands after CLIENT_GRID_ROUNDS rounds."""
+def client_sweep():
+    """figures.py::client_algorithms' grid at full width: algorithm x
+    Dirichlet alpha x participation x seed."""
     import dataclasses
-    from repro_torch.fed import runtime
-    from repro_torch.fl import EvalSpec, SweepSpec, clients, run_sweep
-    from repro_torch.fl.sweep import _structural_signature
+    from repro_torch.fl import EvalSpec, SweepSpec
     base = dataclasses.replace(
         clients_spec(), eval=EvalSpec(every=max(CLIENT_GRID_ROUNDS // 10, 5)))
-    sweep = SweepSpec(base, {"algo": CLIENT_ALGOS, "alpha": (0.1, 100.0),
-                             "participation": (1.0, 0.5),
-                             "seed": (0, 1, 2)})
-    groups = len({_structural_signature(p.spec) for p in sweep.points()})
-    row = {"phase": "clients_grid", "size": sweep.size, "groups": groups,
-           "classification": sweep.classification(), "rounds": ROUNDS,
-           "grid_rounds": CLIENT_GRID_ROUNDS}
-    runtime.clear_compile_caches()
-    runtime.cache_info()
-    t0 = time.perf_counter()
-    batched, launches = _launches_of(lambda: run_sweep(sweep, ROUNDS))
-    row["batched_first_call_s"] = time.perf_counter() - t0
-    grid_launches.update(launches)
-    row["launches"] = launches
-    row["captures_first_run"] = runtime.cache_info()["traces_delta"]
-    slots = [clients.get(p.spec.fl.client.algo).num_slots
-             for p in sweep.points()]
-    check_slot_launches(launches, slots, ROUNDS, "clients grid")
-    t0 = time.perf_counter()
-    sequential = run_sweep(sweep, ROUNDS, vectorized=False)
-    row["sequential_first_call_s"] = time.perf_counter() - t0
-    row["bitwise_history"] = all(
-        np.array_equal(batched.history[k], sequential.history[k])
-        for k in batched.history)
-    row["bitwise_params"] = (batched.params_digests
-                             == sequential.params_digests)
-    runtime.cache_info()
-    run_sweep(sweep, ROUNDS)
-    row["captures_warm_repeat"] = runtime.cache_info()["traces_delta"]
-    for mode, vec in (("batched", True), ("sequential", False)):
-        row[mode] = _sweep_rate(
-            lambda vec=vec: run_sweep(sweep, ROUNDS, vectorized=vec,
-                                      evaluate=False), sweep.size * ROUNDS)
-    row["speedup"] = (row["batched"]["median_lane_rounds_per_s"]
-                      / row["sequential"]["median_lane_rounds_per_s"])
-    row["batched_profile"] = _batched_round_profile(sweep, 16)
-    # the figure: CLIENT_GRID_ROUNDS rounds, batched
+    return SweepSpec(base, {"algo": CLIENT_ALGOS, "alpha": (0.1, 100.0),
+                            "participation": (1.0, 0.5),
+                            "seed": (0, 1, 2)})
+
+
+def client_figure(sweep) -> dict:
+    """The figure itself: CLIENT_GRID_ROUNDS batched rounds of the grid,
+    the two-slot energy ratios under full participation (failed outside
+    ENERGY_RATIO_BAND, as the reference's figure fails them) and the final
+    train-loss bands (reported)."""
+    from repro_torch.fed import runtime
+    from repro_torch.fl import run_sweep
+    row = {"phase": "clients_figure", "size": sweep.size,
+           "rounds": CLIENT_GRID_ROUNDS}
     t0 = time.perf_counter()
     res = run_sweep(sweep, CLIENT_GRID_ROUNDS)
     row["figure_s"] = time.perf_counter() - t0
@@ -2528,32 +2492,26 @@ def _client_grid(grid_launches) -> dict:
         math.isfinite(v) for k in runtime.DIAG_KEYS
         for v in res.history[k].ravel())
     emit(row)
-    if not (row["bitwise_history"] and row["bitwise_params"]):
-        fail("clients grid: batched differs from sequential")
-    if row["captures_first_run"]["run_chunk_batched"] != groups:
-        fail(f"clients grid: {row['captures_first_run']} captures for "
-             f"{groups} structural groups")
-    if any(row["captures_warm_repeat"].values()):
-        fail(f"clients grid: a warm repeat captured "
-             f"{row['captures_warm_repeat']}")
     lo, hi = ENERGY_RATIO_BAND
     for n, ratio in row["energy_ratio"].items():
         if not lo <= ratio <= hi:
-            fail(f"clients grid: {n}/sgd transmit-energy ratio {ratio} "
+            fail(f"clients figure: {n}/sgd transmit-energy ratio {ratio} "
                  f"outside [{lo}, {hi}]")
     if not row["figure_finite"]:
-        fail("clients grid: non-finite history")
+        fail("clients figure: non-finite history")
     runtime.clear_compile_caches()
     return row
 
 
 def phase_clients(ops) -> dict:
     """The client algorithms on Case I at full width (``_client_algo`` for
-    sgd and the three correctors), then the figure's grid
-    (``_client_grid``).  Returns the launches of the three correctors'
+    sgd and the three correctors), then the figure's grid through
+    ``sweep_grid`` and its CLIENT_GRID_ROUNDS-round figure
+    (``client_figure``).  Returns the launches of the three correctors'
     dense scan runs and of the grid's first batched run."""
     import collections
     from repro_torch.fed import runtime
+    from repro_torch.fl import clients
     t_phase = time.perf_counter()
     launches = collections.Counter()
     rates = {}
@@ -2566,7 +2524,12 @@ def phase_clients(ops) -> dict:
             "device_idle_share")}
     runtime.clear_compile_caches()
     emit({"phase": "clients_rates", "rates": rates})
-    _client_grid(launches)
+    sweep = client_sweep()
+    row = sweep_grid(ops, "client_algorithms", sweep, lane_slots=[
+        clients.get(p.spec.fl.client.algo).num_slots
+        for p in sweep.points()])
+    launches.update(row["launches"])
+    client_figure(sweep)
     emit({"phase": "clients_seconds",
           "seconds": time.perf_counter() - t_phase})
     return dict(launches)

@@ -647,6 +647,43 @@ def _client_round(cfg: FLConfig, alg: clients.ClientAlgorithm,
     return dev_state, srv_state, cp, transmit
 
 
+def _put_rows(dev_state: Tree, idx: Optional[torch.Tensor],
+              rows: Tree) -> Tree:
+    """The new [K, ...] client state from the round's rows: ``rows`` itself,
+    or under ``active_gather`` the participants' rows put back at ``idx``
+    (an absent device's state holds)."""
+    if idx is None:
+        return rows
+    return {n: l.index_copy(0, idx, rows[n]) for n, l in dev_state.items()}
+
+
+def _client_block(cfg: FLConfig, cp, rows, srv_state: Tree, g: Tree,
+                  b_air: torch.Tensor, gb: Optional[torch.Tensor],
+                  mask: Optional[torch.Tensor]):
+    """A block of devices' client-state transition and slot-2 statistic,
+    from their state ``rows`` and transmitted statistic ``g`` (the
+    gradient for H = 1, the model delta otherwise): ``(kept, x2, stats2,
+    tx2)``.  ``kept`` is the new state, with a masked device's row held
+    (``mask``; the raw transition still feeds slot 2, where b_eff = 0
+    silences that row); ``x2``, its stats and eq.-8 energies are None for
+    a one-slot algorithm."""
+    alg = clients.get(cfg.client.algo)      # static: the config's
+    raw_new = kept = rows
+    if alg.has_state:
+        raw_new = alg.update_state(cp, cfg.local_steps * cfg.local_lr, rows,
+                                   srv_state, g)
+        kept = raw_new if mask is None else _keep_rows(mask, raw_new, rows)
+    if alg.num_slots != 2:
+        return kept, None, None, None
+    # the second OTA slot: the same channel realization, its own scheme,
+    # noise and eq.-8 energy
+    sch2 = schemes.get(cfg.client.variate_scheme)
+    x2 = alg.variate_stat(cp, rows, raw_new, srv_state, g)
+    stats2 = schemes.compute_stats(x2, sch2, batched=True)
+    tx2 = schemes.transmit_energy(sch2, stats2, b_air, gb, mask)
+    return kept, x2, stats2, tx2
+
+
 def _track_server(alg: clients.ClientAlgorithm, cp, srv_state: Tree,
                   y2: Tree, r: RoundInputs, h_hat: torch.Tensor,
                   k: int) -> Tree:
@@ -731,37 +768,17 @@ def _round_math(cfg: FLConfig, sch: schemes.Scheme, opt: optim.Optimizer,
     tx_energy = torch.sum(tx)
 
     if alg.stateful:
-        # the state transition sees the round's transmitted statistic
-        # (``active``: the gradient for H = 1, the model delta otherwise)
-        dev_new, dev_new_active = dev_state, dev_active
+        dev_new, x2, _, tx2 = _client_block(
+            cfg, cp, dev_active, srv_state, active, b_air, gb,
+            None if idx is not None else r.mask)
         if alg.has_state:
-            dev_new_active = alg.update_state(
-                cp, cfg.local_steps * cfg.local_lr, dev_active, srv_state,
-                active)
-            if idx is not None:
-                dev_new = {n: l.index_copy(0, idx, dev_new_active[n])
-                           for n, l in dev_state.items()}
-            elif r.mask is not None:
-                # a masked device did not participate: its state holds (the
-                # raw transition still feeds slot 2, where b_eff = 0
-                # silences its row)
-                dev_new = _keep_rows(r.mask, dev_new_active, dev_state)
-            else:
-                dev_new = dev_new_active
+            dev_new = _put_rows(dev_state, idx, dev_new)
+        if x2 is not None and idx is not None:
+            # an absent device's slot-2 row and energy are 0
+            x2 = _scatter_rows(x2, idx, k)
+            tx2 = tx2.new_zeros((k,)).index_copy_(0, idx, tx2)
         srv_new = srv_state
-        if alg.num_slots == 2:
-            # the second OTA slot: the same channel realization, its own
-            # scheme, noise and eq.-8 energy
-            sch2 = schemes.get(cfg.client.variate_scheme)
-            x2_active = alg.variate_stat(cp, dev_active, dev_new_active,
-                                         srv_state, active)
-            x2 = (x2_active if idx is None
-                  else _scatter_rows(x2_active, idx, k))
-            stats2 = schemes.compute_stats(x2_active, sch2, batched=True)
-            tx2 = schemes.transmit_energy(sch2, stats2, b_air, gb,
-                                          None if idx is not None else r.mask)
-            if idx is not None:
-                tx2 = tx2.new_zeros((k,)).index_copy_(0, idx, tx2)
+        if x2 is not None:
             tx_energy = tx_energy + torch.sum(tx2)
             y2 = ota.aggregate(ocfg2, x2, h, r.b_eff, h_hat=h_hat,
                                noise=r.noise2, a=r.a_eff, grad_bound=gb)
@@ -843,9 +860,7 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
     oc = ota.streaming_carry(ocfg, template)
     two_slot = alg.num_slots == 2
     if two_slot:
-        sch2 = schemes.get(cfg.client.variate_scheme)
         oc2 = ota.streaming_carry(ocfg2, template)
-    hlr = cfg.local_steps * cfg.local_lr
     new_rows = []
     zero = torch.zeros((), dtype=torch.float32, device=device)
     nsum, txsum = zero, zero
@@ -869,31 +884,22 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         nsum = nsum + torch.sum(norms)
         nmin = torch.minimum(nmin, torch.min(norms))
         nmax = torch.maximum(nmax, torch.max(norms))
-        raw_new = rows
-        if alg.has_state:
-            raw_new = alg.update_state(cp, hlr, rows, srv_state, g_blk)
-            # masked devices keep their state (the raw transition still
-            # feeds slot 2, where b_eff = 0 silences those rows)
-            new_rows.append(raw_new if mask_blk is None
-                            else _keep_rows(mask_blk, raw_new, rows))
-        if two_slot:
-            x2_blk = alg.variate_stat(cp, rows, raw_new, srv_state, g_blk)
-            stats2 = schemes.compute_stats(x2_blk, sch2, batched=True)
-            tx2 = schemes.transmit_energy(sch2, stats2, b_air[blk], gb,
-                                          mask_blk)
-            oc2 = ota.streaming_block(ocfg2, oc2, x2_blk, ha[blk], hs[blk],
-                                      stats=stats2, grad_bound=gb)
-            txsum = txsum + torch.sum(tx2)
+        if alg.stateful:
+            kept, x2_blk, stats2, tx2 = _client_block(
+                cfg, cp, rows, srv_state, g_blk, b_air[blk], gb, mask_blk)
+            new_rows.append(kept)
+            if two_slot:
+                oc2 = ota.streaming_block(ocfg2, oc2, x2_blk, ha[blk],
+                                          hs[blk], stats=stats2,
+                                          grad_bound=gb)
+                txsum = txsum + torch.sum(tx2)
     y = ota.streaming_finish(ocfg, oc, template, r.a_eff, r.noise,
                              num_devices=1.0 if weighted else float(s))
     if alg.stateful:
         dev_new = dev_state
         if alg.has_state:
-            flat = {n: torch.cat([b[n] for b in new_rows])
-                    for n in dev_state}
-            dev_new = (flat if idx is None else
-                       {n: l.index_copy(0, idx, flat[n])
-                        for n, l in dev_state.items()})
+            dev_new = _put_rows(dev_state, idx, {
+                n: torch.cat([b[n] for b in new_rows]) for n in dev_state})
         srv_new = srv_state
         if two_slot:
             y2 = ota.streaming_finish(ocfg2, oc2, template, r.a_eff,

@@ -61,9 +61,7 @@ class Experiment:
             chunk_size: Optional[int] = None,
             eval_every: Optional[int] = None,
             evaluate: Optional[bool] = None,
-            noise_provider: Optional[Callable[[int], torch.Tensor]] = None,
-            slot2_noise_provider: Optional[Callable[[int],
-                                                    torch.Tensor]] = None
+            noise_provider: Optional[Callable[[int], torch.Tensor]] = None
             ) -> Dict[str, List]:
         """Run ``num_rounds`` FL rounds and merge the produced history into
         ``self.history``.  Returns this call's history.
@@ -75,8 +73,7 @@ class Experiment:
         ``chunk_size`` changes nothing); both give the same bits.  The
         state -- params, optimizer, channel and the client algorithm's
         state -- carries from one call to the next (``reset`` starts them
-        anew).  ``noise_provider`` and ``slot2_noise_provider`` are
-        ``runtime.run``'s parity seams for the two OTA slots' noise."""
+        anew)."""
         if self.state is None:
             self.setup()
         ev = self.spec.eval
@@ -88,8 +85,7 @@ class Experiment:
             driver=driver or self.spec.driver,
             chunk_size=chunk_size or self.spec.chunk_size,
             chunk_batch_provider=self.task.chunk_batch_provider,
-            noise_provider=noise_provider,
-            slot2_noise_provider=slot2_noise_provider)
+            noise_provider=noise_provider)
         for k, v in hist.items():
             self.history.setdefault(k, []).extend(v)
         return hist

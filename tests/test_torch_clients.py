@@ -7,7 +7,8 @@ small shape (``tests/test_clients.py``: K = 8, 320 examples, hidden 8).
 * each algorithm's round against the JAX package's round
   (``REFERENCE_CASES``: every algorithm on the dense round, and the
   masked ``bernoulli`` (with an empty round) and ``fixed``, active-gather
-  and ``k_block`` rounds each under a two-slot algorithm; one reference
+  and ``k_block`` rounds, and the ``k_block`` round masked and gathered,
+  each under a two-slot algorithm; one reference
   compile a case, so the matrix is crossed, not full): every round starts
   from the reference's state after the round before (its params and
   client state through ``repro_torch.interop``; its batches, masks and
@@ -76,14 +77,18 @@ ROUND_KINDS = {
     "gather": dict(participation=0.5, participation_mode="fixed",
                    active_gather=True),
     "k_block": dict(k_block=4),
+    # the streamed round's masked and gathered branches: two K-blocks each
+    "bernoulli_k_block": dict(participation=0.55, k_block=4),
+    "gather_k_block": dict(participation=0.5, participation_mode="fixed",
+                           active_gather=True, k_block=2),
 }
 # (algorithm, round) pairs held against the reference: every algorithm on
-# the dense round, every other round under a two-slot algorithm (and the
-# streamed round under fedprox too)
+# the dense round, every other round under a two-slot algorithm
 REFERENCE_CASES = (("fedprox", "dense"), ("feddyn", "dense"),
                    ("scaffold", "dense"), ("feddyn", "bernoulli"),
                    ("scaffold", "fixed"), ("feddyn", "gather"),
-                   ("scaffold", "k_block"), ("fedprox", "k_block"))
+                   ("scaffold", "k_block"), ("feddyn", "bernoulli_k_block"),
+                   ("scaffold", "gather_k_block"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,7 +135,7 @@ def _reference(algo, kind):
 
     def masked(cfg_, key, t):
         m = draw(cfg_, key, t)
-        if kind != "bernoulli":
+        if not kind.startswith("bernoulli"):
             return m
         return jnp.where(t == EMPTY_ROUND, jnp.zeros_like(m), m)
 
@@ -232,7 +237,7 @@ def test_round_matches_reference(algo, kind, backend):
         for k in runtime.DIAG_KEYS:
             assert hist[k][0] == pytest.approx(r["hist"][k], **HIST_TOL), \
                 (where, k)
-        if kind == "bernoulli" and t == EMPTY_ROUND:
+        if kind.startswith("bernoulli") and t == EMPTY_ROUND:
             assert hist["num_participants"][0] == 0.0
 
 
@@ -362,7 +367,8 @@ def test_sgd_default_is_explicit_sgd(driver, backend):
     assert runs[0].state.client_state is None
 
 
-@pytest.mark.parametrize("kind", ["dense", "bernoulli", "gather", "k_block"])
+@pytest.mark.parametrize("kind", ["dense", "bernoulli", "gather", "k_block",
+                                  "bernoulli_k_block", "gather_k_block"])
 @pytest.mark.parametrize("algo", ["fedprox", "feddyn", "scaffold"])
 def test_scan_is_python_bitwise(algo, kind):
     runs = []
