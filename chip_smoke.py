@@ -104,6 +104,25 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               ratios (failed outside [1.95, 2.05], figures.py:528-534) and
               the final train-loss bands on the alpha = 0.1 split, whose
               separation from sgd is reported, not failed;
+6g. obs    -- checkpoints and the flight recorder on Case I at full width,
+              40 rounds in chunks of 16, eval every 10: (a) recorder off
+              against the memory, jsonl and csv sinks, the same params
+              (and client state) digest and DIAG_KEYS histories, under both
+              drivers, on k_block = 4, on feddyn at H = 4 and on the fig1a
+              grid through ``run_sweep``; the chunk events cover each round
+              once and ``dump_history`` writes the live jsonl file's lines;
+              (b) warm rounds/s with the jsonl sink off and on, A B B A,
+              beside the reference's 1.05x budget (reported, not failed);
+              (c) ``run(20); save; load; run(20)`` against ``run(40)``,
+              bitwise, for sgd, adamw at participation 0.7, feddyn at
+              H = 4 and Case-II ridge under AR(1) rho 0.8, CSI error 0.2 and
+              geometry, each checkpoint loaded on the CPU against the card's
+              leaves, save and load ms and file bytes; (d) a fresh run with
+              REPRO_OBS_PROFILE set (its graph captured inside the trace)
+              against the unprofiled run, bitwise, the trace naming K1, K2
+              and K5 and holding one obs_chunk range per chunk; (e)
+              ``serve_metrics`` on 127.0.0.1, port 0: round 40 and the
+              event count;
 7. stream_ota -- ``ota.aggregate(OTAConfig(backend="kernels",
               k_block=1000))`` at the K-scale shape for four schemes, against
               the dense aggregate on the card and the plain route on the
@@ -186,13 +205,18 @@ only phases 1, 2 and 6e, and
 
     python3 chip_smoke.py --clients
 
-only phases 1, 2 and 6f.
+only phases 1, 2 and 6f, and
+
+    python3 chip_smoke.py --obs
+
+only phases 1, 2 and 6g.
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -2535,6 +2559,341 @@ def phase_clients(ops) -> dict:
     return dict(launches)
 
 
+OBS_ROUNDS, OBS_CHUNK = 40, 16   # eval every 10 (case_i_spec's)
+OBS_SINKS = ("memory", "jsonl", "csv")
+OBS_RATE_ROUNDS = 160            # rounds a timed call of the overhead pairs
+OBS_RATE_BLOCKS = 8              # A B B A blocks of warm calls
+OBS_EMIT_REPS = 200              # timed on_chunk calls of one 16-round chunk
+OBS_OVERHEAD_BUDGET = 1.05       # benchmarks/common.py:57 (the jsonl lane)
+# K1, K5 and K2 in a torch.profiler trace, by their kernels' names
+OBS_TRACE_KERNELS = {"batched_moments": "moments_kernel<false>",
+                     "sumsq": "moments_kernel<true>",
+                     "ota_superpose": "superpose_"}
+
+
+def _obs_digest(e) -> tuple:
+    """A run's bits: the params and client state digest, and every
+    DIAG_KEYS history."""
+    from repro_torch import obs
+    from repro_torch.fed import runtime
+    return (obs.params_sha256((e.params, e.state.client_state)),
+            {k: e.history[k] for k in runtime.DIAG_KEYS})
+
+
+def _sink(name: str, tmp: pathlib.Path, tag: str):
+    from repro_torch import obs
+    if name == "memory":
+        return obs.make(name)
+    return obs.make(name, path=str(tmp / f"{tag}.{name}"))
+
+
+def _covered(rec) -> list:
+    """The rounds the chunk events cover, in order."""
+    return [t for c in rec.select("chunk")
+            for t in range(c["round_start"], c["round_end"] + 1)]
+
+
+def _jsonl_kinds(path, kinds=("round", "eval")) -> dict:
+    lines = [json.loads(s) for s in open(path)]
+    return {kind: [x for x in lines if x["event"] == kind] for kind in kinds}
+
+
+def _obs_run(spec, driver: str = "scan", recorder=None):
+    from repro_torch.fl import Experiment
+    e = Experiment(spec, device="cuda")
+    e.run(OBS_ROUNDS, driver=driver, chunk_size=OBS_CHUNK, recorder=recorder)
+    torch.cuda.synchronize()
+    return e
+
+
+def _obs_variant(name: str, spec, driver: str, tmp: pathlib.Path) -> dict:
+    """Recorder off against each of OBS_SINKS on one spec and driver
+    (OBS_ROUNDS rounds, chunks of OBS_CHUNK): the same params, client
+    state and DIAG_KEYS histories; the chunk events cover every round
+    once; ``dump_history`` writes the live jsonl file's round and eval
+    lines."""
+    one = lambda rec: _obs_run(spec, driver, rec)
+    want = _obs_digest(one(None))
+    row = {"variant": name, "driver": driver, "bitwise": {}}
+    for sink in OBS_SINKS:
+        rec = _sink(sink, tmp, name)
+        with rec:
+            e = one(rec)
+        row["bitwise"][sink] = _obs_digest(e) == want
+        if sink == "memory":
+            chunks = rec.select("chunk")
+            row["chunks"] = len(chunks)
+            row["rounds_once"] = (_covered(rec) == [
+                r["round"] for r in rec.select("round")]
+                == list(range(1, OBS_ROUNDS + 1)))
+            row["dispatches"] = sum(c["dispatches"] for c in chunks)
+            row["captures"] = sum(sum(c["retraces"].values())
+                                  for c in chunks)
+            row["chunk_wall_ms"] = [round(c["wall_time_s"] * 1e3, 3)
+                                    for c in chunks]
+            row["eval_rounds"] = [x["round"] for x in rec.select("eval")]
+            row["memory_recorder"] = rec
+        elif sink == "jsonl":
+            post = tmp / f"{name}.post.jsonl"
+            e.dump_history(str(post))
+            row["dump_history_equals_live"] = (_jsonl_kinds(post)
+                                               == _jsonl_kinds(rec.path))
+    return row
+
+
+def _obs_sweep(tmp: pathlib.Path) -> dict:
+    """The fig1a grid through ``run_sweep`` (2 structural groups of 3
+    lanes), recorder off against each sink: the same params digests and
+    histories, and each group's chunk events cover every round once."""
+    from repro_torch.fl import SweepSpec, run_sweep
+    sweep = SweepSpec(case_i_spec(), {"amplification": ("optimal", "bmax"),
+                                      "seed": (0, 1, 2)})
+    off = run_sweep(sweep, OBS_ROUNDS)
+    row = {"variant": "fig1a_sweep", "size": sweep.size, "bitwise": {}}
+    for sink in OBS_SINKS:
+        rec = _sink(sink, tmp, "fig1a")
+        with rec:
+            res = run_sweep(sweep, OBS_ROUNDS, recorder=rec)
+        row["bitwise"][sink] = (
+            res.params_digests == off.params_digests
+            and all(np.array_equal(res.history[k], off.history[k])
+                    for k in off.history))
+        if sink == "memory":
+            rounds = list(range(1, OBS_ROUNDS + 1))
+            row["rounds_once"] = _covered(rec) == rounds * 2
+            row["lanes_per_round_event"] = sorted({
+                len(r["grad_norm_mean"]) for r in rec.select("round")})
+    return row
+
+
+def _obs_overhead(spec, tmp: pathlib.Path) -> dict:
+    """Warm rounds/s of the scan driver with the jsonl sink off and on, in
+    OBS_RATE_BLOCKS blocks of A B B A calls of OBS_RATE_ROUNDS rounds (no
+    eval), beside the reference's budget (reported, not failed)."""
+    from repro_torch import obs
+    from repro_torch.fl import Experiment
+    e = Experiment(spec, device="cuda")
+    e.run(OBS_RATE_ROUNDS, evaluate=False)
+    rates = {"off": [], "jsonl": []}
+    with obs.make("jsonl", path=str(tmp / "rate.jsonl")) as rec:
+        for _ in range(OBS_RATE_BLOCKS):
+            for which in ("off", "jsonl", "jsonl", "off"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.run(OBS_RATE_ROUNDS, evaluate=False,
+                      recorder=rec if which == "jsonl" else None)
+                torch.cuda.synchronize()
+                rates[which].append(OBS_RATE_ROUNDS
+                                    / (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    # the sink's own host cost: one chunk's events (a chunk event and 16
+    # round events) into a jsonl file, and one run's manifest
+    from repro_torch.fed import runtime
+    rows = torch.zeros((OBS_CHUNK, len(runtime.DIAG_KEYS)))
+    info = dict(wall_time_s=0.0, dispatches=OBS_CHUNK,
+                retraces=runtime.trace_deltas({}))
+    with obs.make("jsonl", path=str(tmp / "emit.jsonl")) as rec:
+        t0 = time.perf_counter()
+        for i in range(OBS_EMIT_REPS):
+            runtime._emit_chunk(rec, i, list(range(OBS_CHUNK)), rows, info)
+        emit_ms = (time.perf_counter() - t0) * 1e3 / OBS_EMIT_REPS
+    t0 = time.perf_counter()
+    for _ in range(5):
+        e.manifest()
+    manifest_ms = (time.perf_counter() - t0) * 1e3 / 5
+    return {"rounds_per_call": OBS_RATE_ROUNDS, "rounds_per_s": rates,
+            "median_rounds_per_s": med,
+            "overhead_ratio_off_over_jsonl": med["off"] / med["jsonl"],
+            "reference_budget": OBS_OVERHEAD_BUDGET,
+            "jsonl_chunk_emit_ms": emit_ms, "manifest_ms": manifest_ms,
+            "host_ms_per_chunk_off": OBS_CHUNK * 1e3 / med["off"]}
+
+
+def _obs_resume(name: str, spec, tmp: pathlib.Path) -> dict:
+    """``run(40)`` against ``run(20); save; load; run(20)`` on the card
+    (a time-varying channel saves later, see below), bitwise (params,
+    optimizer and client state, history); the checkpoint
+    loaded on the CPU against the card's leaves, bitwise; save and load
+    times and the file's size."""
+    from repro_torch.checkpoint import store
+    from repro_torch.fed import runtime
+    from repro_torch.fl import Experiment
+    cont = Experiment(spec, device="cuda")
+    cont.run(OBS_ROUNDS)
+    first = Experiment(spec, device="cuda")
+    first.run(OBS_ROUNDS // 2)
+    # under a time-varying channel, save at the first round from the half
+    # on where the gain derived anew from the round's a, b and h_hat (what
+    # a file without the eff_gain leaf resumes on) is not the designed gain
+    # the leaf keeps, so the resume needs the leaf
+    rederived = None
+    if spec.fl.channel.time_varying():
+        while (runtime.designed_gain(first.state) == first.state.eff_gain
+               and first.round < OBS_ROUNDS - 1):
+            first.run(1)
+        rederived = (runtime.designed_gain(first.state)
+                     != first.state.eff_gain)
+    path = str(tmp / f"{name}.msgpack")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first.save(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    resumed = Experiment(spec, device="cuda").setup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.load(path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    saved = store._flatten_with_paths(first._ckpt_tree())
+    resumed.run(OBS_ROUNDS - first.round)
+    state = lambda e: store._flatten_with_paths(
+        (e.params, e.state.opt_state, e.state.client_state))
+    hist = {k: first.history[k] + resumed.history[k] for k in cont.history}
+    bitwise = (hist == cont.history and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(state(resumed),
+                                                    state(cont))))
+    cpu = Experiment(spec, device="cpu").load(path)
+    got = store._flatten_with_paths(cpu._ckpt_tree())
+    cpu_bitwise = [k for k, _ in got] == [k for k, _ in saved] and all(
+        (torch.equal(a, b.cpu()) and a.device.type == "cpu")
+        if isinstance(b, torch.Tensor) else np.array_equal(a, b)
+        for (_, a), (_, b) in zip(got, saved))
+    return {"case": name, "saved_at_round": first.round,
+            "resume_bitwise": bitwise, "rederived_gain_differs": rederived,
+            "cpu_load_bitwise": cpu_bitwise, "leaves": len(saved),
+            "file_bytes": os.path.getsize(path), "save_ms": save_ms,
+            "load_ms": load_ms}
+
+
+def _obs_profile(want: tuple, tmp: pathlib.Path) -> dict:
+    """A fresh Case-I run with REPRO_OBS_PROFILE set (the engine's CUDA
+    graph captured inside the trace) against the unprofiled run: bitwise;
+    the trace names K1, K2 and K5 and holds one obs_chunk range per
+    chunk."""
+    from repro_torch import obs
+    from repro_torch.fed import runtime
+    from repro_torch.fl import Experiment
+    runtime.clear_compile_caches()
+    out = tmp / "trace"
+    os.environ[obs.profiling.PROFILE_ENV] = str(out)
+    try:
+        rec = obs.MemoryRecorder()
+        e = Experiment(case_i_spec(), device="cuda")
+        e.run(OBS_ROUNDS, chunk_size=OBS_CHUNK, recorder=rec)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ[obs.profiling.PROFILE_ENV]
+    traces = sorted(out.glob("obs_trace_*.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {name: sum(1 for ev in events if ev.get("cat") == "kernel"
+                         and pat in ev.get("name", ""))
+               for name, pat in OBS_TRACE_KERNELS.items()}
+    ranges = sorted({ev["name"] for ev in events
+                     if ev.get("cat") == "user_annotation"
+                     and ev.get("name", "").startswith("obs_chunk_")})
+    chunks = rec.select("chunk")
+    return {"bitwise": _obs_digest(e) == want, "traces": len(traces),
+            "trace_bytes": traces[0].stat().st_size,
+            "captured_in_trace": chunks[0]["retraces"]["run_chunk"] == 1,
+            "kernel_events": kernels, "chunk_ranges": len(ranges),
+            "chunks": len(chunks)}
+
+
+def _obs_serve(rec) -> dict:
+    """``serve_metrics`` on 127.0.0.1, port 0, over a finished run's
+    MemoryRecorder."""
+    import urllib.request
+    from repro_torch.launch.serve import serve_metrics
+    server = serve_metrics(rec, host="127.0.0.1", port=0)
+    try:
+        host, port = server.server_address
+        body = json.loads(urllib.request.urlopen(
+            f"http://{host}:{port}/metrics", timeout=30).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    return {"round": body["round"]["round"], "events": body["events"],
+            "recorder_events": len(rec.events)}
+
+
+def phase_obs(ops) -> dict:
+    """Checkpoints and the flight recorder on Case I at full width (the
+    path of a recorded and resumed run: the captured round with a recorder,
+    save, load, resume):
+    (a) recorder off against each sink, bitwise, under both drivers, on
+    k_block = 4, on feddyn at H = 4 and on the fig1a grid through
+    ``run_sweep``; (b) the jsonl sink's overhead; (c) resume from disk and
+    the card's checkpoint on the CPU, bitwise; (d) a profiled fresh run,
+    bitwise, and its trace; (e) ``serve_metrics``.  Returns the launches
+    of K1, K2 and K5 in the phase (counts set to 0 at its start)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.channels import GeometryConfig
+    from repro_torch.fed import runtime
+    t_phase = time.perf_counter()
+    runtime.clear_compile_caches()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    base = case_i_spec()
+    feddyn = clients_spec(dict(CLIENT_ALGOS)["feddyn"])
+    case_ii = case_ii_spec()
+    ar1 = dataclasses.replace(case_ii, fl=dataclasses.replace(
+        case_ii.fl, channel=dataclasses.replace(
+            case_ii.fl.channel, model="ar1", rho=0.8, csi_error=0.2,
+            geometry=GeometryConfig(shadowing_std_db=3.0))))
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        variants = [_obs_variant("dense", base, "scan", tmp),
+                    _obs_variant("dense", base, "python", tmp),
+                    _obs_variant("k_block_4", dataclasses.replace(
+                        base, k_block=4), "scan", tmp),
+                    _obs_variant("feddyn_h4", feddyn, "scan", tmp)]
+        dense_rec = variants[0].pop("memory_recorder")
+        for v in variants[1:]:
+            v.pop("memory_recorder")
+        want = _obs_digest(_obs_run(base))
+        sweep = _obs_sweep(tmp)
+        overhead = _obs_overhead(base, tmp)
+        resume = [_obs_resume("sgd", base, tmp),
+                  _obs_resume("adamw_p07", dataclasses.replace(
+                      base, server_opt="adamw", participation=0.7), tmp),
+                  _obs_resume("feddyn_h4", feddyn, tmp),
+                  _obs_resume("ridge_ar1_csi_geometry", ar1, tmp)]
+        profile = _obs_profile(want, tmp)
+        served = _obs_serve(dense_rec)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCH_COUNTS)
+    row = {"phase": "obs", "rounds": OBS_ROUNDS, "chunk_size": OBS_CHUNK,
+           "variants": variants + [sweep], "overhead": overhead,
+           "resume": resume, "profile": profile, "serve_metrics": served,
+           "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    for v in variants + [sweep]:
+        tag = f"obs {v['variant']} {v.get('driver', 'run_sweep')}"
+        for sink, ok in v["bitwise"].items():
+            if not ok:
+                fail(f"{tag}: the {sink} recorder changed the run's bits")
+        if not v["rounds_once"]:
+            fail(f"{tag}: the chunk events do not cover each round once")
+        if v.get("dump_history_equals_live") is False:
+            fail(f"{tag}: dump_history differs from the live jsonl file")
+    for r in resume:
+        if not (r["resume_bitwise"] and r["cpu_load_bitwise"]):
+            fail(f"obs resume {r['case']}: {r}")
+    if not (profile["bitwise"] and profile["captured_in_trace"]
+            and profile["traces"] == 1
+            and all(n >= OBS_ROUNDS for n in
+                    profile["kernel_events"].values())
+            and profile["chunk_ranges"] == profile["chunks"]):
+        fail(f"obs profile: {profile}")
+    if not (served["round"] == OBS_ROUNDS
+            and served["events"] == served["recorder_events"]):
+        fail(f"obs serve_metrics: {served}")
+    check_path_launches(launches, OBS_ROUNDS, "obs")
+    return launches
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
@@ -2601,6 +2960,8 @@ def main() -> None:
                     help="run only the build and phase channel")
     ap.add_argument("--clients", action="store_true",
                     help="run only the build and phase clients")
+    ap.add_argument("--obs", action="store_true",
+                    help="run only the build and phase obs")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -2632,6 +2993,9 @@ def main() -> None:
     if args.clients:
         phase_clients(ops)
         return
+    if args.obs:
+        phase_obs(ops)
+        return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)
@@ -2659,11 +3023,15 @@ def main() -> None:
     emit_memory("channel")
     client_launches = phase_clients(ops)
     emit_memory("clients")
-    # the round's kernels run on three paths: phase main's round, phase
-    # channel's time-varying rounds and phase clients' two-slot rounds, each
-    # read from counts set to 0 before it
+    obs_launches = phase_obs(ops)
+    emit_memory("obs")
+    # the round's kernels run on four paths: phase main's round, phase
+    # channel's time-varying rounds, phase clients' two-slot rounds and
+    # phase obs's recorded, saved and resumed runs, each read from counts
+    # set to 0 before it
     round_launches = {name: main_launches[name] + channel_launches[name]
-                      + client_launches[name] for name in PATH_KERNELS}
+                      + client_launches[name] + obs_launches[name]
+                      for name in PATH_KERNELS}
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
     checks["flash_attention"] = phase_flash(ops, build)

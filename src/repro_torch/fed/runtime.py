@@ -69,6 +69,12 @@ its state from the aggregate de-gained by ``a_eff sum h_hat b_eff``.  ``mu``
 and ``alpha`` reach the round as 0-d fp32 tensors in device memory (a lane's
 own in a batched run).
 
+``run`` and ``run_batched`` take a flight recorder (``recorder=``, a
+``repro_torch.obs.Recorder``): each chunk's ``chunk`` and ``round`` events
+and the eval events, built on the host after ``engine.rows()`` has copied
+the chunk's history back; ``RoundBody``, the staged inputs and the
+captured graph never see it, so recorder on or off gives the same bits.
+
 Config values of unported paths raise ``NotImplementedError`` naming their
 ROADMAP item: ``device_mesh`` and the ``mesh`` backend.
 
@@ -93,6 +99,7 @@ import dataclasses
 import functools
 import math
 import os
+import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 import numpy as np
@@ -108,6 +115,7 @@ from repro_torch.core import schemes
 from repro_torch.fl import clients
 from repro_torch.fl.clients import ClientConfig
 from repro_torch.kernels import ops
+from repro_torch.obs import profiling
 from repro_torch.optim import optimizers as optim
 
 Tree = Dict[str, torch.Tensor]
@@ -1335,6 +1343,8 @@ class _EagerChunks:
         self.body = body
         self.lanes: List[Lane] = []
         self.hist = None
+        # round bodies the last launch ran (rounds x lanes)
+        self.dispatches = 0
         _count_trace(kind)
 
     def start(self, lanes: Sequence[Lane]) -> None:
@@ -1349,6 +1359,7 @@ class _EagerChunks:
                                              _lane(staged, e))
             rows.append(hist)
         self.hist = torch.stack(rows)
+        self.dispatches = staged.t.shape[0] * len(self.lanes)
 
     def rows(self) -> torch.Tensor:
         return self.hist
@@ -1457,6 +1468,11 @@ class _GraphChunks:
         self.graph = graph
         _count_trace(self.kind)
 
+    @property
+    def dispatches(self) -> int:
+        """The graph replays the last launch queued."""
+        return self.rounds
+
     def launch(self, staged: RoundInputs) -> None:
         """Copy a chunk's inputs in and replay the graph once a round;
         returns as soon as the replays are queued."""
@@ -1559,6 +1575,15 @@ def _locked_eval_keys(metrics: Dict[str, float],
     return eval_keys
 
 
+def designed_gain(state: FLState) -> float:
+    """A time-varying channel's designed effective gain ``a sum h_hat_k
+    b_k``: what the server set on its estimate (the reference's float64
+    sum, cast to fp32), from the state's ``a``, ``b`` and ``h_hat``."""
+    h_hat = state.h if state.h_hat is None else state.h_hat
+    return float(np.float32(state.a * float(np.sum(
+        np.asarray(h_hat, np.float64) * np.asarray(state.b, np.float64)))))
+
+
 def _lane_inputs(cfg: FLConfig, state: FLState,
                  device: torch.device) -> Tuple[_LaneHost, tuple]:
     """A run's host side (``_LaneHost``) and its channel on the device
@@ -1589,11 +1614,7 @@ def _lane_inputs(cfg: FLConfig, state: FLState,
                              "FLState.model_dim is unset -- build the state "
                              "via setup()")
         if state.eff_gain is None:
-            # the designed effective gain: what the server set on its
-            # estimate (the reference's float64 sum, cast to fp32)
-            state.eff_gain = float(np.float32(state.a * float(np.sum(
-                np.asarray(h_hat_np, np.float64)
-                * np.asarray(state.b, np.float64)))))
+            state.eff_gain = designed_gain(state)
         eff_gain = torch.tensor(state.eff_gain, dtype=torch.float32)
     scale = (ccfg.amplitude_scale() if state.scale is None
              else torch.as_tensor(state.scale, dtype=torch.float32))
@@ -1675,15 +1696,39 @@ def _drive_chunks(make_engine: Callable[[RoundInputs], Any],
     """The scan driver's loop: each chunk's replays are queued, the next
     chunk's host work runs while the card replays, then the chunk's
     history is read back and recorded.  ``make_engine(staged)`` gives the
-    engine from the first staged chunk.  Returns the engine."""
+    engine from the first staged chunk.  ``record(i, ts, rows, engine,
+    info)`` gets chunk i's history with its attribution ``info``: the wall
+    time from ``launch`` to the return of ``rows()`` (a span that holds the
+    next chunk's staging, which overlaps the replays), the round launches
+    the engine queued, and the ``TRACE_COUNTS`` delta (chunk 0's holds the
+    engine's build or capture).  Each chunk runs inside
+    ``profiling.annotate_chunk``.  Returns the engine."""
+    traces = dict(TRACE_COUNTS)
     staged = staged_chunk(chunks[0])
     engine = make_engine(staged)
     for i, ts in enumerate(chunks):
-        engine.launch(staged)
-        if i + 1 < len(chunks):
-            staged = staged_chunk(chunks[i + 1])
-        record(ts, engine.rows(), engine)
+        with profiling.annotate_chunk(i):
+            start = time.perf_counter()
+            engine.launch(staged)
+            if i + 1 < len(chunks):
+                staged = staged_chunk(chunks[i + 1])
+            rows = engine.rows()
+            info = dict(wall_time_s=time.perf_counter() - start,
+                        dispatches=engine.dispatches,
+                        retraces=trace_deltas(traces))
+        traces = dict(TRACE_COUNTS)
+        record(i, ts, rows, engine, info)
     return engine
+
+
+def _emit_chunk(recorder, i: int, ts: Sequence[int], rows: torch.Tensor,
+                info: Dict[str, Any]) -> None:
+    """Chunk i's ``chunk`` and ``round`` events from its history on the
+    host (``rows`` [T, 8], or [E, T, 8] for a batched run)."""
+    if recorder is not None:
+        recorder.on_chunk(i, list(ts), {k: rows[..., j].numpy()
+                                        for j, k in enumerate(DIAG_KEYS)},
+                          rss_mb=profiling.rss_mb(), **info)
 
 
 def _batch_spec(staged: RoundInputs):
@@ -1705,7 +1750,7 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         fading_provider: Optional[Callable[[int], Tuple[
             torch.Tensor, Optional[torch.Tensor]]]] = None,
         slot2_noise_provider: Optional[Callable[[int], torch.Tensor]] = None,
-        ) -> Tuple[FLState, Dict[str, List]]:
+        recorder=None) -> Tuple[FLState, Dict[str, List]]:
     """Run ``num_rounds`` FL rounds on the selected driver.
 
     ``batch_provider(t)`` returns the per-device batch (leading K axis) for
@@ -1740,6 +1785,12 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
     device (the reference passes a traced int): the hook runs inside the
     round body, which a CUDA graph replays, so it must compute on the
     device and never read ``t`` on the host.
+
+    ``recorder`` (a ``repro_torch.obs.Recorder``) gets one ``chunk`` event
+    and its ``round`` events for every chunk (under ``python``: every
+    round), after the chunk's history is back on the host, and an ``eval``
+    event at every eval round.  It never reaches the round body, the staged
+    inputs or the captured graph: on or off, the bits are the same.
 
     The params, server optimizer state, client state, round counter and a
     time-varying channel (``h``, ``h_hat``, ``b``, ``a``, ``fad_state``, as
@@ -1786,11 +1837,12 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         hist[k] = []
     eval_keys: Optional[Tuple[str, ...]] = None
 
-    def record(ts, rows, current_params):
+    def record(i, ts, rows, current_params, info):
         nonlocal eval_keys
         hist["round"].extend(ts)
         for k, col in zip(DIAG_KEYS, rows.t().tolist()):
             hist[k].extend(col)
+        _emit_chunk(recorder, i, ts, rows, info)
         t = ts[-1]
         if eval_fn is not None and (t % eval_every == 0 or t == 1):
             metrics = eval_fn(current_params())
@@ -1798,14 +1850,24 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
             for mk in eval_keys:
                 hist.setdefault(mk, []).append(metrics[mk])
             hist["eval_round"].append(t)
+            if recorder is not None:
+                recorder.on_eval(t, {mk: float(metrics[mk])
+                                     for mk in eval_keys})
 
     t0 = state.round
     if driver == "python":
+        traces = dict(TRACE_COUNTS)
         body = make_round_step(cfg, grad_fn, block_batch_provider)
-        for t in range(t0 + 1, t0 + num_rounds + 1):
-            staged = _map_inputs(lambda v: v.to(device), staged_chunk([t]))
-            lane, rows = _run_eager(body, lane, _lane(staged, 0))
-            record([t], rows, lambda: lane.params)
+        for i, t in enumerate(range(t0 + 1, t0 + num_rounds + 1)):
+            with profiling.annotate_chunk(i):
+                start = time.perf_counter()
+                staged = _map_inputs(lambda v: v.to(device),
+                                     staged_chunk([t]))
+                lane, rows = _run_eager(body, lane, _lane(staged, 0))
+                info = dict(wall_time_s=time.perf_counter() - start,
+                            dispatches=1, retraces=trace_deltas(traces))
+            traces = dict(TRACE_COUNTS)
+            record(i, [t], rows, lambda: lane.params, info)
         new_state = _lane_state(lane)
     else:
         chunks = _plan_chunks(t0, num_rounds,
@@ -1822,8 +1884,8 @@ def run(cfg: FLConfig, state: FLState, grad_fn: GradFn,
         if chunks:
             engine = _drive_chunks(
                 make_engine, chunks, staged_chunk,
-                lambda ts, rows, eng: record(ts, rows[0],
-                                             lambda: eng.state()[0][0]))
+                lambda i, ts, rows, eng, info: record(
+                    i, ts, rows[0], lambda: eng.state()[0][0], info))
             new_state = engine.state()[0]
 
     state.params, state.opt_state, state.client_state = new_state
@@ -1839,7 +1901,7 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
                 eval_every: int = 10, *, chunk_size: int = 16,
                 chunk_batch_provider: Optional[
                     Callable[[Sequence[int]], Any]] = None,
-                ) -> Tuple[List[FLState], Dict[str, Any]]:
+                recorder=None) -> Tuple[List[FLState], Dict[str, Any]]:
     """Run E experiments as lanes of one engine: the batched twin of
     ``run(driver='scan')``, on the device of the states' params.
 
@@ -1862,7 +1924,9 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     Returns ``(states, hist)``: every ``DIAG_KEYS`` entry of ``hist`` an
     ``np.ndarray`` [E, num_rounds], eval metrics [E, num_evals], and
     ``hist['round']`` / ``hist['eval_round']`` flat lists shared by the
-    lanes.  ``states`` are updated in place as ``run`` updates its one."""
+    lanes.  ``states`` are updated in place as ``run`` updates its one.
+    ``recorder`` gets ``run``'s events, each value an [E] list (one entry a
+    lane)."""
     if len(cfgs) != len(states) or not cfgs:
         raise ValueError("need equal, nonzero numbers of configs and states")
     if chunk_size < 1:
@@ -1928,10 +1992,12 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     eval_cols: Dict[str, List[List[float]]] = {}
     eval_keys: Optional[Tuple[str, ...]] = None
 
-    def record(ts, rows, engine):
+    def record(i, ts, rows, engine, info):
         nonlocal eval_keys
         hist["round"].extend(ts)
         diag_chunks.append(rows.double().numpy())
+        # [E, T, 8]: each round event carries one value a lane
+        _emit_chunk(recorder, i, ts, rows, info)
         t = ts[-1]
         if eval_fn is not None and (t % eval_every == 0 or t == 1):
             per_lane: Dict[str, List[float]] = {}
@@ -1944,6 +2010,9 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
             for mk in eval_keys:
                 eval_cols.setdefault(mk, []).append(per_lane[mk])
             hist["eval_round"].append(t)
+            if recorder is not None:
+                recorder.on_eval(t, {mk: [float(v) for v in per_lane[mk]]
+                                     for mk in eval_keys})
 
     chunks = _plan_chunks(t0, num_rounds,
                           eval_every if eval_fn is not None else None,

@@ -299,7 +299,7 @@ def _structural_signature(spec: ExperimentSpec):
 
 
 def _run_group_sequential(specs, task, num_rounds, evaluate, eval_every,
-                          device="cuda"):
+                          device="cuda", recorder=None):
     """One group point by point (``vectorized=False``, the python driver):
     independent ``Experiment.run`` trajectories sharing the group's cached
     ``Task``, in the batched history layout.  Returns ``(hist, digests)``."""
@@ -307,7 +307,7 @@ def _run_group_sequential(specs, task, num_rounds, evaluate, eval_every,
     for spec in specs:
         e = Experiment(spec, task=task, device=device)
         rows.append(e.run(num_rounds, evaluate=evaluate,
-                          eval_every=eval_every))
+                          eval_every=eval_every, recorder=recorder))
         digests.append(obs.params_sha256(e.state.params))
     out: Dict[str, Any] = {"round": rows[0]["round"],
                            "eval_round": rows[0]["eval_round"]}
@@ -320,6 +320,7 @@ def _run_group_sequential(specs, task, num_rounds, evaluate, eval_every,
 
 def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
               evaluate: Optional[bool] = None,
+              recorder: Optional[obs.Recorder] = None,
               device="cuda") -> SweepResult:
     """Run every grid point of ``sweep`` for ``num_rounds`` rounds on
     ``device``.
@@ -332,7 +333,11 @@ def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
 
     Eval scheduling comes from ``sweep.base.eval`` (``evaluate`` overrides
     the switch) and is the same for every point, so histories align across
-    the grid; all groups must give the same eval-metric keys."""
+    the grid; all groups must give the same eval-metric keys.
+
+    ``recorder`` gets the grid's manifest first, then every group's engine
+    events through the one sink (a batched group's values one a lane; a
+    sequential point's run adds its own manifest)."""
     pts = sweep.points()
     base = sweep.base
     enabled = base.eval.enabled if evaluate is None else evaluate
@@ -342,6 +347,15 @@ def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
     groups: Dict[Any, List[int]] = {}
     for i, pt in enumerate(pts):
         groups.setdefault(_structural_signature(pt.spec), []).append(i)
+
+    if recorder is not None:
+        # the grid's identity first (the points' digests land on the
+        # SweepResult once the trajectories exist)
+        recorder.on_manifest(obs.run_manifest(spec=base, extra={
+            "num_rounds": int(num_rounds),
+            "sweep_axes": {name: [str(v) for v in sweep.values(name)]
+                           for name in sweep.names},
+            "sweep_shape": list(sweep.shape)}))
 
     flat: Dict[str, np.ndarray] = {}
     digests: List[Optional[str]] = [None] * len(pts)
@@ -360,11 +374,13 @@ def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
                 cfgs, states, task.grad_fn, task.batch_provider, num_rounds,
                 eval_fn=task.eval_fn if enabled else None,
                 eval_every=eval_every, chunk_size=base.chunk_size,
-                chunk_batch_provider=task.chunk_batch_provider)
+                chunk_batch_provider=task.chunk_batch_provider,
+                recorder=recorder)
             gdigests = [obs.params_sha256(s.params) for s in states]
         else:
             hist, gdigests = _run_group_sequential(
-                gspecs, task, num_rounds, enabled, eval_every, device)
+                gspecs, task, num_rounds, enabled, eval_every, device,
+                recorder)
         for i, d in zip(idxs, gdigests):
             digests[i] = d
         keys = frozenset(k for k in hist if k not in ("round", "eval_round"))

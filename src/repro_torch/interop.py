@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.fed.runtime import FLState
+from repro_torch.optim.optimizers import OptState
 
 
 def params_from_jax(tree: Mapping[str, Any], device="cuda"
@@ -29,15 +30,31 @@ def params_from_jax(tree: Mapping[str, Any], device="cuda"
             for k in sorted(tree)}
 
 
+def _opt_state_from_jax(opt_state, device) -> OptState:
+    """The reference's ``OptState(step, mu, nu)`` (numpy leaves; ``mu`` and
+    ``nu`` flat trees or 0-d arrays) -> the port's, on ``device``."""
+    dev = resolve_device(device)
+
+    def part(v):
+        if isinstance(v, Mapping):
+            return params_from_jax(v, dev)
+        return torch.as_tensor(np.array(v)).to(dev)
+    step, mu, nu = opt_state
+    return OptState(part(step), part(mu), part(nu))
+
+
 def state_from_jax(params: Mapping[str, Any], h, h_hat, b, a, eta0,
                    round: int = 0, *, model_dim: int = 0, fad_state=None,
-                   scale=None, client_state=None, device="cuda") -> FLState:
+                   scale=None, client_state=None, opt_state=None,
+                   device="cuda") -> FLState:
     """An ``FLState`` holding the reference's parameters and channel state
     (``h``, ``h_hat``, ``b`` as float64 [K]; ``a``, ``eta0`` floats; the
     AR(1) model's [K, 2] ``fad_state`` and the geometry's [K] ``scale``
-    as float64, or None) and its client state (``{"dev": tree or None,
-    "srv": tree or None}`` of arrays, or None), so a state from the
-    reference's ``setup()`` or ``run()`` runs in the port."""
+    as float64, or None), its client state (``{"dev": tree or None,
+    "srv": tree or None}`` of arrays, or None) and its server optimizer's
+    state (``OptState(step, mu, nu)`` of arrays, or None for a state
+    before its first run), so a state from the reference's ``setup()`` or
+    ``run()`` runs in the port."""
     h = np.asarray(h, np.float64)
     as64 = lambda v: None if v is None else np.asarray(v, np.float64)
     return FLState(params=params_from_jax(params, device),
@@ -45,6 +62,8 @@ def state_from_jax(params: Mapping[str, Any], h, h_hat, b, a, eta0,
                    eta0=float(eta0), round=int(round), model_dim=model_dim,
                    h_hat=h if h_hat is None else as64(h_hat),
                    fad_state=as64(fad_state), scale=as64(scale),
+                   opt_state=(None if opt_state is None
+                              else _opt_state_from_jax(opt_state, device)),
                    client_state=None if client_state is None else {
                        part: None if tree is None
                        else params_from_jax(tree, device)

@@ -8,8 +8,8 @@ function; the steps run under ``torch.inference_mode()`` and move the
 token batch to the device (the params and the cache must be there
 already).  The reference's ``in_shardings_fn``, context-parallel decode and
 the sequence-sharded cache (``context_parallel``, ``shard_cache_seq``)
-wait for ROADMAP queue 1 item 15; ``serve_metrics`` waits for ``obs``
-(item 14).
+wait for ROADMAP queue 1 item 15.  ``serve_metrics`` serves a
+``MemoryRecorder``'s latest events over HTTP, to watch a long FL run.
 
     prefill = build_prefill_cache_step(cfg, "cuda", cache_len=S + n)
     ids, cache = prefill(params, {"tokens": prompt})         # prompt [B, S]
@@ -81,3 +81,55 @@ def build_decode_step(cfg: ModelConfig, device="cuda", *,
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Live metrics: a pull endpoint over the in-memory recorder
+
+
+def serve_metrics(recorder, host: str = "127.0.0.1", port: int = 0):
+    """Serve a ``MemoryRecorder``'s latest snapshot as JSON over HTTP.
+
+    ``GET /metrics`` (also ``/`` and ``/metrics/latest``) returns
+    ``recorder.latest()``: the event count and the most recent manifest,
+    round, eval and chunk events, so a long run driven with
+    ``Experiment.run(recorder=...)`` can be watched from a second terminal:
+
+        rec = obs.make("memory")
+        server = serve_metrics(rec)          # port=0: the OS picks one
+        host, port = server.server_address
+        # ... e.run(n, recorder=rec) in the main thread ...
+        # curl http://host:port/metrics
+
+    The server runs ``serve_forever`` on a daemon thread and is returned
+    (``server.server_address`` for the bound port, ``server.shutdown()`` to
+    stop).  A request serializes only the latest events, never the whole
+    log, so polling does not grow with the run.
+    """
+    import json
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            if self.path.rstrip("/") not in ("", "/metrics",
+                                             "/metrics/latest"):
+                self.send_response(404)
+                self.end_headers()
+                return
+            snap = recorder.latest() if hasattr(recorder, "latest") else {}
+            body = json.dumps(snap, default=str).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):    # keep the run's stdout clean
+            pass
+
+    server = HTTPServer((host, port), _Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="repro-obs-metrics")
+    thread.start()
+    return server

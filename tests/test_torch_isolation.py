@@ -12,7 +12,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# msgpack too: the GPU machine has no package of it (the checkpoint codec is
+# the port's own)
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imported_roots(path):
@@ -69,15 +71,59 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.configs.registry\n"
         "import repro_torch.obs, repro_torch.obs.manifest\n"
         "import repro_torch.fl.sweep, repro_torch.fl.tasks\n"
+        "import repro_torch.checkpoint.store, repro_torch.obs.profiling\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
         "from repro_torch.fl import SweepSpec, run_sweep, build_task\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
         "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=120, cwd=str(ROOT))
     assert "LOADED []" in r.stdout, r.stdout + r.stderr[-2000:]
+
+
+# names that would tie the captured round to the flight recorder
+RECORDER_NAMES = {"recorder", "obs", "profiling", "annotate_chunk",
+                  "_emit_chunk", "on_chunk", "on_round", "on_eval"}
+
+
+def _round_functions(tree):
+    """``RoundBody`` and every module-level function of the runtime that it
+    calls, directly or through another: the code a CUDA graph captures."""
+    defs = {n.name: n for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    todo, seen = ["RoundBody"], set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        for node in ast.walk(defs[name]):
+            if (isinstance(node, ast.Name) and node.id in defs
+                    and isinstance(defs[node.id], ast.FunctionDef)):
+                todo.append(node.id)
+    return {name: defs[name] for name in seen}
+
+
+def test_round_body_names_no_recorder():
+    """The static half of the recorder's invisibility (the reference's
+    TL009): ``RoundBody`` and the round functions it calls name no
+    recorder, ``obs`` or profiling hook, so telemetry never reaches the
+    captured round."""
+    tree = ast.parse((PORT / "fed" / "runtime.py").read_text())
+    funcs = _round_functions(tree)
+    assert {"_round_math", "_round_math_streaming", "_round_tail",
+            "_local_transmit", "_client_block"} <= set(funcs)
+    bad = []
+    for name, node in funcs.items():
+        for sub in ast.walk(node):
+            ident = (sub.id if isinstance(sub, ast.Name) else
+                     sub.attr if isinstance(sub, ast.Attribute) else
+                     sub.arg if isinstance(sub, ast.arg) else None)
+            if ident in RECORDER_NAMES:
+                bad.append(f"{name}:{sub.lineno} names {ident}")
+    assert not bad, bad
 
 
 # (module, function) of every public entry point that places tensors: each

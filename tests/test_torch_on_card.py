@@ -4,6 +4,7 @@
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_on_card.py
 """
+import json
 import math
 
 import numpy as np
@@ -772,6 +773,84 @@ class TestClientsOnCard:
             assert params_sha256(states[e].params) == digests[-1], e
         assert digests[0] != digests[1]
         runtime.clear_compile_caches()
+
+
+@pytest.mark.cuda
+class TestCheckpointObsOnCard:
+    """Checkpoints and the flight recorder on the card at Case I: a resume
+    from disk is bitwise the unbroken run under ``scan`` (the graph of the
+    resumed run captured anew), a recorder changes no bit, and a
+    checkpoint saved from the card loads on the CPU with the same
+    leaves."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _same(a, b):
+        from repro_torch.checkpoint import store
+        assert a.history == b.history
+        for k in b.params:
+            assert torch.equal(a.params[k], b.params[k]), k
+        got = store._flatten_with_paths(a.state.opt_state)
+        want = store._flatten_with_paths(b.state.opt_state)
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (k, x), (_, y) in zip(got, want):
+            assert torch.equal(x, y), k
+
+    @pytest.mark.parametrize("over", [{}, dict(server_opt="adamw",
+                                               participation=0.7)],
+                             ids=["sgd", "adamw_p07"])
+    def test_resume_from_disk_is_the_unbroken_run(self, tmp_path, over):
+        from repro_torch.fl import Experiment
+        spec = _case_i_spec(**over)
+        cont = Experiment(spec, device="cuda")
+        cont.run(20)
+        first = Experiment(spec, device="cuda")
+        first.run(10)
+        path = first.save(str(tmp_path / "ck.msgpack"))
+        resumed = Experiment(spec, device="cuda").load(path)
+        resumed.run(10)
+        first.history = {k: first.history[k] + resumed.history[k]
+                         for k in first.history}
+        first.state = resumed.state
+        self._same(first, cont)
+
+    def test_recorder_is_invisible(self, tmp_path):
+        from repro_torch import obs
+        from repro_torch.fl import Experiment
+        off = Experiment(_case_i_spec(), device="cuda")
+        off.run(20)
+        rec = obs.make("jsonl", path=str(tmp_path / "run.jsonl"))
+        on = Experiment(_case_i_spec(), device="cuda")
+        with rec:
+            on.run(20, recorder=rec)
+        self._same(on, off)
+        lines = [json.loads(s) for s in open(tmp_path / "run.jsonl")]
+        assert [x["round"] for x in lines if x["event"] == "round"] == list(
+            range(1, 21))
+
+    def test_card_checkpoint_loads_on_the_cpu(self, tmp_path):
+        from repro_torch.fl import Experiment
+        from repro_torch.checkpoint import store
+        spec = _case_i_spec()
+        gpu = Experiment(spec, device="cuda")
+        gpu.run(5)
+        path = gpu.save(str(tmp_path / "ck.msgpack"))
+        cpu = Experiment(spec, device="cpu").load(path)
+        assert cpu.round == 5
+        want = store._flatten_with_paths(gpu._ckpt_tree())
+        got = store._flatten_with_paths(cpu._ckpt_tree())
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (k, a), (_, b) in zip(got, want):
+            if isinstance(b, torch.Tensor):
+                assert a.device.type == "cpu" and b.device.type == "cuda"
+                assert torch.equal(a, b.cpu()), k
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
 
 
 def _attention_inputs(b, h, hkv, sq, skv, d, dtype, seed):
