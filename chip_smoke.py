@@ -123,6 +123,22 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               and K5 and holding one obs_chunk range per chunk; (e)
               ``serve_metrics`` on 127.0.0.1, port 0: round 40 and the
               event count;
+6h. mesh   -- the sharded streaming round (``device_mesh``) emulated on
+              the one card (no process group: the shards in turn, then
+              the fixed fold of their carries): Case I at k_block = 2
+              (10 K-blocks) with device_mesh None, 1 and 5, 20 rounds with
+              eval and 20 warm ones on each driver: device_mesh 1 bitwise
+              None, scan bitwise python, 5 within STREAM_TOL of None and
+              against a CPU run at phase main's tolerance, K2 once a
+              K-block and K5 once a round, warm rounds/s, peak memory,
+              device busy and idle share; the K-scale round with
+              device_mesh None and 4 (25 K-blocks a shard), 3 rounds each,
+              K2 launches, peak memory, A B B A rates, 4 against None and
+              against a CPU run; ``aggregate(kernels, k_block=1000,
+              device_mesh=4)`` at the K-scale shape for normalized and
+              benchmark2 (K2 100 times) against the streamed aggregate
+              and the CPU, and the wall time of a call of each (median of
+              5, host clock to a synchronize);
 7. stream_ota -- ``ota.aggregate(OTAConfig(backend="kernels",
               k_block=1000))`` at the K-scale shape for four schemes, against
               the dense aggregate on the card and the plain route on the
@@ -209,7 +225,11 @@ only phases 1, 2 and 6f, and
 
     python3 chip_smoke.py --obs
 
-only phases 1, 2 and 6g.
+only phases 1, 2 and 6g, and
+
+    python3 chip_smoke.py --mesh
+
+only phases 1, 2 and 6h.
 """
 from __future__ import annotations
 
@@ -2894,6 +2914,296 @@ def phase_obs(ops) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# the FL-device mesh: the sharded streaming round, emulated on one card
+
+MESH_KB = 2                      # Case I: 10 K-blocks of 2 devices
+MESH_CASE_I = (None, 1, 5)       # device_mesh values (5: 2 blocks a shard)
+MESH_KSCALE = (None, 4)          # K-scale: 4 shards of 25 K-blocks
+MESH_PROFILED = 5                # profiled rounds a Case-I value
+MESH_RATE_ROUNDS = 3             # rounds a timed K-scale call (A B B A)
+
+
+def _mesh_run(ops, spec, driver: str):
+    """One Case-I run on the card: 20 rounds with eval, then 20 warm rounds
+    without, timed.  Returns the experiment and its numbers (launches of the
+    40 rounds, the graph's warm-up rounds included, and the peak device
+    memory)."""
+    import dataclasses
+    from repro_torch.fl import Experiment
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    ops.reset_launch_counts()
+    e = Experiment(dataclasses.replace(spec, driver=driver), device="cuda")
+    e.run(ROUNDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.run(ROUNDS, evaluate=False)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    return e, {"warm_rounds_per_s": ROUNDS / warm,
+               "launches": dict(ops.LAUNCH_COUNTS),
+               "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "mem_before_mb": base_mb}
+
+
+def _wall_ms(fn, calls: int = 5) -> float:
+    """Median host-clock ms of one call of ``fn`` ended by a synchronize,
+    over ``calls`` calls after one warm-up call: the time of a long,
+    host-bound call as its caller waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def _mesh_kscale(dm, device: str):
+    import dataclasses
+    cfg, state, grad_fn, provider = kscale_case(device)
+    return (dataclasses.replace(cfg, device_mesh=dm), state, grad_fn,
+            provider)
+
+
+def phase_mesh(ops) -> dict:
+    """The sharded streaming round (``device_mesh``), emulated on one card
+    (one process, no group: the shards in turn, then the fixed fold):
+    Case I at k_block = 2 with device_mesh None, 1 and 5 on both drivers;
+    the K-scale round with device_mesh None and 4; and
+    ``aggregate(kernels, k_block=1000, device_mesh=4)`` at the K-scale
+    shape.  Returns the launches of the path's runs."""
+    import dataclasses
+    from repro_torch.core import ota
+    from repro_torch.fed import runtime
+    from repro_torch.fl import Experiment
+    runtime.clear_compile_caches()
+    t_phase = time.perf_counter()
+    path = {name: 0 for name in ops.LAUNCH_COUNTS}
+
+    def add(launches):
+        for name, n in launches.items():
+            path[name] += n
+
+    out = {"phase": "mesh", "emulated": True, "case_i": {},
+           "kscale": {}, "aggregate": {}}
+    spec = dataclasses.replace(case_i_spec(), k_block=MESH_KB)
+    blocks = K_MAIN // MESH_KB
+    runs = {}
+    for dm in MESH_CASE_I:
+        sdm = dataclasses.replace(spec, device_mesh=dm)
+        row = {}
+        for driver in ("scan", "python"):
+            e, nums = _mesh_run(ops, sdm, driver)
+            add(nums["launches"])
+            runs[dm, driver] = e
+            # the graph's two eager warm-up rounds launch too
+            rounds = 2 * ROUNDS + (runtime.GRAPH_WARMUP_ROUNDS
+                                   if driver == "scan" else 0)
+            nums["launched_rounds"] = rounds
+            nums["k2_per_round"] = nums["launches"]["ota_superpose"] / rounds
+            nums["k5_per_round"] = nums["launches"]["sumsq"] / rounds
+            row[driver] = nums
+            if (nums["launches"]["ota_superpose"] != blocks * rounds
+                    or nums["launches"]["sumsq"] != rounds):
+                emit(out)
+                fail(f"device_mesh {dm} ({driver}): K2 launched "
+                     f"{nums['launches']['ota_superpose']} times and K5 "
+                     f"{nums['launches']['sumsq']} in {rounds} rounds, "
+                     f"expected {blocks} and 1 a round")
+        scan, python = runs[dm, "scan"], runs[dm, "python"]
+        row["scan_vs_python"] = compare_runs(scan.params, scan.history,
+                                             python.params, python.history)
+        ops.reset_launch_counts()
+        row["profile"] = _profiled_round(
+            lambda n: scan.run(n, evaluate=False), MESH_PROFILED)
+        add(dict(ops.LAUNCH_COUNTS))
+        row["profile"]["device_idle_share_of_unprofiled_round"] = (
+            1 - row["profile"]["device_busy_us_per_round"] * 1e-6
+            * row["scan"]["warm_rounds_per_s"])
+        out["case_i"][str(dm)] = row
+    # device_mesh = 1 against None on each driver (the scan runs both took
+    # the profiled rounds too); the python runs stand for both drivers below
+    for driver in ("scan", "python"):
+        one, plain = runs[1, driver], runs[None, driver]
+        out["case_i"][f"1_vs_None_{driver}"] = compare_runs(
+            one.params, one.history, plain.params, plain.history)
+    plain, five = runs[None, "python"], runs[5, "python"]
+    out["case_i"]["5_vs_None"] = {
+        "max_rel_param_diff": _max_rel(five.params, plain.params),
+        "within_tolerance": _stream_close(five.params, plain.params),
+        "tolerance": f"rtol {STREAM_RTOL:g}, atol {STREAM_ATOL:g} (shard "
+                     "partials re-associate the K-way sums)"}
+    cpu = Experiment(dataclasses.replace(spec, device_mesh=5,
+                                         driver="python"), device="cpu")
+    cpu.run(ROUNDS)
+    cpu.run(ROUNDS, evaluate=False)
+    diff = max(float((five.params[k].cpu() - cpu.params[k]).abs().max())
+               for k in cpu.params)
+    out["case_i"]["5_gpu_vs_cpu"] = {
+        "max_abs_param_diff": diff, "within_tolerance": diff <= PARAMS_ATOL,
+        "tolerance": f"|d| <= {PARAMS_ATOL:g} after {2 * ROUNDS} rounds"}
+
+    # the K-scale round: 3 rounds each on a card cleared of the engines
+    # before it (so that each peak is its own), then A B B A timed calls
+    del runs, scan, python, plain, five, cpu
+    states = {}
+    for dm in MESH_KSCALE:
+        runtime.clear_compile_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        cfg, state, grad_fn, provider = _mesh_kscale(dm, "cuda")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, first = runtime.run(cfg, state, grad_fn, None, 1,
+                                   block_batch_provider=provider)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, rest = runtime.run(cfg, state, grad_fn, None,
+                                  STREAM_ROUNDS - 1,
+                                  block_batch_provider=provider)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(ops.LAUNCH_COUNTS)
+        add(launches)
+        rounds = STREAM_ROUNDS + runtime.GRAPH_WARMUP_ROUNDS
+        states[dm] = (cfg, state, grad_fn, provider,
+                      {k: state.params[k].detach().clone()
+                       for k in state.params})
+        hist = {k: first[k] + rest[k] for k in first}
+        out["kscale"][str(dm)] = {
+            "first_round_s": t1 - t0,
+            "rounds_per_s_2_to_3": (STREAM_ROUNDS - 1) / (t2 - t1),
+            "launches": launches,
+            "k2_per_round": launches["ota_superpose"] / rounds,
+            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "mem_before_mb": base_mb,
+            "update_norm": hist["update_norm"]}
+        if launches["ota_superpose"] != (K_SCALE // KB_SCALE) * rounds:
+            emit(out)
+            fail(f"K-scale device_mesh {dm}: K2 launched "
+                 f"{launches['ota_superpose']} times in {rounds} rounds")
+        if not all(math.isfinite(v) for key, vals in hist.items()
+                   if key != "round" for v in vals):
+            fail(f"K-scale device_mesh {dm}: non-finite history")
+    w_plain, w_mesh = (states[dm][4]["w"].cpu() for dm in MESH_KSCALE)
+    scale = float(w_plain.abs().max())
+    d_plain = float((w_mesh - w_plain).abs().max())
+    cfg_c, state_c, grad_c, provider_c = _mesh_kscale(4, "cpu")
+    t3 = time.perf_counter()
+    state_c, _ = runtime.run(cfg_c, state_c, grad_c, None, STREAM_ROUNDS,
+                             block_batch_provider=provider_c)
+    d_cpu = float((w_mesh - state_c.params["w"]).abs().max())
+    out["kscale"]["4_vs_None"] = {
+        "max_abs_param_diff": d_plain, "max_abs_param": scale,
+        "within_tolerance": d_plain <= KSCALE_REL * scale}
+    out["kscale"]["4_gpu_vs_cpu"] = {
+        "max_abs_param_diff": d_cpu, "cpu_s": time.perf_counter() - t3,
+        "within_tolerance": d_cpu <= KSCALE_REL * scale,
+        "tolerance": f"max|d| <= {KSCALE_REL:g} max|w|"}
+
+    def kscale_call(dm) -> float:
+        """MESH_RATE_ROUNDS more rounds of the device_mesh ``dm`` run:
+        rounds/s."""
+        cfg, state, grad_fn, provider, _ = states[dm]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runtime.run(cfg, state, grad_fn, None, MESH_RATE_ROUNDS,
+                    block_batch_provider=provider)
+        torch.cuda.synchronize()
+        add(dict(ops.LAUNCH_COUNTS))
+        return MESH_RATE_ROUNDS / (time.perf_counter() - t0)
+
+    for dm in MESH_KSCALE:           # untimed: their engines were cleared
+        kscale_call(dm)
+    rates = {str(dm): [] for dm in MESH_KSCALE}
+    for dm in (None, 4, 4, None):
+        rates[str(dm)].append(kscale_call(dm))
+    out["kscale"]["rates_abba"] = rates
+    cfg, state, grad_fn, provider, _ = states[4]
+    ops.reset_launch_counts()
+    prof = _profiled_round(
+        lambda n: runtime.run(cfg, state, grad_fn, None, n,
+                              block_batch_provider=provider), 1)
+    add(dict(ops.LAUNCH_COUNTS))
+    prof["device_idle_share_of_unprofiled_round"] = (
+        1 - prof["device_busy_us_per_round"] * 1e-6
+        * statistics.median(rates["4"]))
+    out["kscale"]["4_profile"] = prof
+    del states, state, cfg, grad_fn, provider
+    runtime.clear_compile_caches()
+
+    # aggregate(kernels, k_block=1000, device_mesh=4) at the K-scale shape
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    g = _kscale_stack(gen, K_SCALE, N_SCALE)
+    h = 1e-3 * (torch.rand((K_SCALE,), generator=gen, device="cuda") + 0.5)
+    b = torch.full((K_SCALE,), 5.0 ** 0.5, device="cuda")
+    a = float(1.0 / (h * b).sum())
+    noise = 1e-7 ** 0.5 * torch.randn((N_SCALE,), generator=gen,
+                                      device="cuda")
+    g_cpu = {k: v.cpu() for k, v in g.items()}
+    for s in ("normalized", "benchmark2"):
+        cfg = ota.OTAConfig(scheme=s, a=a, noise_var=1e-7, backend="kernels",
+                            k_block=KB_SCALE, device_mesh=4)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        y = ota.aggregate(cfg, g, h, b, noise=noise)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCH_COUNTS)
+        add(launches)
+        flat = dataclasses.replace(cfg, device_mesh=None)
+        streamed = ota.aggregate(flat, g, h, b, noise=noise)
+        plain = ota.aggregate(cfg, g_cpu, h.cpu(), b.cpu(),
+                              noise=noise.cpu())
+        row = {"launches": launches,
+               "max_rel_diff_vs_streamed": _max_rel(y, streamed),
+               "max_rel_diff_vs_plain": _max_rel(y, plain),
+               "within_tolerance": (_stream_close(y, streamed)
+                                    and _stream_close(y, plain)),
+               "wall_ms": _wall_ms(lambda: ota.aggregate(cfg, g, h, b,
+                                                         noise=noise)),
+               "streamed_wall_ms": _wall_ms(lambda: ota.aggregate(
+                   flat, g, h, b, noise=noise))}
+        out["aggregate"][s] = row
+        if launches["ota_superpose"] != K_SCALE // KB_SCALE:
+            emit(out)
+            fail(f"aggregate(device_mesh=4, {s}): K2 launched "
+                 f"{launches['ota_superpose']} times, expected "
+                 f"{K_SCALE // KB_SCALE}")
+    out["launches"] = path
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    checks = [(f"Case I device_mesh 1 vs None bitwise ({d})",
+               out["case_i"][f"1_vs_None_{d}"]["bitwise"])
+              for d in ("scan", "python")]
+    checks += [("Case I device_mesh 5 vs None",
+                out["case_i"]["5_vs_None"]["within_tolerance"]),
+               ("Case I device_mesh 5 GPU vs CPU",
+                out["case_i"]["5_gpu_vs_cpu"]["within_tolerance"]),
+               ("K-scale device_mesh 4 vs None",
+                out["kscale"]["4_vs_None"]["within_tolerance"]),
+               ("K-scale device_mesh 4 GPU vs CPU",
+                out["kscale"]["4_gpu_vs_cpu"]["within_tolerance"])]
+    checks += [(f"Case I device_mesh {dm} scan vs python bitwise",
+                out["case_i"][str(dm)]["scan_vs_python"]["bitwise"])
+               for dm in MESH_CASE_I]
+    checks += [(f"aggregate device_mesh 4 {s}", row["within_tolerance"])
+               for s, row in out["aggregate"].items()]
+    for what, ok in checks:
+        if not ok:
+            fail(f"phase mesh: {what} failed")
+    return path
+
+
 def phase_rates(src: str) -> None:
     """Warm rounds/s of the Case-I round and of the K-scale round (the
     latter only where the package has the streaming round), RATE_SAMPLES
@@ -2962,6 +3272,8 @@ def main() -> None:
                     help="run only the build and phase clients")
     ap.add_argument("--obs", action="store_true",
                     help="run only the build and phase obs")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run only the build and phase mesh")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -2996,6 +3308,9 @@ def main() -> None:
     if args.obs:
         phase_obs(ops)
         return
+    if args.mesh:
+        phase_mesh(ops)
+        return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)
@@ -3025,13 +3340,15 @@ def main() -> None:
     emit_memory("clients")
     obs_launches = phase_obs(ops)
     emit_memory("obs")
-    # the round's kernels run on four paths: phase main's round, phase
-    # channel's time-varying rounds, phase clients' two-slot rounds and
-    # phase obs's recorded, saved and resumed runs, each read from counts
-    # set to 0 before it
+    mesh_launches = phase_mesh(ops)
+    emit_memory("mesh")
+    # the round's kernels run on five paths: phase main's round, phase
+    # channel's time-varying rounds, phase clients' two-slot rounds, phase
+    # obs's recorded, saved and resumed runs and phase mesh's sharded
+    # rounds and aggregates, each read from counts set to 0 before it
     round_launches = {name: main_launches[name] + channel_launches[name]
                       + client_launches[name] + obs_launches[name]
-                      for name in PATH_KERNELS}
+                      + mesh_launches[name] for name in PATH_KERNELS}
     stream_launches = phase_stream_ota(ops)
     emit_memory("stream_ota")
     checks["flash_attention"] = phase_flash(ops, build)

@@ -1,9 +1,8 @@
 """The paper's core: scheme registry, channel, amplification, OTA aggregate
 and the convergence bounds.
 
-Re-exports the names of ``repro/core/__init__.py`` that the port has (the
-in-round Problem-3 solver under its own name, ``solve_problem3_torch``); the
-per-device norm helpers of ``core/ota.py`` wait for their ROADMAP item."""
+Re-exports the names of ``repro/core/__init__.py`` (the in-round Problem-3
+solver under its own name, ``solve_problem3_torch``)."""
 from repro_torch.core.channel import (ChannelConfig, draw_channel,
                                       channel_for_round, draw_fading_state,
                                       draw_noise, envelope,
@@ -12,7 +11,10 @@ from repro_torch.core.channel import (ChannelConfig, draw_channel,
                                       DEFAULT_THETA_TH)
 from repro_torch.core.ota import (OTAConfig, BACKENDS, aggregate,
                                   apply_update, device_transform, superpose,
-                                  server_post, participation_fold)
+                                  server_post, participation_fold,
+                                  per_device_norm, per_device_sq_norm,
+                                  per_device_mean_std, tree_num_elements,
+                                  transmit_norms, transmit_energy)
 from repro_torch.core.schemes import (Scheme, DeviceStats,
                                       register as register_scheme,
                                       get as get_scheme)

@@ -17,12 +17,20 @@ receiver gain is ``OTAConfig.a``, or ``aggregate(a=)``: a 0-d fp32 tensor on
 the gradients' device, as the FL runtime passes each round's gain (a CUDA
 graph of the round then reads it from device memory).
 
+``mesh``     each rank of a ``torch.distributed`` group of K ranks is one
+             device; the superposition is one all-reduce
+             (``repro_torch.distribution.ota_collectives.aggregate_mesh``).
+
 ``OTAConfig.k_block`` streams the device axis K-block by K-block: the
 kernels backend launches the streamed kernels (``aggregate_kernels``), the
 vmap backend folds the blocks through the carry API below
 (``streaming_carry`` / ``streaming_block`` / ``streaming_finish``), which
-the FL runtime's streaming round also drives.  The ``mesh`` backend and
-``device_mesh`` are not ported yet and raise ``NotImplementedError``.
+the FL runtime's streaming round also drives.  ``OTAConfig.device_mesh = D``
+(on either stacked backend) cuts the blocks into D contiguous shards: each
+shard folds its own blocks from a zero carry, and one fixed left fold
+(``distribution.ota_collectives.fold_shards``) combines the D carries, on
+a group of D ranks (a rank a shard) or, without one, the shards in turn in
+this process, bitwise the same.
 """
 from __future__ import annotations
 
@@ -50,7 +58,12 @@ class OTAConfig:
     noiseless: bool = False              # omit the noise term (ideal channel)
     backend: str = "vmap"
     k_block: Optional[int] = None        # streaming superposition
-    device_mesh: Optional[int] = None    # sharded streaming (not ported)
+    # sharded streaming (needs k_block): the K-blocks cut into this many
+    # contiguous shards, each folded from its own zero carry, the carries
+    # combined by one fixed left fold.  The value fixes the order of the
+    # sums, not a placement: a group of that many ranks and the emulated
+    # single-process path give the same bits.  None keeps the flat fold
+    device_mesh: Optional[int] = None
 
     def __post_init__(self):
         schemes.validate_config(self.scheme, self.grad_bound)
@@ -64,13 +77,23 @@ class OTAConfig:
             if self.backend == "mesh":
                 raise ValueError("the mesh backend's device axis IS the mesh "
                                  "-- k_block streaming applies to the stacked "
-                                 "(vmap/kernels) backends")
-        if self.backend == "mesh":
-            raise NotImplementedError(
-                "the mesh backend is not ported yet: ROADMAP queue 1 item 15")
+                                 "(vmap/kernels) backends; to parallelize a "
+                                 "streamed round over ranks use device_mesh "
+                                 "(the sharded streaming engine)")
         if self.device_mesh is not None:
-            raise NotImplementedError(
-                "device_mesh is not ported yet: ROADMAP queue 1 item 15")
+            if self.device_mesh < 1:
+                raise ValueError(
+                    f"device_mesh must be >= 1, got {self.device_mesh}")
+            if self.k_block is None:
+                raise ValueError(
+                    "device_mesh shards the K-block stream -- set k_block "
+                    "(the dense path has no block axis to partition)")
+
+
+# every OTAConfig field is structural (the sweep batches FLConfig and
+# ChannelConfig fields and derives each round's OTA parameters)
+STRUCTURAL_OTA_FIELDS = ("scheme", "a", "noise_var", "grad_bound",
+                         "noiseless", "backend", "k_block", "device_mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +131,19 @@ def resolve_noise(cfg: OTAConfig, shapes: Dict[str, torch.Size],
     """The round's flat channel noise z [N] on ``device``, or None for a
     noiseless round (``cfg.noiseless``, sigma^2 = 0, or neither a generator
     nor an injected vector).  An injected ``noise`` replaces the draw."""
-    if cfg.noiseless or not schemes.maybe_positive(cfg.noise_var):
+    if cfg.noiseless:
+        return None
+    return channel_noise(cfg.noise_var, shapes, device, generator, noise)
+
+
+def channel_noise(noise_var: float, shapes: Dict[str, torch.Size],
+                  device: torch.device,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None
+                  ) -> Optional[torch.Tensor]:
+    """``resolve_noise`` for a bare sigma^2 (the mesh backend's
+    ``ota_psum``): the flat noise z [N], or None without noise."""
+    if not schemes.maybe_positive(noise_var):
         return None
     if noise is not None:
         n = sum(math.prod(s) for s in shapes.values())
@@ -119,7 +154,38 @@ def resolve_noise(cfg: OTAConfig, shapes: Dict[str, torch.Size],
     if generator is None:
         return None
     zeros = {k: torch.zeros(s, device=device) for k, s in shapes.items()}
-    return ravel(schemes.add_channel_noise(zeros, generator, cfg.noise_var))
+    return ravel(schemes.add_channel_noise(zeros, generator, noise_var))
+
+
+# ---------------------------------------------------------------------------
+# per-device helpers (leading axis = device)
+
+
+def tree_num_elements(tree: Tree) -> int:
+    """Total number of scalar coordinates in one device's gradient (= N)."""
+    return sum(l.numel() // l.shape[0] for l in schemes.leaves(tree))
+
+
+def per_device_sq_norm(stacked: Tree) -> torch.Tensor:
+    """[K] squared global L2 norms, one a device."""
+    return sum(torch.sum(torch.square(l.float()).reshape(l.shape[0], -1),
+                         dim=1) for l in schemes.leaves(stacked))
+
+
+def per_device_norm(stacked: Tree) -> torch.Tensor:
+    return torch.sqrt(per_device_sq_norm(stacked))
+
+
+def per_device_mean_std(stacked: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K] global mean and std over each device's full gradient vector."""
+    ls = schemes.leaves(stacked)
+    n = tree_num_elements(stacked)
+    s1 = sum(torch.sum(l.float().reshape(l.shape[0], -1), dim=1) for l in ls)
+    mean = s1 / n
+    s2 = sum(torch.sum(torch.square(l.float()).reshape(l.shape[0], -1),
+                       dim=1) for l in ls)
+    var = torch.clamp(s2 / n - torch.square(mean), min=0.0)
+    return mean, torch.sqrt(var)
 
 
 # ---------------------------------------------------------------------------
@@ -373,20 +439,55 @@ def _aggregate_streaming(cfg: OTAConfig, stacked_grads: Tree,
                          h: torch.Tensor, b: torch.Tensor,
                          noise: Optional[torch.Tensor],
                          h_hat: torch.Tensor, a, grad_bound=None) -> Tree:
-    """The K-blocked aggregation behind ``aggregate`` (vmap backend): the
-    stacked tree is cut into [k_block, ...] blocks, folded in order through
-    the carry API."""
+    """The K-blocked aggregation behind ``aggregate`` (the vmap backend, and
+    either stacked backend under ``device_mesh``): the stacked tree is cut
+    into [k_block, ...] blocks, folded in order through the carry API.
+
+    With ``cfg.device_mesh = D`` the nb blocks are cut further into D
+    contiguous runs of nb/D: each shard folds its own run from a zero
+    carry, and the D carries combine through ``fold_shards`` (every carry
+    field is a sum).  On a group of D ranks each rank folds only its own run
+    and the carries are gathered; otherwise the shards run one after
+    another here and are stacked.  Both paths run the same per-shard fold at
+    the same shapes and the same combine, so they give the same bits."""
     first = stacked_grads[sorted(stacked_grads)[0]]
     k = first.shape[0]
     kb = k_block_size(k, cfg.k_block)
+    nb = k // kb
     template = _device_template(stacked_grads)
     hb_air = (h * b).float()
     hb_srv = (h_hat * b).float()
-    carry = streaming_carry(cfg, template)
-    for lo in range(0, k, kb):
-        blk = {name: l[lo:lo + kb] for name, l in stacked_grads.items()}
-        carry = streaming_block(cfg, carry, blk, hb_air[lo:lo + kb],
-                                hb_srv[lo:lo + kb], grad_bound=grad_bound)
+
+    def fold(lo_block: int, hi_block: int) -> dict:
+        """One shard's left fold over the blocks [lo_block, hi_block)."""
+        carry = streaming_carry(cfg, template)
+        for j in range(lo_block, hi_block):
+            blk = slice(j * kb, (j + 1) * kb)
+            block = {name: l[blk] for name, l in stacked_grads.items()}
+            carry = streaming_block(cfg, carry, block, hb_air[blk],
+                                    hb_srv[blk], grad_bound=grad_bound)
+        return carry
+
+    d = cfg.device_mesh
+    if d is not None and d > 1:
+        from repro_torch.distribution import ota_collectives as coll
+        from repro_torch.distribution import sharding
+        if nb % d != 0:
+            raise ValueError(
+                f"device_mesh {d} must divide the block count {nb} "
+                f"(= K {k} / k_block {kb}) -- pick a k_block so that "
+                "K / k_block is a multiple of the mesh size")
+        per = nb // d
+        mesh = sharding.device_mesh(d)
+        if mesh is None:
+            stacked = coll.stack_shards([fold(s * per, (s + 1) * per)
+                                         for s in range(d)])
+        else:
+            stacked = coll.gather_shards(
+                fold(mesh.rank * per, (mesh.rank + 1) * per), mesh.group)
+        carry = coll.fold_shards(stacked)
+    else:
+        carry = fold(0, nb)
     return streaming_finish(cfg, carry, template, a, noise,
                             num_devices=float(k))
 
@@ -406,28 +507,37 @@ def aggregate(cfg: OTAConfig, stacked_grads: Tree, h: torch.Tensor,
 
     ``cfg.k_block`` streams the device axis: the kernels backend launches
     the streamed kernels, the vmap backend folds the carry API over the
-    blocks."""
+    blocks.  ``cfg.device_mesh > 1`` (either stacked backend) folds the
+    carry API shard by shard (on the kernels backend one superposition
+    launch a K-block of a shard) and combines the shards' carries with one
+    fixed fold.  The ``mesh`` backend runs ``aggregate_mesh`` on a group of
+    K ranks, one rank a device."""
     if h_hat is None:
         h_hat = h
     if a is None:
         a = cfg.a
     if grad_bound is None:
         grad_bound = cfg.grad_bound
+    if cfg.backend == "mesh":
+        from repro_torch.distribution.ota_collectives import aggregate_mesh
+        return aggregate_mesh(cfg, stacked_grads, h, b, generator, h_hat,
+                              noise=noise, a=a, grad_bound=grad_bound)
     sch = schemes.get(cfg.scheme)
-    streamed = cfg.k_block is not None and cfg.backend == "vmap"
+    sharded = cfg.device_mesh is not None and cfg.device_mesh > 1
+    streamed = cfg.k_block is not None and (cfg.backend == "vmap" or sharded)
     if sch.baseline and not streamed:
         return schemes.tree_map(lambda l: torch.mean(l, dim=0), stacked_grads)
     first = stacked_grads[sorted(stacked_grads)[0]]
     z = None if sch.baseline else resolve_noise(
         cfg, device_template(stacked_grads), first.device, generator, noise)
+    if streamed:
+        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat, a,
+                                    grad_bound)
     if cfg.backend == "kernels":
         from repro_torch.fed.kernel_path import aggregate_kernels
         return aggregate_kernels(cfg, stacked_grads, h, b, z, h_hat=h_hat,
                                  k_block=cfg.k_block, a=a,
                                  grad_bound=grad_bound)
-    if streamed:
-        return _aggregate_streaming(cfg, stacked_grads, h, b, z, h_hat, a,
-                                    grad_bound)
     x, side = device_transform(cfg.scheme, stacked_grads, grad_bound)
     y = superpose(x, h, b, a, z)
     return server_post(cfg.scheme, y, side, h_hat, b)
@@ -444,8 +554,9 @@ def apply_update(params: Tree, y: Tree, eta) -> Tree:
 
 
 def participation_fold(h: torch.Tensor, b: torch.Tensor, a,
-                       mask: torch.Tensor) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+                       mask: torch.Tensor,
+                       sum_fn=torch.sum) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
     """Fold a round's 0/1 participation mask into the channel parameters.
 
     A device that sits the round out transmits nothing, which on every
@@ -453,13 +564,39 @@ def participation_fold(h: torch.Tensor, b: torch.Tensor, a,
     rescales its receiver gain to hold the effective gain
     ``a * sum_k h_k b_k`` at the full-cohort design value (pass the CSI
     estimate for ``h``: this is a server computation).  If nobody
-    participates the gain is zeroed.  Returns ``(b_eff, a_eff)``, the
-    latter a 0-d fp32 tensor."""
+    participates the gain is zeroed.  ``sum_fn`` is the K-way sum of the
+    gain folds (``torch.sum``; the sharded round passes ``pinned_sum``, as
+    the reference does).  Returns ``(b_eff, a_eff)``, the latter a 0-d fp32
+    tensor."""
     mask = mask.float()
     b_eff = b * mask
-    hb_full = torch.sum(h * b)
-    hb_eff = torch.sum(h * b_eff)
+    hb_full = sum_fn(h * b)
+    hb_eff = sum_fn(h * b_eff)
     a_eff = torch.where(hb_eff > schemes.EPS * torch.clamp(hb_full, min=1.0),
                         a * hb_full / torch.clamp(hb_eff, min=schemes.EPS),
                         torch.zeros_like(hb_eff))
     return b_eff, a_eff.float()
+
+
+# ---------------------------------------------------------------------------
+# power accounting
+
+
+def transmit_norms(scheme: str, stacked_grads: Tree,
+                   grad_bound: Optional[float] = None) -> torch.Tensor:
+    """[K] transmit-signal norms ||x_k||: exactly 1 for ``normalized``,
+    ||g_k|| / G <= 1 for ``benchmark1``, sqrt(N) for ``benchmark2``."""
+    x, _ = device_transform(scheme, stacked_grads, grad_bound)
+    return per_device_norm(x)
+
+
+def transmit_energy(scheme: str, stacked_grads: Tree, b: torch.Tensor,
+                    grad_bound: Optional[float] = None,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[K] per-round transmit energies b_k^2 ||x_k||^2 (the paper's eq. 8
+    budget), from each scheme's analytic ``transmit_sq_norm`` (no second
+    pass over the gradients); ``mask`` zeroes the energy of devices that sat
+    the round out."""
+    sch = schemes.get(scheme)
+    stats = schemes.compute_stats(stacked_grads, sch, batched=True)
+    return schemes.transmit_energy(sch, stats, b, grad_bound, mask)

@@ -177,20 +177,35 @@ def _bcast(v, leaf: torch.Tensor, batched: bool) -> torch.Tensor:
 
 
 def transform(scheme: Scheme, tree: Tree, stats: DeviceStats,
-              grad_bound: Optional[float] = None, *, batched: bool) -> Tree:
-    """Apply ``x_k = (pre(g_k) + shift_k) * scale_k`` over a gradient tree
-    (each leaf keeps its dtype)."""
+              grad_bound: Optional[float] = None, *, batched: bool,
+              extra_scale=None, out_dtype: Optional[torch.dtype] = None
+              ) -> Tree:
+    """Apply ``x_k = (pre(g_k) + shift_k) * scale_k`` over a gradient tree.
+
+    ``extra_scale`` is one more per-device factor folded into the scale:
+    the mesh backend passes ``h_k b_k``, so that its one all-reduce IS the
+    over-the-air superposition.  ``out_dtype=None`` keeps each leaf's dtype
+    (the stacked backends); the mesh backend passes fp32."""
     pre = PRE_TRANSFORMS[scheme.pre]
     if scheme.per_tensor:
         scales = scheme.tensor_scale(stats, grad_bound)
-        return {name: pre(tree[name].float()) * _bcast(s, tree[name], batched)
-                for name, s in zip(sorted(tree), scales)}
+        out = {}
+        for name, s in zip(sorted(tree), scales):
+            if extra_scale is not None:
+                s = s * extra_scale
+            out[name] = pre(tree[name].float()) * _bcast(s, tree[name],
+                                                         batched)
+        return out
 
     scale = scheme.device_scale(stats, grad_bound)
+    if extra_scale is not None:
+        scale = scale * extra_scale
     shift = (scheme.device_shift(stats, grad_bound)
              if scheme.device_shift is not None else None)
 
     def one(l):
+        if out_dtype is not None:
+            l = l.to(out_dtype)
         x = pre(l)
         if shift is not None:
             x = x + _bcast(shift, l, batched).to(l.dtype)

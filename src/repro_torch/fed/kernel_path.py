@@ -111,3 +111,22 @@ def aggregate_kernels(cfg, stacked_grads: Tree, h: torch.Tensor,
                                                h_hat, b)
         y = sch.server_post(y, folded)
     return y
+
+
+def aggregate_normalized_kernels(stacked_grads: Tree, h: torch.Tensor,
+                                 b: torch.Tensor, a,
+                                 generator: Optional[torch.Generator] = None,
+                                 noise_var: float = 0.0, *,
+                                 noise: Optional[torch.Tensor] = None
+                                 ) -> Tree:
+    """The pre-registry entry point for the ``normalized`` scheme alone:
+    ``aggregate_kernels`` on ``OTAConfig(scheme="normalized", a=a,
+    noise_var=noise_var, backend="kernels")``, the noise drawn from the CPU
+    ``generator`` or injected as the flat ``noise`` [N]."""
+    from repro_torch.core.ota import OTAConfig, resolve_noise
+    cfg = OTAConfig(scheme="normalized", a=a, noise_var=noise_var,
+                    backend="kernels")
+    first = stacked_grads[sorted(stacked_grads)[0]]
+    z = resolve_noise(cfg, device_template(stacked_grads), first.device,
+                      generator, noise)
+    return aggregate_kernels(cfg, stacked_grads, h, b, z)

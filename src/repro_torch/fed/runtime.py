@@ -17,7 +17,18 @@ Two rounds:
   are computed and folded into the OTA accumulator ``k_block`` devices at a
   time through ``core.ota``'s carry API, so the [K, ...] gradient stack
   never exists; with ``run(block_batch_provider=)`` neither does a [K, ...]
-  batch stack (the 100,000-device path).
+  batch stack (the 100,000-device path).  ``device_mesh = D`` cuts its
+  blocks into D contiguous shards, each folded from a zero carry, and
+  combines the shards' carries with one fixed left fold
+  (``_combine_shard_carries``, ``distribution.ota_collectives.
+  fold_shards``): on a group of D ranks (``distribution.sharding.
+  device_mesh``) each rank folds its own shard and the carries are
+  gathered, else the shards run in turn in one process; both give the same
+  bits, so a checkpoint moves between the two.
+
+The ``mesh`` backend runs the dense round on a group of K ranks, one rank
+an FL device: ``core.ota.aggregate`` -> ``distribution.ota_collectives.
+aggregate_mesh``, whose one all-reduce is the superposition.
 
 Each round is split in two.  The host work (``_stage``) draws a chunk of
 rounds' inputs on the CPU generators: the channel noise, the participation
@@ -75,8 +86,10 @@ and the eval events, built on the host after ``engine.rows()`` has copied
 the chunk's history back; ``RoundBody``, the staged inputs and the
 captured graph never see it, so recorder on or off gives the same bits.
 
-Config values of unported paths raise ``NotImplementedError`` naming their
-ROADMAP item: ``device_mesh`` and the ``mesh`` backend.
+A round that holds a collective (a physical ``device_mesh`` group, or the
+``mesh`` backend) cannot be captured in a CUDA graph under ``gloo``, so the
+scan driver runs it eagerly on the card too (``_EagerChunks``, counted as
+``cache_info()["eager_on_card"]``); the bits are the python driver's.
 
 Random streams (``repro_torch.rng``): the setup's channel draw uses
 ``rng.generator(cfg.seed)``, round t's channel ``rng.generator(cfg.seed + 2,
@@ -142,6 +155,9 @@ ENGINE_CACHE_SIZE = int(os.environ.get("REPRO_ENGINE_CACHE_SIZE", "64"))
 TRACE_KINDS = ("round_step", "run_chunk", "run_chunk_batched",
                "fading_refresh")
 TRACE_COUNTS: collections.Counter = collections.Counter()
+# scan-driver engines built eagerly on a CUDA device because their round
+# runs a collective (a physical device_mesh group, or the mesh backend)
+EAGER_ON_CARD: collections.Counter = collections.Counter()
 # per-kind counts at the last cache_info() call, for the delta report
 _TRACE_SNAPSHOT: Dict[str, int] = {}
 
@@ -163,8 +179,10 @@ def cache_info() -> Dict[str, Any]:
     """The engine caches: per-builder ``lru_cache`` statistics, cumulative
     counts (``TRACE_COUNTS``, keyed by ``TRACE_KINDS``) and
     ``traces_delta``, the counts since the previous ``cache_info()`` call
-    (reset by ``clear_compile_caches``).  A second identical ``run`` adds
-    no capture: its ``traces_delta`` is all 0."""
+    (reset by ``clear_compile_caches``), and ``eager_on_card``, the scan
+    engines that run eagerly on a card because their round holds a
+    collective.  A second identical ``run`` adds no capture: its
+    ``traces_delta`` is all 0."""
     delta = trace_deltas(_TRACE_SNAPSHOT)
     _TRACE_SNAPSHOT.update({k: int(TRACE_COUNTS[k]) for k in TRACE_KINDS})
     return {
@@ -173,6 +191,7 @@ def cache_info() -> Dict[str, Any]:
                      for name, fn in _CACHED_BUILDERS.items()},
         "traces": dict(TRACE_COUNTS),
         "traces_delta": delta,
+        "eager_on_card": int(EAGER_ON_CARD["run_chunk"]),
     }
 
 
@@ -182,6 +201,7 @@ def clear_compile_caches() -> None:
     for fn in _CACHED_BUILDERS.values():
         fn.cache_clear()
     TRACE_COUNTS.clear()
+    EAGER_ON_CARD.clear()
     _TRACE_SNAPSHOT.clear()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
@@ -266,7 +286,12 @@ class FLConfig:
     # --- K-scale axes -------------------------------------------------------
     k_block: Optional[int] = None        # the streaming round
     active_gather: bool = False          # fixed-mode active-set gather
-    device_mesh: Optional[int] = None    # not ported
+    # the sharded streaming round (needs k_block): the round's K-blocks in
+    # this many contiguous shards, each folded from a zero carry, then one
+    # fixed left fold of the shards' carries.  The value fixes the order of
+    # the sums, not a placement: a group of that many ranks and the
+    # emulated single-process path give the same bits
+    device_mesh: Optional[int] = None
     # --- client-algorithm axis (repro_torch.fl.clients) ---------------------
     client: ClientConfig = None
 
@@ -328,18 +353,27 @@ class FLConfig:
                     f"k_block {self.k_block} must divide the streamed device "
                     f"axis ({s} = "
                     f"{'the active set' if self.active_gather else 'num_devices'})")
-        if self.device_mesh is not None and self.device_mesh < 1:
-            raise ValueError(
-                f"device_mesh must be >= 1, got {self.device_mesh}")
-        unported = (
-            (self.backend == "mesh",
-             "the mesh backend", "queue 1 item 15"),
-            (self.device_mesh is not None, "device_mesh", "queue 1 item 15"),
-        )
-        for hit, what, item in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported yet: ROADMAP {item}")
+        if self.device_mesh is not None:
+            if self.device_mesh < 1:
+                raise ValueError(
+                    f"device_mesh must be >= 1, got {self.device_mesh}")
+            if self.k_block is None:
+                raise ValueError(
+                    "device_mesh shards the K-block stream -- set k_block "
+                    "(the dense round has no block axis to partition)")
+            s = self.stream_length()
+            nb = s // min(self.k_block, s)
+            if nb % self.device_mesh != 0:
+                raise ValueError(
+                    f"device_mesh {self.device_mesh} must divide the "
+                    f"stream's block count {nb} (= streamed axis {s} / "
+                    f"k_block {min(self.k_block, s)}) -- pick a k_block so "
+                    "the block count is a multiple of the mesh size")
+
+    def sharded(self) -> bool:
+        """Whether the streaming round is cut into shards (device_mesh
+        > 1)."""
+        return self.device_mesh is not None and self.device_mesh > 1
 
     def stream_length(self) -> int:
         """Length of the streamed device axis: the fixed active-set size
@@ -694,13 +728,14 @@ def _client_block(cfg: FLConfig, cp, rows, srv_state: Tree, g: Tree,
 
 def _track_server(alg: clients.ClientAlgorithm, cp, srv_state: Tree,
                   y2: Tree, r: RoundInputs, h_hat: torch.Tensor,
-                  k: int) -> Tree:
+                  k: int, ksum=torch.sum) -> Tree:
     """The server's state step from the slot-2 aggregate: ``y2`` de-gained
     by ``a_eff sum h_hat b_eff`` (clamped at EPS) is about the participant
     mean of the transmitted states, tracked with ``frac = m / K``.  An
     empty round has ``a_eff = 0``, a finite ``y2 = 0`` and ``frac = 0``:
-    the state holds."""
-    gain = r.a_eff * torch.sum(h_hat * r.b_eff)
+    the state holds.  ``ksum`` is the K-way sum (``ota.pinned_sum`` in the
+    sharded round, as the reference)."""
+    gain = r.a_eff * ksum(h_hat * r.b_eff)
     y2_hat = schemes.tree_map(
         lambda l: l / torch.clamp(gain, min=schemes.EPS), y2)
     return alg.apply_variate(cp, srv_state, y2_hat, r.participants / k)
@@ -802,6 +837,19 @@ def _round_math(cfg: FLConfig, sch: schemes.Scheme, opt: optim.Optimizer,
                        h_hat) + (cstate,)
 
 
+def _combine_shard_carries(stacked: tuple) -> tuple:
+    """Close the sharded streaming round: fold the D stacked per-shard
+    carries ``(ota_carry, norm_sum, norm_min, norm_max, tx_sum[,
+    ota_carry_2])`` into one, each field through ``fold_shards`` with its
+    own op (the sums with add, the diagnostics with min and max): the one
+    combine both execution paths share."""
+    from repro_torch.distribution import ota_collectives as coll
+    ops_ = (torch.add, torch.add, torch.minimum, torch.maximum, torch.add,
+            torch.add)
+    return tuple(coll.fold_shards(part, op)
+                 for part, op in zip(stacked, ops_))
+
+
 def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
                           opt: optim.Optimizer, grad_fn: GradFn,
                           ocfg: ota.OTAConfig, params: Tree, opt_state,
@@ -811,7 +859,8 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
                           block_batch_fn: Optional[Callable] = None,
                           cstate=None,
                           cp: clients.ClientParams = clients.ClientParams(),
-                          ocfg2: Optional[ota.OTAConfig] = None):
+                          ocfg2: Optional[ota.OTAConfig] = None,
+                          mesh=None):
     """The flat-memory round (``cfg.k_block``): each device's local
     computation (``_local_transmit``, H local steps included) is made and
     folded into the OTA accumulator ``k_block`` devices at a time through
@@ -830,7 +879,16 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
     beside slot 1's, block by block, closed with its own noise.  Arguments
     and result are ``_round_math``'s.  Versus the dense round every
     per-device term is the same; the K-way sums associate K-block by
-    K-block, and the channel noise is the same draw."""
+    K-block, and the channel noise is the same draw.
+
+    ``cfg.device_mesh = D > 1`` cuts the nb blocks into D contiguous runs:
+    each shard folds its run from the zero carry, and
+    ``_combine_shard_carries`` closes the round; the refreshed client-state
+    rows come back in the flat block order.  ``mesh`` (a
+    ``distribution.sharding.DeviceMesh`` of D ranks) runs only this rank's
+    shard and gathers the carries and rows over the group; None runs every
+    shard here in turn.  The carries' values are the same either way, and
+    everything after the combine is replicated."""
     if h_hat is None:
         h_hat = h
     device = h.device
@@ -865,42 +923,76 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         w = r.weights if not cfg.active_gather else r.weights[idx]
     template = {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
                 for k, p in sorted(params.items())}
-    oc = ota.streaming_carry(ocfg, template)
     two_slot = alg.num_slots == 2
-    if two_slot:
-        oc2 = ota.streaming_carry(ocfg2, template)
-    new_rows = []
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    nsum, txsum = zero, zero
-    nmin = torch.full((), float("inf"), device=device)
-    nmax = torch.full((), float("-inf"), device=device)
-    for lo in range(0, s, kb):
-        blk = slice(lo, lo + kb)
-        bat = (_map_batch(lambda l: l[blk], batch) if batch is not None
-               else block_batch_fn(r.t, dev[blk]))
-        rows = (None if dev_str is None else
-                {n: l[blk] for n, l in dev_str.items()})
-        g_blk = transmit(bat, rows)
-        stats = schemes.compute_stats(g_blk, sch, batched=True)
-        norms = torch.sqrt(stats.sq_norm)
-        mask_blk = None if block_mask is None else block_mask[blk]
-        tx = schemes.transmit_energy(sch, stats, b_air[blk], gb, mask_blk)
-        oc = ota.streaming_block(ocfg, oc, g_blk, ha[blk], hs[blk],
-                                 stats=stats, grad_bound=gb,
-                                 baseline_weights=w[blk] if weighted else None)
-        txsum = txsum + torch.sum(tx)
-        nsum = nsum + torch.sum(norms)
-        nmin = torch.minimum(nmin, torch.min(norms))
-        nmax = torch.maximum(nmax, torch.max(norms))
-        if alg.stateful:
-            kept, x2_blk, stats2, tx2 = _client_block(
-                cfg, cp, rows, srv_state, g_blk, b_air[blk], gb, mask_blk)
-            new_rows.append(kept)
-            if two_slot:
-                oc2 = ota.streaming_block(ocfg2, oc2, x2_blk, ha[blk],
-                                          hs[blk], stats=stats2,
-                                          grad_bound=gb)
-                txsum = txsum + torch.sum(tx2)
+
+    def fold(lo_block: int, hi_block: int):
+        """The left fold of the blocks [lo_block, hi_block) from the zero
+        carry: ``(carry, rows)``, rows the blocks' refreshed client-state
+        rows of a stateful algorithm."""
+        oc = ota.streaming_carry(ocfg, template)
+        oc2 = ota.streaming_carry(ocfg2, template) if two_slot else None
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        nsum, txsum = zero, zero
+        nmin = torch.full((), float("inf"), device=device)
+        nmax = torch.full((), float("-inf"), device=device)
+        rows_out = []
+        for j in range(lo_block, hi_block):
+            blk = slice(j * kb, (j + 1) * kb)
+            bat = (_map_batch(lambda l: l[blk], batch) if batch is not None
+                   else block_batch_fn(r.t, dev[blk]))
+            rows = (None if dev_str is None else
+                    {n: l[blk] for n, l in dev_str.items()})
+            g_blk = transmit(bat, rows)
+            stats = schemes.compute_stats(g_blk, sch, batched=True)
+            norms = torch.sqrt(stats.sq_norm)
+            mask_blk = None if block_mask is None else block_mask[blk]
+            tx = schemes.transmit_energy(sch, stats, b_air[blk], gb,
+                                         mask_blk)
+            oc = ota.streaming_block(
+                ocfg, oc, g_blk, ha[blk], hs[blk], stats=stats,
+                grad_bound=gb, baseline_weights=w[blk] if weighted else None)
+            txsum = txsum + torch.sum(tx)
+            nsum = nsum + torch.sum(norms)
+            nmin = torch.minimum(nmin, torch.min(norms))
+            nmax = torch.maximum(nmax, torch.max(norms))
+            if alg.stateful:
+                kept, x2_blk, stats2, tx2 = _client_block(
+                    cfg, cp, rows, srv_state, g_blk, b_air[blk], gb,
+                    mask_blk)
+                rows_out.append(kept)
+                if two_slot:
+                    oc2 = ota.streaming_block(ocfg2, oc2, x2_blk, ha[blk],
+                                              hs[blk], stats=stats2,
+                                              grad_bound=gb)
+                    txsum = txsum + torch.sum(tx2)
+        carry = (oc, nsum, nmin, nmax, txsum) + ((oc2,) if two_slot else ())
+        return carry, rows_out
+
+    nb = s // kb
+    ksum = torch.sum
+    if not cfg.sharded():
+        carry, new_rows = fold(0, nb)
+    else:
+        from repro_torch.distribution import ota_collectives as coll
+        ksum = ota.pinned_sum
+        per = nb // cfg.device_mesh
+        if mesh is None:
+            parts = [fold(d * per, (d + 1) * per)
+                     for d in range(cfg.device_mesh)]
+            stacked = coll.stack_shards([c for c, _ in parts])
+            new_rows = [rows for _, rs in parts for rows in rs]
+        else:
+            local, rows = fold(mesh.rank * per, (mesh.rank + 1) * per)
+            stacked = coll.gather_shards(local, mesh.group)
+            new_rows = []
+            if alg.has_state:
+                # the shards' rows, gathered in rank order: the flat
+                # block order
+                mine = {n: torch.cat([b[n] for b in rows]) for n in dev_state}
+                new_rows = [{n: l.reshape((s,) + l.shape[2:]) for n, l in
+                             coll.gather_shards(mine, mesh.group).items()}]
+        carry = _combine_shard_carries(stacked)
+    oc, nsum, nmin, nmax, txsum = carry[:5]
     y = ota.streaming_finish(ocfg, oc, template, r.a_eff, r.noise,
                              num_devices=1.0 if weighted else float(s))
     if alg.stateful:
@@ -910,10 +1002,10 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
                 n: torch.cat([b[n] for b in new_rows]) for n in dev_state})
         srv_new = srv_state
         if two_slot:
-            y2 = ota.streaming_finish(ocfg2, oc2, template, r.a_eff,
+            y2 = ota.streaming_finish(ocfg2, carry[5], template, r.a_eff,
                                       r.noise2, num_devices=float(s))
             srv_new = _track_server(alg, cp, srv_state, y2, r, h_hat,
-                                    cfg.num_devices)
+                                    cfg.num_devices, ksum)
         cstate = {"dev": dev_new, "srv": srv_new}
     diag_core = {
         "grad_norm_mean": nsum / s,
@@ -922,7 +1014,7 @@ def _round_math_streaming(cfg: FLConfig, sch: schemes.Scheme,
         "tx_energy": txsum,
     }
     return _round_tail(sch, opt, params, opt_state, y, r, diag_core, h,
-                       h_hat) + (cstate,)
+                       h_hat, ksum) + (cstate,)
 
 
 def _keep_if(empty: torch.Tensor, old, new):
@@ -936,12 +1028,14 @@ def _keep_if(empty: torch.Tensor, old, new):
 
 
 def _round_tail(sch, opt, params, opt_state, y, r: RoundInputs, diag_core,
-                h, h_hat):
+                h, h_hat, ksum=torch.sum):
     """Post-aggregation tail shared by the dense and streaming rounds:
     empty-round gating, the server-optimizer step and the ``DIAG_KEYS``
     assembly.  A round in which nobody participates (possible under
     ``bernoulli`` draws) applies no update: params and the optimizer state
-    stay as they were, selected on the device by the round's flag."""
+    stay as they were, selected on the device by the round's flag.
+    ``ksum`` is the K-way sum of the gain diagnostic (``ota.pinned_sum`` in
+    the sharded round, as the reference)."""
     if r.empty is not None:
         y = schemes.tree_map(lambda l: torch.where(r.empty, l * 0.0, l), y)
     new_params, new_opt_state = opt.update(y, opt_state, params, lr=r.eta)
@@ -954,8 +1048,8 @@ def _round_tail(sch, opt, params, opt_state, y, r: RoundInputs, diag_core,
     else:
         # relative effective-gain misalignment, through the DIFFERENCE
         # (h - h_hat) so equal estimates give a hard 0
-        designed = r.a_eff * torch.sum(h_hat * r.b_eff)
-        gap = r.a_eff * torch.sum((h - h_hat) * r.b_eff)
+        designed = r.a_eff * ksum(h_hat * r.b_eff)
+        gap = r.a_eff * ksum((h - h_hat) * r.b_eff)
         csi_gain_err = (gap / torch.clamp(torch.abs(designed),
                                           min=schemes.EPS)).float()
     diag = {
@@ -1001,7 +1095,12 @@ class RoundBody:
     ``noisy`` says whether the staged chunks carry channel noise (default:
     ``_noisy([cfg])``; a batched run passes its group's gate), so the body
     of ``structural_config(cfg)`` is the body of ``cfg``: grad_bound, mu
-    and alpha come from the lane, in device memory."""
+    and alpha come from the lane, in device memory.
+
+    ``mesh`` is the sharded round's group of ``device_mesh`` ranks, taken
+    when the body is built (``distribution.sharding.device_mesh``; None:
+    the emulated shards), and ``collective`` says whether a round runs a
+    collective (that group, or the ``mesh`` backend's K ranks)."""
 
     def __init__(self, cfg: FLConfig, grad_fn: GradFn,
                  block_batch_fn: Optional[Callable] = None, *,
@@ -1026,6 +1125,11 @@ class RoundBody:
         if clients.get(cfg.client.algo).num_slots == 2:
             self.ocfg2 = dataclasses.replace(
                 self.ocfg, scheme=cfg.client.variate_scheme)
+        self.mesh = None
+        if cfg.sharded():
+            from repro_torch.distribution import sharding
+            self.mesh = sharding.device_mesh(cfg.device_mesh)
+        self.collective = self.mesh is not None or cfg.backend == "mesh"
 
     def __call__(self, lane: Lane, staged: RoundInputs,
                  cursor: torch.Tensor, hist: torch.Tensor):
@@ -1037,7 +1141,7 @@ class RoundBody:
         if self.cfg.k_block is not None:
             params, opt_state, diag, cstate = _round_math_streaming(
                 *args, h_hat=h_hat, block_batch_fn=self.block_batch_fn,
-                **client)
+                mesh=self.mesh, **client)
         else:
             params, opt_state, diag, cstate = _round_math(
                 *args, h_hat=h_hat, **client)
@@ -1174,7 +1278,11 @@ def _refresh(lanes: Sequence[_LaneHost], ts: Sequence[int],
     else:
         b = b_max[:, None].expand(h.shape).contiguous()
     eff = torch.stack([lane.eff_gain for lane in lanes]).repeat(rounds)
-    a = eff / torch.sum(h_hat * b, dim=1)
+    if cfg0.sharded():
+        # the sharded round's gain sums are pinned, as the reference's
+        a = eff / torch.stack([ota.pinned_sum(v) for v in h_hat * b])
+    else:
+        a = eff / torch.sum(h_hat * b, dim=1)
     h, h_hat, b = (v.reshape(rounds, num, k) for v in (h, h_hat, b))
     a = a.reshape(rounds, num)
     for e, lane in enumerate(lanes):
@@ -1230,6 +1338,7 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
             participants=torch.full((rounds, num), float(k)), noise=noise,
             noise2=noise2, **chan_in)
     fields = collections.defaultdict(list)
+    ksum = ota.pinned_sum if cfg0.sharded() else torch.sum
     for i, s in enumerate(ts):
         for e, lane in enumerate(lanes):
             cfg = lane.cfg
@@ -1240,7 +1349,7 @@ def _stage(lanes: Sequence[_LaneHost], sch: schemes.Scheme,
                 raise ValueError(f"round {s}'s mask has shape "
                                  f"{tuple(mask.shape)}, expected ({k},)")
             b_eff, a_eff = ota.participation_fold(h_hat[i, e], b[i, e],
-                                                  a[i, e], mask)
+                                                  a[i, e], mask, ksum)
             count = float(mask.sum())
             fields["a_eff"].append(a_eff)
             fields["b_eff"].append(b_eff)
@@ -1510,10 +1619,14 @@ def _make_run_chunk(cfg: FLConfig, grad_fn: GradFn, block_batch_fn,
     """The scan driver's engine, cached on (cfg, grad_fn, block_batch_fn,
     device, chunk_size, the batch's leaf shapes and types): on a CUDA
     device one CUDA graph of the round, captured at the first chunk; on
-    the CPU the same body run eagerly."""
+    the CPU the same body run eagerly.  A round that runs a collective
+    (``RoundBody.collective``) runs eagerly on the card too, counted in
+    ``EAGER_ON_CARD``: a ``gloo`` collective cannot be captured."""
     body = RoundBody(cfg, grad_fn, block_batch_fn)
     if device.type == "cuda":
-        return _GraphChunks(body, device, chunk_size)
+        if not body.collective:
+            return _GraphChunks(body, device, chunk_size)
+        EAGER_ON_CARD["run_chunk"] += 1
     return _EagerChunks(body)
 
 
@@ -1936,9 +2049,11 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
         raise ValueError("the mesh backend reserves the device axis for the "
                          "FL devices; run mesh experiments sequentially")
     if cfg0.device_mesh is not None:
-        raise ValueError("device_mesh owns the local devices for the "
-                         "FL-device axis; run device_mesh experiments "
-                         "sequentially")
+        raise ValueError(
+            "device_mesh (the sharded streaming engine) owns the ranks for "
+            "the FL-device axis -- a batched run cannot also spread its "
+            "experiment axis over them; run device_mesh experiments "
+            "sequentially (repro_torch.fl.sweep falls back automatically)")
     sig = structural_config(cfg0)
     for c in cfgs[1:]:
         if structural_config(c) != sig:

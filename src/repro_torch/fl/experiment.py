@@ -49,7 +49,12 @@ class Experiment:
     ``history`` accumulates every per-round diagnostic and eval metric
     across ``run()`` calls; ``save()``/``load()`` checkpoint the whole
     resumable state (params, server optimizer, channel, client state and
-    round)."""
+    round).
+
+    A checkpoint carries no placement: the spec's ``device_mesh`` fixes the
+    round's order of sums, not where it runs, so a run saved on a group of
+    D ranks resumes with the same bits in one process (the emulated
+    shards), and the other way round (see ``FLConfig.device_mesh``)."""
 
     def __init__(self, spec: ExperimentSpec, task: Optional[Task] = None,
                  device="cuda", recorder: Optional[obs.Recorder] = None):

@@ -21,7 +21,9 @@ Grid points are grouped by structural signature (the runtime's
 specs); each group is one ``runtime.run_batched`` call: on the card one
 CUDA graph of one round of all its lanes, replayed once a round, each lane
 bitwise its own sequential run.  Groups share the cached ``Task`` of their
-data and model specs, so a repeated sweep captures nothing.
+data and model specs, so a repeated sweep captures nothing.  Groups on the
+``mesh`` backend or with ``device_mesh > 1`` run point by point instead:
+their rounds own the ranks of the FL-device axis.
 """
 from __future__ import annotations
 
@@ -367,7 +369,12 @@ def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
         cfgs = [s.fl_config() for s in gspecs]
         task = build_task(gspecs[0].data, gspecs[0].model,
                           cfgs[0].num_devices, device)
-        if vectorized:
+        # the mesh backend and device_mesh groups run point by point: their
+        # rounds own the ranks of the FL-device axis (run_batched rejects
+        # both, as the reference's)
+        if (vectorized and cfgs[0].backend != "mesh"
+                and (cfgs[0].device_mesh is None
+                     or cfgs[0].device_mesh <= 1)):
             states = [runtime.setup(cfg, task.params0, task.model_dim)
                       for cfg in cfgs]
             _, hist = runtime.run_batched(

@@ -91,6 +91,14 @@ def batched_moments_chunked_ref(g: torch.Tensor, chunks: int):
                  for p in zip(*parts))
 
 
+def ota_aggregate_ref(g: torch.Tensor, scale: torch.Tensor,
+                      noise: torch.Tensor, a) -> torch.Tensor:
+    """y = a * (sum_k scale_k g_k + z), scale_k = h_k b_k / ||g_k||: the
+    oracle of the normalized-scheme superposition."""
+    acc = torch.einsum("k,kn->n", scale.float(), g.float())
+    return a * (acc + noise.float())
+
+
 def ota_superpose_ref(g: torch.Tensor, scale: torch.Tensor,
                       noise: torch.Tensor, a, pre: str = "identity"
                       ) -> torch.Tensor:

@@ -72,6 +72,7 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.obs, repro_torch.obs.manifest\n"
         "import repro_torch.fl.sweep, repro_torch.fl.tasks\n"
         "import repro_torch.checkpoint.store, repro_torch.obs.profiling\n"
+        "import repro_torch.distribution, repro_torch.distribution.sharding\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
         "from repro_torch.fl import SweepSpec, run_sweep, build_task\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

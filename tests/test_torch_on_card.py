@@ -502,6 +502,61 @@ class TestDriverOnCard:
 
 
 @pytest.mark.cuda
+class TestMeshOnCard:
+    """The sharded streaming round (``device_mesh``) emulated on the card
+    (no process group: the shards in turn, the fixed fold): Case I at
+    k_block = 2 (10 K-blocks), device_mesh 1 and 5."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _run(dm, device="cuda", driver="scan"):
+        from repro_torch.fl import Experiment
+        ops.reset_launch_counts()
+        e = Experiment(_case_i_spec(k_block=2, device_mesh=dm, driver=driver),
+                       device=device)
+        e.run(20)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return e, dict(ops.LAUNCH_COUNTS)
+
+    @pytest.mark.parametrize("dm", [1, 5])
+    def test_scan_matches_python_bitwise(self, dm):
+        """Both drivers give the same bits; K2 runs once a K-block and K5
+        once a round (the graph's warm-up rounds launch too)."""
+        from repro_torch.fed import runtime
+        (scan, ls), (python, lp) = (self._run(dm, driver=d)
+                                    for d in ("scan", "python"))
+        for k in python.params:
+            assert torch.equal(scan.params[k], python.params[k]), k
+        for k in runtime.DIAG_KEYS:
+            assert scan.history[k] == python.history[k], k
+        for launches, rounds in ((ls, 20 + runtime.GRAPH_WARMUP_ROUNDS),
+                                 (lp, 20)):
+            assert launches["ota_superpose"] == 10 * rounds
+            assert launches["sumsq"] == rounds
+            assert launches["batched_moments"] == 0
+
+    def test_device_mesh_one_is_none_bitwise(self):
+        (one, _), (plain, _) = (self._run(dm) for dm in (1, None))
+        for k in plain.params:
+            assert torch.equal(one.params[k], plain.params[k]), k
+        assert one.history == plain.history
+
+    @pytest.mark.parametrize("dm", [1, 5])
+    def test_gpu_matches_cpu(self, dm):
+        (gpu, _), (cpu, _) = (self._run(dm, device=d) for d in ("cuda", "cpu"))
+        for k in cpu.params:
+            # fp32 gradients summed in other orders on the card and the CPU
+            torch.testing.assert_close(gpu.params[k].cpu(), cpu.params[k],
+                                       rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.cuda
 class TestSweepOnCard:
     """Local steps and the batched sweep engine on the card: H = 4 local
     steps, scan against python; ``run_batched``'s lanes (one CUDA graph of

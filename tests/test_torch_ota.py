@@ -120,13 +120,22 @@ def test_kernels_backend_on_cpu_counts_no_launch():
     assert set(ops.LAUNCH_COUNTS.values()) == {0}
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("backend", "mesh", "item 15"),
-    ("device_mesh", 2, "item 15"),
-])
-def test_unported_config_raises(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ota.OTAConfig(**{field: value})
+# these two fields raised NotImplementedError until the FL-device mesh was
+# ported; each case now holds the port's OTAConfig to the reference's on a
+# valid and an invalid value (the ids are the ones the cases had)
+@pytest.mark.parametrize("field,valid,invalid,error", [
+    ("backend", dict(backend="mesh"), dict(backend="mesh", k_block=4),
+     "mesh backend"),
+    ("device_mesh", dict(device_mesh=2, k_block=4),
+     dict(device_mesh=0, k_block=4), ">= 1"),
+], ids=["backend-mesh-item 15", "device_mesh-2-item 15"])
+def test_unported_config_raises(field, valid, invalid, error):
+    """The same values build on both packages, and an invalid one raises
+    the same ValueError on both."""
+    for cls in (ota.OTAConfig, jota.OTAConfig):
+        assert getattr(cls(**valid), field) == valid[field]
+        with pytest.raises(ValueError, match=error):
+            cls(**invalid)
 
 
 def test_k_block_config_is_validated():
@@ -147,3 +156,86 @@ def test_apply_update_is_eq11():
     out = ota.apply_update(w, y, 0.25)
     assert torch.equal(out["a"], torch.full((3,), 0.5))
     assert torch.equal(out["b"], torch.full((2,), -0.25))
+
+
+# ---------------------------------------------------------------------------
+# the per-device helpers and the power accounting (core/ota.py's residues)
+
+
+def test_per_device_helpers_are_exported():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    for name in ("per_device_norm", "per_device_sq_norm",
+                 "per_device_mean_std", "tree_num_elements",
+                 "transmit_norms", "transmit_energy"):
+        assert getattr(tcore, name) is getattr(ota, name)
+        assert hasattr(jcore, name)
+
+
+def test_per_device_helpers_match_reference():
+    g, _, _, _ = _inputs(seed=3)
+    tg, jg = _to_torch(g), {k: jnp.asarray(v) for k, v in g.items()}
+    assert ota.tree_num_elements(tg) == jota.tree_num_elements(jg) == 102
+    # per device: fp32 sums of N = 102 terms in other orders
+    for name in ("per_device_sq_norm", "per_device_norm"):
+        np.testing.assert_allclose(getattr(ota, name)(tg).numpy(),
+                                   np.asarray(getattr(jota, name)(jg)),
+                                   rtol=1e-6, err_msg=name)
+    for got, want in zip(ota.per_device_mean_std(tg),
+                         jota.per_device_mean_std(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("scheme", jschemes.names())
+def test_transmit_norms_and_energy_match_reference(scheme, with_mask):
+    g, _, b, _ = _inputs(seed=4)
+    tg, jg = _to_torch(g), {k: jnp.asarray(v) for k, v in g.items()}
+    mask = np.array([1, 0, 1, 1, 0, 1], np.float32)
+    got = ota.transmit_energy(scheme, tg, torch.from_numpy(b), GRAD_BOUND,
+                              torch.from_numpy(mask) if with_mask else None)
+    want = jota.transmit_energy(scheme, jg, jnp.asarray(b), GRAD_BOUND,
+                                jnp.asarray(mask) if with_mask else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(
+        ota.transmit_norms(scheme, tg, GRAD_BOUND).numpy(),
+        np.asarray(jota.transmit_norms(scheme, jg, GRAD_BOUND)), rtol=1e-5,
+        atol=1e-6)
+    if scheme == "normalized":
+        np.testing.assert_allclose(
+            ota.transmit_norms(scheme, tg).numpy(), np.ones(K), rtol=1e-6)
+
+
+def test_aggregate_normalized_kernels_matches_reference():
+    """The pre-registry entry point for ``normalized`` against the
+    reference's (Pallas in interpret mode), on the reference's noise, and
+    its plain oracle ``ota_aggregate_ref`` against the reference's."""
+    from repro.fed.kernel_path import (aggregate_normalized_kernels as
+                                       jnormalized)
+    from repro.kernels import ref as jref
+    from repro_torch.fed.kernel_path import aggregate_normalized_kernels
+    from repro_torch.kernels import ref
+    g, h, b, _ = _inputs(seed=5)
+    jg = {k: jnp.asarray(v) for k, v in g.items()}
+    want = jnormalized(jg, jnp.asarray(h), jnp.asarray(b), 1.3, NKEY,
+                       NOISE_VAR, interpret=True)
+    got = aggregate_normalized_kernels(
+        _to_torch(g), torch.from_numpy(h), torch.from_numpy(b), 1.3,
+        noise_var=NOISE_VAR, noise=torch.from_numpy(_jax_noise()))
+    _assert_trees_close(got, want)
+    # its dense form against the oracle: y = a (sum_k scale_k g_k + z)
+    flat = np.concatenate([g[k].reshape(K, -1) for k in sorted(g)], axis=1)
+    norms = np.linalg.norm(flat.astype(np.float64), axis=1).astype(np.float32)
+    scale = (h * b / (norms + 1e-12)).astype(np.float32)
+    z = _jax_noise()
+    oracle = ref.ota_aggregate_ref(torch.from_numpy(flat),
+                                   torch.from_numpy(scale),
+                                   torch.from_numpy(z), 1.3)
+    np.testing.assert_allclose(
+        oracle.numpy(), np.asarray(jref.ota_aggregate_ref(
+            jnp.asarray(flat), jnp.asarray(scale), jnp.asarray(z), 1.3)),
+        rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ota.ravel(got).numpy(), oracle.numpy(),
+                               **dict(rtol=2e-4, atol=2e-5))

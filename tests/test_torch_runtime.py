@@ -234,13 +234,23 @@ def test_task_is_deterministic_across_builds():
     assert not torch.equal(t1.batch_provider(7)[0], t1.batch_provider(8)[0])
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("backend", "mesh", "item 15"),
-    ("device_mesh", 2, "item 15"),
-])
-def test_unported_fl_fields_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        runtime.FLConfig(num_devices=4, **{field: value})
+# these two fields raised NotImplementedError until the FL-device mesh was
+# ported; each case now holds the port's FLConfig to the reference's on a
+# valid and an invalid value (the ids are the ones the cases had)
+@pytest.mark.parametrize("field,valid,invalid,error", [
+    ("backend", dict(backend="mesh"), dict(backend="mesh", k_block=2),
+     "mesh backend"),
+    ("device_mesh", dict(device_mesh=2, k_block=1),
+     dict(device_mesh=2), "k_block"),
+], ids=["backend-mesh-item 15", "device_mesh-2-item 15"])
+def test_unported_fl_fields_raise(field, valid, invalid, error):
+    """The same values build on both packages, and an invalid one raises
+    the same ValueError on both."""
+    for cls in (runtime.FLConfig, jruntime.FLConfig):
+        cfg = cls(num_devices=4, **valid)
+        assert getattr(cfg, field) == valid[field]
+        with pytest.raises(ValueError, match=error):
+            cls(num_devices=4, **invalid)
 
 
 @pytest.mark.parametrize("fields,error", [

@@ -436,11 +436,26 @@ class TestRunBatchedValidation:
             rt.run_batched([c1, c2], [s1, s2], task.grad_fn,
                            task.batch_provider, 2)
 
-    def test_mesh_backend_and_device_mesh_are_not_ported(self):
-        c, _, _ = _cfg_state()
-        for over in (dict(backend="mesh"), dict(device_mesh=2)):
-            with pytest.raises(NotImplementedError, match="item 15"):
-                dataclasses.replace(c, **over)
+    @pytest.mark.parametrize("over", [dict(backend="mesh"),
+                                      dict(device_mesh=2, k_block=1)],
+                             ids=["mesh_backend", "device_mesh"])
+    def test_run_batched_rejects_mesh_and_device_mesh(self, over):
+        """The mesh backend and device_mesh build, and a batched run
+        rejects both with the reference's ValueError: their rounds own the
+        ranks of the FL-device axis (the sweep runs them point by point)."""
+        c, s1, task = _cfg_state()
+        _, s2, _ = _cfg_state()
+        cfg = dataclasses.replace(c, **over)
+        jcfg = jrt.FLConfig(num_devices=K, grad_bound=25.0,
+                            channel=JChannelConfig(num_devices=K), **over)
+        for field, value in over.items():
+            assert getattr(cfg, field) == getattr(jcfg, field) == value
+        for run_batched, cfgs, states in (
+                (rt.run_batched, [cfg, cfg], [s1, s2]),
+                (jrt.run_batched, [jcfg, jcfg], [None, None])):
+            with pytest.raises(ValueError, match="sequential"):
+                run_batched(cfgs, states, task.grad_fn, task.batch_provider,
+                            2)
 
     def test_round_counter_mismatch_raises(self):
         c, s1, task = _cfg_state()
