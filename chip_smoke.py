@@ -193,7 +193,21 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               flips per MoE layer beside the router gaps; hidden states
               and greedy token over the tokens before the first flip) and
               the prefill -> decode handoff at
-              capacity_factor 8.
+              capacity_factor 8;
+13. tp     -- the serving mesh, emulated on the one card (no process
+              group: every rank in turn): jamba-v0.1-52b at full width,
+              one superblock, over (data 1, model 4) in bf16, each model
+              rank's weights drawn a leaf at a time
+              (``init_sharded_params``), the same prompts and decode steps;
+              4 K6 and 28 K7 launches a prefill (a rank's heads and
+              channels); K6 at a rank's [4, 8/2, 8192, 128] and K7 at its
+              [4, 8192, 2048, 16] against their plain versions, bf16 and
+              fp32; in fp32, 4 prompts of 1,024 tokens and 8 greedy steps:
+              the (1, 4) mesh's tokens and context-parallel decode's over
+              (4, 1) must equal the unsharded route's; and
+              ``run_sweep(shard=True)`` on the one card and spread over two
+              engines on it, bitwise the unsharded sweep, K1, K2 and K5
+              once a lane a round.
 
 Then the ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
@@ -229,7 +243,12 @@ only phases 1, 2 and 6g, and
 
     python3 chip_smoke.py --mesh
 
-only phases 1, 2 and 6h.
+only phases 1, 2 and 6h, and
+
+    python3 chip_smoke.py --tp
+
+only phases 1, 2 and 13 (``tools/serve_ranks.py`` runs the mesh over four
+cards).
 """
 from __future__ import annotations
 
@@ -1789,6 +1808,251 @@ def phase_serve_hybrid(ops) -> dict:
     return launches
 
 
+TP_MODEL = 4                     # model ranks: Jamba's 32 heads, 8 kv heads,
+                                 # 16 experts, d_inner 8,192 and vocab divide
+TP_CP_DATA = 4                   # context-parallel cache shards
+TP_FP32_PROMPT = 1024            # the fp32 tokens check (one superblock)
+TP_FP32_DECODE = 8
+TP_SWEEP_ROUNDS = 8
+
+
+def tp_params(cfg, mesh, seed: int) -> list:
+    """Every rank's params of ``mesh`` (emulated: all its ranks), each model
+    rank's shard drawn by ``init_sharded_params`` on a CUDA generator of
+    ``seed`` (the same full leaves for every rank), shared by its data
+    ranks."""
+    from repro_torch.models import transformer as T
+    by_m = {}
+    for r in mesh.local_ranks:
+        m = mesh.coords(r)[1]
+        if m not in by_m:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            by_m[m] = T.init_sharded_params(cfg, gen, mesh, r, device="cuda")
+    return [by_m[mesh.coords(r)[1]] for r in mesh.local_ranks]
+
+
+def tp_serve(ops, cfg, mesh, params, tokens, n_dec: int, timed: bool):
+    """Prefill (writing the cache) and ``n_dec`` greedy steps on a mesh;
+    returns the generated ids [B, 1 + n_dec] and a row of times, launch
+    counts and memory."""
+    from repro_torch.launch import serve
+    b, s = tokens.shape
+    prefill, _ = serve.build_prefill_cache_step(
+        cfg, "cuda", cache_len=s + n_dec + 8, mesh=mesh)
+    decode, _ = serve.build_decode_step(cfg, "cuda", mesh=mesh)
+    row = {}
+    if timed:
+        ids, cache = prefill(params, {"tokens": tokens})     # warm-up
+        decode(params, cache, ids[:, None], s)
+        del ids, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ids, cache, prefill_s, launches = timed_prefills(ops, prefill, params,
+                                                         tokens)
+        row.update(prefill_rates(b, s, prefill_s), launches=launches,
+                   prefill_peak_mem_mb=torch.cuda.max_memory_allocated()
+                   / 2 ** 20)
+    else:
+        ids, cache = prefill(params, {"tokens": tokens})
+    out = [ids]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(s, s + n_dec):
+        ids, cache = decode(params, cache, ids[:, None], pos)
+        out.append(ids)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    row.update(decode_ms_per_step=dt / n_dec * 1e3,
+               decode_tokens_per_s=b * n_dec / dt,
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+    return torch.stack(out, dim=1).cpu(), row
+
+
+def phase_tp(ops, build) -> dict:
+    """The serving mesh on one card, emulated (no process group: every rank
+    in turn, ``distribution.tensor_parallel.run_ranks``): jamba-v0.1-52b at
+    full width, one superblock, over (data 1, model 4) in bf16, its weights
+    drawn a rank's shard at a time (``init_sharded_params``); K6 and K7
+    against their plain versions at the per-rank shapes; in fp32 the
+    tokens of the unsharded route, the (1, 4) mesh and context-parallel
+    decode over (data 4, model 1), which must be equal; and
+    ``run_batched(shard=True)`` on the one card and spread over two engines
+    on it, bitwise the unsharded sweep.  Returns the launch counts of K6
+    and K7 in the counted bf16 prefill and of K1, K2 and K5 in the sharded
+    sweep."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.fed import runtime
+    from repro_torch.fl import SweepSpec, run_sweep
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS)
+    plan = sh.tp_plan(cfg, TP_MODEL)
+    mesh = make_host_mesh(1, TP_MODEL)
+    if mesh.physical or not all(plan):
+        fail(f"phase tp: expected an emulated mesh that cuts every module, "
+             f"got {mesh} and {plan}")
+    b, s, n_dec = SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tp_params(cfg, mesh, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    generated, rates = tp_serve(ops, cfg, mesh, params, tokens, n_dec, True)
+    launches = rates["launches"]
+    n_mamba = sum(k.startswith("mamba") for k in cfg.block_pattern)
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    hd, di = cfg.head_dim, cfg.mamba_d_inner
+    row = {"phase": "tp", "part": "bf16_mesh_1x4", "arch": HYBRID_ARCH,
+           "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "mesh": {"data": 1, "model": TP_MODEL}, "emulated": True,
+           "plan": plan._asdict(),
+           "params_per_rank": [T.param_count(p) for p in params],
+           "init_sharded_s": init_s, "batch": b, "prompt": s,
+           "decode_steps": n_dec, **rates,
+           "k6_rank_shape": {"q": [b, cfg.num_heads // TP_MODEL, s, hd],
+                             "kv": [b, cfg.num_kv_heads // TP_MODEL, s, hd]},
+           "k7_rank_shape": [b, s, di // TP_MODEL, cfg.mamba_d_state],
+           "generated_ids": generated.tolist()}
+    emit(row)
+    if (launches["flash_attention"] != n_attn * TP_MODEL
+            or launches["selective_scan"] != n_mamba * TP_MODEL):
+        fail(f"phase tp: one prefill over {TP_MODEL} ranks launched "
+             f"flash_attention {launches['flash_attention']} times and "
+             f"selective_scan {launches['selective_scan']}, expected "
+             f"{n_attn * TP_MODEL} and {n_mamba * TP_MODEL}")
+    if generated.min() < 0 or generated.max() >= cfg.vocab_size:
+        fail("phase tp: ids out of range")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K6 and K7 at the shapes a rank's prefill gives them
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    rank_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        k6 = check_flash(ops, build, (b, cfg.num_heads // TP_MODEL,
+                                      cfg.num_kv_heads // TP_MODEL, s, s,
+                                      hd, True, None), dtype, gen)
+        k7 = check_scan(ops, (b, s, di // TP_MODEL, cfg.mamba_d_state,
+                              "jamba"), dtype, gen)
+        for r in (k6, k7):
+            r["phase"] = "tp_kernel"
+            emit(r)
+            rank_rows.append(r)
+            if not r["within_tolerance"]:
+                fail(f"phase tp: {r['kernel']} {r['dtype']} at the rank "
+                     f"shape disagrees with its plain version")
+        if k6["ptxas"]["spill_stores"] or k6["ptxas"]["spill_loads"]:
+            fail(f"phase tp: flash_attention spills: {k6['ptxas']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32, one superblock: the unsharded route, the (1, 4) mesh and
+    # context-parallel decode over (4, 1) give the same tokens
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p32 = T.init_params(cfg32, gen, device="cuda")
+    s32, n32 = TP_FP32_PROMPT, TP_FP32_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (b, s32), generator=gen,
+                         device="cuda")
+    cache_len = s32 + n32 + 8
+    prefill = serve.build_prefill_cache_step(cfg32, "cuda",
+                                             cache_len=cache_len)
+    decode = serve.build_decode_step(cfg32, "cuda")
+
+    def greedy(dec, params, ids, cache):
+        out = [ids]
+        for pos in range(s32, s32 + n32):
+            ids, cache = dec(params, cache, ids[:, None], pos)
+            out.append(ids)
+        return torch.stack(out, dim=1).cpu()
+
+    ids, cache = prefill(p32, {"tokens": toks})
+    want = greedy(decode, p32, ids, cache)
+    mesh14 = make_host_mesh(1, TP_MODEL)
+    pre14, place14 = serve.build_prefill_cache_step(
+        cfg32, "cuda", cache_len=cache_len, mesh=mesh14)
+    dec14, _ = serve.build_decode_step(cfg32, "cuda", mesh=mesh14)
+    pp, _ = place14(p32)
+    ids, cache = pre14(pp, {"tokens": toks})
+    got14 = greedy(dec14, pp, ids, cache)
+    del pp, cache
+    mesh41 = make_host_mesh(TP_CP_DATA, 1)
+    dec41, place41 = serve.build_decode_step(
+        cfg32, "cuda", mesh=mesh41, context_parallel=True,
+        cache_len=cache_len)
+    ids, cache = prefill(p32, {"tokens": toks})
+    pp, cc = place41(p32, cache)
+    del cache
+    got41 = greedy(dec41, pp, ids, cc)
+    del pp, cc, p32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    tok_row = {"phase": "tp", "part": "fp32_tokens", "batch": b,
+               "prompt": s32, "decode_steps": n32,
+               "unsharded": want.tolist(),
+               "mesh_1x4_equal": bool(torch.equal(got14, want)),
+               "context_parallel_4x1_equal": bool(torch.equal(got41, want)),
+               "mesh_1x4_tokens_differing": int((got14 != want).sum()),
+               "context_parallel_tokens_differing":
+                   int((got41 != want).sum())}
+    emit(tok_row)
+    if not (tok_row["mesh_1x4_equal"]
+            and tok_row["context_parallel_4x1_equal"]):
+        fail(f"phase tp: fp32 tokens differ from the unsharded route: "
+             f"{tok_row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run_batched(shard=True): one card (no mesh: as unsharded), and two
+    # engines on it (the sharded path), bitwise the unsharded sweep
+    runtime.clear_compile_caches()
+    case_ii = case_ii_spec()
+    nv = case_ii.fl.channel.noise_var
+    sweep = SweepSpec(case_ii, {"noise_var": (nv, 2.0 * nv),
+                                "seed": (0, 1)})
+    plain = run_sweep(sweep, TP_SWEEP_ROUNDS, shard=False)
+    one = run_sweep(sweep, TP_SWEEP_ROUNDS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    two = run_sweep(sweep, TP_SWEEP_ROUNDS,
+                    devices=[torch.device("cuda", 0)] * 2)
+    torch.cuda.synchronize()
+    sweep_launches = dict(ops.LAUNCH_COUNTS)
+    same = lambda a: (all(np.array_equal(a.history[k], plain.history[k])
+                          for k in plain.history)
+                      and a.params_digests == plain.params_digests)
+    sw_row = {"phase": "tp", "part": "run_batched_shard",
+              "lanes": sweep.size, "rounds": TP_SWEEP_ROUNDS,
+              "one_card_bitwise": same(one),
+              "two_engines_bitwise": same(two),
+              "launches": sweep_launches,
+              "phase_s": time.perf_counter() - t_phase}
+    emit(sw_row)
+    if not (sw_row["one_card_bitwise"] and sw_row["two_engines_bitwise"]):
+        fail(f"phase tp: run_batched(shard=True) differs: {sw_row}")
+    # two graphs of two lanes: each lane's K1, K2, K5 once a round, with
+    # each graph's warm-up rounds
+    check_path_launches(sweep_launches, TP_SWEEP_ROUNDS, "tp sweep",
+                        lanes=sweep.size)
+    runtime.clear_compile_caches()
+    return {"flash_attention": launches["flash_attention"],
+            "selective_scan": launches["selective_scan"],
+            **{k: sweep_launches[k] for k in PATH_KERNELS}}
+
+
 # the reference's rule for its two drivers where they are not bitwise
 # (tests/test_engine.py:157-162)
 DRIVER_PARAMS_RTOL, DRIVER_PARAMS_ATOL = 2e-6, 1e-7
@@ -2033,12 +2297,12 @@ def phase_local_steps(ops) -> None:
         fail(f"local steps: train_loss did not fall: {loss}")
 
 
-def case_ii_spec():
+def case_ii_spec(device: str = "cuda"):
     """The paper's Case-II experiment (benchmarks/common.py::
     CaseIIExperiment): ridge regression, K = 20, N = 30 (the weights; the
     model has no bias), eta 0.01, s_target 0.995, G from a noiseless mean-aggregation
-    calibration run (30 rounds, max device norm x 1.2), on the kernels
-    backend."""
+    calibration run on ``device`` (30 rounds, max device norm x 1.2), on
+    the kernels backend."""
     import dataclasses
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.fl import (DataSpec, EvalSpec, Experiment,
@@ -2047,7 +2311,7 @@ def case_ii_spec():
     data = DataSpec(dataset="ridge", split="iid", batch_size=50,
                     num_train=2000, dim=30, seed=10)
     model = ModelSpec(kind="ridge", lam=0.1)
-    c = build_task(data, model, K_MAIN, "cuda").constants
+    c = build_task(data, model, K_MAIN, device).constants
     fl = FLConfig(num_devices=K_MAIN, case="II", eta=0.01,
                   channel=ChannelConfig(num_devices=K_MAIN,
                                         channel_mean=1e-3),
@@ -2058,7 +2322,7 @@ def case_ii_spec():
                           eval=EvalSpec(every=10))
     cal = Experiment(dataclasses.replace(
         spec, fl=dataclasses.replace(fl, scheme="mean", grad_bound=1.0)),
-        device="cuda")
+        device=device)
     g = 1.2 * max(cal.run(30, evaluate=False)["grad_norm_max"])
     return dataclasses.replace(spec, fl=dataclasses.replace(fl,
                                                             grad_bound=g))
@@ -3274,6 +3538,8 @@ def main() -> None:
                     help="run only the build and phase obs")
     ap.add_argument("--mesh", action="store_true",
                     help="run only the build and phase mesh")
+    ap.add_argument("--tp", action="store_true",
+                    help="run only the build and phase tp")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -3310,6 +3576,9 @@ def main() -> None:
         return
     if args.mesh:
         phase_mesh(ops)
+        return
+    if args.tp:
+        phase_tp(ops, build)
         return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
@@ -3359,6 +3628,15 @@ def main() -> None:
     emit_memory("scan")
     hybrid_launches = phase_serve_hybrid(ops)
     emit_memory("serve_hybrid")
+    tp_launches = phase_tp(ops, build)
+    emit_memory("tp")
+    # K6 and K7 run on two serving paths each (one card, then the mesh),
+    # and the round's kernels on the sharded sweep too, each read from
+    # counts set to 0 before it
+    serve_launches["flash_attention"] += tp_launches["flash_attention"]
+    hybrid_launches["selective_scan"] += tp_launches["selective_scan"]
+    for name in PATH_KERNELS:
+        round_launches[name] += tp_launches[name]
     csrc = "src/repro_torch/kernels/csrc/"
     # kernel -> (source, TPU kernel it replaces, launches on its path)
     sources = {

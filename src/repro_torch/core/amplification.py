@@ -10,9 +10,10 @@ solved optimally by a bisection over ``r`` with an inner convex feasibility
 program ``min_{b in box} sqrt(sum 4 h^2 b^2 + c) - r sum h b`` (L-BFGS-B
 from the upper corner).  This is host-side float64 NumPy/SciPy code, the
 same as the reference's, so both packages give the same ``b`` and ``a`` on
-the same ``h``.  The in-round JAX solver (``solve_problem3_jax``, block
-fading) and the literal Problem 6 are not ported yet (ROADMAP queue 1
-item 5).
+the same ``h``.  The reference's in-round solver (``solve_problem3_jax``,
+block fading) is ``solve_problem3_torch`` here: a batched fp32 re-solve
+that a time-varying channel's refresh runs on the host once a chunk; the
+literal Problem 6 is ``solve_problem6``.
 """
 from __future__ import annotations
 

@@ -1,0 +1,207 @@
+"""Tensor-parallel execution on a serving mesh: one rank's program, and
+where its shards combine.
+
+The model code (``repro_torch.models``) is written once, for one rank:
+each layer takes an optional ``tp`` (a ``RankContext``) and, with one,
+computes its rank's shard and combines the shards where the math needs it:
+
+* ``tp.fold(x, axis)``: the partials of a row-parallel product (``wo``,
+  ``w_down``, ``out_proj``, ``x_proj``: the contracted dim is cut), the
+  vocabulary-cut embedding and the expert combine, folded in rank order
+  (``ota_collectives.fold_shards``, a fixed left fold: ``((p_0 + p_1) + p_2)
+  ...``); ``op=torch.maximum`` for a softmax's running max;
+* ``tp.gather(x, axis)``: every rank's tensor stacked in rank order (the
+  vocabulary-cut logits, q before a sequence-cut decode).
+
+On a physical mesh the stack comes from ``all_gather`` over the axis's
+process group (``ota_collectives.gather_shards``); on an emulated one from
+the other ranks' threads (``run_ranks``).  Either way every rank folds the
+same stack with the same function, so a physical mesh gives the emulated
+mesh's bits.  No all-reduce: its summation order is the library's, not the
+fold's.
+
+``run_ranks(mesh, program)`` runs ``program(ctx)`` for every rank this
+process holds.  On an emulated mesh the ranks run in turn on threads, one
+at a time: rank 0 runs to its first collective, then rank 1, ..., and the
+last rank to arrive combines the stacks, after which rank 0 goes on.  So
+one rank's kernels run at a time, as the physical rank's would, and a
+rank's program is the same code on both meshes.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, List, Optional
+
+import torch
+
+from repro_torch.distribution.ota_collectives import fold_shards, \
+    gather_shards
+
+
+class RankContext:
+    """One rank of a ``ServingMesh``: its coordinates and its collectives.
+    ``index`` is its place among the ranks this process runs (0 on a
+    physical mesh, the rank on an emulated one)."""
+
+    def __init__(self, mesh, rank: int, index: int,
+                 lockstep: Optional["_Lockstep"] = None):
+        self.mesh, self.rank, self.index = mesh, rank, index
+        self.d, self.m = mesh.coords(rank)
+        self.data, self.model = mesh.data, mesh.model
+        self._lockstep = lockstep
+        # whether the batch's rows are cut over ``data`` (the serve steps
+        # set it): a function of the whole batch (the MoE's capacity and
+        # its pairs' slots) then counts every data rank's rows
+        self.batch_split = False
+
+    def size(self, axis: str) -> int:
+        return self.mesh.shape[axis]
+
+    def coord(self, axis: str) -> int:
+        return self.m if axis == "model" else self.d
+
+    def gather(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """Every rank's ``x`` along ``axis`` stacked in rank order (a new
+        leading axis)."""
+        if self.size(axis) == 1:
+            return x[None]
+        if self._lockstep is None:
+            return gather_shards(x.contiguous(), self.mesh.groups[axis])
+        return self._lockstep.exchange(self.rank, axis, x)
+
+    def fold(self, x: torch.Tensor, axis: str = "model",
+             op=torch.add) -> torch.Tensor:
+        """The left fold of every rank's ``x`` along ``axis``, in rank
+        order; one rank: ``x`` itself."""
+        if self.size(axis) == 1:
+            return x
+        return fold_shards(self.gather(x, axis), op)
+
+    def __repr__(self):
+        return f"RankContext(rank={self.rank}, d={self.d}, m={self.m})"
+
+
+class _Aborted(Exception):
+    """Another rank's program raised: this one stops."""
+
+
+class _Lockstep:
+    """The collectives of an emulated mesh: n rank programs on threads, one
+    running at a time, in rank order between two collectives."""
+
+    def __init__(self, mesh):
+        self.mesh, self.n = mesh, mesh.size
+        self.cv = threading.Condition()
+        self.turn = 0
+        self.slots: List[Any] = [None] * self.n
+        self.results: List[Any] = [None] * self.n
+        self.done = [False] * self.n
+        self.error: Optional[BaseException] = None
+
+    def _wait(self, rank: int) -> None:
+        self.cv.wait_for(lambda: self.turn == rank or self.error is not None)
+        if self.error is not None:
+            raise _Aborted()
+
+    def _fail(self, err: BaseException) -> None:
+        if self.error is None:
+            self.error = err
+        self.cv.notify_all()
+
+    def start(self, rank: int) -> None:
+        with self.cv:
+            self._wait(rank)
+
+    def finish(self, rank: int) -> None:
+        with self.cv:
+            self.done[rank] = True
+            if any(s is not None for s in self.slots):
+                self._fail(RuntimeError(
+                    f"emulated mesh: rank {rank} ended while other ranks "
+                    "wait in a collective (the ranks' programs diverged)"))
+                return
+            self.turn = rank + 1
+            self.cv.notify_all()
+
+    def exchange(self, rank: int, axis: str, x: torch.Tensor) -> torch.Tensor:
+        with self.cv:
+            self.slots[rank] = (axis, tuple(x.shape), x)
+            if rank == self.n - 1:
+                self._combine()
+            else:
+                self.turn = rank + 1
+                self.cv.notify_all()
+            self._wait(rank)
+            return self.results[rank]
+
+    def _combine(self) -> None:
+        """Called by the last rank: every rank's stack, then rank 0's turn."""
+        if any(self.done) or len({s[:2] for s in self.slots}) != 1:
+            self._fail(RuntimeError(
+                "emulated mesh: the ranks reached different collectives "
+                f"({[None if s is None else s[:2] for s in self.slots]})"))
+            raise _Aborted()
+        axis = self.slots[0][0]
+        stacks = {}
+        for r in range(self.n):
+            d, m = self.mesh.coords(r)
+            key = d if axis == "model" else m
+            if key not in stacks:
+                members = ([d * self.mesh.model + j
+                            for j in range(self.mesh.model)]
+                           if axis == "model" else
+                           [i * self.mesh.model + m
+                            for i in range(self.mesh.data)])
+                stacks[key] = torch.stack([self.slots[j][2]
+                                           for j in members])
+            self.results[r] = stacks[key]
+        self.slots = [None] * self.n
+        self.turn = 0
+        self.cv.notify_all()
+
+
+def run_ranks(mesh, program: Callable[[RankContext], Any]) -> list:
+    """``program(ctx)`` for every rank this process runs, in rank order:
+    the one rank of a physical mesh, or every rank of an emulated one in
+    turn.  The threads of an emulated mesh take over the caller's grad and
+    inference modes, CUDA device and stream."""
+    if mesh.physical:
+        return [program(RankContext(mesh, mesh.rank, 0))]
+    if mesh.size == 1:
+        return [program(RankContext(mesh, 0, 0))]
+    lock = _Lockstep(mesh)
+    out: List[Any] = [None] * mesh.size
+    inference = torch.is_inference_mode_enabled()
+    grad = torch.is_grad_enabled()
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    device = torch.cuda.current_device() if cuda else None
+    stream = torch.cuda.current_stream() if cuda else None
+
+    def body(rank: int) -> None:
+        try:
+            lock.start(rank)
+            with torch.inference_mode(inference), \
+                    torch.set_grad_enabled(grad):
+                if cuda:
+                    with torch.cuda.device(device), torch.cuda.stream(stream):
+                        out[rank] = program(RankContext(mesh, rank, rank,
+                                                        lock))
+                else:
+                    out[rank] = program(RankContext(mesh, rank, rank, lock))
+            lock.finish(rank)
+        except _Aborted:
+            pass
+        except BaseException as err:        # noqa: BLE001 - re-raised below
+            with lock.cv:
+                lock._fail(err)
+
+    threads = [threading.Thread(target=body, args=(r,),
+                                name=f"repro-tp-rank{r}", daemon=True)
+               for r in range(mesh.size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if lock.error is not None:
+        raise lock.error
+    return out

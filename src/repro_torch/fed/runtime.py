@@ -125,6 +125,7 @@ from repro_torch.core import amplification as amp
 from repro_torch.core import channel as chan
 from repro_torch.core import ota
 from repro_torch.core import schemes
+from repro_torch.distribution import sharding
 from repro_torch.fl import clients
 from repro_torch.fl.clients import ClientConfig
 from repro_torch.kernels import ops
@@ -1584,17 +1585,21 @@ class _GraphChunks:
 
     def launch(self, staged: RoundInputs) -> None:
         """Copy a chunk's inputs in and replay the graph once a round;
-        returns as soon as the replays are queued."""
+        returns as soon as the replays are queued (on this engine's card,
+        whichever is current)."""
         self.rounds = staged.t.shape[0]
-        self._stage(staged)
-        if self.graph is None:
-            self._capture()
-        if self.pending is not None:
-            _copy_into(self.static, self.pending)
-            self.pending = None
-        self.cursor.zero_()
-        for _ in range(self.rounds):
-            self.graph.replay()
+        # -1 (not a card: the tests' stand-in engine) selects nothing
+        with torch.cuda.device(self.device.index
+                               if self.device.type == "cuda" else -1):
+            self._stage(staged)
+            if self.graph is None:
+                self._capture()
+            if self.pending is not None:
+                _copy_into(self.static, self.pending)
+                self.pending = None
+            self.cursor.zero_()
+            for _ in range(self.rounds):
+                self.graph.replay()
         ops.replay_counts(self.per_replay, self.rounds)
 
     def rows(self) -> torch.Tensor:
@@ -1630,16 +1635,48 @@ def _make_run_chunk(cfg: FLConfig, grad_fn: GradFn, block_batch_fn,
     return _EagerChunks(body)
 
 
+class _ShardedChunks:
+    """A batched run's lanes spread over devices (``run_batched(shard=
+    True)``): one engine a device, each on its contiguous run of lanes.
+    ``launch`` queues every engine's replays, card after card, so the cards
+    work at once; ``rows`` and ``state`` stitch the lanes back in order."""
+
+    def __init__(self, engines: Sequence[Any], bounds: Sequence[tuple]):
+        self.engines, self.bounds = list(engines), list(bounds)
+
+    def start(self, lanes: Sequence[Lane]) -> None:
+        for eng, (lo, hi) in zip(self.engines, self.bounds):
+            eng.start(lanes[lo:hi])
+
+    def launch(self, staged: RoundInputs) -> None:
+        for eng, (lo, hi) in zip(self.engines, self.bounds):
+            eng.launch(staged._replace(**{
+                name: v[:, lo:hi] for name, v in zip(RoundInputs._fields,
+                                                     staged)
+                if v is not None and name != "batch"}))
+
+    @property
+    def dispatches(self) -> int:
+        return sum(eng.dispatches for eng in self.engines)
+
+    def rows(self) -> torch.Tensor:
+        return torch.cat([eng.rows() for eng in self.engines])
+
+    def state(self) -> List[tuple]:
+        return [st for eng in self.engines for st in eng.state()]
+
+
 @functools.lru_cache(maxsize=ENGINE_CACHE_SIZE)
 def _make_run_chunk_batched(sig: FLConfig, grad_fn: GradFn,
                             device: torch.device, chunk_size: int,
-                            batch_spec, lanes: int, noisy: bool):
+                            batch_spec, lanes: int, noisy: bool,
+                            shard: int = 0):
     """A batched run's engine, cached on (the structural config, grad_fn,
-    device, chunk_size, the batch spec, the lane count and the group's
-    noise gate): on a CUDA device one CUDA graph of one round of every
-    lane, on the CPU the lanes' bodies run eagerly.  Each lane runs the
-    body of its own config (the body reads no batchable field), so a lane
-    gives its own run's bits."""
+    device, chunk_size, the batch spec, the lane count, the group's noise
+    gate and the lanes' shard of a sharded run): on a CUDA device one CUDA
+    graph of one round of every lane, on the CPU the lanes' bodies run
+    eagerly.  Each lane runs the body of its own config (the body reads no
+    batchable field), so a lane gives its own run's bits."""
     body = RoundBody(sig, grad_fn, noisy=noisy)
     if device.type == "cuda":
         return _GraphChunks(body, device, chunk_size, lanes,
@@ -1797,6 +1834,18 @@ def _init_missing_state(cfg: FLConfig, state: FLState,
             and state.client_state is None):
         state.client_state = clients.init_state(cfg.client, state.params,
                                                 cfg.num_devices)
+
+
+def _to_device(tree, device: torch.device):
+    """A state tree (dicts, tuples and NamedTuples of tensors, or None) on
+    ``device``; a tensor already there is kept as it is."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return _rebuild(tree, (_to_device(v, device) for v in tree))
 
 
 def _params_device(params: Tree) -> torch.device:
@@ -2014,6 +2063,7 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
                 eval_every: int = 10, *, chunk_size: int = 16,
                 chunk_batch_provider: Optional[
                     Callable[[Sequence[int]], Any]] = None,
+                shard: bool = True, devices=None, task_on=None,
                 recorder=None) -> Tuple[List[FLState], Dict[str, Any]]:
     """Run E experiments as lanes of one engine: the batched twin of
     ``run(driver='scan')``, on the device of the states' params.
@@ -2033,6 +2083,19 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     bitwise ``run(cfgs[e], states[e], ...)``.  All lanes share ``grad_fn``
     and the batch providers (one task), the round counter and the eval
     schedule.
+
+    ``shard=True`` spreads the lanes over the local devices where
+    ``distribution.sharding.experiment_mesh(E, devices=devices)`` gives a
+    mesh (more than one device, E divisible by their count): E / n
+    contiguous lanes a device, each device with its own engine (on a card
+    its own CUDA graph), the replays of a chunk queued card after card, the
+    histories stitched in lane order.  A lane still runs its own body at
+    its own shapes, so it stays bitwise its ``run``.  A device other than
+    the params' needs the task there: ``task_on(device)`` gives an object
+    with that device's ``grad_fn`` and ``eval_fn`` (``fl.sweep`` passes
+    ``build_task`` of the device).  The states come back on the params'
+    device.  One device, or a grid the count does not divide, runs as
+    unsharded.
 
     Returns ``(states, hist)``: every ``DIAG_KEYS`` entry of ``hist`` an
     ``np.ndarray`` [E, num_rounds], eval metrics [E, num_evals], and
@@ -2071,18 +2134,47 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     if len(dims) != 1:
         raise ValueError(f"states disagree on model_dim: {dims} -- a batched "
                          "run shares one task")
-    devices = {_params_device(s.params) for s in states}
-    if len(devices) != 1:
-        raise ValueError(f"states live on different devices: {devices}")
-    device = devices.pop()
+    homes = {_params_device(s.params) for s in states}
+    if len(homes) != 1:
+        raise ValueError(f"states live on different devices: {homes}")
+    device = homes.pop()
     sch = schemes.get(cfg0.scheme)
     for c, s in zip(cfgs, states):
         _init_missing_state(c, s, device)
-    hosts, chans = zip(*(_lane_inputs(c, s, device)
-                         for c, s in zip(cfgs, states)))
-    over = _batch_axes(cfgs, device)
-    lanes = [_make_lane(s, h, h_hat, over, e)
-             for e, (s, (h, h_hat)) in enumerate(zip(states, chans))]
+    # the default devices are the cards, for a run on a card
+    mesh = (sharding.experiment_mesh(len(cfgs), devices=devices)
+            if shard and (devices is not None or device.type == "cuda")
+            else None)
+    # (device, grad_fn, eval_fn, first lane, end) of each engine
+    groups = [(device, grad_fn, eval_fn, 0, len(cfgs))]
+    if mesh is not None:
+        per = len(cfgs) // len(mesh.devices)
+        groups = []
+        for i, dev in enumerate(mesh.devices):
+            g_fn, e_fn = grad_fn, eval_fn
+            if dev != device:
+                if task_on is None:
+                    raise ValueError(
+                        f"run_batched(shard=True) puts lanes on {dev}, but "
+                        f"the task lives on {device}: pass task_on (device "
+                        "-> an object with that device's grad_fn and "
+                        "eval_fn), or shard=False")
+                task = task_on(dev)
+                g_fn, e_fn = task.grad_fn, (task.eval_fn if eval_fn
+                                            is not None else None)
+            groups.append((dev, g_fn, e_fn, i * per, (i + 1) * per))
+    hosts, lanes, eval_fns = [], [], []
+    for dev, _, e_fn, lo, hi in groups:
+        over = _batch_axes(cfgs[lo:hi], dev)
+        for e in range(lo, hi):
+            host, (h, h_hat) = _lane_inputs(cfgs[e], states[e], dev)
+            st = states[e]
+            hosts.append(host)
+            eval_fns.append(e_fn)
+            lanes.append(_make_lane(dataclasses.replace(st, **{
+                k: _to_device(getattr(st, k), dev)
+                for k in ("params", "opt_state", "client_state")}),
+                h, h_hat, over, e - lo))
     noisy = _noisy(cfgs)
     params0 = states[0].params
     shapes = {k: params0[k].shape for k in sorted(params0)}
@@ -2096,9 +2188,12 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
         return r._replace(batch=batch)
 
     def make_engine(staged):
-        engine = _make_run_chunk_batched(sig, grad_fn, device, chunk_size,
-                                         _batch_spec(staged), len(cfgs),
-                                         noisy)
+        engines = [_make_run_chunk_batched(sig, g_fn, dev, chunk_size,
+                                           _batch_spec(staged), hi - lo,
+                                           noisy, i)
+                   for i, (dev, g_fn, _, lo, hi) in enumerate(groups)]
+        engine = (engines[0] if mesh is None else _ShardedChunks(
+            engines, [(lo, hi) for *_, lo, hi in groups]))
         engine.start(lanes)
         return engine
 
@@ -2117,7 +2212,7 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
         if eval_fn is not None and (t % eval_every == 0 or t == 1):
             per_lane: Dict[str, List[float]] = {}
             for e, (params, *_) in enumerate(engine.state()):
-                metrics = eval_fn(params)
+                metrics = eval_fns[e](params)
                 eval_keys = _locked_eval_keys(metrics, eval_keys, t,
                                               where=f" (experiment {e})")
                 for mk in eval_keys:
@@ -2135,7 +2230,8 @@ def run_batched(cfgs: Sequence[FLConfig], states: Sequence[FLState],
     if chunks:
         engine = _drive_chunks(make_engine, chunks, staged_chunk, record)
         for s, new_state in zip(states, engine.state()):
-            s.params, s.opt_state, s.client_state = new_state
+            s.params, s.opt_state, s.client_state = _to_device(new_state,
+                                                               device)
         rows = np.concatenate(diag_chunks, axis=1)          # [E, T, 8]
     else:
         rows = np.zeros((len(cfgs), 0, len(DIAG_KEYS)))

@@ -28,6 +28,7 @@ their rounds own the ranks of the FL-device axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import itertools
 import json
@@ -321,9 +322,9 @@ def _run_group_sequential(specs, task, num_rounds, evaluate, eval_every,
 
 
 def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
-              evaluate: Optional[bool] = None,
+              shard: bool = True, evaluate: Optional[bool] = None,
               recorder: Optional[obs.Recorder] = None,
-              device="cuda") -> SweepResult:
+              device="cuda", devices=None) -> SweepResult:
     """Run every grid point of ``sweep`` for ``num_rounds`` rounds on
     ``device``.
 
@@ -336,6 +337,10 @@ def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
     Eval scheduling comes from ``sweep.base.eval`` (``evaluate`` overrides
     the switch) and is the same for every point, so histories align across
     the grid; all groups must give the same eval-metric keys.
+
+    ``shard`` (with ``devices``) goes to ``run_batched``: a group's lanes
+    spread over the local cards (or the ``devices`` given), each card with
+    its own copy of the group's task (``build_task`` on that device).
 
     ``recorder`` gets the grid's manifest first, then every group's engine
     events through the one sink (a batched group's values one a lane; a
@@ -382,6 +387,10 @@ def run_sweep(sweep: SweepSpec, num_rounds: int, *, vectorized: bool = True,
                 eval_fn=task.eval_fn if enabled else None,
                 eval_every=eval_every, chunk_size=base.chunk_size,
                 chunk_batch_provider=task.chunk_batch_provider,
+                shard=shard, devices=devices,
+                task_on=functools.partial(build_task, gspecs[0].data,
+                                          gspecs[0].model,
+                                          cfgs[0].num_devices),
                 recorder=recorder)
             gdigests = [obs.params_sha256(s.params) for s in states]
         else:

@@ -1,14 +1,11 @@
-"""Serving step builders on one card (the port of ``repro/launch/serve.py``):
-prefill, prefill that writes the decode cache, and single-token greedy
-decode.
+"""Serving step builders (the port of ``repro/launch/serve.py``): prefill,
+prefill that writes the decode cache, and single-token greedy decode, on
+one card or on a ``(data, model)`` mesh of ranks.
 
 Each builder takes ``cfg`` and a ``device`` (default ``"cuda"``; raises
-without a card) in place of the reference's mesh, and returns the step
-function; the steps run under ``torch.inference_mode()`` and move the
-token batch to the device (the params and the cache must be there
-already).  The reference's ``in_shardings_fn``, context-parallel decode and
-the sequence-sharded cache (``context_parallel``, ``shard_cache_seq``)
-wait for ROADMAP queue 1 item 15.  ``serve_metrics`` serves a
+without a card) and returns the step function; the steps run under
+``torch.inference_mode()`` and move the token batch to the device (the
+params and the cache must be there already).  ``serve_metrics`` serves a
 ``MemoryRecorder``'s latest events over HTTP, to watch a long FL run.
 
     prefill = build_prefill_cache_step(cfg, "cuda", cache_len=S + n)
@@ -16,71 +13,237 @@ wait for ROADMAP queue 1 item 15.  ``serve_metrics`` serves a
     decode = build_decode_step(cfg, "cuda")
     for pos in range(S, S + n):
         ids, cache = decode(params, cache, ids[:, None], pos)
+
+**On a mesh** (``mesh=``, a ``launch.mesh.ServingMesh``) a builder returns
+``(step, place)``.  ``place(params, cache=None)`` cuts full params and a
+full cache to the ranks this process runs (a list, one entry a rank: the
+counterpart of the reference's ``in_shardings_fn`` and ``device_put``);
+``transformer.init_sharded_params`` gives one rank's params without the
+whole model.  The steps take and return such lists and whole token
+batches: the batch is cut over ``data`` (where it divides), the model over
+``model`` (``distribution.sharding.tp_plan``), and the next ids come back
+whole.  ``build_decode_step(context_parallel=True)`` cuts the cache's
+sequence over ``data`` instead (every data rank takes the whole batch,
+``shard_offset = d * cache_len / data``, the flash-decoding merge folded
+over ``data``); ``shard_cache_seq=True`` cuts it over ``model`` where the
+kv heads do not divide (``cfg.decode_cache_seq_axis = "model"``).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distribution import sharding as sh
+from repro_torch.distribution.tensor_parallel import run_ranks
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-def _greedy(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Next-token ids [B] int32 from the last position's hidden state."""
-    last = hidden[:, -1, :]
-    logits = (last @ L.unembed_matrix(params["emb"], cfg)).float()
+def _greedy(params, cfg: ModelConfig, hidden: torch.Tensor, tp=None
+            ) -> torch.Tensor:
+    """Next-token ids [B] int32 from the last position's hidden state
+    (the lowest index of a tie, as ``argmax`` over the whole vocabulary)."""
+    logits = L.logits(params["emb"], cfg, hidden[:, -1, :], tp)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def build_prefill_step(cfg: ModelConfig, device="cuda"):
+def _split_batch(mesh, b: int) -> bool:
+    """Whether a batch of ``b`` rows is cut over ``data`` (else every data
+    rank runs all of it, as the reference's sanitized batch spec)."""
+    return mesh.data > 1 and b % mesh.data == 0
+
+
+def _rows(tokens: torch.Tensor, ctx, split: bool) -> torch.Tensor:
+    """The rank's rows of the batch (all of them unless ``split``); marks
+    ``ctx`` with the cut, which the MoE's dispatch reads."""
+    ctx.batch_split = split
+    if not split:
+        return tokens
+    per = tokens.shape[0] // ctx.data
+    return tokens[ctx.d * per:(ctx.d + 1) * per]
+
+
+def _whole(ids: torch.Tensor, ctx, split: bool) -> torch.Tensor:
+    """Every data rank's ids, in rank order (the batch's)."""
+    if not split:
+        return ids
+    return torch.cat(list(ctx.gather(ids, "data").unbind(0)))
+
+
+def _place_params(cfg: ModelConfig, mesh):
+    def place(params):
+        by_m = {}
+        for r in mesh.local_ranks:
+            m = mesh.coords(r)[1]
+            if m not in by_m:
+                by_m[m] = sh.shard_params(params, mesh, m, cfg)
+        return [by_m[mesh.coords(r)[1]] for r in mesh.local_ranks]
+    return place
+
+
+def _decode_cache_specs(cfg: ModelConfig, mesh, cache_like, *,
+                       context_parallel: bool = False,
+                       seq_axis: Optional[str] = None):
+    """The cut of a full decode cache on ``mesh`` (sanitized specs): batch
+    over ``data`` and kv heads over ``model`` (where they divide), the
+    Mamba state's channels over ``model``; the k/v sequence over ``data``
+    for context-parallel decode, or over ``seq_axis`` with the heads
+    whole."""
+    if context_parallel:
+        specs = sh.cache_specs(cache_like, batch_axes=(), model_axis="model",
+                               num_kv_heads=cfg.num_kv_heads,
+                               model_size=mesh.model, seq_axis="data")
+    else:
+        specs = sh.cache_specs(cache_like, batch_axes=("data",),
+                               model_axis="model",
+                               num_kv_heads=cfg.num_kv_heads,
+                               model_size=mesh.model)
+        if seq_axis:      # the reference's _reshard_kv_seq
+            specs = sh._map_named(
+                lambda names, sp: (sh.Spec(None, ("data",), seq_axis, None,
+                                           None) if len(sp) == 5 else sp),
+                specs)
+    return sh.named_shardings(mesh, specs, cache_like)
+
+
+def build_prefill_step(cfg: ModelConfig, device="cuda", *, mesh=None):
     """prefill_step(params, batch) -> next-token ids [B] int32: the full
-    forward over the prompt and a greedy first token (no cache)."""
+    forward over the prompt and a greedy first token (no cache).  With
+    ``mesh``: ``(prefill_step, place)``."""
     dev = resolve_device(device)
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill_step(params, batch):
+            x = T.forward_hidden(params, cfg,
+                                 {"tokens": batch["tokens"].to(dev)})
+            return _greedy(params, cfg, x)
+        return prefill_step
 
     @torch.inference_mode()
-    def prefill_step(params, batch):
-        x = T.forward_hidden(params, cfg,
-                             {"tokens": batch["tokens"].to(dev)})
-        return _greedy(params, cfg, x)
+    def sharded_prefill_step(params, batch):
+        tokens = batch["tokens"].to(dev)
+        split = _split_batch(mesh, tokens.shape[0])
 
-    return prefill_step
+        def program(ctx):
+            p = params[ctx.index]
+            x = T.forward_hidden(p, cfg, {"tokens": _rows(tokens, ctx, split)},
+                                 tp=ctx)
+            return _whole(_greedy(p, cfg, x, ctx), ctx, split)
+        return run_ranks(mesh, program)[0]
+
+    place = _place_params(cfg, mesh)
+    return sharded_prefill_step, lambda params, cache=None: (place(params),
+                                                             None)
 
 
 def build_prefill_cache_step(cfg: ModelConfig, device="cuda", *,
-                             cache_len: int):
+                             cache_len: int, mesh=None):
     """prefill_cache_step(params, batch) -> (first new token ids [B] int32,
     cache): the production prefill, which runs the prompt forward and
-    writes the decode cache for ``cache_len`` positions."""
+    writes the decode cache for ``cache_len`` positions.  With ``mesh``:
+    ``(prefill_cache_step, place)``; the cache comes back one entry a rank,
+    in the layout of ``build_decode_step(mesh=mesh)``'s default cut."""
     dev = resolve_device(device)
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill_cache_step(params, batch):
+            x, cache = T.prefill_with_cache(
+                params, cfg, {"tokens": batch["tokens"].to(dev)}, cache_len)
+            return _greedy(params, cfg, x), cache
+        return prefill_cache_step
 
     @torch.inference_mode()
-    def prefill_cache_step(params, batch):
-        x, cache = T.prefill_with_cache(
-            params, cfg, {"tokens": batch["tokens"].to(dev)}, cache_len)
-        return _greedy(params, cfg, x), cache
+    def sharded_prefill_cache_step(params, batch):
+        tokens = batch["tokens"].to(dev)
+        split = _split_batch(mesh, tokens.shape[0])
 
-    return prefill_cache_step
+        def program(ctx):
+            p = params[ctx.index]
+            x, cache = T.prefill_with_cache(
+                p, cfg, {"tokens": _rows(tokens, ctx, split)}, cache_len,
+                tp=ctx)
+            return _whole(_greedy(p, cfg, x, ctx), ctx, split), cache
+        out = run_ranks(mesh, program)
+        return out[0][0], [c for _, c in out]
+
+    place = _place_params(cfg, mesh)
+    return sharded_prefill_cache_step, lambda params, cache=None: (
+        place(params), None)
 
 
 def build_decode_step(cfg: ModelConfig, device="cuda", *,
                       context_parallel: bool = False,
-                      shard_cache_seq: bool = False):
+                      shard_cache_seq: bool = False, cache_len: int = 0,
+                      mesh=None):
     """decode_step(params, cache, tokens, pos) -> (next-token ids [B] int32,
-    cache): one greedy decode step; the cache is updated in place."""
-    if context_parallel or shard_cache_seq:
-        raise NotImplementedError(
-            f"context_parallel / shard_cache_seq wait for {L.MESH_ITEM}")
+    cache): one greedy decode step; the cache is updated in place.  With
+    ``mesh``: ``(decode_step, place)``, ``place(params, cache)`` cutting
+    full params and a full cache to the mesh's ranks.
+    ``context_parallel`` and ``shard_cache_seq`` need a mesh (the module
+    docstring)."""
     dev = resolve_device(device)
+    if mesh is None:
+        if context_parallel or shard_cache_seq:
+            raise ValueError("context_parallel / shard_cache_seq cut the "
+                             "cache over a mesh: pass mesh= (a ServingMesh; "
+                             "launch.mesh.make_host_mesh)")
+
+        @torch.inference_mode()
+        def decode_step(params, cache, tokens, pos, enc_out=None):
+            logits, cache = T.decode_step(params, cfg, cache, tokens.to(dev),
+                                          pos, enc_out=enc_out)
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return decode_step
+
+    if context_parallel and (cache_len <= 0 or cache_len % mesh.data):
+        raise ValueError(f"context_parallel cuts the cache's {cache_len} "
+                         f"slots over data = {mesh.data}: pass a cache_len "
+                         "that it divides")
+    seq_axis = None
+    if (not context_parallel and shard_cache_seq
+            and cfg.num_kv_heads % mesh.model != 0):
+        seq_axis = "model"
+        cfg = dataclasses.replace(cfg, decode_cache_seq_axis=seq_axis)
 
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, pos, enc_out=None):
-        logits, cache = T.decode_step(params, cfg, cache, tokens.to(dev),
-                                      pos, enc_out=enc_out)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    def sharded_decode_step(params, cache, tokens, pos, enc_out=None):
+        if enc_out is not None:
+            raise NotImplementedError(f"enc_out (encoder-decoder) waits for "
+                                      f"{L.ZOO_ITEM}")
+        tokens = tokens.to(dev)
+        split = not context_parallel and _split_batch(mesh, tokens.shape[0])
 
-    return decode_step
+        def program(ctx):
+            p, c = params[ctx.index], cache[ctx.index]
+            toks = _rows(tokens, ctx, split)
+            if context_parallel:
+                logits, c = T.decode_step(
+                    p, cfg, c, toks, pos, axis_name="data",
+                    shard_offset=ctx.d * (cache_len // mesh.data), tp=ctx)
+            else:
+                logits, c = T.decode_step(p, cfg, c, toks, pos, tp=ctx)
+            ids = torch.argmax(logits, dim=-1).to(torch.int32)
+            return _whole(ids, ctx, split), c
+        out = run_ranks(mesh, program)
+        return out[0][0], [c for _, c in out]
+
+    place_params = _place_params(cfg, mesh)
+
+    def place(params, cache=None):
+        placed = None
+        if cache is not None:
+            specs = _decode_cache_specs(cfg, mesh, cache,
+                                       context_parallel=context_parallel,
+                                       seq_axis=seq_axis)
+            placed = [sh.shard_cache(cache, mesh, r, specs)
+                      for r in mesh.local_ranks]
+        return place_params(params), placed
+
+    return sharded_decode_step, place
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,17 @@ function in plain XLA, query-chunked, and holds it equal to its Pallas
 kernel (``tests/test_kernels.py::test_matches_model_layer_path``).  Decode
 attention over the cache is plain PyTorch, as the reference leaves it to
 XLA.  ``chunked_softmax_xent`` waits for the port's training step.
+
+Tensor parallelism: every layer takes an optional ``tp`` (a
+``distribution.tensor_parallel.RankContext``) and then runs on its rank's
+shard of the parameters (``distribution.sharding.shard_params``): the
+attention on the rank's heads (K6 at ``[B, H/M, S, d]``), the MLP on its
+d_ff columns, the embedding on its vocabulary rows, each row-parallel
+product folded over the model axis in rank order.  Decode attention over
+a cache cut along its sequence (``cfg.decode_cache_seq_axis``, or the
+context-parallel ``axis_name``) folds the softmax's max and sum and the
+output across the shards (flash decoding).  With ``tp=None`` every
+function is the single-device code.
 """
 from __future__ import annotations
 
@@ -24,12 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.sharding import tp_plan
 from repro_torch.kernels import ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 # what an unported path names when it raises
-MESH_ITEM = "ROADMAP queue 1 item 15 (distribution/)"
 ZOO_ITEM = "ROADMAP queue 1 item 16 (model zoo)"
 
 
@@ -91,27 +102,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # attention
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
+def _keep(cut, name: str, t: torch.Tensor) -> torch.Tensor:
+    """``cut(name, t)``: the part of a freshly drawn leaf that an init keeps
+    (``transformer.init_sharded_params``: one rank's shard); all of it
+    without a cut."""
+    return t if cut is None else cut(name, t)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device="cuda",
+                   cut=None):
     d, hd = cfg.d_model, cfg.head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg)
     scale = 1.0 / math.sqrt(d)
     p = {
-        "wq": _normal(gen, (d, h * hd), scale, dt, device),
-        "wk": _normal(gen, (d, hkv * hd), scale, dt, device),
-        "wv": _normal(gen, (d, hkv * hd), scale, dt, device),
-        "wo": _normal(gen, (h * hd, d),
-                      scale / math.sqrt(2 * cfg.num_layers), dt, device),
+        "wq": _keep(cut, "wq", _normal(gen, (d, h * hd), scale, dt, device)),
+        "wk": _keep(cut, "wk", _normal(gen, (d, hkv * hd), scale, dt,
+                                       device)),
+        "wv": _keep(cut, "wv", _normal(gen, (d, hkv * hd), scale, dt,
+                                       device)),
+        "wo": _keep(cut, "wo", _normal(gen, (h * hd, d),
+                                       scale / math.sqrt(2 * cfg.num_layers),
+                                       dt, device)),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
-        p["bk"] = torch.zeros((hkv * hd,), dtype=dt, device=device)
-        p["bv"] = torch.zeros((hkv * hd,), dtype=dt, device=device)
+        for name, n in (("bq", h * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
+            p[name] = _keep(cut, name, torch.zeros((n,), dtype=dt,
+                                                   device=device))
     return p
 
 
 def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor):
-    """Returns q [B,S,H,Dh], k/v [B,S,Hkv,Dh]."""
+    """Returns q [B,S,H,Dh], k/v [B,S,Hkv,Dh] (a rank's shard: its heads,
+    the head counts read from the projections' widths)."""
     b, s, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -120,10 +143,50 @@ def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     return q, k, v
+
+
+def local_kv_heads(cfg: ModelConfig, model: int, m: int) -> list:
+    """The kv heads that rank ``m``'s q heads read, where the kv heads are
+    not cut (``tp_plan(...).kv`` False, the kv projections whole on every
+    rank): one kv head a group of q heads, in order; the rank's q heads
+    then group evenly over them (``len`` divides H / model)."""
+    hl, g = cfg.num_heads // model, cfg.q_per_kv
+    first = m * hl
+    if hl % g == 0:
+        return list(range(first // g, (first + hl) // g))
+    if g % hl == 0:
+        return [first // g]
+    return [(first + i) // g for i in range(hl)]
+
+
+def _rank_kv(cfg: ModelConfig, tp, k: torch.Tensor, v: torch.Tensor):
+    """The kv heads (axis 2) a rank's q heads read: all of k/v where they
+    are the rank's shard, else the rank's ``local_kv_heads``."""
+    if tp is None or tp.model == 1:
+        return k, v
+    plan = tp_plan(cfg, tp.model)
+    if plan.kv or not plan.heads:
+        return k, v
+    idx = local_kv_heads(cfg, tp.model, tp.m)
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return (k.narrow(2, idx[0], len(idx)), v.narrow(2, idx[0], len(idx)))
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def fold_cut(cfg: ModelConfig, partial: torch.Tensor, tp,
+             module: str) -> torch.Tensor:
+    """A row-parallel product's partial (the contracted dim cut), folded
+    over the model axis where the plan cuts ``module``; else the whole
+    product, as it is."""
+    if tp is not None and tp.model > 1 \
+            and getattr(tp_plan(cfg, tp.model), module):
+        return tp.fold(partial)
+    return partial
 
 
 def _expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
@@ -137,7 +200,8 @@ def _expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
 
 def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              return_kv: bool = False, kv_x=None, impl: str = "auto"):
+              return_kv: bool = False, kv_x=None, impl: str = "auto",
+              tp=None):
     """Full-sequence self-attention.  x: [B,S,D] -> [B,S,D].
 
     The core is ``ops.flash_attention`` on [B, H, S, d] q and the grouped
@@ -146,7 +210,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
     returns the (rope'd, unexpanded) k/v [B,S,Hkv,Dh] for the
     prefill->decode cache handoff.  Query/key positions are 0..S-1; the
     reference's ``positions``/``kv_positions`` serve its cross-attention
-    decode only."""
+    decode only.  With ``tp`` the rank's heads run (the returned k/v are
+    the rank's cache heads) and ``wo``'s partials fold."""
     if kv_x is not None:
         raise NotImplementedError(
             f"cross-attention (kv_x, encoder-decoder) waits for {ZOO_ITEM}")
@@ -159,12 +224,13 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
     pos = torch.arange(s, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    k_use, v_use = _rank_kv(cfg, tp, k, v)
     o = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(),
+                            k_use.transpose(1, 2).contiguous(),
+                            v_use.transpose(1, 2).contiguous(),
                             causal=causal, window=window, impl=impl)
-    out = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-    out = out @ params["wo"]
+    out = o.transpose(1, 2).reshape(b, s, -1)
+    out = fold_cut(cfg, out @ params["wo"], tp, "heads")
     if return_kv:
         return out, (k, v)
     return out
@@ -213,7 +279,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
 def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos, *,
                      window: Optional[int] = None,
-                     axis_name: Optional[str] = None, shard_offset=None):
+                     axis_name: Optional[str] = None, shard_offset=None,
+                     tp=None):
     """Single-token decode.  x: [B,1,D]; cache_k/v: [B,Scache,Hkv,Dh]; pos:
     the current position (an int, or a 0-d tensor read on the host).
     Returns (out [B,1,D], cache_k, cache_v), the caches updated in place at
@@ -222,26 +289,42 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
     reference does for a sharded cache).
 
     With ``window`` set the cache is a rotating buffer and the slot is
-    ``pos % Scache``.  The reference's sharded branches
-    (``cfg.decode_cache_seq_axis``, ``axis_name``) raise."""
-    if axis_name is not None or shard_offset is not None:
-        raise NotImplementedError(
-            f"context-parallel decode (axis_name) waits for {MESH_ITEM}")
-    if cfg.decode_cache_seq_axis is not None:
-        raise NotImplementedError(
-            f"decode_cache_seq_axis (a sequence-sharded cache) waits for "
-            f"{MESH_ITEM}")
+    ``pos % Scache``.  With ``tp`` the rank's heads attend over its cache
+    shard.  The cache's sequence is cut over a mesh axis in two cases:
+    ``axis_name`` (context-parallel decode over ``data``; ``shard_offset``
+    is the global position of this shard's first slot) and
+    ``cfg.decode_cache_seq_axis`` (the kv heads do not divide over
+    ``model``, so the sequence is cut over it).  Each shard then writes the
+    new token only where it owns the slot, forms its scores (over every q
+    head, gathered, where the cut is over ``model``), and the softmax's
+    max, its sum and the output fold across the shards in rank order
+    (flash decoding).  Without ``tp`` ``decode_cache_seq_axis`` is a
+    placement hint and changes nothing."""
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError("attn_logit_softcap: no config sets it")
     if cfg.decode_cache_update not in ("dynamic", "select"):
         raise ValueError(f"unknown decode_cache_update "
                          f"{cfg.decode_cache_update!r}")
+    if axis_name is not None and (tp is None or shard_offset is None):
+        raise ValueError("context-parallel decode (axis_name) runs on one "
+                         "rank of a mesh: pass tp (a RankContext) and "
+                         "shard_offset")
+    seq_axis = axis_name
+    if seq_axis is None and tp is not None:
+        seq_axis = cfg.decode_cache_seq_axis
+    if seq_axis is not None and tp.size(seq_axis) == 1:
+        seq_axis = None
     pos = int(pos)
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(params, cfg, x)
     posv = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    if seq_axis is not None:
+        out = _decode_sharded_seq(cfg, q, k_new, v_new, cache_k, cache_v,
+                                  pos, window, seq_axis, shard_offset, tp)
+        out = out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
+        return fold_cut(cfg, out, tp, "heads"), cache_k, cache_v
 
     s_cache = cache_k.shape[1]
     slot = pos % s_cache if window else pos
@@ -264,15 +347,79 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
 
     # plain attention of the one query over the cache, fp32 scores, grouped
     # heads (query head h reads kv head h // q_per_kv)
-    hkv, g, dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
-    qg = q.reshape(b, hkv, g, dh).float()
-    scores = torch.einsum("bjgd,bkjd->bjgk", qg, cache_k.float()) \
+    k_use, v_use = _rank_kv(cfg, tp, cache_k, cache_v)
+    hl, hkv, dh = q.shape[2], k_use.shape[2], cfg.head_dim
+    qg = q.reshape(b, hkv, hl // hkv, dh).float()
+    scores = torch.einsum("bjgd,bkjd->bjgk", qg, k_use.float()) \
         / math.sqrt(dh)
     scores = scores.masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bjgk,bkjd->bjgd", probs.to(cache_v.dtype), cache_v)
-    out = out.reshape(b, 1, cfg.num_heads * dh).to(x.dtype) @ params["wo"]
-    return out, cache_k, cache_v
+    out = torch.einsum("bjgk,bkjd->bjgd", probs.to(v_use.dtype), v_use)
+    out = out.reshape(b, 1, hl * dh).to(x.dtype) @ params["wo"]
+    return fold_cut(cfg, out, tp, "heads"), cache_k, cache_v
+
+
+def _decode_sharded_seq(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v,
+                        pos: int, window, seq_axis: str, shard_offset, tp
+                        ) -> torch.Tensor:
+    """Decode attention over a cache whose sequence is cut over
+    ``seq_axis``: the rank's slots are written where it owns the new
+    token's slot, and the flash-decoding partials (max, rescaled sum,
+    output) fold across the shards.  Returns the rank's heads' output
+    [B, 1, H_rank, dh] in fp32."""
+    b, dev = q.shape[0], q.device
+    s_local = cache_k.shape[1]
+    shards = tp.size(seq_axis)
+    context = seq_axis != "model"
+    offset = (int(shard_offset) if context
+              else tp.coord(seq_axis) * s_local)
+    gidx = offset + torch.arange(s_local, device=dev)
+    if context:
+        # the reference's context-parallel slot rule (no rotating buffer)
+        slot = pos % s_local if window else pos
+    else:
+        slot = pos % (s_local * shards) if window else pos
+    sel = (gidx == slot)[None, :, None, None]
+    cache_k.copy_(torch.where(sel, k_new.to(cache_k.dtype), cache_k))
+    cache_v.copy_(torch.where(sel, v_new.to(cache_v.dtype), cache_v))
+    kpos = gidx
+    if context:
+        valid = kpos <= pos
+    else:
+        if window:
+            s_all = s_local * shards
+            kpos = torch.where(gidx <= slot, pos - slot + gidx,
+                               pos - slot - s_all + gidx)
+        valid = (kpos >= 0) & (kpos <= pos)
+        if window:
+            valid = valid & (pos - kpos < window)
+    bias = torch.where(valid, 0.0, -1e30).float()
+    hl = q.shape[2]
+    # a sequence cut over the model axis holds every head: its shard
+    # attends with every q head
+    gathered = (not context and tp_plan(cfg, tp.model).heads
+                and tp.model > 1)
+    if gathered:
+        q = tp.gather(q, "model")                     # [M, B, 1, hl, dh]
+        q = q.permute(1, 2, 0, 3, 4).reshape(b, 1, tp.model * hl, -1)
+        k_use, v_use = cache_k, cache_v
+    else:
+        k_use, v_use = _rank_kv(cfg, tp, cache_k, cache_v)
+    hq, hkv, dh = q.shape[2], k_use.shape[2], cfg.head_dim
+    qg = q.reshape(b, hkv, hq // hkv, dh).float()
+    scores = (torch.einsum("bjgd,bkjd->bjgk", qg, k_use.float())
+              * (1.0 / math.sqrt(dh)) + bias)
+    m_glob = tp.fold(torch.amax(scores, dim=-1, keepdim=True), seq_axis,
+                     torch.maximum)
+    p = torch.exp(scores - m_glob)
+    num = torch.einsum("bjgk,bkjd->bjgd", p.to(v_use.dtype), v_use).float()
+    den = torch.sum(p, dim=-1, keepdim=True)
+    num = tp.fold(num, seq_axis)
+    den = tp.fold(den, seq_axis)
+    out = (num / torch.clamp(den, min=1e-30)).reshape(b, 1, hq, dh)
+    if gathered:
+        out = out[:, :, tp.m * hl:(tp.m + 1) * hl]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -280,47 +427,80 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             d_ff: Optional[int] = None, device="cuda"):
+             d_ff: Optional[int] = None, device="cuda", cut=None):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     dt = dtype_of(cfg)
     return {
-        "w_gate": _normal(gen, (d, f), 1.0 / math.sqrt(d), dt, device),
-        "w_up": _normal(gen, (d, f), 1.0 / math.sqrt(d), dt, device),
-        "w_down": _normal(gen, (f, d),
-                          1.0 / math.sqrt(f) / math.sqrt(2 * cfg.num_layers),
-                          dt, device),
+        "w_gate": _keep(cut, "w_gate", _normal(gen, (d, f), 1.0 / math.sqrt(d),
+                                               dt, device)),
+        "w_up": _keep(cut, "w_up", _normal(gen, (d, f), 1.0 / math.sqrt(d),
+                                           dt, device)),
+        "w_down": _keep(cut, "w_down", _normal(
+            gen, (f, d), 1.0 / math.sqrt(f) / math.sqrt(2 * cfg.num_layers),
+            dt, device)),
     }
 
 
-def mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The gated MLP; with ``tp`` on the rank's d_ff columns, ``w_down``'s
+    partials folded."""
     # the reference's jax.nn.gelu is the tanh approximation by default
     act = F.silu if cfg.mlp_act == "silu" else (
         lambda t: F.gelu(t, approximate="tanh"))
-    return (act(x @ params["w_gate"]) * (x @ params["w_up"])) \
+    out = (act(x @ params["w_gate"]) * (x @ params["w_up"])) \
         @ params["w_down"]
+    return fold_cut(cfg, out, tp, "mlp")
 
 
 # ---------------------------------------------------------------------------
 # embeddings / unembedding
 
 
-def init_embeddings(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
+def init_embeddings(gen: torch.Generator, cfg: ModelConfig, device="cuda",
+                    cut=None):
     dt = dtype_of(cfg)
-    p = {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt,
-                        device)}
+    p = {"tok": _keep(cut, "tok", _normal(gen, (cfg.vocab_size, cfg.d_model),
+                                          0.02, dt, device))}
     if not cfg.tie_embeddings:
-        p["unemb"] = _normal(gen, (cfg.d_model, cfg.vocab_size),
-                             1.0 / math.sqrt(cfg.d_model), dt, device)
+        p["unemb"] = _keep(cut, "unemb", _normal(
+            gen, (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model),
+            dt, device))
     if cfg.modality:
         raise NotImplementedError(
             f"modality embeddings ({cfg.modality}) wait for {ZOO_ITEM}")
     return p
 
 
-def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+def embed(params, cfg: ModelConfig, tokens: torch.Tensor, tp=None
+          ) -> torch.Tensor:
+    """The token embeddings; with ``tp`` and the vocabulary cut, each rank
+    looks up its rows (zero for a token outside them) and the shards fold:
+    one of the summands is the row, the others zero, so the fold is
+    exact."""
+    if tp is None or tp.model == 1 or not tp_plan(cfg, tp.model).vocab:
+        return params["tok"][tokens]
+    rows = params["tok"].shape[0]
+    local = tokens - tp.m * rows
+    hit = (local >= 0) & (local < rows)
+    x = params["tok"][local.clamp(0, rows - 1)]
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return tp.fold(x)
 
 
 def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     return params["tok"].T if cfg.tie_embeddings else params["unemb"]
+
+
+def logits(params, cfg: ModelConfig, x: torch.Tensor, tp=None
+           ) -> torch.Tensor:
+    """fp32 logits [..., vocab] of final hidden states ``x`` [..., D]; with
+    ``tp`` and the vocabulary cut, each rank's columns gathered in rank
+    order (exact: the vocabulary's order, so an argmax keeps the lowest
+    index of a tie)."""
+    out = (x @ unembed_matrix(params, cfg)).float()
+    if tp is None or tp.model == 1 or not tp_plan(cfg, tp.model).vocab:
+        return out
+    parts = tp.gather(out, "model")                  # [M, ..., V/M]
+    return torch.cat(list(parts.unbind(0)), dim=-1)

@@ -10,9 +10,20 @@ fp32 products, so ``mamba_chunk`` has no counterpart here.  The D-skip and
 the ``silu(z)`` gate stay plain PyTorch.  Decode is the exact O(1)-state
 step and writes the new ssm and conv state into the caller's cache in
 place (the port's decode convention, as ``layers.decode_attention``).
+
+Tensor parallelism (``tp``, a ``RankContext``): a rank holds d_inner / M
+channels (``in_proj``'s slice of each of its two halves, ``conv_w``,
+``conv_b``, ``dt_proj``, ``A_log``, ``D``, ``x_proj``'s rows, ``out_proj``'s
+rows), runs the conv, the scan (K7 at ``[B, S, d_inner/M, N]``) and the
+gate on them, and folds two row-parallel products over the model axis:
+``x_proj``'s (dt, B, C are functions of every channel) and ``out_proj``'s.
+``cfg.mamba_shard_channels`` names the axis of that channel cut (the
+reference's sharding constraint on the scan's inputs); the port's cut is
+the model axis whatever it names.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -29,13 +40,10 @@ def _check(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"mamba_scan_dtype={cfg.mamba_scan_dtype!r}: the scan runs in "
             f"fp32 (K7); a low-precision scan waits for {L.ZOO_ITEM}")
-    if cfg.mamba_shard_channels is not None:
-        raise NotImplementedError(
-            f"mamba_shard_channels (channel-sharded scan) waits for "
-            f"{L.MESH_ITEM}")
 
 
-def init_mamba(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, device="cuda",
+               cut=None):
     """The reference's shapes, scales and dtypes (``A_log``, ``D`` and
     ``dt_proj_b`` stay fp32 in a bf16 model); draws on the generator's
     device, as ``layers._normal``."""
@@ -47,28 +55,33 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
                         * (hi - lo) + lo)
     a_init = torch.arange(1, n + 1, dtype=torch.float32,
                           device=device)[None, :].repeat(di, 1)
+    keep = functools.partial(L._keep, cut)
     return {
-        "in_proj": L._normal(gen, (d, 2 * di), 1.0 / math.sqrt(d), dt,
-                             device),
-        "conv_w": L._normal(gen, (kk, di), 1.0 / math.sqrt(kk), dt, device),
-        "conv_b": torch.zeros((di,), dtype=dt, device=device),
-        "x_proj": L._normal(gen, (di, r + 2 * n), 1.0 / math.sqrt(di), dt,
-                            device),
-        "dt_proj_w": L._normal(gen, (r, di), r ** -0.5, dt, device),
+        "in_proj": keep("in_proj", L._normal(gen, (d, 2 * di),
+                                             1.0 / math.sqrt(d), dt, device)),
+        "conv_w": keep("conv_w", L._normal(gen, (kk, di), 1.0 / math.sqrt(kk),
+                                           dt, device)),
+        "conv_b": keep("conv_b", torch.zeros((di,), dtype=dt, device=device)),
+        "x_proj": keep("x_proj", L._normal(gen, (di, r + 2 * n),
+                                           1.0 / math.sqrt(di), dt, device)),
+        "dt_proj_w": keep("dt_proj_w", L._normal(gen, (r, di), r ** -0.5, dt,
+                                                 device)),
         # softplus^-1 of dt_init, so softplus(dt_proj_b) starts at dt_init
-        "dt_proj_b": torch.log(torch.expm1(dt_init)).to(device),
-        "A_log": torch.log(a_init),
-        "D": torch.ones((di,), dtype=torch.float32, device=device),
-        "out_proj": L._normal(gen, (di, d), 1.0 / math.sqrt(di)
-                              / math.sqrt(2 * cfg.num_layers), dt, device),
+        "dt_proj_b": keep("dt_proj_b",
+                          torch.log(torch.expm1(dt_init)).to(device)),
+        "A_log": keep("A_log", torch.log(a_init)),
+        "D": keep("D", torch.ones((di,), dtype=torch.float32, device=device)),
+        "out_proj": keep("out_proj", L._normal(
+            gen, (di, d), 1.0 / math.sqrt(di) / math.sqrt(2 * cfg.num_layers),
+            dt, device)),
     }
 
 
-def _scan_inputs(params, cfg: ModelConfig, u: torch.Tensor):
+def _scan_inputs(params, cfg: ModelConfig, u: torch.Tensor, tp=None):
     """u: [B, C, Di] conv+silu activations -> (dt [B,C,Di] fp32,
     a [Di,N] fp32, B [B,C,N], C [B,C,N]), B and C in u's dtype."""
     n, r = cfg.mamba_d_state, cfg.mamba_dt_rank
-    proj = u @ params["x_proj"]                                # [B,C,r+2N]
+    proj = L.fold_cut(cfg, u @ params["x_proj"], tp, "mamba")  # [B,C,r+2N]
     dt_r, b_mat, c_mat = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_r @ params["dt_proj_w"]).float()
                     + params["dt_proj_b"])
@@ -76,11 +89,11 @@ def _scan_inputs(params, cfg: ModelConfig, u: torch.Tensor):
     return dt, a, b_mat, c_mat
 
 
-def _ssm_inputs(params, cfg: ModelConfig, u: torch.Tensor):
+def _ssm_inputs(params, cfg: ModelConfig, u: torch.Tensor, tp=None):
     """The reference's discretized inputs: u [B, C, Di] -> (dA [B,C,Di,N],
     dBu [B,C,Di,N], C [B,C,N]), all fp32.  Decode's single step uses them;
     the full sequence hands the undiscretized inputs to the scan."""
-    dt, a, b_mat, c_mat = _scan_inputs(params, cfg, u)
+    dt, a, b_mat, c_mat = _scan_inputs(params, cfg, u, tp)
     da = torch.exp(dt[..., None] * a)
     dbu = (dt * u.float())[..., :, None] * b_mat.float()[..., None, :]
     return da, dbu, c_mat.float()
@@ -97,26 +110,27 @@ def _causal_conv(params, cfg: ModelConfig, u: torch.Tensor):
 
 
 def mamba_mix(params, cfg: ModelConfig, x: torch.Tensor, *,
-              return_state: bool = False, impl: str = "auto"):
+              return_state: bool = False, impl: str = "auto", tp=None):
     """Full-sequence Mamba mixing.  x: [B,S,D] -> [B,S,D].
 
     ``return_state=True`` additionally returns (ssm_state [B,Di,N] fp32,
     conv_tail [B,K-1,Di]) for the prefill -> decode handoff: the scan's
     final state, and the last K-1 PRE-conv inputs u (zeros before the
     prompt's start).  ``impl`` forces the scan's route
-    (``ops.selective_scan``)."""
+    (``ops.selective_scan``).  With ``tp`` the rank's channels run and
+    the returned state is the rank's."""
     _check(cfg)
     xz = x @ params["in_proj"]
     u, z = torch.chunk(xz, 2, dim=-1)                          # [B,S,Di]
     u_conv, u_pad = _causal_conv(params, cfg, u)
-    dt, a, b_mat, c_mat = _scan_inputs(params, cfg, u_conv)
+    dt, a, b_mat, c_mat = _scan_inputs(params, cfg, u_conv, tp)
     scanned = ops.selective_scan(u_conv, dt, a, b_mat.contiguous(),
                                  c_mat.contiguous(),
                                  return_state=return_state, impl=impl)
     y, h_last = scanned if return_state else (scanned, None)
     y = y + u_conv.float() * params["D"]
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ params["out_proj"]
+    out = L.fold_cut(cfg, y @ params["out_proj"], tp, "mamba")
     if return_state:
         return out, (h_last, u_pad[:, u_pad.shape[1] - (cfg.mamba_d_conv
                                                         - 1):, :])
@@ -138,7 +152,8 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, n_layers: int,
 
 
 def mamba_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
-                      ssm_state: torch.Tensor, conv_state: torch.Tensor
+                      ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                      tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B,1,D]; ssm_state: [B,Di,N]; conv_state: [B,K-1,Di].  Returns
     (out [B,1,D], ssm_state, conv_state), the two states updated in place."""
@@ -149,11 +164,12 @@ def mamba_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
     u_conv = torch.einsum("bkd,kd->bd", window, params["conv_w"]) \
         + params["conv_b"]
     u_conv = F.silu(u_conv)[:, None, :]                        # [B,1,Di]
-    da, dbu, c_mat = _ssm_inputs(params, cfg, u_conv)          # [B,1,Di,N]
+    da, dbu, c_mat = _ssm_inputs(params, cfg, u_conv, tp)      # [B,1,Di,N]
     h = da[:, 0] * ssm_state + dbu[:, 0]                       # [B,Di,N]
     y = torch.einsum("bdn,bn->bd", h, c_mat[:, 0])[:, None, :]
     y = y + u_conv.float() * params["D"]
     y = (y * F.silu(z.float())).to(x.dtype)
     ssm_state.copy_(h)
     conv_state.copy_(window[:, 1:, :])
-    return y @ params["out_proj"], ssm_state, conv_state
+    return (L.fold_cut(cfg, y @ params["out_proj"], tp, "mamba"), ssm_state,
+            conv_state)

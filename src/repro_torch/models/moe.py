@@ -11,6 +11,15 @@ off), every expert run on its ``[cap, D]`` buffer, and each token's k pairs
 gathered back with the renormalized router weights.  The k pairs are
 summed over a ``[T, k, D]`` view, not with ``index_add_``, whose CUDA
 atomics would make the order of the sum vary from run to run.
+
+Tensor parallelism (``tp``): the expert stacks are cut over the model
+axis.  The router stays whole, every rank computes the same dispatch and
+keeps only the pairs of its experts, and the ranks' combines (each token's
+pairs of that rank's experts, in slot order) fold in rank order.  Where
+the batch's rows are cut over the data axis, the dispatch is still the
+whole batch's (the reference's, under GSPMD): the capacity counts every
+data rank's tokens and each expert's slots continue from the earlier data
+ranks' pairs (their counts gathered), so the same pairs are dropped.
 """
 from __future__ import annotations
 
@@ -21,19 +30,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.sharding import tp_plan
 from repro_torch.models import layers as L
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda",
+             cut=None):
     """The reference's shapes, scales and dtypes (the router stays fp32)."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     dt = L.dtype_of(cfg)
     return {
-        "router": L._normal(gen, (d, e), 0.02, torch.float32, device),
-        "w_gate": L._normal(gen, (e, d, f), 1.0 / math.sqrt(d), dt, device),
-        "w_up": L._normal(gen, (e, d, f), 1.0 / math.sqrt(d), dt, device),
-        "w_down": L._normal(gen, (e, f, d), 1.0 / math.sqrt(f)
-                            / math.sqrt(2 * cfg.num_layers), dt, device),
+        "router": L._keep(cut, "router", L._normal(gen, (d, e), 0.02,
+                                                   torch.float32, device)),
+        "w_gate": L._keep(cut, "w_gate", L._normal(
+            gen, (e, d, f), 1.0 / math.sqrt(d), dt, device)),
+        "w_up": L._keep(cut, "w_up", L._normal(
+            gen, (e, d, f), 1.0 / math.sqrt(d), dt, device)),
+        "w_down": L._keep(cut, "w_down", L._normal(
+            gen, (e, f, d), 1.0 / math.sqrt(f)
+            / math.sqrt(2 * cfg.num_layers), dt, device)),
     }
 
 
@@ -52,12 +67,13 @@ def router_probs(params, x_flat: torch.Tensor
     return torch.softmax(logits, dim=-1), logits
 
 
-def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor
+def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B,S,D] -> (y [B,S,D], aux {load_balance_loss, router_z_loss}).
 
     The expert activations are formed in place (``act(gate) * up`` written
-    over ``gate``), which saves one [E, cap, F] buffer at the prefill."""
+    over ``gate``), which saves one [E, cap, F] buffer at the prefill.
+    With ``tp`` the rank runs its experts and the combines fold."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -76,17 +92,29 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor
            "router_z_loss": torch.mean(torch.square(
                torch.logsumexp(logits, dim=-1)))}
 
-    # dispatch, in pair order
-    cap = capacity(t, cfg)
+    # dispatch, in pair order.  With the batch's rows cut over ``data`` the
+    # order is the whole batch's: the capacity counts every data rank's
+    # tokens, and a rank's slots start after the earlier ranks' pairs
+    split = tp is not None and tp.batch_split and tp.data > 1
+    cap = capacity(t * tp.data if split else t, cfg)
     flat_e = top_e.reshape(t * k)
     onehot = F.one_hot(flat_e, e)                             # [T*k, E]
     pos_in_e = torch.cumsum(onehot, dim=0) - onehot           # exclusive
+    if split:
+        counts = tp.gather(torch.sum(onehot, dim=0), "data")  # [D, E]
+        pos_in_e = pos_in_e + torch.sum(counts[:tp.d], dim=0)
     flat_pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
     keep = flat_pos < cap
-    dest_e = torch.where(keep, flat_e, 0)
+    lo, e_rank = 0, e
+    cut = tp is not None and tp.model > 1 and tp_plan(cfg, tp.model).experts
+    if cut:      # the rank's experts only: the other pairs are dropped here
+        e_rank = params["w_gate"].shape[0]
+        lo = tp.m * e_rank
+        keep = keep & (flat_e >= lo) & (flat_e < lo + e_rank)
+    dest_e = torch.where(keep, flat_e - lo, 0)
     dest_c = torch.where(keep, flat_pos, cap)                 # cap: dropped
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e_rank, cap + 1, d), dtype=x.dtype, device=x.device)
     buf[dest_e, dest_c] = x_flat[tok_idx]
     buf = buf[:, :cap, :]                                     # [E, C, D]
 
@@ -107,6 +135,8 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor
     y_pairs = y_buf[dest_e, torch.clamp(dest_c, max=cap - 1)]  # [T*k, D]
     w_pairs = (top_p.reshape(t * k) * keep).to(y_pairs.dtype)
     y = (y_pairs * w_pairs[:, None]).reshape(t, k, d).sum(dim=1)
+    if cut:
+        y = tp.fold(y)
     return y.reshape(b, s, d), aux
 
 

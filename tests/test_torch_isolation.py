@@ -73,6 +73,8 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.fl.sweep, repro_torch.fl.tasks\n"
         "import repro_torch.checkpoint.store, repro_torch.obs.profiling\n"
         "import repro_torch.distribution, repro_torch.distribution.sharding\n"
+        "import repro_torch.distribution.tensor_parallel\n"
+        "import repro_torch.launch.mesh\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
         "from repro_torch.fl import SweepSpec, run_sweep, build_task\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -139,6 +141,7 @@ ENTRY_POINTS = [
     ("repro_torch.interop", "model_params_from_jax"),
     ("repro_torch.models.transformer", "init_params"),
     ("repro_torch.models.transformer", "init_cache"),
+    ("repro_torch.models.transformer", "init_sharded_params"),
     ("repro_torch.models.blocks", "init_block"),
     ("repro_torch.models.blocks", "init_block_cache"),
     ("repro_torch.models.layers", "init_rmsnorm"),

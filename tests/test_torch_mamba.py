@@ -225,6 +225,8 @@ def test_mamba_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         M.mamba_mix(p, dataclasses.replace(cfg, mamba_scan_dtype="bfloat16"),
                     x)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # mamba_shard_channels names the axis of the channel cut (a mesh's
+    # model axis): alone it is the same mixer
+    assert torch.equal(
         M.mamba_mix(p, dataclasses.replace(cfg, mamba_shard_channels="model"),
-                    x)
+                    x), M.mamba_mix(p, cfg, x))

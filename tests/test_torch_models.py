@@ -417,13 +417,20 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError, match="item 16"):
             T.init_params(reg.reduce_config(reg.get_config(arch)),
                           torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # the sharded serving options need a mesh; without one, the sequence
+    # axis of a cache is a placement hint only (tests/test_torch_tp_
+    # serving.py runs them on a mesh)
+    with pytest.raises(ValueError, match="mesh="):
         serve.build_decode_step(cfg, "cpu", context_parallel=True)
     cache = T.init_cache(cfg, 1, 8, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.decode_step(p, dataclasses.replace(cfg, decode_cache_seq_axis="m"),
-                      cache, tok, 0)
+    want, _ = T.decode_step(p, cfg, T.init_cache(cfg, 1, 8, device="cpu"),
+                            tok, 0)
+    got, _ = T.decode_step(p, dataclasses.replace(
+        cfg, decode_cache_seq_axis="m"), cache, tok, 0)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="RankContext"):
+        T.decode_step(p, cfg, cache, tok, 1, axis_name="data")
     attn = {k: v[0] for k, v in p["blocks"][0]["attn"].items()}
     x = torch.zeros((1, 4, cfg.d_model))
     with pytest.raises(NotImplementedError, match="softcap"):
@@ -434,11 +441,14 @@ def test_unported_paths_raise():
         B.init_block_cache(cfg, "slstm", 1, 8, device="cpu")
     _, hcfg, _, hp = _model("jamba-v0.1-52b")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    for over, item in ((dict(mamba_scan_dtype="bfloat16"), "item 16"),
-                       (dict(mamba_shard_channels="model"), "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.forward_hidden(hp, dataclasses.replace(hcfg, **over),
-                             {"tokens": toks})
+    with pytest.raises(NotImplementedError, match="item 16"):
+        T.forward_hidden(hp, dataclasses.replace(
+            hcfg, mamba_scan_dtype="bfloat16"), {"tokens": toks})
+    # mamba_shard_channels names the channel cut's axis: the same function
+    assert torch.equal(
+        T.forward_hidden(hp, dataclasses.replace(
+            hcfg, mamba_shard_channels="model"), {"tokens": toks}),
+        T.forward_hidden(hp, hcfg, {"tokens": toks}))
 
 
 def test_serve_builders_default_to_the_card():

@@ -950,6 +950,7 @@ class TestFlashAttentionOnCard:
         (1, 32, 8, 8192, 8192, 80, True, 4096),
         (4, 32, 8, 8192, 8192, 128, True, None),   # Jamba's attention
         (1, 32, 8, 8192, 8192, 128, True, None),
+        (4, 8, 2, 8192, 8192, 128, True, None),    # Jamba's, one rank of 4
         (2, 8, 8, 1000, 1000, 128, True, None),    # ragged S
         (2, 8, 8, 1000, 1000, 128, False, None),
         (1, 4, 2, 333, 333, 80, True, 16),         # window < a kv tile
@@ -1075,6 +1076,7 @@ class TestSelectiveScanOnCard:
         (2, 1000, 1000, 16, "test"),      # ragged S and D
         (1, 333, 77, 5, "test"),          # ragged, N below the kernel's 16
         (4, 8192, 8192, 16, "jamba"),     # with Jamba's own a and dt
+        (4, 8192, 2048, 16, "jamba"),     # one model rank of 4
     ])
     def test_selective_scan_matches_plain(self, b, s, d, n, draw, dtype):
         u, dt, a, bm, cm = scan_inputs(b, s, d, n, dtype, seed=s + d + n,
@@ -1100,3 +1102,77 @@ class TestSelectiveScanOnCard:
         reset = scan_reset_at(u, dt, a, bm, cm, cut)
         assert not bool(((reset - yp).abs() <= tol).all())
 
+
+
+@pytest.mark.cuda
+class TestServingMeshOnCard:
+    """The serving mesh emulated on the card (every rank in turn on it):
+    reduced Jamba in fp32 over (1, 2) and context-parallel over (2, 1)
+    gives the unsharded route's tokens; a rank's prefill launches K6 and
+    K7 on its heads and channels; ``run_batched`` spread over two engines
+    on the card is bitwise the unsharded batched run."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def _jamba(self):
+        import dataclasses
+        from repro_torch.configs import registry as reg
+        from repro_torch.models import transformer as T
+        cfg = dataclasses.replace(reg.reduce_config(
+            reg.get_config("jamba-v0.1-52b")), dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return cfg, T.init_params(cfg, gen, device="cuda")
+
+    def test_mesh_tokens_are_the_unsharded_tokens(self):
+        from repro_torch.launch import serve
+        from repro_torch.launch.mesh import make_host_mesh
+        cfg, p = self._jamba()
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(1))
+
+        def run(prefill, decode, params, place_cache=None):
+            ids, cache = prefill(params, {"tokens": toks})
+            if place_cache is not None:
+                params, cache = place_cache(cache)
+            out = [ids]
+            for pos in range(64, 70):
+                ids, cache = decode(params, cache, ids[:, None], pos)
+                out.append(ids)
+            return torch.stack(out, 1)
+        pre = serve.build_prefill_cache_step(cfg, cache_len=72)
+        want = run(pre, serve.build_decode_step(cfg), p)
+        mesh = make_host_mesh(1, 2)
+        pre_m, place = serve.build_prefill_cache_step(cfg, cache_len=72,
+                                                      mesh=mesh)
+        ops.reset_launch_counts()
+        got = run(pre_m, serve.build_decode_step(cfg, mesh=mesh)[0],
+                  place(p)[0])
+        n_mamba = sum(k.startswith("mamba") for k in cfg.block_pattern)
+        assert ops.LAUNCH_COUNTS["selective_scan"] == 2 * n_mamba * (
+            cfg.num_superblocks)
+        assert ops.LAUNCH_COUNTS["flash_attention"] == 2 * (
+            cfg.num_superblocks)
+        assert torch.equal(got, want)
+        cp, place_cp = serve.build_decode_step(
+            cfg, mesh=make_host_mesh(2, 1), context_parallel=True,
+            cache_len=72)
+        got = run(pre, cp, p, lambda cache: place_cp(p, cache))
+        assert torch.equal(got, want)
+
+    def test_two_engines_on_the_card_are_the_batched_run(self):
+        from repro_torch.fl import SweepSpec, run_sweep
+        sweep = SweepSpec(_case_ii_spec(), {"seed": (0, 1, 2, 3)})
+        plain = run_sweep(sweep, 6, shard=False)
+        two = run_sweep(sweep, 6, devices=[torch.device("cuda", 0)] * 2)
+        assert two.params_digests == plain.params_digests
+        for k in plain.history:
+            np.testing.assert_array_equal(two.history[k], plain.history[k])

@@ -496,6 +496,97 @@ class TestRunBatchedValidation:
         assert int(states[0].opt_state.step) == 7
 
 
+class TestShardedLanes:
+    """``run_batched(shard=True)`` / ``run_sweep(shard=True)`` over two
+    CPU devices (the experiment axis: two lanes a device, each device its
+    own engine): every lane bitwise its point's sequential run."""
+    CPU2 = [torch.device("cpu")] * 2
+
+    @pytest.fixture
+    def sharded(self, monkeypatch):
+        """The lane bounds of every sharded engine made."""
+        made = []
+        init = rt._ShardedChunks.__init__
+
+        def spy(engine, engines, bounds):
+            made.append(list(bounds))
+            init(engine, engines, bounds)
+        monkeypatch.setattr(rt._ShardedChunks, "__init__", spy)
+        return made
+
+    @pytest.mark.parametrize("name", ["ridge", "mnist_scenarios",
+                                      "fedprox_mu"])
+    def test_sharded_sweep_is_sequential_bitwise(self, sharded, name):
+        from repro_torch.fl.clients import ClientConfig
+        sweep = {
+            "ridge": lambda: SweepSpec(ridge_spec(), {
+                "seed": (0, 1), "noise_var": (1e-7, 1e-6)}),
+            "mnist_scenarios": lambda: SweepSpec(mnist_spec(
+                participation=0.5, server_opt="adamw", local_steps=2,
+                local_lr=0.05), {"seed": (0, 1)}),
+            "fedprox_mu": lambda: SweepSpec(mnist_spec(
+                local_steps=2, local_lr=0.05,
+                client=ClientConfig(algo="fedprox")),
+                {"client.mu": (0.0, 0.5)}),
+        }[name]()
+        res = run_sweep(sweep, 4, device="cpu", devices=self.CPU2)
+        per = sweep.size // 2
+        assert sharded == [[(0, per), (per, sweep.size)]]
+        seq = run_sweep(sweep, 4, vectorized=False, device="cpu")
+        for key in seq.history:
+            np.testing.assert_array_equal(res.history[key],
+                                          seq.history[key], err_msg=key)
+        assert res.params_digests == seq.params_digests
+
+    def test_run_batched_lanes_are_their_runs(self, sharded):
+        cfgs, states, task = [], [], None
+        for seed, nv in ((0, 1e-7), (1, 1e-6), (2, 0.0), (3, 1e-7)):
+            c, s, task = _cfg_state(
+                seed=seed, channel=ChannelConfig(num_devices=K,
+                                                 channel_mean=1e-3,
+                                                 noise_var=nv))
+            cfgs.append(c)
+            states.append(s)
+        states, hist = rt.run_batched(
+            cfgs, states, task.grad_fn, task.batch_provider, 5,
+            eval_fn=task.eval_fn, eval_every=4, chunk_size=3,
+            devices=self.CPU2)
+        assert sharded == [[(0, 2), (2, 4)]]
+        for e, c in enumerate(cfgs):
+            _, s, _ = _cfg_state(seed=c.seed, channel=c.channel)
+            s, h = rt.run(c, s, task.grad_fn, task.batch_provider, 5,
+                          eval_fn=task.eval_fn, eval_every=4, chunk_size=3)
+            for k in rt.DIAG_KEYS:
+                assert hist[k][e].tolist() == list(h[k]), (e, k)
+            assert hist["gap"][e].tolist() == list(h["gap"]), e
+            for k in s.params:
+                assert torch.equal(states[e].params[k], s.params[k]), e
+            assert int(states[e].opt_state.step) == 5
+
+    @pytest.mark.parametrize("devices,lanes", [([torch.device("cpu")], 4),
+                                               (CPU2, 3)],
+                             ids=["one_device", "nondividing"])
+    def test_unsharded_where_the_mesh_does_not_apply(self, sharded, devices,
+                                                     lanes):
+        sweep = SweepSpec(ridge_spec(), {"seed": tuple(range(lanes))})
+        res = run_sweep(sweep, 4, device="cpu", devices=devices)
+        plain = run_sweep(sweep, 4, device="cpu", shard=False)
+        assert sharded == []
+        assert res.params_digests == plain.params_digests
+        for key in plain.history:
+            np.testing.assert_array_equal(res.history[key],
+                                          plain.history[key])
+
+    def test_another_device_needs_the_task_there(self):
+        c, s1, task = _cfg_state()
+        _, s2, _ = _cfg_state(seed=1)
+        with pytest.raises(ValueError, match="task_on"):
+            rt.run_batched([c, c], [s1, s2], task.grad_fn,
+                           task.batch_provider, 2,
+                           devices=[torch.device("cpu"),
+                                    torch.device("meta")])
+
+
 def _reference_ridge():
     """The reference's Case-II ridge task and a (seed x noise_var) grid of
     its states."""

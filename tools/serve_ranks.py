@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""The serving mesh over real ranks, and the sweep engine's experiment axis
+over real cards: one process a rank, one card a rank (NCCL), or the CPU
+(gloo) for a rehearsal.
+
+    python3 tools/serve_ranks.py [--ranks 4] [--device cuda|cpu]
+        > chiprun_out/serve_ranks.jsonl
+
+Every rank joins one ``torch.distributed`` group on 127.0.0.1 (NCCL on
+``cuda:<rank>``, gloo on the CPU), builds the physical ``(1, ranks)`` mesh
+(``launch.mesh.make_host_mesh``) and runs, on its own device:
+
+``whole``   jamba-v0.1-52b at full width and depth (32 layers, 51.6 B
+            parameters, 103 GB in bf16) over ``model = ranks``: each rank
+            draws its shard of the weights a leaf at a time
+            (``transformer.init_sharded_params``, one seed), then 4 prompts
+            of 8,192 tokens are prefilled with the decode cache (one warm-up
+            and ``PREFILL_SAMPLES`` timed) and 32 greedy steps decoded;
+            prefill tokens/s, decode ms a step, each card's peak memory,
+            the same ids on every rank;
+``parity``  one superblock (8 layers) at full width, the same prompts, a
+            prefill and 8 greedy steps on the physical mesh; then each rank
+            runs the whole mesh emulated on its own card (every rank in
+            turn, the same seed) and holds its own ids and cache shard to
+            the emulated rank's, bitwise.
+
+Then this process runs ``sweep``: the fig1a grid (Case I, amplification
+{optimal, bmax} x 3 seeds: 2 groups of 3 lanes, spread over 3 cards) and
+the sweep headline (Case II, noise_var {s2, 2 s2} x 4 seeds: 8 lanes, 2 a
+card) through ``run_sweep(shard=True)``, against the same grids on one
+card (``shard=False``): every lane bitwise, and warm lane-rounds/s of each
+(A B B A calls of ``SWEEP_RATE_ROUNDS`` rounds).
+
+On the CPU (``--device cpu``) the configs are the reduced ones (4 layers,
+d_model 256) and the prompts 2 x 32 tokens, the sweep's devices the CPU
+``ranks`` times; it rehearses the same code and checks.
+
+Rank 0 prints one JSON line per part, this process the sweep's; the exit
+code is 1 if a check fails.  On cards the kernels are built once before
+the ranks start, NCCL's bootstrap stays on the loopback interface, and
+the cards' names and power limits head the output.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import pathlib
+import socket
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCH = "jamba-v0.1-52b"
+SUPERBLOCK = 8                   # layers of one superblock (attn_period)
+PREFILL_SAMPLES = 2
+DECODE_STEPS = 32
+PARITY_STEPS = 8
+SWEEP_ROUNDS = 20
+SWEEP_RATE_ROUNDS = 64
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _config(cpu: bool, layers=None):
+    from repro_torch.configs.registry import get_config, reduce_config
+    cfg = get_config(ARCH)
+    if cpu:
+        cfg = dataclasses.replace(reduce_config(cfg), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=min(layers,
+                                                      cfg.num_layers))
+    return cfg
+
+
+def _prompts(cfg, cpu: bool, device) -> torch.Tensor:
+    b, s = (2, 32) if cpu else (4, 8192)
+    gen = torch.Generator().manual_seed(5)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen).to(device)
+
+
+def _serve(cfg, mesh, params, tokens, steps, device):
+    """Prefill and ``steps`` greedy steps; (ids [B, 1 + steps], cache,
+    the prefill's seconds, the decode's)."""
+    from repro_torch.launch import serve
+    s = tokens.shape[1]
+    prefill, _ = serve.build_prefill_cache_step(
+        cfg, device, cache_len=s + steps + 8, mesh=mesh)
+    decode, _ = serve.build_decode_step(cfg, device, mesh=mesh)
+    _sync(device)
+    t0 = time.perf_counter()
+    ids, cache = prefill(params, {"tokens": tokens})
+    _sync(device)
+    t1 = time.perf_counter()
+    out = [ids]
+    for pos in range(s, s + steps):
+        ids, cache = decode(params, cache, ids[:, None], pos)
+        out.append(ids)
+    _sync(device)
+    return torch.stack(out, 1), cache, t1 - t0, time.perf_counter() - t1
+
+
+def _params(cfg, mesh, rank, device):
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=device).manual_seed(0)
+    return T.init_sharded_params(cfg, gen, mesh, rank, device=device)
+
+
+def _same_on_every_rank(t: torch.Tensor) -> bool:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def _gathered(x: float, device) -> list:
+    t = torch.tensor([x], dtype=torch.float64, device=device)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return [float(p) for p in parts]
+
+
+def part_whole(ranks: int, rank: int, device, cpu: bool) -> dict:
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = _config(cpu)
+    mesh = make_host_mesh(1, ranks)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    params = [_params(cfg, mesh, rank, device)]
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    tokens = _prompts(cfg, cpu, device)
+    b, s = tokens.shape
+    _serve(cfg, mesh, params, tokens, 1, device)             # warm-up
+    prefill_s, decode_s = [], None
+    for _ in range(PREFILL_SAMPLES):
+        ids, cache, p_s, d_s = _serve(cfg, mesh, params, tokens,
+                                      DECODE_STEPS, device)
+        prefill_s.append(p_s)
+        decode_s = d_s
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else 0.0)
+    out = {"part": "whole", "arch": ARCH, "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "mesh": {"data": 1, "model": ranks},
+           "physical": mesh.physical,
+           "params_per_rank": _gathered(T.param_count(params[0]), device),
+           "param_count": cfg.param_count(),
+           "init_sharded_s": _gathered(init_s, device),
+           "batch": b, "prompt": s, "decode_steps": DECODE_STEPS,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": b * s / statistics.median(prefill_s),
+           "decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
+           "decode_tokens_per_s": b * DECODE_STEPS / decode_s,
+           "peak_mem_gib_per_rank": _gathered(peak, device),
+           "same_ids_on_every_rank": _same_on_every_rank(ids),
+           "ids_in_range": bool(ids.min() >= 0
+                                and ids.max() < cfg.vocab_size),
+           "generated_ids_rank0": ids.cpu().tolist()}
+    del params, cache
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["ok"] = (out["same_ids_on_every_rank"] and out["ids_in_range"]
+                 and out["physical"])
+    return out
+
+
+def part_parity(ranks: int, rank: int, device, cpu: bool) -> dict:
+    import torch.utils._pytree as pytree
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = _config(cpu, SUPERBLOCK)
+    tokens = _prompts(cfg, cpu, device)
+    mesh = make_host_mesh(1, ranks)
+    ids, cache, p_s, d_s = _serve(cfg, mesh, [_params(cfg, mesh, rank,
+                                                      device)],
+                                  tokens, PARITY_STEPS, device)
+    mine = [t.clone() for t in pytree.tree_leaves(cache[0])]
+    del cache
+    emu = make_host_mesh(1, ranks, emulate=True)
+    want, wcache, e_p, e_d = _serve(
+        cfg, emu, [_params(cfg, emu, r, device) for r in emu.local_ranks],
+        tokens, PARITY_STEPS, device)
+    theirs = pytree.tree_leaves(wcache[rank])
+    bitwise = (torch.equal(ids, want) and len(mine) == len(theirs)
+               and all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+    verdicts = _gathered(float(bitwise), device)
+    del wcache, mine, theirs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"part": "parity", "layers": cfg.num_layers,
+            "prompt": tokens.shape[1], "decode_steps": PARITY_STEPS,
+            "physical_prefill_s": p_s,
+            "physical_decode_ms_per_step": d_s / PARITY_STEPS * 1e3,
+            "emulated_prefill_s": e_p,
+            "emulated_decode_ms_per_step": e_d / PARITY_STEPS * 1e3,
+            "bitwise_per_rank": [bool(v) for v in verdicts],
+            "ok": all(v == 1.0 for v in verdicts)}
+
+
+def worker(rank: int, ranks: int, kind: str, port: int, failed) -> None:
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    if kind == "cuda":
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+        backend = "nccl"
+    else:
+        torch.set_num_threads(1)
+        device = torch.device("cpu")
+        backend = "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=ranks, rank=rank)
+    try:
+        for part in (part_whole, part_parity):
+            line = part(ranks, rank, device, kind == "cpu")
+            dist.barrier()
+            if rank == 0:
+                print(json.dumps(line), flush=True)
+                if not line["ok"]:
+                    failed.value = 1
+    finally:
+        dist.destroy_process_group()
+
+
+def part_sweep(ranks: int, kind: str) -> dict:
+    """fig1a over min(3, ranks) devices and the headline over ``ranks``,
+    against one device: bitwise lanes and lane-rounds/s."""
+    import chip_smoke
+    from repro_torch.fed import runtime
+    from repro_torch.fl import SweepSpec, run_sweep
+    cpu = kind == "cpu"
+    device = "cpu" if cpu else "cuda"
+    devs = ([torch.device("cpu")] * ranks if cpu
+            else [torch.device("cuda", i) for i in range(ranks)])
+    rounds = 4 if cpu else SWEEP_ROUNDS
+    rate_rounds = 4 if cpu else SWEEP_RATE_ROUNDS
+    case_ii = chip_smoke.case_ii_spec(device)
+    nv = case_ii.fl.channel.noise_var
+    grids = {
+        "fig1a": (SweepSpec(chip_smoke.case_i_spec(),
+                            {"amplification": ("optimal", "bmax"),
+                             "seed": (0, 1, 2)}), devs[:min(3, ranks)]),
+        "sweep_headline": (SweepSpec(case_ii, {"noise_var": (nv, 2.0 * nv),
+                                               "seed": (0, 1, 2, 3)}),
+                           devs)}
+    out = {"part": "sweep", "rounds": rounds, "rate_rounds": rate_rounds}
+    ok = True
+
+    def rate(sweep, **kw):
+        if not cpu:
+            for d in devs:
+                torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        run_sweep(sweep, rate_rounds, evaluate=False, device=device, **kw)
+        if not cpu:
+            for d in devs:
+                torch.cuda.synchronize(d)
+        return sweep.size * rate_rounds / (time.perf_counter() - t0)
+
+    for name, (sweep, where) in grids.items():
+        runtime.clear_compile_caches()
+        one = run_sweep(sweep, rounds, shard=False, device=device)
+        spread = run_sweep(sweep, rounds, devices=where, device=device)
+        bitwise = (all(np.array_equal(spread.history[k], one.history[k])
+                       for k in one.history)
+                   and spread.params_digests == one.params_digests)
+        rates = {"one": [], "spread": []}
+        for mode in ("one", "spread", "spread", "one"):
+            rates[mode].append(rate(sweep, **(
+                {"shard": False} if mode == "one" else {"devices": where})))
+        out[name] = {"lanes": sweep.size, "devices": [str(d) for d in where],
+                     "bitwise": bitwise,
+                     "lane_rounds_per_s": rates,
+                     "speedup": (statistics.median(rates["spread"])
+                                 / statistics.median(rates["one"]))}
+        ok = ok and bitwise
+    out["ok"] = ok
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args()
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    if args.device == "cuda":
+        if torch.cuda.device_count() < args.ranks:
+            sys.exit(f"needs {args.ranks} cards, have "
+                     f"{torch.cuda.device_count()}")
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(), flush=True)
+        # NCCL's bootstrap on the loopback interface only; the kernels are
+        # built once here, before the ranks load them
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        from repro_torch.kernels import build
+        build.build_all()
+    else:
+        torch.set_num_threads(1)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    failed = mp.get_context("spawn").Value("i", 0)
+    mp.spawn(worker, args=(args.ranks, args.device, port, failed),
+             nprocs=args.ranks)
+    line = part_sweep(args.ranks, args.device)
+    print(json.dumps(line), flush=True)
+    if not line["ok"]:
+        failed.value = 1
+    sys.exit(failed.value)
+
+
+if __name__ == "__main__":
+    main()
