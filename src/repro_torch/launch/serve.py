@@ -4,8 +4,13 @@ one card or on a ``(data, model)`` mesh of ranks.
 
 Each builder takes ``cfg`` and a ``device`` (default ``"cuda"``; raises
 without a card) and returns the step function; the steps run under
-``torch.inference_mode()`` and move the token batch to the device (the
-params and the cache must be there already).  ``serve_metrics`` serves a
+``torch.inference_mode()`` and move the batch to the device (the params
+and the cache must be there already).  A batch holds ``tokens`` [B, S] and,
+for the stub-frontend models, ``modal_embeds`` [B, S_img, E] (a vision
+model: the image prefix, in front of the text, so the cache covers
+S_img + S positions) or ``src_embeds`` [B, S_enc, E] (an encoder-decoder;
+its decode steps take the encoder's output, ``enc_out =
+transformer.encode_for_decode(params, cfg, batch)``).  ``serve_metrics`` serves a
 ``MemoryRecorder``'s latest events over HTTP, to watch a long FL run.
 
     prefill = build_prefill_cache_step(cfg, "cuda", cache_len=S + n)
@@ -57,14 +62,22 @@ def _split_batch(mesh, b: int) -> bool:
     return mesh.data > 1 and b % mesh.data == 0
 
 
-def _rows(tokens: torch.Tensor, ctx, split: bool) -> torch.Tensor:
-    """The rank's rows of the batch (all of them unless ``split``); marks
-    ``ctx`` with the cut, which the MoE's dispatch reads."""
+def _on(batch: dict, dev) -> dict:
+    """The batch's tensors on the device."""
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _rows(batch, ctx, split: bool):
+    """The rank's rows of a tensor or of every tensor of a batch dict (all
+    of them unless ``split``); marks ``ctx`` with the cut, which the MoE's
+    dispatch reads."""
     ctx.batch_split = split
+    if isinstance(batch, dict):
+        return {k: _rows(v, ctx, split) for k, v in batch.items()}
     if not split:
-        return tokens
-    per = tokens.shape[0] // ctx.data
-    return tokens[ctx.d * per:(ctx.d + 1) * per]
+        return batch
+    per = batch.shape[0] // ctx.data
+    return batch[ctx.d * per:(ctx.d + 1) * per]
 
 
 def _whole(ids: torch.Tensor, ctx, split: bool) -> torch.Tensor:
@@ -118,20 +131,18 @@ def build_prefill_step(cfg: ModelConfig, device="cuda", *, mesh=None):
     if mesh is None:
         @torch.inference_mode()
         def prefill_step(params, batch):
-            x = T.forward_hidden(params, cfg,
-                                 {"tokens": batch["tokens"].to(dev)})
+            x = T.forward_hidden(params, cfg, _on(batch, dev))
             return _greedy(params, cfg, x)
         return prefill_step
 
     @torch.inference_mode()
     def sharded_prefill_step(params, batch):
-        tokens = batch["tokens"].to(dev)
-        split = _split_batch(mesh, tokens.shape[0])
+        batch = _on(batch, dev)
+        split = _split_batch(mesh, batch["tokens"].shape[0])
 
         def program(ctx):
             p = params[ctx.index]
-            x = T.forward_hidden(p, cfg, {"tokens": _rows(tokens, ctx, split)},
-                                 tp=ctx)
+            x = T.forward_hidden(p, cfg, _rows(batch, ctx, split), tp=ctx)
             return _whole(_greedy(p, cfg, x, ctx), ctx, split)
         return run_ranks(mesh, program)[0]
 
@@ -151,21 +162,20 @@ def build_prefill_cache_step(cfg: ModelConfig, device="cuda", *,
     if mesh is None:
         @torch.inference_mode()
         def prefill_cache_step(params, batch):
-            x, cache = T.prefill_with_cache(
-                params, cfg, {"tokens": batch["tokens"].to(dev)}, cache_len)
+            x, cache = T.prefill_with_cache(params, cfg, _on(batch, dev),
+                                            cache_len)
             return _greedy(params, cfg, x), cache
         return prefill_cache_step
 
     @torch.inference_mode()
     def sharded_prefill_cache_step(params, batch):
-        tokens = batch["tokens"].to(dev)
-        split = _split_batch(mesh, tokens.shape[0])
+        batch = _on(batch, dev)
+        split = _split_batch(mesh, batch["tokens"].shape[0])
 
         def program(ctx):
             p = params[ctx.index]
-            x, cache = T.prefill_with_cache(
-                p, cfg, {"tokens": _rows(tokens, ctx, split)}, cache_len,
-                tp=ctx)
+            x, cache = T.prefill_with_cache(p, cfg, _rows(batch, ctx, split),
+                                            cache_len, tp=ctx)
             return _whole(_greedy(p, cfg, x, ctx), ctx, split), cache
         out = run_ranks(mesh, program)
         return out[0][0], [c for _, c in out]
@@ -179,8 +189,9 @@ def build_decode_step(cfg: ModelConfig, device="cuda", *,
                       context_parallel: bool = False,
                       shard_cache_seq: bool = False, cache_len: int = 0,
                       mesh=None):
-    """decode_step(params, cache, tokens, pos) -> (next-token ids [B] int32,
-    cache): one greedy decode step; the cache is updated in place.  With
+    """decode_step(params, cache, tokens, pos, enc_out=None) -> (next-token
+    ids [B] int32, cache): one greedy decode step; the cache is updated in
+    place; ``enc_out`` is an encoder-decoder's encoder output.  With
     ``mesh``: ``(decode_step, place)``, ``place(params, cache)`` cutting
     full params and a full cache to the mesh's ranks.
     ``context_parallel`` and ``shard_cache_seq`` need a mesh (the module
@@ -211,9 +222,6 @@ def build_decode_step(cfg: ModelConfig, device="cuda", *,
 
     @torch.inference_mode()
     def sharded_decode_step(params, cache, tokens, pos, enc_out=None):
-        if enc_out is not None:
-            raise NotImplementedError(f"enc_out (encoder-decoder) waits for "
-                                      f"{L.ZOO_ITEM}")
         tokens = tokens.to(dev)
         split = not context_parallel and _split_batch(mesh, tokens.shape[0])
 
@@ -222,10 +230,11 @@ def build_decode_step(cfg: ModelConfig, device="cuda", *,
             toks = _rows(tokens, ctx, split)
             if context_parallel:
                 logits, c = T.decode_step(
-                    p, cfg, c, toks, pos, axis_name="data",
+                    p, cfg, c, toks, pos, enc_out=enc_out, axis_name="data",
                     shard_offset=ctx.d * (cache_len // mesh.data), tp=ctx)
             else:
-                logits, c = T.decode_step(p, cfg, c, toks, pos, tp=ctx)
+                logits, c = T.decode_step(p, cfg, c, toks, pos,
+                                          enc_out=enc_out, tp=ctx)
             ids = torch.argmax(logits, dim=-1).to(torch.int32)
             return _whole(ids, ctx, split), c
         out = run_ranks(mesh, program)

@@ -1,6 +1,7 @@
-"""Shared transformer layers of the dense decoders (the port of
-``repro/models/layers.py``): RMSNorm, RoPE, GQA attention (full / sliding
-window / single-token decode), the gated MLP, embeddings.
+"""Shared transformer layers (the port of ``repro/models/layers.py``):
+RMSNorm, RoPE, GQA attention (full / sliding window / cross-attention over
+an encoder's output / single-token decode), the gated MLP, embeddings and
+the stub modality projection.
 
 Functional style, as the reference: ``init_*`` builds parameter dicts of
 tensors, the apply functions are pure, except that ``decode_attention``
@@ -110,7 +111,10 @@ def _keep(cut, name: str, t: torch.Tensor) -> torch.Tensor:
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device="cuda",
-                   cut=None):
+                   cut=None, cross: bool = False):
+    """The attention's projections; ``cross=True`` (the decoder's
+    cross-attention over the encoder) takes no q/k/v bias, as the
+    reference's."""
     d, hd = cfg.d_model, cfg.head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg)
@@ -125,27 +129,30 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device="cuda",
                                        scale / math.sqrt(2 * cfg.num_layers),
                                        dt, device)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", h * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
             p[name] = _keep(cut, name, torch.zeros((n,), dtype=dt,
                                                    device=device))
     return p
 
 
-def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor):
-    """Returns q [B,S,H,Dh], k/v [B,S,Hkv,Dh] (a rank's shard: its heads,
-    the head counts read from the projections' widths)."""
+def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, kv_x=None):
+    """Returns q [B,S,H,Dh] from ``x`` and k/v [B,Skv,Hkv,Dh] from ``kv_x``
+    (``x`` where it is None; a rank's shard: its heads, the head counts
+    read from the projections' widths)."""
     b, s, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    skv = kv_x.shape[1]
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = kv_x @ params["wk"]
+    v = kv_x @ params["wv"]
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
     q = q.reshape(b, s, -1, cfg.head_dim)
-    k = k.reshape(b, s, -1, cfg.head_dim)
-    v = v.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, skv, -1, cfg.head_dim)
+    v = v.reshape(b, skv, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -202,28 +209,30 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               return_kv: bool = False, kv_x=None, impl: str = "auto",
               tp=None):
-    """Full-sequence self-attention.  x: [B,S,D] -> [B,S,D].
+    """Full-sequence attention.  x: [B,S,D] -> [B,S,D].
 
     The core is ``ops.flash_attention`` on [B, H, S, d] q and the grouped
-    [B, Hkv, S, d] k/v (K6 on the card; ``impl`` forces the kernel or the
-    plain version, as ``ops`` does).  ``return_kv=True`` additionally
-    returns the (rope'd, unexpanded) k/v [B,S,Hkv,Dh] for the
-    prefill->decode cache handoff.  Query/key positions are 0..S-1; the
-    reference's ``positions``/``kv_positions`` serve its cross-attention
-    decode only.  With ``tp`` the rank's heads run (the returned k/v are
-    the rank's cache heads) and ``wo``'s partials fold."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            f"cross-attention (kv_x, encoder-decoder) waits for {ZOO_ITEM}")
+    [B, Hkv, Skv, d] k/v (K6 on the card; ``impl`` forces the kernel or the
+    plain version, as ``ops`` does).  Self-attention by default, rope'd at
+    positions 0..S-1.  ``kv_x`` [B,Skv,D] makes it cross-attention (the
+    ``xattn`` block over the encoder's output): q from ``x``, k/v from
+    ``kv_x``, no rope; callers pass ``causal=False`` and no window, so no
+    pair is masked and the reference's ``positions``/``kv_positions``
+    (which only place its mask) have no counterpart here.
+    ``return_kv=True`` additionally returns the (rope'd, unexpanded) k/v
+    [B,Skv,Hkv,Dh] for the prefill->decode cache handoff.  With ``tp`` the
+    rank's heads run (the returned k/v are the rank's cache heads) and
+    ``wo``'s partials fold."""
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError(
             "attn_logit_softcap: no config sets it, and K6 has no softcap in "
             "the reference either")
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
-    pos = torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    if kv_x is None:
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     k_use, v_use = _rank_kv(cfg, tp, k, v)
     o = ops.flash_attention(q.transpose(1, 2).contiguous(),
                             k_use.transpose(1, 2).contiguous(),
@@ -467,8 +476,11 @@ def init_embeddings(gen: torch.Generator, cfg: ModelConfig, device="cuda",
             gen, (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model),
             dt, device))
     if cfg.modality:
-        raise NotImplementedError(
-            f"modality embeddings ({cfg.modality}) wait for {ZOO_ITEM}")
+        # the stub frontend's projection of precomputed patch (vision) or
+        # frame (audio) embeddings into the model's width
+        p["modal_proj"] = _keep(cut, "modal_proj", _normal(
+            gen, (cfg.modal_embed_dim, cfg.d_model),
+            1.0 / math.sqrt(cfg.modal_embed_dim), dt, device))
     return p
 
 

@@ -39,7 +39,8 @@ def _check(cfg: ModelConfig) -> None:
     if cfg.mamba_scan_dtype != "float32":
         raise NotImplementedError(
             f"mamba_scan_dtype={cfg.mamba_scan_dtype!r}: the scan runs in "
-            f"fp32 (K7); a low-precision scan waits for {L.ZOO_ITEM}")
+            f"fp32 (K7); a low-precision scan is speed work held for the "
+            f"port's benchmark (ROADMAP, 'Held for the benchmark phase')")
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, device="cuda",

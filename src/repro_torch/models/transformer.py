@@ -1,11 +1,17 @@
-"""Top-level model API of the decoder-only models -- dense, MoE and the
-Jamba hybrid (the port of
-``repro/models/transformer.py``): init, prefill (hidden states, or hidden
-states plus the decode cache) and single-token decode.
+"""Top-level model API of every zoo family -- dense, MoE, the Jamba
+hybrid, xLSTM, the encoder-decoder and the vision-prefix model (the port
+of ``repro/models/transformer.py``): init, prefill (hidden states, or
+hidden states plus the decode cache) and single-token decode.
 
 Params keep the reference's tree, ``{"emb", "blocks": tuple per pattern
-position of dicts stacked over superblocks, "final_ln"}``, so weights carry
-across with a tree map (``repro_torch.interop.model_params_from_jax``).
+position of dicts stacked over superblocks, "final_ln"}`` plus, for an
+encoder-decoder, ``"encoder": {"blocks": (attn+dense stacked over the
+encoder's layers,), "final_ln"}``, so weights carry across with a tree map
+(``repro_torch.interop.model_params_from_jax``).  The modality frontends
+are stubs, as in the reference: a batch carries precomputed embeddings,
+``modal_embeds`` [B, S_img, E] put in front of the text for a vision model
+and ``src_embeds`` [B, S_enc, E] for the encoder, each projected by
+``emb.modal_proj``.
 The reference's depth ``lax.scan`` is a Python loop over the superblock
 index.  The serving functions run under ``torch.inference_mode()``.
 ``forward_loss`` waits for the port's training step.
@@ -14,7 +20,8 @@ Tensor parallelism: every serving function takes ``tp`` (a
 ``distribution.tensor_parallel.RankContext``) and then runs one rank's
 model on its shard of the parameters (``distribution.sharding.
 shard_params``, or ``init_sharded_params``, which draws a model too large
-for one card a leaf at a time and keeps the rank's shard).
+for one card a leaf at a time and keeps the rank's shard).  The xLSTM and
+encoder-decoder configs do not run on a mesh yet (``_check_tp``).
 """
 from __future__ import annotations
 
@@ -48,6 +55,24 @@ def _stack(trees):
 # init
 
 
+def _stack_blocks(generator, cfg: ModelConfig, device, cut=None) -> tuple:
+    """The decoder's blocks: a tuple (per pattern position) of dicts
+    stacked over superblocks, drawn superblock by superblock in each
+    position's turn."""
+    return tuple(_stack([B.init_block(generator, cfg, kind, device, cut)
+                         for _ in range(cfg.num_superblocks)])
+                 for kind in cfg.block_pattern)
+
+
+def _init_encoder(generator, cfg: ModelConfig, device) -> Dict:
+    """The encoder of an encoder-decoder: ``num_encoder_layers`` attn+dense
+    blocks stacked as one pattern position, and its final norm."""
+    blocks = [B.init_block(generator, cfg, "attn+dense", device)
+              for _ in range(cfg.num_encoder_layers)]
+    return {"blocks": (_stack(blocks),),
+            "final_ln": L.init_rmsnorm(cfg.d_model, device)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Dict:
     """Random parameters with the reference's shapes, scales and dtypes.
@@ -59,14 +84,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     draws h2o-danube-1.8b on ``torch.Generator(device="cuda")``).  The
     draws differ from the reference's threefry streams; the parity tests
     carry the reference's weights across instead."""
-    _check_decoder_only(cfg)
-    emb = L.init_embeddings(generator, cfg, device)
-    per_pos = []
-    for kind in cfg.block_pattern:
-        per_pos.append(_stack([B.init_block(generator, cfg, kind, device)
-                               for _ in range(cfg.num_superblocks)]))
-    return {"emb": emb, "blocks": tuple(per_pos),
-            "final_ln": L.init_rmsnorm(cfg.d_model, device)}
+    p = {"emb": L.init_embeddings(generator, cfg, device),
+         "blocks": _stack_blocks(generator, cfg, device),
+         "final_ln": L.init_rmsnorm(cfg.d_model, device)}
+    if cfg.is_encoder_decoder:
+        p["encoder"] = _init_encoder(generator, cfg, device)
+    return p
 
 
 def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, mesh,
@@ -77,7 +100,7 @@ def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, mesh,
     superblock's leaf at a time, and only the rank's shard of it is kept
     (as a copy), so the peak is one full leaf.  Serves a model whose
     weights do not fit one card (jamba-v0.1-52b: 103 GB in bf16)."""
-    _check_decoder_only(cfg)
+    _check_tp(cfg, mesh)
     plan = SH.tp_plan(cfg, mesh.shape["model"])
 
     def cut(path: str, t: torch.Tensor) -> torch.Tensor:
@@ -90,14 +113,21 @@ def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, mesh,
         return SH.cut_leaf(t, spec, mesh, rank,
                            halves=names[-1] == "in_proj").clone()
 
-    emb = L.init_embeddings(generator, cfg, device,
-                            lambda name, t: cut(f"emb/{name}", t))
-    per_pos = []
-    for kind in cfg.block_pattern:
-        per_pos.append(_stack([B.init_block(generator, cfg, kind, device, cut)
-                               for _ in range(cfg.num_superblocks)]))
-    return {"emb": emb, "blocks": tuple(per_pos),
+    return {"emb": L.init_embeddings(generator, cfg, device,
+                                     lambda name, t: cut(f"emb/{name}", t)),
+            "blocks": _stack_blocks(generator, cfg, device, cut),
             "final_ln": L.init_rmsnorm(cfg.d_model, device)}
+
+
+def _check_tp(cfg: ModelConfig, tp) -> None:
+    """The serving mesh covers the attention, Mamba and MoE blocks; the
+    xLSTM cells and the encoder-decoder wait for their tensor-parallel
+    cut."""
+    if tp is not None and (cfg.is_xlstm or cfg.is_encoder_decoder):
+        raise NotImplementedError(
+            f"{cfg.name} on a serving mesh (tp): the xLSTM and "
+            f"encoder-decoder configs wait for {L.ZOO_ITEM}, 'the serving "
+            f"mesh for xlstm and seamless'")
 
 
 # ---------------------------------------------------------------------------
@@ -107,12 +137,14 @@ def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, mesh,
 def _run_stack(blocks, cfg: ModelConfig, pattern, x: torch.Tensor, *,
                causal: bool = True, enc_out=None, cache_len: int = 0,
                impl: str = "auto", tp=None):
-    """Depth loop over the superblocks.  With ``cache_len > 0`` it also
-    returns every block's decode cache (prefill handoff), stacked over
+    """Depth loop over the stack (the leading axis of ``blocks``' leaves:
+    the superblocks, or the encoder's layers).  With ``cache_len > 0`` it
+    also returns every block's decode cache (prefill handoff), stacked over
     superblocks -- the ``init_cache`` layout."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [[] for _ in pattern]
-    for i in range(cfg.num_superblocks):
+    depth = blocks[0]["ln1"]["scale"].shape[0]
+    for i in range(depth):
         for pos, kind in enumerate(pattern):
             x, a, c = B.apply_block(_at(blocks[pos], i), cfg, kind, x,
                                     causal=causal, enc_out=enc_out,
@@ -124,18 +156,40 @@ def _run_stack(blocks, cfg: ModelConfig, pattern, x: torch.Tensor, *,
     return x, aux
 
 
+def _modal(params, embeds: torch.Tensor) -> torch.Tensor:
+    """Stub modality embeddings [B, S, E] projected to [B, S, D] by
+    ``modal_proj``, in the weights' dtype (the reference's product
+    promotes mixed dtypes; the port casts the embeddings)."""
+    w = params["emb"]["modal_proj"]
+    return embeds.to(device=w.device, dtype=w.dtype) @ w
+
+
+def _encode(params, cfg: ModelConfig, src_embeds: torch.Tensor, *,
+            impl: str = "auto") -> torch.Tensor:
+    """The encoder over stub modality embeddings: src_embeds
+    [B, S_enc, E] -> enc_out [B, S_enc, D] (projection, the non-causal
+    attn+dense stack, the final norm)."""
+    x = _modal(params, src_embeds)
+    x, _ = _run_stack(params["encoder"]["blocks"], cfg, ("attn+dense",), x,
+                      causal=False, impl=impl)
+    return L.rmsnorm(params["encoder"]["final_ln"], x, cfg.norm_eps)
+
+
 def _decoder_inputs(params, cfg: ModelConfig, batch: Dict, tp=None
                     ) -> torch.Tensor:
-    """Embed the text tokens (the vision prefix waits for item 16)."""
+    """Embed the text tokens; a vision model puts its projected image
+    embeddings (``batch["modal_embeds"]``) in front, so positions run
+    0..S-1 over image and text together."""
+    x = L.embed(params["emb"], cfg, batch["tokens"], tp)
     if cfg.modality == "vision":
-        raise NotImplementedError(f"the vision prefix waits for {L.ZOO_ITEM}")
-    return L.embed(params["emb"], cfg, batch["tokens"], tp)
+        img = _modal(params, batch["modal_embeds"])
+        x = torch.cat([img.to(x.dtype), x], dim=1)
+    return x
 
 
-def _check_decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models wait for "
-                                  f"{L.ZOO_ITEM}")
+def _encoder_out(params, cfg: ModelConfig, batch: Dict, impl: str):
+    return (_encode(params, cfg, batch["src_embeds"], impl=impl)
+            if cfg.is_encoder_decoder else None)
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +199,14 @@ def _check_decoder_only(cfg: ModelConfig) -> None:
 @torch.inference_mode()
 def forward_hidden(params, cfg: ModelConfig, batch: Dict, *,
                    impl: str = "auto", tp=None) -> torch.Tensor:
-    """Prefill: final hidden states [B,S,D] (no loss).  ``impl`` forces the
-    kernels' routes (``ops.flash_attention``, ``ops.selective_scan``)."""
-    _check_decoder_only(cfg)
+    """Prefill: final hidden states [B,S,D] (no loss; S counts a vision
+    model's image positions too).  ``impl`` forces the kernels' routes
+    (``ops.flash_attention``, ``ops.selective_scan``)."""
+    _check_tp(cfg, tp)
+    enc_out = _encoder_out(params, cfg, batch, impl)
     x = _decoder_inputs(params, cfg, batch, tp)
     x, _ = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
-                      causal=True, impl=impl, tp=tp)
+                      causal=True, enc_out=enc_out, impl=impl, tp=tp)
     return L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
 
 
@@ -162,12 +218,14 @@ def prefill_with_cache(params, cfg: ModelConfig, batch: Dict,
     (hidden [B,S,D], cache) where the cache matches ``init_cache(cfg, B,
     cache_len)`` and decode continues at pos = S.  With ``tp`` the cache is
     the rank's: its kv heads (all of them where they are not cut) and its
-    Mamba channels."""
-    _check_decoder_only(cfg)
+    Mamba channels.  An encoder-decoder runs its encoder here and again
+    in ``encode_for_decode``, as the reference does."""
+    _check_tp(cfg, tp)
+    enc_out = _encoder_out(params, cfg, batch, impl)
     x = _decoder_inputs(params, cfg, batch, tp)
     x, _, cache = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
-                             causal=True, cache_len=cache_len, impl=impl,
-                             tp=tp)
+                             causal=True, enc_out=enc_out,
+                             cache_len=cache_len, impl=impl, tp=tp)
     return L.rmsnorm(params["final_ln"], x, cfg.norm_eps), cache
 
 
@@ -178,8 +236,8 @@ def prefill_with_cache(params, cfg: ModelConfig, batch: Dict,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                cp_shards: int = 1, device="cuda") -> PyTree:
     """Stacked decode cache: a tuple (per pattern position) of dicts whose
-    tensors have leading axis num_superblocks (zeros, allocated on
-    ``device``: decode writes into them in place).  ``cp_shards``: as
+    tensors have leading axis num_superblocks (allocated on ``device``:
+    decode writes into them in place).  ``cp_shards``: as
     ``blocks.init_block_cache``."""
     caches = []
     for kind in cfg.block_pattern:
@@ -196,11 +254,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                 shard_offset=None, tp=None) -> Tuple[torch.Tensor, PyTree]:
     """One decode step.  tokens: [B,1] int; pos: the current position (an
     int or a 0-d tensor).  Returns (logits [B, vocab] fp32, cache), the
-    cache being the one given, updated in place at ``pos``'s slot.  With
-    ``tp`` one rank's step on its shards (the logits whole, gathered over
-    the vocabulary); ``axis_name``/``shard_offset``: the context-parallel
-    cache (``layers.decode_attention``)."""
-    _check_decoder_only(cfg)
+    cache being the one given, updated in place at ``pos``'s slot.
+    ``enc_out``: an encoder-decoder's ``encode_for_decode`` output, handed
+    to every block (only an xattn block reads it).  With ``tp`` one rank's
+    step on its shards (the logits whole, gathered over the vocabulary);
+    ``axis_name``/``shard_offset``: the context-parallel cache
+    (``layers.decode_attention``)."""
+    _check_tp(cfg, tp)
     x = L.embed(params["emb"], cfg, tokens, tp)
     pattern = cfg.block_pattern
     for i in range(cfg.num_superblocks):
@@ -211,6 +271,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                                         shard_offset=shard_offset, tp=tp)
     x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     return L.logits(params["emb"], cfg, x[:, 0, :], tp), cache
+
+
+@torch.inference_mode()
+def encode_for_decode(params, cfg: ModelConfig, batch: Dict, *,
+                      impl: str = "auto"):
+    """The encoder pass run once before decoding an encoder-decoder
+    (``batch["src_embeds"]``); None for any other model."""
+    return _encoder_out(params, cfg, batch, impl)
 
 
 def param_count(params) -> int:

@@ -68,6 +68,7 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.fed.kernel_path, repro_torch.kernels.ops\n"
         "import repro_torch.launch.serve, repro_torch.models.transformer\n"
         "import repro_torch.models.mamba, repro_torch.models.moe\n"
+        "import repro_torch.models.xlstm\n"
         "import repro_torch.configs.registry\n"
         "import repro_torch.obs, repro_torch.obs.manifest\n"
         "import repro_torch.fl.sweep, repro_torch.fl.tasks\n"
@@ -153,6 +154,10 @@ ENTRY_POINTS = [
     ("repro_torch.models.mamba", "init_mamba"),
     ("repro_torch.models.mamba", "init_mamba_cache"),
     ("repro_torch.models.moe", "init_moe"),
+    ("repro_torch.models.xlstm", "init_mlstm"),
+    ("repro_torch.models.xlstm", "init_slstm"),
+    ("repro_torch.models.xlstm", "init_mlstm_cache"),
+    ("repro_torch.models.xlstm", "init_slstm_cache"),
     ("repro_torch.models.simple", "init_mlp_classifier"),
     ("repro_torch.models.simple", "init_ridge"),
     ("repro_torch.launch.serve", "build_prefill_step"),

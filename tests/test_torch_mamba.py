@@ -222,7 +222,8 @@ def test_mamba_init_and_cache_match_reference():
 def test_mamba_unported_options_raise():
     _, cfg, _, p = _mamba()
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # a bf16 scan is speed work held for the benchmark phase (ROADMAP)
+    with pytest.raises(NotImplementedError, match="benchmark"):
         M.mamba_mix(p, dataclasses.replace(cfg, mamba_scan_dtype="bfloat16"),
                     x)
     # mamba_shard_channels names the axis of the channel cut (a mesh's

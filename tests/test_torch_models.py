@@ -30,6 +30,7 @@ from repro_torch.configs import registry as reg
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -412,11 +413,28 @@ def test_prefill_counts_no_kernel_launch_on_cpu():
 
 
 def test_unported_paths_raise():
+    """What the port does not serve yet raises, naming its ROADMAP item:
+    the xLSTM and encoder-decoder configs on a serving mesh (item 16); the
+    softcap, which no config sets; a low-precision Mamba scan."""
     _, cfg, _, p = _model("h2o-danube-1.8b")
-    for arch in ("xlstm-1.3b", "seamless-m4t-medium", "pixtral-12b"):
+    mesh = make_host_mesh(1, 2)
+    for arch in ("xlstm-1.3b", "seamless-m4t-medium"):
+        zcfg = reg.reduce_config(reg.get_config(arch))
+        zp = T.init_params(zcfg, torch.Generator(), device="cpu")
+        toks = torch.zeros((2, 4), dtype=torch.long)
+        batch = {"tokens": toks, "src_embeds": torch.zeros(
+            (2, 4, zcfg.modal_embed_dim))}
         with pytest.raises(NotImplementedError, match="item 16"):
-            T.init_params(reg.reduce_config(reg.get_config(arch)),
-                          torch.Generator(), device="cpu")
+            T.init_sharded_params(zcfg, torch.Generator(), mesh, 0,
+                                  device="cpu")
+        prefill, place = serve.build_prefill_cache_step(
+            zcfg, "cpu", cache_len=8, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="item 16"):
+            prefill(place(zp)[0], batch)
+        decode, place = serve.build_decode_step(zcfg, "cpu", mesh=mesh)
+        params, cache = place(zp, T.init_cache(zcfg, 2, 8, device="cpu"))
+        with pytest.raises(NotImplementedError, match="item 16"):
+            decode(params, cache, toks[:, :1], 0)
     # the sharded serving options need a mesh; without one, the sequence
     # axis of a cache is a placement hint only (tests/test_torch_tp_
     # serving.py runs them on a mesh)
@@ -435,13 +453,11 @@ def test_unported_paths_raise():
     x = torch.zeros((1, 4, cfg.d_model))
     with pytest.raises(NotImplementedError, match="softcap"):
         L.attention(attn, dataclasses.replace(cfg, attn_logit_softcap=30.0), x)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        L.attention(attn, cfg, x, kv_x=x)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        B.init_block_cache(cfg, "slstm", 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        B.init_block_cache(cfg, "rnn", 1, 8, device="cpu")
     _, hcfg, _, hp = _model("jamba-v0.1-52b")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="benchmark"):
         T.forward_hidden(hp, dataclasses.replace(
             hcfg, mamba_scan_dtype="bfloat16"), {"tokens": toks})
     # mamba_shard_channels names the channel cut's axis: the same function

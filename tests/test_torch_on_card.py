@@ -960,6 +960,9 @@ class TestFlashAttentionOnCard:
         (1, 4, 2, 200, 700, 80, True, None),       # Sq < Skv
         (1, 4, 2, 700, 200, 80, True, 64),         # Sq > Skv: no skipping,
         (1, 4, 2, 700, 200, 128, False, 64),       # rows fully masked
+        (4, 16, 16, 8192, 2048, 64, False, None),  # seamless's cross-
+        (4, 16, 16, 1, 2048, 64, False, None),     # attention, its decode
+        (4, 16, 16, 2048, 2048, 64, False, None),  # seamless's encoder
     ])
     def test_flash_attention_matches_plain(self, b, h, hkv, sq, skv, d,
                                            causal, window, dtype):
@@ -984,6 +987,8 @@ class TestFlashAttentionOnCard:
                                       causal=causal, window=window,
                                       impl="plain")
         assert not bool(((dropped - want).abs() <= tol).all())
+        if sq == 1 and not causal:
+            return       # every window keeps all of one query row's keys
         off = ops.flash_attention(qf, kf, vf, causal=causal,
                                   window=(window or sq) - 1, impl="plain")
         assert not bool(((off - want).abs() <= tol).all())
@@ -1102,6 +1107,79 @@ class TestSelectiveScanOnCard:
         reset = scan_reset_at(u, dt, a, bm, cm, cut)
         assert not bool(((reset - yp).abs() <= tol).all())
 
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+class TestZooOnCard:
+    """The last three zoo configs reduced, fp32, served on the card (K6 on
+    pixtral's and seamless's attention) against the same weights on the
+    CPU: final hidden states within 1e-4 max|h_cpu| (fp32 sums in other
+    orders: the kernel's tiles, cuBLAS's), and the prefill's token and 4
+    greedy decode tokens identical."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    @pytest.mark.parametrize("arch", ["pixtral-12b", "seamless-m4t-medium",
+                                      "xlstm-1.3b"])
+    def test_card_serves_as_the_cpu(self, arch):
+        import dataclasses
+        from repro_torch.configs import registry as reg
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as T
+        cfg = dataclasses.replace(reg.reduce_config(reg.get_config(arch)),
+                                  dtype="float32")
+        p = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 32)))}
+        if cfg.modality == "vision":
+            batch["modal_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.num_modal_tokens, cfg.modal_embed_dim))).float()
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, 16, cfg.modal_embed_dim))).float()
+        s = 32 + (cfg.num_modal_tokens if cfg.modality == "vision" else 0)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = _tree_to(p, dev)
+            on = {k: v.to(dev) for k, v in batch.items()}
+            ops.reset_launch_counts()
+            hidden = T.forward_hidden(params, cfg, on)
+            launches = ops.LAUNCH_COUNTS["flash_attention"]
+            ids, cache = serve.build_prefill_cache_step(
+                cfg, dev, cache_len=s + 4)(params, on)
+            enc = T.encode_for_decode(params, cfg, on)
+            decode = serve.build_decode_step(cfg, dev)
+            got = [ids]
+            for pos in range(s, s + 4):
+                ids, cache = decode(params, cache, ids[:, None], pos,
+                                    enc_out=enc)
+                got.append(ids)
+            out[dev] = (hidden.cpu(), torch.stack(got, 1).cpu(), launches)
+        (h_cpu, ids_cpu, n_cpu), (h_card, ids_card, n_card) = (
+            out["cpu"], out["cuda"])
+        n_attn = cfg.num_layers * (not cfg.is_xlstm) + cfg.num_encoder_layers
+        assert (n_cpu, n_card) == (0, n_attn)
+        assert float((h_card - h_cpu).abs().max()) <= 1e-4 * float(
+            h_cpu.abs().max())
+        assert torch.equal(ids_card, ids_cpu)
 
 
 @pytest.mark.cuda

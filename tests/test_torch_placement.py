@@ -2,8 +2,8 @@
 package's ``repro.distribution.sharding``, on the CPU:
 
 * ``param_specs``, ``cache_specs``, ``batch_specs`` and ``sanitize_spec``
-  equal the reference's leaf for leaf, for every zoo config that builds in
-  the port (reduced; the reference's shape trees from ``jax.eval_shape``);
+  equal the reference's leaf for leaf, for every zoo config (reduced; the
+  reference's shape trees from ``jax.eval_shape``);
 * ``sanitize_spec`` warns once a distinct drop;
 * ``experiment_mesh``'s None cases and ``require=True`` messages, and
   ``shard_experiment_axis``;
@@ -35,10 +35,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 
-# the zoo configs that build in the port (xlstm, pixtral and seamless wait
-# for ROADMAP item 16)
+# every zoo config (xlstm's cells and seamless's encoder included: their
+# leaves have the reference's specs, though they do not run on a mesh yet)
 BUILDS = ("h2o-danube-1.8b", "jamba-v0.1-52b", "qwen2-7b", "olmoe-1b-7b",
-          "granite-moe-1b-a400m", "phi3-mini-3.8b", "llama3-405b")
+          "granite-moe-1b-a400m", "phi3-mini-3.8b", "llama3-405b",
+          "xlstm-1.3b", "seamless-m4t-medium", "pixtral-12b")
 REL = 1e-5
 
 

@@ -10,10 +10,13 @@ and token ids drawn with numpy:
 * context-parallel decode over ``(4, 2)`` (``tests/test_distribution.py::
   test_context_parallel_decode_matches_single_device``): 8 teacher-forced
   steps from an empty cache, tokens equal;
-* the sequence-cut cache (``shard_cache_seq``) on reduced qwen2 over ``(2,
-  4)``, 2 kv heads under 4 model ranks (``::test_seq_sharded_decode_
-  matches_reference``, whose pixtral the port does not build yet): tokens
-  equal;
+* the sequence-cut cache (``shard_cache_seq``) on reduced qwen2 and on
+  the reference's own case, reduced pixtral, over ``(2, 4)``, 2 kv heads
+  under 4 model ranks (``::test_seq_sharded_decode_matches_reference``):
+  tokens equal;
+* pixtral's vision prefix on a ``(2, 2)`` mesh (``modal_proj`` whole on
+  every rank, the image embeddings cut with the batch over ``data``): the
+  prefill's token and 8 greedy decode tokens equal to the reference's;
 * in one subprocess of four ``gloo`` ranks (the physical mesh: a rank a
   process, the shards gathered over the process groups): the three meshes
   above, every rank's ids and cache bitwise the emulated mesh's.
@@ -180,6 +183,58 @@ def test_seq_sharded_decode_matches_reference():
         got.append(ids)
     np.testing.assert_array_equal(torch.stack(got, 1).numpy(),
                                   _ref_forced(jcfg, jp, toks, 16))
+
+
+def test_seq_sharded_decode_matches_reference_pixtral():
+    """The reference's own case: reduced pixtral, select update, the cache's
+    sequence cut over model = 4 > kv = 2."""
+    jcfg, cfg, jp, p = _model("pixtral-12b", decode_cache_update="select")
+    toks = _tokens(cfg, 2, 8, seed=1)
+    step, place = serve.build_decode_step(cfg, "cpu",
+                                          mesh=make_host_mesh(2, 4),
+                                          shard_cache_seq=True)
+    params, cache = place(p, T.init_cache(cfg, 2, 16, device="cpu"))
+    assert cache[0][0]["k"].shape[1:4] == (1, 16 // 4, cfg.num_kv_heads)
+    got = []
+    for pos in range(8):
+        ids, cache = step(params, cache,
+                          torch.from_numpy(toks[:, pos:pos + 1]), pos)
+        got.append(ids)
+    np.testing.assert_array_equal(torch.stack(got, 1).numpy(),
+                                  _ref_forced(jcfg, jp, toks, 16))
+
+
+def test_vision_prefix_on_a_mesh():
+    jcfg, cfg, jp, p = _model("pixtral-12b")
+    toks = _tokens(cfg, 4, 8, seed=4)
+    img = np.random.default_rng(5).standard_normal(
+        (4, cfg.num_modal_tokens, cfg.modal_embed_dim)).astype(np.float32)
+    s = cfg.num_modal_tokens + 8
+    mesh = make_host_mesh(2, 2)
+    prefill, place = serve.build_prefill_cache_step(cfg, "cpu",
+                                                    cache_len=s + 8,
+                                                    mesh=mesh)
+    decode, _ = serve.build_decode_step(cfg, "cpu", mesh=mesh)
+    params, _ = place(p)
+    assert all(torch.equal(r["emb"]["modal_proj"], p["emb"]["modal_proj"])
+               for r in params)
+    ids, cache = prefill(params, {"tokens": torch.from_numpy(toks),
+                                  "modal_embeds": torch.from_numpy(img)})
+    got = [ids]
+    for pos in range(s, s + 8):
+        ids, cache = decode(params, cache, ids[:, None], pos)
+        got.append(ids)
+    jh, jc = _J_PREFILL(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                   "modal_embeds": jnp.asarray(img)}, s + 8)
+    jids = jnp.argmax((jh[:, -1] @ JL.unembed_matrix(jp["emb"], jcfg))
+                      .astype(jnp.float32), axis=-1).astype(jnp.int32)
+    want = [np.asarray(jids)]
+    for pos in range(s, s + 8):
+        logits, jc = _J_DECODE(jp, jcfg, jc, jids[:, None], jnp.asarray(pos))
+        jids = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        want.append(np.asarray(jids))
+    np.testing.assert_array_equal(torch.stack(got, 1).numpy(),
+                                  np.stack(want, 1))
 
 
 def test_builders_without_a_mesh_refuse_the_sharded_options():
