@@ -207,7 +207,25 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               (4, 1) must equal the unsharded route's; and
               ``run_sweep(shard=True)`` on the one card and spread over two
               engines on it, bitwise the unsharded sweep, K1, K2 and K5
-              once a lane a round.
+              once a lane a round;
+14. train  -- the training step (``launch/train.py``): K1 at the
+              training shape (granite-moe-1b-a400m's whole gradient as one
+              fp32 row, [1, 1,384,912,896]) against its plain version,
+              the same bits twice, its rule rejecting the plain result with
+              the last chunk dropped, beside its bound and
+              ``vector_norm``; granite whole (24 layers, 32 experts top-8,
+              random bf16 weights from a seed) on an emulated (4, 1) mesh,
+              4 FL clients of 4 x 1,024 ``token_stream`` tokens,
+              ``normalized`` with the example's channel, Problem-3 b and
+              ``sgd(inverse_power_schedule(0.75, eta0=0.5))``: one warm-up
+              and 3 timed steps with the channel noise (drawn on the host),
+              then 3 without; s a step, tokens/s, peak GiB, K1 launches a
+              step (one a client), the noise draw's share, finite losses;
+              one step of the mean path (no K1); the kernel route forced
+              under autograd raises; then fp32 at full width, 2 layers, 256
+              tokens a client, 3 steps: the card against the CPU, the rule
+              shown to reject runs with a client left out of the fold and
+              with the noise added twice.
 
 Phase zoo runs between 12 and 13:
 
@@ -273,7 +291,11 @@ cards), and
 
     python3 chip_smoke.py --zoo
 
-only phases 1, 2 and 12b.
+only phases 1, 2 and 12b, and
+
+    python3 chip_smoke.py --train
+
+only phases 1, 2 and 14.
 """
 from __future__ import annotations
 
@@ -3844,6 +3866,411 @@ def phase_rates(src: str) -> None:
           "kscale_profiled_round": busy})
 
 
+# --------------------------------------------------------------------------
+# the training step: launch/train.py's OTA step, granite-moe-1b-a400m whole
+
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_CLIENTS = 4                # FL clients: the data ranks of a (4, 1) mesh
+TRAIN_ROWS = 4                   # sequences a client
+TRAIN_SEQ = 1024                 # tokens a sequence (1,025 drawn: the labels
+                                 # are the next tokens)
+TRAIN_STEPS = 3                  # timed steps, after one warm-up step
+TRAIN_CHANNEL_MEAN = 1e-3        # examples/ota_transformer_fl.py:47-58
+TRAIN_GRAD_BOUND = 5.0
+TRAIN_FP32_LAYERS = 2            # the fp32 card-vs-CPU check: depth cut
+TRAIN_FP32_SEQ = 256             # one sequence of 256 tokens a client
+# fp32, the card against the CPU, three steps from the same params, batch
+# and injected noise z_t.  The losses within 1e-4 relative.  The params:
+# their change over the steps with the known noise term sum_t eta_t a z_t
+# taken out (it is ~200x the rest at full width) leaves the clients' signal
+# -sum_t eta_t a sum_k h_k b_k x_k; the card's within 5e-2 of the CPU's in
+# L2, relative.  That covers the fp32 rounding of params ~1e3 times larger
+# than a step's signal element and a rare flip of a near-tie in the top-8
+# routing (one token's expert gradient moved: ~1e-2 at most).  Leaving the
+# client of the largest h_k b_k out moves the signal by >= 1/4 (its weight,
+# of four that sum to 1), and doubling the noise by ~100 times it: both
+# rejected
+TRAIN_LOSS_REL = 1e-4
+TRAIN_SIGNAL_REL = 5e-2
+
+
+def train_ota(n_params: int, seed: int = 7, noise: bool = True):
+    """The example's OTA parameters at full width: h from ``draw_channel``
+    at channel_mean 1e-3, b from Problem 3 at N = ``n_params``, a =
+    1 / sum(h b), the channel's noise_var (or 0), grad_bound 5."""
+    from repro_torch.core import amplification as amp
+    from repro_torch.core.channel import ChannelConfig, draw_channel
+    from repro_torch.launch import train as tl
+    chan = ChannelConfig(num_devices=TRAIN_CLIENTS,
+                         channel_mean=TRAIN_CHANNEL_MEAN)
+    h = draw_channel(torch.Generator().manual_seed(seed), chan)
+    b = amp.solve_problem3_torch(h, chan.noise_var, n_params, chan.b_max).b
+    return tl.OTARunParams(h=h.numpy(), b=b.numpy(),
+                           a=1.0 / float(torch.sum(h * b)),
+                           noise_var=chan.noise_var if noise else 0.0,
+                           grad_bound=TRAIN_GRAD_BOUND)
+
+
+def train_batch(cfg, rows: int, seq: int, seed: int) -> dict:
+    """``token_stream`` rows of seq + 1 tokens: inputs and next tokens."""
+    from repro_torch.data.datasets import token_stream
+    toks = token_stream(torch.Generator().manual_seed(seed), rows, seq + 1,
+                        cfg.vocab_size)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def event_ms(fn, samples: int = 5, calls: int = 2) -> float:
+    """Median device time of ``fn`` over ``samples`` runs of ``calls``
+    eager calls between CUDA events (calls of a millisecond and more)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / calls)
+    return statistics.median(out)
+
+
+def train_k1(ops, cfg, params, batch) -> dict:
+    """(a) K1 at the training shape: client 0's gradient, flattened to the
+    [1, N] fp32 row that the OTA step's statistics read, against K1's plain
+    version; twice for the same bits; its rule shown to reject the plain
+    result with the last chunk left out."""
+    from repro_torch.kernels.grad_norm import moments_split
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as T
+    rows = {k: v[:TRAIN_ROWS].cuda() for k, v in batch.items()}
+    _, _, grads = tl._value_and_grad(
+        lambda q: T.forward_loss(q, cfg, rows), params)
+    flat = torch.cat([g.float().reshape(1, -1) for g in grads], dim=1)
+    del grads
+    n = flat.shape[1]
+    sq, s = ops.batched_moments(flat, impl="kernel")
+    sq2, s2 = ops.batched_moments(flat, impl="kernel")
+    sq_p, s_p = ops.batched_moments(flat, impl="plain")
+    # the sums of |terms| in fp64, a slice at a time (the rule's scale)
+    abs_sq = abs_s = 0.0
+    for lo in range(0, n, 1 << 27):
+        part = flat[0, lo:lo + (1 << 27)].double()
+        abs_sq += float(torch.sum(part * part))
+        abs_s += float(torch.sum(part.abs()))
+        del part
+
+    def within(a_sq, a_s) -> bool:
+        return (abs(float(sq[0]) - float(a_sq[0])) <= TERMS_RTOL * abs_sq
+                and abs(float(s[0]) - float(a_s[0])) <= TERMS_RTOL * abs_s)
+    chunks = moments_split(1, n)
+    per = -(-(-(-n // 4)) // chunks) * 4         # elements a chunk
+    cut = ops.batched_moments(flat[:, :(chunks - 1) * per], impl="plain")
+    b_ms, b_by = bound(n * 4 + 8, 3.0 * n)
+    row = {"phase": "train", "part": "k1", "shape": [1, n],
+           "chunks_per_row": chunks,
+           "max_abs_err": max(float((sq - sq_p).abs().max()),
+                              float((s - s_p).abs().max())),
+           "tolerance": f"|d| <= {TERMS_RTOL:g} * sum|terms|",
+           "within_tolerance": within(sq_p, s_p),
+           "same_bits_twice": bool(torch.equal(sq, sq2)
+                                   and torch.equal(s, s2)),
+           "rejects_last_chunk_dropped": not within(*cut),
+           "kernel_ms": event_ms(lambda: ops.batched_moments(
+               flat, impl="kernel")),
+           "plain_ms": event_ms(lambda: ops.batched_moments(
+               flat, impl="plain")),
+           "library_ms": event_ms(lambda: torch.linalg.vector_norm(flat)),
+           "library_call": "torch.linalg.vector_norm(g)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    del flat
+    emit(row)
+    if not (row["within_tolerance"] and row["same_bits_twice"]
+            and row["rejects_last_chunk_dropped"]):
+        fail(f"train: K1 at the training shape: {row}")
+    return row
+
+
+def train_run(ops, cfg, params, batch, ota, label: str,
+              warm_up: bool = True) -> dict:
+    """(b) One warm-up (unless the card is warm from a run of the same
+    shapes) and TRAIN_STEPS timed OTA steps of the whole model on an
+    emulated (TRAIN_CLIENTS, 1) mesh; the host noise draw timed apart."""
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizers import inverse_power_schedule, sgd
+    opt = sgd(inverse_power_schedule(0.75, eta0=0.5))
+    step, place = tl.build_train_step(
+        cfg, make_host_mesh(TRAIN_CLIENTS, 1, emulate=True),
+        scheme="normalized", aggregation_axes=("data",), ota=ota,
+        optimizer=opt, device="cuda")
+    drawn = []
+    draw = tl.draw_noise
+
+    def timed_draw(*a, **k):
+        t0 = time.perf_counter()
+        z = draw(*a, **k)
+        drawn.append(time.perf_counter() - t0)
+        return z
+    tl.draw_noise = timed_draw
+    try:
+        p, o, rows = place(params, opt.init(params), batch)
+        torch.cuda.reset_peak_memory_stats()
+        warm_loss = None
+        if warm_up:     # the card's warm-up: no generator, so no noise drawn
+            p, o, m = step(p, o, rows, None)
+            warm_loss = float(m["loss"])
+        before = dict(ops.LAUNCH_COUNTS)
+        secs, losses, norms = [], [], []
+        for t in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, rows, 101 + t)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            norms.append(float(m["grad_norm"]))
+        launches = {k: ops.LAUNCH_COUNTS[k] - before[k] for k in before}
+    finally:
+        tl.draw_noise = draw
+    tokens = TRAIN_CLIENTS * TRAIN_ROWS * TRAIN_SEQ
+    draws = drawn
+    row = {"phase": "train", "part": label, "arch": TRAIN_ARCH,
+           "dtype": cfg.dtype, "mesh": [TRAIN_CLIENTS, 1],
+           "tokens_per_step": tokens, "noise_var": ota.noise_var,
+           "s_per_step": secs, "s_per_step_median": statistics.median(secs),
+           "tokens_per_s": tokens / statistics.median(secs),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "warmup_loss": warm_loss, "loss": losses, "grad_norm_client0":
+           norms, "k1_launches_per_step":
+           launches["batched_moments"] / TRAIN_STEPS,
+           "launches": launches,
+           "host_noise_draw_s": draws,
+           "host_noise_draw_share": (sum(draws) / sum(secs) if draws
+                                     else 0.0)}
+    emit(row)
+    if not all(math.isfinite(v) for v in losses
+               + ([warm_loss] if warm_up else [])):
+        fail(f"train {label}: a loss is not finite: {losses}")
+    if launches["batched_moments"] != TRAIN_CLIENTS * TRAIN_STEPS:
+        fail(f"train {label}: K1 launched {launches['batched_moments']} "
+             f"times in {TRAIN_STEPS} steps, expected one a client a step")
+    if launches["flash_attention"] or launches["selective_scan"]:
+        fail(f"train {label}: K6/K7 launched under autograd: {launches}")
+    return row
+
+
+def train_fp32(ops, cfg_full) -> dict:
+    """(c) fp32 at full width, depth cut to TRAIN_FP32_LAYERS: three steps
+    on the card (K1, the training attention) against the CPU (plain) from
+    the same params, batch and injected noise; the rule also applied to
+    two wrong runs (the b of the client of the largest h_k b_k set to 0,
+    so its contribution is left out of the fold; the noise doubled) to
+    show it rejects them.  The wrong runs take the card: a CPU run of
+    this model takes ~36 s, and the rule's margin on them is 4 and 5
+    orders of magnitude above the card's gap to the CPU."""
+    import dataclasses
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import inverse_power_schedule, sgd
+    cfg = dataclasses.replace(cfg_full, dtype="float32",
+                              num_layers=TRAIN_FP32_LAYERS)
+    # fp32 products stay fp32 (phase tp leaves TF32 on for the phases after
+    # it; with it the card's first loss is 1e-5 off and the signal 7.6e-2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p_gpu = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    ota = train_ota(T.param_count(p_cpu))
+    batch = train_batch(cfg, TRAIN_CLIENTS, TRAIN_FP32_SEQ, seed=12)
+    noises = [tl.draw_noise(torch.Generator().manual_seed(200 + t), p_cpu,
+                            ota.noise_var, "cpu") for t in range(3)]
+
+    sched = inverse_power_schedule(0.75, eta0=0.5)
+
+    def run(device, params, o_params, scale=1.0):
+        opt = sgd(sched)
+        step, place = tl.build_train_step(
+            cfg, make_host_mesh(TRAIN_CLIENTS, 1, emulate=True),
+            scheme="normalized", aggregation_axes=("data",), ota=o_params,
+            optimizer=opt, device=device)
+        p, o, rows = place(params, opt.init(params), batch)
+        losses = []
+        for t in range(3):
+            p, o, m = step(p, o, rows, noise=(noises[t] * scale).to(device))
+            losses.append(float(m["loss"]))
+        return _tree_to(p[0], "cpu"), losses
+
+    before = dict(ops.LAUNCH_COUNTS)
+    t0 = time.perf_counter()
+    got = run("cuda", p_gpu, ota)
+    gpu_s = time.perf_counter() - t0
+    k1 = ops.LAUNCH_COUNTS["batched_moments"] - before["batched_moments"]
+    t0 = time.perf_counter()
+    want = run("cpu", p_cpu, ota)
+    cpu_s = time.perf_counter() - t0
+    hb = ota.h * ota.b
+    b_out = ota.b.copy()
+    b_out[int(np.argmax(hb))] = 0.0
+    wrong = {"client_left_out": run("cuda", p_gpu,
+                                    dataclasses.replace(ota, b=b_out)),
+             "noise_twice": run("cuda", p_gpu, ota, scale=2.0)}
+    flat0 = torch.cat([l.reshape(-1).double() for l in oc_leaves(p_cpu)])
+    noise_term = sum(float(sched(torch.tensor(t + 1))) * ota.a
+                     * z.double() for t, z in enumerate(noises))
+
+    def signal(res):
+        flat = torch.cat([l.reshape(-1).double() for l in oc_leaves(res[0])])
+        return flat - flat0 + noise_term
+
+    ref_signal = signal(want)
+    ref_norm = float(torch.linalg.vector_norm(ref_signal))
+
+    def gaps(res):
+        sig = float(torch.linalg.vector_norm(signal(res) - ref_signal)
+                    ) / ref_norm
+        loss = max(abs(x - y) / abs(y) for x, y in zip(res[1], want[1]))
+        return {"loss_rel": loss, "signal_rel": sig,
+                "within": loss <= TRAIN_LOSS_REL and sig <= TRAIN_SIGNAL_REL}
+    row = {"phase": "train", "part": "fp32_card_vs_cpu",
+           "layers": TRAIN_FP32_LAYERS, "tokens_per_client": TRAIN_FP32_SEQ,
+           "params": int(flat0.numel()), "a": ota.a, "hb": hb.tolist(),
+           "loss_card": got[1], "loss_cpu": want[1],
+           "signal_norm_cpu": ref_norm,
+           "noise_term_norm": float(torch.linalg.vector_norm(noise_term)),
+           "tolerance": f"losses |d| <= {TRAIN_LOSS_REL:g} rel; the "
+                        f"params' change less the noise term within "
+                        f"{TRAIN_SIGNAL_REL:g} of the CPU's in L2",
+           "card_vs_cpu": gaps(got),
+           "rejects": {k: gaps(v) for k, v in wrong.items()},
+           "k1_launches": k1, "card_s": gpu_s, "cpu_s": cpu_s}
+    emit(row)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    if not row["card_vs_cpu"]["within"]:
+        fail(f"train fp32: the card differs from the CPU: {row}")
+    if any(v["within"] for v in row["rejects"].values()):
+        fail(f"train fp32: the rule accepts a wrong run: {row}")
+    return row
+
+
+def oc_leaves(tree) -> list:
+    from repro_torch.distribution.ota_collectives import tree_leaves
+    return tree_leaves(tree)
+
+
+def train_mean(ops, cfg, params, batch) -> dict:
+    """(d) One bf16 step of the whole model on the mean path: a finite loss
+    and no K1 launch."""
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizers import sgd
+    opt = sgd(0.05)
+    step, place = tl.build_train_step(
+        cfg, make_host_mesh(TRAIN_CLIENTS, 1, emulate=True), scheme="mean",
+        optimizer=opt, device="cuda")
+    p, o, rows = place(params, opt.init(params), batch)
+    before = dict(ops.LAUNCH_COUNTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, o, m = step(p, o, rows)
+    loss = float(m["loss"])
+    row = {"phase": "train", "part": "mean_bf16", "loss": loss,
+           "nll": float(m["nll"]), "aux": float(m["aux"]),
+           "s": time.perf_counter() - t0,
+           "k1_launches": ops.LAUNCH_COUNTS["batched_moments"]
+           - before["batched_moments"]}
+    emit(row)
+    if not math.isfinite(loss) or row["k1_launches"]:
+        fail(f"train mean: {row}")
+    return row
+
+
+def train_guard(ops, cfg, params, batch) -> dict:
+    """(e) The kernel route forced under autograd raises: the whole model's
+    ``forward_hidden`` (K6 at its first layer), and K6's and K7's wrappers
+    on inputs that require grad; nothing is launched."""
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as T
+    before = dict(ops.LAUNCH_COUNTS)
+    leaves = tl._with_grad(params)
+    q = torch.randn((1, 2, 64, 64), device="cuda", requires_grad=True)
+    u = torch.randn((1, 64, 32), device="cuda", requires_grad=True)
+    dt = torch.rand((1, 64, 32), device="cuda")
+    a = -torch.rand((32, 16), device="cuda")
+    bc = torch.randn((1, 64, 16), device="cuda")
+    calls = {
+        "forward_hidden": lambda: T.forward_hidden(
+            leaves, cfg, {"tokens": batch["tokens"][:1, :64].cuda()},
+            impl="kernel"),
+        "flash_attention": lambda: ops.flash_attention(q, q, q,
+                                                       impl="kernel"),
+        "selective_scan": lambda: ops.selective_scan(u, dt, a, bc, bc,
+                                                     impl="kernel")}
+    raised = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            raised[name] = None
+        except RuntimeError as err:
+            raised[name] = str(err)[:80]
+    torch.cuda.synchronize()
+    launched = {k: ops.LAUNCH_COUNTS[k] - before[k] for k in before}
+    row = {"phase": "train", "part": "guard", "raised": raised,
+           "launched": launched}
+    emit(row)
+    if not all(v and "no backward" in v for v in raised.values()) \
+            or any(launched.values()):
+        fail(f"train guard: {row}")
+    return row
+
+
+def phase_train(ops) -> dict:
+    """The training step: (a) K1 at the training shape, (b) granite whole on
+    an emulated (4, 1) mesh with and without the channel noise, (d) the mean
+    path, (e) the autograd guard, (c) the fp32 card-vs-CPU check.  Returns
+    K1's launches on the path ((b)'s steps, read from counts set to 0 just
+    before them)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    n = T.param_count(params)
+    batch = train_batch(cfg, TRAIN_CLIENTS * TRAIN_ROWS, TRAIN_SEQ, seed=11)
+    emit({"phase": "train", "part": "model", "arch": TRAIN_ARCH,
+          "params": n, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+          "vocab": cfg.vocab_size})
+    train_k1(ops, cfg, params, batch)
+    ops.reset_launch_counts()
+    noisy = train_run(ops, cfg, params, batch, train_ota(n), "bf16_noise")
+    quiet = train_run(ops, cfg, params, batch, train_ota(n, noise=False),
+                      "bf16_no_noise", warm_up=False)
+    launches = {"batched_moments": ops.LAUNCH_COUNTS["batched_moments"]}
+    emit({"phase": "train", "part": "noise_cost",
+          "s_per_step_noise": noisy["s_per_step_median"],
+          "s_per_step_no_noise": quiet["s_per_step_median"],
+          "difference_s": noisy["s_per_step_median"]
+          - quiet["s_per_step_median"]})
+    train_mean(ops, cfg, params, batch)
+    train_guard(ops, cfg, params, batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_fp32(ops, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_time", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(
@@ -3867,6 +4294,8 @@ def main() -> None:
                     help="run only the build and phase tp")
     ap.add_argument("--zoo", action="store_true",
                     help="run only the build and phase zoo")
+    ap.add_argument("--train", action="store_true",
+                    help="run only the build and phase train")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -3909,6 +4338,9 @@ def main() -> None:
         return
     if args.zoo:
         phase_zoo(ops)
+        return
+    if args.train:
+        phase_train(ops)
         return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
@@ -3962,6 +4394,8 @@ def main() -> None:
     emit_memory("zoo")
     tp_launches = phase_tp(ops, build)
     emit_memory("tp")
+    train_launches = phase_train(ops)
+    emit_memory("train")
     # K6 runs on three serving paths (danube and the rest of the zoo on
     # one card, then the mesh) and K7 on two, and the round's kernels on
     # the sharded sweep too, each read from counts set to 0 before it
@@ -3970,6 +4404,8 @@ def main() -> None:
     hybrid_launches["selective_scan"] += tp_launches["selective_scan"]
     for name in PATH_KERNELS:
         round_launches[name] += tp_launches[name]
+    # and K1 on the training step's path (one launch a client a step)
+    round_launches["batched_moments"] += train_launches["batched_moments"]
     csrc = "src/repro_torch/kernels/csrc/"
     # kernel -> (source, TPU kernel it replaces, launches on its path)
     sources = {

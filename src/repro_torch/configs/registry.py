@@ -4,17 +4,22 @@
 
 ``get_config(arch_id)`` returns the exact assigned configuration;
 ``reduce_config(cfg)`` produces the family-preserving smoke variant
-(<=2 layers, d_model<=512, <=4 experts).  The dry-run's ``input_specs`` and
-``make_dummy_inputs`` wait for the port's launchers (ROADMAP queue 1
-item 17).
+(<=2 layers, d_model<=512, <=4 experts); ``input_specs`` gives a model's
+inputs for one (arch, input shape) pair as ``TensorSpec``s (shape and
+dtype, nothing allocated) and ``make_dummy_inputs`` small concrete ones
+(``launch.train.make_batch_from_specs`` turns them into a loss-ready
+batch).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.device import resolve_device
 
 ARCH_IDS = (
     "h2o-danube-1.8b", "jamba-v0.1-52b", "qwen2-7b", "xlstm-1.3b",
@@ -84,3 +89,72 @@ def applicable(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
         if not subquadratic:
             return "full attention, no sub-quadratic variant (DESIGN.md §4)"
     return None
+
+
+# ---------------------------------------------------------------------------
+# input specs (shape and dtype stand-ins, no allocation)
+
+
+class TensorSpec(NamedTuple):
+    """The reference's ``jax.ShapeDtypeStruct``: a tensor's shape and
+    dtype."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _enc_len(seq_len: int) -> int:
+    return max(seq_len // 4, 8)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, *,
+                dtype: torch.dtype = torch.int32) -> Dict[str, TensorSpec]:
+    """Model inputs for one (arch, input-shape) pair.
+
+    train/prefill: the token batch (a vision model's text is S minus its
+    image tokens), labels for train, and the stub modality embeddings.
+    decode: one new token a sequence and the position (the cache is built
+    apart, by the launcher)."""
+    from repro_torch.models.layers import dtype_of
+    b, s = shape.global_batch, shape.seq_len
+    emb_dt = dtype_of(cfg)
+    specs: Dict[str, TensorSpec] = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = s - cfg.num_modal_tokens if cfg.modality == "vision" else s
+        specs["tokens"] = TensorSpec((b, s_text), dtype)
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s_text), dtype)
+        if cfg.modality == "vision":
+            specs["modal_embeds"] = TensorSpec(
+                (b, cfg.num_modal_tokens, cfg.modal_embed_dim), emb_dt)
+        if cfg.is_encoder_decoder:
+            specs["src_embeds"] = TensorSpec(
+                (b, _enc_len(s), cfg.modal_embed_dim), emb_dt)
+    else:
+        specs["tokens"] = TensorSpec((b, 1), dtype)
+        specs["pos"] = TensorSpec((), dtype)
+        if cfg.is_encoder_decoder:
+            specs["src_embeds"] = TensorSpec(
+                (b, _enc_len(min(s, 4096)), cfg.modal_embed_dim), emb_dt)
+    return specs
+
+
+def make_dummy_inputs(cfg: ModelConfig, shape: InputShape,
+                      gen: Optional[torch.Generator] = None,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """Concrete small inputs matching ``input_specs`` (smoke tests only):
+    token ids uniform over the vocabulary, ``pos`` 0, embeddings N(0, 1),
+    drawn from the CPU generator ``gen`` (seed 0 by default) in the specs'
+    order, then moved to ``device``."""
+    dev = resolve_device(device)
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if spec.dtype.is_floating_point:
+            t = torch.randn(spec.shape, generator=gen).to(spec.dtype)
+        elif name == "pos":
+            t = torch.zeros(spec.shape, dtype=spec.dtype)
+        else:
+            t = torch.randint(0, cfg.vocab_size, spec.shape,
+                              generator=gen).to(spec.dtype)
+        out[name] = t.to(dev)
+    return out

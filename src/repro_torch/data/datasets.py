@@ -54,6 +54,21 @@ def ridge_data(gen: torch.Generator, num_examples: int, dim: int,
 
 
 # ---------------------------------------------------------------------------
+# synthetic token streams (the transformer train step's data)
+
+
+def token_stream(gen: torch.Generator, num_sequences: int, seq_len: int,
+                 vocab: int) -> torch.Tensor:
+    """Markov-ish synthetic tokens, so that a loss can decrease: a random
+    start in [0, vocab), then cumulative steps drawn in [0, 17), mod
+    ``vocab``.  Returns [num_sequences, seq_len] int32 on the CPU."""
+    start = torch.randint(0, vocab, (num_sequences, 1), generator=gen)
+    steps = torch.randint(0, 17, (num_sequences, seq_len - 1), generator=gen)
+    toks = torch.cumsum(torch.cat([start, steps], dim=1), dim=1) % vocab
+    return toks.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # federated partitioner
 
 

@@ -14,7 +14,10 @@ is added after the sum, once, from a stream every rank holds the same (a
 CPU generator from one seed, or one injected vector), so every rank ends
 with the same update, as Step 3's broadcast requires.  The side
 information of a scheme's server post-transform folds with one more
-all-reduce of a few scalars.
+all-reduce of a few scalars.  On a training mesh (``ctx=``, a
+``RankContext``: the FL clients are the ``data`` ranks) both sums are
+``ctx.fold`` instead, the fixed left fold in rank order, so a train step
+gives the same bits on an emulated mesh and over physical ranks.
 
 The sharded streaming round (``device_mesh``) closes eq. (10) by folding D
 per-shard partial carries into one.  fp32 addition is not associative, so
@@ -53,15 +56,38 @@ def _tree_map(fn, tree, *rest):
     raise TypeError(f"unsupported tree node {type(tree).__name__}")
 
 
-def _tree_leaves(tree) -> list:
+def tree_leaves(tree) -> list:
     """Tensor leaves in ``jax.tree_util`` order (dict keys sorted)."""
     if tree is None:
         return []
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in _tree_leaves(tree[k])]
-    return [l for v in tree for l in _tree_leaves(v)]
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    return [l for v in tree for l in tree_leaves(v)]
+
+
+def tree_flatten(tree) -> dict:
+    """A nested tree (a model's params or gradients) as the flat
+    ``{name: leaf}`` dict that ``ota_psum`` and the schemes take, its names
+    ``"00000"``, ``"00001"``, ... in ``jax.tree_util`` leaf order, so the
+    flat dict's sorted order is the reference's leaf order."""
+    return {f"{i:05d}": l for i, l in enumerate(tree_leaves(tree))}
+
+
+def tree_unflatten(like, flat: dict):
+    """The inverse of ``tree_flatten``: ``flat``'s leaves in the structure
+    of ``like``."""
+    it = iter(flat[k] for k in sorted(flat))
+
+    def build(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        return type(t)(build(v) for v in t)
+    return build(like)
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +142,7 @@ def client_index(group) -> int:
 def tree_sq_norm(tree: Any) -> torch.Tensor:
     """Squared global L2 norm of a (per-rank) gradient tree, summed in fp32
     leaf by leaf: the one helper for shard-local norms."""
-    return sum(torch.sum(torch.square(l.float())) for l in _tree_leaves(tree))
+    return sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree))
 
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
@@ -146,15 +172,19 @@ def _local_stats_kernels(grads: Tree, sch: schemes.Scheme
         tensor_sq_norms=tensor_sq)
 
 
-def ota_psum(grads: Tree, *, scheme: str, group, h: torch.Tensor,
-             b: torch.Tensor, a, noise_var: float,
+def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
+             h: torch.Tensor, b: torch.Tensor, a, noise_var: float,
              generator: Optional[torch.Generator] = None,
              noise: Optional[torch.Tensor] = None,
              grad_bound=None, reduce_dtype: Optional[torch.dtype] = None,
              stats_impl: str = "plain",
              h_hat: Optional[torch.Tensor] = None) -> Tree:
     """Aggregate this rank's gradient with every other rank's, over the
-    air.  ``h``/``b`` are the full [K] per-device tensors (the same on every
+    air.  The ranks are a ``torch.distributed`` ``group`` (the mesh
+    backend: each rank an FL device, the sums all-reduces) or, with
+    ``ctx`` (a ``RankContext``), the ``data`` ranks of a training mesh (the
+    sums ``ctx.fold``, in rank order; its leaves are freed as they fold).
+    ``h``/``b`` are the full [K] per-device tensors (the same on every
     rank); each rank takes its own ``h_k``, ``b_k`` by its rank.  ``h_hat``
     is the server's estimate (None: perfect CSI): the true ``h`` rides the
     sum (the air), the estimate weighs the side-info fold.  The noise is
@@ -171,12 +201,29 @@ def ota_psum(grads: Tree, *, scheme: str, group, h: torch.Tensor,
     if stats_impl not in STATS_IMPLS:
         raise ValueError(f"unknown stats_impl {stats_impl!r}; one of "
                          f"{STATS_IMPLS}")
-    if sch.baseline:
-        inv = 1.0 / torch.distributed.get_world_size(group)
-        return schemes.tree_map(lambda l: _all_reduce(l.float() * inv, group),
-                                grads)
+    if group is not None and ctx is not None:
+        raise ValueError("ota_psum takes a group or a ctx, not both")
+    if ctx is not None:
+        k_total, me = ctx.size("data"), ctx.d
 
-    me = client_index(group)
+        def psum(t):
+            return ctx.fold(t, "data")
+    else:
+        k_total, me = (torch.distributed.get_world_size(group),
+                       client_index(group))
+
+        def psum(t):
+            return _all_reduce(t, group)
+
+    def psum_tree(tree):
+        """The sum of every leaf, each leaf dropped from ``tree`` as it is
+        summed (a fold's stack is the size of one leaf's)."""
+        return {k: psum(tree.pop(k)).float() for k in sorted(tree)}
+
+    if sch.baseline:
+        inv = 1.0 / k_total
+        return psum_tree(schemes.tree_map(lambda l: l.float() * inv, grads))
+
     hk = h[me].float()
     bk = b[me].float()
     hk_hat = hk if h_hat is None else h_hat[me].float()
@@ -187,7 +234,7 @@ def ota_psum(grads: Tree, *, scheme: str, group, h: torch.Tensor,
                           extra_scale=hk * bk, out_dtype=torch.float32)
     if reduce_dtype is not None:
         x = schemes.tree_map(lambda l: l.to(reduce_dtype), x)
-    y = schemes.tree_map(lambda l: _all_reduce(l, group).float(), x)
+    y = psum_tree(x)
     first = next(iter(y.values()))
     z = ota.channel_noise(noise_var, {k: v.shape for k, v in y.items()},
                           first.device, generator, noise)
@@ -205,8 +252,7 @@ def ota_psum(grads: Tree, *, scheme: str, group, h: torch.Tensor,
         names = [k for k, v in side.items() if isinstance(v, torch.Tensor)]
         w = hk_hat * bk
         # the server's hb mass and each weighted side sum: one all-reduce
-        sums = _all_reduce(torch.stack([w] + [w * side[k].float()
-                                              for k in names]), group)
+        sums = psum(torch.stack([w] + [w * side[k].float() for k in names]))
         folded = {k: v for k, v in side.items() if k not in names}
         for i, k in enumerate(names):
             folded[k] = sums[i + 1] / (sums[0] + schemes.EPS)

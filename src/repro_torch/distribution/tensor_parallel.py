@@ -26,9 +26,17 @@ at a time: rank 0 runs to its first collective, then rank 1, ..., and the
 last rank to arrive combines the stacks, after which rank 0 goes on.  So
 one rank's kernels run at a time, as the physical rank's would, and a
 rank's program is the same code on both meshes.
+
+A training step's backward recomputes checkpointed superblocks, on
+autograd's own threads, where no collective may run (an emulated rank
+would wait there for ranks that cannot come).  Inside ``ctx.recorded()``
+every gather made in a ``ctx.scope(key)`` (a superblock) keeps its result
+under ``(key, n)``, its place in the scope, and the recompute of that
+scope takes it from there: the same bits, no collective.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable, List, Optional
 
@@ -49,10 +57,33 @@ class RankContext:
         self.d, self.m = mesh.coords(rank)
         self.data, self.model = mesh.data, mesh.model
         self._lockstep = lockstep
-        # whether the batch's rows are cut over ``data`` (the serve steps
-        # set it): a function of the whole batch (the MoE's capacity and
-        # its pairs' slots) then counts every data rank's rows
+        # whether the batch's rows are cut over ``data`` (the serve and
+        # train steps set it): a function of the whole batch (the MoE's
+        # capacity, its pairs' slots, its aux losses) then counts every
+        # data rank's rows
         self.batch_split = False
+        self._log = None        # {(scope key, n): gathered} in recorded()
+        self._scope = None      # [scope key, gathers so far] in scope()
+
+    @contextlib.contextmanager
+    def recorded(self):
+        """Keep the result of every gather made in a ``scope`` while this
+        is open (a training step's forward and backward)."""
+        self._log = {}
+        try:
+            yield
+        finally:
+            self._log = None
+
+    @contextlib.contextmanager
+    def scope(self, key):
+        """The gathers of one checkpointed region, numbered from 0 each
+        time it runs (its forward, then its recompute)."""
+        outer, self._scope = self._scope, [key, 0]
+        try:
+            yield
+        finally:
+            self._scope = outer
 
     def size(self, axis: str) -> int:
         return self.mesh.shape[axis]
@@ -65,9 +96,19 @@ class RankContext:
         leading axis)."""
         if self.size(axis) == 1:
             return x[None]
+        key = None
+        if self._log is not None and self._scope is not None:
+            key = (self._scope[0], self._scope[1], axis)
+            self._scope[1] += 1
+            if key in self._log:
+                return self._log[key]
         if self._lockstep is None:
-            return gather_shards(x.contiguous(), self.mesh.groups[axis])
-        return self._lockstep.exchange(self.rank, axis, x)
+            out = gather_shards(x.contiguous(), self.mesh.groups[axis])
+        else:
+            out = self._lockstep.exchange(self.rank, axis, x)
+        if key is not None:
+            self._log[key] = out
+        return out
 
     def fold(self, x: torch.Tensor, axis: str = "model",
              op=torch.add) -> torch.Tensor:
@@ -75,6 +116,11 @@ class RankContext:
         order; one rank: ``x`` itself."""
         if self.size(axis) == 1:
             return x
+        if self._lockstep is not None and self._log is None:
+            # emulated: folded once for the ranks of a group, which share
+            # the result (the same bits each rank's own fold would give)
+            return self._lockstep.exchange(
+                self.rank, axis, x, reduce=lambda st: fold_shards(st, op))
         return fold_shards(self.gather(x, axis), op)
 
     def __repr__(self):
@@ -123,9 +169,13 @@ class _Lockstep:
             self.turn = rank + 1
             self.cv.notify_all()
 
-    def exchange(self, rank: int, axis: str, x: torch.Tensor) -> torch.Tensor:
+    def exchange(self, rank: int, axis: str, x: torch.Tensor,
+                 reduce=None) -> torch.Tensor:
+        """Every rank's ``x`` along ``axis`` stacked in rank order, or
+        ``reduce`` of that stack (computed once a group; every rank calls
+        an exchange with the same ``reduce``)."""
         with self.cv:
-            self.slots[rank] = (axis, tuple(x.shape), x)
+            self.slots[rank] = (axis, tuple(x.shape), x, reduce)
             if rank == self.n - 1:
                 self._combine()
             else:
@@ -141,7 +191,7 @@ class _Lockstep:
                 "emulated mesh: the ranks reached different collectives "
                 f"({[None if s is None else s[:2] for s in self.slots]})"))
             raise _Aborted()
-        axis = self.slots[0][0]
+        axis, reduce = self.slots[0][0], self.slots[0][3]
         stacks = {}
         for r in range(self.n):
             d, m = self.mesh.coords(r)
@@ -154,6 +204,8 @@ class _Lockstep:
                             for i in range(self.mesh.data)])
                 stacks[key] = torch.stack([self.slots[j][2]
                                            for j in members])
+                if reduce is not None:
+                    stacks[key] = reduce(stacks[key])
             self.results[r] = stacks[key]
         self.slots = [None] * self.n
         self.turn = 0

@@ -11,6 +11,13 @@ Dispatch (``impl``):
 * ``"plain"`` -- run the plain version on whatever device the input is on
   (``chip_smoke.py`` compares the two on the card with it).
 
+K6 and K7 have no backward (nor have the reference's Pallas kernels): on
+the kernel route ``flash_attention`` and ``selective_scan`` raise where
+autograd would record through them, rather than return an output that
+silently drops the gradient.  The models' training routes
+(``models.layers.attention``, ``models.mamba.mamba_mix`` under autograd)
+never call them.
+
 ``k_block`` selects the streamed kernels (the K-way work tiled into K-blocks
 of that many devices, which must divide K).  ``LAUNCH_COUNTS`` counts kernel
 launches per kernel; plain calls do not count.  A wrapper called while a
@@ -79,6 +86,18 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+def _no_backward(name: str, *ts: torch.Tensor) -> None:
+    """Raise where autograd would record through a kernel that has no
+    backward (grad mode on and an input requiring grad)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and autograd is recording "
+            f"through its inputs; train through the models' training route "
+            f"(layers.attention / mamba.mamba_mix with impl='auto' take the "
+            f"differentiable plain core under autograd), or call it under "
+            f"torch.no_grad()")
 
 
 def grad_norm(x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
@@ -174,6 +193,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_heads(q, k, v)
     check_window(window)
     if _use_kernel(q, impl):
+        _no_backward("flash_attention (K6)", q, k, v)
         o = flash_attention_cuda(q, k, v, causal=causal, window=window)
         LAUNCH_COUNTS["flash_attention"] += 1
         return o
@@ -192,6 +212,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     The kernel (K7) takes N up to 16 and any S and D."""
     check_scan_shapes(u, dt, a, bmat, cmat)
     if _use_kernel(u, impl):
+        _no_backward("selective_scan (K7)", u, dt, a, bmat, cmat)
         out = selective_scan_cuda(u, dt, a, bmat, cmat,
                                   return_state=return_state)
         LAUNCH_COUNTS["selective_scan"] += 1

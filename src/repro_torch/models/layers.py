@@ -14,7 +14,15 @@ the plain chunked version for CPU ones.  The reference computes the same
 function in plain XLA, query-chunked, and holds it equal to its Pallas
 kernel (``tests/test_kernels.py::test_matches_model_layer_path``).  Decode
 attention over the cache is plain PyTorch, as the reference leaves it to
-XLA.  ``chunked_softmax_xent`` waits for the port's training step.
+XLA.
+
+Training: K6 has no backward (nor has the reference's Pallas kernel, whose
+training differentiates the plain XLA attention).  Wherever autograd
+records (``records``: grad mode on and an input or parameter requiring
+grad), ``attention`` takes the reference's query-chunked core instead
+(``_mask_bias``, ``_attend_chunk``; chunks of ``cfg.attn_q_chunk``, each
+through ``torch.utils.checkpoint`` under ``cfg.remat``), and
+``chunked_softmax_xent`` is the training loss over sequence chunks.
 
 Tensor parallelism: every layer takes an optional ``tp`` (a
 ``distribution.tensor_parallel.RankContext``) and then runs on its rank's
@@ -34,6 +42,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distribution.sharding import tp_plan
@@ -43,6 +52,38 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 # what an unported path names when it raises
 ZOO_ITEM = "ROADMAP queue 1 item 16 (model zoo)"
+
+
+# what a tensor-parallel training step names when it raises
+TP_TRAIN_ITEM = ("ROADMAP queue 1 item 19 (tensor-parallel training: "
+                 "model > 1, fsdp_axis)")
+
+
+def records(*trees) -> bool:
+    """Whether autograd records through a layer: grad mode is on and a
+    tensor of ``trees`` (inputs, parameter dicts) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(t) -> bool:
+        if isinstance(t, torch.Tensor):
+            return t.requires_grad
+        if isinstance(t, dict):
+            return any(any_grad(v) for v in t.values())
+        if isinstance(t, (tuple, list)):
+            return any(any_grad(v) for v in t)
+        return False
+    return any(any_grad(t) for t in trees)
+
+
+def remat(on: bool, fn, *args):
+    """``fn(*args)``, through ``torch.utils.checkpoint`` (non-reentrant:
+    its activations recomputed in the backward) where ``on`` (a config's
+    ``remat``) and grad mode is on; the reference's ``jax.checkpoint``."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -205,6 +246,55 @@ def _expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(k, cfg.q_per_kv, dim=2)
 
 
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """Additive mask bias [len(q_pos), len(k_pos)] in fp32: 0 where a
+    query may attend a key, -1e30 elsewhere."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+    return torch.where(ok, 0.0, -1e30).float()
+
+
+def _attend_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """q: [B,C,H,Dh], k/v: [B,Skv,H,Dh] (heads expanded), bias: [C,Skv].
+    fp32 scores and softmax; the output [B,C,H,Dh] in v's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(scores + bias[None, None, :, :], dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _train_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, causal: bool, window: Optional[int]
+                     ) -> torch.Tensor:
+    """The reference's query-chunked attention core, differentiable: q
+    [B,S,H,Dh] against the head-expanded k/v [B,Skv,H,Dh], chunks of
+    ``cfg.attn_q_chunk`` queries (one chunk of all S where it does not
+    divide S), each checkpointed under ``cfg.remat``.  Query i sits at
+    position i and key j at j (self-attention and the encoder; a
+    cross-attention is neither causal nor windowed, so no pair is
+    masked).  Returns [B,S,H,Dh] in v's dtype."""
+    s, skv = q.shape[1], k.shape[1]
+    k, v = _expand_kv(cfg, k), _expand_kv(cfg, v)
+    cq = min(cfg.attn_q_chunk, s)
+    if s % cq != 0:
+        cq = s
+    k_pos = torch.arange(skv, device=q.device)
+
+    def one_chunk(qc, lo):
+        q_pos = torch.arange(lo, lo + cq, device=q.device)
+        return _attend_chunk(qc, k, v, _mask_bias(q_pos, k_pos, causal,
+                                                  window))
+
+    return torch.cat([remat(cfg.remat, one_chunk, q[:, lo:lo + cq], lo)
+                      for lo in range(0, s, cq)], dim=1)
+
+
 def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               return_kv: bool = False, kv_x=None, impl: str = "auto",
@@ -222,7 +312,9 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
     ``return_kv=True`` additionally returns the (rope'd, unexpanded) k/v
     [B,Skv,Hkv,Dh] for the prefill->decode cache handoff.  With ``tp`` the
     rank's heads run (the returned k/v are the rank's cache heads) and
-    ``wo``'s partials fold."""
+    ``wo``'s partials fold.  Where autograd records (``records``) the core
+    is the differentiable ``_train_attention`` instead, unless ``impl``
+    forces the kernel, whose wrapper then raises (K6 has no backward)."""
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError(
             "attn_logit_softcap: no config sets it, and K6 has no softcap in "
@@ -234,11 +326,15 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     k_use, v_use = _rank_kv(cfg, tp, k, v)
-    o = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                            k_use.transpose(1, 2).contiguous(),
-                            v_use.transpose(1, 2).contiguous(),
-                            causal=causal, window=window, impl=impl)
-    out = o.transpose(1, 2).reshape(b, s, -1)
+    if impl != "kernel" and records(x, kv_x, params):
+        out = _train_attention(cfg, q, k_use, v_use, causal, window)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                                  k_use.transpose(1, 2).contiguous(),
+                                  v_use.transpose(1, 2).contiguous(),
+                                  causal=causal, window=window,
+                                  impl=impl).transpose(1, 2)
+    out = out.reshape(b, s, -1)
     out = fold_cut(cfg, out @ params["wo"], tp, "heads")
     if return_kv:
         return out, (k, v)
@@ -503,6 +599,49 @@ def embed(params, cfg: ModelConfig, tokens: torch.Tensor, tp=None
 
 def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     return params["tok"].T if cfg.tie_embeddings else params["unemb"]
+
+
+def xent_sums(x: torch.Tensor, w_unemb: torch.Tensor, labels: torch.Tensor,
+              chunk: int, mask=None, remat_chunks: bool = False):
+    """(sum of the masked token NLLs, sum of the mask), both 0-d fp32:
+    ``chunked_softmax_xent``'s numerator and denominator."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    if s % c != 0:
+        c = s
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    mask = mask.to(device=x.device, dtype=torch.float32)
+    labels = labels.to(device=x.device, dtype=torch.int64)
+
+    def one(xx, ll, mm):
+        lg = (xx @ w_unemb).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, ll[..., None])[..., 0]
+        return torch.sum((lse - gold) * mm), torch.sum(mm)
+
+    nll, cnt = [], []
+    for lo in range(0, s, c):
+        args = (x[:, lo:lo + c], labels[:, lo:lo + c], mask[:, lo:lo + c])
+        n, m = remat(remat_chunks, one, *args)
+        nll.append(n)
+        cnt.append(m)
+    return torch.sum(torch.stack(nll)), torch.sum(torch.stack(cnt))
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_unemb: torch.Tensor,
+                         labels: torch.Tensor, chunk: int, mask=None, *,
+                         remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy without materialising [B,S,V] logits.
+
+    x: [B,S,D] final hidden states; labels: [B,S] int; mask: [B,S] (None:
+    every position).  Chunks of ``chunk`` positions (one chunk of all S
+    where it does not divide S); each chunk's fp32 logits [B,c,V] live
+    transiently (recomputed in the backward under ``remat``).  Returns the
+    mean NLL over the mask: its masked sum over the mask's count floored at
+    1 (0-d fp32)."""
+    nll, cnt = xent_sums(x, w_unemb, labels, chunk, mask, remat)
+    return nll / torch.clamp(cnt, min=1.0)
 
 
 def logits(params, cfg: ModelConfig, x: torch.Tensor, tp=None

@@ -3,11 +3,16 @@
 prefill -> decode state handoff, and the single-token decode step.
 
 The reference runs the recurrence as a chunked associative scan (XLA);
-the port runs it through ``kernels.ops.selective_scan``: the hand-written
-Hopper kernel (K7) for CUDA tensors, the plain sequential recurrence for
-CPU ones.  Both compute the same function; the chunking only re-associates
-fp32 products, so ``mamba_chunk`` has no counterpart here.  The D-skip and
-the ``silu(z)`` gate stay plain PyTorch.  Decode is the exact O(1)-state
+the port's serving runs it through ``kernels.ops.selective_scan``: the
+hand-written Hopper kernel (K7) for CUDA tensors, the plain sequential
+recurrence for CPU ones.  Both compute the same function; the chunking only
+re-associates fp32 products.  K7 has no backward, so where autograd records
+(``layers.records``) the mixer takes the training scan instead: the
+reference's ``_ssm_inputs`` and chunk loop (chunks of ``cfg.mamba_chunk``,
+each checkpointed under ``cfg.remat``, the [B, Di, N] state carried across
+them), the recurrence inside a chunk a sequential fold where the reference
+has a log-depth associative scan (the same products, associated in time
+order).  The D-skip and the ``silu(z)`` gate stay plain PyTorch.  Decode is the exact O(1)-state
 step and writes the new ssm and conv state into the caller's cache in
 place (the port's decode convention, as ``layers.decode_attention``).
 
@@ -100,6 +105,43 @@ def _ssm_inputs(params, cfg: ModelConfig, u: torch.Tensor, tp=None):
     return da, dbu, c_mat.float()
 
 
+def _chunk_scan(carry_h: torch.Tensor, da: torch.Tensor, dbu: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = da_t * h_{t-1} + dbu_t within one chunk, folded in time order.
+
+    carry_h: [B, Di, N]; da/dbu: [B, C, Di, N].  Returns (h_all
+    [B,C,Di,N], h_last)."""
+    hs, h = [], carry_h
+    for t in range(da.shape[1]):
+        h = da[:, t] * h + dbu[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def _train_scan(params, cfg: ModelConfig, u_conv: torch.Tensor, tp=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable scan of the conv+silu activations u_conv [B,S,Di]:
+    (y [B,S,Di] fp32, h_S [B,Di,N] fp32), chunks of ``cfg.mamba_chunk``
+    (one chunk of all S where it does not divide S)."""
+    b, s, di = u_conv.shape
+    c = min(cfg.mamba_chunk, s)
+    if s % c != 0:
+        c = s
+
+    def step(h, u_c):
+        da, dbu, c_mat = _ssm_inputs(params, cfg, u_c, tp)
+        h_all, h_last = _chunk_scan(h, da, dbu)
+        return h_last, torch.einsum("bcdn,bcn->bcd", h_all, c_mat)
+
+    h = torch.zeros((b, di, cfg.mamba_d_state), dtype=torch.float32,
+                    device=u_conv.device)
+    ys = []
+    for lo in range(0, s, c):
+        h, y = L.remat(cfg.remat, step, h, u_conv[:, lo:lo + c])
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
 def _causal_conv(params, cfg: ModelConfig, u: torch.Tensor):
     """Depthwise causal conv of kernel K, bias and silu: returns
     (u_conv [B,S,Di], u left-padded with K-1 zeros [B,S+K-1,Di])."""
@@ -119,16 +161,21 @@ def mamba_mix(params, cfg: ModelConfig, x: torch.Tensor, *,
     final state, and the last K-1 PRE-conv inputs u (zeros before the
     prompt's start).  ``impl`` forces the scan's route
     (``ops.selective_scan``).  With ``tp`` the rank's channels run and
-    the returned state is the rank's."""
+    the returned state is the rank's.  Where autograd records the scan is
+    ``_train_scan``, unless ``impl`` forces the kernel, whose wrapper then
+    raises (K7 has no backward)."""
     _check(cfg)
     xz = x @ params["in_proj"]
     u, z = torch.chunk(xz, 2, dim=-1)                          # [B,S,Di]
     u_conv, u_pad = _causal_conv(params, cfg, u)
-    dt, a, b_mat, c_mat = _scan_inputs(params, cfg, u_conv, tp)
-    scanned = ops.selective_scan(u_conv, dt, a, b_mat.contiguous(),
-                                 c_mat.contiguous(),
-                                 return_state=return_state, impl=impl)
-    y, h_last = scanned if return_state else (scanned, None)
+    if impl != "kernel" and L.records(x, params):
+        y, h_last = _train_scan(params, cfg, u_conv, tp)
+    else:
+        dt, a, b_mat, c_mat = _scan_inputs(params, cfg, u_conv, tp)
+        scanned = ops.selective_scan(u_conv, dt, a, b_mat.contiguous(),
+                                     c_mat.contiguous(),
+                                     return_state=return_state, impl=impl)
+        y, h_last = scanned if return_state else (scanned, None)
     y = y + u_conv.float() * params["D"]
     y = (y * F.silu(z.float())).to(x.dtype)
     out = L.fold_cut(cfg, y @ params["out_proj"], tp, "mamba")

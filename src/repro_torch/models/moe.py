@@ -20,6 +20,15 @@ the batch's rows are cut over the data axis, the dispatch is still the
 whole batch's (the reference's, under GSPMD): the capacity counts every
 data rank's tokens and each expert's slots continue from the earlier data
 ranks' pairs (their counts gathered), so the same pairs are dropped.
+The aux losses are then the rank's share of the whole batch's: the
+load-balance loss weighs the rank's router probabilities by the whole
+batch's expert fractions, and both losses divide by the whole batch's
+token count, so the data ranks' shares sum to the whole batch's losses
+(the mean train step folds them).
+
+Under autograd (``layers.records``) the expert activations are formed out
+of place, and the router, the combine weights and both aux losses carry
+gradients, as the reference's.
 """
 from __future__ import annotations
 
@@ -72,37 +81,47 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None
     """x: [B,S,D] -> (y [B,S,D], aux {load_balance_loss, router_z_loss}).
 
     The expert activations are formed in place (``act(gate) * up`` written
-    over ``gate``), which saves one [E, cap, F] buffer at the prefill.
-    With ``tp`` the rank runs its experts and the combines fold."""
+    over ``gate``), which saves one [E, cap, F] buffer at the prefill;
+    under autograd out of place.  With ``tp`` the rank runs its experts
+    and the combines fold; with the batch cut over ``data`` the aux losses
+    are the rank's shares (module doc)."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
     x_flat = x.reshape(t, d)
+    recording = L.records(x, params)
 
     probs, logits = router_probs(params, x_flat)              # [T, E]
     top_p, top_e = torch.topk(probs, k, dim=-1)               # [T, k]
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
 
-    # aux losses (fp32): Switch-style load balance and the router z-loss
-    assign = torch.zeros((t, e), dtype=torch.float32, device=x.device)
-    assign.scatter_(1, top_e, 1.0)                            # multi-hot
-    frac_tokens = torch.mean(assign, dim=0) / k
-    mean_prob = torch.mean(probs, dim=0)
-    aux = {"load_balance_loss": e * torch.sum(frac_tokens * mean_prob),
-           "router_z_loss": torch.mean(torch.square(
-               torch.logsumexp(logits, dim=-1)))}
-
     # dispatch, in pair order.  With the batch's rows cut over ``data`` the
     # order is the whole batch's: the capacity counts every data rank's
     # tokens, and a rank's slots start after the earlier ranks' pairs
     split = tp is not None and tp.batch_split and tp.data > 1
-    cap = capacity(t * tp.data if split else t, cfg)
+    t_all = t * tp.data if split else t
+    cap = capacity(t_all, cfg)
     flat_e = top_e.reshape(t * k)
     onehot = F.one_hot(flat_e, e)                             # [T*k, E]
     pos_in_e = torch.cumsum(onehot, dim=0) - onehot           # exclusive
     if split:
         counts = tp.gather(torch.sum(onehot, dim=0), "data")  # [D, E]
         pos_in_e = pos_in_e + torch.sum(counts[:tp.d], dim=0)
+
+    # aux losses (fp32): Switch-style load balance and the router z-loss
+    z_sq = torch.square(torch.logsumexp(logits, dim=-1))
+    if split:      # the rank's shares of the whole batch's losses
+        frac_tokens = torch.sum(counts, dim=0).float() / (t_all * k)
+        aux = {"load_balance_loss": e * torch.sum(
+                   frac_tokens * (torch.sum(probs, dim=0) / t_all)),
+               "router_z_loss": torch.sum(z_sq) / t_all}
+    else:
+        assign = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+        assign.scatter_(1, top_e, 1.0)                        # multi-hot
+        frac_tokens = torch.mean(assign, dim=0) / k
+        mean_prob = torch.mean(probs, dim=0)
+        aux = {"load_balance_loss": e * torch.sum(frac_tokens * mean_prob),
+               "router_z_loss": torch.mean(z_sq)}
     flat_pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
     keep = flat_pos < cap
     lo, e_rank = 0, e
@@ -122,11 +141,15 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None
     gate = torch.bmm(buf, params["w_gate"])
     up = torch.bmm(buf, params["w_up"])
     del buf
-    if cfg.mlp_act == "silu":
+    if recording:
+        gate = (F.silu(gate) if cfg.mlp_act == "silu"
+                else F.gelu(gate, approximate="tanh")) * up
+    elif cfg.mlp_act == "silu":
         F.silu(gate, inplace=True)
+        gate.mul_(up)
     else:   # the reference's jax.nn.gelu is the tanh approximation
         gate = F.gelu(gate, approximate="tanh")
-    gate.mul_(up)
+        gate.mul_(up)
     del up
     y_buf = torch.bmm(gate, params["w_down"])                 # [E, C, D]
     del gate

@@ -13,8 +13,13 @@ are stubs, as in the reference: a batch carries precomputed embeddings,
 and ``src_embeds`` [B, S_enc, E] for the encoder, each projected by
 ``emb.modal_proj``.
 The reference's depth ``lax.scan`` is a Python loop over the superblock
-index.  The serving functions run under ``torch.inference_mode()``.
-``forward_loss`` waits for the port's training step.
+index, each superblock checkpointed under ``cfg.remat`` where autograd
+records (``cfg.remat_policy`` "dots" recomputes everything too: the port
+keeps no matmul outputs, so both policies give the same numbers).  The
+serving functions run under ``torch.inference_mode()`` (``forward_hidden``
+only where autograd would not record).  ``forward_loss`` is the training
+forward: the mean next-token NLL over ``chunked_softmax_xent`` plus the
+MoE's aux losses, differentiable through the layers' training routes.
 
 Tensor parallelism: every serving function takes ``tp`` (a
 ``distribution.tensor_parallel.RankContext``) and then runs one rank's
@@ -25,6 +30,7 @@ encoder-decoder configs do not run on a mesh yet (``_check_tp``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,6 +48,17 @@ def _at(tree, i: int):
     if isinstance(tree, dict):
         return {k: _at(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, depth: int) -> list:
+    """The ``depth`` superblocks of a dict of stacked tensors, as views
+    (one ``unbind`` a leaf: under autograd its backward stacks the
+    superblocks' gradients once, where indexing would add ``depth``
+    full-size zero-padded gradients)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, depth) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(depth)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees):
@@ -122,8 +139,9 @@ def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, mesh,
 def _check_tp(cfg: ModelConfig, tp) -> None:
     """The serving mesh covers the attention, Mamba and MoE blocks; the
     xLSTM cells and the encoder-decoder wait for their tensor-parallel
-    cut."""
-    if tp is not None and (cfg.is_xlstm or cfg.is_encoder_decoder):
+    cut (a mesh of one model rank cuts nothing)."""
+    if tp is not None and tp.model > 1 and (cfg.is_xlstm
+                                            or cfg.is_encoder_decoder):
         raise NotImplementedError(
             f"{cfg.name} on a serving mesh (tp): the xLSTM and "
             f"encoder-decoder configs wait for {L.ZOO_ITEM}, 'the serving "
@@ -136,21 +154,38 @@ def _check_tp(cfg: ModelConfig, tp) -> None:
 
 def _run_stack(blocks, cfg: ModelConfig, pattern, x: torch.Tensor, *,
                causal: bool = True, enc_out=None, cache_len: int = 0,
-               impl: str = "auto", tp=None):
+               impl: str = "auto", tp=None, tag: str = "decoder"):
     """Depth loop over the stack (the leading axis of ``blocks``' leaves:
-    the superblocks, or the encoder's layers).  With ``cache_len > 0`` it
-    also returns every block's decode cache (prefill handoff), stacked over
-    superblocks -- the ``init_cache`` layout."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = [[] for _ in pattern]
+    the superblocks, or the encoder's layers), each superblock
+    checkpointed under ``cfg.remat`` where autograd records.  With
+    ``cache_len > 0`` it also returns every block's decode cache (prefill
+    handoff), stacked over superblocks -- the ``init_cache`` layout.
+    ``tag`` names the stack in the scope of a rank's collectives
+    (``RankContext.scope``), so that a checkpoint's recompute finds the
+    results of its superblock's collectives."""
     depth = blocks[0]["ln1"]["scale"].shape[0]
+    per = [_unstack(b, depth) for b in blocks]
+    caches = [[] for _ in pattern]
+
+    def superblock(x, aux, i):
+        with (tp.scope((tag, i)) if tp is not None
+              else contextlib.nullcontext()):
+            for pos, kind in enumerate(pattern):
+                x, a, c = B.apply_block(per[pos][i], cfg, kind, x,
+                                        causal=causal, enc_out=enc_out,
+                                        cache_len=cache_len, impl=impl,
+                                        tp=tp)
+                aux = aux + a
+                if cache_len:
+                    caches[pos].append(c)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(depth):
-        for pos, kind in enumerate(pattern):
-            x, a, c = B.apply_block(_at(blocks[pos], i), cfg, kind, x,
-                                    causal=causal, enc_out=enc_out,
-                                    cache_len=cache_len, impl=impl, tp=tp)
-            aux = aux + a
-            caches[pos].append(c)
+        if cache_len:
+            x, aux = superblock(x, aux, i)
+        else:
+            x, aux = L.remat(cfg.remat, superblock, x, aux, i)
     if cache_len:
         return x, aux, tuple(_stack(c) for c in caches)
     return x, aux
@@ -171,7 +206,7 @@ def _encode(params, cfg: ModelConfig, src_embeds: torch.Tensor, *,
     attn+dense stack, the final norm)."""
     x = _modal(params, src_embeds)
     x, _ = _run_stack(params["encoder"]["blocks"], cfg, ("attn+dense",), x,
-                      causal=False, impl=impl)
+                      causal=False, impl=impl, tag="encoder")
     return L.rmsnorm(params["encoder"]["final_ln"], x, cfg.norm_eps)
 
 
@@ -193,21 +228,63 @@ def _encoder_out(params, cfg: ModelConfig, batch: Dict, impl: str):
 
 
 # ---------------------------------------------------------------------------
+# training forward (full sequence -> mean NLL + aux)
+
+
+def forward_loss(params, cfg: ModelConfig, batch: Dict, *, count=None,
+                 impl: str = "auto", tp=None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens [B,St], labels [B,St] (+ loss_mask [B,St],
+    modal_embeds / src_embeds).  Returns (loss, {"nll", "aux"}), 0-d fp32:
+    loss = nll + aux, nll the mean NLL over the mask (its count floored at
+    1); a vision model's loss covers its text positions only.
+    Differentiable: take the gradient with ``torch.autograd.grad`` of
+    parameters that require grad (the layers then take their training
+    routes).
+
+    ``tp`` (one model rank, the batch's rows cut over ``data``) makes the
+    MoE's dispatch the whole batch's and its aux the rank's share
+    (``moe.moe_mlp``); ``count`` replaces the batch's own mask count, so
+    that the nll is the rank's share of the whole batch's mean (the mean
+    train step passes the folded count).  A cut model (``tp.model > 1``)
+    raises: its folds and gathers have no backward yet."""
+    if tp is not None and tp.model > 1:
+        raise NotImplementedError(
+            f"training {cfg.name} over model = {tp.model} ranks waits for "
+            f"{L.TP_TRAIN_ITEM}")
+    enc_out = _encoder_out(params, cfg, batch, impl)
+    x = _decoder_inputs(params, cfg, batch)
+    x, aux = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
+                        causal=True, enc_out=enc_out, impl=impl, tp=tp)
+    x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    if cfg.modality == "vision":
+        x = x[:, -batch["tokens"].shape[1]:, :]
+    nll, cnt = L.xent_sums(x, L.unembed_matrix(params["emb"], cfg),
+                           batch["labels"], cfg.loss_seq_chunk,
+                           batch.get("loss_mask"), cfg.remat)
+    nll = nll / torch.clamp(cnt if count is None else count, min=1.0)
+    return nll + aux, {"nll": nll, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
 # serving forward
 
 
-@torch.inference_mode()
 def forward_hidden(params, cfg: ModelConfig, batch: Dict, *,
                    impl: str = "auto", tp=None) -> torch.Tensor:
     """Prefill: final hidden states [B,S,D] (no loss; S counts a vision
     model's image positions too).  ``impl`` forces the kernels' routes
-    (``ops.flash_attention``, ``ops.selective_scan``)."""
+    (``ops.flash_attention``, ``ops.selective_scan``).  Runs under
+    ``torch.inference_mode()`` unless autograd would record through it (a
+    parameter or input requiring grad), so that a caller can
+    differentiate it."""
     _check_tp(cfg, tp)
-    enc_out = _encoder_out(params, cfg, batch, impl)
-    x = _decoder_inputs(params, cfg, batch, tp)
-    x, _ = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
-                      causal=True, enc_out=enc_out, impl=impl, tp=tp)
-    return L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    with torch.inference_mode(not L.records(params, batch)):
+        enc_out = _encoder_out(params, cfg, batch, impl)
+        x = _decoder_inputs(params, cfg, batch, tp)
+        x, _ = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
+                          causal=True, enc_out=enc_out, impl=impl, tp=tp)
+        return L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
 
 
 @torch.inference_mode()

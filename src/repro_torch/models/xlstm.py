@@ -18,8 +18,10 @@ The reference's cells, function for function:
   elementwise math.
 
 Both run as plain PyTorch: the reference has no Pallas kernel for either
-(its cells are plain ``jnp``).  Decode writes the new state into the
-caller's cache in place (the port's decode convention, as
+(its cells are plain ``jnp``).  The full-sequence mixers are
+differentiable (the mLSTM's chunks checkpointed under ``cfg.remat``, as the
+reference's); only the decode steps write the new state into the caller's
+cache in place (the port's decode convention, as
 ``layers.decode_attention`` and ``mamba.mamba_decode_step``).
 """
 from __future__ import annotations
@@ -163,9 +165,9 @@ def mlstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
              torch.zeros((b, hh, dh), dtype=torch.float32, device=x.device))
     hs = []
     for lo in range(0, s, c):
-        h, carry = _mlstm_chunk(q[:, lo:lo + c], k[:, lo:lo + c],
-                                v[:, lo:lo + c], log_f[:, lo:lo + c],
-                                i_gate[:, lo:lo + c], carry)
+        h, carry = L.remat(cfg.remat, _mlstm_chunk, q[:, lo:lo + c],
+                           k[:, lo:lo + c], v[:, lo:lo + c],
+                           log_f[:, lo:lo + c], i_gate[:, lo:lo + c], carry)
         hs.append(h)
     h = torch.cat(hs, dim=1).reshape(b, s, di).to(x.dtype)
     out = _mlstm_out(params, h, u, z)
@@ -274,10 +276,12 @@ def slstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
     state = (zeros, zeros, zeros,
              torch.full((b, di), -1e30, dtype=torch.float32,
                         device=x.device))
-    hs = torch.empty((b, s, di), dtype=torch.float32, device=x.device)
+    hs = []
     for t in range(s):
-        state, hs[:, t] = _slstm_cell(params, cfg, wx[:, t], state)
-    out = (hs.to(x.dtype) * F.silu(z_gate)) @ params["down"]
+        state, h = _slstm_cell(params, cfg, wx[:, t], state)
+        hs.append(h)
+    out = (torch.stack(hs, dim=1).to(x.dtype) * F.silu(z_gate)) \
+        @ params["down"]
     if return_state:
         return out, state
     return out

@@ -1,20 +1,26 @@
-"""Server-side optimizers (port of ``repro/optim/optimizers.py``): SGD with
-momentum and AdamW, on ``dict[str, Tensor]`` parameters.
+"""Optimizers and the paper's learning-rate schedules (port of
+``repro/optim/optimizers.py``): SGD with momentum and AdamW over any tree
+of tensors -- the FL runtime's flat ``dict[str, Tensor]`` or a model's
+nested dicts and tuples.
 
-``update(grads, state, params, lr=None) -> (new_params, new_state)``; ``lr``
-overrides the constructor's rate for that call: a float, or a 0-d fp32
-tensor on the params' device (the FL runtime passes the paper's eta_t so,
-read from device memory by a CUDA graph of the round).  Updates are
-functional: new tensors, inputs untouched.
+``update(grads, state, params, lr=None) -> (new_params, new_state)``.  The
+constructor's ``lr`` is a float or a schedule ``step -> eta`` (a 0-d fp32
+tensor), evaluated at the incremented step, as in the reference.  A
+per-call ``lr`` overrides it: a float, or a 0-d fp32 tensor on the params'
+device (the FL runtime passes the paper's eta_t so, read from device memory
+by a CUDA graph of the round).  Updates are functional: new tensors,
+inputs untouched.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+import math
+from typing import Any, Callable, NamedTuple, Tuple, Union
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+Params = Any            # a tree of tensors: dicts, tuples and lists
+Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
 class OptState(NamedTuple):
@@ -30,17 +36,42 @@ class Optimizer:
     name: str = "sgd"
 
 
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the tensor leaves of a tree of dicts, tuples and lists,
+    with ``rest`` of the same structure; dicts keep ``tree``'s key order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
+
+
 def _zeros_like(params: Params) -> Params:
-    return {k: torch.zeros_like(v) for k, v in params.items()}
+    return tree_map(torch.zeros_like, params)
 
 
 def _scalar_zero(params: Params, dtype=torch.float32) -> torch.Tensor:
-    dev = next(iter(params.values())).device
-    return torch.zeros((), dtype=dtype, device=dev)
+    return torch.zeros((), dtype=dtype, device=_first_leaf(params).device)
 
 
-def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
-    base_lr = lr
+def _rate(lr: Union[float, Schedule]) -> Callable:
+    """``step -> eta`` of a constructor's ``lr``: the schedule itself, or
+    the float (kept a python float, so a constant rate multiplies as the
+    port always did)."""
+    return lr if callable(lr) else (lambda _: lr)
+
+
+def sgd(lr: Union[float, Schedule], momentum: float = 0.0) -> Optimizer:
+    lr_fn = _rate(lr)
 
     def init(params):
         mu = _zeros_like(params) if momentum else _scalar_zero(params)
@@ -48,46 +79,81 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
                         _scalar_zero(params))
 
     def update(grads, state, params, lr=None):
-        eta = base_lr if lr is None else lr
         step = state.step + 1
+        eta = lr_fn(step) if lr is None else lr
         if momentum:
-            mu = {k: momentum * state.mu[k] + grads[k] for k in params}
+            mu = tree_map(lambda m, g: momentum * m + g, state.mu, grads)
             upd = mu
         else:
             mu = state.mu
             upd = grads
-        new = {k: params[k] - (eta * upd[k]).to(params[k].dtype)
-               for k in params}
+        new = tree_map(lambda p, u: p - (eta * u).to(p.dtype), params, upd)
         return new, OptState(step, mu, state.nu)
 
     return Optimizer(init, update, "sgd")
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.0) -> Optimizer:
-    base_lr = lr
+def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    lr_fn = _rate(lr)
 
     def init(params):
         return OptState(_scalar_zero(params, torch.int32), _zeros_like(params),
                         _zeros_like(params))
 
     def update(grads, state, params, lr=None):
-        eta = base_lr if lr is None else lr
         step = state.step + 1
+        eta = lr_fn(step) if lr is None else lr
         t = step.float()
-        mu = {k: b1 * state.mu[k] + (1 - b1) * grads[k].to(state.mu[k].dtype)
-              for k in params}
-        nu = {k: b2 * state.nu[k]
-              + (1 - b2) * torch.square(grads[k].to(state.nu[k].dtype))
-              for k in params}
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(m.dtype),
+                      state.mu, grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2)
+                      * torch.square(g.to(v.dtype)), state.nu, grads)
         bc1 = 1 - b1 ** t
         bc2 = 1 - b2 ** t
-        new = {}
-        for k, p in params.items():
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+
+        def upd(p, m, v):
+            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if weight_decay:
                 u = u + weight_decay * p
-            new[k] = p - (eta * u).to(p.dtype)
-        return new, OptState(step, mu, nu)
+            return p - (eta * u).to(p.dtype)
+
+        return tree_map(upd, params, mu, nu), OptState(step, mu, nu)
 
     return Optimizer(init, update, "adamw")
+
+
+# ---------------------------------------------------------------------------
+# schedules: step (an int32 tensor) -> eta (a 0-d fp32 tensor on its device)
+
+
+def inverse_power_schedule(p: float, eta0: float = 1.0) -> Schedule:
+    """The paper's Case-I schedule: eta_t = eta0 / t^p, 1/2 < p < 1."""
+    if not (0.5 < p < 1.0):
+        raise ValueError("p must lie in (1/2, 1)")
+
+    def sched(step):
+        t = torch.clamp(torch.as_tensor(step).float(), min=1.0)
+        return eta0 / t ** p
+
+    return sched
+
+
+def constant_schedule(eta: float) -> Schedule:
+    """The paper's Case-II schedule: eta_t = eta."""
+    return lambda step: torch.full((), eta, dtype=torch.float32,
+                                   device=torch.as_tensor(step).device)
+
+
+def cosine_schedule(peak: float, warmup: int, total: int,
+                    floor: float = 0.0) -> Schedule:
+    """Linear warm-up to ``peak`` over ``warmup`` steps, then a cosine
+    decay to ``floor`` at ``total``."""
+    def sched(step):
+        t = torch.as_tensor(step).float()
+        warm = peak * t / max(warmup, 1)
+        prog = torch.clamp((t - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + 0.5 * (peak - floor) * (1 + torch.cos(math.pi * prog))
+        return torch.where(t < warmup, warm, cos)
+
+    return sched

@@ -75,7 +75,7 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.checkpoint.store, repro_torch.obs.profiling\n"
         "import repro_torch.distribution, repro_torch.distribution.sharding\n"
         "import repro_torch.distribution.tensor_parallel\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.train\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
         "from repro_torch.fl import SweepSpec, run_sweep, build_task\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -163,6 +163,8 @@ ENTRY_POINTS = [
     ("repro_torch.launch.serve", "build_prefill_step"),
     ("repro_torch.launch.serve", "build_prefill_cache_step"),
     ("repro_torch.launch.serve", "build_decode_step"),
+    ("repro_torch.launch.train", "build_train_step"),
+    ("repro_torch.configs.registry", "make_dummy_inputs"),
 ]
 
 

@@ -1254,3 +1254,125 @@ class TestServingMeshOnCard:
         assert two.params_digests == plain.params_digests
         for k in plain.history:
             np.testing.assert_array_equal(two.history[k], plain.history[k])
+
+
+@pytest.mark.cuda
+class TestTrainOnCard:
+    """The training step on the card: K1 at a training-size row, the
+    autograd guard of K6 and K7, and one reduced granite step against the
+    CPU."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def test_k1_on_a_row_over_2_30(self):
+        """One row of N = 2^30 + 3 (a ragged tail past 2^30 elements, 4.3
+        GB): K1 against its plain version at the moments' rule, the same
+        bits twice, and the rule rejects the plain result with the last
+        chunk dropped."""
+        from repro_torch.kernels.grad_norm import moments_split
+        n = (1 << 30) + 3
+        g = torch.randn((1, n), generator=torch.Generator(device="cuda")
+                        .manual_seed(3), device="cuda")
+        g[0, :5] = 100.0
+        g[0, -5:] = -50.0
+        sq, s = ops.batched_moments(g, impl="kernel")
+        sq2, s2 = ops.batched_moments(g, impl="kernel")
+        assert torch.equal(sq, sq2) and torch.equal(s, s2)
+        abs_sq = abs_s = 0.0
+        for lo in range(0, n, 1 << 27):
+            part = g[0, lo:lo + (1 << 27)].double()
+            abs_sq += float(torch.sum(part * part))
+            abs_s += float(torch.sum(part.abs()))
+
+        def within(pair):
+            return (abs(float(sq[0]) - float(pair[0][0])) <= TERMS_RTOL
+                    * abs_sq and abs(float(s[0]) - float(pair[1][0]))
+                    <= TERMS_RTOL * abs_s)
+        assert within(ops.batched_moments(g, impl="plain"))
+        chunks = moments_split(1, n)
+        per = -(-(-(-n // 4)) // chunks) * 4
+        assert not within(ops.batched_moments(g[:, :(chunks - 1) * per],
+                                              impl="plain"))
+
+    def test_kernels_refuse_autograd(self):
+        """K6 and K7 on inputs that require grad raise (no backward) and
+        launch nothing; under ``torch.no_grad`` the same calls run."""
+        q = torch.randn((1, 2, 64, 64), device="cuda", requires_grad=True)
+        u = torch.randn((1, 64, 32), device="cuda", requires_grad=True)
+        dt = torch.rand((1, 64, 32), device="cuda")
+        a = -torch.rand((32, 16), device="cuda")
+        bc = torch.randn((1, 64, 16), device="cuda")
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(q, q, q)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.selective_scan(u, dt, a, bc, bc)
+        assert ops.LAUNCH_COUNTS["flash_attention"] == 0
+        assert ops.LAUNCH_COUNTS["selective_scan"] == 0
+        with torch.no_grad():
+            ops.flash_attention(q, q, q)
+            ops.selective_scan(u, dt, a, bc, bc)
+        torch.cuda.synchronize()
+        assert ops.LAUNCH_COUNTS["flash_attention"] == 1
+        assert ops.LAUNCH_COUNTS["selective_scan"] == 1
+
+    def test_train_step_card_against_cpu(self):
+        """Reduced granite, fp32, two FL clients on an emulated (2, 1) mesh,
+        ``normalized`` with injected noise, two steps: the card (K1 once a
+        client a step, the training attention, no K6) against the CPU:
+        losses within 1e-5 relative, params within 1e-4 of their largest
+        change (fp32 sums in other orders, compounded over two steps)."""
+        import dataclasses
+        from repro_torch.configs import registry as reg
+        from repro_torch.launch import train as tl
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.optimizers import sgd
+        from repro_torch.distribution.ota_collectives import tree_leaves
+        cfg = dataclasses.replace(reg.reduce_config(reg.get_config(
+            "granite-moe-1b-a400m")), dtype="float32", num_layers=1)
+        p0 = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (4, 33),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        ota = tl.OTARunParams(h=np.array([1e-3, 2e-3]), b=np.ones(2),
+                              a=1.0 / 3e-3, noise_var=1e-9)
+        noise = [tl.draw_noise(torch.Generator().manual_seed(t), p0, 1e-9,
+                               "cpu") for t in range(2)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            step, place = tl.build_train_step(
+                cfg, make_host_mesh(2, 1, emulate=True), scheme="normalized",
+                aggregation_axes=("data",), ota=ota, optimizer=sgd(0.05),
+                device=dev)
+            params, state, rows = place(_tree_to(p0, dev),
+                                        sgd(0.05).init(_tree_to(p0, dev)),
+                                        batch)
+            ops.reset_launch_counts()
+            losses = []
+            for t in range(2):
+                params, state, m = step(params, state, rows,
+                                        noise=noise[t].to(dev))
+                losses.append(float(m["loss"]))
+            out[dev] = (losses, [l.cpu() for l in tree_leaves(params[0])],
+                        dict(ops.LAUNCH_COUNTS))
+        (l_cpu, p_cpu, n_cpu), (l_card, p_card, n_card) = out["cpu"], \
+            out["cuda"]
+        assert n_card["batched_moments"] == 4 and n_cpu["batched_moments"] \
+            == 0
+        assert n_card["flash_attention"] == 0
+        for a, b in zip(l_card, l_cpu):
+            assert abs(a - b) <= 1e-5 * abs(b)
+        start = tree_leaves(p0)
+        moved = max(float((b - s).abs().max()) for b, s in zip(p_cpu, start))
+        gap = max(float((a - b).abs().max()) for a, b in zip(p_card, p_cpu))
+        assert gap <= 1e-4 * moved
