@@ -36,58 +36,9 @@ import torch
 
 from repro_torch.core import schemes
 from repro_torch.core.schemes import Tree
+from repro_torch.tree import tree_leaves, tree_map
 
 STATS_IMPLS = ("plain", "kernels")
-
-
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the tensor leaves of a tree of dicts, tuples and lists
-    (None passes through), with ``rest`` of the same structure."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, *rest)
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    raise TypeError(f"unsupported tree node {type(tree).__name__}")
-
-
-def tree_leaves(tree) -> list:
-    """Tensor leaves in ``jax.tree_util`` order (dict keys sorted)."""
-    if tree is None:
-        return []
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
-    return [l for v in tree for l in tree_leaves(v)]
-
-
-def tree_flatten(tree) -> dict:
-    """A nested tree (a model's params or gradients) as the flat
-    ``{name: leaf}`` dict that ``ota_psum`` and the schemes take, its names
-    ``"00000"``, ``"00001"``, ... in ``jax.tree_util`` leaf order, so the
-    flat dict's sorted order is the reference's leaf order."""
-    return {f"{i:05d}": l for i, l in enumerate(tree_leaves(tree))}
-
-
-def tree_unflatten(like, flat: dict):
-    """The inverse of ``tree_flatten``: ``flat``'s leaves in the structure
-    of ``like``."""
-    it = iter(flat[k] for k in sorted(flat))
-
-    def build(t):
-        if isinstance(t, torch.Tensor):
-            return next(it)
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        return type(t)(build(v) for v in t)
-    return build(like)
 
 
 # ---------------------------------------------------------------------------
@@ -102,14 +53,14 @@ def fold_shards(stacked: Any, op=torch.add) -> Any:
     def one(leaf):
         return functools.reduce(op, [leaf[d] for d in range(leaf.shape[0])])
 
-    return _tree_map(one, stacked)
+    return tree_map(one, stacked)
 
 
 def stack_shards(trees: Sequence[Any]) -> Any:
     """The emulated path's counterpart of ``gather_shards``: the shards'
     trees, run one after another in this process, stacked in shard order
     along a new leading axis."""
-    return _tree_map(lambda *ls: torch.stack(ls), trees[0], *trees[1:])
+    return tree_map(lambda *ls: torch.stack(ls), trees[0], *trees[1:])
 
 
 def gather_shards(tree: Any, group) -> Any:
@@ -127,7 +78,7 @@ def gather_shards(tree: Any, group) -> Any:
         dist.all_gather(parts, flat, group=group)
         return torch.stack(parts).reshape((n,) + tuple(leaf.shape))
 
-    return _tree_map(one, tree)
+    return tree_map(one, tree)
 
 
 # ---------------------------------------------------------------------------

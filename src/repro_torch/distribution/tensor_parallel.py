@@ -30,9 +30,9 @@ rank's program is the same code on both meshes.
 A training step's backward recomputes checkpointed superblocks, on
 autograd's own threads, where no collective may run (an emulated rank
 would wait there for ranks that cannot come).  Inside ``ctx.recorded()``
-every gather made in a ``ctx.scope(key)`` (a superblock) keeps its result
-under ``(key, n)``, its place in the scope, and the recompute of that
-scope takes it from there: the same bits, no collective.
+every collective made in a ``ctx.scope(key)`` (a superblock) keeps its
+result under ``(key, n)``, its place in the scope, and the recompute of
+that scope takes it from there: the same bits, no collective.
 """
 from __future__ import annotations
 
@@ -62,13 +62,13 @@ class RankContext:
         # capacity, its pairs' slots, its aux losses) then counts every
         # data rank's rows
         self.batch_split = False
-        self._log = None        # {(scope key, n): gathered} in recorded()
-        self._scope = None      # [scope key, gathers so far] in scope()
+        self._log = None        # {(scope key, n, axis): result} in recorded()
+        self._scope = None      # [scope key, collectives so far] in scope()
 
     @contextlib.contextmanager
     def recorded(self):
-        """Keep the result of every gather made in a ``scope`` while this
-        is open (a training step's forward and backward)."""
+        """Keep the result of every collective made in a ``scope`` while
+        this is open (a training step's forward and backward)."""
         self._log = {}
         try:
             yield
@@ -77,7 +77,7 @@ class RankContext:
 
     @contextlib.contextmanager
     def scope(self, key):
-        """The gathers of one checkpointed region, numbered from 0 each
+        """The collectives of one checkpointed region, numbered from 0 each
         time it runs (its forward, then its recompute)."""
         outer, self._scope = self._scope, [key, 0]
         try:
@@ -91,24 +91,28 @@ class RankContext:
     def coord(self, axis: str) -> int:
         return self.m if axis == "model" else self.d
 
+    def _collective(self, axis: str, run: Callable[[], torch.Tensor]
+                    ) -> torch.Tensor:
+        """``run()``, or inside ``recorded()`` and a ``scope`` the result
+        that this collective's place in the scope kept the first time."""
+        if self._log is None or self._scope is None:
+            return run()
+        key = (self._scope[0], self._scope[1], axis)
+        self._scope[1] += 1
+        if key not in self._log:
+            self._log[key] = run()
+        return self._log[key]
+
     def gather(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """Every rank's ``x`` along ``axis`` stacked in rank order (a new
         leading axis)."""
         if self.size(axis) == 1:
             return x[None]
-        key = None
-        if self._log is not None and self._scope is not None:
-            key = (self._scope[0], self._scope[1], axis)
-            self._scope[1] += 1
-            if key in self._log:
-                return self._log[key]
         if self._lockstep is None:
-            out = gather_shards(x.contiguous(), self.mesh.groups[axis])
-        else:
-            out = self._lockstep.exchange(self.rank, axis, x)
-        if key is not None:
-            self._log[key] = out
-        return out
+            return self._collective(axis, lambda: gather_shards(
+                x.contiguous(), self.mesh.groups[axis]))
+        return self._collective(
+            axis, lambda: self._lockstep.exchange(self.rank, axis, x))
 
     def fold(self, x: torch.Tensor, axis: str = "model",
              op=torch.add) -> torch.Tensor:
@@ -116,12 +120,13 @@ class RankContext:
         order; one rank: ``x`` itself."""
         if self.size(axis) == 1:
             return x
-        if self._lockstep is not None and self._log is None:
-            # emulated: folded once for the ranks of a group, which share
-            # the result (the same bits each rank's own fold would give)
-            return self._lockstep.exchange(
-                self.rank, axis, x, reduce=lambda st: fold_shards(st, op))
-        return fold_shards(self.gather(x, axis), op)
+        if self._lockstep is None:
+            return self._collective(axis, lambda: fold_shards(gather_shards(
+                x.contiguous(), self.mesh.groups[axis]), op))
+        # emulated: folded once for the ranks of a group, which share the
+        # result (the same bits each rank's own fold would give)
+        return self._collective(axis, lambda: self._lockstep.exchange(
+            self.rank, axis, x, reduce=lambda st: fold_shards(st, op)))
 
     def __repr__(self):
         return f"RankContext(rank={self.rank}, d={self.d}, m={self.m})"

@@ -54,7 +54,9 @@ from repro_torch.distribution.tensor_parallel import run_ranks
 from repro_torch.launch.mesh import ServingMesh
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.optim.optimizers import Optimizer, sgd, tree_map
+from repro_torch.optim.optimizers import Optimizer, sgd
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 PyTree = Any
 
@@ -84,7 +86,7 @@ def draw_noise(gen: torch.Generator, like: PyTree, noise_var: float,
     noise_var) draw a leaf of ``like`` in leaf order, on the CPU generator
     (the values ``schemes.add_channel_noise`` gives a zero tree of the
     flattened leaves), drawn into one host buffer and copied over once."""
-    leaves = oc.tree_leaves(like)
+    leaves = tree_leaves(like)
     buf = torch.empty((sum(l.numel() for l in leaves),), dtype=torch.float32)
     i = 0
     for l in leaves:
@@ -128,7 +130,7 @@ def _value_and_grad(loss_fn, params: PyTree):
     ``jax.grad`` gives (seamless's encoder: its decoder never reads it)."""
     leaves = _with_grad(params)
     loss, metrics = loss_fn(leaves)
-    flat = oc.tree_leaves(leaves)
+    flat = tree_leaves(leaves)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = tuple(torch.zeros_like(l) if g is None else g
                   for l, g in zip(flat, grads))
@@ -215,14 +217,14 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
             loss, metrics, grads = _value_and_grad(
                 lambda q: T.forward_loss(q, cfg, rows), p)
             grad_norm = torch.sqrt(oc.tree_sq_norm(grads))
-            flat = oc.tree_flatten(grads)
+            flat = tree_flatten(grads)
             del grads
             y = oc.ota_psum(flat, scheme=scheme, ctx=ctx, h=h, b=b, a=ota.a,
                             noise_var=ota.noise_var, noise=z,
                             grad_bound=ota.grad_bound,
                             reduce_dtype=reduce_dtype, stats_impl=stats_impl)
             del flat
-            new_p, new_o = opt.update(oc.tree_unflatten(p, y), o, p)
+            new_p, new_o = opt.update(tree_unflatten(p, y), o, p)
             del y
             loss_all = ctx.fold(loss, "data") / ctx.size("data")
             return new_p, new_o, dict(metrics, loss=loss_all,
@@ -261,7 +263,7 @@ def _mean_step(cfg, mesh, opt, dev):
                 loss = ctx.fold(loss, "data")
                 metrics = {k: ctx.fold(v, "data") for k, v in metrics.items()}
             new_p, new_o = opt.update(
-                oc.tree_unflatten(p, oc.tree_flatten(grads)), o, p)
+                tree_unflatten(p, tree_flatten(grads)), o, p)
             return new_p, new_o, dict(metrics, loss=loss)
 
         outs = run_ranks(mesh, program)

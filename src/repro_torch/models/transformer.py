@@ -154,13 +154,13 @@ def _check_tp(cfg: ModelConfig, tp) -> None:
 
 def _run_stack(blocks, cfg: ModelConfig, pattern, x: torch.Tensor, *,
                causal: bool = True, enc_out=None, cache_len: int = 0,
-               impl: str = "auto", tp=None, tag: str = "decoder"):
+               impl: str = "auto", tp=None):
     """Depth loop over the stack (the leading axis of ``blocks``' leaves:
     the superblocks, or the encoder's layers), each superblock
     checkpointed under ``cfg.remat`` where autograd records.  With
     ``cache_len > 0`` it also returns every block's decode cache (prefill
     handoff), stacked over superblocks -- the ``init_cache`` layout.
-    ``tag`` names the stack in the scope of a rank's collectives
+    With ``tp``, each superblock is a scope of the rank's collectives
     (``RankContext.scope``), so that a checkpoint's recompute finds the
     results of its superblock's collectives."""
     depth = blocks[0]["ln1"]["scale"].shape[0]
@@ -168,7 +168,7 @@ def _run_stack(blocks, cfg: ModelConfig, pattern, x: torch.Tensor, *,
     caches = [[] for _ in pattern]
 
     def superblock(x, aux, i):
-        with (tp.scope((tag, i)) if tp is not None
+        with (tp.scope(i) if tp is not None
               else contextlib.nullcontext()):
             for pos, kind in enumerate(pattern):
                 x, a, c = B.apply_block(per[pos][i], cfg, kind, x,
@@ -206,7 +206,7 @@ def _encode(params, cfg: ModelConfig, src_embeds: torch.Tensor, *,
     attn+dense stack, the final norm)."""
     x = _modal(params, src_embeds)
     x, _ = _run_stack(params["encoder"]["blocks"], cfg, ("attn+dense",), x,
-                      causal=False, impl=impl, tag="encoder")
+                      causal=False, impl=impl)
     return L.rmsnorm(params["encoder"]["final_ln"], x, cfg.norm_eps)
 
 

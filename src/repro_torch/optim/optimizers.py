@@ -19,6 +19,8 @@ from typing import Any, Callable, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map
+
 Params = Any            # a tree of tensors: dicts, tuples and lists
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -36,31 +38,12 @@ class Optimizer:
     name: str = "sgd"
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the tensor leaves of a tree of dicts, tuples and lists,
-    with ``rest`` of the same structure; dicts keep ``tree``'s key order."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
-
-
-def _first_leaf(tree) -> torch.Tensor:
-    while not isinstance(tree, torch.Tensor):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) \
-            else tree[0]
-    return tree
-
-
 def _zeros_like(params: Params) -> Params:
     return tree_map(torch.zeros_like, params)
 
 
 def _scalar_zero(params: Params, dtype=torch.float32) -> torch.Tensor:
-    return torch.zeros((), dtype=dtype, device=_first_leaf(params).device)
+    return torch.zeros((), dtype=dtype, device=tree_leaves(params)[0].device)
 
 
 def _rate(lr: Union[float, Schedule]) -> Callable:

@@ -1336,7 +1336,7 @@ class TestTrainOnCard:
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.models import transformer as T
         from repro_torch.optim.optimizers import sgd
-        from repro_torch.distribution.ota_collectives import tree_leaves
+        from repro_torch.tree import tree_leaves
         cfg = dataclasses.replace(reg.reduce_config(reg.get_config(
             "granite-moe-1b-a400m")), dtype="float32", num_layers=1)
         p0 = T.init_params(cfg, torch.Generator().manual_seed(0),

@@ -34,7 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
-from repro_torch.optim.optimizers import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 KEY = jax.random.PRNGKey(0)
 PARITY = ("h2o-danube-1.8b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
@@ -130,9 +130,9 @@ def test_arch_smoke_trains_one_step(arch):
     assert loss.shape == () and bool(torch.isfinite(loss))
     gn = torch.sqrt(oc.tree_sq_norm(grads))
     assert bool(torch.isfinite(gn)) and float(gn) > 0
-    new = oc.tree_unflatten(params, {
+    new = tree_unflatten(params, {
         f"{i:05d}": l - 0.01 * g.to(l.dtype)
-        for i, (l, g) in enumerate(zip(oc.tree_leaves(params), grads))})
+        for i, (l, g) in enumerate(zip(tree_leaves(params), grads))})
     with torch.no_grad():
         loss2, _ = T.forward_loss(new, cfg, batch)
     assert bool(torch.isfinite(loss2))

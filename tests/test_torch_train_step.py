@@ -39,12 +39,13 @@ from repro_torch.configs import registry as reg
 from repro_torch.configs.base import InputShape
 from repro_torch.core import schemes
 from repro_torch.data.datasets import token_stream
-from repro_torch.distribution import ota_collectives as oc
 from repro_torch.launch import train as tl
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs.recorders import MemoryRecorder
 from repro_torch.optim import optimizers as opt
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "granite-moe-1b-a400m"
@@ -177,8 +178,8 @@ def _port_case(name, ref, mesh):
     (per-step metrics, per-rank final params)."""
     cfg, c = _cfg(), CASES[name]
     like = T.init_params(cfg, torch.Generator(), device="cpu")
-    n = len(oc.tree_leaves(like))
-    p0 = oc.tree_unflatten(like, {f"{i:05d}": torch.from_numpy(
+    n = len(tree_leaves(like))
+    p0 = tree_unflatten(like, {f"{i:05d}": torch.from_numpy(
         ref[f"p0/{i:05d}"]) for i in range(n)})
     batch = {"tokens": torch.from_numpy(ref["tokens"]),
              "labels": torch.from_numpy(ref["labels"]),
@@ -214,14 +215,14 @@ def test_train_step_matches_reference(reference, name):
         for k, v in m.items():
             want = float(reference[f"{name}/m{t}/{k}"])
             assert abs(float(v) - want) <= METRIC_REL * abs(want), (t, k)
-    leaves = oc.tree_leaves(params[0])
+    leaves = tree_leaves(params[0])
     for i, l in enumerate(leaves):
         want = reference[f"{name}/p/{i:05d}"]
         moved = np.abs(want - reference[f"p0/{i:05d}"]).max()
         assert np.abs(l.numpy() - want).max() <= PARAM_REL * moved, i
     for other in params[1:]:
         assert all(torch.equal(a, b)
-                   for a, b in zip(oc.tree_leaves(other), leaves))
+                   for a, b in zip(tree_leaves(other), leaves))
 
 
 def test_ota_train_step_loss_decreases():
@@ -397,16 +398,16 @@ def test_tree_optimizers_match_reference(kind):
             "adamw": (opt.adamw(sched[0], weight_decay=0.01),
                       jopt.adamw(sched[1], weight_decay=0.01))}[kind]
     mine, ref = make
-    p = opt.tree_map(torch.from_numpy, tree)
+    p = tree_map(torch.from_numpy, tree)
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
     s, js = mine.init(p), ref.init(jp)
     for t in range(3):
         g = jax.tree_util.tree_map(
             lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
-        p, s = mine.update(opt.tree_map(torch.from_numpy, g), s, p)
+        p, s = mine.update(tree_map(torch.from_numpy, g), s, p)
         jp, js = ref.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
     assert int(s.step) == 3
-    for a, b in zip(oc.tree_leaves(p), jax.tree_util.tree_leaves(jp)):
+    for a, b in zip(tree_leaves(p), jax.tree_util.tree_leaves(jp)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-6)
     assert isinstance(p["blocks"], tuple)
@@ -544,13 +545,13 @@ def test_draw_noise_is_the_schemes_draw():
                               num_layers=1)
     like = T.init_params(cfg, torch.Generator(), device="cpu")
     z = tl.draw_noise(torch.Generator().manual_seed(9), like, 1e-3, "cpu")
-    flat = oc.tree_flatten(like)
+    flat = tree_flatten(like)
     want = schemes.add_channel_noise(
         {k: torch.zeros(v.shape) for k, v in flat.items()},
         torch.Generator().manual_seed(9), 1e-3)
     assert torch.equal(z, torch.cat([want[k].reshape(-1)
                                      for k in sorted(want)]))
-    assert oc.tree_unflatten(like, flat)["emb"]["tok"] is like["emb"]["tok"]
+    assert tree_unflatten(like, flat)["emb"]["tok"] is like["emb"]["tok"]
 
 
 def test_unported_training_raises():
