@@ -3898,6 +3898,18 @@ TRAIN_FP32_SEQ = 256             # one sequence of 256 tokens a client
 # 1), and doubling the noise by ~100 times it: both rejected
 TRAIN_LOSS_REL = 1e-4
 TRAIN_SIGNAL_REL = 1e-3
+# the tensor-parallel step: each of the TRAIN_CLIENTS clients cut over
+# TRAIN_TP_MODEL model ranks of an emulated mesh.  fp32 on the card, the
+# (4, 2) mesh against the (4, 1) mesh, the same params, batch and injected
+# noise: the losses within TRAIN_TP_LOSS_REL (expected ~1e-6: the model
+# folds sum the row-parallel products in another order), the noise-removed
+# change within TRAIN_SIGNAL_REL (expected ~1e-5, as the card against the
+# CPU); the replicated leaves the same bits on both model ranks
+TRAIN_TP_MODEL = 2
+TRAIN_TP_LOSS_REL = 1e-5
+# K1's rows at (4, 2): a model rank's cut leaves and its replicated leaves
+# (``tok``, ``unemb``, the norms, the routers) of granite-moe-1b-a400m
+TRAIN_TP_ROWS = (641_728_512, 101_506_048)
 
 
 def train_ota(n_params: int, seed: int = 7, noise: bool = True):
@@ -3991,13 +4003,39 @@ def train_k1(ops, cfg, params, batch) -> dict:
                flat, impl="plain")),
            "library_ms": event_ms(lambda: torch.linalg.vector_norm(flat)),
            "library_call": "torch.linalg.vector_norm(g)",
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "tp_rows": [train_k1_row(ops, flat[:, :m].contiguous())
+                       for m in TRAIN_TP_ROWS]}
     del flat
     emit(row)
     if not (row["within_tolerance"] and row["same_bits_twice"]
-            and row["rejects_last_chunk_dropped"]):
+            and row["rejects_last_chunk_dropped"]
+            and all(r["within_tolerance"] for r in row["tp_rows"])):
         fail(f"train: K1 at the training shape: {row}")
     return row
+
+
+def train_k1_row(ops, g) -> dict:
+    """K1 at one row of a model rank's gradient (the first entries of the
+    whole one) against its plain version: |d| within TERMS_RTOL of the
+    sums of |terms|, and its times."""
+    n = g.shape[1]
+    sq, s = ops.batched_moments(g, impl="kernel")
+    sq_p, s_p = ops.batched_moments(g, impl="plain")
+    part = g[0].double()
+    ok = (abs(float(sq[0]) - float(sq_p[0]))
+          <= TERMS_RTOL * float(torch.sum(part * part))
+          and abs(float(s[0]) - float(s_p[0]))
+          <= TERMS_RTOL * float(torch.sum(part.abs())))
+    del part
+    b_ms, b_by = bound(n * 4 + 8, 3.0 * n)
+    return {"shape": [1, n], "within_tolerance": ok,
+            "kernel_ms": event_ms(lambda: ops.batched_moments(
+                g, impl="kernel")),
+            "plain_ms": event_ms(lambda: ops.batched_moments(
+                g, impl="plain")),
+            "library_ms": event_ms(lambda: torch.linalg.vector_norm(g)),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def train_run(ops, cfg, params, batch, ota, label: str,
@@ -4068,6 +4106,128 @@ def train_run(ops, cfg, params, batch, ota, label: str,
     return row
 
 
+def _k1_rows(ops):
+    """A wrapper of ``ops.batched_moments`` that records the row shapes K1
+    is launched at (the kernel route: a CUDA row), and the recorded list."""
+    shapes, real = [], ops.batched_moments
+
+    def rec(g, **kw):
+        if g.is_cuda and kw.get("impl", "auto") != "plain":
+            shapes.append(list(g.shape))
+        return real(g, **kw)
+    return rec, shapes
+
+
+def _replicated_same(cfg, mesh, params) -> bool:
+    """Whether every replicated leaf is the same bits on every rank (the
+    OTA update is the same on every data rank, the whole gradient of a
+    replicated leaf on every model rank)."""
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.tree import tree_flatten
+    lay = SH.CutLayout(params[0], cfg, mesh, 0)
+    flat = [tree_flatten(p) for p in params]
+    return all(torch.equal(f[k], flat[0][k]) for f in flat[1:]
+               for k in flat[0] if not lay.cut[k])
+
+
+def train_tp(ops, cfg, params, batch, ota_quiet, ota_noisy) -> dict:
+    """(f) The whole model, each of the TRAIN_CLIENTS clients cut over
+    TRAIN_TP_MODEL model ranks of an emulated mesh: one warm-up, then
+    TRAIN_STEPS noiseless steps and one step with the host's noise draw,
+    timed; K1's launches and row shapes a step; then one noiseless step
+    under the profiler (device busy against wall).  A rank that stops in a
+    collective (the emulated backward's folds) fails the step after
+    ``run_ranks``' watchdog (``RANK_TIMEOUT_S``) with the rank named."""
+    from repro_torch.distribution.tensor_parallel import RANK_TIMEOUT_S
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizers import inverse_power_schedule, sgd
+    mesh = make_host_mesh(TRAIN_CLIENTS, TRAIN_TP_MODEL, emulate=True)
+    opt = sgd(inverse_power_schedule(0.75, eta0=0.5))
+    quiet, _ = tl.build_train_step(
+        cfg, mesh, scheme="normalized", aggregation_axes=("data",),
+        ota=ota_quiet, optimizer=opt, device="cuda")
+    noisy, place = tl.build_train_step(
+        cfg, mesh, scheme="normalized", aggregation_axes=("data",),
+        ota=ota_noisy, optimizer=opt, device="cuda")
+    rec, shapes = _k1_rows(ops)
+    real = ops.batched_moments
+    ops.batched_moments = rec
+    try:
+        p, o, rows = place(params, opt.init(params), batch)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = quiet(p, o, rows)
+        warm = (time.perf_counter() - t0, float(m["loss"]))
+        before = dict(ops.LAUNCH_COUNTS)
+        del shapes[:]
+        secs, losses = [], []
+        for t in range(TRAIN_STEPS + 1):
+            step = quiet if t < TRAIN_STEPS else noisy
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, rows, 101 + t)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        launches = {k: ops.LAUNCH_COUNTS[k] - before[k] for k in before}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # where a noiseless step's time goes: one more under the profiler
+        holder = [p, o]
+
+        def one():
+            holder[:] = quiet(*holder, rows)[:2]
+        prof = _profile_top(one)
+        p, o = holder
+    finally:
+        ops.batched_moments = real
+    same = _replicated_same(cfg, mesh, p)
+    tokens = TRAIN_CLIENTS * TRAIN_ROWS * TRAIN_SEQ
+    quiet_s = secs[:TRAIN_STEPS]
+    row = {"phase": "train", "part": "tp_bf16", "arch": TRAIN_ARCH,
+           "dtype": cfg.dtype, "mesh": [TRAIN_CLIENTS, TRAIN_TP_MODEL],
+           "tokens_per_step": tokens, "warmup_s": warm[0],
+           "warmup_loss": warm[1], "s_per_step_no_noise": quiet_s,
+           "s_per_step_no_noise_median": statistics.median(quiet_s),
+           "tokens_per_s": tokens / statistics.median(quiet_s),
+           "s_per_step_noise": secs[-1], "loss": losses,
+           "grad_norm_client0": float(m["grad_norm"]),
+           "peak_gib": peak,
+           "profiled_step": dict(prof, device_idle_share=1.0 - prof[
+               "device_busy_us"] / prof["wall_us"]),
+           "k1_launches_per_step": launches["batched_moments"]
+           / (TRAIN_STEPS + 1),
+           "k1_rows_per_step": shapes[:len(shapes) // (TRAIN_STEPS + 1)],
+           "launches": launches, "replicated_leaves_same_bits": same,
+           "watchdog_s": RANK_TIMEOUT_S}
+    emit(row)
+    if not all(math.isfinite(v) for v in losses + [warm[1]]):
+        fail(f"train tp: a loss is not finite: {row}")
+    if launches["batched_moments"] != \
+            2 * mesh.size * (TRAIN_STEPS + 1):
+        fail(f"train tp: K1 launched {launches['batched_moments']} times, "
+             f"expected two rows a rank a step: {row}")
+    if launches["flash_attention"] or launches["selective_scan"]:
+        fail(f"train tp: K6/K7 launched under autograd: {launches}")
+    if not same:
+        fail(f"train tp: the replicated leaves differ between ranks: {row}")
+    return row
+
+
+def _fault_fold_again(tl, SH):
+    """``launch.train._client_grads`` with the replicated leaves' gradients
+    folded over the model axis again after the backward (a planted
+    fault)."""
+    real = tl._client_grads
+
+    def faulty(cfg, ctx, params, rows, count=None):
+        loss, m, grads = real(cfg, ctx, params, rows, count)
+        lay = SH.CutLayout(params, cfg, ctx.mesh, ctx.rank)
+        return loss, m, tuple(g if lay.cut[f"{i:05d}"] else ctx.fold(g)
+                              for i, g in enumerate(grads))
+    return faulty
+
+
 def train_fp32(ops, cfg_full) -> dict:
     """(c) fp32 at full width, depth cut to TRAIN_FP32_LAYERS: three steps
     on the card (K1, the training attention) against the CPU (plain) from
@@ -4076,8 +4236,17 @@ def train_fp32(ops, cfg_full) -> dict:
     so its contribution is left out of the fold; the noise doubled) to
     show it rejects them.  The wrong runs take the card: a CPU run of
     this model takes ~36 s, and the rule's margin on them is 4 and 5
-    orders of magnitude above the card's gap to the CPU."""
+    orders of magnitude above the card's gap to the CPU.
+
+    (g) The same three steps with each client cut over TRAIN_TP_MODEL
+    model ranks, on the card, against the card's (4, 1) run: losses within
+    TRAIN_TP_LOSS_REL, the noise-removed change within TRAIN_SIGNAL_REL,
+    the replicated leaves the same bits on every rank; and the rule applied
+    to two planted faults: ``RankContext.enter`` without its backward fold,
+    and the replicated leaves' gradients folded again after the backward."""
     import dataclasses
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.distribution import tensor_parallel as TPM
     from repro_torch.launch import train as tl
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
@@ -4095,18 +4264,23 @@ def train_fp32(ops, cfg_full) -> dict:
 
     sched = inverse_power_schedule(0.75, eta0=0.5)
 
-    def run(device, params, o_params, scale=1.0):
+    def run(device, params, o_params, scale=1.0, model=1):
+        """Three steps; (client 0's whole params on the CPU, the losses,
+        whether the replicated leaves are the same bits on every rank)."""
         opt = sgd(sched)
+        mesh = make_host_mesh(TRAIN_CLIENTS, model, emulate=True)
         step, place = tl.build_train_step(
-            cfg, make_host_mesh(TRAIN_CLIENTS, 1, emulate=True),
-            scheme="normalized", aggregation_axes=("data",), ota=o_params,
-            optimizer=opt, device=device)
+            cfg, mesh, scheme="normalized", aggregation_axes=("data",),
+            ota=o_params, optimizer=opt, device=device)
         p, o, rows = place(params, opt.init(params), batch)
         losses = []
         for t in range(3):
             p, o, m = step(p, o, rows, noise=(noises[t] * scale).to(device))
             losses.append(float(m["loss"]))
-        return _tree_to(p[0], "cpu"), losses
+        same = _replicated_same(cfg, mesh, p) if model > 1 else True
+        whole = (SH.gather_params(p, mesh, cfg, params) if model > 1
+                 else p[0])
+        return _tree_to(whole, "cpu"), losses, same
 
     before = dict(ops.LAUNCH_COUNTS)
     t0 = time.perf_counter()
@@ -4122,6 +4296,23 @@ def train_fp32(ops, cfg_full) -> dict:
     wrong = {"client_left_out": run("cuda", p_gpu,
                                     dataclasses.replace(ota, b=b_out)),
              "noise_twice": run("cuda", p_gpu, ota, scale=2.0)}
+    before = dict(ops.LAUNCH_COUNTS)
+    t0 = time.perf_counter()
+    tp = run("cuda", p_gpu, ota, model=TRAIN_TP_MODEL)
+    tp_s = time.perf_counter() - t0
+    tp_k1 = ops.LAUNCH_COUNTS["batched_moments"] - before["batched_moments"]
+    enter = TPM.RankContext.enter
+    TPM.RankContext.enter = lambda self, x, axis="model": x
+    try:
+        no_fold = run("cuda", p_gpu, ota, model=TRAIN_TP_MODEL)
+    finally:
+        TPM.RankContext.enter = enter
+    real = tl._client_grads
+    tl._client_grads = _fault_fold_again(tl, SH)
+    try:
+        fold_again = run("cuda", p_gpu, ota, model=TRAIN_TP_MODEL)
+    finally:
+        tl._client_grads = real
     flat0 = torch.cat([l.reshape(-1).double() for l in tree_leaves(p_cpu)])
     noise_term = sum(float(sched(torch.tensor(t + 1))) * ota.a
                      * z.double() for t, z in enumerate(noises))
@@ -4131,33 +4322,54 @@ def train_fp32(ops, cfg_full) -> dict:
                           for l in tree_leaves(res[0])])
         return flat - flat0 + noise_term
 
-    ref_signal = signal(want)
-    ref_norm = float(torch.linalg.vector_norm(ref_signal))
-
-    def gaps(res):
+    def gaps(res, ref, loss_rel):
+        ref_signal = signal(ref)
         sig = float(torch.linalg.vector_norm(signal(res) - ref_signal)
-                    ) / ref_norm
-        loss = max(abs(x - y) / abs(y) for x, y in zip(res[1], want[1]))
-        return {"loss_rel": loss, "signal_rel": sig,
-                "within": loss <= TRAIN_LOSS_REL and sig <= TRAIN_SIGNAL_REL}
+                    ) / float(torch.linalg.vector_norm(ref_signal))
+        loss = max(abs(x - y) / abs(y) for x, y in zip(res[1], ref[1]))
+        return {"loss_rel": loss, "signal_rel": sig, "same_bits": res[2],
+                "within": loss <= loss_rel and sig <= TRAIN_SIGNAL_REL
+                and res[2]}
     row = {"phase": "train", "part": "fp32_card_vs_cpu",
            "layers": TRAIN_FP32_LAYERS, "tokens_per_client": TRAIN_FP32_SEQ,
            "params": int(flat0.numel()), "a": ota.a, "hb": hb.tolist(),
            "loss_card": got[1], "loss_cpu": want[1],
-           "signal_norm_cpu": ref_norm,
+           "signal_norm_cpu": float(torch.linalg.vector_norm(signal(want))),
            "noise_term_norm": float(torch.linalg.vector_norm(noise_term)),
            "tolerance": f"losses |d| <= {TRAIN_LOSS_REL:g} rel; the "
                         f"params' change less the noise term within "
                         f"{TRAIN_SIGNAL_REL:g} of the CPU's in L2",
-           "card_vs_cpu": gaps(got),
-           "rejects": {k: gaps(v) for k, v in wrong.items()},
+           "card_vs_cpu": gaps(got, want, TRAIN_LOSS_REL),
+           "rejects": {k: gaps(v, want, TRAIN_LOSS_REL)
+                       for k, v in wrong.items()},
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "k1_launches": k1, "card_s": gpu_s, "cpu_s": cpu_s}
     emit(row)
+    tp_row = {"phase": "train", "part": "fp32_tp_vs_one_rank",
+              "mesh": [TRAIN_CLIENTS, TRAIN_TP_MODEL],
+              "layers": TRAIN_FP32_LAYERS, "loss_tp": tp[1],
+              "loss_one_rank": got[1],
+              "tolerance": f"losses |d| <= {TRAIN_TP_LOSS_REL:g} rel; the "
+                           f"change less the noise term within "
+                           f"{TRAIN_SIGNAL_REL:g} of the (4, 1) card run's "
+                           f"in L2; replicated leaves the same bits on "
+                           f"every rank",
+              "tp_vs_one_rank": gaps(tp, got, TRAIN_TP_LOSS_REL),
+              "rejects": {"enter_without_backward_fold": gaps(
+                              no_fold, got, TRAIN_TP_LOSS_REL),
+                          "replicated_grads_folded_again": gaps(
+                              fold_again, got, TRAIN_TP_LOSS_REL)},
+              "k1_launches": tp_k1, "card_s": tp_s}
+    emit(tp_row)
     if not row["card_vs_cpu"]["within"]:
         fail(f"train fp32: the card differs from the CPU: {row}")
     if any(v["within"] for v in row["rejects"].values()):
         fail(f"train fp32: the rule accepts a wrong run: {row}")
+    if not tp_row["tp_vs_one_rank"]["within"]:
+        fail(f"train fp32: (4, {TRAIN_TP_MODEL}) differs from (4, 1): "
+             f"{tp_row}")
+    if any(v["within"] for v in tp_row["rejects"].values()):
+        fail(f"train fp32: the rule accepts a planted fault: {tp_row}")
     return row
 
 
@@ -4229,10 +4441,11 @@ def train_guard(ops, cfg, params, batch) -> dict:
 
 def phase_train(ops) -> dict:
     """The training step: (a) K1 at the training shape, (b) granite whole on
-    an emulated (4, 1) mesh with and without the channel noise, (d) the mean
-    path, (e) the autograd guard, (c) the fp32 card-vs-CPU check.  Returns
-    K1's launches on the path ((b)'s steps, read from counts set to 0 just
-    before them)."""
+    an emulated (4, 1) mesh with and without the channel noise, (f) granite
+    whole on an emulated (4, 2) mesh, (d) the mean path, (e) the autograd
+    guard, (c) the fp32 card-vs-CPU check and (g) the fp32 (4, 2) check.
+    Returns K1's launches on the path ((b)'s and (f)'s steps, read from
+    counts set to 0 just before them)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
     t_phase = time.perf_counter()
@@ -4250,6 +4463,18 @@ def phase_train(ops) -> dict:
     noisy = train_run(ops, cfg, params, batch, train_ota(n), "bf16_noise")
     quiet = train_run(ops, cfg, params, batch, train_ota(n, noise=False),
                       "bf16_no_noise", warm_up=False)
+    t_tp = time.perf_counter()
+    try:
+        train_tp(ops, cfg, params, batch, train_ota(n, noise=False),
+                 train_ota(n))
+    except TimeoutError as err:
+        # a rank stopped in a collective: leave at once (a rank's backward
+        # may be stuck on autograd's device thread, which no exit joins)
+        print(f"chip_smoke: FAILED: train tp: {err}", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+    emit({"phase": "train", "part": "tp_time",
+          "seconds": time.perf_counter() - t_tp})
     launches = {"batched_moments": ops.LAUNCH_COUNTS["batched_moments"]}
     emit({"phase": "train", "part": "noise_cost",
           "s_per_step_noise": noisy["s_per_step_median"],

@@ -12,10 +12,12 @@ from repro_torch.distribution.ota_collectives import (aggregate_mesh,
                                                       stack_shards,
                                                       tree_sq_norm)
 from repro_torch.distribution.sharding import (EXPERIMENT_AXIS,
-                                               FL_DEVICE_AXIS, DeviceMesh,
-                                               ExperimentMesh, Spec,
-                                               batch_specs, cache_specs,
+                                               FL_DEVICE_AXIS, CutLayout,
+                                               DeviceMesh, ExperimentMesh,
+                                               Spec, batch_specs,
+                                               cache_specs,
                                                device_mesh, experiment_mesh,
+                                               gather_params,
                                                named_shardings, param_specs,
                                                sanitize_spec, shard_cache,
                                                shard_device_axis,
@@ -23,10 +25,11 @@ from repro_torch.distribution.sharding import (EXPERIMENT_AXIS,
                                                shard_params, tp_plan)
 from repro_torch.distribution.tensor_parallel import RankContext, run_ranks
 
-__all__ = ["EXPERIMENT_AXIS", "FL_DEVICE_AXIS", "DeviceMesh",
+__all__ = ["EXPERIMENT_AXIS", "FL_DEVICE_AXIS", "CutLayout", "DeviceMesh",
            "ExperimentMesh", "RankContext", "Spec", "aggregate_mesh",
            "batch_specs", "cache_specs", "client_index", "device_mesh",
-           "experiment_mesh", "fold_shards", "gather_shards",
+           "experiment_mesh", "fold_shards", "gather_params",
+           "gather_shards",
            "named_shardings", "ota_psum", "param_specs", "run_ranks",
            "sanitize_spec", "shard_cache", "shard_device_axis",
            "shard_experiment_axis", "shard_params", "stack_shards",

@@ -30,6 +30,7 @@ it, which makes them bitwise equal.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Optional, Sequence
 
 import torch
@@ -123,13 +124,63 @@ def _local_stats_kernels(grads: Tree, sch: schemes.Scheme
         tensor_sq_norms=tensor_sq)
 
 
+def _part_stats(grads: Tree, sch: schemes.Scheme, impl: str, device
+                ) -> schemes.DeviceStats:
+    """``impl``'s statistics of a part of a gradient (zeros where it holds
+    no leaf)."""
+    if not grads:
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return schemes.DeviceStats(0, zero, zero, ())
+    if impl == "kernels":
+        return _local_stats_kernels(grads, sch)
+    return schemes.compute_stats(grads, sch, batched=False)
+
+
+def cut_stats(grads: Tree, sch: schemes.Scheme, impl: str, ctx, cut
+              ) -> schemes.DeviceStats:
+    """The whole client's statistics from one model rank's cut gradient
+    (``cut``: a ``sharding.CutLayout``): the cut leaves' sums (one K1 row,
+    with ``impl='kernels'``) folded over ``model``, plus the replicated
+    leaves' (one more row), counted once; the count is the whole tree's.
+    Every model rank ends with the same bits."""
+    names = sorted(grads)
+    dev = grads[names[0]].device
+    mine, rep = (_part_stats({k: grads[k] for k in names if cut.cut[k] == c},
+                             sch, impl, dev) for c in (True, False))
+    sums = ([mine.sq_norm] + ([mine.total] if sch.needs_moments else [])
+            + (list(mine.tensor_sq_norms) if sch.per_tensor else []))
+    folded = iter(ctx.fold(torch.stack([v.float() for v in sums]), "model"))
+    sq_norm = next(folded) + rep.sq_norm
+    total = next(folded) + rep.total if sch.needs_moments else None
+    tensor_sq = None
+    if sch.per_tensor:
+        reps = iter(rep.tensor_sq_norms)
+        tensor_sq = tuple(next(folded) if cut.cut[k] else next(reps)
+                          for k in names)
+    return schemes.DeviceStats(
+        count=sum(math.prod(cut.full[k]) for k in names), sq_norm=sq_norm,
+        total=total, tensor_sq_norms=tensor_sq)
+
+
+def tree_sq_norm_cut(grads: Tree, ctx, cut) -> torch.Tensor:
+    """``tree_sq_norm`` of the whole client's gradient from one model
+    rank's cut gradient: the cut leaves' part folded over ``model``, plus
+    the replicated leaves' once."""
+    names = sorted(grads)
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=grads[names[0]].device)
+    mine = zero + tree_sq_norm([grads[k] for k in names if cut.cut[k]])
+    rep = zero + tree_sq_norm([grads[k] for k in names if not cut.cut[k]])
+    return ctx.fold(mine, "model") + rep
+
+
 def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
              h: torch.Tensor, b: torch.Tensor, a, noise_var: float,
              generator: Optional[torch.Generator] = None,
              noise: Optional[torch.Tensor] = None,
              grad_bound=None, reduce_dtype: Optional[torch.dtype] = None,
              stats_impl: str = "plain",
-             h_hat: Optional[torch.Tensor] = None) -> Tree:
+             h_hat: Optional[torch.Tensor] = None, cut=None) -> Tree:
     """Aggregate this rank's gradient with every other rank's, over the
     air.  The ranks are a ``torch.distributed`` ``group`` (the mesh
     backend: each rank an FL device, the sums all-reduces) or, with
@@ -146,7 +197,15 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
     the moments kernel.  ``reduce_dtype`` superposes in that dtype (the
     side information stays fp32).
 
-    Returns the update direction y, the same on every rank."""
+    ``cut`` (a ``sharding.CutLayout``; with ``ctx`` on a mesh of model > 1)
+    says which leaves of ``grads`` are this model rank's shards of a cut
+    leaf: the statistics are then the whole client's (``cut_stats``), and
+    the noise is the whole tree's (drawn or injected at the whole leaves'
+    shapes), each leaf's shard taken by ``cut.piece``.  Each shard folds
+    over ``data`` as a whole leaf does.
+
+    Returns the update direction y, the same on every rank (of a model
+    rank's shard: the same on every data rank)."""
     from repro_torch.core import ota
     sch = schemes.validate_config(scheme, grad_bound)
     if stats_impl not in STATS_IMPLS:
@@ -178,8 +237,12 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
     hk = h[me].float()
     bk = b[me].float()
     hk_hat = hk if h_hat is None else h_hat[me].float()
-    stats = (_local_stats_kernels(grads, sch) if stats_impl == "kernels"
-             else schemes.compute_stats(grads, sch, batched=False))
+    if cut is not None:
+        stats = cut_stats(grads, sch, stats_impl, ctx, cut)
+    elif stats_impl == "kernels":
+        stats = _local_stats_kernels(grads, sch)
+    else:
+        stats = schemes.compute_stats(grads, sch, batched=False)
     # h_k b_k in the per-device scale: the sum below IS eq. (10)
     x = schemes.transform(sch, grads, stats, grad_bound, batched=False,
                           extra_scale=hk * bk, out_dtype=torch.float32)
@@ -187,12 +250,14 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
         x = schemes.tree_map(lambda l: l.to(reduce_dtype), x)
     y = psum_tree(x)
     first = next(iter(y.values()))
-    z = ota.channel_noise(noise_var, {k: v.shape for k, v in y.items()},
-                          first.device, generator, noise)
+    shapes = (cut.full if cut is not None
+              else {k: v.shape for k, v in y.items()})
+    z = ota.channel_noise(noise_var, shapes, first.device, generator, noise)
     if z is not None:
-        y = schemes.tree_map(lambda l, zl: l + zl, y,
-                             ota.unravel(z, {k: v.shape
-                                             for k, v in y.items()}))
+        zt = ota.unravel(z, shapes)
+        if cut is not None:
+            zt = {k: cut.piece(k, v) for k, v in zt.items()}
+        y = schemes.tree_map(lambda l, zl: l + zl, y, zt)
     y = schemes.tree_map(lambda l: a * l, y)
 
     if sch.server_post is None:

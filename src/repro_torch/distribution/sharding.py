@@ -438,16 +438,64 @@ def leaf_cut(names: tuple, spec: Spec, plan: TPPlan) -> Spec:
 
 
 def tp_param_specs(params, cfg, mesh):
-    """The cut of every parameter leaf on ``mesh``: ``param_specs``
-    sanitized against the leaf's shape, then whole where ``tp_plan`` keeps
-    the module whole."""
+    """The cut of every parameter leaf on ``mesh``: ``param_specs``, whole
+    where ``tp_plan`` keeps the module whole.  Within a module the plan
+    cuts, every cut dim divides over the model axis (the plan asks it of
+    the heads, kv heads, d_ff, experts, d_inner and vocabulary), so
+    ``sanitize_spec`` would drop nothing there, and the cut is read from
+    the leaves' names and ranks alone: it holds for a full parameter tree
+    and for one rank's shard of it alike."""
     plan = tp_plan(cfg, mesh.shape["model"])
 
     def one(names, leaf):
         spec = _spec_for(names[-1] if names else "", tuple(names[:-1]),
                          _ndim(leaf), "model", None)
-        return leaf_cut(names, sanitize_spec(mesh, spec, leaf.shape), plan)
+        return leaf_cut(names, spec, plan)
     return _map_named(one, params)
+
+
+def _named_leaves(tree, names: tuple = ()) -> list:
+    """(names, leaf) of every leaf in ``repro_torch.tree.tree_leaves``'
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [nl for k in sorted(tree)
+                for nl in _named_leaves(tree[k], names + (str(k),))]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, Spec):
+        return [nl for v in tree for nl in _named_leaves(v, names)]
+    return [(names, tree)]
+
+
+class CutLayout:
+    """How one rank's shard of a parameter tree (or of a gradient, leaf for
+    leaf) sits in the whole tree, by ``tree_flatten``'s names ("00000",
+    ...): ``cut[name]`` whether the leaf is cut over the model axis,
+    ``full[name]`` the whole leaf's shape, ``piece(name, t)`` the rank's
+    shard of a whole leaf ``t``.  Read from any rank's shard (its names
+    and shapes: a cut dim's whole size is the shard's times the model
+    axis)."""
+
+    def __init__(self, shard, cfg, mesh, rank: int):
+        self.mesh, self.rank = mesh, rank
+        m = mesh.shape["model"]
+        specs = _named_leaves(tp_param_specs(shard, cfg, mesh))
+        self.spec, self.halves, self.cut, self.full = {}, {}, {}, {}
+        for i, ((names, leaf), (_, spec)) in enumerate(
+                zip(_named_leaves(shard), specs)):
+            key = f"{i:05d}"
+            self.spec[key] = spec
+            self.halves[key] = bool(names) and names[-1] == "in_proj"
+            self.cut[key] = any(e is not None for e in spec)
+            self.full[key] = tuple(n * (m if e is not None else 1)
+                                   for n, e in zip(leaf.shape, spec))
+
+    def piece(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        return cut_leaf(t, self.spec[key], self.mesh, self.rank,
+                        halves=self.halves[key])
+
+    def whole_like(self) -> dict:
+        """A flat dict of the whole leaves' shapes (meta tensors)."""
+        return {k: torch.empty(s, device="meta")
+                for k, s in self.full.items()}
 
 
 def rank_coords(mesh, rank: int) -> dict:

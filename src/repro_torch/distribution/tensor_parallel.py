@@ -27,17 +27,39 @@ last rank to arrive combines the stacks, after which rank 0 goes on.  So
 one rank's kernels run at a time, as the physical rank's would, and a
 rank's program is the same code on both meshes.
 
-A training step's backward recomputes checkpointed superblocks, on
-autograd's own threads, where no collective may run (an emulated rank
-would wait there for ranks that cannot come).  Inside ``ctx.recorded()``
-every collective made in a ``ctx.scope(key)`` (a superblock) keeps its
+Training.  ``fold`` and ``gather`` carry a backward, and ``enter`` is
+their conjugate, so that a rank's program differentiates as one model:
+
+* ``fold`` (a row-parallel output): forward the fold, backward the
+  identity (every rank's partial is read by the whole folded output);
+* ``enter`` (a replicated tensor entering rank-partial work, such as the
+  input of a column-parallel product): forward the identity, backward the
+  fold of the ranks' partial gradients;
+* ``gather``: backward the rank's own slice of the gradient of the stack
+  (everything after a gather runs replicated).
+
+Placed exactly on the boundary between replicated and rank-partial work,
+they make every replicated leaf's gradient complete and the same bits on
+every model rank, with no fold after the backward.  A backward fold is a
+collective of its own, made when autograd reaches it: the ranks of an
+emulated mesh run their backwards on their own threads
+(``torch.autograd.set_multithreading_enabled(False)`` in ``run_ranks``),
+since on autograd's one device thread a rank waiting in a fold would keep
+the others' backwards from running.  A wait for a rank's turn longer than
+``run_ranks``' ``timeout`` fails every rank with the rank that stopped.
+
+A checkpointed superblock is recomputed in the backward, where its forward
+collectives must not run again.  Inside ``ctx.recorded()`` every forward
+collective made in a ``ctx.scope(key)`` (a superblock, a chunk) keeps its
 result under ``(key, n)``, its place in the scope, and the recompute of
-that scope takes it from there: the same bits, no collective.
+that scope takes it from there: the same bits, no collective.  The
+backward folds are not recorded.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Callable, List, Optional
 
 import torch
@@ -103,33 +125,105 @@ class RankContext:
             self._log[key] = run()
         return self._log[key]
 
+    @property
+    def scope_key(self):
+        """The key of the innermost open ``scope`` (None outside one)."""
+        return None if self._scope is None else self._scope[0]
+
+    def _gather_now(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The gather's collective itself (never recorded)."""
+        if self._lockstep is None:
+            return gather_shards(x.contiguous(), self.mesh.groups[axis])
+        return self._lockstep.exchange(self.rank, axis, x)
+
+    def _fold_now(self, x: torch.Tensor, axis: str, op=torch.add
+                  ) -> torch.Tensor:
+        """The fold's collective itself (never recorded).  Emulated: folded
+        once for the ranks of a group, which share the result (the same
+        bits each rank's own fold would give)."""
+        if self._lockstep is None:
+            return fold_shards(gather_shards(x.contiguous(),
+                                             self.mesh.groups[axis]), op)
+        return self._lockstep.exchange(
+            self.rank, axis, x, reduce=lambda st: fold_shards(st, op))
+
     def gather(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """Every rank's ``x`` along ``axis`` stacked in rank order (a new
-        leading axis)."""
+        leading axis); its backward takes the rank's own slice."""
         if self.size(axis) == 1:
             return x[None]
-        if self._lockstep is None:
-            return self._collective(axis, lambda: gather_shards(
-                x.contiguous(), self.mesh.groups[axis]))
-        return self._collective(
-            axis, lambda: self._lockstep.exchange(self.rank, axis, x))
+        return _Gather.apply(x, self, axis)
 
     def fold(self, x: torch.Tensor, axis: str = "model",
              op=torch.add) -> torch.Tensor:
         """The left fold of every rank's ``x`` along ``axis``, in rank
-        order; one rank: ``x`` itself."""
+        order; one rank: ``x`` itself.  A sum's backward is the identity;
+        another ``op`` (a softmax's running max) carries no gradient."""
         if self.size(axis) == 1:
             return x
-        if self._lockstep is None:
-            return self._collective(axis, lambda: fold_shards(gather_shards(
-                x.contiguous(), self.mesh.groups[axis]), op))
-        # emulated: folded once for the ranks of a group, which share the
-        # result (the same bits each rank's own fold would give)
-        return self._collective(axis, lambda: self._lockstep.exchange(
-            self.rank, axis, x, reduce=lambda st: fold_shards(st, op)))
+        if op is not torch.add:
+            with torch.no_grad():
+                return self._collective(axis, lambda: self._fold_now(
+                    x.detach(), axis, op))
+        return _Fold.apply(x, self, axis)
+
+    def enter(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """``x`` (the same on every rank of ``axis``) as it enters work that
+        each rank does on its part: the identity, whose backward folds the
+        ranks' partial gradients."""
+        if self.size(axis) == 1:
+            return x
+        return _Enter.apply(x, self, axis)
 
     def __repr__(self):
         return f"RankContext(rank={self.rank}, d={self.d}, m={self.m})"
+
+
+def _own(t: torch.Tensor, rc: RankContext) -> torch.Tensor:
+    """A backward fold's result as this rank's own gradient: an emulated
+    group's ranks share one result, and autograd may add into a gradient
+    in place.  (A forward result is handed out as a ``detach``ed alias, so
+    that each rank's output carries its own history.)"""
+    return t if rc._lockstep is None else t.clone()
+
+
+class _Fold(torch.autograd.Function):
+    """The fold of a sum; backward: the folded output's gradient."""
+
+    @staticmethod
+    def forward(fctx, x, rc, axis):
+        return rc._collective(axis, lambda: rc._fold_now(x, axis)).detach()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; backward: the fold of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(fctx, x, rc, axis):
+        fctx.rc, fctx.axis = rc, axis
+        return x
+
+    @staticmethod
+    def backward(fctx, g):
+        return _own(fctx.rc._fold_now(g.contiguous(), fctx.axis),
+                    fctx.rc), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The stack of every rank's tensor; backward: the rank's slice."""
+
+    @staticmethod
+    def forward(fctx, x, rc, axis):
+        fctx.index = rc.coord(axis)
+        return rc._collective(axis, lambda: rc._gather_now(x, axis)).detach()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g[fctx.index], None, None
 
 
 class _Aborted(Exception):
@@ -140,8 +234,9 @@ class _Lockstep:
     """The collectives of an emulated mesh: n rank programs on threads, one
     running at a time, in rank order between two collectives."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, timeout: float):
         self.mesh, self.n = mesh, mesh.size
+        self.timeout = timeout
         self.cv = threading.Condition()
         self.turn = 0
         self.slots: List[Any] = [None] * self.n
@@ -150,7 +245,12 @@ class _Lockstep:
         self.error: Optional[BaseException] = None
 
     def _wait(self, rank: int) -> None:
-        self.cv.wait_for(lambda: self.turn == rank or self.error is not None)
+        if not self.cv.wait_for(lambda: self.turn == rank
+                                or self.error is not None, self.timeout):
+            self._fail(TimeoutError(
+                f"emulated mesh: rank {self.turn} did not reach its next "
+                f"collective within {self.timeout:g} s (rank {rank} waited "
+                "for it)"))
         if self.error is not None:
             raise _Aborted()
 
@@ -217,16 +317,26 @@ class _Lockstep:
         self.cv.notify_all()
 
 
-def run_ranks(mesh, program: Callable[[RankContext], Any]) -> list:
+# the longest a rank of an emulated mesh waits for its turn: the other
+# ranks' work between two collectives (a layer's forward or backward, a
+# leaf's OTA transform) takes well under a second on the card
+RANK_TIMEOUT_S = 120.0
+
+
+def run_ranks(mesh, program: Callable[[RankContext], Any], *,
+              timeout: float = RANK_TIMEOUT_S) -> list:
     """``program(ctx)`` for every rank this process runs, in rank order:
     the one rank of a physical mesh, or every rank of an emulated one in
     turn.  The threads of an emulated mesh take over the caller's grad and
-    inference modes, CUDA device and stream."""
+    inference modes, CUDA device and stream, and run their backwards on
+    themselves (not on autograd's device threads).  A rank that keeps the
+    others waiting longer than ``timeout`` seconds for its turn fails the
+    run with a ``TimeoutError`` that names it."""
     if mesh.physical:
         return [program(RankContext(mesh, mesh.rank, 0))]
     if mesh.size == 1:
         return [program(RankContext(mesh, 0, 0))]
-    lock = _Lockstep(mesh)
+    lock = _Lockstep(mesh, timeout)
     out: List[Any] = [None] * mesh.size
     inference = torch.is_inference_mode_enabled()
     grad = torch.is_grad_enabled()
@@ -238,7 +348,8 @@ def run_ranks(mesh, program: Callable[[RankContext], Any]) -> list:
         try:
             lock.start(rank)
             with torch.inference_mode(inference), \
-                    torch.set_grad_enabled(grad):
+                    torch.set_grad_enabled(grad), \
+                    torch.autograd.set_multithreading_enabled(False):
                 if cuda:
                     with torch.cuda.device(device), torch.cuda.stream(stream):
                         out[rank] = program(RankContext(mesh, rank, rank,
@@ -258,7 +369,13 @@ def run_ranks(mesh, program: Callable[[RankContext], Any]) -> list:
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        while t.is_alive() and lock.error is None:
+            t.join(1.0)
     if lock.error is not None:
+        # the ranks stop at their next wait; one stuck elsewhere (inside
+        # autograd, on the card) is left behind as a daemon thread
+        deadline = time.monotonic() + min(timeout, 10.0)
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
         raise lock.error
     return out

@@ -16,25 +16,41 @@ Two paths, as the reference's:
   once after it), its statistics from the moments kernel (K1, one launch a
   client; ``ota_stats_impl='kernels'``, the default), then the optimizer.
 
+Each data rank's model is cut over the ``model`` ranks of its row
+(``distribution.sharding.tp_plan`` / ``shard_params``), as the reference's
+GSPMD cuts it inside each client: ``forward_loss`` runs one rank's shard,
+its folds differentiable (``RankContext.enter``/``fold``), so a rank's
+gradient is the gradient of its shard, and of a replicated leaf the whole
+gradient, the same bits on every model rank.  The OTA statistics are the
+whole client's (``ota_collectives.cut_stats``: the cut leaves' K1 row
+folded over ``model``, the replicated leaves' row once), the noise the
+whole tree's, cut (``sharding.CutLayout``); a cut leaf's shard then folds
+over ``data`` as a whole leaf does.  The mean path folds over ``data``
+only.  So a ``(D, M)`` step is the ``(D, 1)`` step up to the rounding of
+the model folds.
+
 The builder returns ``(train_step, place)``, as the port's serving builders
-do.  ``place(params, opt_state, batch)`` gives per-rank lists (the params
-and the optimizer state shared, the batch's rows cut over ``data`` where
-they divide); ``train_step(params, opt_state, batch, gen_or_seed) ->
-(params, opt_state, metrics)`` runs every rank this process holds
-(``distribution.tensor_parallel.run_ranks``: physical ranks, or an
-emulated mesh in turn on one card, the same bits) and takes and returns
-such lists.  ``gen_or_seed`` seeds the step's channel noise: drawn on the
-host once a step, from a CPU generator seeded alike on every rank, and
-handed to every rank of an emulated mesh; ``noise=`` injects it instead
-(the flat [N] vector in leaf order).
+do.  ``place(params, opt_state, batch)`` gives per-rank lists: each rank's
+shard of the params and of the optimizer state, leaf for leaf (views of
+the whole tensors; with ``model == 1`` the same tree on every rank), and
+the batch's rows cut over ``data`` where they divide.  ``train_step(params,
+opt_state, batch, gen_or_seed) -> (params, opt_state, metrics)`` runs
+every rank this process holds (``distribution.tensor_parallel.run_ranks``:
+physical ranks, or an emulated mesh in turn on one card, the same bits)
+and takes and returns such lists; ``sharding.gather_params(params, mesh,
+cfg, like)`` rebuilds the whole tree from them.  ``gen_or_seed`` seeds the
+step's channel noise: drawn on the host once a step, from a CPU generator
+seeded alike on every rank, and handed to every rank of an emulated mesh;
+``noise=`` injects it instead (the flat [N] vector of the whole leaves, in
+leaf order).
 
 The metrics are 0-d device tensors: ``loss`` (the OTA path: the mean of the
 clients' losses; the mean path: the whole batch's), ``nll`` and ``aux``
 (the OTA path: the first local rank's client; the mean path: the whole
-batch's) and, on the OTA path, ``grad_norm``, the first local rank's own
-gradient norm (on an emulated mesh client 0's; the reference's ``P()``
-out-spec returns one shard's).  Training over a cut model (``model > 1``,
-``fsdp_axis``) raises: it needs the backward of the tensor-parallel folds.
+batch's) and, on the OTA path, ``grad_norm``, the first local rank's
+client's whole gradient norm (on an emulated mesh client 0's; the
+reference's ``P()`` out-spec returns one shard's).  FSDP (``fsdp_axis``)
+raises: it waits for its own ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,6 +66,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import schemes
 from repro_torch.device import resolve_device
 from repro_torch.distribution import ota_collectives as oc
+from repro_torch.distribution import sharding as SH
 from repro_torch.distribution.tensor_parallel import run_ranks
 from repro_torch.launch.mesh import ServingMesh
 from repro_torch.models import layers as L
@@ -137,6 +154,17 @@ def _value_and_grad(loss_fn, params: PyTree):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _client_grads(cfg, ctx, params, rows, count=None):
+    """One rank's (loss, metrics, gradient leaves) of ``forward_loss`` on
+    its rows: over its model shard where the model is cut, the MoE's
+    dispatch the whole batch's where the rows are (``ctx.batch_split``);
+    the forward's collectives recorded for the checkpoints' recomputes."""
+    tp = ctx if ctx.model > 1 or ctx.batch_split else None
+    with ctx.recorded():
+        return _value_and_grad(lambda q: T.forward_loss(
+            q, cfg, rows, count=count, tp=tp), params)
+
+
 def build_train_step(cfg: ModelConfig, mesh: Optional[ServingMesh], *,
                      scheme: str = "normalized",
                      aggregation_axes: Optional[Sequence[str]] = None,
@@ -145,18 +173,19 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[ServingMesh], *,
                      optimizer: Optional[Optimizer] = None,
                      ota_stats_impl: str = "kernels", device="cuda"):
     """Returns ``(train_step, place)`` (module doc).  ``mesh`` is a
-    ``launch.mesh`` mesh of ``(data, 1)`` ranks (None: one rank); the FL
-    clients are its ``data`` ranks (``aggregation_axes=("data",)``).  The
-    params must be on ``device``; the step moves each rank's rows there."""
+    ``launch.mesh`` mesh of ``(data, model)`` ranks (None: one rank); the
+    FL clients are its ``data`` ranks (``aggregation_axes=("data",)``),
+    each cut over its row's ``model`` ranks.  The params must be on
+    ``device``; the step moves each rank's rows there."""
     dev = resolve_device(device)
     mesh = mesh if mesh is not None else ServingMesh(1, 1)
-    if mesh.model > 1 or fsdp_axis is not None:
+    if fsdp_axis is not None:
         raise NotImplementedError(
-            f"training over model = {mesh.model} ranks (fsdp_axis="
-            f"{fsdp_axis!r}) waits for {L.TP_TRAIN_ITEM}")
+            f"training with fsdp_axis={fsdp_axis!r} waits for "
+            f"{L.FSDP_ITEM}")
     opt = optimizer or sgd(1e-2)
     if scheme == "mean" or not aggregation_axes:
-        return _mean_step(cfg, mesh, opt, dev), _placer(mesh)
+        return _mean_step(cfg, mesh, opt, dev), _placer(mesh, cfg)
     axes = tuple(aggregation_axes)
     if axes != ("data",):
         raise ValueError(f"aggregation_axes {axes}: the FL clients are the "
@@ -165,22 +194,30 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[ServingMesh], *,
         raise ValueError("OTA schemes need OTARunParams")
     schemes.validate_config(scheme, ota.grad_bound)
     return _ota_step(cfg, mesh, opt, dev, scheme, ota,
-                     ota_stats_impl), _placer(mesh)
+                     ota_stats_impl), _placer(mesh, cfg)
 
 
-def _placer(mesh: ServingMesh):
+def _placer(mesh: ServingMesh, cfg: ModelConfig):
+    def shard(tree, rank):
+        if mesh.model == 1 or tree is None or isinstance(tree, torch.Tensor):
+            return tree
+        return SH.shard_params(tree, mesh, rank, cfg)
+
     def place(params=None, opt_state=None, batch=None):
-        """Per-rank lists of the ranks this process runs: the params and
-        the optimizer state shared (updates are functional), the batch's
-        rows cut over ``data`` where they divide."""
+        """Per-rank lists of the ranks this process runs: each rank's shard
+        of the params and of the optimizer state, leaf for leaf (updates
+        are functional), the batch's rows cut over ``data`` where they
+        divide."""
         ranks = mesh.local_ranks
         rows = None
         if batch is not None:
             split = _split(mesh, next(iter(batch.values())).shape[0])
             rows = RankBatches([_rows(batch, mesh.coords(r)[0], mesh.data,
                                       split) for r in ranks], split)
-        return ([params for _ in ranks],
-                None if opt_state is None else [opt_state for _ in ranks],
+        return ([shard(params, r) for r in ranks],
+                None if opt_state is None else
+                [type(opt_state)(*(shard(f, r) for f in opt_state))
+                 for r in ranks],
                 rows)
     return place
 
@@ -196,12 +233,18 @@ def _rank_batches(mesh, place, batch) -> RankBatches:
     return batch
 
 
+def _layout(cfg, mesh, params, rank):
+    """The ``CutLayout`` of a rank's shard (None on one model rank)."""
+    return (SH.CutLayout(params, cfg, mesh, rank) if mesh.model > 1
+            else None)
+
+
 def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
     h = torch.as_tensor(np.asarray(ota.h, np.float32), device=dev)
     b = torch.as_tensor(np.asarray(ota.b, np.float32), device=dev)
     reduce_dtype = (getattr(torch, ota.reduce_dtype)
                     if isinstance(ota.reduce_dtype, str) else ota.reduce_dtype)
-    place = _placer(mesh)
+    place = _placer(mesh, cfg)
 
     def train_step(params, opt_state, batch, gen_or_seed=None, *,
                    noise: Optional[torch.Tensor] = None):
@@ -209,20 +252,24 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
         gen = _generator(gen_or_seed)
         z = noise
         if z is None and gen is not None and ota.noise_var > 0.0:
-            z = draw_noise(gen, params[0], ota.noise_var, dev)
+            lay = _layout(cfg, mesh, params[0], mesh.local_ranks[0])
+            z = draw_noise(gen, params[0] if lay is None
+                           else lay.whole_like(), ota.noise_var, dev)
 
         def program(ctx):
             p, o = params[ctx.index], opt_state[ctx.index]
             rows = {k: v.to(dev) for k, v in batch[ctx.index].items()}
-            loss, metrics, grads = _value_and_grad(
-                lambda q: T.forward_loss(q, cfg, rows), p)
-            grad_norm = torch.sqrt(oc.tree_sq_norm(grads))
+            lay = _layout(cfg, mesh, p, ctx.rank)
+            loss, metrics, grads = _client_grads(cfg, ctx, p, rows)
             flat = tree_flatten(grads)
             del grads
+            grad_norm = torch.sqrt(oc.tree_sq_norm(flat) if lay is None
+                                   else oc.tree_sq_norm_cut(flat, ctx, lay))
             y = oc.ota_psum(flat, scheme=scheme, ctx=ctx, h=h, b=b, a=ota.a,
                             noise_var=ota.noise_var, noise=z,
                             grad_bound=ota.grad_bound,
-                            reduce_dtype=reduce_dtype, stats_impl=stats_impl)
+                            reduce_dtype=reduce_dtype, stats_impl=stats_impl,
+                            cut=lay)
             del flat
             new_p, new_o = opt.update(tree_unflatten(p, y), o, p)
             del y
@@ -237,7 +284,7 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
 
 
 def _mean_step(cfg, mesh, opt, dev):
-    place = _placer(mesh)
+    place = _placer(mesh, cfg)
 
     def train_step(params, opt_state, batch, gen_or_seed=None):
         batch = _rank_batches(mesh, place, batch)
@@ -254,10 +301,7 @@ def _mean_step(cfg, mesh, opt, dev):
                         torch.full((), float(rows["labels"].numel()),
                                    device=dev))
                 count = ctx.fold(mine, "data")
-            with ctx.recorded():
-                loss, metrics, grads = _value_and_grad(
-                    lambda q: T.forward_loss(q, cfg, rows, count=count,
-                                             tp=ctx if split else None), p)
+            loss, metrics, grads = _client_grads(cfg, ctx, p, rows, count)
             if split:
                 grads = [ctx.fold(g, "data") for g in grads]
                 loss = ctx.fold(loss, "data")

@@ -29,7 +29,13 @@ Tensor parallelism: every layer takes an optional ``tp`` (a
 shard of the parameters (``distribution.sharding.shard_params``): the
 attention on the rank's heads (K6 at ``[B, H/M, S, d]``), the MLP on its
 d_ff columns, the embedding on its vocabulary rows, each row-parallel
-product folded over the model axis in rank order.  Decode attention over
+product folded over the model axis in rank order.  Where autograd records,
+the replicated input of a rank's cut work passes ``tp.enter`` (``enter_cut``:
+its gradient is the fold of the ranks' partials) and a row-parallel output
+``tp.fold`` (``fold_cut``: its backward the identity), so every replicated
+leaf's gradient comes out whole on every rank; the loss over a cut
+vocabulary (``xent_sums(tp=)``) folds the softmax's max, its sum and the
+gold logit instead of forming the whole logits.  Decode attention over
 a cache cut along its sequence (``cfg.decode_cache_seq_axis``, or the
 context-parallel ``axis_name``) folds the softmax's max and sum and the
 output across the shards (flash decoding).  With ``tp=None`` every
@@ -54,9 +60,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 ZOO_ITEM = "ROADMAP queue 1 item 16 (model zoo)"
 
 
-# what a tensor-parallel training step names when it raises
-TP_TRAIN_ITEM = ("ROADMAP queue 1 item 19 (tensor-parallel training: "
-                 "model > 1, fsdp_axis)")
+# what a train step over FSDP names when it raises
+FSDP_ITEM = "ROADMAP queue 1 item 20 (FSDP over data on the mean path)"
 
 
 def records(*trees) -> bool:
@@ -213,12 +218,14 @@ def local_kv_heads(cfg: ModelConfig, model: int, m: int) -> list:
 
 def _rank_kv(cfg: ModelConfig, tp, k: torch.Tensor, v: torch.Tensor):
     """The kv heads (axis 2) a rank's q heads read: all of k/v where they
-    are the rank's shard, else the rank's ``local_kv_heads``."""
+    are the rank's shard, else the rank's ``local_kv_heads`` of the whole
+    k/v, which enter the rank's work there (``tp.enter``)."""
     if tp is None or tp.model == 1:
         return k, v
     plan = tp_plan(cfg, tp.model)
     if plan.kv or not plan.heads:
         return k, v
+    k, v = tp.enter(k), tp.enter(v)
     idx = local_kv_heads(cfg, tp.model, tp.m)
     if idx == list(range(idx[0], idx[0] + len(idx))):
         return (k.narrow(2, idx[0], len(idx)), v.narrow(2, idx[0], len(idx)))
@@ -226,24 +233,38 @@ def _rank_kv(cfg: ModelConfig, tp, k: torch.Tensor, v: torch.Tensor):
     return k.index_select(2, sel), v.index_select(2, sel)
 
 
+def cuts(cfg: ModelConfig, tp, module: str) -> bool:
+    """Whether ``tp``'s plan cuts ``module`` over the model axis."""
+    return (tp is not None and tp.model > 1
+            and getattr(tp_plan(cfg, tp.model), module))
+
+
 def fold_cut(cfg: ModelConfig, partial: torch.Tensor, tp,
              module: str) -> torch.Tensor:
     """A row-parallel product's partial (the contracted dim cut), folded
     over the model axis where the plan cuts ``module``; else the whole
     product, as it is."""
-    if tp is not None and tp.model > 1 \
-            and getattr(tp_plan(cfg, tp.model), module):
-        return tp.fold(partial)
-    return partial
+    return tp.fold(partial) if cuts(cfg, tp, module) else partial
 
 
-def _expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
-    """[B,S,Hkv,Dh] -> [B,S,H,Dh] by repeating each kv head q_per_kv times:
-    the layout the reference's kernel takes.  The port's attention core
-    reads the grouped kv as it is, without this copy."""
-    if cfg.q_per_kv == 1:
+def enter_cut(cfg: ModelConfig, x: torch.Tensor, tp,
+              module: str) -> torch.Tensor:
+    """A replicated ``x`` entering the rank's part of ``module`` (a
+    column-parallel product): ``tp.enter`` where the plan cuts it, whose
+    backward folds the ranks' partial gradients of ``x``."""
+    return tp.enter(x) if cuts(cfg, tp, module) else x
+
+
+def _expand_kv(cfg: ModelConfig, k: torch.Tensor,
+               heads: Optional[int] = None) -> torch.Tensor:
+    """[B,S,Hkv,Dh] -> [B,S,H,Dh] by repeating each kv head q_per_kv times
+    (or ``heads`` / Hkv times: a rank's q heads over the kv heads they
+    read): the layout the reference's kernel takes.  The port's attention
+    core reads the grouped kv as it is, without this copy."""
+    rep = cfg.q_per_kv if heads is None else heads // k.shape[2]
+    if rep == 1:
         return k
-    return torch.repeat_interleave(k, cfg.q_per_kv, dim=2)
+    return torch.repeat_interleave(k, rep, dim=2)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -273,14 +294,15 @@ def _train_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, causal: bool, window: Optional[int]
                      ) -> torch.Tensor:
     """The reference's query-chunked attention core, differentiable: q
-    [B,S,H,Dh] against the head-expanded k/v [B,Skv,H,Dh], chunks of
+    [B,S,H,Dh] against the grouped k/v [B,Skv,Hkv,Dh] expanded to H heads
+    (a rank's: its q heads over the kv heads they read), chunks of
     ``cfg.attn_q_chunk`` queries (one chunk of all S where it does not
     divide S), each checkpointed under ``cfg.remat``.  Query i sits at
     position i and key j at j (self-attention and the encoder; a
     cross-attention is neither causal nor windowed, so no pair is
     masked).  Returns [B,S,H,Dh] in v's dtype."""
     s, skv = q.shape[1], k.shape[1]
-    k, v = _expand_kv(cfg, k), _expand_kv(cfg, v)
+    k, v = _expand_kv(cfg, k, q.shape[2]), _expand_kv(cfg, v, q.shape[2])
     cq = min(cfg.attn_q_chunk, s)
     if s % cq != 0:
         cq = s
@@ -320,7 +342,11 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, *,
             "attn_logit_softcap: no config sets it, and K6 has no softcap in "
             "the reference either")
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    # the rank's q heads (and kv heads, where they are cut) read x through
+    # ``enter``; whole k/v enter at the rank's selection (``_rank_kv``)
+    x_in = enter_cut(cfg, x, tp, "heads")
+    q, k, v = _project_qkv(params, cfg, x_in, kv_x if kv_x is not None
+                           else x_in if cuts(cfg, tp, "kv") else x)
     if kv_x is None:
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -553,6 +579,7 @@ def mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     # the reference's jax.nn.gelu is the tanh approximation by default
     act = F.silu if cfg.mlp_act == "silu" else (
         lambda t: F.gelu(t, approximate="tanh"))
+    x = enter_cut(cfg, x, tp, "mlp")
     out = (act(x @ params["w_gate"]) * (x @ params["w_up"])) \
         @ params["w_down"]
     return fold_cut(cfg, out, tp, "mlp")
@@ -602,9 +629,16 @@ def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def xent_sums(x: torch.Tensor, w_unemb: torch.Tensor, labels: torch.Tensor,
-              chunk: int, mask=None, remat_chunks: bool = False):
+              chunk: int, mask=None, remat_chunks: bool = False, tp=None):
     """(sum of the masked token NLLs, sum of the mask), both 0-d fp32:
-    ``chunked_softmax_xent``'s numerator and denominator."""
+    ``chunked_softmax_xent``'s numerator and denominator.
+
+    With ``tp`` (the vocabulary cut over the model axis, ``w_unemb`` the
+    rank's columns) each rank forms its own logits only: the row max is
+    folded with ``torch.maximum`` (no gradient: the log-sum-exp does not
+    depend on it), the exp-sums are folded, and the gold logit is folded
+    from the rank that holds it.  Each chunk is a scope of the rank's
+    collectives, so that its recompute replays them."""
     b, s, _ = x.shape
     c = min(chunk, s)
     if s % c != 0:
@@ -613,16 +647,35 @@ def xent_sums(x: torch.Tensor, w_unemb: torch.Tensor, labels: torch.Tensor,
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
     mask = mask.to(device=x.device, dtype=torch.float32)
     labels = labels.to(device=x.device, dtype=torch.int64)
+    if tp is not None:
+        x = tp.enter(x)
 
-    def one(xx, ll, mm):
-        lg = (xx @ w_unemb).float()
+    def whole(lg, ll):
         lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, ll[..., None])[..., 0]
+        return lse, torch.gather(lg, -1, ll[..., None])[..., 0]
+
+    def cut(lg, ll):
+        v = lg.shape[-1]
+        mx = tp.fold(torch.amax(lg, dim=-1), op=torch.maximum)
+        lse = mx + torch.log(tp.fold(torch.sum(torch.exp(lg - mx[..., None]),
+                                               dim=-1)))
+        local = ll - tp.m * v
+        hit = (local >= 0) & (local < v)
+        mine = torch.gather(lg, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+        return lse, tp.fold(torch.where(hit, mine, torch.zeros_like(mine)))
+
+    def one(xx, ll, mm, lo):
+        lg = (xx @ w_unemb).float()
+        if tp is None:
+            lse, gold = whole(lg, ll)
+        else:
+            with tp.scope(("xent", lo)):
+                lse, gold = cut(lg, ll)
         return torch.sum((lse - gold) * mm), torch.sum(mm)
 
     nll, cnt = [], []
     for lo in range(0, s, c):
-        args = (x[:, lo:lo + c], labels[:, lo:lo + c], mask[:, lo:lo + c])
+        args = (x[:, lo:lo + c], labels[:, lo:lo + c], mask[:, lo:lo + c], lo)
         n, m = remat(remat_chunks, one, *args)
         nll.append(n)
         cnt.append(m)

@@ -24,10 +24,15 @@ gate on them, and folds two row-parallel products over the model axis:
 ``x_proj``'s (dt, B, C are functions of every channel) and ``out_proj``'s.
 ``cfg.mamba_shard_channels`` names the axis of that channel cut (the
 reference's sharding constraint on the scan's inputs); the port's cut is
-the model axis whatever it names.
+the model axis whatever it names.  Under autograd ``x`` enters the rank's
+``in_proj`` through ``tp.enter`` and the folded ``x_proj`` output (dt, B,
+C) enters the rank's channels again, so both gradients are whole; each
+chunk of the training scan is a scope of the rank's collectives
+(``RankContext.scope``), replayed by its recompute.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Tuple
@@ -87,7 +92,9 @@ def _scan_inputs(params, cfg: ModelConfig, u: torch.Tensor, tp=None):
     """u: [B, C, Di] conv+silu activations -> (dt [B,C,Di] fp32,
     a [Di,N] fp32, B [B,C,N], C [B,C,N]), B and C in u's dtype."""
     n, r = cfg.mamba_d_state, cfg.mamba_dt_rank
-    proj = L.fold_cut(cfg, u @ params["x_proj"], tp, "mamba")  # [B,C,r+2N]
+    # [B,C,r+2N], whole on every rank, then read by the rank's channels
+    proj = L.enter_cut(cfg, L.fold_cut(cfg, u @ params["x_proj"], tp,
+                                       "mamba"), tp, "mamba")
     dt_r, b_mat, c_mat = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_r @ params["dt_proj_w"]).float()
                     + params["dt_proj_b"])
@@ -128,8 +135,15 @@ def _train_scan(params, cfg: ModelConfig, u_conv: torch.Tensor, tp=None
     if s % c != 0:
         c = s
 
-    def step(h, u_c):
-        da, dbu, c_mat = _ssm_inputs(params, cfg, u_c, tp)
+    # a chunk's collectives are a scope inside the enclosing one (the
+    # superblock), keyed when the chunk is first run, so that the chunk's
+    # own recompute, outside the superblock's scope, finds them
+    outer = None if tp is None else tp.scope_key
+
+    def step(h, u_c, lo):
+        with (tp.scope((outer, "scan", lo)) if tp is not None
+              else contextlib.nullcontext()):
+            da, dbu, c_mat = _ssm_inputs(params, cfg, u_c, tp)
         h_all, h_last = _chunk_scan(h, da, dbu)
         return h_last, torch.einsum("bcdn,bcn->bcd", h_all, c_mat)
 
@@ -137,7 +151,7 @@ def _train_scan(params, cfg: ModelConfig, u_conv: torch.Tensor, tp=None
                     device=u_conv.device)
     ys = []
     for lo in range(0, s, c):
-        h, y = L.remat(cfg.remat, step, h, u_conv[:, lo:lo + c])
+        h, y = L.remat(cfg.remat, step, h, u_conv[:, lo:lo + c], lo)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -165,7 +179,7 @@ def mamba_mix(params, cfg: ModelConfig, x: torch.Tensor, *,
     ``_train_scan``, unless ``impl`` forces the kernel, whose wrapper then
     raises (K7 has no backward)."""
     _check(cfg)
-    xz = x @ params["in_proj"]
+    xz = L.enter_cut(cfg, x, tp, "mamba") @ params["in_proj"]
     u, z = torch.chunk(xz, 2, dim=-1)                          # [B,S,Di]
     u_conv, u_pad = _causal_conv(params, cfg, u)
     if impl != "kernel" and L.records(x, params):

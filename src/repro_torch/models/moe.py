@@ -28,7 +28,11 @@ token count, so the data ranks' shares sum to the whole batch's losses
 
 Under autograd (``layers.records``) the expert activations are formed out
 of place, and the router, the combine weights and both aux losses carry
-gradients, as the reference's.
+gradients, as the reference's.  With the experts cut, the tokens and the
+combine weights enter the rank's work (``tp.enter``) where its dispatch
+buffer is filled and where it keeps its own pairs; the router's gradient
+is then its aux part (the same on every rank) plus the folded combine
+part, whole on every rank, and is not folded again.
 """
 from __future__ import annotations
 
@@ -134,7 +138,7 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None
     dest_c = torch.where(keep, flat_pos, cap)                 # cap: dropped
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e_rank, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest_e, dest_c] = x_flat[tok_idx]
+    buf[dest_e, dest_c] = (tp.enter(x_flat) if cut else x_flat)[tok_idx]
     buf = buf[:, :cap, :]                                     # [E, C, D]
 
     # every expert on its buffer
@@ -156,7 +160,8 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None
 
     # combine: each token's k pairs, summed in slot order
     y_pairs = y_buf[dest_e, torch.clamp(dest_c, max=cap - 1)]  # [T*k, D]
-    w_pairs = (top_p.reshape(t * k) * keep).to(y_pairs.dtype)
+    w_pairs = ((tp.enter(top_p) if cut else top_p).reshape(t * k)
+               * keep).to(y_pairs.dtype)
     y = (y_pairs * w_pairs[:, None]).reshape(t, k, d).sum(dim=1)
     if cut:
         y = tp.fold(y)

@@ -27,6 +27,9 @@ model on its shard of the parameters (``distribution.sharding.
 shard_params``, or ``init_sharded_params``, which draws a model too large
 for one card a leaf at a time and keeps the rank's shard).  The xLSTM and
 encoder-decoder configs do not run on a mesh yet (``_check_tp``).
+``forward_loss`` takes ``tp`` too: one rank's training forward, its folds
+differentiable.  ``cfg.seq_shard_activations`` (the reference's
+sequence-parallel placement hint for GSPMD) changes nothing here.
 """
 from __future__ import annotations
 
@@ -242,18 +245,19 @@ def forward_loss(params, cfg: ModelConfig, batch: Dict, *, count=None,
     parameters that require grad (the layers then take their training
     routes).
 
-    ``tp`` (one model rank, the batch's rows cut over ``data``) makes the
-    MoE's dispatch the whole batch's and its aux the rank's share
-    (``moe.moe_mlp``); ``count`` replaces the batch's own mask count, so
-    that the nll is the rank's share of the whole batch's mean (the mean
-    train step passes the folded count).  A cut model (``tp.model > 1``)
-    raises: its folds and gathers have no backward yet."""
-    if tp is not None and tp.model > 1:
-        raise NotImplementedError(
-            f"training {cfg.name} over model = {tp.model} ranks waits for "
-            f"{L.TP_TRAIN_ITEM}")
+    ``tp`` runs one rank's model on its shard of the parameters, as
+    ``forward_hidden`` does, differentiable through the model axis's folds
+    (``RankContext``: ``enter``/``fold``; the loss over a cut vocabulary
+    folds its softmax, ``layers.xent_sums``), so the gradient of a
+    replicated leaf is whole on every model rank.  With the batch's rows
+    cut over ``data`` (``tp.batch_split``) the MoE's dispatch is the whole
+    batch's and its aux the rank's share (``moe.moe_mlp``); ``count``
+    replaces the batch's own mask count, so that the nll is the rank's
+    share of the whole batch's mean (the mean train step passes the folded
+    count)."""
+    _check_tp(cfg, tp)
     enc_out = _encoder_out(params, cfg, batch, impl)
-    x = _decoder_inputs(params, cfg, batch)
+    x = _decoder_inputs(params, cfg, batch, tp)
     x, aux = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
                         causal=True, enc_out=enc_out, impl=impl, tp=tp)
     x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
@@ -261,7 +265,8 @@ def forward_loss(params, cfg: ModelConfig, batch: Dict, *, count=None,
         x = x[:, -batch["tokens"].shape[1]:, :]
     nll, cnt = L.xent_sums(x, L.unembed_matrix(params["emb"], cfg),
                            batch["labels"], cfg.loss_seq_chunk,
-                           batch.get("loss_mask"), cfg.remat)
+                           batch.get("loss_mask"), cfg.remat,
+                           tp if L.cuts(cfg, tp, "vocab") else None)
     nll = nll / torch.clamp(cnt if count is None else count, min=1.0)
     return nll + aux, {"nll": nll, "aux": aux}
 

@@ -1376,3 +1376,120 @@ class TestTrainOnCard:
         moved = max(float((b - s).abs().max()) for b, s in zip(p_cpu, start))
         gap = max(float((a - b).abs().max()) for a, b in zip(p_card, p_cpu))
         assert gap <= 1e-4 * moved
+
+
+@pytest.mark.cuda
+class TestTPTrainOnCard:
+    """Tensor-parallel training on the card: the emulated mesh's backward
+    (its folds on the ranks' own threads) completes and matches one model
+    rank, a rank that waits in a backward fold on autograd's device thread
+    is caught by the watchdog, and K1 at a model rank's cut row."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def test_emulated_2x2_step_completes_and_matches_one_rank(self):
+        """Reduced granite, fp32, an emulated (2, 2) mesh on the card, two
+        ``normalized`` steps with injected noise, each within 60 s: losses
+        within 1e-5 relative of the (2, 1) mesh's, params (gathered) within
+        1e-4 of their largest change; K1 twice a rank a step."""
+        import dataclasses
+        import time
+        from repro_torch.configs import registry as reg
+        from repro_torch.distribution import sharding as SH
+        from repro_torch.launch import train as tl
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.optimizers import sgd
+        from repro_torch.tree import tree_leaves
+        cfg = dataclasses.replace(reg.reduce_config(reg.get_config(
+            "granite-moe-1b-a400m")), dtype="float32")
+        p0 = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (4, 65),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        ota = tl.OTARunParams(h=np.array([1e-3, 2e-3]), b=np.ones(2),
+                              a=1.0 / 3e-3, noise_var=1e-9)
+        noise = [tl.draw_noise(torch.Generator().manual_seed(t), p0, 1e-9,
+                               "cuda") for t in range(2)]
+        out = {}
+        for m in (1, 2):
+            mesh = make_host_mesh(2, m, emulate=True)
+            step, place = tl.build_train_step(
+                cfg, mesh, scheme="normalized", aggregation_axes=("data",),
+                ota=ota, optimizer=sgd(0.05), device="cuda")
+            params, state, rows = place(p0, sgd(0.05).init(p0), batch)
+            ops.reset_launch_counts()
+            losses = []
+            for t in range(2):
+                t0 = time.perf_counter()
+                params, state, m_ = step(params, state, rows, noise=noise[t])
+                losses.append(float(m_["loss"]))
+                assert time.perf_counter() - t0 < 60.0
+            out[m] = (losses, SH.gather_params(params, mesh, cfg, p0),
+                      ops.LAUNCH_COUNTS["batched_moments"])
+        assert out[1][2] == 4 and out[2][2] == 16
+        for a, b in zip(out[2][0], out[1][0]):
+            assert abs(a - b) <= 1e-5 * abs(b)
+        start = tree_leaves(p0)
+        moved = max(float((b - s).abs().max())
+                    for b, s in zip(tree_leaves(out[1][1]), start))
+        gap = max(float((a - b).abs().max()) for a, b in
+                  zip(tree_leaves(out[2][1]), tree_leaves(out[1][1])))
+        assert gap <= 1e-4 * moved
+
+    def test_watchdog_catches_a_backward_fold_on_the_device_thread(self):
+        """The deadlock the emulated mesh avoids: with autograd's device
+        threads back on (inside the ranks), rank 0's backward fold waits
+        on the one device thread that rank 1's backward needs.  The wait
+        times out and the run raises naming the rank, instead of hanging."""
+        import time
+        from repro_torch.distribution.tensor_parallel import run_ranks
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(1, 2, emulate=True)
+        x = torch.randn(64, device="cuda")
+
+        def program(ctx):
+            with torch.autograd.set_multithreading_enabled(True):
+                a = x.clone().requires_grad_()
+                y = ctx.fold(torch.sin(ctx.enter(a)) * (ctx.m + 1))
+                return torch.autograd.grad(y.sum(), a)[0]
+        t0 = time.perf_counter()
+        with pytest.raises(TimeoutError, match="rank 1"):
+            run_ranks(mesh, program, timeout=10.0)
+        assert time.perf_counter() - t0 < 60.0
+        # the same program on the ranks' own threads completes
+        def fixed(ctx):
+            a = x.clone().requires_grad_()
+            y = ctx.fold(torch.sin(ctx.enter(a)) * (ctx.m + 1))
+            return torch.autograd.grad(y.sum(), a)[0]
+        g = run_ranks(mesh, fixed, timeout=10.0)
+        want = 3.0 * torch.cos(x)
+        assert torch.equal(g[0], g[1])
+        assert float((g[0] - want).abs().max()) <= 1e-6
+
+    def test_k1_at_a_cut_row(self):
+        """K1 at a model rank's cut row of granite-moe-1b-a400m over model
+        = 2 ([1, 641,728,512] fp32, 2.57 GB) and at its replicated row ([1,
+        101,506,048]) against the plain version at the moments' rule."""
+        for n in (641_728_512, 101_506_048):
+            g = torch.randn((1, n), generator=torch.Generator(device="cuda")
+                            .manual_seed(5), device="cuda")
+            sq, s = ops.batched_moments(g, impl="kernel")
+            sq_p, s_p = ops.batched_moments(g, impl="plain")
+            abs_sq = abs_s = 0.0
+            for lo in range(0, n, 1 << 27):
+                part = g[0, lo:lo + (1 << 27)].double()
+                abs_sq += float(torch.sum(part * part))
+                abs_s += float(torch.sum(part.abs()))
+            assert abs(float(sq[0]) - float(sq_p[0])) <= TERMS_RTOL * abs_sq
+            assert abs(float(s[0]) - float(s_p[0])) <= TERMS_RTOL * abs_s
+            del g

@@ -555,14 +555,12 @@ def test_draw_noise_is_the_schemes_draw():
 
 
 def test_unported_training_raises():
-    """A cut model and FSDP wait for their ROADMAP item; so do the other
-    aggregation axes and an OTA scheme without its parameters."""
+    """FSDP waits for its ROADMAP item; the other aggregation axes and an
+    OTA scheme without its parameters raise.  (A cut model trains:
+    ``tests/test_torch_tp_train.py``.)"""
     cfg = reg.reduce_config(reg.get_config(ARCH))
     ota = tl.OTARunParams(h=np.ones(2), b=np.ones(2))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tl.build_train_step(cfg, make_host_mesh(2, 2), ota=ota,
-                            aggregation_axes=("data",), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError, match="item 20"):
         tl.build_train_step(cfg, make_host_mesh(2, 1), fsdp_axis="data",
                             scheme="mean", device="cpu")
     with pytest.raises(ValueError, match="OTARunParams"):
@@ -571,7 +569,3 @@ def test_unported_training_raises():
     with pytest.raises(ValueError, match="pass \\('data',\\)"):
         tl.build_train_step(cfg, make_host_mesh(2, 1), ota=ota,
                             aggregation_axes=("model",), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        from repro_torch.distribution.tensor_parallel import RankContext
-        T.forward_loss({}, cfg, {}, tp=RankContext(make_host_mesh(1, 2), 0,
-                                                    0))

@@ -4,11 +4,12 @@ over real cards: one process a rank, one card a rank (NCCL), or the CPU
 (gloo) for a rehearsal.
 
     python3 tools/serve_ranks.py [--ranks 4] [--device cuda|cpu]
-        > chiprun_out/serve_ranks.jsonl
+        [--parts whole,parity,train,sweep] > serve_ranks.jsonl
 
 Every rank joins one ``torch.distributed`` group on 127.0.0.1 (NCCL on
 ``cuda:<rank>``, gloo on the CPU), builds the physical ``(1, ranks)`` mesh
-(``launch.mesh.make_host_mesh``) and runs, on its own device:
+(``launch.mesh.make_host_mesh``; ``train``: ``(ranks / 2, 2)``) and runs,
+on its own device:
 
 ``whole``   jamba-v0.1-52b at full width and depth (32 layers, 51.6 B
             parameters, 103 GB in bf16) over ``model = ranks``: each rank
@@ -22,7 +23,16 @@ Every rank joins one ``torch.distributed`` group on 127.0.0.1 (NCCL on
             prefill and 8 greedy steps on the physical mesh; then each rank
             runs the whole mesh emulated on its own card (every rank in
             turn, the same seed) and holds its own ids and cache shard to
-            the emulated rank's, bitwise.
+            the emulated rank's, bitwise;
+``train``   granite-moe-1b-a400m at full width and depth (24 layers, 1.385
+            B parameters, bf16) trained by ``ranks / 2`` FL clients, each
+            cut over 2 model ranks (``launch.train.build_train_step``,
+            ``normalized`` with the example's channel, 4 x 1,024 tokens a
+            client): one warm-up step, ``TRAIN_STEPS`` timed noiseless
+            steps and one with the host's noise draw; s a step, each card's
+            peak memory; then each rank runs the same steps on the mesh
+            emulated on its own card and holds its shard of the params and
+            of the optimizer state to the emulated rank's, bitwise.
 
 Then this process runs ``sweep``: the fig1a grid (Case I, amplification
 {optimal, bmax} x 3 seeds: 2 groups of 3 lanes, spread over 3 cards) and
@@ -64,6 +74,8 @@ SUPERBLOCK = 8                   # layers of one superblock (attn_period)
 PREFILL_SAMPLES = 2
 DECODE_STEPS = 32
 PARITY_STEPS = 8
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_STEPS = 2
 SWEEP_ROUNDS = 20
 SWEEP_RATE_ROUNDS = 64
 
@@ -209,7 +221,89 @@ def part_parity(ranks: int, rank: int, device, cpu: bool) -> dict:
             "ok": all(v == 1.0 for v in verdicts)}
 
 
-def worker(rank: int, ranks: int, kind: str, port: int, failed) -> None:
+def _train_steps(cfg, mesh, params, batch, device, cpu: bool):
+    """One warm-up step, TRAIN_STEPS noiseless steps and one with the host's
+    noise draw on ``mesh``; (the params' and optimizer state's shards of
+    the ranks this process runs, the timed steps' seconds, the losses)."""
+    import chip_smoke
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import inverse_power_schedule, sgd
+    n = T.param_count(params)
+    opt = sgd(inverse_power_schedule(0.75, eta0=0.5))
+    steps = {}
+    for noisy in (False, True):
+        steps[noisy], place = tl.build_train_step(
+            cfg, mesh, scheme="normalized", aggregation_axes=("data",),
+            ota=chip_smoke.train_ota(n, noise=noisy), optimizer=opt,
+            device=device)
+    p, o, rows = place(params, opt.init(params), batch)
+    p, o, m = steps[False](p, o, rows)
+    secs, losses = [], [float(m["loss"])]
+    for t in range(TRAIN_STEPS + 1):
+        _sync(device)
+        t0 = time.perf_counter()
+        p, o, m = steps[t == TRAIN_STEPS](p, o, rows, 101 + t)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return p, o, secs, losses
+
+
+def part_train(ranks: int, rank: int, device, cpu: bool) -> dict:
+    import torch.utils._pytree as pytree
+    import chip_smoke
+    from repro_torch.configs.registry import get_config, reduce_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = get_config(TRAIN_ARCH)
+    if cpu:
+        cfg = dataclasses.replace(reduce_config(cfg), dtype="float32")
+    clients = ranks // 2
+    rows, seq = (2, 32) if cpu else (chip_smoke.TRAIN_ROWS,
+                                     chip_smoke.TRAIN_SEQ)
+    batch = chip_smoke.train_batch(cfg, clients * rows, seq, seed=11)
+    params = T.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(0), device=device)
+    mesh = make_host_mesh(clients, 2)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    p, o, secs, losses = _train_steps(cfg, mesh, params, batch, device, cpu)
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else 0.0)
+    mine = [t.clone() for t in pytree.tree_leaves((p[0], o[0]))]
+    del p, o
+    emu = make_host_mesh(clients, 2, emulate=True)
+    ep, eo, esecs, elosses = _train_steps(cfg, emu, params, batch, device,
+                                          cpu)
+    theirs = pytree.tree_leaves((ep[rank], eo[rank]))
+    bitwise = (losses == elosses and len(mine) == len(theirs)
+               and all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+    verdicts = _gathered(float(bitwise), device)
+    del ep, eo, mine, theirs, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    tokens = clients * rows * seq
+    quiet = statistics.median(secs[:TRAIN_STEPS])
+    return {"part": "train", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+            "dtype": cfg.dtype, "mesh": {"data": clients, "model": 2},
+            "physical": mesh.physical, "tokens_per_step": tokens,
+            "s_per_step_no_noise": secs[:TRAIN_STEPS],
+            "tokens_per_s": tokens / quiet,
+            "s_per_step_noise": secs[-1],
+            "emulated_s_per_step_no_noise": esecs[:TRAIN_STEPS],
+            "emulated_s_per_step_noise": esecs[-1],
+            "loss": losses,
+            "peak_mem_gib_per_rank": _gathered(peak, device),
+            "bitwise_per_rank": [bool(v) for v in verdicts],
+            "ok": mesh.physical and all(v == 1.0 for v in verdicts)
+            and all(np.isfinite(losses))}
+
+
+PARTS = {"whole": part_whole, "parity": part_parity, "train": part_train}
+
+
+def worker(rank: int, ranks: int, kind: str, port: int, failed,
+           parts=tuple(PARTS)) -> None:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     if kind == "cuda":
         torch.cuda.set_device(rank)
@@ -222,8 +316,8 @@ def worker(rank: int, ranks: int, kind: str, port: int, failed) -> None:
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             world_size=ranks, rank=rank)
     try:
-        for part in (part_whole, part_parity):
-            line = part(ranks, rank, device, kind == "cpu")
+        for name in parts:
+            line = PARTS[name](ranks, rank, device, kind == "cpu")
             dist.barrier()
             if rank == 0:
                 print(json.dumps(line), flush=True)
@@ -293,7 +387,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--parts", default="whole,parity,train,sweep",
+                    help="the parts to run, in this order for the ranks' "
+                         "(whole, parity, train), then sweep")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS) | {"sweep"}:
+        sys.exit(f"unknown part in {args.parts!r}; known: "
+                 f"{sorted(PARTS) + ['sweep']}")
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     if args.device == "cuda":
         if torch.cuda.device_count() < args.ranks:
@@ -315,12 +416,15 @@ def main() -> None:
     port = s.getsockname()[1]
     s.close()
     failed = mp.get_context("spawn").Value("i", 0)
-    mp.spawn(worker, args=(args.ranks, args.device, port, failed),
-             nprocs=args.ranks)
-    line = part_sweep(args.ranks, args.device)
-    print(json.dumps(line), flush=True)
-    if not line["ok"]:
-        failed.value = 1
+    mine = tuple(p for p in parts if p in PARTS)
+    if mine:
+        mp.spawn(worker, args=(args.ranks, args.device, port, failed, mine),
+                 nprocs=args.ranks)
+    if "sweep" in parts:
+        line = part_sweep(args.ranks, args.device)
+        print(json.dumps(line), flush=True)
+        if not line["ok"]:
+            failed.value = 1
     sys.exit(failed.value)
 
 
