@@ -1887,6 +1887,10 @@ def phase_serve_hybrid(ops) -> dict:
 ZOO_SERVE = (("pixtral-12b", 7168, 1024), ("seamless-m4t-medium", 8192, 2048),
              ("xlstm-1.3b", 2048, 0))
 ZOO_LONG = 8192                  # xlstm: one more prefill at this length
+# depth cuts of the one-card rows (xlstm 48 -> 24 layers, three of its six
+# superblocks, and pixtral 40 -> 20), to keep the smoke inside its time
+# limit
+ZOO_SERVE_LAYERS = {"xlstm-1.3b": 24, "pixtral-12b": 20}
 ZOO_PROFILE_XLSTM = 256          # xlstm: the profiled prefill's prompt (the
                                  # sLSTM loop's events grow with it)
 ZOO_PROFILE_DECODE = 8           # decode steps profiled after the counted
@@ -1919,13 +1923,16 @@ def zoo_batch(cfg, b: int, s: int, n_stub: int, gen, dtype) -> dict:
 
 def zoo_serve(ops, arch: str, s: int, n_stub: int) -> dict:
     """One config at full width through the serving steps (bf16, B = 4,
-    32 greedy decode steps); returns its row, with the launch counts of
-    one counted prefill."""
+    32 greedy decode steps; depth as ZOO_SERVE_LAYERS cuts it); returns
+    its row, with the launch counts of one counted prefill."""
+    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     cfg = get_config(arch)
+    if arch in ZOO_SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=ZOO_SERVE_LAYERS[arch])
     b, n_dec = SERVE_BATCH, SERVE_DECODE
     gc.collect()
     torch.cuda.empty_cache()
@@ -2132,17 +2139,173 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_zoo(ops) -> dict:
+# the zoo on the (data, model) mesh, emulated on the card: (arch, model
+# ranks, text tokens, stub frames, timed prefills); B = 4, 32 greedy steps
+ZOO_MESH = (("xlstm-1.3b", 2, 2048, 0, 1),
+            ("seamless-m4t-medium", 4, 8192, 2048, 3))
+# the fp32 tokens check of each, cut depth, B = 4: (changes, text tokens,
+# stub frames); the cut model's tokens must equal the uncut model's
+ZOO_MESH_FP32 = {"xlstm-1.3b": (dict(num_layers=8), 256, 0),
+                 "seamless-m4t-medium": (dict(num_layers=2,
+                                              num_encoder_layers=2),
+                                         1024, 256)}
+ZOO_MESH_FP32_DECODE = 8
+
+
+def zoo_mesh(ops, arch: str, model: int, s: int, n_stub: int,
+             samples: int) -> dict:
+    """One config whole over an emulated (1, ``model``) mesh through the
+    serving builders (``mesh=``): its shards drawn a leaf at a time, bf16,
+    B = 4, ``samples`` timed prefills after a warm-up (xlstm's at a short
+    prompt: it launches no kernel), 32 greedy decode steps; returns its
+    row with the launch counts of one counted prefill.  Then fp32 at cut
+    depth: the mesh's tokens against the uncut model's."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    b, n_dec = SERVE_BATCH, SERVE_DECODE
+    mesh = make_host_mesh(1, model, emulate=True)
+    plan = sh.tp_plan(cfg, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tp_params(cfg, mesh, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = zoo_batch(cfg, b, s, n_stub, gen, L.dtype_of(cfg))
+    prefill, _ = serve.build_prefill_cache_step(cfg, "cuda",
+                                                cache_len=s + n_dec + 1,
+                                                mesh=mesh)
+    decode, _ = serve.build_decode_step(cfg, "cuda", mesh=mesh)
+    encode, _ = serve.build_encode_step(cfg, "cuda", mesh=mesh)
+    warm = batch if not cfg.is_xlstm else {
+        "tokens": batch["tokens"][:, :ZOO_PROFILE_XLSTM]}
+    enc_out = encode(params, batch) if cfg.is_encoder_decoder else None
+    ids, cache = prefill(params, warm)
+    decode(params, cache, ids[:, None], warm["tokens"].shape[1],
+           enc_out=enc_out)
+    del ids, cache
+    seconds = []
+    for _ in range(samples):
+        ids = cache = None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCH_COUNTS)
+    out = [ids]
+    t1 = time.perf_counter()
+    for pos in range(s, s + n_dec):
+        ids, cache = decode(params, cache, ids[:, None], pos, enc_out=enc_out)
+        out.append(ids)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    generated = torch.stack(out, dim=1).cpu()
+    finite = all(bool(torch.isfinite(c[name]).all())
+                 for rank in cache for c in rank for name in c)
+    hd = cfg.head_dim
+    row = {"phase": "zoo", "part": f"mesh_1x{model}", "arch": arch,
+           "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers,
+           "mesh": {"data": 1, "model": model}, "emulated": True,
+           "plan": plan._asdict(),
+           "params_per_rank": [T.param_count(p) for p in params],
+           "init_sharded_s": init_s, "batch": b, "text_tokens": s,
+           "stub_positions": n_stub, "decode_steps": n_dec,
+           **prefill_rates(b, s, seconds),
+           "decode_ms_per_step": dt / n_dec * 1e3,
+           "decode_tokens_per_s": b * n_dec / dt,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches,
+           "flash_attention_launches": launches["flash_attention"],
+           "generated_ids": generated.tolist(), "finite": finite}
+    if cfg.is_encoder_decoder:
+        row["k6_rank_shapes"] = {
+            "decoder": [b, cfg.num_heads // model, s, hd],
+            "encoder": [b, cfg.num_heads // model, n_stub, hd]}
+    del params, cache, enc_out, batch, out, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not finite or generated.min() < 0 or generated.max() >= cfg.vocab_size:
+        fail(f"{arch} mesh: non-finite caches or ids out of range")
+    if not plan.heads:
+        fail(f"{arch} mesh: the plan does not cut the heads: {plan}")
+
+    # fp32 at cut depth: the mesh's tokens are the uncut model's
+    changes, s32, stub32 = ZOO_MESH_FP32[arch]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **changes)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        p32 = T.init_params(cfg32, gen, device="cuda")
+        batch = zoo_batch(cfg32, b, s32, stub32, gen, torch.float32)
+        tokens = []
+        for m in (None, mesh):
+            kw = {} if m is None else {"mesh": m}
+            pre = serve.build_prefill_cache_step(
+                cfg32, "cuda", cache_len=s32 + ZOO_MESH_FP32_DECODE, **kw)
+            dec = serve.build_decode_step(cfg32, "cuda", **kw)
+            enc = serve.build_encode_step(cfg32, "cuda", **kw)
+            pp = p32
+            if m is not None:
+                (pre, place), (dec, _), (enc, _) = pre, dec, enc
+                pp = place(p32)[0]
+            e = enc(pp, batch) if cfg32.is_encoder_decoder else None
+            ids, cache = pre(pp, batch)
+            toks = [ids]
+            for pos in range(s32, s32 + ZOO_MESH_FP32_DECODE):
+                ids, cache = dec(pp, cache, ids[:, None], pos, enc_out=e)
+                toks.append(ids)
+            tokens.append(torch.stack(toks, 1).cpu())
+            del pp, cache, e
+        del p32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    row["fp32_tokens"] = {"cut": changes, "batch": b, "text_tokens": s32,
+                          "stub_positions": stub32,
+                          "decode_steps": ZOO_MESH_FP32_DECODE,
+                          "equal": bool(torch.equal(tokens[0], tokens[1])),
+                          "differing": int((tokens[0] != tokens[1]).sum())}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not row["fp32_tokens"]["equal"]:
+        fail(f"{arch} mesh fp32: the cut model's tokens differ from the "
+             f"uncut model's: {row['fp32_tokens']}")
+    return row
+
+
+# K6 at the rank shapes of seamless on the mesh, bf16 (the path's dtype):
+# the decoder's causal self-attention and the encoder's, over model = 2, 4
+ZOO_MESH_K6 = tuple((4, 16 // m, 16 // m, s, s, 64, causal, None)
+                    for m in (2, 4)
+                    for s, causal in ((8192, True), (2048, False)))
+
+
+def phase_zoo(ops, build) -> dict:
     """pixtral-12b, seamless-m4t-medium and xlstm-1.3b at full width
-    through the serving steps, then the fp32 checks; returns K6's
-    launches in one counted prefill of each."""
+    through the serving steps, then the fp32 checks; then xlstm-1.3b and
+    seamless-m4t-medium whole on the emulated (data, model) mesh and K6 at
+    seamless's rank shapes; returns K6's launches in one counted prefill
+    of each (the mesh's included)."""
     t0 = time.perf_counter()
     launches = {"flash_attention": 0}
-    want = {"pixtral-12b": 40, "seamless-m4t-medium": 24, "xlstm-1.3b": 0}
+    want = {}           # K6 a prefill: one an attention layer, none in xLSTM
     for arch, s, n_stub in ZOO_SERVE:
         row = zoo_serve(ops, arch, s, n_stub)
         emit(row)
         n = row["flash_attention_launches"]
+        want[arch] = (0 if "mlstm" in row["pattern"] else row["layers"]
+                      + row["encoder_layers"])
         if n != want[arch]:
             fail(f"{arch}: flash_attention launched {n} times in one "
                  f"prefill, expected {want[arch]}")
@@ -2152,6 +2315,30 @@ def phase_zoo(ops) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "zoo_time", "seconds": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    for arch, model, s, n_stub, samples in ZOO_MESH:
+        row = zoo_mesh(ops, arch, model, s, n_stub, samples)
+        emit(row)
+        n = row["flash_attention_launches"]
+        expect = want[arch] * model     # each rank's encoder and decoder
+        if n != expect:
+            fail(f"{arch} mesh: flash_attention launched {n} times in one "
+                 f"prefill, expected {expect}")
+        launches["flash_attention"] += n
+    gen = torch.Generator(device="cuda").manual_seed(4323)
+    for shape in ZOO_MESH_K6:
+        r = check_flash(ops, build, shape, torch.bfloat16, gen)
+        r["phase"] = "zoo_mesh_kernel"
+        emit(r)
+        if not (r["within_tolerance"] and r["two_launches_bitwise"]
+                and r["rejects_dropped_kv_tile"]):
+            fail(f"zoo mesh: flash_attention at the rank shape {shape} "
+                 f"disagrees with its plain version: {r['max_abs_err']}")
+        if r["ptxas"]["spill_stores"] or r["ptxas"]["spill_loads"]:
+            fail(f"zoo mesh: flash_attention spills: {r['ptxas']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "zoo_mesh_time", "seconds": time.perf_counter() - t1})
     return launches
 
 
@@ -3879,6 +4066,8 @@ TRAIN_ROWS = 4                   # sequences a client
 TRAIN_SEQ = 1024                 # tokens a sequence (1,025 drawn: the labels
                                  # are the next tokens)
 TRAIN_STEPS = 3                  # timed steps, after one warm-up step
+TRAIN_OTA_LAYERS = 6             # (b) and (f): depth cut 24 -> 6, to keep
+                                 # the smoke inside its time limit
 TRAIN_CHANNEL_MEAN = 1e-3        # examples/ota_transformer_fl.py:47-58
 TRAIN_GRAD_BOUND = 5.0
 TRAIN_FP32_LAYERS = 2            # the fp32 card-vs-CPU check: depth cut
@@ -3910,7 +4099,15 @@ TRAIN_TP_LOSS_REL = 1e-5
 # K1's rows at (4, 2): a model rank's cut leaves and its replicated leaves
 # (``tok``, ``unemb``, the norms, the routers) of granite-moe-1b-a400m
 TRAIN_TP_ROWS = (641_728_512, 101_506_048)
-
+# FSDP over data on the mean path: the (4, 2) mesh's step with the FSDP
+# rules' leaves also cut over data, TRAIN_FSDP_STEPS steps (sgd with
+# momentum: its state follows each leaf's slice), bitwise the step
+# without FSDP; then fp32 at TRAIN_FP32_LAYERS, the card's FSDP step
+# against the CPU's (4, 1) mean step within TRAIN_LOSS_REL and
+# TRAIN_SIGNAL_REL (the params' change), as (c)
+TRAIN_FSDP_STEPS = 2
+TRAIN_FSDP_ROWS = 1              # sequences a data rank in (h)
+TRAIN_FSDP_FP32_SEQ = 64         # tokens a data rank in the fp32 check
 
 def train_ota(n_params: int, seed: int = 7, noise: bool = True):
     """The example's OTA parameters at full width: h from ``draw_channel``
@@ -4400,6 +4597,194 @@ def train_mean(ops, cfg, params, batch) -> dict:
     return row
 
 
+def _resident_bytes(tree) -> int:
+    """Bytes of a rank's tensors (its slices, as it holds them)."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if t.dim() > 0)
+
+
+def _fsdp_mean_steps(cfg, mesh, params, batch, fsdp, device: str,
+                     steps: int = TRAIN_FSDP_STEPS):
+    """``steps`` mean steps (sgd with momentum) on ``mesh`` with or
+    without FSDP: (params, optimizer states, metrics, s a step, each
+    rank's resident bytes of params and optimizer state as placed).
+    ``params``: the whole tree (placed here), or the list of the ranks'
+    shards (``init_sharded_params``: the whole model never on the card)."""
+    from repro_torch.launch import train as tl
+    from repro_torch.optim.optimizers import sgd
+    opt = sgd(0.05, momentum=0.9)
+    step, place = tl.build_train_step(cfg, mesh, scheme="mean",
+                                      fsdp_axis=fsdp, optimizer=opt,
+                                      device=device)
+    if isinstance(params, list):
+        p, o = params, [opt.init(x) for x in params]
+        rows = place(batch=batch)[2]
+    else:
+        p, o, rows = place(params, opt.init(params), batch)
+    resident = [_resident_bytes(p[r]) + _resident_bytes(o[r].mu)
+                for r in range(len(p))]
+    secs, metrics = [], []
+    cuda = torch.device(device).type == "cuda"
+    for _ in range(steps):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, rows)
+        if cuda:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+    return p, o, metrics, secs, resident
+
+
+def fsdp_slice_same(cfg, mesh, rank: int, plain, fsdp) -> bool:
+    """Whether rank ``rank``'s FSDP tree ``fsdp`` is, leaf for leaf, the
+    bits of its data rank's slice of ``plain``, the model shard the step
+    without FSDP gives it (the same on every data rank)."""
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.tree import tree_flatten
+    d = mesh.coords(rank)[0]
+    lay = SH.CutLayout(fsdp, cfg, mesh, rank, "data")
+    want = tree_flatten(plain)
+    for k, got in tree_flatten(fsdp).items():
+        dim = lay.fsdp[k]
+        ref = want[k] if dim is None else want[k].narrow(
+            dim, d * got.shape[dim], got.shape[dim])
+        if not torch.equal(got, ref):
+            return False
+    return True
+
+
+def train_fsdp(ops, cfg, params, batch) -> dict:
+    """(h) FSDP over data on the mean path: granite whole, bf16, an
+    emulated (TRAIN_CLIENTS, TRAIN_TP_MODEL) mesh, TRAIN_FSDP_STEPS mean
+    steps without and with ``fsdp_axis="data"``: bitwise equal (every
+    rank's slice of the params and momentum, the metrics), s a step, each
+    rank's resident bytes, the card's peak of each above what was
+    allocated before it (one card holds every rank, so the peak is not
+    where FSDP saves; the plain run's kept shards wait on the host); no
+    kernel launched."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(TRAIN_CLIENTS, TRAIN_TP_MODEL, emulate=True)
+    runs = {}
+    for fsdp in (None, "data"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = dict(ops.LAUNCH_COUNTS)
+        p, o, ms, secs, resident = _fsdp_mean_steps(cfg, mesh, params,
+                                                    batch, fsdp, "cuda")
+        launched = sum(ops.LAUNCH_COUNTS[k] - before[k] for k in before)
+        if fsdp is None:        # keep data rank 0's shards (the same bits
+            same_rows = all(    # on every data rank)
+                torch.equal(a, b) for r in range(mesh.size) for a, b in
+                zip(_leaves(p[r]), _leaves(p[mesh.coords(r)[1]])))
+            p, o = p[:mesh.model], o[:mesh.model]
+        runs[fsdp] = {"p": p, "mu": [x.mu for x in o], "m": ms,
+                      "s": secs, "resident": resident, "launched": launched,
+                      "peak": (torch.cuda.max_memory_allocated() - base)
+                      / 2 ** 30}
+        del p, o
+        if fsdp is None:
+            for t in ("p", "mu"):
+                runs[None][t] = _tree_to(runs[None][t], "cpu")
+    plain, fs = runs[None], runs["data"]
+    for t in ("p", "mu"):
+        plain[t] = _tree_to(plain[t], "cuda")
+    same = (all(fsdp_slice_same(cfg, mesh, r, plain[t][mesh.coords(r)[1]],
+                                fs[t][r])
+                for r in range(mesh.size) for t in ("p", "mu"))
+            and all(torch.equal(a[k], b[k]) for a, b in zip(plain["m"],
+                                                            fs["m"])
+                    for k in a))
+    tokens = TRAIN_CLIENTS * TRAIN_FSDP_ROWS * TRAIN_SEQ
+    row = {"phase": "train", "part": "fsdp_bf16", "arch": TRAIN_ARCH,
+           "dtype": cfg.dtype, "mesh": [TRAIN_CLIENTS, TRAIN_TP_MODEL],
+           "optimizer": "sgd(0.05, momentum=0.9)",
+           "tokens_per_step": tokens,
+           "s_per_step": {"plain": plain["s"], "fsdp": fs["s"]},
+           "loss": [float(m["loss"]) for m in fs["m"]],
+           "resident_bytes_per_rank": {"plain": plain["resident"],
+                                       "fsdp": fs["resident"]},
+           "peak_above_start_gib": {"plain": plain["peak"],
+                                    "fsdp": fs["peak"]},
+           "plain_same_on_every_data_rank": same_rows,
+           "bitwise_equal": same,
+           "launches": {"plain": plain["launched"], "fsdp": fs["launched"]}}
+    emit(row)
+    if not (same and same_rows):
+        fail(f"train fsdp: the FSDP step is not the plain step's bits: "
+             f"{row}")
+    if not all(math.isfinite(v) for v in row["loss"]):
+        fail(f"train fsdp: a loss is not finite: {row}")
+    if plain["launched"] or fs["launched"]:
+        fail(f"train fsdp: a kernel launched on the mean path: {row}")
+    return row
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def train_fsdp_fp32(ops, cfg_full) -> dict:
+    """(i) fp32 at full width, depth cut to TRAIN_FP32_LAYERS: the card's
+    FSDP mean step on the emulated (TRAIN_CLIENTS, TRAIN_TP_MODEL) mesh
+    against the CPU's mean step on (TRAIN_CLIENTS, 1), TRAIN_FSDP_STEPS
+    steps from the same params and batch: losses within TRAIN_LOSS_REL,
+    the params' change within TRAIN_SIGNAL_REL of the CPU's in L2."""
+    import dataclasses
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfg_full, dtype="float32",
+                              num_layers=TRAIN_FP32_LAYERS)
+    p_gpu = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                          device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    batch = train_batch(cfg, TRAIN_CLIENTS, TRAIN_FSDP_FP32_SEQ, seed=13)
+    mesh = make_host_mesh(TRAIN_CLIENTS, TRAIN_TP_MODEL, emulate=True)
+    t0 = time.perf_counter()
+    p, _, ms, _, _ = _fsdp_mean_steps(cfg, mesh, p_gpu, batch, "data",
+                                      "cuda")
+    card_s = time.perf_counter() - t0
+    got = _tree_to(SH.gather_params(p, mesh, cfg, p_gpu, "data"), "cpu")
+    losses = [float(m["loss"]) for m in ms]
+    del p
+    t0 = time.perf_counter()
+    q, _, ms_cpu, _, _ = _fsdp_mean_steps(
+        cfg, make_host_mesh(TRAIN_CLIENTS, 1, emulate=True), p_cpu, batch,
+        None, "cpu")
+    cpu_s = time.perf_counter() - t0
+    want = q[0]
+    flat0 = torch.cat([l.reshape(-1).double() for l in _leaves(p_cpu)])
+    change = [torch.cat([l.reshape(-1).double() for l in _leaves(t)])
+              - flat0 for t in (got, want)]
+    sig = float(torch.linalg.vector_norm(change[0] - change[1])
+                / torch.linalg.vector_norm(change[1]))
+    loss_rel = max(abs(a - float(b["loss"])) / abs(float(b["loss"]))
+                   for a, b in zip(losses, ms_cpu))
+    row = {"phase": "train", "part": "fsdp_fp32_card_vs_cpu",
+           "layers": TRAIN_FP32_LAYERS, "mesh_card": [TRAIN_CLIENTS,
+                                                      TRAIN_TP_MODEL],
+           "mesh_cpu": [TRAIN_CLIENTS, 1],
+           "tokens_per_rank": TRAIN_FSDP_FP32_SEQ,
+           "loss_card": losses,
+           "loss_cpu": [float(m["loss"]) for m in ms_cpu],
+           "loss_rel": loss_rel, "change_rel": sig,
+           "tolerance": f"losses |d| <= {TRAIN_LOSS_REL:g} rel; the "
+                        f"params' change within {TRAIN_SIGNAL_REL:g} of "
+                        f"the CPU's in L2",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit(row)
+    if not (loss_rel <= TRAIN_LOSS_REL and sig <= TRAIN_SIGNAL_REL):
+        fail(f"train fsdp fp32: the card differs from the CPU: {row}")
+    return row
+
+
 def train_guard(ops, cfg, params, batch) -> dict:
     """(e) The kernel route forced under autograd raises: the whole model's
     ``forward_hidden`` (K6 at its first layer), and K6's and K7's wrappers
@@ -4440,12 +4825,15 @@ def train_guard(ops, cfg, params, batch) -> dict:
 
 
 def phase_train(ops) -> dict:
-    """The training step: (a) K1 at the training shape, (b) granite whole on
-    an emulated (4, 1) mesh with and without the channel noise, (f) granite
-    whole on an emulated (4, 2) mesh, (d) the mean path, (e) the autograd
-    guard, (c) the fp32 card-vs-CPU check and (g) the fp32 (4, 2) check.
+    """The training step: (a) K1 at the training shape, (b) granite at
+    TRAIN_OTA_LAYERS on an emulated (4, 1) mesh with and without the
+    channel noise, (f) the same on an emulated (4, 2) mesh, (d) granite
+    whole on the mean path, (e) the autograd guard, (h) FSDP over data on the (4, 2) mean path, (c) the fp32
+    card-vs-CPU check, (g) the fp32 (4, 2) check and (i) the fp32 FSDP
+    check.
     Returns K1's launches on the path ((b)'s and (f)'s steps, read from
     counts set to 0 just before them)."""
+    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
     t_phase = time.perf_counter()
@@ -4459,14 +4847,24 @@ def phase_train(ops) -> dict:
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
           "vocab": cfg.vocab_size})
     train_k1(ops, cfg, params, batch)
+    # (b) and (f) at a cut depth: the same model's first TRAIN_OTA_LAYERS
+    # layers' shapes, drawn alike
+    cfg_ota = dataclasses.replace(cfg, num_layers=TRAIN_OTA_LAYERS)
+    p_ota = T.init_params(cfg_ota, torch.Generator(device="cuda")
+                          .manual_seed(0), device="cuda")
+    n_ota = T.param_count(p_ota)
+    emit({"phase": "train", "part": "model_ota", "layers": TRAIN_OTA_LAYERS,
+          "params": n_ota})
     ops.reset_launch_counts()
-    noisy = train_run(ops, cfg, params, batch, train_ota(n), "bf16_noise")
-    quiet = train_run(ops, cfg, params, batch, train_ota(n, noise=False),
-                      "bf16_no_noise", warm_up=False)
+    noisy = train_run(ops, cfg_ota, p_ota, batch, train_ota(n_ota),
+                      "bf16_noise")
+    quiet = train_run(ops, cfg_ota, p_ota, batch,
+                      train_ota(n_ota, noise=False), "bf16_no_noise",
+                      warm_up=False)
     t_tp = time.perf_counter()
     try:
-        train_tp(ops, cfg, params, batch, train_ota(n, noise=False),
-                 train_ota(n))
+        train_tp(ops, cfg_ota, p_ota, batch, train_ota(n_ota, noise=False),
+                 train_ota(n_ota))
     except TimeoutError as err:
         # a rank stopped in a collective: leave at once (a rank's backward
         # may be stuck on autograd's device thread, which no exit joins)
@@ -4475,6 +4873,9 @@ def phase_train(ops) -> dict:
         os._exit(1)
     emit({"phase": "train", "part": "tp_time",
           "seconds": time.perf_counter() - t_tp})
+    del p_ota
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"batched_moments": ops.LAUNCH_COUNTS["batched_moments"]}
     emit({"phase": "train", "part": "noise_cost",
           "s_per_step_noise": noisy["s_per_step_median"],
@@ -4483,10 +4884,23 @@ def phase_train(ops) -> dict:
           - quiet["s_per_step_median"]})
     train_mean(ops, cfg, params, batch)
     train_guard(ops, cfg, params, batch)
+    t_fsdp = time.perf_counter()
+    try:
+        train_fsdp(ops, cfg, params, train_batch(
+            cfg, TRAIN_CLIENTS * TRAIN_FSDP_ROWS, TRAIN_SEQ, seed=14))
+    except TimeoutError as err:
+        print(f"chip_smoke: FAILED: train fsdp: {err}", file=sys.stderr,
+              flush=True)
+        os._exit(1)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     train_fp32(ops, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_fsdp_fp32(ops, cfg)
+    emit({"phase": "train", "part": "fsdp_time",
+          "seconds": time.perf_counter() - t_fsdp})
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "train_time", "seconds": time.perf_counter() - t_phase})
@@ -4559,7 +4973,7 @@ def main() -> None:
         phase_tp(ops, build)
         return
     if args.zoo:
-        phase_zoo(ops)
+        phase_zoo(ops, build)
         return
     if args.train:
         phase_train(ops)
@@ -4612,7 +5026,7 @@ def main() -> None:
     emit_memory("scan")
     hybrid_launches = phase_serve_hybrid(ops)
     emit_memory("serve_hybrid")
-    zoo_launches = phase_zoo(ops)
+    zoo_launches = phase_zoo(ops, build)
     emit_memory("zoo")
     tp_launches = phase_tp(ops, build)
     emit_memory("tp")

@@ -30,7 +30,16 @@ make blindly, so the cut follows the specs with these changes
   the kv heads of its own q heads; where the q heads do not divide, the
   whole attention stays replicated;
 * a module whose cut dim does not divide over the model axis (d_ff, the
-  experts, d_inner, the vocabulary) stays whole on every rank.
+  experts, d_inner, the vocabulary) stays whole on every rank;
+* the xLSTM cell (``cell``: mLSTM and sLSTM) is cut with the heads, and
+  its ``up`` holds ``[u | z]`` as ``in_proj`` does (``HALVES``).
+
+**FSDP.**  With ``fsdp_axis`` (the train step's ``data``) a leaf whose rule
+has ``F`` is cut along that dim over the axis as well, on top of its model
+cut, where the axis divides the whole dim (``fsdp_dim``: ``sanitize_spec``'s
+rule, read from the config, so that it holds for a shard too); ``tok``
+keeps the reference's rule and is not cut.  A plain cut: ``in_proj`` and
+``up`` are cut in halves on the model axis only.
 
 A rank of a ``(data, model)`` mesh is ``d * model + m``.
 
@@ -394,7 +403,7 @@ class TPPlan(NamedTuple):
     """Which modules a model of ``cfg`` cuts over a model axis of ``model``
     ranks; a module that is not cut runs whole on every rank."""
     model: int
-    heads: bool      # attention: q heads (wq, bq, wo rows)
+    heads: bool      # attention: q heads (wq, bq, wo rows); the xLSTM cell
     kv: bool         # attention: kv heads (wk, wv, bk, bv and the kv cache)
     mlp: bool        # dense MLP: d_ff
     experts: bool    # MoE: the expert stacks
@@ -424,7 +433,33 @@ _MODULE_OF = {
                                    "dt_proj_w", "dt_proj_b", "A_log", "D",
                                    "out_proj")},
     "emb": {"tok": "vocab", "unemb": "vocab"},
+    # the xLSTM cells: the mLSTM's heads (and their features of u, z, h),
+    # the sLSTM's features of u, z and h
+    "cell": {n: "heads" for n in ("up", "wq", "wk", "wv", "ogate", "wi",
+                                  "wf", "down", "w_gates")},
 }
+
+# leaves whose last dim holds two halves, each cut alone over the model axis
+HALVES = ("in_proj", "up")
+
+
+def _halves(names: tuple) -> bool:
+    return bool(names) and names[-1] in HALVES
+
+
+def fsdp_dim(names: tuple, ndim: int, cfg, data: int) -> Optional[int]:
+    """The dim of a parameter leaf (``names`` its dict keys, ``ndim`` its
+    rank) that FSDP cuts over a ``data`` axis of ``data`` ranks: its rule's
+    ``F`` entry where ``data`` divides the whole dim (``sanitize_spec``'s
+    rule), else None.  The whole dim is ``d_model`` for every ``F`` rule
+    but the xLSTM cell's q/k/v, whose rows are its inner dim, 2 d_model."""
+    name = names[-1] if names else ""
+    spec = _spec_for(name, tuple(names[:-1]), ndim, "M", "F")
+    if "F" not in spec:
+        return None
+    whole = (2 * cfg.d_model if len(names) > 1 and names[-2] == "cell"
+             and name in ("wq", "wk", "wv") else cfg.d_model)
+    return spec.index("F") if whole % data == 0 else None
 
 
 def leaf_cut(names: tuple, spec: Spec, plan: TPPlan) -> Spec:
@@ -437,20 +472,34 @@ def leaf_cut(names: tuple, spec: Spec, plan: TPPlan) -> Spec:
     return spec
 
 
-def tp_param_specs(params, cfg, mesh):
+def with_fsdp(names: tuple, spec: Spec, cfg, mesh,
+              fsdp_axis: Optional[str]) -> Spec:
+    """A leaf's model cut ``spec`` with its ``fsdp_dim`` cut over
+    ``fsdp_axis`` added (no ``fsdp_axis``: ``spec`` itself)."""
+    if fsdp_axis is None:
+        return spec
+    dim = fsdp_dim(names, len(spec), cfg, mesh.shape[fsdp_axis])
+    if dim is None:
+        return spec
+    return Spec(*(fsdp_axis if d == dim else e for d, e in enumerate(spec)))
+
+
+def tp_param_specs(params, cfg, mesh, fsdp_axis: Optional[str] = None):
     """The cut of every parameter leaf on ``mesh``: ``param_specs``, whole
-    where ``tp_plan`` keeps the module whole.  Within a module the plan
-    cuts, every cut dim divides over the model axis (the plan asks it of
-    the heads, kv heads, d_ff, experts, d_inner and vocabulary), so
-    ``sanitize_spec`` would drop nothing there, and the cut is read from
-    the leaves' names and ranks alone: it holds for a full parameter tree
-    and for one rank's shard of it alike."""
+    where ``tp_plan`` keeps the module whole, and with ``fsdp_axis`` each
+    leaf's ``fsdp_dim`` cut over it.  Within a module the plan cuts, every
+    cut dim divides over the model axis (the plan asks it of the heads, kv
+    heads, d_ff, experts, d_inner and vocabulary), so ``sanitize_spec``
+    would drop nothing there, and the cut is read from the leaves' names
+    and ranks alone: it holds for a full parameter tree and for one rank's
+    shard of it alike."""
     plan = tp_plan(cfg, mesh.shape["model"])
 
     def one(names, leaf):
         spec = _spec_for(names[-1] if names else "", tuple(names[:-1]),
                          _ndim(leaf), "model", None)
-        return leaf_cut(names, spec, plan)
+        return with_fsdp(names, leaf_cut(names, spec, plan), cfg, mesh,
+                         fsdp_axis)
     return _map_named(one, params)
 
 
@@ -469,23 +518,26 @@ class CutLayout:
     """How one rank's shard of a parameter tree (or of a gradient, leaf for
     leaf) sits in the whole tree, by ``tree_flatten``'s names ("00000",
     ...): ``cut[name]`` whether the leaf is cut over the model axis,
-    ``full[name]`` the whole leaf's shape, ``piece(name, t)`` the rank's
-    shard of a whole leaf ``t``.  Read from any rank's shard (its names
-    and shapes: a cut dim's whole size is the shard's times the model
-    axis)."""
+    ``fsdp[name]`` its dim cut over ``fsdp_axis`` (or None), ``full[name]``
+    the whole leaf's shape, ``piece(name, t)`` the rank's shard of a whole
+    leaf ``t``.  Read from any rank's shard (its names and shapes: a cut
+    dim's whole size is the shard's times its axis)."""
 
-    def __init__(self, shard, cfg, mesh, rank: int):
+    def __init__(self, shard, cfg, mesh, rank: int,
+                 fsdp_axis: Optional[str] = None):
         self.mesh, self.rank = mesh, rank
-        m = mesh.shape["model"]
-        specs = _named_leaves(tp_param_specs(shard, cfg, mesh))
+        specs = _named_leaves(tp_param_specs(shard, cfg, mesh, fsdp_axis))
         self.spec, self.halves, self.cut, self.full = {}, {}, {}, {}
+        self.fsdp = {}
         for i, ((names, leaf), (_, spec)) in enumerate(
                 zip(_named_leaves(shard), specs)):
             key = f"{i:05d}"
             self.spec[key] = spec
-            self.halves[key] = bool(names) and names[-1] == "in_proj"
-            self.cut[key] = any(e is not None for e in spec)
-            self.full[key] = tuple(n * (m if e is not None else 1)
+            self.halves[key] = _halves(names)
+            self.cut[key] = "model" in spec
+            self.fsdp[key] = (spec.index(fsdp_axis) if fsdp_axis
+                              and fsdp_axis in spec else None)
+            self.full[key] = tuple(n * (1 if e is None else mesh.shape[e])
                                    for n, e in zip(leaf.shape, spec))
 
     def piece(self, key: str, t: torch.Tensor) -> torch.Tensor:
@@ -580,22 +632,24 @@ def _zip_named(fn, tree, specs, names: tuple = ()):
     return fn(names, tree, specs)
 
 
-def shard_params(params, mesh, rank: int, cfg):
+def shard_params(params, mesh, rank: int, cfg,
+                 fsdp_axis: Optional[str] = None):
     """Rank ``rank``'s shard of a full parameter tree, cut by
-    ``tp_param_specs``: the counterpart of ``jax.device_put(params,
-    named_shardings(...))``.  A contiguous cut is a view of the full
-    tensor."""
+    ``tp_param_specs`` (with ``fsdp_axis``: also over it): the counterpart
+    of ``jax.device_put(params, named_shardings(...))``.  A contiguous cut
+    is a view of the full tensor."""
     return _zip_named(
         lambda names, t, s: cut_leaf(t, s, mesh, rank,
-                                     halves=names[-1] == "in_proj"),
-        params, tp_param_specs(params, cfg, mesh))
+                                     halves=_halves(names)),
+        params, tp_param_specs(params, cfg, mesh, fsdp_axis))
 
 
-def gather_params(shards: Sequence, mesh, cfg, like):
+def gather_params(shards: Sequence, mesh, cfg, like,
+                  fsdp_axis: Optional[str] = None):
     """The full parameter tree from every rank's shard (rank order);
     ``like`` is a tree of the full shapes (its leaves anything with a
     ``shape``)."""
-    specs = tp_param_specs(like, cfg, mesh)
+    specs = tp_param_specs(like, cfg, mesh, fsdp_axis)
 
     def walk(parts, spec, names=()):
         first = parts[0]
@@ -605,7 +659,7 @@ def gather_params(shards: Sequence, mesh, cfg, like):
         if isinstance(first, (tuple, list)):
             return type(first)(walk([p[i] for p in parts], spec[i], names)
                                for i in range(len(first)))
-        return gather_leaf(parts, spec, mesh, halves=names[-1] == "in_proj")
+        return gather_leaf(parts, spec, mesh, halves=_halves(names))
     return walk(list(shards), specs)
 
 

@@ -54,13 +54,23 @@ collective made in a ``ctx.scope(key)`` (a superblock, a chunk) keeps its
 result under ``(key, n)``, its place in the scope, and the recompute of
 that scope takes it from there: the same bits, no collective.  The
 backward folds are not recorded.
+
+FSDP.  ``ctx.unshard(xs, dims, axis)`` is the gather of parameter leaves
+cut over ``axis`` (``data``): forward, each leaf's slices concatenated
+along its cut dim in rank order (one collective for all the leaves);
+backward, the whole leaves' gradients folded over the axis in rank order
+(the fold ``fold`` uses; none where the batch is not cut over the axis,
+``batch_split``) and the rank's slice kept.  A gather is exact, so it is
+not recorded: a checkpoint's recompute gathers again, and the whole
+leaves do not outlive their superblock.  Every rank's backward runs the
+same graph, so the ranks reach the recompute's gathers in one order.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -84,7 +94,11 @@ class RankContext:
         # capacity, its pairs' slots, its aux losses) then counts every
         # data rank's rows
         self.batch_split = False
-        self._log = None        # {(scope key, n, axis): result} in recorded()
+        # the axis the parameter leaves with an FSDP rule are cut over
+        # (``distribution.sharding.fsdp_dim``), or None: the train step
+        # sets it, and the models gather those leaves (``unshard``)
+        self.fsdp_axis: Optional[str] = None
+        self._log = None       # {(scope key, n, axis): result} in recorded()
         self._scope = None      # [scope key, collectives so far] in scope()
 
     @contextlib.contextmanager
@@ -175,6 +189,25 @@ class RankContext:
             return x
         return _Enter.apply(x, self, axis)
 
+    def unshard(self, xs: Sequence[torch.Tensor], dims: Sequence[int],
+                axis: str = "data") -> tuple:
+        """The whole leaves of the rank's slices ``xs``, each cut along
+        ``dims[i]`` over ``axis``: every rank's slice concatenated in rank
+        order, one collective for all of them (one for each dtype).  Its
+        backward folds the whole leaves' gradients over ``axis`` (where the
+        batch is cut over it) and keeps the rank's slices.  Not recorded:
+        a recompute gathers again."""
+        if self.size(axis) == 1 or not xs:
+            return tuple(xs)
+        out: List[Optional[torch.Tensor]] = [None] * len(xs)
+        for dt in dict.fromkeys(x.dtype for x in xs):
+            idx = [i for i, x in enumerate(xs) if x.dtype == dt]
+            whole = _Unshard.apply(self, axis, tuple(dims[i] for i in idx),
+                                   *(xs[i] for i in idx))
+            for i, w in zip(idx, whole):
+                out[i] = w
+        return tuple(out)
+
     def __repr__(self):
         return f"RankContext(rank={self.rank}, d={self.d}, m={self.m})"
 
@@ -224,6 +257,40 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return g[fctx.index], None, None
+
+
+class _Unshard(torch.autograd.Function):
+    """Whole leaves from the ranks' slices along their cut dims (one
+    gather of the slices flattened end to end); backward: the fold of the
+    whole leaves' gradients (flattened end to end) over the axis where
+    the batch is cut over it, then the rank's slice of each."""
+
+    @staticmethod
+    def forward(fctx, rc, axis, dims, *xs):
+        fctx.rc, fctx.axis, fctx.dims = rc, axis, dims
+        fctx.sizes = [x.shape[d] for x, d in zip(xs, dims)]
+        stack = rc._gather_now(torch.cat([x.reshape(-1) for x in xs]), axis)
+        out, off = [], 0
+        for x, d in zip(xs, dims):
+            n = x.numel()
+            out.append(torch.cat([s[off:off + n].view(x.shape)
+                                  for s in stack.unbind(0)], dim=d))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(fctx, *gs):
+        rc, axis = fctx.rc, fctx.axis
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        if rc.batch_split:
+            flat = rc._fold_now(flat, axis)
+        i = rc.coord(axis)
+        out, off = [], 0
+        for g, d, size in zip(gs, fctx.dims, fctx.sizes):
+            whole = flat[off:off + g.numel()].view(g.shape)
+            out.append(whole.narrow(d, i * size, size).clone())
+            off += g.numel()
+        return (None, None, None, *out)
 
 
 class _Aborted(Exception):

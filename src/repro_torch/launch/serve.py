@@ -27,7 +27,10 @@ counterpart of the reference's ``in_shardings_fn`` and ``device_put``);
 whole model.  The steps take and return such lists and whole token
 batches: the batch is cut over ``data`` (where it divides), the model over
 ``model`` (``distribution.sharding.tp_plan``), and the next ids come back
-whole.  ``build_decode_step(context_parallel=True)`` cuts the cache's
+whole.  An xLSTM's decode cache holds a rank's heads of each mLSTM's
+``C``/``n`` and every sLSTM's whole state; an encoder-decoder's decode
+steps take the encoder's output whole (``build_encode_step`` runs the
+encoder on the mesh) and cut its rows with the batch's.  ``build_decode_step(context_parallel=True)`` cuts the cache's
 sequence over ``data`` instead (every data rank takes the whole batch,
 ``shard_offset = d * cache_len / data``, the flash-decoding merge folded
 over ``data``); ``shard_cache_seq=True`` cuts it over ``model`` where the
@@ -120,7 +123,24 @@ def _decode_cache_specs(cfg: ModelConfig, mesh, cache_like, *,
                 lambda names, sp: (sh.Spec(None, ("data",), seq_axis, None,
                                            None) if len(sp) == 5 else sp),
                 specs)
+    if cfg.is_xlstm:
+        specs = sh._map_named(
+            lambda names, sp: _xlstm_cache_spec(cfg, mesh, names[-1], sp),
+            specs)
     return sh.named_shardings(mesh, specs, cache_like)
+
+
+def _xlstm_cache_spec(cfg: ModelConfig, mesh, name: str, spec):
+    """The port's cut of an xLSTM cache leaf: an mLSTM's ``C``
+    [n_sb,B,H,dh,dh] and ``n`` [n_sb,B,H,dh] by head over ``model`` where
+    the plan cuts the cell (the rank's heads run; the reference's spec
+    cuts a dh dim, which GSPMD may), every sLSTM state [n_sb,B,di] whole
+    (every rank runs the whole recurrence); the batch as ``spec`` cuts
+    it."""
+    heads = "model" if sh.tp_plan(cfg, mesh.model).heads else None
+    if name in ("C", "n") and len(spec) in (4, 5):    # the mLSTM's
+        return sh.Spec(None, spec[1], heads, *([None] * (len(spec) - 3)))
+    return sh.Spec(None, spec[1], None)
 
 
 def build_prefill_step(cfg: ModelConfig, device="cuda", *, mesh=None):
@@ -149,6 +169,36 @@ def build_prefill_step(cfg: ModelConfig, device="cuda", *, mesh=None):
     place = _place_params(cfg, mesh)
     return sharded_prefill_step, lambda params, cache=None: (place(params),
                                                              None)
+
+
+def build_encode_step(cfg: ModelConfig, device="cuda", *, mesh=None):
+    """encode_step(params, batch) -> enc_out [B, S_enc, D]: an
+    encoder-decoder's encoder over ``batch["src_embeds"]``
+    (``transformer.encode_for_decode``), the output its decode steps take.
+    With ``mesh``: ``(encode_step, place)``, each rank's encoder on its
+    shard and its data rank's rows, the output whole (the rows gathered
+    over ``data``)."""
+    dev = resolve_device(device)
+    if mesh is None:
+        @torch.inference_mode()
+        def encode_step(params, batch):
+            return T.encode_for_decode(params, cfg, _on(batch, dev))
+        return encode_step
+
+    @torch.inference_mode()
+    def sharded_encode_step(params, batch):
+        batch = _on(batch, dev)
+        split = _split_batch(mesh, batch["src_embeds"].shape[0])
+
+        def program(ctx):
+            enc = T.encode_for_decode(params[ctx.index], cfg,
+                                      _rows(batch, ctx, split), tp=ctx)
+            return _whole(enc, ctx, split)
+        return run_ranks(mesh, program)[0]
+
+    place = _place_params(cfg, mesh)
+    return sharded_encode_step, lambda params, cache=None: (place(params),
+                                                            None)
 
 
 def build_prefill_cache_step(cfg: ModelConfig, device="cuda", *,
@@ -228,13 +278,15 @@ def build_decode_step(cfg: ModelConfig, device="cuda", *,
         def program(ctx):
             p, c = params[ctx.index], cache[ctx.index]
             toks = _rows(tokens, ctx, split)
+            enc = None if enc_out is None else _rows(enc_out.to(dev), ctx,
+                                                     split)
             if context_parallel:
                 logits, c = T.decode_step(
-                    p, cfg, c, toks, pos, enc_out=enc_out, axis_name="data",
+                    p, cfg, c, toks, pos, enc_out=enc, axis_name="data",
                     shard_offset=ctx.d * (cache_len // mesh.data), tp=ctx)
             else:
                 logits, c = T.decode_step(p, cfg, c, toks, pos,
-                                          enc_out=enc_out, tp=ctx)
+                                          enc_out=enc, tp=ctx)
             ids = torch.argmax(logits, dim=-1).to(torch.int32)
             return _whole(ids, ctx, split), c
         out = run_ranks(mesh, program)

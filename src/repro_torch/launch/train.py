@@ -49,8 +49,18 @@ clients' losses; the mean path: the whole batch's), ``nll`` and ``aux``
 (the OTA path: the first local rank's client; the mean path: the whole
 batch's) and, on the OTA path, ``grad_norm``, the first local rank's
 client's whole gradient norm (on an emulated mesh client 0's; the
-reference's ``P()`` out-spec returns one shard's).  FSDP (``fsdp_axis``)
-raises: it waits for its own ROADMAP item.
+reference's ``P()`` out-spec returns one shard's).
+
+FSDP (``fsdp_axis="data"``, the mean path): ``place`` cuts every leaf with
+an ``F`` rule over ``data`` as well (``sharding.fsdp_dim``), params and
+optimizer state alike (``sgd`` and ``adamw`` are elementwise, so a leaf's
+state follows its slice).  A superblock gathers its cut leaves at its
+entry, inside its checkpoint (``RankContext.unshard``); the gather's
+backward folds their gradients over ``data`` in rank order and keeps the
+rank's slice, so the step folds only the other leaves' gradients.  The
+same operands fold in the same order and the update is elementwise, so
+the step is bitwise the step without FSDP, slice for slice.  The
+reference's plans never pair FSDP with an OTA scheme, which raises.
 """
 from __future__ import annotations
 
@@ -69,7 +79,6 @@ from repro_torch.distribution import ota_collectives as oc
 from repro_torch.distribution import sharding as SH
 from repro_torch.distribution.tensor_parallel import run_ranks
 from repro_torch.launch.mesh import ServingMesh
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
@@ -159,7 +168,8 @@ def _client_grads(cfg, ctx, params, rows, count=None):
     its rows: over its model shard where the model is cut, the MoE's
     dispatch the whole batch's where the rows are (``ctx.batch_split``);
     the forward's collectives recorded for the checkpoints' recomputes."""
-    tp = ctx if ctx.model > 1 or ctx.batch_split else None
+    tp = (ctx if ctx.model > 1 or ctx.batch_split or ctx.fsdp_axis
+          else None)
     with ctx.recorded():
         return _value_and_grad(lambda q: T.forward_loss(
             q, cfg, rows, count=count, tp=tp), params)
@@ -179,13 +189,12 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[ServingMesh], *,
     ``device``; the step moves each rank's rows there."""
     dev = resolve_device(device)
     mesh = mesh if mesh is not None else ServingMesh(1, 1)
-    if fsdp_axis is not None:
-        raise NotImplementedError(
-            f"training with fsdp_axis={fsdp_axis!r} waits for "
-            f"{L.FSDP_ITEM}")
     opt = optimizer or sgd(1e-2)
-    if scheme == "mean" or not aggregation_axes:
-        return _mean_step(cfg, mesh, opt, dev), _placer(mesh, cfg)
+    mean = scheme == "mean" or not aggregation_axes
+    _check_fsdp(fsdp_axis, mean)
+    if mean:
+        return (_mean_step(cfg, mesh, opt, dev, fsdp_axis),
+                _placer(mesh, cfg, fsdp_axis))
     axes = tuple(aggregation_axes)
     if axes != ("data",):
         raise ValueError(f"aggregation_axes {axes}: the FL clients are the "
@@ -197,17 +206,39 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[ServingMesh], *,
                      ota_stats_impl), _placer(mesh, cfg)
 
 
-def _placer(mesh: ServingMesh, cfg: ModelConfig):
+def _check_fsdp(fsdp_axis, mean: bool) -> None:
+    """FSDP runs over ``data`` on the mean path; the rest raises."""
+    if fsdp_axis is None:
+        return
+    if isinstance(fsdp_axis, (tuple, list)):
+        raise NotImplementedError(
+            f"fsdp_axis={tuple(fsdp_axis)!r}: FSDP over several axes (the "
+            "multi-pod ('pod', 'data')) waits for the production mesh, "
+            "ROADMAP queue 1 item 17")
+    if fsdp_axis != "data":
+        raise ValueError(f"fsdp_axis={fsdp_axis!r}: FSDP cuts over the "
+                         "'data' axis")
+    if not mean:
+        raise NotImplementedError(
+            "fsdp_axis with an OTA scheme: the reference's plans never pair "
+            "them (XLA cannot partition FSDP under the client shard_map: "
+            "src/repro/launch/dryrun.py:53-60, tests/test_distribution.py:"
+            "269); FSDP runs on the mean path (scheme='mean')")
+
+
+def _placer(mesh: ServingMesh, cfg: ModelConfig,
+            fsdp_axis: Optional[str] = None):
     def shard(tree, rank):
-        if mesh.model == 1 or tree is None or isinstance(tree, torch.Tensor):
+        if (mesh.model == 1 and fsdp_axis is None) or tree is None \
+                or isinstance(tree, torch.Tensor):
             return tree
-        return SH.shard_params(tree, mesh, rank, cfg)
+        return SH.shard_params(tree, mesh, rank, cfg, fsdp_axis)
 
     def place(params=None, opt_state=None, batch=None):
         """Per-rank lists of the ranks this process runs: each rank's shard
         of the params and of the optimizer state, leaf for leaf (updates
-        are functional), the batch's rows cut over ``data`` where they
-        divide."""
+        are functional; with FSDP also cut over ``data``), the batch's rows
+        cut over ``data`` where they divide."""
         ranks = mesh.local_ranks
         rows = None
         if batch is not None:
@@ -283,17 +314,23 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
     return train_step
 
 
-def _mean_step(cfg, mesh, opt, dev):
-    place = _placer(mesh, cfg)
+def _mean_step(cfg, mesh, opt, dev, fsdp_axis=None):
+    place = _placer(mesh, cfg, fsdp_axis)
 
     def train_step(params, opt_state, batch, gen_or_seed=None):
         batch = _rank_batches(mesh, place, batch)
+        # which leaves the gather's backward has folded over ``data``
+        gathered = None
+        if fsdp_axis is not None:
+            gathered = SH.CutLayout(params[0], cfg, mesh, mesh.local_ranks[0],
+                                    fsdp_axis).fsdp
 
         def program(ctx):
             p, o = params[ctx.index], opt_state[ctx.index]
             rows = {k: v.to(dev) for k, v in batch[ctx.index].items()}
             split = batch.split
             ctx.batch_split = split
+            ctx.fsdp_axis = fsdp_axis
             count = None
             if split:
                 mask = rows.get("loss_mask")
@@ -303,7 +340,10 @@ def _mean_step(cfg, mesh, opt, dev):
                 count = ctx.fold(mine, "data")
             loss, metrics, grads = _client_grads(cfg, ctx, p, rows, count)
             if split:
-                grads = [ctx.fold(g, "data") for g in grads]
+                grads = [g if gathered is not None
+                         and gathered[f"{i:05d}"] is not None
+                         else ctx.fold(g, "data")
+                         for i, g in enumerate(grads)]
                 loss = ctx.fold(loss, "data")
                 metrics = {k: ctx.fold(v, "data") for k, v in metrics.items()}
             new_p, new_o = opt.update(

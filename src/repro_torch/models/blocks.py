@@ -7,9 +7,9 @@ then cross-attention over the encoder's output ``enc_out``), ``mamba``,
 ``mlstm`` and ``slstm`` mixers, the first three with a ``dense`` or ``moe``
 MLP half; the xLSTM blocks carry their own projections and have no MLP
 half.  Every apply function takes ``tp`` (a ``RankContext``) to the
-layers: a rank's block runs on its shards (the xLSTM and cross-attention
-blocks do not run on a mesh: ``transformer`` refuses ``tp`` for their
-configs).
+layers: a rank's block runs on its shards (an xattn block's
+cross-attention, which no config of the zoo has, runs whole on every
+rank).
 """
 from __future__ import annotations
 
@@ -114,8 +114,8 @@ def apply_block(params: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     else:
         mix = X.mlstm_mix if mixer == "mlstm" else X.slstm_mix
         if not collect:
-            return x + mix(params["cell"], cfg, h_in), _zero(x), None
-        h, state = mix(params["cell"], cfg, h_in, return_state=True)
+            return x + mix(params["cell"], cfg, h_in, tp=tp), _zero(x), None
+        h, state = mix(params["cell"], cfg, h_in, return_state=True, tp=tp)
         names = ("C", "n") if mixer == "mlstm" else SLSTM_STATE
         return x + h, _zero(x), dict(zip(names, state))
     x = x + h
@@ -195,11 +195,11 @@ def apply_block_decode(params: Dict, cfg: ModelConfig, kind: str,
             params["mamba"], cfg, h_in, cache["ssm"], cache["conv"], tp)
     elif mixer == "mlstm":
         h, new_cache["C"], new_cache["n"] = X.mlstm_decode_step(
-            params["cell"], cfg, h_in, cache["C"], cache["n"])
+            params["cell"], cfg, h_in, cache["C"], cache["n"], tp)
         return x + h, new_cache
     else:
         h, _ = X.slstm_decode_step(params["cell"], cfg, h_in,
-                                   tuple(cache[k] for k in SLSTM_STATE))
+                                   tuple(cache[k] for k in SLSTM_STATE), tp)
         return x + h, new_cache
     x = x + h
     if mixer == "xattn":

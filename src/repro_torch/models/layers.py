@@ -39,7 +39,9 @@ gold logit instead of forming the whole logits.  Decode attention over
 a cache cut along its sequence (``cfg.decode_cache_seq_axis``, or the
 context-parallel ``axis_name``) folds the softmax's max and sum and the
 output across the shards (flash decoding).  With ``tp=None`` every
-function is the single-device code.
+function is the single-device code.  Under FSDP (``tp.fsdp_axis``) the
+layers read whole leaves: ``unshard`` gathers a superblock's leaves cut
+over ``data`` before its blocks run.
 """
 from __future__ import annotations
 
@@ -51,17 +53,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distribution.sharding import tp_plan
+from repro_torch.distribution.sharding import fsdp_dim, tp_plan
 from repro_torch.kernels import ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-# what an unported path names when it raises
-ZOO_ITEM = "ROADMAP queue 1 item 16 (model zoo)"
-
-
-# what a train step over FSDP names when it raises
-FSDP_ITEM = "ROADMAP queue 1 item 20 (FSDP over data on the mean path)"
 
 
 def records(*trees) -> bool:
@@ -253,6 +249,32 @@ def enter_cut(cfg: ModelConfig, x: torch.Tensor, tp,
     column-parallel product): ``tp.enter`` where the plan cuts it, whose
     backward folds the ranks' partial gradients of ``x``."""
     return tp.enter(x) if cuts(cfg, tp, module) else x
+
+
+def unshard(cfg: ModelConfig, tree, tp):
+    """A tree of parameter dicts (a superblock's blocks, the embeddings)
+    with every leaf that FSDP cuts over ``tp.fsdp_axis``
+    (``sharding.fsdp_dim``) gathered whole, in one collective
+    (``RankContext.unshard``); the tree itself without FSDP."""
+    if tp is None or tp.fsdp_axis is None:
+        return tree
+    data = tp.size(tp.fsdp_axis)
+
+    def walk(t, names, leaf_fn):
+        if isinstance(t, dict):
+            return {k: walk(v, names + (k,), leaf_fn) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v, names, leaf_fn) for v in t)
+        dim = fsdp_dim(names, t.dim(), cfg, data)
+        return t if dim is None else leaf_fn(t, dim)
+
+    cut = []
+    walk(tree, (), lambda t, dim: cut.append((t, dim)))
+    if not cut:
+        return tree
+    whole = iter(tp.unshard([t for t, _ in cut], [d for _, d in cut],
+                            tp.fsdp_axis))
+    return walk(tree, (), lambda t, dim: next(whole))
 
 
 def _expand_kv(cfg: ModelConfig, k: torch.Tensor,

@@ -25,11 +25,15 @@ Tensor parallelism: every serving function takes ``tp`` (a
 ``distribution.tensor_parallel.RankContext``) and then runs one rank's
 model on its shard of the parameters (``distribution.sharding.
 shard_params``, or ``init_sharded_params``, which draws a model too large
-for one card a leaf at a time and keeps the rank's shard).  The xLSTM and
-encoder-decoder configs do not run on a mesh yet (``_check_tp``).
-``forward_loss`` takes ``tp`` too: one rank's training forward, its folds
-differentiable.  ``cfg.seq_shard_activations`` (the reference's
-sequence-parallel placement hint for GSPMD) changes nothing here.
+for one card a leaf at a time and keeps the rank's shard).  An
+encoder-decoder's encoder runs on the mesh as the decoder's attn+dense
+blocks do (its output whole on every rank of a data row), and the xLSTM
+cells on their rank's heads (``xlstm``).  ``forward_loss`` takes ``tp``
+too: one rank's training forward, its folds differentiable; under FSDP
+(``tp.fsdp_axis``) a superblock gathers its cut leaves at its entry, inside
+its checkpoint, and the loss gathers ``unemb`` (``layers.unshard``).
+``cfg.seq_shard_activations`` (the reference's sequence-parallel
+placement hint for GSPMD) changes nothing here.
 """
 from __future__ import annotations
 
@@ -84,10 +88,10 @@ def _stack_blocks(generator, cfg: ModelConfig, device, cut=None) -> tuple:
                  for kind in cfg.block_pattern)
 
 
-def _init_encoder(generator, cfg: ModelConfig, device) -> Dict:
+def _init_encoder(generator, cfg: ModelConfig, device, cut=None) -> Dict:
     """The encoder of an encoder-decoder: ``num_encoder_layers`` attn+dense
     blocks stacked as one pattern position, and its final norm."""
-    blocks = [B.init_block(generator, cfg, "attn+dense", device)
+    blocks = [B.init_block(generator, cfg, "attn+dense", device, cut)
               for _ in range(cfg.num_encoder_layers)]
     return {"blocks": (_stack(blocks),),
             "final_ln": L.init_rmsnorm(cfg.d_model, device)}
@@ -113,42 +117,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, mesh,
-                        rank: int, device="cuda") -> Dict:
+                        rank: int, device="cuda",
+                        fsdp_axis: Optional[str] = None) -> Dict:
     """Rank ``rank``'s shard of ``init_params(cfg, generator, device)``,
-    bitwise (``distribution.sharding.shard_params`` of it), drawn without
-    the whole model: every leaf is drawn in ``init_params``'s order, one
-    superblock's leaf at a time, and only the rank's shard of it is kept
-    (as a copy), so the peak is one full leaf.  Serves a model whose
-    weights do not fit one card (jamba-v0.1-52b: 103 GB in bf16)."""
-    _check_tp(cfg, mesh)
+    bitwise (``distribution.sharding.shard_params`` of it, with
+    ``fsdp_axis`` as given), drawn without the whole model: every leaf is
+    drawn in ``init_params``'s order, one superblock's leaf at a time, and
+    only the rank's shard of it is kept (as a copy), so the peak is one
+    full leaf.  Serves a model whose weights do not fit one card
+    (jamba-v0.1-52b: 103 GB in bf16)."""
     plan = SH.tp_plan(cfg, mesh.shape["model"])
 
     def cut(path: str, t: torch.Tensor) -> torch.Tensor:
         names = tuple(path.split("/"))
         spec = SH._spec_for(names[-1], names[:-1], t.dim(), "model", None)
-        spec = SH.leaf_cut(names, SH.sanitize_spec(mesh, spec, t.shape),
-                           plan)
+        spec = SH.with_fsdp(names, SH.leaf_cut(
+            names, SH.sanitize_spec(mesh, spec, t.shape), plan), cfg, mesh,
+            fsdp_axis)
         if all(e is None for e in spec):
             return t
         return SH.cut_leaf(t, spec, mesh, rank,
-                           halves=names[-1] == "in_proj").clone()
+                           halves=SH._halves(names)).clone()
 
-    return {"emb": L.init_embeddings(generator, cfg, device,
-                                     lambda name, t: cut(f"emb/{name}", t)),
-            "blocks": _stack_blocks(generator, cfg, device, cut),
-            "final_ln": L.init_rmsnorm(cfg.d_model, device)}
-
-
-def _check_tp(cfg: ModelConfig, tp) -> None:
-    """The serving mesh covers the attention, Mamba and MoE blocks; the
-    xLSTM cells and the encoder-decoder wait for their tensor-parallel
-    cut (a mesh of one model rank cuts nothing)."""
-    if tp is not None and tp.model > 1 and (cfg.is_xlstm
-                                            or cfg.is_encoder_decoder):
-        raise NotImplementedError(
-            f"{cfg.name} on a serving mesh (tp): the xLSTM and "
-            f"encoder-decoder configs wait for {L.ZOO_ITEM}, 'the serving "
-            f"mesh for xlstm and seamless'")
+    p = {"emb": L.init_embeddings(generator, cfg, device,
+                                  lambda name, t: cut(f"emb/{name}", t)),
+         "blocks": _stack_blocks(generator, cfg, device, cut),
+         "final_ln": L.init_rmsnorm(cfg.d_model, device)}
+    if cfg.is_encoder_decoder:
+        p["encoder"] = _init_encoder(generator, cfg, device, cut)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -157,24 +154,28 @@ def _check_tp(cfg: ModelConfig, tp) -> None:
 
 def _run_stack(blocks, cfg: ModelConfig, pattern, x: torch.Tensor, *,
                causal: bool = True, enc_out=None, cache_len: int = 0,
-               impl: str = "auto", tp=None):
+               impl: str = "auto", tp=None, scope=None):
     """Depth loop over the stack (the leading axis of ``blocks``' leaves:
     the superblocks, or the encoder's layers), each superblock
     checkpointed under ``cfg.remat`` where autograd records.  With
     ``cache_len > 0`` it also returns every block's decode cache (prefill
     handoff), stacked over superblocks -- the ``init_cache`` layout.
     With ``tp``, each superblock is a scope of the rank's collectives
-    (``RankContext.scope``), so that a checkpoint's recompute finds the
-    results of its superblock's collectives."""
+    (``RankContext.scope``, keyed ``i``, or ``(scope, i)`` for another
+    stack: the encoder's), so that a checkpoint's recompute finds the
+    results of its superblock's collectives; under FSDP the superblock
+    gathers its cut leaves first, inside its checkpoint."""
     depth = blocks[0]["ln1"]["scale"].shape[0]
     per = [_unstack(b, depth) for b in blocks]
     caches = [[] for _ in pattern]
 
     def superblock(x, aux, i):
-        with (tp.scope(i) if tp is not None
+        key = i if scope is None else (scope, i)
+        with (tp.scope(key) if tp is not None
               else contextlib.nullcontext()):
+            params = L.unshard(cfg, [p[i] for p in per], tp)
             for pos, kind in enumerate(pattern):
-                x, a, c = B.apply_block(per[pos][i], cfg, kind, x,
+                x, a, c = B.apply_block(params[pos], cfg, kind, x,
                                         causal=causal, enc_out=enc_out,
                                         cache_len=cache_len, impl=impl,
                                         tp=tp)
@@ -203,13 +204,15 @@ def _modal(params, embeds: torch.Tensor) -> torch.Tensor:
 
 
 def _encode(params, cfg: ModelConfig, src_embeds: torch.Tensor, *,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", tp=None) -> torch.Tensor:
     """The encoder over stub modality embeddings: src_embeds
     [B, S_enc, E] -> enc_out [B, S_enc, D] (projection, the non-causal
-    attn+dense stack, the final norm)."""
+    attn+dense stack, the final norm); with ``tp`` one rank's encoder
+    (``modal_proj`` whole, the blocks cut as the decoder's), its output
+    whole."""
     x = _modal(params, src_embeds)
     x, _ = _run_stack(params["encoder"]["blocks"], cfg, ("attn+dense",), x,
-                      causal=False, impl=impl)
+                      causal=False, impl=impl, tp=tp, scope="encoder")
     return L.rmsnorm(params["encoder"]["final_ln"], x, cfg.norm_eps)
 
 
@@ -225,8 +228,9 @@ def _decoder_inputs(params, cfg: ModelConfig, batch: Dict, tp=None
     return x
 
 
-def _encoder_out(params, cfg: ModelConfig, batch: Dict, impl: str):
-    return (_encode(params, cfg, batch["src_embeds"], impl=impl)
+def _encoder_out(params, cfg: ModelConfig, batch: Dict, impl: str,
+                 tp=None):
+    return (_encode(params, cfg, batch["src_embeds"], impl=impl, tp=tp)
             if cfg.is_encoder_decoder else None)
 
 
@@ -254,16 +258,17 @@ def forward_loss(params, cfg: ModelConfig, batch: Dict, *, count=None,
     batch's and its aux the rank's share (``moe.moe_mlp``); ``count``
     replaces the batch's own mask count, so that the nll is the rank's
     share of the whole batch's mean (the mean train step passes the folded
-    count)."""
-    _check_tp(cfg, tp)
-    enc_out = _encoder_out(params, cfg, batch, impl)
+    count).  Under FSDP the batch's rows are its data rank's, and the
+    gradient of a leaf cut over ``data`` comes out folded and cut."""
+    enc_out = _encoder_out(params, cfg, batch, impl, tp)
     x = _decoder_inputs(params, cfg, batch, tp)
     x, aux = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
                         causal=True, enc_out=enc_out, impl=impl, tp=tp)
     x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     if cfg.modality == "vision":
         x = x[:, -batch["tokens"].shape[1]:, :]
-    nll, cnt = L.xent_sums(x, L.unembed_matrix(params["emb"], cfg),
+    emb = L.unshard(cfg, params["emb"], tp)
+    nll, cnt = L.xent_sums(x, L.unembed_matrix(emb, cfg),
                            batch["labels"], cfg.loss_seq_chunk,
                            batch.get("loss_mask"), cfg.remat,
                            tp if L.cuts(cfg, tp, "vocab") else None)
@@ -283,9 +288,8 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict, *,
     ``torch.inference_mode()`` unless autograd would record through it (a
     parameter or input requiring grad), so that a caller can
     differentiate it."""
-    _check_tp(cfg, tp)
     with torch.inference_mode(not L.records(params, batch)):
-        enc_out = _encoder_out(params, cfg, batch, impl)
+        enc_out = _encoder_out(params, cfg, batch, impl, tp)
         x = _decoder_inputs(params, cfg, batch, tp)
         x, _ = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
                           causal=True, enc_out=enc_out, impl=impl, tp=tp)
@@ -302,8 +306,7 @@ def prefill_with_cache(params, cfg: ModelConfig, batch: Dict,
     the rank's: its kv heads (all of them where they are not cut) and its
     Mamba channels.  An encoder-decoder runs its encoder here and again
     in ``encode_for_decode``, as the reference does."""
-    _check_tp(cfg, tp)
-    enc_out = _encoder_out(params, cfg, batch, impl)
+    enc_out = _encoder_out(params, cfg, batch, impl, tp)
     x = _decoder_inputs(params, cfg, batch, tp)
     x, _, cache = _run_stack(params["blocks"], cfg, cfg.block_pattern, x,
                              causal=True, enc_out=enc_out,
@@ -342,7 +345,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
     step on its shards (the logits whole, gathered over the vocabulary);
     ``axis_name``/``shard_offset``: the context-parallel cache
     (``layers.decode_attention``)."""
-    _check_tp(cfg, tp)
     x = L.embed(params["emb"], cfg, tokens, tp)
     pattern = cfg.block_pattern
     for i in range(cfg.num_superblocks):
@@ -357,10 +359,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
 
 @torch.inference_mode()
 def encode_for_decode(params, cfg: ModelConfig, batch: Dict, *,
-                      impl: str = "auto"):
+                      impl: str = "auto", tp=None):
     """The encoder pass run once before decoding an encoder-decoder
-    (``batch["src_embeds"]``); None for any other model."""
-    return _encoder_out(params, cfg, batch, impl)
+    (``batch["src_embeds"]``); None for any other model.  With ``tp`` one
+    rank's pass on its shard, the output whole."""
+    return _encoder_out(params, cfg, batch, impl, tp)
 
 
 def param_count(params) -> int:

@@ -18,7 +18,25 @@ The reference's cells, function for function:
   elementwise math.
 
 Both run as plain PyTorch: the reference has no Pallas kernel for either
-(its cells are plain ``jnp``).  The full-sequence mixers are
+(its cells are plain ``jnp``).
+
+Tensor parallelism (``tp``, a ``RankContext``; the cut of the reference's
+``param_specs``, the cell's modules with the heads): ``up`` is cut in
+halves, so a rank holds its features of ``u`` and ``z``.
+
+* mLSTM: ``u`` is gathered over the model axis (``wq``/``wk``/``wv`` and
+  ``ogate``, column-cut, read all of it) and the rank's heads run the
+  chunked cell; ``wi``/``wf`` (row-cut) read the rank's ``u``, their
+  partials fold and the rank keeps its heads' gates; ``down`` folds.  The
+  decode cache ``C``/``n`` holds the rank's heads.
+* sLSTM: ``w_gates`` (row-cut) folds once a layer, before the time loop;
+  ``r_gates``/``b_gates`` are whole, so every rank runs the whole
+  recurrence (state whole), as GSPMD does; the rank's features of ``h``
+  times ``silu(z)`` go through ``down``, which folds.
+
+Under autograd the replicated tensors enter the rank's work through
+``tp.enter`` (the block's input, the gathered ``u``, the folded gates and
+the sLSTM's ``h``), so every replicated leaf's gradient comes out whole.  The full-sequence mixers are
 differentiable (the mLSTM's chunks checkpointed under ``cfg.remat``, as the
 reference's); only the decode steps write the new state into the caller's
 cache in place (the port's decode convention, as
@@ -123,37 +141,66 @@ def _mlstm_chunk(q, k, v, log_f, i_gate, carry):
     return h, (c_new, n_new)
 
 
-def _mlstm_qkv(params, cfg: ModelConfig, u: torch.Tensor):
+def _cut(cfg: ModelConfig, tp) -> bool:
+    """Whether ``tp``'s plan cuts the cell (its heads) over the model
+    axis."""
+    return L.cuts(cfg, tp, "heads")
+
+
+def _up(params, cfg: ModelConfig, x: torch.Tensor, tp):
+    """u, z of the up-projection (a rank's features of each with ``tp``;
+    ``x`` enters the rank's work)."""
+    return torch.chunk(L.enter_cut(cfg, x, tp, "heads") @ params["up"], 2,
+                       dim=-1)
+
+
+def _mlstm_qkv(params, cfg: ModelConfig, u: torch.Tensor, tp=None):
     """q, k (scaled by 1/sqrt(dh)), v [B,S,H,dh] fp32 and the gates'
-    pre-activations [B,S,H] fp32 of the up-projection's first half u."""
+    pre-activations [B,S,H] fp32 of the up-projection's first half u, and
+    the whole u that the q/k/v and output-gate products read.  With the
+    cell cut: the rank's heads, from ``u`` gathered over the model axis,
+    and its heads' gates, from the fold of its rows' partials."""
     b, s, _ = u.shape
     _, hh, dh = _heads(cfg)
-    q = (u @ params["wq"]).reshape(b, s, hh, dh).float()
-    k = (u @ params["wk"]).reshape(b, s, hh, dh).float() / math.sqrt(dh)
-    v = (u @ params["wv"]).reshape(b, s, hh, dh).float()
     uf = u.float()
-    return q, k, v, uf @ params["wf"] + params["bf"], \
-        uf @ params["wi"] + params["bi"]
+    f_pre = uf @ params["wf"]
+    i_pre = uf @ params["wi"]
+    u_all = u
+    if _cut(cfg, tp):
+        hh //= tp.model
+        u_all = tp.enter(torch.cat(list(tp.gather(u).unbind(0)), dim=-1))
+        heads = slice(tp.m * hh, (tp.m + 1) * hh)
+        f_pre = tp.enter(tp.fold(f_pre) + params["bf"])[..., heads]
+        i_pre = tp.enter(tp.fold(i_pre) + params["bi"])[..., heads]
+    else:
+        f_pre = f_pre + params["bf"]
+        i_pre = i_pre + params["bi"]
+    q = (u_all @ params["wq"]).reshape(b, s, hh, dh).float()
+    k = (u_all @ params["wk"]).reshape(b, s, hh, dh).float() / math.sqrt(dh)
+    v = (u_all @ params["wv"]).reshape(b, s, hh, dh).float()
+    return q, k, v, f_pre, i_pre, u_all
 
 
-def _mlstm_out(params, h: torch.Tensor, u: torch.Tensor, z: torch.Tensor
-               ) -> torch.Tensor:
-    """The output gate, the silu(z) gate and the down-projection."""
+def _mlstm_out(params, cfg: ModelConfig, h: torch.Tensor, u: torch.Tensor,
+               z: torch.Tensor, tp=None) -> torch.Tensor:
+    """The output gate (of the whole ``u``), the silu(z) gate and the
+    down-projection, its partials folded with the cell cut."""
     h = h * torch.sigmoid(u @ params["ogate"])
-    return (h * F.silu(z)) @ params["down"]
+    return L.fold_cut(cfg, (h * F.silu(z)) @ params["down"], tp, "heads")
 
 
 def mlstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
-              return_state: bool = False):
+              return_state: bool = False, tp=None):
     """Full mLSTM block mixing: up-proj, chunkwise cell, output gate,
     down-proj.  x: [B,S,D] -> [B,S,D]; ``return_state=True`` also returns
     the final carry (C [B,H,dh,dh], n [B,H,dh]) fp32, the decode cache's
-    handoff.  Chunks of ``c = min(cfg.mlstm_chunk, S)`` steps, one chunk of
-    all S where c does not divide S (the reference's rule)."""
+    handoff (with ``tp``: the rank's heads).  Chunks of ``c =
+    min(cfg.mlstm_chunk, S)`` steps, one chunk of all S where c does not
+    divide S (the reference's rule)."""
     b, s, _ = x.shape
-    di, hh, dh = _heads(cfg)
-    u, z = torch.chunk(x @ params["up"], 2, dim=-1)         # [B,S,di] each
-    q, k, v, f_pre, i_pre = _mlstm_qkv(params, cfg, u)
+    u, z = _up(params, cfg, x, tp)                          # [B,S,di] each
+    q, k, v, f_pre, i_pre, u_all = _mlstm_qkv(params, cfg, u, tp)
+    hh, dh = q.shape[2], q.shape[3]
     log_f = F.logsigmoid(f_pre)                             # [B,S,H]
     i_gate = torch.sigmoid(i_pre)      # sigmoid (see module doc)
 
@@ -169,8 +216,8 @@ def mlstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
                            k[:, lo:lo + c], v[:, lo:lo + c],
                            log_f[:, lo:lo + c], i_gate[:, lo:lo + c], carry)
         hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(b, s, di).to(x.dtype)
-    out = _mlstm_out(params, h, u, z)
+    h = torch.cat(hs, dim=1).reshape(b, s, hh * dh).to(x.dtype)
+    out = _mlstm_out(params, cfg, h, u_all, z, tp)
     if return_state:
         return out, carry      # (C, n)
     return out
@@ -187,14 +234,14 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, n_layers: int,
 
 
 def mlstm_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
-                      c_mem: torch.Tensor, n_mem: torch.Tensor
+                      c_mem: torch.Tensor, n_mem: torch.Tensor, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B,1,D]; the exact single-step recurrence.  Returns (y [B,1,D],
-    C, n), C [B,H,dh,dh] and n [B,H,dh] updated in place."""
+    C, n), C [B,H,dh,dh] and n [B,H,dh] (with ``tp``: the rank's heads)
+    updated in place."""
     b = x.shape[0]
-    di = xlstm_inner_dim(cfg)
-    u, z = torch.chunk(x @ params["up"], 2, dim=-1)
-    q, k, v, f_pre, i_pre = _mlstm_qkv(params, cfg, u)
+    u, z = _up(params, cfg, x, tp)
+    q, k, v, f_pre, i_pre, u_all = _mlstm_qkv(params, cfg, u, tp)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                     # [B,H,dh]
     f = torch.sigmoid(f_pre[:, 0])                          # [B,H]
     i = torch.sigmoid(i_pre[:, 0])
@@ -204,8 +251,8 @@ def mlstm_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
     denom = torch.abs(torch.einsum("bhd,bhd->bh", q, n_mem))
     h = torch.einsum("bhd,bhde->bhe", q, c_mem) \
         / torch.clamp(denom, min=1.0)[..., None]
-    h = h.reshape(b, 1, di).to(x.dtype)
-    return _mlstm_out(params, h, u, z), c_mem, n_mem
+    h = h.reshape(b, 1, -1).to(x.dtype)
+    return _mlstm_out(params, cfg, h, u_all, z, tp), c_mem, n_mem
 
 
 # ---------------------------------------------------------------------------
@@ -263,15 +310,35 @@ def _slstm_cell(params, cfg: ModelConfig, wx_t: torch.Tensor, state):
     return (c_new, n_new, h_new, m_new), h_new
 
 
+def _slstm_wx(params, cfg: ModelConfig, u: torch.Tensor, tp
+              ) -> torch.Tensor:
+    """The gates' input contribution [.., 4 di] fp32 (whole): with the
+    cell cut, the fold of the rank's rows' partials (in fp32)."""
+    wx = (u @ params["w_gates"]).float()
+    return tp.fold(wx) if _cut(cfg, tp) else wx
+
+
+def _slstm_out(params, cfg: ModelConfig, h: torch.Tensor, z: torch.Tensor,
+               tp) -> torch.Tensor:
+    """``h`` [.., di] (whole, in the model's dtype) gated by ``silu(z)``
+    through ``down``: with the cell cut, the rank's features of ``h``
+    (which enters the rank's work) and the fold of the partials."""
+    if _cut(cfg, tp):
+        n = h.shape[-1] // tp.model
+        h = tp.enter(h)[..., tp.m * n:(tp.m + 1) * n]
+    return L.fold_cut(cfg, (h * F.silu(z)) @ params["down"], tp, "heads")
+
+
 def slstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
-              return_state: bool = False):
+              return_state: bool = False, tp=None):
     """x: [B,S,D] -> [B,S,D] through the true sequential recurrence;
     ``return_state=True`` also returns the final (c, n, h, m), each [B,di]
-    fp32, the state starting at zeros and m = -1e30."""
+    fp32, the state starting at zeros and m = -1e30 (whole on every rank
+    with ``tp``)."""
     b, s, _ = x.shape
     di = xlstm_inner_dim(cfg)
-    u, z_gate = torch.chunk(x @ params["up"], 2, dim=-1)
-    wx = (u @ params["w_gates"]).float()                    # [B,S,4di]
+    u, z_gate = _up(params, cfg, x, tp)
+    wx = _slstm_wx(params, cfg, u, tp)                      # [B,S,4di]
     zeros = torch.zeros((b, di), dtype=torch.float32, device=x.device)
     state = (zeros, zeros, zeros,
              torch.full((b, di), -1e30, dtype=torch.float32,
@@ -280,8 +347,8 @@ def slstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
     for t in range(s):
         state, h = _slstm_cell(params, cfg, wx[:, t], state)
         hs.append(h)
-    out = (torch.stack(hs, dim=1).to(x.dtype) * F.silu(z_gate)) \
-        @ params["down"]
+    out = _slstm_out(params, cfg, torch.stack(hs, dim=1).to(x.dtype), z_gate,
+                     tp)
     if return_state:
         return out, state
     return out
@@ -301,13 +368,14 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, n_layers: int,
                             dtype=torch.float32, device=device)}
 
 
-def slstm_decode_step(params, cfg: ModelConfig, x: torch.Tensor, state):
-    """x: [B,1,D]; state: (c, n, h, m) each [B,di], updated in place.
-    Returns (y [B,1,D], state)."""
-    u, z_gate = torch.chunk(x @ params["up"], 2, dim=-1)
-    wx = (u[:, 0] @ params["w_gates"]).float()
+def slstm_decode_step(params, cfg: ModelConfig, x: torch.Tensor, state,
+                      tp=None):
+    """x: [B,1,D]; state: (c, n, h, m) each [B,di] (whole with ``tp``),
+    updated in place.  Returns (y [B,1,D], state)."""
+    u, z_gate = _up(params, cfg, x, tp)
+    wx = _slstm_wx(params, cfg, u[:, 0], tp)
     new_state, h = _slstm_cell(params, cfg, wx, state)
     for old, new in zip(state, new_state):
         old.copy_(new)
-    y = (h[:, None, :].to(x.dtype) * F.silu(z_gate)) @ params["down"]
-    return y, state
+    return _slstm_out(params, cfg, h[:, None, :].to(x.dtype), z_gate,
+                      tp), state

@@ -35,6 +35,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_leaves
 
 KEY = jax.random.PRNGKey(0)
 ARCHS = ("h2o-danube-1.8b", "qwen2-7b", "phi3-mini-3.8b")
@@ -413,9 +414,11 @@ def test_prefill_counts_no_kernel_launch_on_cpu():
 
 
 def test_unported_paths_raise():
-    """What the port does not serve yet raises, naming its ROADMAP item:
-    the xLSTM and encoder-decoder configs on a serving mesh (item 16); the
-    softcap, which no config sets; a low-precision Mamba scan."""
+    """The xLSTM and encoder-decoder configs build, prefill and decode on a
+    serving mesh (``tests/test_torch_tp_zoo.py`` holds them to the uncut
+    model); what the port does not serve raises: the softcap, which no
+    config sets; a low-precision Mamba scan; the sharded serving options
+    without a mesh."""
     _, cfg, _, p = _model("h2o-danube-1.8b")
     mesh = make_host_mesh(1, 2)
     for arch in ("xlstm-1.3b", "seamless-m4t-medium"):
@@ -424,17 +427,17 @@ def test_unported_paths_raise():
         toks = torch.zeros((2, 4), dtype=torch.long)
         batch = {"tokens": toks, "src_embeds": torch.zeros(
             (2, 4, zcfg.modal_embed_dim))}
-        with pytest.raises(NotImplementedError, match="item 16"):
-            T.init_sharded_params(zcfg, torch.Generator(), mesh, 0,
-                                  device="cpu")
+        shards = [T.init_sharded_params(zcfg, torch.Generator(), mesh, r,
+                                        device="cpu") for r in range(2)]
         prefill, place = serve.build_prefill_cache_step(
             zcfg, "cpu", cache_len=8, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            prefill(place(zp)[0], batch)
-        decode, place = serve.build_decode_step(zcfg, "cpu", mesh=mesh)
-        params, cache = place(zp, T.init_cache(zcfg, 2, 8, device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 16"):
-            decode(params, cache, toks[:, :1], 0)
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(shards), tree_leaves(place(zp)[0])))
+        ids, cache = prefill(shards, batch)
+        assert ids.shape == (2,) and int(ids.max()) < zcfg.vocab_size
+        decode, _ = serve.build_decode_step(zcfg, "cpu", mesh=mesh)
+        ids, cache = decode(shards, cache, ids[:, None], 4)
+        assert ids.shape == (2,) and int(ids.max()) < zcfg.vocab_size
     # the sharded serving options need a mesh; without one, the sequence
     # axis of a cache is a placement hint only (tests/test_torch_tp_
     # serving.py runs them on a mesh)

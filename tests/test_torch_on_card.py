@@ -963,6 +963,10 @@ class TestFlashAttentionOnCard:
         (4, 16, 16, 8192, 2048, 64, False, None),  # seamless's cross-
         (4, 16, 16, 1, 2048, 64, False, None),     # attention, its decode
         (4, 16, 16, 2048, 2048, 64, False, None),  # seamless's encoder
+        (4, 8, 8, 8192, 8192, 64, True, None),     # seamless on the mesh:
+        (4, 4, 4, 8192, 8192, 64, True, None),     # a rank's decoder over
+        (4, 8, 8, 2048, 2048, 64, False, None),    # model = 2 and 4, and
+        (4, 4, 4, 2048, 2048, 64, False, None),    # its encoder
     ])
     def test_flash_attention_matches_plain(self, b, h, hkv, sq, skv, d,
                                            causal, window, dtype):
@@ -1493,3 +1497,105 @@ class TestTPTrainOnCard:
             assert abs(float(sq[0]) - float(sq_p[0])) <= TERMS_RTOL * abs_sq
             assert abs(float(s[0]) - float(s_p[0])) <= TERMS_RTOL * abs_s
             del g
+
+
+@pytest.mark.cuda
+class TestFSDPOnCard:
+    """FSDP over ``data`` on the card: the mean step bitwise the step
+    without FSDP on an emulated mesh; xlstm and seamless cut over the
+    model axis give the uncut model's greedy tokens."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    @pytest.mark.parametrize("shape,remat", [((2, 2), True), ((4, 2), False)])
+    def test_fsdp_step_is_the_plain_step_bitwise(self, shape, remat):
+        """Reduced granite, fp32, two adamw steps: every rank's slice of the
+        params and of the optimizer state, and the metrics, the same bits
+        as the step without FSDP."""
+        import dataclasses
+        from repro_torch.configs import registry as reg
+        from repro_torch.distribution import sharding as SH
+        from repro_torch.launch import train as tl
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.optimizers import adamw
+        from repro_torch.tree import tree_leaves
+        cfg = dataclasses.replace(reg.reduce_config(reg.get_config(
+            "granite-moe-1b-a400m")), dtype="float32", remat=remat)
+        p0 = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (8, 65),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        mesh = make_host_mesh(*shape, emulate=True)
+        out = {}
+        for fsdp in (None, "data"):
+            o = adamw(0.01)
+            step, place = tl.build_train_step(cfg, mesh, scheme="mean",
+                                              fsdp_axis=fsdp, optimizer=o,
+                                              device="cuda")
+            params, state, rows = place(p0, o.init(p0), batch)
+            ms = []
+            for _ in range(2):
+                params, state, m = step(params, state, rows)
+                ms.append(m)
+            out[fsdp] = (params, state, ms)
+        for r in range(mesh.size):
+            for tree in ("params", "mu", "nu"):
+                def pick(res, r=r, tree=tree):
+                    return (res[0] if tree == "params" else
+                            [getattr(s, tree) for s in res[1]])
+                whole = SH.gather_params(pick(out[None]), mesh, cfg, p0)
+                want = SH.shard_params(whole, mesh, r, cfg, "data")
+                assert all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(pick(out["data"])[r]), tree_leaves(want)))
+        for a, b in zip(out[None][2], out["data"][2]):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+
+    @pytest.mark.parametrize("arch,model", [("xlstm-1.3b", 2),
+                                            ("seamless-m4t-medium", 4)])
+    def test_cut_zoo_tokens_are_the_uncut_tokens(self, arch, model):
+        """Reduced, fp32: the prefill's token and 8 greedy tokens over an
+        emulated (1, model) mesh on the card equal the uncut route's."""
+        import dataclasses
+        from repro_torch.configs import registry as reg
+        from repro_torch.launch import serve
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import transformer as T
+        cfg = dataclasses.replace(reg.reduce_config(reg.get_config(arch)),
+                                  dtype="float32")
+        p = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+        g = torch.Generator().manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 64),
+                                         generator=g)}
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.randn((4, 32, cfg.modal_embed_dim),
+                                              generator=g)
+        runs = []
+        for mesh in (None, make_host_mesh(1, model, emulate=True)):
+            kw = {} if mesh is None else {"mesh": mesh}
+            pre = serve.build_prefill_cache_step(cfg, "cuda", cache_len=72,
+                                                 **kw)
+            dec = serve.build_decode_step(cfg, "cuda", **kw)
+            enc = serve.build_encode_step(cfg, "cuda", **kw)
+            params = p
+            if mesh is not None:
+                (pre, place), (dec, _), (enc, _) = pre, dec, enc
+                params = place(p)[0]
+            e = enc(params, batch) if cfg.is_encoder_decoder else None
+            ids, cache = pre(params, batch)
+            out = [ids]
+            for pos in range(64, 72):
+                ids, cache = dec(params, cache, ids[:, None], pos, enc_out=e)
+                out.append(ids)
+            runs.append(torch.stack(out, 1).cpu())
+        assert torch.equal(runs[0], runs[1])

@@ -25,7 +25,11 @@ mesh) against the uncut model and the JAX package's, on the CPU:
   test_ota_train_step_loss_decreases_on_mesh`` and ``test_seq_parallel_
   is_numerically_transparent``;
 * four ``gloo`` ranks (one subprocess): a physical ``(2, 2)`` mesh bitwise
-  the emulated one, on the OTA and the mean path.
+  the emulated one, on the OTA and the mean path, the mean path under
+  FSDP (``tests/test_torch_fsdp.py``), and reduced xlstm-1.3b and
+  seamless-m4t-medium served and trained one step
+  (``tests/test_torch_tp_zoo.py``);
+* what still raises: FSDP with an OTA scheme, and over a tuple of axes.
 
 torch runs on one thread in this file and in the ranks.
 """
@@ -588,10 +592,19 @@ def test_seq_parallel_is_numerically_transparent():
 
 
 def test_fsdp_raises_naming_its_item():
+    """FSDP runs on the mean path (``tests/test_torch_fsdp.py``); with an
+    OTA scheme it raises (the reference's plans never pair them), and over
+    a tuple of axes it waits for the production mesh (item 17)."""
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 20"):
+    ota = tl.OTARunParams(h=np.ones(2), b=np.ones(2))
+    with pytest.raises(NotImplementedError, match="never pair"):
         tl.build_train_step(cfg, make_host_mesh(2, 2), fsdp_axis="data",
-                            scheme="mean", device="cpu")
+                            scheme="normalized", aggregation_axes=("data",),
+                            ota=ota, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tl.build_train_step(cfg, make_host_mesh(2, 2),
+                            fsdp_axis=("pod", "data"), scheme="mean",
+                            device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -610,7 +623,7 @@ import torch.multiprocessing as mp
 RANKS = 4
 
 
-def run(mesh, scheme, steps=2):
+def run(mesh, scheme, steps=2, fsdp=None):
     import dataclasses
     import numpy as np
     from repro_torch.configs import registry as reg
@@ -628,7 +641,7 @@ def run(mesh, scheme, steps=2):
     step, place = tl.build_train_step(
         cfg, mesh, scheme=scheme,
         aggregation_axes=None if ota is None else ("data",), ota=ota,
-        optimizer=o, device="cpu")
+        fsdp_axis=fsdp, optimizer=o, device="cpu")
     g = torch.Generator().manual_seed(5)
     toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
     mask = (torch.rand((4, 16), generator=g) > 0.3).float()
@@ -641,6 +654,51 @@ def run(mesh, scheme, steps=2):
     return {"params": params, "state": state, "metrics": out}
 
 
+def zoo(mesh):
+    """Reduced xlstm and seamless: the encoder's output, a prefill and 4
+    greedy steps (ids and this rank's cache), then one mean step."""
+    import dataclasses
+    from repro_torch.configs import registry as reg
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as opt
+    out = {}
+    for arch in ("xlstm-1.3b", "seamless-m4t-medium"):
+        cfg = dataclasses.replace(reg.reduce_config(reg.get_config(arch)),
+                                  dtype="float32")
+        p = T.init_params(cfg, torch.Generator().manual_seed(1),
+                          device="cpu")
+        g = torch.Generator().manual_seed(6)
+        toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
+        batch = {"tokens": toks}
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.randn((4, 8, cfg.modal_embed_dim),
+                                              generator=g)
+        pre, place = serve.build_prefill_cache_step(cfg, "cpu", cache_len=20,
+                                                    mesh=mesh)
+        dec, _ = serve.build_decode_step(cfg, "cpu", mesh=mesh)
+        enc, _ = serve.build_encode_step(cfg, "cpu", mesh=mesh)
+        params = place(p)[0]
+        enc_out = enc(params, batch) if cfg.is_encoder_decoder else None
+        ids, cache = pre(params, batch)
+        got = [ids]
+        for pos in range(16, 20):
+            ids, cache = dec(params, cache, ids[:, None], pos,
+                             enc_out=enc_out)
+            got.append(ids)
+        o = opt.adamw(0.01)
+        step, tplace = tl.build_train_step(cfg, mesh, scheme="mean",
+                                           optimizer=o, device="cpu")
+        tp_, ts, rows = tplace(p, o.init(p), dict(
+            batch, labels=toks.roll(-1, 1)))
+        tp_, ts, m = step(tp_, ts, rows)
+        out[arch] = {"ids": torch.stack(got, 1), "cache": cache,
+                     "enc_out": enc_out, "params": tp_, "state": ts,
+                     "metrics": m}
+    return out
+
+
 def worker(rank, port, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -649,6 +707,8 @@ def worker(rank, port, out_dir):
     mesh = make_host_mesh(2, 2)
     assert mesh.physical and mesh.rank == rank
     res = {s: run(mesh, s) for s in ("normalized", "mean")}
+    res["fsdp"] = run(mesh, "mean", fsdp="data")
+    res["zoo"] = zoo(mesh)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -689,14 +749,16 @@ def _flat(tree):
     return pytree.tree_leaves(tree)
 
 
-@pytest.mark.parametrize("scheme", ["normalized", "mean"])
+@pytest.mark.parametrize("scheme", ["normalized", "mean", "fsdp"])
 def test_physical_ranks_are_the_emulated_mesh_bitwise(physical, scheme):
     """Each gloo rank of a physical (2, 2) mesh (reduced jamba: its
     attention, Mamba, dense MLP, experts and vocabulary cut over the model
-    axis) ends with the bits of the emulated mesh's rank after two AdamW
-    steps: params, optimizer state and metrics."""
+    axis; ``fsdp``: the mean path with the FSDP rules' leaves also cut over
+    ``data``) ends with the bits of the emulated mesh's rank after two
+    AdamW steps: params, optimizer state and metrics."""
     ranks, ns = physical
-    want = ns["run"](make_host_mesh(2, 2), scheme)
+    want = (ns["run"](make_host_mesh(2, 2), "mean", fsdp="data")
+            if scheme == "fsdp" else ns["run"](make_host_mesh(2, 2), scheme))
     for r, res in enumerate(ranks):
         got = res[scheme]
         for a, b in zip(_flat(got["params"][0]), _flat(want["params"][r])):
@@ -705,3 +767,35 @@ def test_physical_ranks_are_the_emulated_mesh_bitwise(physical, scheme):
             assert torch.equal(a, b), r
     for t, m in enumerate(ranks[0][scheme]["metrics"]):
         assert all(torch.equal(m[k], want["metrics"][t][k]) for k in m)
+
+
+@pytest.fixture(scope="module")
+def emulated_zoo(physical):
+    """The zoo's runs on the emulated mesh, on one thread as the ranks."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return physical[1]["zoo"](make_host_mesh(2, 2))
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "seamless-m4t-medium"])
+def test_physical_zoo_is_the_emulated_mesh_bitwise(physical, emulated_zoo,
+                                                   arch):
+    """Each gloo rank of a physical (2, 2) mesh serving reduced xlstm
+    (mLSTM heads and sLSTM features cut) and seamless (encoder and decoder
+    cut) holds the emulated mesh's ids, encoder output and cache shard, and
+    after one mean step its params, optimizer state and metrics, bitwise."""
+    ranks, _ = physical
+    want = emulated_zoo[arch]
+    for r, res in enumerate(ranks):
+        got = res["zoo"][arch]
+        assert torch.equal(got["ids"], want["ids"])
+        if want["enc_out"] is not None:
+            assert torch.equal(got["enc_out"], want["enc_out"])
+        for key in ("cache", "params", "state"):
+            for a, b in zip(_flat(got[key][0]), _flat(want[key][r])):
+                assert torch.equal(a, b), (r, key)
+        assert all(torch.equal(got["metrics"][k], want["metrics"][k])
+                   for k in want["metrics"])

@@ -555,14 +555,21 @@ def test_draw_noise_is_the_schemes_draw():
 
 
 def test_unported_training_raises():
-    """FSDP waits for its ROADMAP item; the other aggregation axes and an
-    OTA scheme without its parameters raise.  (A cut model trains:
-    ``tests/test_torch_tp_train.py``.)"""
+    """FSDP with an OTA scheme (the reference's plans never pair them) and
+    over a tuple of axes (the production mesh, item 17) raise; so do the
+    other aggregation axes and an OTA scheme without its parameters.  (A
+    cut model trains: ``tests/test_torch_tp_train.py``; FSDP on the mean
+    path: ``tests/test_torch_fsdp.py``.)"""
     cfg = reg.reduce_config(reg.get_config(ARCH))
     ota = tl.OTARunParams(h=np.ones(2), b=np.ones(2))
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(NotImplementedError, match="never pair"):
         tl.build_train_step(cfg, make_host_mesh(2, 1), fsdp_axis="data",
-                            scheme="mean", device="cpu")
+                            aggregation_axes=("data",), ota=ota,
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tl.build_train_step(cfg, make_host_mesh(2, 1),
+                            fsdp_axis=("pod", "data"), scheme="mean",
+                            device="cpu")
     with pytest.raises(ValueError, match="OTARunParams"):
         tl.build_train_step(cfg, make_host_mesh(2, 1),
                             aggregation_axes=("data",), device="cpu")

@@ -4,7 +4,7 @@ over real cards: one process a rank, one card a rank (NCCL), or the CPU
 (gloo) for a rehearsal.
 
     python3 tools/serve_ranks.py [--ranks 4] [--device cuda|cpu]
-        [--parts whole,parity,train,sweep] > serve_ranks.jsonl
+        [--parts whole,parity,train,fsdp,zoo,sweep] > serve_ranks.jsonl
 
 Every rank joins one ``torch.distributed`` group on 127.0.0.1 (NCCL on
 ``cuda:<rank>``, gloo on the CPU), builds the physical ``(1, ranks)`` mesh
@@ -32,7 +32,21 @@ on its own device:
             steps and one with the host's noise draw; s a step, each card's
             peak memory; then each rank runs the same steps on the mesh
             emulated on its own card and holds its shard of the params and
-            of the optimizer state to the emulated rank's, bitwise.
+            of the optimizer state to the emulated rank's, bitwise;
+``fsdp``    granite-moe-1b-a400m whole (bf16) on the mean path over the
+            physical ``(ranks / 2, 2)`` mesh (sgd with momentum, one warm-up
+            and ``TRAIN_STEPS`` timed steps), without and with
+            ``fsdp_axis="data"``, each rank's shard drawn alone
+            (``init_sharded_params``) and the other run's results on the
+            host: s a step and each card's peak memory of each, each
+            rank's FSDP slices the bits of its plain shard's; then the
+            FSDP steps on the mesh emulated on each card, bitwise;
+``zoo``     xlstm-1.3b (4 x 2,048 tokens) and seamless-m4t-medium (4 x
+            8,192 tokens over 2,048 stub frames) whole over the physical
+            ``(1, ranks)`` mesh, bf16: a prefill and ``PARITY_STEPS``
+            greedy steps (after a warm-up), prefill tokens/s, decode ms a
+            step, each card's peak; then the mesh emulated on each card:
+            the same ids and the rank's cache shard, bitwise.
 
 Then this process runs ``sweep``: the fig1a grid (Case I, amplification
 {optimal, bmax} x 3 seeds: 2 groups of 3 lanes, spread over 3 cards) and
@@ -104,20 +118,27 @@ def _prompts(cfg, cpu: bool, device) -> torch.Tensor:
 
 def _serve(cfg, mesh, params, tokens, steps, device):
     """Prefill and ``steps`` greedy steps; (ids [B, 1 + steps], cache,
-    the prefill's seconds, the decode's)."""
+    the prefill's seconds, the decode's).  ``tokens``: the prompt, or a
+    batch dict (an encoder-decoder's ``src_embeds`` with it: its encoder
+    runs first, on the mesh)."""
     from repro_torch.launch import serve
-    s = tokens.shape[1]
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    s = batch["tokens"].shape[1]
     prefill, _ = serve.build_prefill_cache_step(
         cfg, device, cache_len=s + steps + 8, mesh=mesh)
     decode, _ = serve.build_decode_step(cfg, device, mesh=mesh)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        encode, _ = serve.build_encode_step(cfg, device, mesh=mesh)
+        enc_out = encode(params, batch)
     _sync(device)
     t0 = time.perf_counter()
-    ids, cache = prefill(params, {"tokens": tokens})
+    ids, cache = prefill(params, batch)
     _sync(device)
     t1 = time.perf_counter()
     out = [ids]
     for pos in range(s, s + steps):
-        ids, cache = decode(params, cache, ids[:, None], pos)
+        ids, cache = decode(params, cache, ids[:, None], pos, enc_out=enc_out)
         out.append(ids)
     _sync(device)
     return torch.stack(out, 1), cache, t1 - t0, time.perf_counter() - t1
@@ -299,7 +320,143 @@ def part_train(ranks: int, rank: int, device, cpu: bool) -> dict:
             and all(np.isfinite(losses))}
 
 
-PARTS = {"whole": part_whole, "parity": part_parity, "train": part_train}
+def part_fsdp(ranks: int, rank: int, device, cpu: bool) -> dict:
+    import torch.utils._pytree as pytree
+    import chip_smoke
+    from repro_torch.configs.registry import get_config, reduce_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = get_config(TRAIN_ARCH)
+    if cpu:
+        cfg = dataclasses.replace(reduce_config(cfg), dtype="float32")
+    clients = ranks // 2
+    rows, seq = (2, 32) if cpu else (chip_smoke.TRAIN_ROWS,
+                                     chip_smoke.TRAIN_SEQ)
+    batch = chip_smoke.train_batch(cfg, clients * rows, seq, seed=11)
+    mesh = make_host_mesh(clients, 2)
+    runs = {}
+    for fsdp in (None, "data"):
+        # the rank's shard drawn alone (the whole model never on the card),
+        # the other run's results on the host: the card holds one run
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        shard = T.init_sharded_params(cfg, torch.Generator(device=device)
+                                      .manual_seed(0), mesh, rank,
+                                      device=device, fsdp_axis=fsdp)
+        p, o, ms, secs, resident = chip_smoke._fsdp_mean_steps(
+            cfg, mesh, [shard], batch, fsdp, device, TRAIN_STEPS + 1)
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if device.type == "cuda" else 0.0)
+        runs[fsdp] = {"p": chip_smoke._tree_to(p[0], "cpu"),
+                      "mu": chip_smoke._tree_to(o[0].mu, "cpu"),
+                      "secs": secs[1:],
+                      "loss": [float(m["loss"]) for m in ms],
+                      "peak": peak, "resident": resident[0]}
+        del p, o, shard
+    # this rank's FSDP slices against its plain shard, narrowed
+    same_plain = (runs[None]["loss"] == runs["data"]["loss"]
+                  and all(chip_smoke.fsdp_slice_same(
+                      cfg, mesh, rank, runs[None][t], runs["data"][t])
+                      for t in ("p", "mu")))
+    mine = pytree.tree_leaves((runs["data"]["p"], runs["data"]["mu"]))
+    losses = runs["data"]["loss"]
+    runs = {k: {n: v for n, v in r.items() if n not in ("p", "mu")}
+            for k, r in runs.items()}
+    params = T.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(0), device=device)
+    emu = make_host_mesh(clients, 2, emulate=True)
+    ep, eo, ems, esecs, _ = chip_smoke._fsdp_mean_steps(
+        cfg, emu, params, batch, "data", device, TRAIN_STEPS + 1)
+    theirs = [t.cpu() for t in pytree.tree_leaves((ep[rank], eo[rank].mu))]
+    bitwise = (losses == [float(m["loss"]) for m in ems]
+               and len(mine) == len(theirs)
+               and all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+    verdicts = _gathered(float(bitwise and same_plain), device)
+    del ep, eo, mine, theirs, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    tokens = clients * rows * seq
+    return {"part": "fsdp", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+            "dtype": cfg.dtype, "mesh": {"data": clients, "model": 2},
+            "physical": mesh.physical, "tokens_per_step": tokens,
+            "optimizer": "sgd(0.05, momentum=0.9)",
+            "s_per_step": {("fsdp" if k else "plain"): r["secs"]
+                           for k, r in runs.items()},
+            "emulated_fsdp_s_per_step": esecs[1:],
+            "loss": losses,
+            "peak_mem_gib_per_rank": {
+                ("fsdp" if k else "plain"): _gathered(r["peak"], device)
+                for k, r in runs.items()},
+            "resident_bytes_rank0": {
+                ("fsdp" if k else "plain"): r["resident"]
+                for k, r in runs.items()},
+            "bitwise_per_rank": [bool(v) for v in verdicts],
+            "ok": mesh.physical and all(v == 1.0 for v in verdicts)
+            and all(np.isfinite(losses))}
+
+
+ZOO = (("xlstm-1.3b", 2048, 0), ("seamless-m4t-medium", 8192, 2048))
+
+
+def part_zoo(ranks: int, rank: int, device, cpu: bool) -> dict:
+    import torch.utils._pytree as pytree
+    from repro_torch.configs.registry import get_config, reduce_config
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {"part": "zoo", "mesh": {"data": 1, "model": ranks}}
+    ok = True
+    for arch, s, n_stub in ZOO:
+        cfg = get_config(arch)
+        if cpu:
+            cfg = dataclasses.replace(reduce_config(cfg), dtype="float32")
+            s, n_stub = 32, 8 if n_stub else 0
+        gen = torch.Generator().manual_seed(5)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, s),
+                                         generator=gen).to(device)}
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.randn(
+                (4, n_stub, cfg.modal_embed_dim), generator=gen).to(
+                device=device, dtype=torch.float32 if cpu else
+                torch.bfloat16)
+        mesh = make_host_mesh(1, ranks)
+        params = [_params(cfg, mesh, rank, device)]
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        _serve(cfg, mesh, params, batch, 1, device)          # warm-up
+        ids, cache, pre_s, dec_s = _serve(cfg, mesh, params, batch,
+                                          PARITY_STEPS, device)
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if device.type == "cuda" else 0.0)
+        mine = [t.clone() for t in pytree.tree_leaves(cache[0])]
+        del cache, params
+        emu = make_host_mesh(1, ranks, emulate=True)
+        eparams = [_params(cfg, emu, r, device)
+                   for r in range(ranks)]
+        eids, ecache, _, _ = _serve(cfg, emu, eparams, batch, PARITY_STEPS,
+                                    device)
+        theirs = pytree.tree_leaves(ecache[rank])
+        bitwise = (torch.equal(ids, eids) and len(mine) == len(theirs)
+                   and all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+        verdicts = _gathered(float(bitwise), device)
+        del eparams, ecache, mine, theirs
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = {"layers": cfg.num_layers, "dtype": cfg.dtype,
+                     "batch": 4, "text_tokens": s, "stub_positions": n_stub,
+                     "prefill_s": pre_s,
+                     "prefill_tokens_per_s": 4 * s / pre_s,
+                     "decode_ms_per_step": dec_s / PARITY_STEPS * 1e3,
+                     "peak_mem_gib_per_rank": _gathered(peak, device),
+                     "same_ids_on_every_rank": _same_on_every_rank(ids),
+                     "bitwise_per_rank": [bool(v) for v in verdicts]}
+        ok = ok and all(v == 1.0 for v in verdicts) \
+            and out[arch]["same_ids_on_every_rank"]
+    out["ok"] = ok and mesh.physical
+    return out
+
+
+PARTS = {"whole": part_whole, "parity": part_parity, "train": part_train,
+         "fsdp": part_fsdp, "zoo": part_zoo}
 
 
 def worker(rank: int, ranks: int, kind: str, port: int, failed,
@@ -387,9 +544,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--parts", default="whole,parity,train,sweep",
+    ap.add_argument("--parts", default="whole,parity,train,fsdp,zoo,sweep",
                     help="the parts to run, in this order for the ranks' "
-                         "(whole, parity, train), then sweep")
+                         "(whole, parity, train, fsdp, zoo), then sweep")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if not set(parts) <= set(PARTS) | {"sweep"}:
