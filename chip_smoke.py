@@ -225,7 +225,24 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
               under autograd raises; then fp32 at full width, 2 layers, 256
               tokens a client, 3 steps: the card against the CPU, the rule
               shown to reject runs with a client left out of the fold and
-              with the noise added twice.
+              with the noise added twice.  The pod axis, an emulated
+              (pod 2, data 2, model 1) mesh: (j) at 6 layers, bf16, the OTA
+              step whose clients are the (pod, data) ranks bitwise the
+              (4, 1) step over data (K1 one a client a step), and the mean
+              step with FSDP over (pod, data) bitwise the plain mean step
+              and the (4, 1) FSDP step; (k) fp32, 2 layers, a client a pod
+              (its data ranks split its rows) against the rule on a (2, 1)
+              mesh whose clients hold a pod's rows, the rule shown to
+              reject clients on half their rows;
+15. dryrun -- ``python -m repro_torch.launch.dryrun`` in a process of its
+              own for granite-moe-1b-a400m x train_4k with ``--analysis``
+              on 16x16 and 2x16x16 (rank 0 of a fake group of 256 / 512
+              ranks, meta tensors, no card): every record ``ok``, its
+              plan, three roofline terms (H100 SXM datasheet constants:
+              predictions), bytes a rank and whether they fit; then the
+              roofline of a one-card granite mean step at phase 14's batch
+              (the dry run's counts of the same step) beside its measured
+              seconds (one warm-up, 3 timed), as a ratio.
 
 Phase zoo runs between 12 and 13:
 
@@ -295,7 +312,11 @@ only phases 1, 2 and 12b, and
 
     python3 chip_smoke.py --train
 
-only phases 1, 2 and 14.
+only phases 1, 2 and 14, and
+
+    python3 chip_smoke.py --dryrun
+
+only phases 1, 2 and 15.
 """
 from __future__ import annotations
 
@@ -2150,6 +2171,8 @@ ZOO_MESH_FP32 = {"xlstm-1.3b": (dict(num_layers=8), 256, 0),
                                               num_encoder_layers=2),
                                          1024, 256)}
 ZOO_MESH_FP32_DECODE = 8
+# depth cuts of the mesh rows (since PR 31, for the smoke's time)
+ZOO_MESH_LAYERS = {"xlstm-1.3b": 24}
 
 
 def zoo_mesh(ops, arch: str, model: int, s: int, n_stub: int,
@@ -2168,6 +2191,8 @@ def zoo_mesh(ops, arch: str, model: int, s: int, n_stub: int,
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     cfg = get_config(arch)
+    if arch in ZOO_MESH_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=ZOO_MESH_LAYERS[arch])
     b, n_dec = SERVE_BATCH, SERVE_DECODE
     mesh = make_host_mesh(1, model, emulate=True)
     plan = sh.tp_plan(cfg, model)
@@ -3166,7 +3191,10 @@ CLIENT_ALGOS = (("sgd", {"client.algo": "sgd"}),
                 ("fedprox", {"client.algo": "fedprox", "client.mu": 0.1}),
                 ("feddyn", {"client.algo": "feddyn", "client.alpha": 0.1}),
                 ("scaffold", {"client.algo": "scaffold"}))
-CLIENT_GRID_ROUNDS = 200         # figures.py::client_algorithms' default
+CLIENT_ROUNDS = 10               # each algorithm's checks (ROUNDS before
+                                 # PR 31; cut for the smoke's time)
+CLIENT_GRID_ROUNDS = 100         # figures.py::client_algorithms' 200, cut
+                                 # to half for the smoke's time
 ENERGY_RATIO_BAND = (1.95, 2.05)  # figures.py:528-534
 # the card against a CPU run, every round: the params at phase main's
 # tolerance, the client state at CLIENT_STATE_RTOL of its largest
@@ -3207,9 +3235,9 @@ def _client_bitwise(a, b) -> bool:
 
 
 def _client_algo(name: str, gpu_launches) -> dict:
-    """One algorithm on Case I: scan == python bitwise over ROUNDS on the
-    dense and a k_block = 4 round, K1/K2/K5 per slot, the card against a
-    CPU run round by round, and the warm rate with the device's busy time
+    """One algorithm on Case I: scan == python bitwise over CLIENT_ROUNDS
+    on the dense and a k_block = 4 round, K1/K2/K5 per slot, the card
+    against a CPU run round by round, and the warm rate with the device's busy time
     and idle share."""
     import dataclasses
     from repro_torch.fl import Experiment, clients
@@ -3217,19 +3245,19 @@ def _client_algo(name: str, gpu_launches) -> dict:
     spec = clients_spec(client)
     slots = clients.get(spec.fl.client.algo).num_slots
     row = {"phase": "clients", "algo": name, "client": client,
-           "rounds": ROUNDS, "slots": slots}
+           "rounds": CLIENT_ROUNDS, "slots": slots}
     for kind, over in (("dense", {}), ("k_block_4", {"k_block": 4})):
         runs = {}
         for driver in ("scan", "python"):
             e = Experiment(dataclasses.replace(spec, driver=driver, **over),
                            device="cuda").setup()
-            _, ops_counts = _launches_of(lambda: e.run(ROUNDS))
+            _, ops_counts = _launches_of(lambda: e.run(CLIENT_ROUNDS))
             runs[driver] = e
             if driver == "scan":
                 row[f"launches_{kind}"] = ops_counts
                 if kind == "dense":
                     gpu_launches.update(ops_counts)
-                    check_path_launches(ops_counts, ROUNDS,
+                    check_path_launches(ops_counts, CLIENT_ROUNDS,
                                         f"clients {name}", lanes=1,
                                         slots=slots)
         row[kind] = compare_runs(runs["scan"].params, runs["scan"].history,
@@ -3241,7 +3269,7 @@ def _client_algo(name: str, gpu_launches) -> dict:
     gpu = Experiment(spec, device="cuda")
     cpu = Experiment(spec, device="cpu")
     gaps = []
-    for _ in range(ROUNDS):
+    for _ in range(CLIENT_ROUNDS):
         gpu.run(1, evaluate=False)
         cpu.run(1, evaluate=False)
         g = {"params": max(float((gpu.params[k].cpu() - cpu.params[k])
@@ -3257,7 +3285,7 @@ def _client_algo(name: str, gpu_launches) -> dict:
     warm = Experiment(spec, device="cuda")
     warm.run(1, evaluate=False)
     row["rates"] = driver_rates(lambda n: warm.run(n, evaluate=False),
-                                ROUNDS, 5)
+                                CLIENT_ROUNDS, 5)
     row["train_loss"] = runs["python"].history["train_loss"]
     emit(row)
     for kind in ("dense", "k_block_4"):
@@ -4071,7 +4099,8 @@ TRAIN_OTA_LAYERS = 6             # (b) and (f): depth cut 24 -> 6, to keep
 TRAIN_CHANNEL_MEAN = 1e-3        # examples/ota_transformer_fl.py:47-58
 TRAIN_GRAD_BOUND = 5.0
 TRAIN_FP32_LAYERS = 2            # the fp32 card-vs-CPU check: depth cut
-TRAIN_FP32_SEQ = 256             # one sequence of 256 tokens a client
+TRAIN_FP32_SEQ = 128             # one sequence of 128 tokens a client (256
+                                 # before PR 31; cut for the smoke's time)
 # fp32, the card against the CPU, three steps from the same params, batch
 # and injected noise z_t.  The losses within 1e-4 relative.  The params:
 # their change over the steps with the known noise term sum_t eta_t a z_t
@@ -4107,7 +4136,15 @@ TRAIN_TP_ROWS = (641_728_512, 101_506_048)
 # TRAIN_SIGNAL_REL (the params' change), as (c)
 TRAIN_FSDP_STEPS = 2
 TRAIN_FSDP_ROWS = 1              # sequences a data rank in (h)
-TRAIN_FSDP_FP32_SEQ = 64         # tokens a data rank in the fp32 check
+TRAIN_FSDP_FP32_SEQ = 32         # tokens a data rank in the fp32 check
+TRAIN_FSDP_LAYERS = 6            # (h): depth cut 24 -> 6 (since PR 31,
+                                 # for the smoke's time)
+# the pod axis: an emulated (TRAIN_POD, TRAIN_POD_DATA, 1) mesh, the
+# (TRAIN_CLIENTS, 1) mesh it flattens to (rank p * TRAIN_POD_DATA + d);
+# TRAIN_POD_STEPS steps a run
+TRAIN_POD = 2
+TRAIN_POD_DATA = 2
+TRAIN_POD_STEPS = 2
 
 def train_ota(n_params: int, seed: int = 7, noise: bool = True):
     """The example's OTA parameters at full width: h from ``draw_channel``
@@ -4656,9 +4693,16 @@ def fsdp_slice_same(cfg, mesh, rank: int, plain, fsdp) -> bool:
     return True
 
 
+def _first(tree, n: int):
+    """The first ``n`` entries of every leaf's leading (stack) axis."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t[:n], tree)
+
+
 def train_fsdp(ops, cfg, params, batch) -> dict:
-    """(h) FSDP over data on the mean path: granite whole, bf16, an
-    emulated (TRAIN_CLIENTS, TRAIN_TP_MODEL) mesh, TRAIN_FSDP_STEPS mean
+    """(h) FSDP over data on the mean path: granite at TRAIN_FSDP_LAYERS
+    (``cfg``, ``params``), bf16, an emulated (TRAIN_CLIENTS,
+    TRAIN_TP_MODEL) mesh, TRAIN_FSDP_STEPS mean
     steps without and with ``fsdp_axis="data"``: bitwise equal (every
     rank's slice of the params and momentum, the metrics), s a step, each
     rank's resident bytes, the card's peak of each above what was
@@ -4785,6 +4829,171 @@ def train_fsdp_fp32(ops, cfg_full) -> dict:
     return row
 
 
+def _pod_steps(cfg, mesh, params, batch, scheme, axes, fsdp, ota,
+               steps: int = TRAIN_POD_STEPS, seed: int = 101):
+    """``steps`` steps (sgd with momentum) on an emulated mesh: (each
+    rank's params and momentum, metrics, s a step, K1's launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tl
+    from repro_torch.optim.optimizers import sgd
+    opt = sgd(0.05, momentum=0.9)
+    step, place = tl.build_train_step(
+        cfg, mesh, scheme=scheme, aggregation_axes=axes, fsdp_axis=fsdp,
+        ota=ota, optimizer=opt, device=_leaves(params)[0].device)
+    p, o, rows = place(params, opt.init(params), batch)
+    before = ops.LAUNCH_COUNTS["batched_moments"]
+    secs, metrics = [], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, rows, seed + t)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+    return (p, [x.mu for x in o], metrics, secs,
+            ops.LAUNCH_COUNTS["batched_moments"] - before)
+
+
+def _same_ranks(a, b) -> bool:
+    """Every rank's trees of ``a`` the bits of ``b``'s, rank for rank."""
+    return len(a) == len(b) and all(
+        torch.equal(x, y) for ra, rb in zip(a, b)
+        for x, y in zip(_leaves(ra), _leaves(rb)))
+
+
+def train_pod(ops, cfg, params, batch) -> dict:
+    """(j) The pod axis on an emulated (pod 2, data 2, model 1) mesh, bf16,
+    at the OTA depth: (j1) the OTA step whose clients are the (pod, data)
+    ranks (K1 a client a step) bitwise the (4, 1) step over data; (j2) the
+    mean step with FSDP over (pod, data) bitwise the plain mean step on the
+    same mesh and the (4, 1) FSDP step over data.  Returns K1's launches
+    of (j1)'s (2, 2, 1) run."""
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    pod = make_host_mesh(TRAIN_POD_DATA, 1, pod=TRAIN_POD, emulate=True)
+    flat = make_host_mesh(TRAIN_CLIENTS, 1, emulate=True)
+    ota = train_ota(_numel(params), noise=True)
+    g_pod = _pod_steps(cfg, pod, params, batch, "normalized",
+                       ("pod", "data"), None, ota)
+    g_flat = _pod_steps(cfg, flat, params, batch, "normalized", ("data",),
+                        None, ota)
+    ota_same = (_same_ranks(g_pod[0], g_flat[0])
+                and _same_ranks(g_pod[1], g_flat[1])
+                and all(torch.equal(a[k], b[k]) for a, b in
+                        zip(g_pod[2], g_flat[2]) for k in a))
+    k1 = g_pod[4]
+    del g_pod, g_flat
+    dp = ("pod", "data")
+    f_pod = _pod_steps(cfg, pod, params, batch, "mean", None, dp, None)
+    f_plain = _pod_steps(cfg, pod, params, batch, "mean", None, None, None)
+    f_flat = _pod_steps(cfg, flat, params, batch, "mean", None, "data", None)
+    whole = [SH.gather_params(f_pod[0], pod, cfg, params, dp),
+             SH.gather_params(f_plain[0], pod, cfg, params),
+             SH.gather_params(f_flat[0], flat, cfg, params, "data")]
+    fsdp_same = (all(torch.equal(a, b) for w in whole[1:]
+                     for a, b in zip(_leaves(whole[0]), _leaves(w)))
+                 and _same_ranks(f_pod[0], f_flat[0])
+                 and _same_ranks(f_pod[1], f_flat[1])
+                 and all(torch.equal(a[k], b[k]) for run in (f_plain, f_flat)
+                         for a, b in zip(f_pod[2], run[2]) for k in a))
+    row = {"phase": "train", "part": "pod_bf16", "arch": TRAIN_ARCH,
+           "layers": cfg.num_layers, "mesh": [TRAIN_POD, TRAIN_POD_DATA, 1],
+           "flat_mesh": [TRAIN_CLIENTS, 1], "steps": TRAIN_POD_STEPS,
+           "ota_pod_data_bitwise_flat": ota_same,
+           "ota_k1_launches": k1,
+           "fsdp_pod_data_bitwise_plain_and_flat": fsdp_same,
+           "fsdp_s_per_step": {"pod": f_pod[3], "plain": f_plain[3],
+                               "flat": f_flat[3]},
+           "fsdp_loss": [float(m["loss"]) for m in f_pod[2]],
+           "fsdp_k1_launches": f_pod[4]}
+    emit(row)
+    if not (ota_same and fsdp_same):
+        fail(f"train pod: the (2, 2, 1) steps are not their flattened "
+             f"steps' bits: {row}")
+    if k1 != TRAIN_CLIENTS * TRAIN_POD_STEPS or f_pod[4]:
+        fail(f"train pod: K1 launched {k1} times on the OTA path (one a "
+             f"client a step expected), {f_pod[4]} on the mean path")
+    return {"batched_moments": k1}
+
+
+def _numel(tree) -> int:
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def train_pod_fp32(ops, cfg_full) -> dict:
+    """(k) A client a pod (``aggregation_axes=("pod",)``), fp32 at full
+    width, depth cut to TRAIN_FP32_LAYERS: each pod's two data ranks split
+    its rows and fold its gradient.  The reference's rule is each client's
+    gradient over its rows, superposed over the clients: the (2, 1) mesh
+    whose data clients hold a pod's rows each.  TRAIN_POD_STEPS noiseless
+    steps: losses within TRAIN_TP_LOSS_REL, the params' change within
+    TRAIN_SIGNAL_REL in L2; a planted fault (the rule's clients on half
+    their rows) must fail the same bound."""
+    import dataclasses
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfg_full, dtype="float32",
+                              num_layers=TRAIN_FP32_LAYERS)
+    p0 = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                       device="cuda")
+    rows = TRAIN_POD * TRAIN_POD_DATA
+    batch = train_batch(cfg, rows, TRAIN_FP32_SEQ, seed=17)
+    full = train_ota(_numel(p0), noise=False)
+    ota = tl.OTARunParams(h=full.h[:TRAIN_POD], b=full.b[:TRAIN_POD],
+                          a=1.0 / float((full.h[:TRAIN_POD]
+                                         * full.b[:TRAIN_POD]).sum()),
+                          noise_var=0.0, grad_bound=full.grad_bound)
+    pod = make_host_mesh(TRAIN_POD_DATA, 1, pod=TRAIN_POD, emulate=True)
+    rule = make_host_mesh(TRAIN_POD, 1, emulate=True)
+    got = _pod_steps(cfg, pod, p0, batch, "normalized", ("pod",), None, ota)
+    want = _pod_steps(cfg, rule, p0, batch, "normalized", ("data",), None,
+                      ota)
+    half = {k: torch.cat([v[i * TRAIN_POD_DATA:i * TRAIN_POD_DATA + 1]
+                          for i in range(TRAIN_POD)]) for k, v in
+            batch.items()}
+    fault = _pod_steps(cfg, rule, p0, half, "normalized", ("data",), None,
+                       ota)
+    flat0 = torch.cat([l.reshape(-1).double() for l in _leaves(p0)])
+
+    def change(run, mesh):
+        w = SH.gather_params(run[0], mesh, cfg, p0)
+        return torch.cat([l.reshape(-1).double() for l in _leaves(w)]) \
+            - flat0
+
+    c_got, c_want, c_fault = (change(got, pod), change(want, rule),
+                              change(fault, rule))
+    sig = float(torch.linalg.vector_norm(c_got - c_want)
+                / torch.linalg.vector_norm(c_want))
+    sig_fault = float(torch.linalg.vector_norm(c_fault - c_want)
+                      / torch.linalg.vector_norm(c_want))
+    loss_rel = max(abs(float(a["loss"]) - float(b["loss"]))
+                   / abs(float(b["loss"])) for a, b in zip(got[2], want[2]))
+    row = {"phase": "train", "part": "pod_fp32_rule",
+           "layers": TRAIN_FP32_LAYERS, "mesh": [TRAIN_POD, TRAIN_POD_DATA,
+                                                 1],
+           "rule_mesh": [TRAIN_POD, 1], "tokens_per_pod":
+           TRAIN_POD_DATA * TRAIN_FP32_SEQ,
+           "loss": [float(m["loss"]) for m in got[2]],
+           "loss_rule": [float(m["loss"]) for m in want[2]],
+           "loss_rel": loss_rel, "change_rel": sig,
+           "change_rel_planted_fault": sig_fault,
+           "tolerance": f"losses |d| <= {TRAIN_TP_LOSS_REL:g} rel; the "
+                        f"params' change within {TRAIN_SIGNAL_REL:g} of the "
+                        "rule's in L2; the fault outside it",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "k1_launches": got[4]}
+    emit(row)
+    if not (loss_rel <= TRAIN_TP_LOSS_REL and sig <= TRAIN_SIGNAL_REL):
+        fail(f"train pod fp32: the ('pod',) step differs from the rule: "
+             f"{row}")
+    if sig_fault <= TRAIN_SIGNAL_REL:
+        fail(f"train pod fp32: the rule does not reject the planted fault: "
+             f"{row}")
+    return row
+
+
 def train_guard(ops, cfg, params, batch) -> dict:
     """(e) The kernel route forced under autograd raises: the whole model's
     ``forward_hidden`` (K6 at its first layer), and K6's and K7's wrappers
@@ -4827,12 +5036,13 @@ def train_guard(ops, cfg, params, batch) -> dict:
 def phase_train(ops) -> dict:
     """The training step: (a) K1 at the training shape, (b) granite at
     TRAIN_OTA_LAYERS on an emulated (4, 1) mesh with and without the
-    channel noise, (f) the same on an emulated (4, 2) mesh, (d) granite
-    whole on the mean path, (e) the autograd guard, (h) FSDP over data on the (4, 2) mean path, (c) the fp32
-    card-vs-CPU check, (g) the fp32 (4, 2) check and (i) the fp32 FSDP
-    check.
-    Returns K1's launches on the path ((b)'s and (f)'s steps, read from
-    counts set to 0 just before them)."""
+    channel noise, (f) the same on an emulated (4, 2) mesh, (j) the pod
+    axis on an emulated (2, 2, 1) mesh, (d) granite whole on the mean path,
+    (e) the autograd guard, (h) FSDP over data on the (4, 2) mean path,
+    (c) the fp32 card-vs-CPU check, (g) the fp32 (4, 2) check, (i) the
+    fp32 FSDP check and (k) the fp32 check of a client a pod.
+    Returns K1's launches on the path ((b)'s, (f)'s and (j)'s steps, read
+    from counts set to 0 just before them)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
@@ -4873,6 +5083,15 @@ def phase_train(ops) -> dict:
         os._exit(1)
     emit({"phase": "train", "part": "tp_time",
           "seconds": time.perf_counter() - t_tp})
+    t_pod = time.perf_counter()
+    try:
+        train_pod(ops, cfg_ota, p_ota, batch)
+    except TimeoutError as err:
+        print(f"chip_smoke: FAILED: train pod: {err}", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+    emit({"phase": "train", "part": "pod_time",
+          "seconds": time.perf_counter() - t_pod})
     del p_ota
     gc.collect()
     torch.cuda.empty_cache()
@@ -4886,8 +5105,14 @@ def phase_train(ops) -> dict:
     train_guard(ops, cfg, params, batch)
     t_fsdp = time.perf_counter()
     try:
-        train_fsdp(ops, cfg, params, train_batch(
+        # (h) at TRAIN_FSDP_LAYERS: the whole model's first superblocks
+        cfg_h = dataclasses.replace(cfg, num_layers=TRAIN_FSDP_LAYERS)
+        p_h = dict(params, blocks=tuple(
+            {k: _first(v, TRAIN_FSDP_LAYERS) for k, v in b.items()}
+            for b in params["blocks"]))
+        train_fsdp(ops, cfg_h, p_h, train_batch(
             cfg, TRAIN_CLIENTS * TRAIN_FSDP_ROWS, TRAIN_SEQ, seed=14))
+        del p_h
     except TimeoutError as err:
         print(f"chip_smoke: FAILED: train fsdp: {err}", file=sys.stderr,
               flush=True)
@@ -4903,8 +5128,137 @@ def phase_train(ops) -> dict:
           "seconds": time.perf_counter() - t_fsdp})
     gc.collect()
     torch.cuda.empty_cache()
+    t_pod = time.perf_counter()
+    train_pod_fp32(ops, cfg)
+    emit({"phase": "train", "part": "pod_fp32_time",
+          "seconds": time.perf_counter() - t_pod})
+    gc.collect()
+    torch.cuda.empty_cache()
     emit({"phase": "train_time", "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+DRYRUN_TIMEOUT_S = 300           # one CLI run of the dry run
+
+
+def dryrun_step_bound(cfg, rows: int, seq: int) -> dict:
+    """The roofline of one bf16 mean step of ``cfg`` on one card (mesh
+    None) at ``rows`` x ``seq`` tokens: the dry run's counts of the same
+    step on meta tensors (``launch.dryrun.count``), over the H100 SXM
+    datasheet's constants (``analysis.roofline``)."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    got = dryrun.count_mean_step(cfg, rows, seq)
+    shape = InputShape("one_card", seq, rows, "train")
+    rep = rl.from_counts(f"{cfg.name}/one_card", 1, got["flops"],
+                         got["bytes"], got["collectives"],
+                         rl.model_flops_for(cfg, shape,
+                                            cfg.active_param_count()))
+    return dict(rep.to_dict(), ops=got["ops"], count_s=got["seconds"])
+
+
+def phase_dryrun(src: str) -> dict:
+    """The dry run: the CLI (``python -m repro_torch.launch.dryrun``, in a
+    process of its own) for TRAIN_ARCH x train_4k with ``--analysis`` on
+    16x16 and 2x16x16, every record ``ok``; then the roofline of the
+    one-card granite mean step at phase train's batch beside that step's
+    seconds on this card (one warm-up, TRAIN_STEPS timed), as a ratio.
+    The two CLI runs go at once, a process each."""
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import sgd
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=src)
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # the two meshes' runs at once, a process each
+        runs = []
+        t0 = time.perf_counter()
+        for multi in (False, True):
+            out = os.path.join(tmp, f"dry{int(multi)}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", TRAIN_ARCH, "--shape", "train_4k",
+                   "--analysis", "--out", out] + (["--multi-pod"]
+                                                  if multi else [])
+            runs.append((cmd, out, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, env=env)))
+        for cmd, out, proc in runs:
+            try:
+                _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            recs = []
+            if proc.returncode == 0 and os.path.exists(out):
+                with open(out) as f:
+                    recs = json.load(f)
+            if not recs or any(x.get("status") != "ok" for x in recs):
+                fail(f"dryrun: {' '.join(cmd[2:])} exit {proc.returncode}: "
+                     f"{recs} {err[-1500:]}")
+            for rec in recs:
+                rf = rec["roofline"]
+                row = {"phase": "dryrun", "part": "cli", "arch": rec["arch"],
+                       "shape": rec["shape"], "mesh": rec["mesh"],
+                       "plan": rec["plan"], "status": rec["status"],
+                       "flops_per_chip": rf["flops_per_chip"],
+                       "bytes_per_chip": rf["bytes_per_chip"],
+                       "coll_bytes_per_chip": rf["coll_bytes_per_chip"],
+                       "compute_s": rf["compute_s"],
+                       "memory_s": rf["memory_s"],
+                       "collective_s": rf["collective_s"],
+                       "bottleneck": rf["bottleneck"],
+                       "bytes_per_rank": rec["bytes_per_rank"]["total"],
+                       "fits": rec["fits"], "dry_run_s": rec["dry_run_s"],
+                       "wall_s": time.perf_counter() - t0,
+                       "constants": "H100 SXM datasheet (predictions)"}
+                emit(row)
+                records.append(row)
+    cfg = get_config(TRAIN_ARCH)
+    rows = TRAIN_CLIENTS * TRAIN_ROWS
+    bound = dryrun_step_bound(cfg, rows, TRAIN_SEQ)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    opt = sgd(0.05)
+    step, place = tl.build_train_step(cfg, None, scheme="mean",
+                                      optimizer=opt, device="cuda")
+    p, o, batch = place(params, opt.init(params),
+                        train_batch(cfg, rows, TRAIN_SEQ, seed=11))
+    del params
+    p, o, m = step(p, o, batch)           # warm-up
+    secs = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    loss = float(m["loss"])
+    del p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured = statistics.median(secs)
+    bound_s = max(bound["compute_s"], bound["memory_s"],
+                  bound["collective_s"])
+    row = {"phase": "dryrun", "part": "one_card_step", "arch": TRAIN_ARCH,
+           "dtype": cfg.dtype, "tokens": rows * TRAIN_SEQ, "loss": loss,
+           "s_per_step": secs, "s_per_step_median": measured,
+           "flops": bound["flops_per_chip"],
+           "bytes": bound["bytes_per_chip"],
+           "compute_s": bound["compute_s"], "memory_s": bound["memory_s"],
+           "bottleneck": bound["bottleneck"], "bound_s": bound_s,
+           "measured_over_bound": measured / bound_s,
+           "measured_over_compute": measured / bound["compute_s"],
+           "count_s": bound["count_s"],
+           "constants": "H100 SXM datasheet (predictions)"}
+    emit(row)
+    if not (math.isfinite(loss) and bound_s > 0):
+        fail(f"dryrun: one-card step: {row}")
+    emit({"phase": "dryrun_time", "seconds": time.perf_counter() - t_phase})
+    return {"records": records, "one_card": row}
 
 
 def main() -> None:
@@ -4932,6 +5286,8 @@ def main() -> None:
                     help="run only the build and phase zoo")
     ap.add_argument("--train", action="store_true",
                     help="run only the build and phase train")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run only the build and phase dryrun")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -4977,6 +5333,9 @@ def main() -> None:
         return
     if args.train:
         phase_train(ops)
+        return
+    if args.dryrun:
+        phase_dryrun(args.src)
         return
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
@@ -5032,6 +5391,8 @@ def main() -> None:
     emit_memory("tp")
     train_launches = phase_train(ops)
     emit_memory("train")
+    phase_dryrun(args.src)
+    emit_memory("dryrun")
     # K6 runs on three serving paths (danube and the rest of the zoo on
     # one card, then the mesh) and K7 on two, and the round's kernels on
     # the sharded sweep too, each read from counts set to 0 before it

@@ -29,6 +29,7 @@ it, which makes them bitwise equal.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Optional, Sequence
@@ -40,6 +41,34 @@ from repro_torch.core.schemes import Tree
 from repro_torch.tree import tree_leaves, tree_map
 
 STATS_IMPLS = ("plain", "kernels")
+
+
+# ---------------------------------------------------------------------------
+# the collectives' bytes
+
+# per-rank output bytes of every collective this process makes, by kind
+# (the reference's HLO convention, ``repro/analysis/roofline.py``), while
+# ``counting_collectives()`` is open: the dry run's collective term
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+COLLECTIVE_BYTES: Optional[dict] = None
+
+
+def _count(kind: str, nbytes: int) -> None:
+    if COLLECTIVE_BYTES is not None:
+        COLLECTIVE_BYTES[kind] += nbytes
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the collectives' output bytes into a fresh dict (yielded),
+    one key a kind of ``COLLECTIVES``."""
+    global COLLECTIVE_BYTES
+    outer, COLLECTIVE_BYTES = COLLECTIVE_BYTES, {k: 0 for k in COLLECTIVES}
+    try:
+        yield COLLECTIVE_BYTES
+    finally:
+        COLLECTIVE_BYTES = outer
 
 
 # ---------------------------------------------------------------------------
@@ -68,14 +97,17 @@ def gather_shards(tree: Any, group) -> Any:
     """``all_gather`` of every leaf of a shard-local tree over the
     ``torch.distributed`` group, stacked in rank order (new leading axis =
     shard).  Gather, then ``fold_shards``, is the sharded round's one
-    cross-shard collective: the bytes of a sum's all-reduce, with the order
-    of the sum fixed by the fold instead of the collective's algorithm."""
+    cross-shard collective, with the order of the sum fixed by the fold
+    instead of the collective's algorithm.  It is an all-gather: over n
+    ranks its output is n parts, n times the bytes of a sum's all-reduce
+    of one part (``COLLECTIVE_BYTES``' "all-gather")."""
     dist = torch.distributed
     n = dist.get_world_size(group)
 
     def one(leaf):
         flat = leaf.reshape(-1).contiguous()
         parts = [torch.empty_like(flat) for _ in range(n)]
+        _count("all-gather", n * flat.numel() * flat.element_size())
         dist.all_gather(parts, flat, group=group)
         return torch.stack(parts).reshape((n,) + tuple(leaf.shape))
 
@@ -99,6 +131,7 @@ def tree_sq_norm(tree: Any) -> torch.Tensor:
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     out = t.clone()
+    _count("all-reduce", out.numel() * out.element_size())
     torch.distributed.all_reduce(out, op=torch.distributed.ReduceOp.SUM,
                                  group=group)
     return out
@@ -180,12 +213,15 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
              noise: Optional[torch.Tensor] = None,
              grad_bound=None, reduce_dtype: Optional[torch.dtype] = None,
              stats_impl: str = "plain",
-             h_hat: Optional[torch.Tensor] = None, cut=None) -> Tree:
+             h_hat: Optional[torch.Tensor] = None, cut=None,
+             axis="data") -> Tree:
     """Aggregate this rank's gradient with every other rank's, over the
     air.  The ranks are a ``torch.distributed`` ``group`` (the mesh
     backend: each rank an FL device, the sums all-reduces) or, with
-    ``ctx`` (a ``RankContext``), the ``data`` ranks of a training mesh (the
-    sums ``ctx.fold``, in rank order; its leaves are freed as they fold).
+    ``ctx`` (a ``RankContext``), the ranks along ``axis`` of a training
+    mesh (``data``; on a mesh with a pod axis ``("pod", "data")`` or
+    ``pod``; the sums ``ctx.fold``, in rank order; its leaves are freed as
+    they fold).
     ``h``/``b`` are the full [K] per-device tensors (the same on every
     rank); each rank takes its own ``h_k``, ``b_k`` by its rank.  ``h_hat``
     is the server's estimate (None: perfect CSI): the true ``h`` rides the
@@ -214,10 +250,10 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
     if group is not None and ctx is not None:
         raise ValueError("ota_psum takes a group or a ctx, not both")
     if ctx is not None:
-        k_total, me = ctx.size("data"), ctx.d
+        k_total, me = ctx.size(axis), ctx.coord(axis)
 
         def psum(t):
-            return ctx.fold(t, "data")
+            return ctx.fold(t, axis)
     else:
         k_total, me = (torch.distributed.get_world_size(group),
                        client_index(group))

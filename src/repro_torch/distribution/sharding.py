@@ -34,14 +34,18 @@ make blindly, so the cut follows the specs with these changes
 * the xLSTM cell (``cell``: mLSTM and sLSTM) is cut with the heads, and
   its ``up`` holds ``[u | z]`` as ``in_proj`` does (``HALVES``).
 
-**FSDP.**  With ``fsdp_axis`` (the train step's ``data``) a leaf whose rule
+**FSDP.**  With ``fsdp_axis`` (the train step's ``data``, or ``("pod",
+"data")`` on the multi-pod mesh) a leaf whose rule
 has ``F`` is cut along that dim over the axis as well, on top of its model
 cut, where the axis divides the whole dim (``fsdp_dim``: ``sanitize_spec``'s
 rule, read from the config, so that it holds for a shard too); ``tok``
 keeps the reference's rule and is not cut.  A plain cut: ``in_proj`` and
 ``up`` are cut in halves on the model axis only.
 
-A rank of a ``(data, model)`` mesh is ``d * model + m``.
+A rank of a ``(data, model)`` mesh is ``d * model + m``, of a ``(pod,
+data, model)`` mesh ``(p * data + d) * model + m``; a spec entry that is a
+tuple of axes (``("pod", "data")``: FSDP and the batch on the multi-pod
+mesh) cuts its dim over their product, row-major.
 
 **The experiment axis.**  ``experiment_mesh`` / ``shard_experiment_axis``
 serve ``repro_torch.fed.runtime.run_batched(shard=True)``: a batched grid of
@@ -478,7 +482,7 @@ def with_fsdp(names: tuple, spec: Spec, cfg, mesh,
     ``fsdp_axis`` added (no ``fsdp_axis``: ``spec`` itself)."""
     if fsdp_axis is None:
         return spec
-    dim = fsdp_dim(names, len(spec), cfg, mesh.shape[fsdp_axis])
+    dim = fsdp_dim(names, len(spec), cfg, axis_size(mesh, fsdp_axis))
     if dim is None:
         return spec
     return Spec(*(fsdp_axis if d == dim else e for d, e in enumerate(spec)))
@@ -537,7 +541,8 @@ class CutLayout:
             self.cut[key] = "model" in spec
             self.fsdp[key] = (spec.index(fsdp_axis) if fsdp_axis
                               and fsdp_axis in spec else None)
-            self.full[key] = tuple(n * (1 if e is None else mesh.shape[e])
+            self.full[key] = tuple(n * (1 if e is None else
+                                        axis_size(mesh, e))
                                    for n, e in zip(leaf.shape, spec))
 
     def piece(self, key: str, t: torch.Tensor) -> torch.Tensor:
@@ -551,9 +556,20 @@ class CutLayout:
 
 
 def rank_coords(mesh, rank: int) -> dict:
-    """Axis name -> this rank's index: rank = d * model + m."""
-    model = mesh.shape["model"]
-    return {"data": rank // model, "model": rank % model}
+    """Axis name -> this rank's index, row-major over the mesh's axes:
+    rank = d * model + m, or (p * data + d) * model + m."""
+    coords, rest = {}, rank
+    for a in reversed(tuple(mesh.shape)):
+        coords[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
+    return coords
+
+
+def axis_size(mesh, entry) -> int:
+    """Ranks along a spec entry: one axis, or a tuple (their product)."""
+    n = 1
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        n *= mesh.shape[a]
+    return n
 
 
 def _part(entry, mesh, coords) -> tuple:

@@ -13,8 +13,11 @@ computes its rank's shard and combines the shards where the math needs it:
 * ``tp.gather(x, axis)``: every rank's tensor stacked in rank order (the
   vocabulary-cut logits, q before a sequence-cut decode).
 
-On a physical mesh the stack comes from ``all_gather`` over the axis's
-process group (``ota_collectives.gather_shards``); on an emulated one from
+An axis is a name or a tuple of names, the flattened axis in rank order
+(``("pod", "data")``: index ``p * data + d``), so a fold over the tuple on
+a (pod, data, model) mesh is the fold over ``data`` of the mesh with the
+two axes merged.  On a physical mesh the stack comes from ``all_gather``
+over the axis's process group (``ota_collectives.gather_shards``); on an emulated one from
 the other ranks' threads (``run_ranks``).  Either way every rank folds the
 same stack with the same function, so a physical mesh gives the emulated
 mesh's bits.  No all-reduce: its summation order is the library's, not the
@@ -70,12 +73,15 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.distribution.ota_collectives import fold_shards, \
     gather_shards
+
+# a mesh axis: a name, or a tuple of names (the flattened axis)
+Axis = Union[str, Tuple[str, ...]]
 
 
 class RankContext:
@@ -87,17 +93,19 @@ class RankContext:
                  lockstep: Optional["_Lockstep"] = None):
         self.mesh, self.rank, self.index = mesh, rank, index
         self.d, self.m = mesh.coords(rank)
+        self.p = mesh.axis_coords(rank)["pod"]
         self.data, self.model = mesh.data, mesh.model
         self._lockstep = lockstep
-        # whether the batch's rows are cut over ``data`` (the serve and
-        # train steps set it): a function of the whole batch (the MoE's
-        # capacity, its pairs' slots, its aux losses) then counts every
-        # data rank's rows
+        # whether the batch's rows are cut over ``batch_axis`` (the serve
+        # and train steps set both): a function of the whole batch (the
+        # MoE's capacity, its pairs' slots, its aux losses) then counts
+        # every rank's rows along it
         self.batch_split = False
+        self.batch_axis: Axis = "data"
         # the axis the parameter leaves with an FSDP rule are cut over
         # (``distribution.sharding.fsdp_dim``), or None: the train step
         # sets it, and the models gather those leaves (``unshard``)
-        self.fsdp_axis: Optional[str] = None
+        self.fsdp_axis: Optional[Axis] = None
         self._log = None       # {(scope key, n, axis): result} in recorded()
         self._scope = None      # [scope key, collectives so far] in scope()
 
@@ -121,11 +129,13 @@ class RankContext:
         finally:
             self._scope = outer
 
-    def size(self, axis: str) -> int:
-        return self.mesh.shape[axis]
+    def size(self, axis: Axis) -> int:
+        """Ranks along ``axis`` (a name, or a tuple: the flattened axis)."""
+        return self.mesh.axis_size(self.mesh.canonical(axis))
 
-    def coord(self, axis: str) -> int:
-        return self.m if axis == "model" else self.d
+    def coord(self, axis: Axis) -> int:
+        """This rank's index along ``axis`` (a tuple: row-major)."""
+        return self.mesh.axis_index(self.rank, self.mesh.canonical(axis))
 
     def _collective(self, axis: str, run: Callable[[], torch.Tensor]
                     ) -> torch.Tensor:
@@ -146,6 +156,7 @@ class RankContext:
 
     def _gather_now(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The gather's collective itself (never recorded)."""
+        axis = self.mesh.canonical(axis)
         if self._lockstep is None:
             return gather_shards(x.contiguous(), self.mesh.groups[axis])
         return self._lockstep.exchange(self.rank, axis, x)
@@ -155,24 +166,27 @@ class RankContext:
         """The fold's collective itself (never recorded).  Emulated: folded
         once for the ranks of a group, which share the result (the same
         bits each rank's own fold would give)."""
+        axis = self.mesh.canonical(axis)
         if self._lockstep is None:
             return fold_shards(gather_shards(x.contiguous(),
                                              self.mesh.groups[axis]), op)
         return self._lockstep.exchange(
             self.rank, axis, x, reduce=lambda st: fold_shards(st, op))
 
-    def gather(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    def gather(self, x: torch.Tensor, axis: Axis = "model") -> torch.Tensor:
         """Every rank's ``x`` along ``axis`` stacked in rank order (a new
         leading axis); its backward takes the rank's own slice."""
+        axis = self.mesh.canonical(axis)
         if self.size(axis) == 1:
             return x[None]
         return _Gather.apply(x, self, axis)
 
-    def fold(self, x: torch.Tensor, axis: str = "model",
+    def fold(self, x: torch.Tensor, axis: Axis = "model",
              op=torch.add) -> torch.Tensor:
         """The left fold of every rank's ``x`` along ``axis``, in rank
         order; one rank: ``x`` itself.  A sum's backward is the identity;
         another ``op`` (a softmax's running max) carries no gradient."""
+        axis = self.mesh.canonical(axis)
         if self.size(axis) == 1:
             return x
         if op is not torch.add:
@@ -181,22 +195,24 @@ class RankContext:
                     x.detach(), axis, op))
         return _Fold.apply(x, self, axis)
 
-    def enter(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    def enter(self, x: torch.Tensor, axis: Axis = "model") -> torch.Tensor:
         """``x`` (the same on every rank of ``axis``) as it enters work that
         each rank does on its part: the identity, whose backward folds the
         ranks' partial gradients."""
+        axis = self.mesh.canonical(axis)
         if self.size(axis) == 1:
             return x
         return _Enter.apply(x, self, axis)
 
     def unshard(self, xs: Sequence[torch.Tensor], dims: Sequence[int],
-                axis: str = "data") -> tuple:
+                axis: Axis = "data") -> tuple:
         """The whole leaves of the rank's slices ``xs``, each cut along
         ``dims[i]`` over ``axis``: every rank's slice concatenated in rank
         order, one collective for all of them (one for each dtype).  Its
         backward folds the whole leaves' gradients over ``axis`` (where the
         batch is cut over it) and keeps the rank's slices.  Not recorded:
         a recompute gathers again."""
+        axis = self.mesh.canonical(axis)
         if self.size(axis) == 1 or not xs:
             return tuple(xs)
         out: List[Optional[torch.Tensor]] = [None] * len(xs)
@@ -366,16 +382,9 @@ class _Lockstep:
         axis, reduce = self.slots[0][0], self.slots[0][3]
         stacks = {}
         for r in range(self.n):
-            d, m = self.mesh.coords(r)
-            key = d if axis == "model" else m
+            key = self.mesh.members(r, axis)
             if key not in stacks:
-                members = ([d * self.mesh.model + j
-                            for j in range(self.mesh.model)]
-                           if axis == "model" else
-                           [i * self.mesh.model + m
-                            for i in range(self.mesh.data)])
-                stacks[key] = torch.stack([self.slots[j][2]
-                                           for j in members])
+                stacks[key] = torch.stack([self.slots[j][2] for j in key])
                 if reduce is not None:
                     stacks[key] = reduce(stacks[key])
             self.results[r] = stacks[key]

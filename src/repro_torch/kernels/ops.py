@@ -83,7 +83,7 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
         return False
     if impl == "kernel" or t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):     # meta: the dry run's shapes
         return False
     raise ValueError(f"no kernel or plain route for device {t.device}")
 

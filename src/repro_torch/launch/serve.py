@@ -25,7 +25,8 @@ full cache to the ranks this process runs (a list, one entry a rank: the
 counterpart of the reference's ``in_shardings_fn`` and ``device_put``);
 ``transformer.init_sharded_params`` gives one rank's params without the
 whole model.  The steps take and return such lists and whole token
-batches: the batch is cut over ``data`` (where it divides), the model over
+batches: the batch is cut over ``data`` (on a mesh with a pod axis over
+``("pod", "data")``, ``mesh.dp_axes``; where it divides), the model over
 ``model`` (``distribution.sharding.tp_plan``), and the next ids come back
 whole.  An xLSTM's decode cache holds a rank's heads of each mLSTM's
 ``C``/``n`` and every sLSTM's whole state; an encoder-decoder's decode
@@ -47,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distribution import sharding as sh
 from repro_torch.distribution.tensor_parallel import run_ranks
+from repro_torch.launch.mesh import DP, dp_axes
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -59,10 +61,17 @@ def _greedy(params, cfg: ModelConfig, hidden: torch.Tensor, tp=None
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _dp(mesh):
+    """The axis the batch is cut over: ``data``, or ``("pod", "data")`` on
+    a mesh with a pod axis."""
+    return mesh.canonical(DP)
+
+
 def _split_batch(mesh, b: int) -> bool:
-    """Whether a batch of ``b`` rows is cut over ``data`` (else every data
+    """Whether a batch of ``b`` rows is cut over the batch axis (else every
     rank runs all of it, as the reference's sanitized batch spec)."""
-    return mesh.data > 1 and b % mesh.data == 0
+    n = mesh.axis_size(_dp(mesh))
+    return n > 1 and b % n == 0
 
 
 def _on(batch: dict, dev) -> dict:
@@ -75,19 +84,22 @@ def _rows(batch, ctx, split: bool):
     of them unless ``split``); marks ``ctx`` with the cut, which the MoE's
     dispatch reads."""
     ctx.batch_split = split
+    ctx.batch_axis = _dp(ctx.mesh)
     if isinstance(batch, dict):
         return {k: _rows(v, ctx, split) for k, v in batch.items()}
     if not split:
         return batch
-    per = batch.shape[0] // ctx.data
-    return batch[ctx.d * per:(ctx.d + 1) * per]
+    per = batch.shape[0] // ctx.size(ctx.batch_axis)
+    i = ctx.coord(ctx.batch_axis)
+    return batch[i * per:(i + 1) * per]
 
 
 def _whole(ids: torch.Tensor, ctx, split: bool) -> torch.Tensor:
-    """Every data rank's ids, in rank order (the batch's)."""
+    """Every rank's ids along the batch axis, in rank order (the
+    batch's)."""
     if not split:
         return ids
-    return torch.cat(list(ctx.gather(ids, "data").unbind(0)))
+    return torch.cat(list(ctx.gather(ids, _dp(ctx.mesh)).unbind(0)))
 
 
 def _place_params(cfg: ModelConfig, mesh):
@@ -114,14 +126,15 @@ def _decode_cache_specs(cfg: ModelConfig, mesh, cache_like, *,
                                num_kv_heads=cfg.num_kv_heads,
                                model_size=mesh.model, seq_axis="data")
     else:
-        specs = sh.cache_specs(cache_like, batch_axes=("data",),
+        specs = sh.cache_specs(cache_like, batch_axes=dp_axes(mesh),
                                model_axis="model",
                                num_kv_heads=cfg.num_kv_heads,
                                model_size=mesh.model)
         if seq_axis:      # the reference's _reshard_kv_seq
             specs = sh._map_named(
-                lambda names, sp: (sh.Spec(None, ("data",), seq_axis, None,
-                                           None) if len(sp) == 5 else sp),
+                lambda names, sp: (sh.Spec(None, dp_axes(mesh), seq_axis,
+                                           None, None)
+                                   if len(sp) == 5 else sp),
                 specs)
     if cfg.is_xlstm:
         specs = sh._map_named(

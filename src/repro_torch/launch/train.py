@@ -29,6 +29,17 @@ over ``data`` as a whole leaf does.  The mean path folds over ``data``
 only.  So a ``(D, M)`` step is the ``(D, 1)`` step up to the rounding of
 the model folds.
 
+The pod axis (a ``(pod, data, model)`` mesh, ``launch.mesh``): the
+batch's rows are cut over the flattened ``("pod", "data")`` axis (rank
+``p * data + d``'s rows).  ``aggregation_axes=("pod", "data")`` makes
+each (p, d) rank a client, its fold over the flattened axis: bitwise the
+``(pod * data, model)`` mesh's step over ``data``.
+``aggregation_axes=("pod",)`` makes each pod a client: its data ranks
+split the pod's rows and fold its gradient over ``data`` in rank order
+(as the mean path folds), then ``ota_psum`` runs over ``pod``.  The mean
+path folds over ``("pod", "data")``, and FSDP cuts over it
+(``fsdp_axis=("pod", "data")``), bitwise the flattened mesh's.
+
 The builder returns ``(train_step, place)``, as the port's serving builders
 do.  ``place(params, opt_state, batch)`` gives per-rank lists: each rank's
 shard of the params and of the optimizer state, leaf for leaf (views of
@@ -67,7 +78,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,7 +89,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distribution import ota_collectives as oc
 from repro_torch.distribution import sharding as SH
 from repro_torch.distribution.tensor_parallel import run_ranks
-from repro_torch.launch.mesh import ServingMesh
+from repro_torch.launch.mesh import DP, ServingMesh
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
@@ -122,23 +133,45 @@ def draw_noise(gen: torch.Generator, like: PyTree, noise_var: float,
     return buf.mul_(math.sqrt(noise_var)).to(device)
 
 
-def _split(mesh: ServingMesh, rows: int) -> bool:
-    """Whether a batch of ``rows`` rows is cut over ``data`` (else every
-    data rank takes all of it, as the reference's sanitized batch spec)."""
-    return mesh.data > 1 and rows % mesh.data == 0
+def _cut(batch: dict, index: int, parts: int) -> dict:
+    """Part ``index`` of ``parts`` of every tensor of a batch dict, cut
+    along its rows."""
+    per = next(iter(batch.values())).shape[0] // parts
+    return {k: v[index * per:(index + 1) * per] for k, v in batch.items()}
 
 
-def _rows(batch: dict, d: int, data: int, split: bool) -> dict:
-    """Data rank ``d``'s rows of every tensor of a batch dict."""
-    if not split:
-        return dict(batch)
-    per = next(iter(batch.values())).shape[0] // data
-    return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+def _divides(mesh: ServingMesh, axis, rows: int) -> bool:
+    return mesh.axis_size(axis) > 1 and rows % mesh.axis_size(axis) == 0
+
+
+def _rows(mesh: ServingMesh, batch: dict, rank: int, outer, inner
+          ) -> Tuple[dict, bool]:
+    """A rank's rows of a batch dict and whether they were cut over
+    ``inner``: first its client's rows, cut over the ``outer`` (client)
+    axis, then its part of those over ``inner`` (the ranks that split a
+    client's rows and fold its gradient), each cut where it divides the
+    rows (else every rank along it takes them all, as the reference's
+    sanitized batch spec).  Both cut on a (pod, data, model) mesh is the
+    cut over the flattened ``("pod", "data")``."""
+    rows = dict(batch)
+    if outer is not None and _divides(mesh, outer, _n_rows(rows)):
+        rows = _cut(rows, mesh.axis_index(rank, outer),
+                    mesh.axis_size(outer))
+    split = inner is not None and _divides(mesh, inner, _n_rows(rows))
+    if split:
+        rows = _cut(rows, mesh.axis_index(rank, inner),
+                    mesh.axis_size(inner))
+    return rows, split
+
+
+def _n_rows(batch: dict) -> int:
+    return next(iter(batch.values())).shape[0]
 
 
 class RankBatches(list):
     """``place``'s per-rank batches, and whether their rows were cut over
-    ``data`` (else every rank holds the whole batch)."""
+    the ranks that fold a gradient (else each holds its client's whole
+    rows)."""
 
     def __init__(self, rows, split: bool):
         super().__init__(rows)
@@ -183,51 +216,81 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[ServingMesh], *,
                      optimizer: Optional[Optimizer] = None,
                      ota_stats_impl: str = "kernels", device="cuda"):
     """Returns ``(train_step, place)`` (module doc).  ``mesh`` is a
-    ``launch.mesh`` mesh of ``(data, model)`` ranks (None: one rank); the
-    FL clients are its ``data`` ranks (``aggregation_axes=("data",)``),
-    each cut over its row's ``model`` ranks.  The params must be on
-    ``device``; the step moves each rank's rows there."""
+    ``launch.mesh`` mesh of ``(data, model)`` or ``(pod, data, model)``
+    ranks (None: one rank).  The FL clients are the ranks along
+    ``aggregation_axes`` (module doc: ``("data",)``, or on a mesh with a
+    pod axis ``("pod", "data")`` or ``("pod",)``), each cut over its
+    ``model`` ranks.  The params must be on ``device``; the step moves each
+    rank's rows there."""
     dev = resolve_device(device)
     mesh = mesh if mesh is not None else ServingMesh(1, 1)
     opt = optimizer or sgd(1e-2)
     mean = scheme == "mean" or not aggregation_axes
-    _check_fsdp(fsdp_axis, mean)
+    fsdp = _check_fsdp(mesh, fsdp_axis, mean)
+    outer, inner = row_axes(mesh, scheme, aggregation_axes)
     if mean:
-        return (_mean_step(cfg, mesh, opt, dev, fsdp_axis),
-                _placer(mesh, cfg, fsdp_axis))
-    axes = tuple(aggregation_axes)
-    if axes != ("data",):
-        raise ValueError(f"aggregation_axes {axes}: the FL clients are the "
-                         f"data ranks, pass ('data',)")
+        return (_mean_step(cfg, mesh, opt, dev, fsdp),
+                _placer(mesh, cfg, fsdp, outer, inner))
     if ota is None:
         raise ValueError("OTA schemes need OTARunParams")
     schemes.validate_config(scheme, ota.grad_bound)
-    return _ota_step(cfg, mesh, opt, dev, scheme, ota,
-                     ota_stats_impl), _placer(mesh, cfg)
+    return (_ota_step(cfg, mesh, opt, dev, scheme, ota, ota_stats_impl,
+                      outer, inner),
+            _placer(mesh, cfg, None, outer, inner))
 
 
-def _check_fsdp(fsdp_axis, mean: bool) -> None:
-    """FSDP runs over ``data`` on the mean path; the rest raises."""
+def row_axes(mesh: ServingMesh, scheme: str, aggregation_axes):
+    """(outer, inner): the axes a train step cuts its batch's rows over
+    (``_rows``).  The mean path: no clients, every rank along the batch
+    axes (``data``, or ``("pod", "data")``) splits the rows and folds the
+    gradient.  An OTA scheme: the clients' axis (``_client_axis``), and
+    under ``("pod",)`` the pod's ``data`` ranks, which split its rows."""
+    if scheme == "mean" or not aggregation_axes:
+        return None, mesh.canonical(DP)
+    clients = _client_axis(mesh, tuple(aggregation_axes))
+    return clients, "data" if clients == "pod" else None
+
+
+def _client_axis(mesh: ServingMesh, axes: tuple):
+    """The FL clients' axis of ``aggregation_axes``: ``data`` on a mesh
+    without a pod axis; ``("pod", "data")`` (a client a (p, d)) or
+    ``pod`` (a client a pod, its data ranks splitting its rows) on one
+    with a pod axis."""
+    allowed = ((("pod", "data"), ("pod",)) if mesh.pod > 1
+               else (("data",),))
+    if axes not in allowed:
+        raise ValueError(
+            f"aggregation_axes {axes}: the FL clients are the data ranks, "
+            "pass ('data',); on a mesh with a pod axis ('pod', 'data') or "
+            f"('pod',) (this mesh: {mesh.axis_names})")
+    return mesh.canonical(axes)
+
+
+def _check_fsdp(mesh: ServingMesh, fsdp_axis, mean: bool):
+    """FSDP runs over the batch's axes on the mean path: ``data``, or
+    ``("pod", "data")`` on a mesh with a pod axis; the rest raises.
+    Returns the axis as the mesh names it (None without FSDP)."""
     if fsdp_axis is None:
-        return
-    if isinstance(fsdp_axis, (tuple, list)):
-        raise NotImplementedError(
-            f"fsdp_axis={tuple(fsdp_axis)!r}: FSDP over several axes (the "
-            "multi-pod ('pod', 'data')) waits for the production mesh, "
-            "ROADMAP queue 1 item 17")
-    if fsdp_axis != "data":
-        raise ValueError(f"fsdp_axis={fsdp_axis!r}: FSDP cuts over the "
-                         "'data' axis")
+        return None
+    axis = tuple(fsdp_axis) if isinstance(fsdp_axis, (tuple, list)) \
+        else fsdp_axis
+    want = DP if mesh.pod > 1 else "data"
+    if axis != want:
+        raise ValueError(
+            f"fsdp_axis={axis!r}: FSDP cuts over the 'data' axis, or over "
+            "('pod', 'data') on a mesh with a pod axis (this mesh: "
+            f"{mesh.axis_names})")
     if not mean:
         raise NotImplementedError(
             "fsdp_axis with an OTA scheme: the reference's plans never pair "
             "them (XLA cannot partition FSDP under the client shard_map: "
             "src/repro/launch/dryrun.py:53-60, tests/test_distribution.py:"
             "269); FSDP runs on the mean path (scheme='mean')")
+    return mesh.canonical(axis)
 
 
-def _placer(mesh: ServingMesh, cfg: ModelConfig,
-            fsdp_axis: Optional[str] = None):
+def _placer(mesh: ServingMesh, cfg: ModelConfig, fsdp_axis=None,
+            outer=None, inner=None):
     def shard(tree, rank):
         if (mesh.model == 1 and fsdp_axis is None) or tree is None \
                 or isinstance(tree, torch.Tensor):
@@ -238,13 +301,13 @@ def _placer(mesh: ServingMesh, cfg: ModelConfig,
         """Per-rank lists of the ranks this process runs: each rank's shard
         of the params and of the optimizer state, leaf for leaf (updates
         are functional; with FSDP also cut over ``data``), the batch's rows
-        cut over ``data`` where they divide."""
+        cut over the clients and the ranks that split them
+        (``_rows``)."""
         ranks = mesh.local_ranks
         rows = None
         if batch is not None:
-            split = _split(mesh, next(iter(batch.values())).shape[0])
-            rows = RankBatches([_rows(batch, mesh.coords(r)[0], mesh.data,
-                                      split) for r in ranks], split)
+            cut = [_rows(mesh, batch, r, outer, inner) for r in ranks]
+            rows = RankBatches([c[0] for c in cut], cut[0][1])
         return ([shard(params, r) for r in ranks],
                 None if opt_state is None else
                 [type(opt_state)(*(shard(f, r) for f in opt_state))
@@ -253,15 +316,40 @@ def _placer(mesh: ServingMesh, cfg: ModelConfig,
     return place
 
 
-def _rank_batches(mesh, place, batch) -> RankBatches:
+def _rank_batches(mesh, place, batch, inner) -> RankBatches:
     """The step's per-rank batches: a whole batch dict is cut as ``place``
     cuts it (a plain list of per-rank batches counts as cut over
-    ``data``)."""
+    ``inner``)."""
     if isinstance(batch, dict):
         return place(batch=batch)[2]
     if not isinstance(batch, RankBatches):
-        return RankBatches(batch, mesh.data > 1)
+        return RankBatches(batch, inner is not None
+                           and mesh.axis_size(inner) > 1)
     return batch
+
+
+def _split_grads(ctx, rows, split: bool, inner, dev, cfg, params,
+                 folded=None):
+    """(loss, metrics, gradient leaves) of the rows of the ranks along
+    ``inner`` (with ``split``: each rank's own rows, its loss its share of
+    theirs, the mask count, the loss, the metrics and every gradient leaf
+    but the ``folded`` ones folded over ``inner`` in rank order)."""
+    ctx.batch_split = split
+    if inner is not None:
+        ctx.batch_axis = inner
+    count = None
+    if split:
+        mask = rows.get("loss_mask")
+        mine = (torch.sum(mask.float()) if mask is not None else
+                torch.full((), float(rows["labels"].numel()), device=dev))
+        count = ctx.fold(mine, inner)
+    loss, metrics, grads = _client_grads(cfg, ctx, params, rows, count)
+    if split:
+        grads = [g if folded is not None and folded[f"{i:05d}"] is not None
+                 else ctx.fold(g, inner) for i, g in enumerate(grads)]
+        loss = ctx.fold(loss, inner)
+        metrics = {k: ctx.fold(v, inner) for k, v in metrics.items()}
+    return loss, metrics, grads
 
 
 def _layout(cfg, mesh, params, rank):
@@ -270,16 +358,16 @@ def _layout(cfg, mesh, params, rank):
             else None)
 
 
-def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
+def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl, clients, inner):
     h = torch.as_tensor(np.asarray(ota.h, np.float32), device=dev)
     b = torch.as_tensor(np.asarray(ota.b, np.float32), device=dev)
     reduce_dtype = (getattr(torch, ota.reduce_dtype)
                     if isinstance(ota.reduce_dtype, str) else ota.reduce_dtype)
-    place = _placer(mesh, cfg)
+    place = _placer(mesh, cfg, None, clients, inner)
 
     def train_step(params, opt_state, batch, gen_or_seed=None, *,
                    noise: Optional[torch.Tensor] = None):
-        batch = _rank_batches(mesh, place, batch)
+        batch = _rank_batches(mesh, place, batch, inner)
         gen = _generator(gen_or_seed)
         z = noise
         if z is None and gen is not None and ota.noise_var > 0.0:
@@ -291,12 +379,14 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
             p, o = params[ctx.index], opt_state[ctx.index]
             rows = {k: v.to(dev) for k, v in batch[ctx.index].items()}
             lay = _layout(cfg, mesh, p, ctx.rank)
-            loss, metrics, grads = _client_grads(cfg, ctx, p, rows)
+            loss, metrics, grads = _split_grads(ctx, rows, batch.split,
+                                                inner, dev, cfg, p)
             flat = tree_flatten(grads)
             del grads
             grad_norm = torch.sqrt(oc.tree_sq_norm(flat) if lay is None
                                    else oc.tree_sq_norm_cut(flat, ctx, lay))
-            y = oc.ota_psum(flat, scheme=scheme, ctx=ctx, h=h, b=b, a=ota.a,
+            y = oc.ota_psum(flat, scheme=scheme, ctx=ctx, axis=clients,
+                            h=h, b=b, a=ota.a,
                             noise_var=ota.noise_var, noise=z,
                             grad_bound=ota.grad_bound,
                             reduce_dtype=reduce_dtype, stats_impl=stats_impl,
@@ -304,7 +394,7 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
             del flat
             new_p, new_o = opt.update(tree_unflatten(p, y), o, p)
             del y
-            loss_all = ctx.fold(loss, "data") / ctx.size("data")
+            loss_all = ctx.fold(loss, clients) / ctx.size(clients)
             return new_p, new_o, dict(metrics, loss=loss_all,
                                       grad_norm=grad_norm)
 
@@ -315,10 +405,11 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl):
 
 
 def _mean_step(cfg, mesh, opt, dev, fsdp_axis=None):
-    place = _placer(mesh, cfg, fsdp_axis)
+    dp = mesh.canonical(DP)
+    place = _placer(mesh, cfg, fsdp_axis, None, dp)
 
     def train_step(params, opt_state, batch, gen_or_seed=None):
-        batch = _rank_batches(mesh, place, batch)
+        batch = _rank_batches(mesh, place, batch, dp)
         # which leaves the gather's backward has folded over ``data``
         gathered = None
         if fsdp_axis is not None:
@@ -328,24 +419,9 @@ def _mean_step(cfg, mesh, opt, dev, fsdp_axis=None):
         def program(ctx):
             p, o = params[ctx.index], opt_state[ctx.index]
             rows = {k: v.to(dev) for k, v in batch[ctx.index].items()}
-            split = batch.split
-            ctx.batch_split = split
             ctx.fsdp_axis = fsdp_axis
-            count = None
-            if split:
-                mask = rows.get("loss_mask")
-                mine = (torch.sum(mask.float()) if mask is not None else
-                        torch.full((), float(rows["labels"].numel()),
-                                   device=dev))
-                count = ctx.fold(mine, "data")
-            loss, metrics, grads = _client_grads(cfg, ctx, p, rows, count)
-            if split:
-                grads = [g if gathered is not None
-                         and gathered[f"{i:05d}"] is not None
-                         else ctx.fold(g, "data")
-                         for i, g in enumerate(grads)]
-                loss = ctx.fold(loss, "data")
-                metrics = {k: ctx.fold(v, "data") for k, v in metrics.items()}
+            loss, metrics, grads = _split_grads(ctx, rows, batch.split, dp,
+                                                dev, cfg, p, gathered)
             new_p, new_o = opt.update(
                 tree_unflatten(p, tree_flatten(grads)), o, p)
             return new_p, new_o, dict(metrics, loss=loss)

@@ -98,7 +98,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def _normal(gen: torch.Generator, shape, scale: float, dt: torch.dtype,
             device) -> torch.Tensor:
     """N(0, 1) * scale drawn in fp32 on the generator's device, then cast
-    (as the reference casts its fp32 draws) and moved to ``device``."""
+    (as the reference casts its fp32 draws) and moved to ``device``; on the
+    meta device (the dry run's shapes) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dt, device=device)
     x = torch.randn(shape, generator=gen, device=gen.device) * scale
     return x.to(device=device, dtype=dt)
 

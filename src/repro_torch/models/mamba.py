@@ -117,10 +117,13 @@ def _chunk_scan(carry_h: torch.Tensor, da: torch.Tensor, dbu: torch.Tensor
     """h_t = da_t * h_{t-1} + dbu_t within one chunk, folded in time order.
 
     carry_h: [B, Di, N]; da/dbu: [B, C, Di, N].  Returns (h_all
-    [B,C,Di,N], h_last)."""
+    [B,C,Di,N], h_last).  The steps' inputs are ``unbind``'s views: their
+    backward is one stack, where indexing a step (``da[:, t]``) would
+    write a zero-padded chunk-sized gradient a step (quadratic bytes in
+    the chunk; ``launch.dryrun`` counts them)."""
     hs, h = [], carry_h
-    for t in range(da.shape[1]):
-        h = da[:, t] * h + dbu[:, t]
+    for da_t, dbu_t in zip(da.unbind(1), dbu.unbind(1)):
+        h = da_t * h + dbu_t
         hs.append(h)
     return torch.stack(hs, dim=1), h
 

@@ -102,15 +102,17 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, tp=None
     # dispatch, in pair order.  With the batch's rows cut over ``data`` the
     # order is the whole batch's: the capacity counts every data rank's
     # tokens, and a rank's slots start after the earlier ranks' pairs
-    split = tp is not None and tp.batch_split and tp.data > 1
-    t_all = t * tp.data if split else t
+    ranks = tp.size(tp.batch_axis) if tp is not None else 1
+    split = tp is not None and tp.batch_split and ranks > 1
+    t_all = t * ranks if split else t
     cap = capacity(t_all, cfg)
     flat_e = top_e.reshape(t * k)
     onehot = F.one_hot(flat_e, e)                             # [T*k, E]
     pos_in_e = torch.cumsum(onehot, dim=0) - onehot           # exclusive
     if split:
-        counts = tp.gather(torch.sum(onehot, dim=0), "data")  # [D, E]
-        pos_in_e = pos_in_e + torch.sum(counts[:tp.d], dim=0)
+        counts = tp.gather(torch.sum(onehot, dim=0), tp.batch_axis)  # [D, E]
+        pos_in_e = pos_in_e + torch.sum(counts[:tp.coord(tp.batch_axis)],
+                                        dim=0)
 
     # aux losses (fp32): Switch-style load balance and the router z-loss
     z_sq = torch.square(torch.logsumexp(logits, dim=-1))

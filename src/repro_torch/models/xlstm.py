@@ -335,7 +335,7 @@ def slstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
     ``return_state=True`` also returns the final (c, n, h, m), each [B,di]
     fp32, the state starting at zeros and m = -1e30 (whole on every rank
     with ``tp``)."""
-    b, s, _ = x.shape
+    b = x.shape[0]
     di = xlstm_inner_dim(cfg)
     u, z_gate = _up(params, cfg, x, tp)
     wx = _slstm_wx(params, cfg, u, tp)                      # [B,S,4di]
@@ -344,8 +344,11 @@ def slstm_mix(params, cfg: ModelConfig, x: torch.Tensor,
              torch.full((b, di), -1e30, dtype=torch.float32,
                         device=x.device))
     hs = []
-    for t in range(s):
-        state, h = _slstm_cell(params, cfg, wx[:, t], state)
+    # the steps' inputs as ``unbind``'s views: their backward is one stack
+    # (indexing ``wx[:, t]`` would write a zero-padded [B, S, 4 di]
+    # gradient a step, quadratic bytes in S)
+    for wx_t in wx.unbind(1):
+        state, h = _slstm_cell(params, cfg, wx_t, state)
         hs.append(h)
     out = _slstm_out(params, cfg, torch.stack(hs, dim=1).to(x.dtype), z_gate,
                      tp)

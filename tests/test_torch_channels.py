@@ -34,6 +34,16 @@ KEY = jax.random.PRNGKey(0)
 DRAW_RTOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _normals(seed, shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(
         np.float32)

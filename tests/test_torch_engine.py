@@ -48,6 +48,16 @@ CASES = {
 CHUNKS = {"chunk_1": 1, "chunk_3": 3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _spec(backend="kernels", **fl):
     return ExperimentSpec(
         fl=runtime.FLConfig(num_devices=K, backend=backend,

@@ -21,6 +21,16 @@ from repro_torch.fl import DataSpec, EvalSpec, Experiment, ExperimentSpec, \
     ModelSpec
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tiny_spec():
     return ExperimentSpec(
         fl=runtime.FLConfig(num_devices=4, backend="kernels",

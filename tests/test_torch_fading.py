@@ -38,6 +38,16 @@ K = 4
 ROUNDS = 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def ridge_spec(driver="scan", seed=0, scheme="normalized", **chkw):
     """The reference's tests/test_channels.py::ridge_spec on the kernels
     backend."""

@@ -23,6 +23,16 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, seed, kv_heads=None):
     rng = np.random.default_rng(seed)
     b, h, s, d = shape

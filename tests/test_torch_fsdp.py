@@ -336,7 +336,8 @@ def test_planted_faults_are_rejected(fault, monkeypatch):
 
 
 def test_what_still_raises():
-    """FSDP with an OTA scheme, over a tuple of axes, over another axis."""
+    """FSDP with an OTA scheme, over ('pod', 'data') on a mesh without a
+    pod axis, over another axis."""
     cfg = _cfg()
     mesh = make_host_mesh(2, 2)
     ota = tl.OTARunParams(h=np.ones(2), b=np.ones(2))
@@ -344,7 +345,7 @@ def test_what_still_raises():
         tl.build_train_step(cfg, mesh, scheme="normalized", ota=ota,
                             aggregation_axes=("data",), fsdp_axis="data",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="on a mesh with a pod axis"):
         tl.build_train_step(cfg, mesh, scheme="mean",
                             fsdp_axis=("pod", "data"), device="cpu")
     with pytest.raises(ValueError, match="'data' axis"):

@@ -76,6 +76,7 @@ def test_entry_modules_load_without_jax_or_repro():
         "import repro_torch.distribution, repro_torch.distribution.sharding\n"
         "import repro_torch.distribution.tensor_parallel\n"
         "import repro_torch.launch.mesh, repro_torch.launch.train\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis.roofline\n"
         "from repro_torch.fl import Experiment, ExperimentSpec\n"
         "from repro_torch.fl import SweepSpec, run_sweep, build_task\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -28,6 +28,16 @@ from repro_torch.kernels.ota_aggregate import (ota_superpose_cuda,
 EPS32 = float(np.finfo(np.float32).eps)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _stack(k, n, seed, zeros_every=None, edges=False):
     rng = np.random.default_rng(seed)
     g = rng.standard_normal((k, n)).astype(np.float32)

@@ -54,6 +54,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fl_kwargs(name):
     h, over = CASES[name]
     return dict(num_devices=K, scheme="normalized", case="I", p=0.75,

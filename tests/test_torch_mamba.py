@@ -32,6 +32,16 @@ _J_MIX = jax.jit(JM.mamba_mix, static_argnums=(1,),
 _J_DECODE = jax.jit(JM.mamba_decode_step, static_argnums=(1,))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scan_inputs(b, s, d, n, seed=0):
     """The reference kernel test's distributions (tests/test_kernels.py):
     u, B, C normal; dt = softplus(normal); a = -exp(normal)."""

@@ -24,6 +24,16 @@ KEY = jax.random.PRNGKey(7)
 REL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, rel=REL):
     got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
                      np.float32)

@@ -27,6 +27,16 @@ NOISE_VAR = 2.5e-3
 NKEY = jax.random.fold_in(jax.random.PRNGKey(11), 9)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed=0):
     rng = np.random.default_rng(seed)
     g = {n: rng.standard_normal((K,) + s).astype(np.float32)

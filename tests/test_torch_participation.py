@@ -50,6 +50,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fl_kwargs(mode, p, k_block, gather):
     return dict(num_devices=K, scheme="normalized", case="I", p=0.75,
                 smoothness_L=5.0, expected_loss_drop=2.0, seed=0,

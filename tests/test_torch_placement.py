@@ -203,7 +203,8 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("arch,data,model", [
     ("jamba-v0.1-52b", 1, 2), ("jamba-v0.1-52b", 2, 2),
-    ("jamba-v0.1-52b", 1, 4), ("qwen2-7b", 1, 4), ("olmoe-1b-7b", 2, 2)])
+    ("jamba-v0.1-52b", 1, 4), ("qwen2-7b", 1, 4), ("olmoe-1b-7b", 2, 2),
+    ("xlstm-1.3b", 1, 2), ("seamless-m4t-medium", 1, 2)])
 def test_init_sharded_params_is_the_shard_of_init_params(arch, data, model):
     cfg, _ = _cfgs(arch)
     mesh = make_host_mesh(data, model)

@@ -47,6 +47,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fl_kwargs(case, constants):
     kw = dict(num_devices=K, scheme=case["scheme"], seed=3)
     if case["dataset"] == "ridge":

@@ -45,6 +45,16 @@ EPS32 = float(np.finfo(np.float32).eps)
 STREAM_TOL = dict(rtol=3e-4, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _stack(k, n, seed, zeros_every=None):
     """Normal rows with large values at each row's head and tail (a dropped
     or doubled edge element shows at once) and optional exact zeros."""

@@ -48,6 +48,16 @@ K = 4
 ROUNDS = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def ridge_spec(**fl_kw):
     fl = dict(num_devices=K, scheme="normalized", case="II", eta=0.01,
               channel=ChannelConfig(num_devices=K, channel_mean=1e-3),

@@ -29,7 +29,13 @@ mesh) against the uncut model and the JAX package's, on the CPU:
   FSDP (``tests/test_torch_fsdp.py``), and reduced xlstm-1.3b and
   seamless-m4t-medium served and trained one step
   (``tests/test_torch_tp_zoo.py``);
-* what still raises: FSDP with an OTA scheme, and over a tuple of axes.
+* the pod axis: a (2, 2, 1) mesh whose clients are its (pod, data) ranks,
+  and its mean path under FSDP over (pod, data), bitwise the (4, 1) mesh
+  they flatten to; a client a pod (``aggregation_axes=("pod",)``) against
+  the reference's (2, 2, 1) step (in the reference's subprocess) and over
+  four gloo ranks;
+* what still raises: FSDP with an OTA scheme, and over (pod, data) on a
+  mesh without a pod axis.
 
 torch runs on one thread in this file and in the ranks.
 """
@@ -389,10 +395,16 @@ def test_every_scheme_on_a_cut_client(scheme):
 # the reference's train step on a (4, 2) forced-host mesh
 
 
+# "pod": a client a pod of a (pod 2, data 2, model 1) mesh, its two data
+# ranks splitting its rows and folding its gradient (the multi-pod plan of
+# llama3-405b, ``launch/dryrun.py::plan_for``), against the reference's
+# ``aggregation_axes=("pod",)`` on its (2, 2, 1) mesh
 CASES = {
     "normalized": dict(scheme="normalized", a=250.0, noise_var=1e-7,
                        schedule=True),
     "mean": dict(scheme="mean", a=None, noise_var=0.0, schedule=False),
+    "pod": dict(scheme="normalized", a=250.0, noise_var=1e-7, schedule=True,
+                pod=True),
 }
 H = np.array([1e-3, 2e-3, 1.5e-3, 0.5e-3])
 B = np.array([1.0, 0.8, 1.2, 0.9])
@@ -417,6 +429,8 @@ from repro.optim.optimizers import inverse_power_schedule, sgd
 CASES, H, B, STEPS, ARCH = eval(sys.argv[2])
 H, B = np.asarray(H), np.asarray(B)
 mesh = make_host_mesh(4, 2)
+pod_mesh = jax.make_mesh((2, 2, 1), ("pod", "data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 3)
 cfg = dataclasses.replace(reduce_config(get_config(ARCH)), dtype="float32")
 params0 = T.init_params(cfg, jax.random.PRNGKey(0))
 rng = np.random.default_rng(2)
@@ -437,20 +451,23 @@ for name, c in CASES.items():
     o = sgd(inverse_power_schedule(0.75, eta0=0.05) if c["schedule"]
             else 0.05)
     ota = None
+    m_, axes, k = ((pod_mesh, ("pod",), 2) if c.get("pod")
+                   else (mesh, ("data",), 4))
     if c["scheme"] != "mean":
-        ota = tl.OTARunParams(h=H, b=B, a=c["a"], noise_var=c["noise_var"])
+        ota = tl.OTARunParams(h=H[:k], b=B[:k], a=c["a"],
+                              noise_var=c["noise_var"])
     step, in_sh = tl.build_train_step(
-        cfg, mesh, scheme=c["scheme"],
-        aggregation_axes=None if ota is None else ("data",), ota=ota,
+        cfg, m_, scheme=c["scheme"],
+        aggregation_axes=None if ota is None else axes, ota=ota,
         optimizer=o)
     params, opt_state = params0, o.init(params0)
     ps, os_, bs = in_sh(params, opt_state, batch)
-    with jax.set_mesh(mesh):
+    with jax.set_mesh(m_):
         params = jax.device_put(params, ps)
         opt_state = jax.device_put(opt_state, os_)
         bt = jax.device_put(batch, bs)
         jitted = jax.jit(step, in_shardings=(ps, os_, bs,
-                                             NamedSharding(mesh, P())),
+                                             NamedSharding(m_, P())),
                          out_shardings=(ps, os_, None))
         for t in range(STEPS):
             key = jax.random.fold_in(jax.random.PRNGKey(3), t)
@@ -471,7 +488,7 @@ print("REF_TP_TRAIN_OK")
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference's two cases on its (4, 2) mesh, from one
+    """The reference's cases on its (4, 2) and (2, 2, 1) meshes, from one
     subprocess."""
     tmp = tmp_path_factory.mktemp("ref_tp_train")
     script = tmp / "ref_tp_train.py"
@@ -499,12 +516,14 @@ def test_tp_train_step_matches_reference(reference, name):
     o = opt.sgd(opt.inverse_power_schedule(0.75, eta0=0.05)
                 if c["schedule"] else 0.05)
     ota = None
+    mesh, axes, k = ((make_host_mesh(2, 1, pod=2), ("pod",), 2)
+                     if c.get("pod") else (make_host_mesh(4, 2), ("data",), 4))
     if c["scheme"] != "mean":
-        ota = tl.OTARunParams(h=H, b=B, a=c["a"], noise_var=c["noise_var"])
-    mesh = make_host_mesh(4, 2)
+        ota = tl.OTARunParams(h=H[:k], b=B[:k], a=c["a"],
+                              noise_var=c["noise_var"])
     step, place = tl.build_train_step(
         cfg, mesh, scheme=c["scheme"],
-        aggregation_axes=None if ota is None else ("data",), ota=ota,
+        aggregation_axes=None if ota is None else axes, ota=ota,
         optimizer=o, device="cpu")
     params, opt_state, rows = place(p0, o.init(p0), batch)
     for t in range(STEPS):
@@ -529,6 +548,66 @@ def test_tp_train_step_matches_reference(reference, name):
         assert all(torch.equal(a, b) for a, b in zip(
             tree_leaves(shard),
             tree_leaves(SH.shard_params(full, mesh, r, cfg))))
+
+
+# ---------------------------------------------------------------------------
+# the pod axis: a (pod 2, data 2, model 1) mesh against the (4, 1) mesh it
+# flattens to (rank (p * 2 + d) is rank p * 2 + d of the (4, 1) mesh)
+
+POD_CASES = {
+    # four clients, one a (p, d): the (4, 1) mesh's clients over data
+    "pod_data": dict(scheme="normalized", axes=("pod", "data"), fsdp=None,
+                     flat_axes=("data",), flat_fsdp=None),
+    # the mean path with FSDP over (pod, data): the (4, 1) mesh's over data
+    "fsdp": dict(scheme="mean", axes=None, fsdp=("pod", "data"),
+                 flat_axes=None, flat_fsdp="data"),
+}
+
+
+def _pod_run(mesh, scheme, axes, fsdp, steps=2):
+    cfg = _cfg()
+    p0 = _params(cfg)
+    o = opt.adamw(0.01)
+    ota = (tl.OTARunParams(h=H, b=B, a=250.0, noise_var=1e-7)
+           if axes else None)
+    step, place = tl.build_train_step(
+        cfg, mesh, scheme=scheme, aggregation_axes=axes, fsdp_axis=fsdp,
+        ota=ota, optimizer=o, device="cpu")
+    params, state, rows = place(p0, o.init(p0), _batch(cfg, 8, 32, 4))
+    metrics = []
+    for t in range(steps):
+        params, state, m = step(params, state, rows, 7 + t)
+        metrics.append(m)
+    return cfg, p0, params, state, metrics
+
+
+@pytest.mark.parametrize("case", list(POD_CASES))
+def test_pod_mesh_is_the_flattened_mesh_bitwise(case):
+    """Two AdamW steps of reduced granite: every rank's params, optimizer
+    state and the metrics are the bits of the (4, 1) mesh's rank; under
+    FSDP over (pod, data) the whole params are also the plain mean step's
+    (no FSDP) bits."""
+    c = POD_CASES[case]
+    pod = make_host_mesh(2, 1, pod=2)
+    cfg, p0, params, state, ms = _pod_run(pod, c["scheme"], c["axes"],
+                                          c["fsdp"])
+    _, _, fparams, fstate, fms = _pod_run(make_host_mesh(4, 1), c["scheme"],
+                                          c["flat_axes"], c["flat_fsdp"])
+    for r in range(4):
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params[r]), tree_leaves(fparams[r]))), r
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(tuple(state[r])), tree_leaves(tuple(fstate[r])))), r
+    for m, fm in zip(ms, fms):
+        assert set(m) == set(fm)
+        assert all(torch.equal(m[k], fm[k]) for k in m)
+    if c["fsdp"]:
+        _, _, plain, _, pms = _pod_run(pod, "mean", None, None)
+        whole = SH.gather_params(params, pod, cfg, p0, fsdp_axis=c["fsdp"])
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(whole), tree_leaves(SH.gather_params(plain, pod, cfg,
+                                                             p0))))
+        assert all(torch.equal(ms[-1][k], pms[-1][k]) for k in pms[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -594,14 +673,14 @@ def test_seq_parallel_is_numerically_transparent():
 def test_fsdp_raises_naming_its_item():
     """FSDP runs on the mean path (``tests/test_torch_fsdp.py``); with an
     OTA scheme it raises (the reference's plans never pair them), and over
-    a tuple of axes it waits for the production mesh (item 17)."""
+    ('pod', 'data') it needs a mesh with a pod axis."""
     cfg = _cfg()
     ota = tl.OTARunParams(h=np.ones(2), b=np.ones(2))
     with pytest.raises(NotImplementedError, match="never pair"):
         tl.build_train_step(cfg, make_host_mesh(2, 2), fsdp_axis="data",
                             scheme="normalized", aggregation_axes=("data",),
                             ota=ota, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="on a mesh with a pod axis"):
         tl.build_train_step(cfg, make_host_mesh(2, 2),
                             fsdp_axis=("pod", "data"), scheme="mean",
                             device="cpu")
@@ -623,7 +702,7 @@ import torch.multiprocessing as mp
 RANKS = 4
 
 
-def run(mesh, scheme, steps=2, fsdp=None):
+def run(mesh, scheme, steps=2, fsdp=None, axes=("data",)):
     import dataclasses
     import numpy as np
     from repro_torch.configs import registry as reg
@@ -640,7 +719,7 @@ def run(mesh, scheme, steps=2, fsdp=None):
                               a=250.0, noise_var=1e-7)
     step, place = tl.build_train_step(
         cfg, mesh, scheme=scheme,
-        aggregation_axes=None if ota is None else ("data",), ota=ota,
+        aggregation_axes=None if ota is None else axes, ota=ota,
         fsdp_axis=fsdp, optimizer=o, device="cpu")
     g = torch.Generator().manual_seed(5)
     toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
@@ -708,6 +787,8 @@ def worker(rank, port, out_dir):
     assert mesh.physical and mesh.rank == rank
     res = {s: run(mesh, s) for s in ("normalized", "mean")}
     res["fsdp"] = run(mesh, "mean", fsdp="data")
+    res["pod"] = run(make_host_mesh(2, 1, pod=2), "normalized",
+                     axes=("pod",))
     res["zoo"] = zoo(mesh)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
@@ -749,16 +830,20 @@ def _flat(tree):
     return pytree.tree_leaves(tree)
 
 
-@pytest.mark.parametrize("scheme", ["normalized", "mean", "fsdp"])
+@pytest.mark.parametrize("scheme", ["normalized", "mean", "fsdp", "pod"])
 def test_physical_ranks_are_the_emulated_mesh_bitwise(physical, scheme):
     """Each gloo rank of a physical (2, 2) mesh (reduced jamba: its
     attention, Mamba, dense MLP, experts and vocabulary cut over the model
     axis; ``fsdp``: the mean path with the FSDP rules' leaves also cut over
-    ``data``) ends with the bits of the emulated mesh's rank after two
-    AdamW steps: params, optimizer state and metrics."""
+    ``data``; ``pod``: a (2, 2, 1) mesh, a client a pod) ends with the bits
+    of the emulated mesh's rank after two AdamW steps: params, optimizer
+    state and metrics."""
     ranks, ns = physical
     want = (ns["run"](make_host_mesh(2, 2), "mean", fsdp="data")
-            if scheme == "fsdp" else ns["run"](make_host_mesh(2, 2), scheme))
+            if scheme == "fsdp" else
+            ns["run"](make_host_mesh(2, 1, pod=2), "normalized",
+                      axes=("pod",)) if scheme == "pod" else
+            ns["run"](make_host_mesh(2, 2), scheme))
     for r, res in enumerate(ranks):
         got = res[scheme]
         for a, b in zip(_flat(got["params"][0]), _flat(want["params"][r])):

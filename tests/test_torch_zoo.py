@@ -44,6 +44,16 @@ _J_DECODE = jax.jit(JT.decode_step, static_argnums=(1,))
 _J_ENCODE = jax.jit(JT.encode_for_decode, static_argnums=(1,))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread in this file: intra-op threads on these small
+    tensors stall on the loaded machine of the parallel run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, rel=REL):
     got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
                      np.float32)

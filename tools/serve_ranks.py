@@ -4,7 +4,7 @@ over real cards: one process a rank, one card a rank (NCCL), or the CPU
 (gloo) for a rehearsal.
 
     python3 tools/serve_ranks.py [--ranks 4] [--device cuda|cpu]
-        [--parts whole,parity,train,fsdp,zoo,sweep] > serve_ranks.jsonl
+        [--parts whole,parity,train,fsdp,zoo,pod,sweep] > serve_ranks.jsonl
 
 Every rank joins one ``torch.distributed`` group on 127.0.0.1 (NCCL on
 ``cuda:<rank>``, gloo on the CPU), builds the physical ``(1, ranks)`` mesh
@@ -41,6 +41,15 @@ on its own device:
             host: s a step and each card's peak memory of each, each
             rank's FSDP slices the bits of its plain shard's; then the
             FSDP steps on the mesh emulated on each card, bitwise;
+``pod``     granite-moe-1b-a400m at 6 of its 24 layers (bf16; the mesh
+            emulated on one card holds four ranks' gradients) over the
+            physical ``(pod 2,
+            data ranks / 2, model 1)`` mesh: a client a pod
+            (``aggregation_axes=("pod",)``: the pod's data ranks split its
+            rows), a client a (pod, data) rank, and the mean path with
+            FSDP over ``("pod", "data")``; one warm-up and ``TRAIN_STEPS``
+            timed steps each, then the same on the mesh emulated on each
+            card: each rank's shard of the params and momentum, bitwise;
 ``zoo``     xlstm-1.3b (4 x 2,048 tokens) and seamless-m4t-medium (4 x
             8,192 tokens over 2,048 stub frames) whole over the physical
             ``(1, ranks)`` mesh, bf16: a prefill and ``PARITY_STEPS``
@@ -455,8 +464,107 @@ def part_zoo(ranks: int, rank: int, device, cpu: bool) -> dict:
     return out
 
 
+def _pod_steps(cfg, mesh, params, batch, device, scheme, axes, fsdp):
+    """One warm-up step and TRAIN_STEPS timed steps (sgd with momentum)
+    on ``mesh``; (the params' and momentum's shards of the ranks this
+    process runs, the timed steps' seconds, the losses)."""
+    import chip_smoke
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import sgd
+    opt = sgd(0.05, momentum=0.9)
+    ota = None
+    if axes:
+        k = 1
+        for a in axes:
+            k *= mesh.shape[a]
+        full = chip_smoke.train_ota(T.param_count(params), noise=True)
+        h, b = full.h[:k], full.b[:k]
+        ota = tl.OTARunParams(h=h, b=b, a=1.0 / float((h * b).sum()),
+                              noise_var=full.noise_var,
+                              grad_bound=full.grad_bound)
+    step, place = tl.build_train_step(cfg, mesh, scheme=scheme,
+                                      aggregation_axes=axes, fsdp_axis=fsdp,
+                                      ota=ota, optimizer=opt, device=device)
+    p, o, rows = place(params, opt.init(params), batch)
+    p, o, m = step(p, o, rows, 100)
+    secs, losses = [], [float(m["loss"])]
+    for t in range(TRAIN_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, rows, 101 + t)
+        _sync(device)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return p, [x.mu for x in o], secs, losses
+
+
+# pod: (the clients' axes, the FSDP axis, the scheme) of each run
+POD_RUNS = {"pod": (("pod",), None, "normalized"),
+            "pod_data": (("pod", "data"), None, "normalized"),
+            "fsdp_pod_data": (None, ("pod", "data"), "mean")}
+
+
+def part_pod(ranks: int, rank: int, device, cpu: bool) -> dict:
+    """granite-moe-1b-a400m at chip_smoke's OTA depth (6 of its 24
+    layers: the emulated mesh holds every rank's gradient and OTA buffers
+    on one card; bf16; reduced fp32 on the CPU) over the physical (pod 2,
+    data ranks / 2, model 1) mesh: a client a pod, a client a (pod, data)
+    rank, and the mean path with FSDP over (pod, data); each run's shard
+    on each rank the bits of the same run on the mesh emulated on the
+    rank's own card."""
+    import torch.utils._pytree as pytree
+    import chip_smoke
+    from repro_torch.configs.registry import get_config, reduce_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    cfg = get_config(TRAIN_ARCH)
+    if cpu:
+        cfg = dataclasses.replace(reduce_config(cfg), dtype="float32")
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=chip_smoke.TRAIN_OTA_LAYERS)
+    data = ranks // 2
+    rows, seq = (2, 32) if cpu else (chip_smoke.TRAIN_ROWS,
+                                     chip_smoke.TRAIN_SEQ)
+    batch = chip_smoke.train_batch(cfg, ranks * rows, seq, seed=11)
+    params = T.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(0), device=device)
+    mesh = make_host_mesh(data, 1, pod=2)
+    emu = make_host_mesh(data, 1, pod=2, emulate=True)
+    out = {"part": "pod", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "mesh": {"pod": 2, "data": data, "model": 1},
+           "physical": mesh.physical, "tokens_per_step": ranks * rows * seq}
+    ok = mesh.physical
+    for name, (axes, fsdp, scheme) in POD_RUNS.items():
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        p, mu, secs, losses = _pod_steps(cfg, mesh, params, batch, device,
+                                         scheme, axes, fsdp)
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if device.type == "cuda" else 0.0)
+        mine = [t.clone() for t in pytree.tree_leaves((p[0], mu[0]))]
+        del p, mu
+        ep, emu_mu, esecs, elosses = _pod_steps(cfg, emu, params, batch,
+                                                device, scheme, axes, fsdp)
+        theirs = pytree.tree_leaves((ep[rank], emu_mu[rank]))
+        bitwise = (losses == elosses and len(mine) == len(theirs)
+                   and all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+        verdicts = _gathered(float(bitwise), device)
+        del ep, emu_mu, mine, theirs
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[name] = {"s_per_step": secs, "emulated_s_per_step": esecs,
+                     "loss": losses,
+                     "peak_mem_gib_per_rank": _gathered(peak, device),
+                     "bitwise_per_rank": [bool(v) for v in verdicts]}
+        ok = ok and all(v == 1.0 for v in verdicts) and all(
+            np.isfinite(losses))
+    out["ok"] = ok
+    return out
+
+
 PARTS = {"whole": part_whole, "parity": part_parity, "train": part_train,
-         "fsdp": part_fsdp, "zoo": part_zoo}
+         "fsdp": part_fsdp, "zoo": part_zoo, "pod": part_pod}
 
 
 def worker(rank: int, ranks: int, kind: str, port: int, failed,
@@ -544,9 +652,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--parts", default="whole,parity,train,fsdp,zoo,sweep",
+    ap.add_argument("--parts", default="whole,parity,train,fsdp,zoo,pod,sweep",
                     help="the parts to run, in this order for the ranks' "
-                         "(whole, parity, train, fsdp, zoo), then sweep")
+                         "(whole, parity, train, fsdp, zoo, pod), then sweep")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if not set(parts) <= set(PARTS) | {"sweep"}:
