@@ -9,6 +9,11 @@ Phases, one JSON line each; any failure exits non-zero and prints no result:
 2. build   -- compiles every Hopper kernel from ``src/repro_torch/kernels/
               csrc`` with nvcc (one process per source, started together);
               fails if ptxas reports a spill in any kernel;
+2b. lint   -- the port's static checks, ``python -m repro_torch.lint
+              --json`` in a process of its own over its default paths:
+              exit 0, no finding, and the compile logs of all six
+              ``build.SOURCES`` read (TL010's spill check of the
+              libraries phase 2 made; TL004 over the ``.cu`` sources);
 3. kernel  -- each kernel against its plain PyTorch version on the card, with
               the tolerance stated in the line: the dense moments (K1) and
               superposition (K2) at the FL round's shape (K = 20,
@@ -316,7 +321,11 @@ only phases 1, 2 and 14, and
 
     python3 chip_smoke.py --dryrun
 
-only phases 1, 2 and 15.
+only phases 1, 2 and 15, and
+
+    python3 chip_smoke.py --lint
+
+only phases 1, 2 and 2b.
 """
 from __future__ import annotations
 
@@ -5141,6 +5150,41 @@ def phase_train(ops) -> dict:
 DRYRUN_TIMEOUT_S = 300           # one CLI run of the dry run
 
 
+LINT_TIMEOUT_S = 300             # the lint's run over its default paths
+
+
+def phase_lint(src: str) -> dict:
+    """The port's tracelint (``python -m repro_torch.lint --json``) over its
+    default paths, from the root of the tree that holds ``src``, in a
+    process of its own; fails unless it exits 0 with no finding and read
+    the compile log of every ``build.SOURCES`` entry (phase build's)."""
+    from repro_torch.kernels import build
+    root = pathlib.Path(src).resolve().parent
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.lint", "--json",
+                        "--root", str(root)], cwd=str(root), env=env,
+                       capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    try:
+        rep = json.loads(r.stdout)
+    except ValueError:
+        fail(f"lint: exit {r.returncode}, no report: {r.stdout[-1500:]} "
+             f"{r.stderr[-1500:]}")
+    row = {"phase": "lint", "rules": [x["id"] for x in rep["rules"]],
+           "files": rep["files"], "findings": len(rep["findings"]),
+           "suppressed": len(rep["suppressed"]),
+           "ptxas_logs": len(rep["ptxas"]["logs"]),
+           "ptxas_entries": rep["ptxas"]["entries"], "s": seconds}
+    emit(row)
+    if r.returncode != 0 or rep["findings"] \
+            or row["ptxas_logs"] != len(build.SOURCES):
+        fail(f"lint: exit {r.returncode}, findings {rep['findings'][:5]}, "
+             f"compile logs read {rep['ptxas']['logs']} of "
+             f"{sorted(build.SOURCES)}")
+    return row
+
+
 def dryrun_step_bound(cfg, rows: int, seq: int) -> dict:
     """The roofline of one bf16 mean step of ``cfg`` on one card (mesh
     None) at ``rows`` x ``seq`` tokens: the dry run's counts of the same
@@ -5288,6 +5332,8 @@ def main() -> None:
                     help="run only the build and phase train")
     ap.add_argument("--dryrun", action="store_true",
                     help="run only the build and phase dryrun")
+    ap.add_argument("--lint", action="store_true",
+                    help="run only the build and phase lint")
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve()
                                          .parent / "src"),
                     help="directory that holds repro_torch (default: this "
@@ -5306,6 +5352,9 @@ def main() -> None:
         phase_rates(args.src)
         return
     phase_build(build)
+    if args.lint:
+        phase_lint(args.src)
+        return
     if args.driver:
         phase_driver(ops)
         return
@@ -5337,6 +5386,7 @@ def main() -> None:
     if args.dryrun:
         phase_dryrun(args.src)
         return
+    phase_lint(args.src)
     # the 100,000-device round first, on a clean card, so that its peak
     # device memory is its own
     phase_stream(ops)

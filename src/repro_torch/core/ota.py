@@ -390,6 +390,8 @@ def streaming_block(cfg: OTAConfig, carry: dict, block_tree: Tree,
             carry["acc"], x)
 
     side = carry["side"]
+    # side is a dict of tensors: the branch asks whether there is side info
+    # tracelint: disable=TL003 a dict's emptiness, not a tensor's value
     if side:
         collected = sch.collect_side(stats)
         side = {name: side[name] + torch.sum(hb_srv * collected[name])

@@ -161,6 +161,8 @@ def _part_stats(grads: Tree, sch: schemes.Scheme, impl: str, device
                 ) -> schemes.DeviceStats:
     """``impl``'s statistics of a part of a gradient (zeros where it holds
     no leaf)."""
+    # grads is a dict of tensors: the branch asks whether it holds a leaf
+    # tracelint: disable=TL003 a dict's emptiness, not a tensor's value
     if not grads:
         zero = torch.zeros((), dtype=torch.float32, device=device)
         return schemes.DeviceStats(0, zero, zero, ())

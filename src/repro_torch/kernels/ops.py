@@ -143,6 +143,8 @@ def _gain(a, g: torch.Tensor) -> torch.Tensor:
     call can be captured in a CUDA graph, which then keeps the value)."""
     if isinstance(a, torch.Tensor):
         return a
+    # a is a python float here: a tensor was returned above
+    # tracelint: disable=TL001 float() of a python float reads no device
     return torch.full((), float(a), dtype=torch.float32, device=g.device)
 
 

@@ -18,6 +18,8 @@ launches and serves CPU tensors with the plain versions.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _launch
@@ -73,7 +75,7 @@ def _library(name: str) -> ctypes.CDLL:
     return _launch.bind(name, _ENTRY_POINTS[name])
 
 
-def _check(g, scale, noise, a, pre):
+def _check(g, scale, noise, a, pre) -> Tuple[int, int]:
     if pre not in PRE_KINDS:
         raise ValueError(f"unknown pre-transform {pre!r}; one of {PRE_KINDS}")
     _launch.check(g, 2, "g")
