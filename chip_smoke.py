@@ -810,8 +810,9 @@ def phase_host_profile(exp) -> None:
 
 def emit_memory(after: str) -> None:
     """The device memory still allocated after a phase (its locals gone),
-    and how much of it live tensors hold (the rest is the allocator's own:
-    cuBLAS keeps a workspace for every stream that ran a product)."""
+    how much of it live tensors hold (the rest is the allocator's own:
+    cuBLAS keeps a workspace for every stream that ran a product), and the
+    script's seconds so far (where the 1,200 s go, phase by phase)."""
     import warnings
     gc.collect()
     torch.cuda.synchronize()
@@ -825,7 +826,8 @@ def emit_memory(after: str) -> None:
                 live[st.data_ptr()] = st.nbytes()
     emit({"phase": "memory", "after": after,
           "allocated_mb": torch.cuda.memory_allocated() / 2 ** 20,
-          "live_tensors_mb": sum(live.values()) / 2 ** 20})
+          "live_tensors_mb": sum(live.values()) / 2 ** 20,
+          "t_s": time.perf_counter() - T_START})
 
 
 def _max_rel(got: dict, want: dict) -> float:
@@ -1204,10 +1206,13 @@ def flash_bound(b, h, hkv, sq, skv, d, causal, window, dtype,
     return bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
 
 
-def flash_ms(fn) -> float:
+def flash_ms(fn, samples: int = 5) -> float:
     """Device time per call: CUDA-graph replays (``device_ms``) for short
-    calls; for calls over HEAVY_MS, the median of 5 samples of 2 eager calls
-    timed with CUDA events (the host's enqueue is far shorter)."""
+    calls; for calls over HEAVY_MS, the median of ``samples`` samples of 2
+    eager calls timed with CUDA events (the host's enqueue is far
+    shorter).  The plain versions take 1 sample: they are references, at
+    up to 1.8 s a call (K7's Python loop over 8,192 steps), and 12 calls
+    of each took ~100 s of the smoke's 1,200."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1218,15 +1223,15 @@ def flash_ms(fn) -> float:
     end.synchronize()
     if start.elapsed_time(end) < HEAVY_MS:
         return device_ms(fn)
-    samples = []
-    for _ in range(5):
+    times = []
+    for _ in range(samples):
         start.record()
         fn()
         fn()
         end.record()
         end.synchronize()
-        samples.append(start.elapsed_time(end) / 2)
-    return statistics.median(samples)
+        times.append(start.elapsed_time(end) / 2)
+    return statistics.median(times)
 
 
 def flash_ptxas(build, dtype, d) -> dict:
@@ -1314,7 +1319,7 @@ def check_flash(ops, build, shape, dtype, gen) -> dict:
            "kernel_ms": flash_ms(lambda: ops.flash_attention(
                q, k, v, impl="kernel", **kw)),
            "plain_ms": flash_ms(lambda: ops.flash_attention(
-               q, k, v, impl="plain", **kw)),
+               q, k, v, impl="plain", **kw), samples=1),
            "library_ms": flash_ms(library), "library_call": call,
            "bound_ms": b_ms, "bound_by": b_by, **cores,
            "band_pairs": b * h * band_pairs(sq, skv, causal, window)}
@@ -1640,7 +1645,7 @@ def check_scan(ops, shape, dtype, gen) -> dict:
            "kernel_ms": flash_ms(lambda: ops.selective_scan(
                *args, return_state=True, impl="kernel")),
            "plain_ms": flash_ms(lambda: ops.selective_scan(
-               *args, return_state=True, impl="plain")),
+               *args, return_state=True, impl="plain"), samples=1),
            "library_ms": None,
            "library_call": "none: no single PyTorch call computes the "
                            "selective scan",
@@ -4285,7 +4290,9 @@ def train_run(ops, cfg, params, batch, ota, label: str,
               warm_up: bool = True) -> dict:
     """(b) One warm-up (unless the card is warm from a run of the same
     shapes) and TRAIN_STEPS timed OTA steps of the whole model on an
-    emulated (TRAIN_CLIENTS, 1) mesh; the host noise draw timed apart."""
+    emulated (TRAIN_CLIENTS, 1) mesh; with noise, each client's ranks draw
+    it on the card (the channel-noise kernel, one launch a leaf a
+    client)."""
     from repro_torch.launch import train as tl
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.optimizers import inverse_power_schedule, sgd
@@ -4294,36 +4301,24 @@ def train_run(ops, cfg, params, batch, ota, label: str,
         cfg, make_host_mesh(TRAIN_CLIENTS, 1, emulate=True),
         scheme="normalized", aggregation_axes=("data",), ota=ota,
         optimizer=opt, device="cuda")
-    drawn = []
-    draw = tl.draw_noise
-
-    def timed_draw(*a, **k):
+    p, o, rows = place(params, opt.init(params), batch)
+    torch.cuda.reset_peak_memory_stats()
+    warm_loss = None
+    if warm_up:     # the card's warm-up: no seed, so no noise drawn
+        p, o, m = step(p, o, rows, None)
+        warm_loss = float(m["loss"])
+    before = dict(ops.LAUNCH_COUNTS)
+    secs, losses, norms = [], [], []
+    for t in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        z = draw(*a, **k)
-        drawn.append(time.perf_counter() - t0)
-        return z
-    tl.draw_noise = timed_draw
-    try:
-        p, o, rows = place(params, opt.init(params), batch)
-        torch.cuda.reset_peak_memory_stats()
-        warm_loss = None
-        if warm_up:     # the card's warm-up: no generator, so no noise drawn
-            p, o, m = step(p, o, rows, None)
-            warm_loss = float(m["loss"])
-        before = dict(ops.LAUNCH_COUNTS)
-        secs, losses, norms = [], [], []
-        for t in range(TRAIN_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p, o, m = step(p, o, rows, 101 + t)
-            losses.append(float(m["loss"]))
-            secs.append(time.perf_counter() - t0)
-            norms.append(float(m["grad_norm"]))
-        launches = {k: ops.LAUNCH_COUNTS[k] - before[k] for k in before}
-    finally:
-        tl.draw_noise = draw
+        p, o, m = step(p, o, rows, 101 + t)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    launches = {k: ops.LAUNCH_COUNTS[k] - before[k] for k in before}
     tokens = TRAIN_CLIENTS * TRAIN_ROWS * TRAIN_SEQ
-    draws = drawn
+    leaves = len(_leaves(params))
     row = {"phase": "train", "part": label, "arch": TRAIN_ARCH,
            "dtype": cfg.dtype, "mesh": [TRAIN_CLIENTS, 1],
            "tokens_per_step": tokens, "noise_var": ota.noise_var,
@@ -4334,9 +4329,8 @@ def train_run(ops, cfg, params, batch, ota, label: str,
            norms, "k1_launches_per_step":
            launches["batched_moments"] / TRAIN_STEPS,
            "launches": launches,
-           "host_noise_draw_s": draws,
-           "host_noise_draw_share": (sum(draws) / sum(secs) if draws
-                                     else 0.0)}
+           "noise_launches_per_step":
+           launches["channel_noise"] / TRAIN_STEPS}
     emit(row)
     if not all(math.isfinite(v) for v in losses
                + ([warm_loss] if warm_up else [])):
@@ -4346,6 +4340,121 @@ def train_run(ops, cfg, params, batch, ota, label: str,
              f"times in {TRAIN_STEPS} steps, expected one a client a step")
     if launches["flash_attention"] or launches["selective_scan"]:
         fail(f"train {label}: K6/K7 launched under autograd: {launches}")
+    want = TRAIN_CLIENTS * leaves * TRAIN_STEPS if ota.noise_var > 0 else 0
+    if launches["channel_noise"] != want:
+        fail(f"train {label}: the noise kernel launched "
+             f"{launches['channel_noise']} times, expected {want} (one a "
+             "leaf a client a step)")
+    return row
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two fp32
+    tensors (their bit patterns as integers, -0 read as +0; a sign that
+    differs counts as far apart)."""
+    ia, ib = ((t + 0.0).view(torch.int32).long() for t in (a, b))
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def _noise_leaf(ops, lay, k, leaf, seed, sigma, a, gen) -> dict:
+    """The channel-noise kernel against its plain version on one rank's
+    piece of one leaf (``lay``: the rank's ``CutLayout``, or the whole
+    leaf's shape): the uniforms bitwise, the normals in ulps, the fused
+    update on a random y."""
+    from repro_torch import rng
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.channel_noise import (noise_uniforms_cuda,
+                                                   piece_map)
+    pmap = (piece_map(lay) if isinstance(lay, tuple)
+            else piece_map(lay.full[k], lay.regions(k)))
+    key = rng.noise_key(seed, leaf)
+    n = pmap.numel
+    uni = noise_uniforms_cuda(key, pmap, "cuda")
+    normal = ops.channel_noise(torch.zeros(n, device="cuda"), key, 1.0, 1.0,
+                               pmap, impl="kernel")
+    u_same, n_ulps = True, 0
+    for lo in range(0, n, ref.NOISE_CHUNK):
+        hi = min(n, lo + ref.NOISE_CHUNK)
+        w = ref.piece_whole_index(torch.arange(lo, hi, device="cuda"), pmap)
+        u1, u2 = ref.noise_uniforms_ref(key, w)
+        u_same &= bool(torch.equal(uni[lo:hi, 0], u1)
+                       and torch.equal(uni[lo:hi, 1], u2))
+        n_ulps = max(n_ulps, _ulps(normal[lo:hi],
+                                   ref.noise_normals_ref(u1, u2)))
+    del uni
+    y = torch.randn(n, generator=gen, device="cuda")
+    got = ops.channel_noise(y, key, sigma, a, pmap, inplace=False,
+                            impl="kernel")
+    want = ops.channel_noise(y, key, sigma, a, pmap, inplace=False,
+                             impl="plain")
+    err = float((got - want).abs().max())
+    # 2 ulp of the largest normal through sigma and a, and 2 ulp of the
+    # result's rounding
+    tol = (abs(a) * sigma * float(normal.abs().max()) * 2.0 ** -22
+           + float(want.abs().max()) * 2.0 ** -22)
+    return {"leaf": leaf, "piece": list(pmap.pshape), "numel": n,
+            "uniforms_bitwise": u_same, "normals_max_ulps": n_ulps,
+            "max_abs_err": err, "tolerance": tol,
+            "same_bits": bool(torch.equal(got, want))}
+
+
+NOISE_N = 1_384_963_072          # granite-moe-1b-a400m's whole N
+NOISE_MAX_ULPS = 2
+
+
+def train_noise_kernel(ops, cfg, params, ota) -> dict:
+    """The channel-noise kernel against its plain version on the card, at
+    the pieces (b) and (f) give it: every whole leaf of the OTA depth's
+    tree, and model rank 1's piece of every leaf on the (4, 2) mesh; the
+    uniforms bitwise, the normals within NOISE_MAX_ULPS, the fused update
+    within 2 ulp.  Then its time at granite's whole N as one flat piece,
+    beside its bound (N * 8 bytes at the card's rate), its plain version
+    and ``torch.randn(N)`` (a yardstick: another stream, no gain)."""
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.kernels.channel_noise import piece_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_flatten
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sigma, a = math.sqrt(ota.noise_var), ota.a
+    flat = tree_flatten(params)
+    rows = [_noise_leaf(ops, tuple(flat[k].shape), k, i, 101, sigma, a, gen)
+            for i, k in enumerate(sorted(flat))]
+    mesh = make_host_mesh(TRAIN_CLIENTS, TRAIN_TP_MODEL, emulate=True)
+    lay = SH.CutLayout(SH.shard_params(params, mesh, 1, cfg), cfg, mesh, 1)
+    rows += [_noise_leaf(ops, lay, k, i, 102, sigma, a, gen)
+             for i, k in enumerate(sorted(flat)) if lay.cut[k]]
+    ok = all(r["uniforms_bitwise"] and r["normals_max_ulps"]
+             <= NOISE_MAX_ULPS and r["max_abs_err"] <= r["tolerance"]
+             for r in rows)
+    # timed in place over one flat piece, at a gain of 1 (the gain does not
+    # change the work; the path's gain would overflow y over the repeats)
+    y = torch.zeros(NOISE_N, device="cuda")
+    pmap = piece_map((NOISE_N,))
+    kernel_ms = event_ms(lambda: ops.channel_noise(y, 7, sigma, 1.0, pmap,
+                                                   impl="kernel"))
+    plain_ms = event_ms(lambda: ops.channel_noise(y, 7, sigma, 1.0, pmap,
+                                                  impl="plain"),
+                        samples=2, calls=1)
+    randn_ms = event_ms(lambda: torch.randn(NOISE_N, device="cuda"))
+    del y
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(NOISE_N * 8.0, 45.0 * NOISE_N)
+    row = {"phase": "train", "part": "noise_kernel", "pieces": len(rows),
+           "all_within": ok, "rows": rows,
+           "uniforms_bitwise": all(r["uniforms_bitwise"] for r in rows),
+           "normals_max_ulps": max(r["normals_max_ulps"] for r in rows),
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "same_bits": all(r["same_bits"] for r in rows),
+           "tolerance": f"uniforms bitwise, normals <= {NOISE_MAX_ULPS} "
+                        "ulp, the update within 2 ulp",
+           "n": NOISE_N, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "randn_ms": randn_ms, "randn_call": "torch.randn(N) (yardstick)",
+           "library_ms": None}
+    emit(row)
+    if not ok:
+        fail(f"train: the channel-noise kernel disagrees with its plain "
+             f"version: {[r for r in rows if not r['same_bits']][:3]}")
     return row
 
 
@@ -5050,8 +5159,10 @@ def phase_train(ops) -> dict:
     (e) the autograd guard, (h) FSDP over data on the (4, 2) mean path,
     (c) the fp32 card-vs-CPU check, (g) the fp32 (4, 2) check, (i) the
     fp32 FSDP check and (k) the fp32 check of a client a pod.
-    Returns K1's launches on the path ((b)'s, (f)'s and (j)'s steps, read
-    from counts set to 0 just before them)."""
+    Before (b), the channel-noise kernel against its plain version.
+    Returns K1's and the noise kernel's launches on the path ((b)'s, (f)'s
+    and (j)'s steps, read from counts set to 0 just before them) and the
+    noise kernel's check."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
@@ -5074,6 +5185,7 @@ def phase_train(ops) -> dict:
     n_ota = T.param_count(p_ota)
     emit({"phase": "train", "part": "model_ota", "layers": TRAIN_OTA_LAYERS,
           "params": n_ota})
+    noise_check = train_noise_kernel(ops, cfg_ota, p_ota, train_ota(n_ota))
     ops.reset_launch_counts()
     noisy = train_run(ops, cfg_ota, p_ota, batch, train_ota(n_ota),
                       "bf16_noise")
@@ -5104,12 +5216,17 @@ def phase_train(ops) -> dict:
     del p_ota
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {"batched_moments": ops.LAUNCH_COUNTS["batched_moments"]}
+    launches = {"batched_moments": ops.LAUNCH_COUNTS["batched_moments"],
+                "channel_noise": ops.LAUNCH_COUNTS["channel_noise"]}
     emit({"phase": "train", "part": "noise_cost",
           "s_per_step_noise": noisy["s_per_step_median"],
           "s_per_step_no_noise": quiet["s_per_step_median"],
           "difference_s": noisy["s_per_step_median"]
-          - quiet["s_per_step_median"]})
+          - quiet["s_per_step_median"],
+          "difference_rel": noisy["s_per_step_median"]
+          / quiet["s_per_step_median"] - 1.0,
+          "noise_launches_per_step": noisy["noise_launches_per_step"],
+          "noise_kernel_ms_at_n": noise_check["kernel_ms"]})
     train_mean(ops, cfg, params, batch)
     train_guard(ops, cfg, params, batch)
     t_fsdp = time.perf_counter()
@@ -5144,7 +5261,9 @@ def phase_train(ops) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "train_time", "seconds": time.perf_counter() - t_phase})
-    return launches
+    if not launches["channel_noise"]:
+        fail("train: the channel-noise kernel never launched on the path")
+    return {"launches": launches, "noise_check": noise_check}
 
 
 DRYRUN_TIMEOUT_S = 300           # one CLI run of the dry run
@@ -5439,7 +5558,9 @@ def main() -> None:
     emit_memory("zoo")
     tp_launches = phase_tp(ops, build)
     emit_memory("tp")
-    train_launches = phase_train(ops)
+    train = phase_train(ops)
+    train_launches = train["launches"]
+    checks["channel_noise"] = train["noise_check"]
     emit_memory("train")
     phase_dryrun(args.src)
     emit_memory("dryrun")
@@ -5476,6 +5597,12 @@ def main() -> None:
         "selective_scan": (csrc + "selective_scan.cu",
                            "src/repro/kernels/selective_scan.py:76",
                            hybrid_launches),
+        # no TPU kernel: the reference draws the train step's noise with
+        # jax.random inside its jitted step
+        "channel_noise": (csrc + "channel_noise.cu",
+                          "none (src/repro/distribution/ota_collectives.py:"
+                          "175-178 draws with jax.random; no Pallas kernel)",
+                          train_launches),
     }
     kernels = []
     for name, (src, replaces, launches) in sources.items():

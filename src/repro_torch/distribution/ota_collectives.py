@@ -11,8 +11,10 @@ The one ``all_reduce`` is the over-the-air superposition (eq. 10): the
 scheme's transform (``repro_torch.core.schemes``) takes ``h_k b_k`` into
 the per-device scale, so the sum needs no second pass.  The channel noise
 is added after the sum, once, from a stream every rank holds the same (a
-CPU generator from one seed, or one injected vector), so every rank ends
-with the same update, as Step 3's broadcast requires.  The side
+CPU generator from one seed, or one injected vector; on a training mesh
+the step's seed, each rank drawing its own piece of each leaf on its
+device: ``kernels.ops.channel_noise``), so every rank ends with the same
+update, as Step 3's broadcast requires.  The side
 information of a scheme's server post-transform folds with one more
 all-reduce of a few scalars.  On a training mesh (``ctx=``, a
 ``RankContext``: the FL clients are the ``data`` ranks) both sums are
@@ -112,6 +114,47 @@ def gather_shards(tree: Any, group) -> Any:
         return torch.stack(parts).reshape((n,) + tuple(leaf.shape))
 
     return tree_map(one, tree)
+
+
+def fold_scatter(send: torch.Tensor, group, op=torch.add,
+                 sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's chunk of the rank-order fold over the group: ``send``
+    (flat) holds chunk j for rank j, of ``sizes[j]`` elements (None: n
+    equal chunks); one all-to-all hands each rank every rank's chunk for
+    it, stacked in rank order, and ``fold_shards`` folds the stack.  A
+    reduce-scatter whose order is the fold's: 1 part of output a rank on
+    average (``COLLECTIVE_BYTES``' "all-to-all", counted as ``send``'s
+    bytes, so that the count is linear in the size)."""
+    dist = torch.distributed
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    sizes = [send.numel() // n] * n if sizes is None else list(sizes)
+    recv = send.new_empty(n * sizes[me])
+    _count("all-to-all", send.numel() * send.element_size())
+    dist.all_to_all_single(recv, send, output_split_sizes=[sizes[me]] * n,
+                           input_split_sizes=sizes, group=group)
+    return fold_shards(recv.view(n, sizes[me]), op)
+
+
+def fold_over(x: torch.Tensor, group, op=torch.add) -> torch.Tensor:
+    """The left fold of every rank's ``x`` over the group, in rank order:
+    ``fold_shards(gather_shards(x, group), op)`` to the bit, moving 2 parts
+    a rank instead of n.  ``x`` flat in n chunks (the first numel % n one
+    element longer); ``fold_scatter`` folds this rank's chunk; a second
+    all-to-all hands every rank every folded chunk (an all-gather of
+    uneven chunks, counted as one).  Each element is folded from the same
+    operands in the same order as the gather's fold (a chunk may be
+    empty where ``x`` has fewer elements than the group has ranks)."""
+    dist = torch.distributed
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    flat = x.reshape(-1).contiguous()
+    q, r = divmod(flat.numel(), n)
+    sizes = [q + (j < r) for j in range(n)]
+    mine = fold_scatter(flat, group, op, sizes)
+    out = torch.empty_like(flat)
+    _count("all-gather", out.numel() * out.element_size())
+    dist.all_to_all_single(out, mine.repeat(n), output_split_sizes=sizes,
+                           input_split_sizes=[sizes[me]] * n, group=group)
+    return out.view(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +259,7 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
              grad_bound=None, reduce_dtype: Optional[torch.dtype] = None,
              stats_impl: str = "plain",
              h_hat: Optional[torch.Tensor] = None, cut=None,
-             axis="data") -> Tree:
+             axis="data", noise_seed: Optional[int] = None) -> Tree:
     """Aggregate this rank's gradient with every other rank's, over the
     air.  The ranks are a ``torch.distributed`` ``group`` (the mesh
     backend: each rank an FL device, the sums all-reduces) or, with
@@ -230,7 +273,12 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
     sum (the air), the estimate weighs the side-info fold.  The noise is
     drawn from the CPU ``generator`` (seeded alike on every rank) or
     injected as the flat ``noise`` [N] in sorted-key leaf order; with
-    ``noise_var`` 0 there is none.  ``a`` is a float or a 0-d tensor on the
+    ``noise_var`` 0 there is none.  On a training mesh (``ctx``) the noise
+    may come from ``noise_seed`` instead: each rank draws its piece of
+    each leaf l on its device, fused with the gain ``a``
+    (``kernels.ops.channel_noise`` with ``rng.noise_key(noise_seed, l)``,
+    l the leaf's place in sorted-key order), the whole draw's slice to
+    the bit.  ``a`` is a float or a 0-d tensor on the
     gradients' device.  ``stats_impl='kernels'`` takes the statistics from
     the moments kernel.  ``reduce_dtype`` superposes in that dtype (the
     side information stays fp32).
@@ -239,7 +287,9 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
     says which leaves of ``grads`` are this model rank's shards of a cut
     leaf: the statistics are then the whole client's (``cut_stats``), and
     the noise is the whole tree's (drawn or injected at the whole leaves'
-    shapes), each leaf's shard taken by ``cut.piece``.  Each shard folds
+    shapes), each leaf's shard taken by ``cut.piece``; from
+    ``noise_seed``, each rank draws its shard's regions alone
+    (``cut.regions``).  Each shard folds
     over ``data`` as a whole leaf does.
 
     Returns the update direction y, the same on every rank (of a model
@@ -251,6 +301,10 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
                          f"{STATS_IMPLS}")
     if group is not None and ctx is not None:
         raise ValueError("ota_psum takes a group or a ctx, not both")
+    if noise_seed is not None and (ctx is None or noise is not None
+                                   or generator is not None):
+        raise ValueError("noise_seed is a training mesh's stream: it takes "
+                         "a ctx, and no generator or injected noise")
     if ctx is not None:
         k_total, me = ctx.size(axis), ctx.coord(axis)
 
@@ -287,16 +341,21 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
     if reduce_dtype is not None:
         x = schemes.tree_map(lambda l: l.to(reduce_dtype), x)
     y = psum_tree(x)
-    first = next(iter(y.values()))
-    shapes = (cut.full if cut is not None
-              else {k: v.shape for k, v in y.items()})
-    z = ota.channel_noise(noise_var, shapes, first.device, generator, noise)
-    if z is not None:
-        zt = ota.unravel(z, shapes)
-        if cut is not None:
-            zt = {k: cut.piece(k, v) for k, v in zt.items()}
-        y = schemes.tree_map(lambda l, zl: l + zl, y, zt)
-    y = schemes.tree_map(lambda l: a * l, y)
+    if noise_seed is not None and schemes.maybe_positive(noise_var):
+        y = _seeded_noise(y, noise_seed, math.sqrt(noise_var), a, cut,
+                          inplace=not ctx.shares_folds)
+    else:
+        first = next(iter(y.values()))
+        shapes = (cut.full if cut is not None
+                  else {k: v.shape for k, v in y.items()})
+        z = ota.channel_noise(noise_var, shapes, first.device, generator,
+                              noise)
+        if z is not None:
+            zt = ota.unravel(z, shapes)
+            if cut is not None:
+                zt = {k: cut.piece(k, v) for k, v in zt.items()}
+            y = schemes.tree_map(lambda l, zl: l + zl, y, zt)
+        y = schemes.tree_map(lambda l: a * l, y)
 
     if sch.server_post is None:
         return y
@@ -311,6 +370,24 @@ def ota_psum(grads: Tree, *, scheme: str, group=None, ctx=None,
         for i, k in enumerate(names):
             folded[k] = sums[i + 1] / (sums[0] + schemes.EPS)
     return sch.server_post(y, folded)
+
+
+def _seeded_noise(y: dict, seed: int, sigma: float, a, cut, inplace: bool
+                  ) -> dict:
+    """``a (y + sigma z)`` leaf by leaf, z each leaf's draw from ``seed``
+    (``kernels.ops.channel_noise``: leaf l keyed ``rng.noise_key(seed,
+    l)``, the rank's piece of the whole leaf drawn alone); in place unless
+    the folded leaves are shared with other ranks."""
+    from repro_torch import rng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.channel_noise import piece_map
+    out = {}
+    for leaf, k in enumerate(sorted(y)):
+        pmap = (piece_map(cut.full[k], cut.regions(k)) if cut is not None
+                else piece_map(y[k].shape))
+        out[k] = ops.channel_noise(y[k], rng.noise_key(seed, leaf), sigma,
+                                   a, pmap, inplace=inplace)
+    return out
 
 
 def aggregate_mesh(cfg, stacked_grads: Tree, h: torch.Tensor,

@@ -549,10 +549,12 @@ class CutLayout:
         return cut_leaf(t, self.spec[key], self.mesh, self.rank,
                         halves=self.halves[key])
 
-    def whole_like(self) -> dict:
-        """A flat dict of the whole leaves' shapes (meta tensors)."""
-        return {k: torch.empty(s, device="meta")
-                for k, s in self.full.items()}
+    def regions(self, key: str) -> list:
+        """The index tuples of the whole leaf that the rank's shard holds,
+        in the shard's order (``_regions``: one, or two for a halves
+        leaf)."""
+        return _regions(self.full[key], self.spec[key], self.mesh,
+                        self.rank, self.halves[key])
 
 
 def rank_coords(mesh, rank: int) -> dict:

@@ -16,12 +16,15 @@ computes its rank's shard and combines the shards where the math needs it:
 An axis is a name or a tuple of names, the flattened axis in rank order
 (``("pod", "data")``: index ``p * data + d``), so a fold over the tuple on
 a (pod, data, model) mesh is the fold over ``data`` of the mesh with the
-two axes merged.  On a physical mesh the stack comes from ``all_gather``
-over the axis's process group (``ota_collectives.gather_shards``); on an emulated one from
-the other ranks' threads (``run_ranks``).  Either way every rank folds the
-same stack with the same function, so a physical mesh gives the emulated
-mesh's bits.  No all-reduce: its summation order is the library's, not the
-fold's.
+two axes merged.  On a physical mesh a fold is a fixed-order
+reduce-scatter and an all-gather over the axis's process group
+(``ota_collectives.fold_over``: each rank folds its chunk of every rank's
+tensor, in rank order, then the chunks are gathered), and a gather is
+``gather_shards``; on an emulated mesh the stacks come from the
+other ranks' threads (``run_ranks``).  Either way every element is folded
+from the same operands in the same order, so a physical mesh gives the
+emulated mesh's bits.  No all-reduce: its summation order is the
+library's, not the fold's.
 
 ``run_ranks(mesh, program)`` runs ``program(ctx)`` for every rank this
 process holds.  On an emulated mesh the ranks run in turn on threads, one
@@ -63,7 +66,9 @@ cut over ``axis`` (``data``): forward, each leaf's slices concatenated
 along its cut dim in rank order (one collective for all the leaves);
 backward, the whole leaves' gradients folded over the axis in rank order
 (the fold ``fold`` uses; none where the batch is not cut over the axis,
-``batch_split``) and the rank's slice kept.  A gather is exact, so it is
+``batch_split``) and the rank's slice kept: on a physical mesh only the
+reduce-scatter half of the fold, each rank's slices sent to it
+(``ota_collectives.fold_scatter``).  A gather is exact, so it is
 not recorded: a checkpoint's recompute gathers again, and the whole
 leaves do not outlive their superblock.  Every rank's backward runs the
 same graph, so the ranks reach the recompute's gathers in one order.
@@ -71,17 +76,21 @@ same graph, so the ranks reach the recompute's gathers in one order.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.distribution.ota_collectives import fold_shards, \
-    gather_shards
+from repro_torch.distribution.ota_collectives import fold_over, \
+    fold_scatter, fold_shards, gather_shards
 
 # a mesh axis: a name, or a tuple of names (the flattened axis)
 Axis = Union[str, Tuple[str, ...]]
+
+# the RankContext whose program runs on this thread (``run_ranks``)
+_RUNNING = threading.local()
 
 
 class RankContext:
@@ -118,6 +127,13 @@ class RankContext:
             yield
         finally:
             self._log = None
+
+    @property
+    def recorded_bytes(self) -> int:
+        """Bytes of the results the open ``recorded()`` log holds (0 when
+        none is open)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self._log or {}).values())
 
     @contextlib.contextmanager
     def scope(self, key):
@@ -161,15 +177,22 @@ class RankContext:
             return gather_shards(x.contiguous(), self.mesh.groups[axis])
         return self._lockstep.exchange(self.rank, axis, x)
 
+    @property
+    def shares_folds(self) -> bool:
+        """Whether a fold's result is shared with the other ranks of its
+        group (an emulated mesh folds once for them), so that it must not
+        be written in place."""
+        return self._lockstep is not None
+
     def _fold_now(self, x: torch.Tensor, axis: str, op=torch.add
                   ) -> torch.Tensor:
-        """The fold's collective itself (never recorded).  Emulated: folded
+        """The fold's collective itself (never recorded).  Physical:
+        ``fold_over``'s reduce-scatter and all-gather.  Emulated: folded
         once for the ranks of a group, which share the result (the same
         bits each rank's own fold would give)."""
         axis = self.mesh.canonical(axis)
         if self._lockstep is None:
-            return fold_shards(gather_shards(x.contiguous(),
-                                             self.mesh.groups[axis]), op)
+            return fold_over(x, self.mesh.groups[axis], op)
         return self._lockstep.exchange(
             self.rank, axis, x, reduce=lambda st: fold_shards(st, op))
 
@@ -297,6 +320,9 @@ class _Unshard(torch.autograd.Function):
     @staticmethod
     def backward(fctx, *gs):
         rc, axis = fctx.rc, fctx.axis
+        if rc.batch_split and not rc.shares_folds:
+            return (None, None, None, *_fold_slices(rc, axis, gs, fctx.dims,
+                                                    fctx.sizes))
         flat = torch.cat([g.reshape(-1) for g in gs])
         if rc.batch_split:
             flat = rc._fold_now(flat, axis)
@@ -307,6 +333,27 @@ class _Unshard(torch.autograd.Function):
             out.append(whole.narrow(d, i * size, size).clone())
             off += g.numel()
         return (None, None, None, *out)
+
+
+def _fold_slices(rc: RankContext, axis: str, gs, dims, sizes) -> list:
+    """A physical rank's slices of the whole leaves' gradients ``gs`` (each
+    cut along ``dims[i]`` in slices of ``sizes[i]``), folded over ``axis``
+    in rank order: the send buffer holds rank j's slices of every leaf,
+    flattened end to end, in chunk j, and ``fold_scatter`` folds this
+    rank's chunk.  The fold-then-slice's bits, at a reduce-scatter's
+    bytes."""
+    send = torch.cat([g.narrow(d, j * size, size).reshape(-1)
+                      for j in range(rc.size(axis))
+                      for g, d, size in zip(gs, dims, sizes)])
+    mine = fold_scatter(send, rc.mesh.groups[axis])
+    out, off = [], 0
+    for g, d, size in zip(gs, dims, sizes):
+        shape = list(g.shape)
+        shape[d] = size
+        n = math.prod(shape)
+        out.append(mine[off:off + n].view(shape))
+        off += n
+    return out
 
 
 class _Aborted(Exception):
@@ -399,6 +446,21 @@ class _Lockstep:
 RANK_TIMEOUT_S = 120.0
 
 
+def running_context() -> Optional[RankContext]:
+    """The RankContext whose ``run_ranks`` program runs on this thread, or
+    None outside one."""
+    return getattr(_RUNNING, "ctx", None)
+
+
+def _run_as(program: Callable[[RankContext], Any], ctx: RankContext) -> Any:
+    """``program(ctx)``, with ``ctx`` this thread's ``running_context``."""
+    outer, _RUNNING.ctx = running_context(), ctx
+    try:
+        return program(ctx)
+    finally:
+        _RUNNING.ctx = outer
+
+
 def run_ranks(mesh, program: Callable[[RankContext], Any], *,
               timeout: float = RANK_TIMEOUT_S) -> list:
     """``program(ctx)`` for every rank this process runs, in rank order:
@@ -409,9 +471,9 @@ def run_ranks(mesh, program: Callable[[RankContext], Any], *,
     others waiting longer than ``timeout`` seconds for its turn fails the
     run with a ``TimeoutError`` that names it."""
     if mesh.physical:
-        return [program(RankContext(mesh, mesh.rank, 0))]
+        return [_run_as(program, RankContext(mesh, mesh.rank, 0))]
     if mesh.size == 1:
-        return [program(RankContext(mesh, 0, 0))]
+        return [_run_as(program, RankContext(mesh, 0, 0))]
     lock = _Lockstep(mesh, timeout)
     out: List[Any] = [None] * mesh.size
     inference = torch.is_inference_mode_enabled()
@@ -428,10 +490,11 @@ def run_ranks(mesh, program: Callable[[RankContext], Any], *,
                     torch.autograd.set_multithreading_enabled(False):
                 if cuda:
                     with torch.cuda.device(device), torch.cuda.stream(stream):
-                        out[rank] = program(RankContext(mesh, rank, rank,
-                                                        lock))
+                        out[rank] = _run_as(program, RankContext(
+                            mesh, rank, rank, lock))
                 else:
-                    out[rank] = program(RankContext(mesh, rank, rank, lock))
+                    out[rank] = _run_as(program,
+                                        RankContext(mesh, rank, rank, lock))
             lock.finish(rank)
         except _Aborted:
             pass

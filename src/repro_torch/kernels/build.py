@@ -29,7 +29,8 @@ SOURCES = {"moments": "moments.cu", "ota_superpose": "ota_superpose.cu",
            "stream_moments": "stream_moments.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_wgmma": "flash_attention_wgmma.cu",
-           "selective_scan": "selective_scan.cu"}
+           "selective_scan": "selective_scan.cu",
+           "channel_noise": "channel_noise.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

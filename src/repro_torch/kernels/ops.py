@@ -11,6 +11,10 @@ Dispatch (``impl``):
 * ``"plain"`` -- run the plain version on whatever device the input is on
   (``chip_smoke.py`` compares the two on the card with it).
 
+``channel_noise`` on a meta tensor (the dry run's shapes) runs one
+elementwise pass of y in its place, as the kernel moves y's bytes once,
+not the plain version's integer temporaries.
+
 K6 and K7 have no backward (nor have the reference's Pallas kernels): on
 the kernel route ``flash_attention`` and ``selective_scan`` raise where
 autograd would record through them, rather than return an output that
@@ -33,6 +37,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.channel_noise import (PieceMap, channel_noise_cuda,
+                                               piece_map)
 from repro_torch.kernels.flash_attention import (check_heads, check_window,
                                                  flash_attention_cuda)
 from repro_torch.kernels.grad_norm import (batched_moments_cuda, norm_cuda,
@@ -47,7 +53,7 @@ IMPLS = ("auto", "kernel", "plain")
 LAUNCH_COUNTS: Dict[str, int] = {
     "batched_moments": 0, "ota_superpose": 0, "streaming_moments": 0,
     "ota_superpose_streaming": 0, "sumsq": 0, "flash_attention": 0,
-    "selective_scan": 0}
+    "selective_scan": 0, "channel_noise": 0}
 
 
 def reset_launch_counts() -> None:
@@ -221,3 +227,32 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return out
     return ref.selective_scan_ref(u, dt, a, bmat, cmat,
                                   return_state=return_state)
+
+
+def channel_noise(y: torch.Tensor, key: int, sigma: float, a,
+                  pmap: Optional[PieceMap] = None, *, inplace: bool = True,
+                  impl: str = "auto") -> torch.Tensor:
+    """The train step's noise and gain on one piece of one leaf of the
+    folded update: ``a (y + sigma n(key, w))``, ``w`` each element's flat
+    index in the whole leaf (``pmap``, a ``channel_noise.PieceMap``; None:
+    ``y`` is the whole leaf) and ``key`` the leaf's (``rng.noise_key``).
+    y: contiguous fp32; a: a python float or a 0-d fp32 tensor on y's
+    device.  Written into y (``inplace``) or a new tensor, which is
+    returned."""
+    if y.dtype != torch.float32 or not y.is_contiguous():
+        raise ValueError(f"channel_noise takes a contiguous fp32 piece, got "
+                         f"{y.dtype} (contiguous: {y.is_contiguous()})")
+    pmap = piece_map(y.shape) if pmap is None else pmap
+    if y.numel() != pmap.numel:
+        raise ValueError(f"the piece has {y.numel()} elements, its map "
+                         f"{pmap.numel}")
+    if y.device.type == "meta" and impl == "auto":
+        return y.mul_(a) if inplace else y * a
+    out = y if inplace else torch.empty_like(y)
+    if y.numel() == 0:
+        return out
+    if _use_kernel(y, impl):
+        channel_noise_cuda(y, key, sigma, _gain(a, y), pmap, out)
+        LAUNCH_COUNTS["channel_noise"] += 1
+        return out
+    return ref.channel_noise_ref(y, key, sigma, a, pmap, out)

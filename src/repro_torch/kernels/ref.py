@@ -11,6 +11,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.channel_noise import NOISE_CONSTS, PieceMap
+from repro_torch.rng import counter_hash
+
 # elements of one query chunk's fp32 score block in ``attention_ref``
 # (2^27: 512 MiB): a plain run at the full prompt length fits on the card
 ATTN_CHUNK_ELEMS = 2 ** 27
@@ -204,3 +207,120 @@ def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         h = da * h + dbu
         y[:, t] = torch.sum(h * cf[:, t, None, :], dim=-1)
     return (y, h) if return_state else y
+
+
+# ---------------------------------------------------------------------------
+# the train step's channel noise (csrc/channel_noise.cu)
+
+# piece elements a pass of ``channel_noise_ref`` (2^24: its int64 and fp32
+# temporaries stay under 0.5 GiB at any piece size, on the card too)
+NOISE_CHUNK = 2 ** 24
+
+
+def piece_whole_index(j: torch.Tensor, pmap: PieceMap) -> torch.Tensor:
+    """The whole leaf's flat index (int64) of each piece element ``j``
+    (int64) of ``pmap`` (a ``channel_noise.PieceMap``)."""
+    nd = len(pmap.pshape)
+    rest, w = j, torch.zeros_like(j)
+    for d in range(nd - 1, -1, -1):
+        p = rest % pmap.pshape[d]
+        rest = rest // pmap.pshape[d]
+        wd = p + pmap.start[d]
+        if d == nd - 1 and pmap.split < pmap.pshape[d]:
+            wd = torch.where(p >= pmap.split, p + (pmap.start2 - pmap.split),
+                             wd)
+        w = w + wd * pmap.wstride[d]
+    return w
+
+
+def noise_uniforms_ref(key: int, w: torch.Tensor):
+    """(u1, u2) fp32 of the counters ``w`` under ``key``: the hash's top
+    24 bits plus one, and its next 24 bits, times 2^-24 (exact)."""
+    h = counter_hash(key, w)
+    u1 = (((h >> 40) & 0xFFFFFF) + 1).to(torch.float32) * 2.0 ** -24
+    u2 = ((h >> 16) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
+    return u1, u2
+
+
+def _horner(x2: torch.Tensor, c0, c1, c2, c3, c4) -> torch.Tensor:
+    """(((c0 x2 + c1) x2 + c2) x2 + c3) x2 + c4, each operation rounded to
+    fp32 on its own (one torch op each)."""
+    p = x2 * c0
+    for c in (c1, c2, c3):
+        p += c
+        p *= x2
+    return p.add_(c4)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded fp32 square root of x >= 0 (fp32), whatever
+    the library's: the fp64 root rounded to fp32, r, moved to its
+    neighbour where x lies past the midpoint between them.  The midpoints
+    and their squares are exact in fp64 (25 and 50 bits), and a
+    midpoint's square is never an fp32 value, so the test has no tie.
+    (``torch.sqrt`` in fp32 on an AVX512 host, torch 2.11, was one ulp off
+    on 6,790 of 2^20 inputs; the card's and ``__fsqrt_rn`` are correctly
+    rounded.)"""
+    xd = x.double()
+    r = torch.sqrt(xd).float()          # within an ulp, whatever the library
+    rd = r.double()
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    hi = (rd + up.double()) * 0.5
+    lo = (down.double() + rd) * 0.5
+    r = torch.where(xd > hi * hi, up, r)
+    return torch.where(xd < lo * lo, down, r)
+
+
+def noise_normals_ref(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's cosine normal sqrt(-2 ln u1) cos(2 pi u2), fp32, in the
+    kernel's operations and order (``csrc/channel_noise.cu::normal``)."""
+    C = NOISE_CONSTS
+    bits = u1.contiguous().view(torch.int32)
+    e = (bits >> 23) - 127
+    m = ((bits & 0x7FFFFF) | 0x3F800000).view(torch.float32)
+    big = m > C["SQRT2"]
+    m = torch.where(big, m * 0.5, m)
+    e = torch.where(big, e + 1, e)
+    s = (m - 1.0) / (m + 1.0)
+    s2 = s * s
+    p = _horner(s2, C["L11"], C["L9"], C["L7"], C["L5"], C["L3"])
+    lnm = (s + s * (s2 * p)) * 2.0
+    lnu = e.to(torch.float32) * C["LN2"] + lnm
+    r = sqrt_rn(lnu * -2.0)
+    w = torch.minimum(u2, 1.0 - u2)
+    neg = w > 0.25
+    q = torch.where(neg, 0.5 - w, w)
+    use_sin = q > 0.125
+    t = torch.where(use_sin, 0.25 - q, q)
+    x = t * C["TWO_PI"]
+    x2 = x * x
+    cos = _horner(x2, C["C8"], C["C6"], C["C4"], C["C2"], 1.0)
+    sp = x2 * C["S9"]
+    for c in (C["S7"], C["S5"]):
+        sp += c
+        sp *= x2
+    sp += C["S3"]
+    sin = x + x * (x2 * sp)
+    trig = torch.where(use_sin, sin, cos)
+    return r * torch.where(neg, -trig, trig)
+
+
+def noise_draw_ref(key: int, pmap: PieceMap) -> torch.Tensor:
+    """The piece's standard normals n(key, w), fp32 [numel] (on the CPU)."""
+    w = piece_whole_index(torch.arange(pmap.numel), pmap)
+    return noise_normals_ref(*noise_uniforms_ref(key, w))
+
+
+def channel_noise_ref(y: torch.Tensor, key: int, sigma: float, a,
+                      pmap: PieceMap, out: torch.Tensor) -> torch.Tensor:
+    """``out = a (y + sigma n(key, w))`` for a contiguous fp32 piece ``y``
+    (``out`` may be ``y``), NOISE_CHUNK elements a pass."""
+    yf, of = y.reshape(-1), out.view(-1)
+    n = yf.shape[0]
+    for lo in range(0, n, NOISE_CHUNK):
+        hi = min(n, lo + NOISE_CHUNK)
+        w = piece_whole_index(torch.arange(lo, hi, device=y.device), pmap)
+        z = noise_normals_ref(*noise_uniforms_ref(key, w)) * sigma
+        of[lo:hi] = (yf[lo:hi] + z) * a
+    return out

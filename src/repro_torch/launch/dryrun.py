@@ -28,7 +28,9 @@ eager program dispatches:
   all-gathers of ``RankContext.fold``, ``gather`` and ``unshard`` and the
   OTA path's), the reference's HLO convention;
 * peak memory: the peak of the live bytes of the storages the step's ops
-  create (a weak reference a storage), over the rank's resident bytes.
+  create (a weak reference a storage), over the rank's resident bytes,
+  and how many of them the recorded forward collectives hold there
+  (the running ``RankContext``'s ``recorded_bytes`` at the peak).
 
 The counting mode (``_Counter``, a ``TorchDispatchMode``) remembers each
 functional op's output shapes and counts by its input signature and
@@ -85,6 +87,7 @@ from repro_torch.core import amplification as amp
 from repro_torch.core import channel as chan
 from repro_torch.distribution import ota_collectives as oc
 from repro_torch.distribution import sharding as sh
+from repro_torch.distribution import tensor_parallel as tp_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve as serve_lib
 from repro_torch.launch import train as train_lib
@@ -209,6 +212,7 @@ class _Counter(TorchDispatchMode):
         self.ops = 0
         self.live = 0
         self.peak = 0
+        self.peak_recorded = 0      # recorded bytes when ``peak`` was set
         self._seen = set()
         self._kind = {}
         self._cache = {}
@@ -227,7 +231,10 @@ class _Counter(TorchDispatchMode):
                 n = st.nbytes()
                 self.live += n
                 weakref.finalize(st, self._free, sid, n)
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak = self.live
+            ctx = tp_lib.running_context()
+            self.peak_recorded = 0 if ctx is None else ctx.recorded_bytes
 
     def _classify(self, func) -> str:
         """'view' (an output aliases an input), 'mut' (writes an input) or
@@ -427,6 +434,7 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                roofline=report.to_dict(), flops_rank=0, ops=got["ops"],
                params=cfg.param_count(), active_params=n_active,
                bytes_per_rank=state, peak_step_bytes=got["peak"],
+               recorded_bytes_at_peak=got["peak_recorded"],
                fits=bool(state["total"] <= rl.HBM_BYTES),
                fits_with_step_peak=bool(state["total"] + got["peak"]
                                         <= rl.HBM_BYTES))
@@ -445,18 +453,11 @@ def _train_run(cfg, mesh, plan, params, batch):
         fsdp_axis=plan["fsdp_axis"], ota=ota, optimizer=opt, device=META)
     batch = train_lib.make_batch_from_specs(batch, cfg)
     p, o, rows = place(params, opt_state, batch)
-    noise = None
-    if ota is not None and ota.noise_var > 0.0:
-        # the step's channel noise, drawn on the host in a real run, as a
-        # meta vector of the whole tree: its add is counted, its draw not
-        noise = torch.empty((sum(t.numel() for t in tree_leaves(params)),),
-                            dtype=torch.float32, device=META)
 
     def run():
-        if noise is None:
-            step(p, o, rows, None)
-        else:
-            step(p, o, rows, None, noise=noise)
+        # a seeded step: each rank's noise and gain, one pass of its
+        # pieces (``ops.channel_noise``' meta route)
+        step(p, o, rows, 0)
     return run, opt_state, batch
 
 
@@ -486,15 +487,17 @@ def _decode_run(cfg, shape, mesh, plan, params, batch):
 
 def count(run) -> dict:
     """The counts of ``run()`` (rank 0's step): FLOPs, bytes accessed,
-    collective bytes by kind, aten ops, the step's peak live bytes and the
-    seconds the count took."""
+    collective bytes by kind, aten ops, the step's peak live bytes, the
+    recorded collectives' bytes at that peak and the seconds the count
+    took."""
     t0 = time.time()
     counter = _Counter()
     with oc.counting_collectives() as coll, counter:
         run()
     return {"flops": counter.flops, "bytes": counter.bytes,
             "collectives": dict(coll), "ops": counter.ops,
-            "peak": counter.peak, "seconds": time.time() - t0}
+            "peak": counter.peak, "peak_recorded": counter.peak_recorded,
+            "seconds": time.time() - t0}
 
 
 def count_mean_step(cfg: ModelConfig, rows: int, seq: int) -> dict:
@@ -581,6 +584,8 @@ def analyze_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     state = _state_bytes(cfg, shape, mesh, plan_t, params, opt_state, batch,
                          cache)
     peak = extrap(meas[0]["peak_step_bytes"], meas[1]["peak_step_bytes"])
+    recorded = extrap(meas[0]["recorded_bytes_at_peak"],
+                      meas[1]["recorded_bytes_at_peak"])
     rep = rl.from_counts(
         f"{arch}/{shape_name}", chips,
         extrap(r1["flops_per_chip"], r2["flops_per_chip"]),
@@ -597,6 +602,7 @@ def analyze_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             "params": cfg.param_count(),
             "active_params": cfg.active_param_count(),
             "bytes_per_rank": state, "peak_step_bytes": peak,
+            "recorded_bytes_at_peak": recorded,
             "fits": bool(state["total"] <= rl.HBM_BYTES),
             "fits_with_step_peak": bool(state["total"] + peak
                                         <= rl.HBM_BYTES)}
@@ -664,6 +670,7 @@ def _line(rec: dict) -> str:
                  f"bottleneck={r['bottleneck']} "
                  f"rank_GB={rec['bytes_per_rank']['total'] / 1e9:.2f} "
                  f"peak_GB={rec['peak_step_bytes'] / 1e9:.2f} "
+                 f"recorded_GB={rec['recorded_bytes_at_peak'] / 1e9:.2f} "
                  f"fits={rec['fits']}/{rec['fits_with_step_peak']} "
                  f"s={rec['dry_run_s']}")
     elif ok == "skip":

@@ -24,10 +24,10 @@ gradient is the gradient of its shard, and of a replicated leaf the whole
 gradient, the same bits on every model rank.  The OTA statistics are the
 whole client's (``ota_collectives.cut_stats``: the cut leaves' K1 row
 folded over ``model``, the replicated leaves' row once), the noise the
-whole tree's, cut (``sharding.CutLayout``); a cut leaf's shard then folds
-over ``data`` as a whole leaf does.  The mean path folds over ``data``
-only.  So a ``(D, M)`` step is the ``(D, 1)`` step up to the rounding of
-the model folds.
+whole tree's, each rank drawing its shard's piece (``sharding.
+CutLayout``); a cut leaf's shard then folds over ``data`` as a whole leaf
+does.  The mean path folds over ``data`` only.  So a ``(D, M)`` step is
+the ``(D, 1)`` step up to the rounding of the model folds.
 
 The pod axis (a ``(pod, data, model)`` mesh, ``launch.mesh``): the
 batch's rows are cut over the flattened ``("pod", "data")`` axis (rank
@@ -50,10 +50,16 @@ every rank this process holds (``distribution.tensor_parallel.run_ranks``:
 physical ranks, or an emulated mesh in turn on one card, the same bits)
 and takes and returns such lists; ``sharding.gather_params(params, mesh,
 cfg, like)`` rebuilds the whole tree from them.  ``gen_or_seed`` seeds the
-step's channel noise: drawn on the host once a step, from a CPU generator
-seeded alike on every rank, and handed to every rank of an emulated mesh;
-``noise=`` injects it instead (the flat [N] vector of the whole leaves, in
-leaf order).
+step's channel noise: an int is the step's seed, a ``torch.Generator``
+gives it by one draw.  Each rank draws its own piece of each leaf on its
+device, fused with the receiver gain (``ota_psum(noise_seed=)``, the
+kernel ``kernels/csrc/channel_noise.cu``): element w of leaf l (in
+sorted-key order) is ``sigma n(rng.noise_key(seed, l), w)``, w its flat
+index in the whole leaf, so a piece is the whole draw's slice to the bit
+and no rank holds the whole tree's noise.  ``noise=`` injects the noise
+instead (the flat [N] vector of the whole leaves, in leaf order, each
+rank taking its piece): ``draw_noise`` draws one on the host from a CPU
+generator, and ``seeded_noise`` is the seeded stream's whole draw.
 
 The metrics are 0-d device tensors: ``loss`` (the OTA path: the mean of the
 clients' losses; the mean path: the whole batch's), ``nll`` and ``aux``
@@ -111,10 +117,32 @@ class OTARunParams:
     reduce_dtype: Optional[str] = None
 
 
-def _generator(gen_or_seed) -> Optional[torch.Generator]:
-    if gen_or_seed is None or isinstance(gen_or_seed, torch.Generator):
-        return gen_or_seed
-    return torch.Generator().manual_seed(int(gen_or_seed))
+def noise_seed(gen_or_seed) -> Optional[int]:
+    """The step's noise seed: an int as it is, one draw of a
+    ``torch.Generator`` (63 bits), None for none."""
+    if gen_or_seed is None:
+        return None
+    if isinstance(gen_or_seed, torch.Generator):
+        return int(torch.randint(0, 2 ** 63 - 1, (), generator=gen_or_seed,
+                                 device=gen_or_seed.device))
+    return int(gen_or_seed)
+
+
+def seeded_noise(gen_or_seed, like: PyTree, noise_var: float,
+                 device="cpu") -> torch.Tensor:
+    """The whole tree's channel noise z [N] fp32 that a step seeded with
+    ``gen_or_seed`` adds (``noise_seed``), in leaf order: the plain
+    version of each leaf's draw (``kernels.ref.noise_draw_ref``), scaled
+    by sqrt(noise_var) as the kernel scales it.  ``step(seed)`` is
+    ``step(noise=seeded_noise(seed, ...))`` to the bit."""
+    from repro_torch import rng
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.channel_noise import piece_map
+    seed = noise_seed(gen_or_seed)
+    sigma = math.sqrt(noise_var)
+    return torch.cat([
+        ref.noise_draw_ref(rng.noise_key(seed, i), piece_map(l.shape))
+        * sigma for i, l in enumerate(tree_leaves(like))]).to(device)
 
 
 def draw_noise(gen: torch.Generator, like: PyTree, noise_var: float,
@@ -368,12 +396,7 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl, clients, inner):
     def train_step(params, opt_state, batch, gen_or_seed=None, *,
                    noise: Optional[torch.Tensor] = None):
         batch = _rank_batches(mesh, place, batch, inner)
-        gen = _generator(gen_or_seed)
-        z = noise
-        if z is None and gen is not None and ota.noise_var > 0.0:
-            lay = _layout(cfg, mesh, params[0], mesh.local_ranks[0])
-            z = draw_noise(gen, params[0] if lay is None
-                           else lay.whole_like(), ota.noise_var, dev)
+        seed = None if noise is not None else noise_seed(gen_or_seed)
 
         def program(ctx):
             p, o = params[ctx.index], opt_state[ctx.index]
@@ -387,7 +410,8 @@ def _ota_step(cfg, mesh, opt, dev, scheme, ota, stats_impl, clients, inner):
                                    else oc.tree_sq_norm_cut(flat, ctx, lay))
             y = oc.ota_psum(flat, scheme=scheme, ctx=ctx, axis=clients,
                             h=h, b=b, a=ota.a,
-                            noise_var=ota.noise_var, noise=z,
+                            noise_var=ota.noise_var, noise=noise,
+                            noise_seed=seed,
                             grad_bound=ota.grad_bound,
                             reduce_dtype=reduce_dtype, stats_impl=stats_impl,
                             cut=lay)

@@ -85,7 +85,7 @@ HOST_TYPE_WORDS = {
     # the port's static records
     "Scheme", "ClientAlgorithm", "OTAConfig", "FLConfig", "ChannelConfig",
     "ClientConfig", "Optimizer", "ChannelModel", "CutLayout", "DeviceMesh",
-    "schemes", "clients", "ota", "optim", "sharding",
+    "PieceMap", "schemes", "clients", "ota", "optim", "sharding",
 }
 
 # where the seeds' records are made

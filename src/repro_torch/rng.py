@@ -44,6 +44,12 @@ counter-based hash of ``derive_seed(seed, i)``, computed for a whole array
 of device indices at once (no generator per device), so any blocking of
 ``[0, K)`` concatenates to the same values.  It is a different stream from
 the dense ``[K, 2]`` draw, as in the reference.
+
+The train step's channel noise (``noise_key``, ``mix64``): element w of
+leaf l (its place in sorted-key order) hashes ``noise_key(seed, l)`` with
+the counter w, the block schedule's hash on torch int64 tensors, so that
+any piece of a leaf is drawn on its own device and is the whole draw's
+slice (``kernels/channel_noise.py``).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ MASK_SALT = 0x5EED          # the participation-mask stream (the reference's)
 CSI_SALT = 0xC51            # the CSI-estimation stream (the reference's)
 GEOM_SALT = 0x6E0           # the geometry draw (the reference's)
 SLOT_SALT = 0x510           # the second OTA slot's noise (the reference's)
+NOISE_SALT = 0x7A15E        # the train step's channel noise (the port's)
 _MUL = 0x9E3779B97F4A7C15
 _ADD = 0x632BE59BD9B4E019
 
@@ -64,6 +71,7 @@ def derive_seed(seed: int, *salts: int) -> int:
     ``fold_in``): distinct salts give unrelated streams."""
     out = int(seed) & _MASK
     for s in salts:
+        # tracelint: disable=TL001 salts are python or numpy ints
         out = (out * _MUL + int(s) + _ADD) & _MASK
         out ^= out >> 29
     return out
@@ -116,3 +124,30 @@ def block_normals(seed: int, idx, counter: int = 0) -> torch.Tensor:
     ang = 2.0 * np.pi * u[:, 1]
     return torch.from_numpy(np.stack([r * np.cos(ang), r * np.sin(ang)],
                                      axis=-1))
+
+
+def noise_key(seed: int, leaf: int) -> int:
+    """The key of leaf ``leaf``'s channel noise in a train step seeded
+    with ``seed``: ``derive_seed(seed, NOISE_SALT, leaf)``."""
+    return derive_seed(seed, NOISE_SALT, leaf)
+
+
+def _signed(c: int) -> int:
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def mix64(z: torch.Tensor) -> torch.Tensor:
+    """``_mix`` (splitmix64's finalizer) of an int64 tensor read as uint64,
+    in wrapping 64-bit arithmetic; ``>>`` of an int64 tensor is arithmetic,
+    so each shift is masked to its logical width."""
+    z = z ^ ((z >> 30) & ((1 << 34) - 1))
+    z = z * _signed(0xBF58476D1CE4E5B9)
+    z = z ^ ((z >> 27) & ((1 << 37) - 1))
+    z = z * _signed(0x94D049BB133111EB)
+    return z ^ ((z >> 31) & ((1 << 33) - 1))
+
+
+def counter_hash(key: int, w: torch.Tensor) -> torch.Tensor:
+    """The hash of counter ``w`` (an int64 tensor) under ``key``:
+    ``mix64(key + (w + 1) * _MUL)`` mod 2^64, ``block_uniforms``' hash."""
+    return mix64((w + 1) * _signed(_MUL) + _signed(key & ((1 << 64) - 1)))

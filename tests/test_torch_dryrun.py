@@ -10,8 +10,8 @@
   ``h`` (the two packages draw ``h`` from their own generators);
 * ``analyze_one`` (depths 1 and 2, extrapolated) equals ``lower_one`` at
   the full depth of a reduced config of three superblocks, exactly;
-* the collective bytes of a (2, 1) mean step are the folds' all-gathers
-  worked out from the gradient's shapes;
+* the collective bytes of a (2, 1) mean step are the folds' all-to-alls
+  and all-gathers worked out from the gradient's shapes;
 * the fake process group is gone after a dry run, also after one that
   raised, and the CLI runs without ``jax`` or ``repro``.
 
@@ -241,10 +241,38 @@ def test_analysis_is_the_full_depth_count(case):
         assert full["plan"]["fsdp_axis"] == ["pod", "data"]
 
 
+def test_recorded_bytes_are_the_running_contexts_log():
+    """``tensor_parallel.running_context()`` is the context a ``run_ranks``
+    program runs with (None outside one); its ``recorded_bytes`` are the
+    bytes its open ``recorded()`` log holds, 0 once the log closes; and a
+    train step's record carries them at its peak, within the peak."""
+    from repro_torch.distribution import tensor_parallel as tp_lib
+    assert tp_lib.running_context() is None
+
+    def program(ctx):
+        assert tp_lib.running_context() is ctx
+        x = torch.arange(6.0).reshape(2, 3) + ctx.rank
+        with ctx.recorded():
+            with ctx.scope("s"):
+                y = ctx.fold(x, "model", op=torch.maximum)
+            held = ctx.recorded_bytes
+        return held, ctx.recorded_bytes, y.numel() * y.element_size()
+
+    for held, after, want in tp_lib.run_ranks(
+            mesh_lib.make_host_mesh(1, 2, emulate=True), program):
+        assert held == want == 24 and after == 0
+    assert tp_lib.running_context() is None
+    rec = dryrun.lower_one("granite-moe-1b-a400m", "train_4k",
+                           overrides=_reduced("granite-moe-1b-a400m", 1))
+    assert rec["status"] == "ok"
+    assert 0 < rec["recorded_bytes_at_peak"] <= rec["peak_step_bytes"]
+
+
 def test_mean_step_collectives_are_the_folds_all_gathers():
     """A physical (2, 1) mesh of the fake group, the mean path: every
     gradient leaf, the mask count, the loss and its two metrics fold over
-    ``data`` (an all-gather of 2 parts each, and nothing else)."""
+    ``data`` (``ota_collectives.fold_over``: an all-to-all and an
+    all-gather of 1 part each, and nothing else)."""
     cfg = dataclasses.replace(
         reg.reduce_config(reg.get_config("h2o-danube-1.8b")),
         dtype="float32")
@@ -265,7 +293,8 @@ def test_mean_step_collectives_are_the_folds_all_gathers():
     grads = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     scalars = 4 * 4            # count, loss, nll, aux: fp32
     assert coll == dict({k: 0 for k in rl.COLLECTIVES},
-                        **{"all-gather": 2 * (grads + scalars)})
+                        **{"all-to-all": grads + scalars,
+                           "all-gather": grads + scalars})
 
 
 def test_dry_run_tears_its_group_down():

@@ -181,10 +181,11 @@ class TestDispatch:
         ops.selective_scan(torch.ones(1, 4, 3), torch.ones(1, 4, 3),
                            -torch.ones(3, 2), torch.ones(1, 4, 2),
                            torch.ones(1, 4, 2))
+        ops.channel_noise(torch.zeros(9), 3, 1.0, 1.0)
         assert set(ops.LAUNCH_COUNTS) == {
             "batched_moments", "ota_superpose", "streaming_moments",
             "ota_superpose_streaming", "sumsq", "flash_attention",
-            "selective_scan"}
+            "selective_scan", "channel_noise"}
         assert set(ops.LAUNCH_COUNTS.values()) == {0}
 
     @pytest.mark.parametrize("call", [

@@ -359,7 +359,10 @@ def test_port_lints_clean(default_run):
     project, active, suppressed = default_run
     assert not active, "\n".join(
         f"{f.path}:{f.line}: {f.rule_id} {f.message}" for f in active)
-    assert len(project.modules) > 100 and len(project.sources) == 6
+    from repro_torch.kernels import build
+    # every kernel source is linted (seven since the channel-noise kernel)
+    assert len(project.modules) > 100 and len(project.sources) == len(
+        build.SOURCES) == 7
     assert {f.rule_id for f in suppressed} <= {"TL001", "TL003"}
 
 
@@ -369,7 +372,7 @@ def test_json_report_shape(default_run):
         active, suppressed, engine.n_files(project), project.ptxas_read))
     assert [r["id"] for r in payload["rules"]] == sorted(RULE_IDS)
     assert payload["findings"] == []
-    assert payload["files"] == len(project.modules) + 6
+    assert payload["files"] == len(project.modules) + 7
     assert set(payload["ptxas"]) == {"logs", "entries"}
 
 

@@ -356,7 +356,7 @@ class TestOnCard:
         assert ops.LAUNCH_COUNTS == {
             "batched_moments": n, "ota_superpose": n, "streaming_moments": 0,
             "ota_superpose_streaming": 0, "sumsq": n, "flash_attention": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "channel_noise": 0}
         cpu = Experiment(spec, device="cpu")
         cpu.run(3)
         for k, v in cpu.params.items():
@@ -1599,3 +1599,111 @@ class TestFSDPOnCard:
                 out.append(ids)
             runs.append(torch.stack(out, 1).cpu())
         assert torch.equal(runs[0], runs[1])
+
+
+# pieces of leaves that the train step's noise kernel draws: (the whole
+# shape, the rank's regions), as in tests/test_torch_channel_noise.py
+NOISE_PIECES = [
+    ((1 << 20,), None),
+    ((24, 32, 1024, 512), [(slice(None), slice(16, 32), slice(None),
+                            slice(None))]),
+    ((6, 8, 10), [(slice(2, 4), slice(None), slice(5, 10))]),
+    ((3, 4, 16), [(slice(None), slice(None), slice(2, 4)),
+                  (slice(None), slice(None), slice(10, 12))]),
+    ((7, 11, 3), [(slice(None), slice(3, 8), slice(1, 3))]),
+    ((1001,), [(slice(333, 1000),)]),
+]
+
+
+@pytest.mark.cuda
+class TestChannelNoiseOnCard:
+    """The channel-noise kernel (``csrc/channel_noise.cu``) against its
+    plain version: the uniforms bitwise, the normals and the fused update
+    the same bits (both are correctly rounded fp32 operations in one
+    order; chip_smoke.py allows 2 ulp in the normals), a piece the whole
+    draw's slice, and a seeded train step its whole draw injected."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                        "False)")
+
+    @pytest.mark.parametrize("i", range(len(NOISE_PIECES)))
+    def test_kernel_is_the_plain_version(self, i):
+        from repro_torch import rng
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.channel_noise import (noise_uniforms_cuda,
+                                                       piece_map)
+        full, regions = NOISE_PIECES[i]
+        pmap = piece_map(full, regions)
+        stream = rng.noise_key(11, i)
+        w = ref.piece_whole_index(torch.arange(pmap.numel, device="cuda"),
+                                  pmap)
+        u1, u2 = ref.noise_uniforms_ref(stream, w)
+        uni = noise_uniforms_cuda(stream, pmap, "cuda")
+        assert torch.equal(uni[:, 0], u1) and torch.equal(uni[:, 1], u2)
+        n = ops.channel_noise(torch.zeros(pmap.numel, device="cuda"), stream,
+                              1.0, 1.0, pmap, impl="kernel")
+        assert torch.equal(n, ref.noise_normals_ref(u1, u2))
+        y = torch.randn(pmap.numel, device="cuda")
+        got = ops.channel_noise(y, stream, 0.03, 250.0, pmap, inplace=False,
+                                impl="kernel")
+        want = ops.channel_noise(y, stream, 0.03, 250.0, pmap, inplace=False,
+                                 impl="plain")
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), ops.channel_noise(
+            y.cpu(), stream, 0.03, 250.0, pmap, inplace=False))
+
+    def test_piece_is_the_whole_draws_slice(self):
+        from repro_torch.kernels.channel_noise import piece_map
+        full = (8, 12, 64)
+        regions = [(slice(4, 8), slice(None), slice(8, 16)),
+                   (slice(4, 8), slice(None), slice(40, 48))]
+        whole = ops.channel_noise(torch.zeros(full, device="cuda"), 5, 1.0,
+                                  1.0, impl="kernel")
+        piece = ops.channel_noise(torch.zeros((4, 12, 16), device="cuda"),
+                                  5, 1.0, 1.0, piece_map(full, regions),
+                                  impl="kernel")
+        assert torch.equal(piece, torch.cat([whole[r] for r in regions],
+                                            dim=-1))
+
+    def test_seeded_step_is_its_whole_draw_injected(self):
+        import dataclasses
+        from repro_torch.configs import registry as reg
+        from repro_torch.launch import train as tl
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import optimizers as opt
+        from repro_torch.tree import tree_leaves
+        cfg = dataclasses.replace(reg.reduce_config(
+            reg.get_config("granite-moe-1b-a400m")), dtype="float32")
+        p0 = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+        ota = tl.OTARunParams(h=np.full(4, 1e-3), b=np.ones(4), a=250.0,
+                              noise_var=1e-4)
+        toks = torch.randint(0, cfg.vocab_size, (8, 32),
+                             generator=torch.Generator().manual_seed(3))
+        runs = []
+        for injected in (False, True):
+            o = opt.sgd(0.05)
+            step, place = tl.build_train_step(
+                cfg, make_host_mesh(4, 2, emulate=True), scheme="normalized",
+                aggregation_axes=("data",), ota=ota, optimizer=o,
+                device="cuda")
+            p, s, rows = place(p0, o.init(p0), {"tokens": toks,
+                                                "labels": toks.roll(-1, 1)})
+            ops.reset_launch_counts()
+            if injected:
+                p, s, m = step(p, s, rows, noise=tl.seeded_noise(
+                    9, p0, ota.noise_var, "cuda"))
+                assert ops.LAUNCH_COUNTS["channel_noise"] == 0
+            else:
+                p, s, m = step(p, s, rows, 9)
+                # one launch a leaf a rank
+                assert ops.LAUNCH_COUNTS["channel_noise"] == (
+                    8 * len(tree_leaves(p0)))
+            runs.append(p)
+        for a, b in zip(runs[0], runs[1]):
+            assert all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a), tree_leaves(b)))

@@ -28,9 +28,13 @@ on its own device:
             B parameters, bf16) trained by ``ranks / 2`` FL clients, each
             cut over 2 model ranks (``launch.train.build_train_step``,
             ``normalized`` with the example's channel, 4 x 1,024 tokens a
-            client): one warm-up step, ``TRAIN_STEPS`` timed noiseless
-            steps and one with the host's noise draw; s a step, each card's
-            peak memory; then each rank runs the same steps on the mesh
+            client): two warm-up steps (noiseless, then seeded noisy),
+            ``TRAIN_STEPS`` timed noiseless steps, ``TRAIN_STEPS`` seeded
+            noisy steps (each rank draws its pieces of the noise on its
+            card) and one with the noise drawn on the host and injected
+            (the whole tree's, as the step drew it before the noise
+            kernel); s a step, each card's peak memory; then each rank
+            runs the same steps on the mesh
             emulated on its own card and holds its shard of the params and
             of the optimizer state to the emulated rank's, bitwise;
 ``fsdp``    granite-moe-1b-a400m whole (bf16) on the mean path over the
@@ -252,9 +256,12 @@ def part_parity(ranks: int, rank: int, device, cpu: bool) -> dict:
 
 
 def _train_steps(cfg, mesh, params, batch, device, cpu: bool):
-    """One warm-up step, TRAIN_STEPS noiseless steps and one with the host's
-    noise draw on ``mesh``; (the params' and optimizer state's shards of
-    the ranks this process runs, the timed steps' seconds, the losses)."""
+    """Two warm-up steps (noiseless, then seeded noisy: the noise
+    kernel's first bind), TRAIN_STEPS noiseless steps, TRAIN_STEPS seeded
+    noisy steps and one noisy step with the noise drawn on the host
+    (``draw_noise``, the whole tree's) and injected, on ``mesh``; (the
+    params' and optimizer state's shards of the ranks this process runs,
+    the timed steps' seconds in that order, the losses)."""
     import chip_smoke
     from repro_torch.launch import train as tl
     from repro_torch.models import transformer as T
@@ -269,11 +276,19 @@ def _train_steps(cfg, mesh, params, batch, device, cpu: bool):
             device=device)
     p, o, rows = place(params, opt.init(params), batch)
     p, o, m = steps[False](p, o, rows)
-    secs, losses = [], [float(m["loss"])]
-    for t in range(TRAIN_STEPS + 1):
+    losses = [float(m["loss"])]
+    p, o, m = steps[True](p, o, rows, 100)
+    secs, losses = [], losses + [float(m["loss"])]
+    for t in range(2 * TRAIN_STEPS + 1):
         _sync(device)
         t0 = time.perf_counter()
-        p, o, m = steps[t == TRAIN_STEPS](p, o, rows, 101 + t)
+        if t < 2 * TRAIN_STEPS:
+            p, o, m = steps[t >= TRAIN_STEPS](p, o, rows, 101 + t)
+        else:
+            z = tl.draw_noise(torch.Generator().manual_seed(101 + t), params,
+                              chip_smoke.train_ota(n).noise_var, device)
+            p, o, m = steps[True](p, o, rows, noise=z)
+            del z
         losses.append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
     return p, o, secs, losses
@@ -319,9 +334,11 @@ def part_train(ranks: int, rank: int, device, cpu: bool) -> dict:
             "physical": mesh.physical, "tokens_per_step": tokens,
             "s_per_step_no_noise": secs[:TRAIN_STEPS],
             "tokens_per_s": tokens / quiet,
-            "s_per_step_noise": secs[-1],
+            "s_per_step_noise": secs[TRAIN_STEPS:-1],
+            "s_per_step_noise_host_drawn": secs[-1],
             "emulated_s_per_step_no_noise": esecs[:TRAIN_STEPS],
-            "emulated_s_per_step_noise": esecs[-1],
+            "emulated_s_per_step_noise": esecs[TRAIN_STEPS:-1],
+            "emulated_s_per_step_noise_host_drawn": esecs[-1],
             "loss": losses,
             "peak_mem_gib_per_rank": _gathered(peak, device),
             "bitwise_per_rank": [bool(v) for v in verdicts],
